@@ -6,18 +6,27 @@
 Phases, in order; any failure exits nonzero (no phase is caught and
 passed over):
 
-1. device  — the card's name and power limit; no CUDA device -> exit 2.
-2. build   — nvcc builds every kernel of the serving path from
-             paddle_tpu_torch/csrc into build/paddle_tpu_torch/.
-3. kernels — each hand-written kernel against its plain PyTorch version
-             on the card, at the serving path's shapes, in float32 and
-             bfloat16, with kernel / plain / library times.
-4. logits  — full-width GPT-2-small (GPTConfig() defaults) in float32:
-             a 64-token slot_prefill and 8 slot_decode_paged steps on the
-             card against the same on the CPU (plain versions).
-5. serving — the same model in bfloat16 behind GenerationEngine: 16
-             requests in one wave, greedy and sampled alternating; every
-             kernel's launch count must be > 0 over this run.
+1. device       — the card's name and power limit; no CUDA device ->
+                  exit 2.
+2. build        — nvcc builds every kernel of the serving and training
+                  paths from paddle_tpu_torch/csrc into
+                  build/paddle_tpu_torch/.
+3. kernels      — each hand-written kernel against its plain PyTorch
+                  version on the card, at the serving and training paths'
+                  shapes, in float32 and bfloat16, with kernel / plain /
+                  library times.
+4. logits       — full-width GPT-2-small (GPTConfig() defaults) in float32:
+                  a 64-token slot_prefill and 8 slot_decode_paged steps on
+                  the card against the same on the CPU (plain versions).
+5. serving      — the same model in bfloat16 behind GenerationEngine: 16
+                  requests in one wave, greedy and sampled alternating;
+                  every serving kernel's launch count must be > 0.
+6. train-parity — full-width float32, B = 2, S = 128: loss(ids) and every
+                  parameter's gradient on the card against the CPU's.
+7. train        — full-width bfloat16, B = 8, S = 1024: 10 dygraph AdamW
+                  steps on one batch (the loss must fall; step time,
+                  tokens/s, MFU), a profiled window, then Model.fit steps;
+                  every training kernel's launch count must be > 0.
 
 The line before the last is the per-kernel JSON record; the last line is
 the result JSON.  Float32 phases run with TF32 off for matmuls and cuDNN.
@@ -33,6 +42,7 @@ import numpy as np
 F32_TOL = 2e-5       # x max(1, max|ref|): float32 summation-order noise
 BF16_TOL = 2 ** -6   # x max(1, max|ref|): two bf16 ulps at the top binade
 LOGITS_REL_TOL = 1e-3  # max|dlogits| / max|ref| over 12 layers, float32
+GRAD_REL_TOL = 1e-3    # max|dgrad| / max|ref| per parameter, float32
 HBM_BYTES_PER_S = 3.35e12
 PEAK_BF16_TENSOR = 989e12   # dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12            # float32 CUDA-core FLOP/s
@@ -46,7 +56,18 @@ REPLACES = {
                         "paddle_tpu/ops/pallas/flash_attention.py:82"),
     "paged_decode_attention": ("paddle_tpu_torch/csrc/paged_attention.cu",
                                "paddle_tpu/ops/pallas/paged_attention.py:44"),
+    "bias_gelu_bwd": ("paddle_tpu_torch/csrc/bias_gelu.cu",
+                      "paddle_tpu/ops/pallas/bias_gelu.py:46"),
+    "flash_attention_dq": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                           "paddle_tpu/ops/pallas/flash_attention.py:186"),
+    "flash_attention_dkv": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                            "paddle_tpu/ops/pallas/flash_attention.py:223"),
 }
+SERVING_KERNELS = ("layer_norm", "bias_gelu", "flash_attention",
+                   "paged_decode_attention")
+TRAINING_KERNELS = ("layer_norm", "bias_gelu", "flash_attention",
+                    "bias_gelu_bwd", "flash_attention_dq",
+                    "flash_attention_dkv")
 
 
 def log(msg):
@@ -110,12 +131,15 @@ def bound_ms(n_bytes, n_flops, peak):
 
 def compare(torch, name, kernel_fn, plain_fn, library_fn, dtype, n_bytes,
             n_flops, peak):
-    """Run kernel and plain version on the same inputs, check, time."""
-    out = kernel_fn()
+    """Run kernel and plain version on the same inputs, check, time.  A
+    function may return one tensor or a tuple (dk, dv)."""
+    outs, refs = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
-    ref = plain_fn()
-    err = (out.float() - ref.float()).abs().max().item()
-    scale = max(1.0, ref.float().abs().max().item())
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    refs = refs if isinstance(refs, tuple) else (refs,)
+    err = max((o.float() - r.float()).abs().max().item()
+              for o, r in zip(outs, refs))
+    scale = max(1.0, max(r.float().abs().max().item() for r in refs))
     tol = (F32_TOL if dtype == torch.float32 else BF16_TOL) * scale
     if not math.isfinite(err) or err > tol:
         fail(f"{name}: max|kernel - plain| {err:.3e} > tol {tol:.3e}")
@@ -135,8 +159,10 @@ def compare(torch, name, kernel_fn, plain_fn, library_fn, dtype, n_bytes,
 
 
 def kernel_phase(torch, K):
-    """Every kernel against its plain version; returns the record of each
-    kernel at its main serving-path case (bfloat16)."""
+    """Every forward kernel against its plain version, at the serving
+    path's shapes and the training path's (8192 rows; B = 8, S = 1024);
+    returns the record of each kernel at its main serving-path case
+    (bfloat16)."""
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(0)
     dev = "cuda"
@@ -150,7 +176,7 @@ def kernel_phase(torch, K):
             return (torch.randn(*shape, generator=g, device=dev) * scale
                     ).to(dtype)
 
-        for R in (8, 128):                       # decode rows, prefill rows
+        for R in (8, 128, 8192):      # decode, prefill, training rows
             N = 768
             x, w, b = rnd(R, N), 1 + rnd(N, scale=0.1), rnd(N, scale=0.1)
             main_case = dtype == torch.bfloat16 and R == 8
@@ -162,7 +188,7 @@ def kernel_phase(torch, K):
                 (2 * R * N + 2 * N) * isz, 8 * R * N, PEAK_F32)
             if main_case:
                 main["layer_norm"] = rec
-        for R in (8, 128):
+        for R in (8, 128, 8192):
             Fd = 3072
             x, b = rnd(R, Fd), rnd(Fd, scale=0.1)
             rec = compare(
@@ -173,8 +199,8 @@ def kernel_phase(torch, K):
                 (2 * R * Fd + Fd) * isz, 5 * R * Fd, PEAK_F32)
             if dtype == torch.bfloat16 and R == 8:
                 main["bias_gelu"] = rec
-        B, H, D = 1, 12, 64
-        for S in (64, 128):
+        H, D = 12, 64
+        for B, S in ((1, 64), (1, 128), (8, 1024)):   # prefill; training
             qkv = rnd(B, S, 3, H, D)              # the fused projection
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
             pairs = B * H * S * (S + 1) // 2
@@ -186,7 +212,7 @@ def kernel_phase(torch, K):
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                     is_causal=True), dtype,
                 4 * B * S * H * D * isz + B * H * S * 4, 4 * D * pairs, peak)
-            if dtype == torch.bfloat16 and S == 128:
+            if dtype == torch.bfloat16 and B == 1 and S == 128:
                 main["flash_attention"] = rec
         slots, nh, hd, ps, pps = 8, 12, 64, 16, 32
         num_pages = slots * pps
@@ -213,6 +239,78 @@ def kernel_phase(torch, K):
             + slots * (pps + 1) * 4, 4 * live * nh * hd, peak)
         if dtype == torch.bfloat16:
             main["paged_decode_attention"] = rec
+    torch.cuda.synchronize()
+    return main
+
+
+def sdpa_backward(torch, q, k, v, do):
+    """The library yardstick for the attention backward: one call of
+    PyTorch's flash-attention backward
+    (aten._scaled_dot_product_flash_attention_backward), which computes dq,
+    dk and dv together, on the same inputs in its [B, H, S, D] layout,
+    from its own forward's output and logsumexp.  bfloat16 only."""
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    out, lse, cq, ck, mq, mk, seed_t, offset_t = \
+        torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, 0.0, True)[:8]
+    return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        dot, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, True, seed_t,
+        offset_t)
+
+
+def backward_kernel_phase(torch, K):
+    """The training path's backward kernels against their plain versions
+    at its shapes (bias+GeLU over the FFN's [B*S, 4H]; attention at
+    B = 8, H = 12, D = 64 and S = 128, 1024); returns the record of each
+    kernel at its main case (bfloat16, S = 1024)."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    main = {}
+    KF = K.flash_attention
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        isz = torch.empty((), dtype=dtype).element_size()
+        peak = PEAK_F32 if dtype == torch.float32 else PEAK_BF16_TENSOR
+
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=g, device="cuda") * scale
+                    ).to(dtype)
+
+        R, Fd = 8192, 3072
+        x, b, dy = rnd(R, Fd, scale=2.0), rnd(Fd, scale=0.5), rnd(R, Fd)
+        rec = compare(
+            torch, f"bias_gelu_bwd {tag} R={R} F={Fd}",
+            lambda: K.bias_gelu.bias_gelu_bwd(x, b, dy),
+            lambda: K.bias_gelu.bias_gelu_bwd_plain(x, b, dy),
+            lambda: torch.ops.aten.gelu_backward(dy, x + b), dtype,
+            (3 * R * Fd + Fd) * isz, 12 * R * Fd, PEAK_F32)
+        if dtype == torch.bfloat16:
+            main["bias_gelu_bwd"] = rec
+        B, H, D = 8, 12, 64
+        for S in (128, 1024):
+            q, k, v = rnd(B, S, 3, H, D).unbind(2)   # the fused projection
+            o, lse = KF.flash_attention(q, k, v)
+            do = rnd(B, S, H, D)
+            delta = KF.flash_attention_delta(o, do)
+            lib = sdpa_backward(torch, q, k, v, do) \
+                if dtype == torch.bfloat16 else None
+            pairs = B * H * S * (S + 1) // 2
+            one = B * S * H * D * isz                 # one [B, S, H, D]
+            stats = 2 * B * H * S * 4                 # lse and delta
+            shape = f"B={B} S={S} H={H} D={D}"
+            rec_q = compare(
+                torch, f"flash_attention_dq {tag} {shape}",
+                lambda: KF.flash_attention_dq(q, k, v, do, lse, delta),
+                lambda: KF.flash_attention_dq_plain(q, k, v, do, lse, delta),
+                lib, dtype, 5 * one + stats, 6 * D * pairs, peak)
+            rec_kv = compare(
+                torch, f"flash_attention_dkv {tag} {shape}",
+                lambda: KF.flash_attention_dkv(q, k, v, do, lse, delta),
+                lambda: KF.flash_attention_dkv_plain(q, k, v, do, lse,
+                                                     delta),
+                lib, dtype, 6 * one + stats, 8 * D * pairs, peak)
+            if dtype == torch.bfloat16 and S == 1024:
+                main["flash_attention_dq"] = rec_q
+                main["flash_attention_dkv"] = rec_kv
     torch.cuda.synchronize()
     return main
 
@@ -280,19 +378,18 @@ def logits_phase(torch, model_gpu, model_cpu):
         f"/{len(ref)} positions")
 
 
-def profile_wave(torch, eng, prompts):
-    """Where a serving wave's time goes: a second wave of greedy requests
-    (16 new tokens each) under torch.profiler; device busy share = the sum
-    of kernel times over the wave's wall time (one stream, so kernels do
-    not overlap), and the kernels that take the most of it."""
+def profile_window(torch, run):
+    """run() under torch.profiler: (wall ms, device busy ms, kernel
+    launches, the ten kernels that take the most device time).  Busy =
+    the sum of kernel times over the window (one stream, so kernels do
+    not overlap); None when the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for h in [eng.submit(p, 16) for p in prompts]:
-            h.result(600)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [(e.self_device_time_total / 1e3, e.key, e.count)
@@ -301,15 +398,28 @@ def profile_wave(torch, eng, prompts):
                and e.self_device_time_total > 0]
     busy_ms = sum(t for t, _, _ in kernels)
     if busy_ms == 0:
-        log("[profile] no device time in the trace: busy share not measured")
-        return
+        return wall_ms, None, 0, ""
     kernels.sort(reverse=True)
     top = "; ".join(f"{name[:60]} {t:.3f} ms x{n}"
                     for t, name, n in kernels[:10])
+    return wall_ms, busy_ms, sum(n for _, _, n in kernels), top
+
+
+def profile_wave(torch, eng, prompts):
+    """Where a serving wave's time goes: a second wave of greedy requests
+    (16 new tokens each) under torch.profiler."""
+    def wave():
+        for h in [eng.submit(p, 16) for p in prompts]:
+            h.result(600)
+
+    wall_ms, busy_ms, launches, top = profile_window(torch, wave)
+    if busy_ms is None:
+        log("[profile] no device time in the trace: busy share not measured")
+        return
     log(f"[profile] {len(prompts)} greedy requests x 16 tokens: wall "
         f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-        f"({100 * busy_ms / wall_ms:.2f}%), {sum(n for _, _, n in kernels)} "
-        f"kernel launches; top: {top}")
+        f"({100 * busy_ms / wall_ms:.2f}%), {launches} kernel launches; "
+        f"top: {top}")
 
 
 def serving_phase(torch, K, model, card):
@@ -338,8 +448,8 @@ def serving_phase(torch, K, model, card):
             if len(o) != 48 or min(o) < 0 or max(o) >= model.cfg.vocab_size:
                 fail(f"request {i}: {len(o)} tokens, range "
                      f"[{min(o)}, {max(o)}]")
-        for name, n in counts.items():
-            if n <= 0:
+        for name in SERVING_KERNELS:
+            if counts[name] <= 0:
                 fail(f"kernel {name} was not launched on the serving path")
         if eng.free_count != eng.geometry.num_pages:
             fail(f"free_count {eng.free_count} != num_pages "
@@ -361,6 +471,149 @@ def serving_phase(torch, K, model, card):
         return counts
     finally:
         eng.stop()
+
+
+def train_parity_phase(torch, K, cfg):
+    """loss(ids) and every parameter's gradient of the full-width float32
+    model, B = 2, S = 128, on the card (kernels) against the CPU (plain
+    versions), from the same seeded weights and ids."""
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.models import GPTForCausalLM
+
+    ids = torch.from_numpy(np.random.RandomState(3).randint(
+        0, cfg.vocab_size, (2, 128)))
+    res = {}
+    for device in ("cpu", "cuda"):
+        seed(0)
+        model = GPTForCausalLM(cfg, device=device).train()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = model.loss(ids.to(device))
+        loss.backward()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+        res[device] = (loss.item(), {n: p.grad for n, p in
+                                     model.named_parameters()},
+                       time.perf_counter() - t0)
+        del model, loss
+    (loss_g, grads_g, t_g), (loss_c, grads_c, t_c) = res["cuda"], res["cpu"]
+    for name in TRAINING_KERNELS:
+        if counts[name] <= 0:
+            fail(f"train-parity: kernel {name} was not launched")
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    worst, worst_name = 0.0, None
+    for name, ref in grads_c.items():
+        got = grads_g[name]
+        if got is None or not torch.isfinite(got).all():
+            fail(f"train-parity: {name} has no finite gradient on the card")
+        rel = ((got.cpu() - ref).abs().max()
+               / ref.abs().max().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    if loss_rel > GRAD_REL_TOL or worst > GRAD_REL_TOL:
+        fail(f"train-parity: loss rel {loss_rel:.3e}, worst gradient "
+             f"{worst_name} rel {worst:.3e} > {GRAD_REL_TOL}")
+    log(f"[train-parity] full-width f32 B=2 S=128 loss {loss_g:.6f} (cpu "
+        f"{loss_c:.6f}, rel {loss_rel:.3e}); {len(grads_c)} parameters, "
+        f"every gradient finite on the card; worst max|dgrad|/max|ref| "
+        f"{worst:.3e} ({worst_name}; tol {GRAD_REL_TOL}); card "
+        f"{t_g:.2f}s, cpu {t_c:.2f}s; launches {counts}")
+
+
+def lm_loss(logits, labels):
+    """Next-token cross entropy on the logits, in float32 (the user loss
+    of bench.py's GPT Model.fit configuration)."""
+    logp = logits[:, :-1].float().log_softmax(-1)
+    return -logp.gather(-1, labels[:, 1:, None])[..., 0].mean()
+
+
+def train_phase(torch, K, cfg, card):
+    """Full-width bfloat16 GPT-2-small, B = 8, S = 1024: 10 dygraph AdamW
+    steps on one fixed batch (the loop of bench.py's GPT training body),
+    a profiled window of 2 more, then 3 Model.fit steps.  Returns the
+    launch counts of the 10 dygraph steps."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.models import GPTForCausalLM
+
+    B, S, steps = 8, 1024, 10
+    seed(0)
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16).train()
+    n_params = sum(p.numel() for p in model.parameters())
+    rs = np.random.RandomState(4)
+    ids = torch.from_numpy(rs.randint(0, cfg.vocab_size, (B, S))).cuda()
+    opt = ptt.optimizer.AdamW(learning_rate=2e-4, weight_decay=0.01,
+                              parameters=model.parameters())
+
+    def step():
+        loss = model.loss(ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = K.launch_counts()
+    losses = torch.stack(losses).float().cpu().tolist()
+    for name in TRAINING_KERNELS:
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched on the training path")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"training loss did not fall: {losses}")
+    p50 = float(np.median(times))
+    tokens = B * S
+    # bench.py's model-FLOPs convention: 6*N*tokens + attention
+    flops = 6.0 * n_params * tokens \
+        + cfg.num_layers * 12 * S * S * cfg.hidden_size * B
+    per_step = {n: counts[n] / steps for n in TRAINING_KERNELS}
+    log(f"[train] bf16 full width B={B} S={S}, {n_params} parameters, "
+        f"AdamW(2e-4, wd 0.01) on {card}: losses {losses}; step ms "
+        f"{[round(t * 1e3, 3) for t in times]}; p50 {p50 * 1e3:.3f} ms; "
+        f"{tokens / p50:.1f} tokens/s; MFU {flops / p50 / PEAK_BF16_TENSOR:.4f}"
+        f" ({flops:.4e} flops/step / {PEAK_BF16_TENSOR:.0e}); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+        f"per step {per_step}")
+
+    def two_steps():
+        step()
+        step()
+
+    wall_ms, busy_ms, launches, top = profile_window(torch, two_steps)
+    if busy_ms is None:
+        log("[train-profile] no device time in the trace: busy share not "
+            "measured")
+    else:
+        log(f"[train-profile] 2 steps: wall {wall_ms:.3f} ms, device busy "
+            f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.2f}%), {launches} "
+            f"kernel launches; top: {top}")
+
+    data = torch.from_numpy(rs.randint(0, cfg.vocab_size, (3 * B, S)))
+    api = ptt.Model(model).prepare(opt, lm_loss)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = api.fit(ptt.io.TensorDataset([data, data]), batch_size=B,
+                   epochs=1, shuffle=False, verbose=0, log_freq=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_counts = K.launch_counts()
+    if len(hist["step_loss"]) != 3 or not all(
+            math.isfinite(x) for x in hist["step_loss"]):
+        fail(f"Model.fit: step losses {hist['step_loss']}")
+    for name in TRAINING_KERNELS:
+        if fit_counts[name] <= 0:
+            fail(f"kernel {name} was not launched on the Model.fit path")
+    log(f"[fit] Model.fit 3 steps of B={B} S={S} with a loss on the "
+        f"logits: step losses {hist['step_loss']}; {fit_s:.3f}s; launches "
+        f"{fit_counts}")
+    return counts
 
 
 def main():
@@ -402,6 +655,7 @@ def main():
                     log(f"[build] {name}: {line.strip()}")
 
     main_cases = kernel_phase(torch, K)
+    main_cases.update(backward_kernel_phase(torch, K))
 
     cfg = GPTConfig(dropout=0.0, attn_dropout=0.0)
     seed(0)
@@ -415,12 +669,21 @@ def main():
     del model_cpu
 
     model.to(dtype=torch.bfloat16)
-    counts = serving_phase(torch, K, model, card)
+    serve_counts = serving_phase(torch, K, model, card)
+    torch.cuda.synchronize()
+    del model
+    torch.cuda.empty_cache()
+
+    train_parity_phase(torch, K, cfg)
+    train_counts = train_phase(torch, K, cfg, card)
     torch.cuda.synchronize()
 
     kernels = []
     for name, rec in main_cases.items():
         source, replaces = REPLACES[name]
+        # each kernel's launches on its own path: serving for the forward
+        # kernels of slice 1, the 10 training steps for the backward ones
+        counts = serve_counts if name in SERVING_KERNELS else train_counts
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],

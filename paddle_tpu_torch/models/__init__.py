@@ -1,2 +1,3 @@
-from .convert import load_numpy_state  # noqa: F401
+from .convert import (load_numpy_optimizer_state,  # noqa: F401
+                      load_numpy_state)
 from .gpt import GPTConfig, GPTForCausalLM, GPTModel  # noqa: F401

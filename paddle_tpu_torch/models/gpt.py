@@ -1,15 +1,17 @@
-"""GPT decoder-only language model: the serving subset of
+"""GPT decoder-only language model: the serving and training subset of
 paddle_tpu/models/gpt.py.
 
-Ported: ``GPTConfig``, ``GPTAttention.forward`` (prefill, through the
-causal flash-attention kernel) and ``decode_pages`` (through the paged
-decode kernel), ``GPTMLP`` (bias+GeLU kernel), ``GPTBlock``, ``GPTModel``
-and ``GPTForCausalLM`` with ``_head``, ``slot_prefill`` and
-``slot_decode_paged``.  Parameter names equal the reference's
-(``gpt.h_0.attn.qkv.weight`` ...), so weights carry over by name
-(models/convert.py).  Tensor-parallel and sequence-parallel layouts,
-recompute, the training loss, beam search and ``generate`` are not ported
-yet (ROADMAP.md).
+Ported: ``GPTConfig``, ``GPTAttention.forward`` (prefill and training,
+through the causal flash-attention kernels, forward and backward) and
+``decode_pages`` (through the paged decode kernel), ``GPTMLP`` (bias+GeLU
+kernels), ``GPTBlock``, ``GPTModel`` and ``GPTForCausalLM`` with
+``forward``, the training ``loss`` (the chunked fused LM-head cross
+entropy), ``_head``, ``slot_prefill`` and ``slot_decode_paged``.
+Parameter names equal the reference's (``gpt.h_0.attn.qkv.weight`` ...),
+so weights carry over by name (models/convert.py).  Not ported yet
+(ROADMAP.md): ``forward(ids, labels)`` (it needs the softmax
+cross-entropy kernels), attention dropout in training, tensor-parallel
+and sequence-parallel layouts, recompute, beam search and ``generate``.
 
 The paged decode updates the KV pool IN PLACE: where the reference's
 jitted step donates the pool and returns a functionally updated copy, the
@@ -96,13 +98,15 @@ class GPTAttention(Layer):
         B, S = x.shape[0], x.shape[1]
         nh, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
         qkv = self.qkv(x).reshape(B, S, 3, nh, hd)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        ctx = fused.scaled_dot_product_attention(
-            q, k, v, dropout_p=cfg.attn_dropout, is_causal=True,
-            training=self.training)
+        # causal attention over the slices q, k, v of the fused projection
+        # (the reference's scaled_dot_product_attention on them); the
+        # backward kernels write one packed gradient of qkv
+        ctx = fused.packed_causal_attention(
+            qkv, dropout_p=cfg.attn_dropout, training=self.training)
         out = self.dropout(self.out(ctx.reshape(B, S, cfg.hidden_size)))
         if return_kv:
-            return out, k, v  # [B, S, nh, hd] — prefill seeds the KV cache
+            # [B, S, nh, hd] each — prefill seeds the KV cache
+            return out, qkv[:, :, 1], qkv[:, :, 2]
         return out
 
     def decode_pages(self, x, k_pages, v_pages, rows, pos, active, seq_cap):
@@ -211,8 +215,28 @@ class GPTForCausalLM(Layer):
     def dtype(self) -> torch.dtype:
         return self.gpt.wte.weight.dtype
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, labels=None):
+        if labels is not None:
+            raise NotImplementedError(
+                "GPTForCausalLM.forward(ids, labels) needs the softmax "
+                "cross-entropy kernels, not ported yet (ROADMAP.md B2/B3); "
+                "train through GPTForCausalLM.loss(ids) or a loss on the "
+                "logits")
         return self._head(self.gpt(input_ids))
+
+    def loss(self, input_ids):
+        """Next-token LM loss on a batch of token ids [B, S], through the
+        chunked fused LM-head matmul + cross entropy
+        (ops/fused.py fused_linear_cross_entropy): the float32 [B*S, V]
+        logits never exist at once.  Returns the mean, a float32 scalar."""
+        hidden = self.gpt(input_ids)
+        if self.cfg.tie_word_embeddings:
+            w = self.gpt.wte.weight.t()
+        else:
+            w = self.lm_head.weight
+        loss = fused.fused_linear_cross_entropy(hidden[:, :-1], w,
+                                                input_ids[:, 1:])
+        return loss.mean()
 
     def _head(self, hidden):
         if self.cfg.tie_word_embeddings:

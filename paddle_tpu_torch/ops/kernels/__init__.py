@@ -4,15 +4,21 @@ Each module holds the kernel's wrapper (which launches it on a CUDA
 tensor, counts the launch in ``<wrapper>.launches`` and raises on what the
 kernel does not take), the plain PyTorch version of the same function
 (taken for a CPU tensor, and the reference the kernel is held against on
-the card), and a note naming the Pallas kernel it replaces.
+the card), a note naming the Pallas kernel it replaces, and, where the
+reference has a custom_vjp, the ``torch.autograd.Function`` that joins a
+forward kernel to its backward.
 """
 from . import bias_gelu, flash_attention, layer_norm, paged_attention
 
+# one entry per CUDA kernel: the wrapper that launches it and counts
 WRAPPERS = {
     "layer_norm": layer_norm.layer_norm,
     "bias_gelu": bias_gelu.bias_gelu,
     "flash_attention": flash_attention.flash_attention,
     "paged_decode_attention": paged_attention.paged_decode_attention,
+    "bias_gelu_bwd": bias_gelu.bias_gelu_bwd,
+    "flash_attention_dq": flash_attention.flash_attention_dq,
+    "flash_attention_dkv": flash_attention.flash_attention_dkv,
 }
 
 

@@ -1,12 +1,20 @@
-"""Fused bias + exact-erf GeLU forward: CUDA kernel, plain version, count.
+"""Fused bias + exact-erf GeLU, forward and backward: CUDA kernels, plain
+versions, launch counts and the autograd Function that joins them.
 
-Replaces paddle_tpu/ops/pallas/bias_gelu.py ``_fwd_kernel`` (via
-``_row_call``).  Bound by bytes (one read, one write per element); the
-kernel (csrc/bias_gelu.cu) is an elementwise grid-stride loop with the add
-and erf in float32, for any row count.
+Replaces paddle_tpu/ops/pallas/bias_gelu.py ``_fwd_kernel`` and
+``_bwd_kernel`` (via ``_row_call``; ``_bg_fwd``/``_bg_bwd`` are the
+custom_vjp).  Both are bound by bytes: the forward reads x and writes y,
+the backward reads x and dy and writes dx, once per element.  The kernels
+(csrc/bias_gelu.cu) are elementwise grid-stride loops with the add, the
+erf and the derivative in float32, for any row count; the backward
+recomputes u = x + b from the saved input instead of saving u.  db is the
+float32 row-sum of dx, a torch reduction, as the reference leaves it to
+XLA.
 
-A CPU tensor takes :func:`bias_gelu_plain`; a CUDA tensor launches the
-kernel or raises.
+A CPU tensor takes the plain versions; a CUDA tensor launches the kernels
+or raises.  :func:`bias_gelu` builds the autograd graph only when grad
+mode is on and an input requires grad; serving under ``torch.no_grad()``
+calls the forward kernel directly.
 """
 from __future__ import annotations
 
@@ -17,38 +25,102 @@ import torch
 
 from . import build
 
-_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+_INV_SQRT2 = 1.0 / math.sqrt(2.0)
+_INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
+_FWD_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p)
+_BWD_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_longlong, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_void_p)
 
 
 def bias_gelu_plain(x, bias):
     """gelu_erf(x + bias) in float32, cast back to x's dtype."""
     u = x.float() + bias.float()
-    return (0.5 * u * (1.0 + torch.erf(u * (1.0 / math.sqrt(2.0))))
-            ).to(x.dtype)
+    return (0.5 * u * (1.0 + torch.erf(u * _INV_SQRT2))).to(x.dtype)
 
 
-def bias_gelu(x, bias):
-    """gelu(x + bias) over x [..., F] with bias [F]."""
+def bias_gelu_bwd_plain(x, bias, dy):
+    """dy * gelu'(x + bias) in float32, cast back to x's dtype."""
+    u = x.float() + bias.float()
+    cdf = 0.5 * (1.0 + torch.erf(u * _INV_SQRT2))
+    pdf = torch.exp(-0.5 * u * u) * _INV_SQRT_2PI
+    return (dy.float() * (cdf + u * pdf)).to(x.dtype)
+
+
+def _check(name, x, bias, *others):
+    n = x.shape[-1]
+    if bias.shape != (n,) or bias.dtype != x.dtype \
+            or bias.device != x.device or not bias.is_contiguous():
+        raise ValueError(f"{name}: bias must be a contiguous [{n}] "
+                         f"{x.dtype} tensor on {x.device}, got "
+                         f"{tuple(bias.shape)} {bias.dtype} on {bias.device}")
+    for t in (x, *others):
+        if t.shape != x.shape or t.dtype != x.dtype \
+                or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{name}: x and dy must be contiguous "
+                             f"{tuple(x.shape)} {x.dtype} tensors on "
+                             f"{x.device}")
+
+
+def _forward(x, bias):
+    """The forward kernel (CUDA) or plain version (CPU), no graph."""
     if x.device.type == "cpu":
         return bias_gelu_plain(x, bias)
     if x.device.type != "cuda":
         raise RuntimeError(f"bias_gelu: no kernel for device {x.device}")
-    n = x.shape[-1]
-    if bias.shape != (n,) or bias.dtype != x.dtype \
-            or bias.device != x.device or not bias.is_contiguous():
-        raise ValueError(f"bias_gelu: bias must be a contiguous [{n}] "
-                         f"{x.dtype} tensor on {x.device}, got "
-                         f"{tuple(bias.shape)} {bias.dtype} on {bias.device}")
-    if not x.is_contiguous():
-        raise ValueError("bias_gelu: x must be contiguous")
+    _check("bias_gelu", x, bias)
     y = torch.empty_like(x)
-    fn = build.bind("bias_gelu", "ptt_bias_gelu_fwd", _ARGTYPES)
-    err = fn(x.data_ptr(), bias.data_ptr(), y.data_ptr(), x.numel(), n,
-             build.dtype_code(x), build.stream_of(x))
+    fn = build.bind("bias_gelu", "ptt_bias_gelu_fwd", _FWD_ARGTYPES)
+    err = fn(x.data_ptr(), bias.data_ptr(), y.data_ptr(), x.numel(),
+             x.shape[-1], build.dtype_code(x), build.stream_of(x))
     build.check(err, "bias_gelu")
     bias_gelu.launches += 1
     return y
 
 
+def bias_gelu_bwd(x, bias, dy):
+    """dx = dy * gelu'(x + bias) over x, dy [..., F] with bias [F]."""
+    if x.device.type == "cpu":
+        return bias_gelu_bwd_plain(x, bias, dy)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"bias_gelu_bwd: no kernel for device {x.device}")
+    _check("bias_gelu_bwd", x, bias, dy)
+    dx = torch.empty_like(x)
+    fn = build.bind("bias_gelu", "ptt_bias_gelu_bwd", _BWD_ARGTYPES)
+    err = fn(x.data_ptr(), bias.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+             x.numel(), x.shape[-1], build.dtype_code(x),
+             build.stream_of(x))
+    build.check(err, "bias_gelu_bwd")
+    bias_gelu_bwd.launches += 1
+    return dx
+
+
+class _BiasGelu(torch.autograd.Function):
+    """custom_vjp of the reference (``_bg``): saves x and bias; the
+    backward runs the backward kernel, and db = sum(dx) in float32."""
+
+    @staticmethod
+    def forward(ctx, x, bias):
+        ctx.save_for_backward(x, bias)
+        return _forward(x, bias)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, bias = ctx.saved_tensors
+        dx = bias_gelu_bwd(x, bias, dy.contiguous())
+        db = None
+        if ctx.needs_input_grad[1]:
+            db = dx.float().reshape(-1, x.shape[-1]).sum(0).to(bias.dtype)
+        return dx, db
+
+
+def bias_gelu(x, bias):
+    """gelu(x + bias) over x [..., F] with bias [F]; differentiable."""
+    if torch.is_grad_enabled() and (x.requires_grad or bias.requires_grad):
+        return _BiasGelu.apply(x, bias)
+    return _forward(x, bias)
+
+
 bias_gelu.launches = 0
+bias_gelu_bwd.launches = 0

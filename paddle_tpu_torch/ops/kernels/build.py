@@ -25,7 +25,8 @@ import threading
 import time
 from pathlib import Path
 
-SOURCES = ("layer_norm", "bias_gelu", "flash_attention", "paged_attention")
+SOURCES = ("layer_norm", "bias_gelu", "flash_attention",
+           "flash_attention_bwd", "paged_attention")
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "paddle_tpu_torch"
@@ -121,6 +122,13 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def strides(*tensors):
+    """The (b, s, h) element strides of each [B, S, H, D] tensor, as one
+    host array of long longs for a kernel entry that takes them."""
+    vals = [st for t in tensors for st in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
 
 
 def dtype_code(t) -> int:

@@ -7,7 +7,9 @@ block per (head, lane); the block loads its own page-table row and
 ``pos``, skips unmapped (-1), out-of-pool and past-``pos`` pages, streams
 the live tokens with a float32 online softmax across four warps, and
 writes 0 (never NaN) for a lane with no live token.  Any page size; head
-dim up to 128.  It only reads the pool.
+dim up to 128.  It only reads the pool.  It has no backward: on a CUDA
+tensor it raises when asked for a gradient rather than hand out a tensor
+with no graph.
 
 A CPU tensor takes :func:`paged_decode_attention_plain`; a CUDA tensor
 launches the kernel or raises.
@@ -64,6 +66,11 @@ def paged_decode_attention(q, k_pages, v_pages, rows, pos, seq_cap):
     if q.device.type != "cuda":
         raise RuntimeError(f"paged_decode_attention: no kernel for device "
                            f"{q.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k_pages, v_pages)):
+        raise RuntimeError("paged_decode_attention has no backward kernel "
+                           "(it serves decode): call it under "
+                           "torch.no_grad()")
     slots, nh, hd = q.shape
     num_pages, ps = k_pages.shape[0], k_pages.shape[1]
     pps = rows.shape[1]

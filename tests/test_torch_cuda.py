@@ -1,8 +1,10 @@
-"""The port's CUDA kernels on the card, at shapes the serving path does
-not reach: odd row counts and widths, S = 1, head dims 16-128, page sizes
-1 and 5, unmapped and out-of-pool page ids, an inactive lane.  Each kernel
-is held against its plain PyTorch version on the same inputs.  Needs a
-CUDA device (skips elsewhere); on the card:
+"""The port's CUDA kernels on the card, at shapes the serving and training
+paths do not reach: odd row counts and widths, S = 1, head dims 16-128,
+page sizes 1 and 5, unmapped and out-of-pool page ids, an inactive lane.
+Each kernel, forward and backward, is held against its plain PyTorch
+version on the same inputs; a tiny GPT's loss and gradients on the card
+are held against the CPU's.  Needs a CUDA device (skips elsewhere); on
+the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
@@ -14,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.ops import fused
 from paddle_tpu_torch.ops.kernels import (bias_gelu, flash_attention,
                                           layer_norm, paged_attention)
 
@@ -130,3 +133,141 @@ def test_engine_greedy_tokens_match_cpu_engine(dev):
             outs[str(device)] = [h.result(120) for h in hs]
             assert eng.free_count == eng.geometry.num_pages
     assert outs["cpu"] == outs[str(dev)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,n", [(1, 5), (3, 3072), (257, 3072)])
+def test_bias_gelu_bwd_kernel(dev, dtype, rows, n):
+    g = torch.Generator(device=dev).manual_seed(rows * n)
+    x = (2 * torch.randn(rows, n, generator=g, device=dev)).to(dtype)
+    b = (0.5 * torch.randn(n, generator=g, device=dev)).to(dtype)
+    dy = torch.randn(rows, n, generator=g, device=dev).to(dtype)
+    before = bias_gelu.bias_gelu_bwd.launches
+    out = bias_gelu.bias_gelu_bwd(x, b, dy)
+    assert bias_gelu.bias_gelu_bwd.launches == before + 1
+    _check(out, bias_gelu.bias_gelu_bwd_plain(x, b, dy), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("S,D", [(1, 64), (7, 16), (65, 64), (200, 128),
+                                 (130, 32)])
+def test_flash_attention_bwd_kernels(dev, dtype, S, D):
+    """dq and dk/dv kernels against their plain versions, reading the
+    slices of one fused qkv and writing into one packed gradient."""
+    g = torch.Generator(device=dev).manual_seed(S + D)
+    qkv = torch.randn(2, S, 3, 3, D, generator=g, device=dev).to(dtype)
+    q, k, v = qkv.unbind(2)
+    o, lse = flash_attention.flash_attention(q, k, v)
+    do = torch.randn(o.shape, generator=g, device=dev).to(dtype)
+    delta = flash_attention.flash_attention_delta(o, do)
+    grad = torch.empty_like(qkv)
+    dq = flash_attention.flash_attention_dq(q, k, v, do, lse, delta,
+                                            out=grad[:, :, 0])
+    dk, dv = flash_attention.flash_attention_dkv(q, k, v, do, lse, delta,
+                                                 out=grad.unbind(2)[1:])
+    assert dq.data_ptr() == grad[:, :, 0].data_ptr()
+    _check(dq, flash_attention.flash_attention_dq_plain(q, k, v, do, lse,
+                                                        delta), dtype)
+    ref_k, ref_v = flash_attention.flash_attention_dkv_plain(q, k, v, do,
+                                                             lse, delta)
+    _check(dk, ref_k, dtype)
+    _check(dv, ref_v, dtype)
+    _check(grad[:, :, 2], ref_v, dtype)
+
+
+def test_flash_attention_bwd_is_deterministic(dev):
+    """No atomics: the same inputs give bitwise the same gradient."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    qkv = torch.randn(2, 300, 3, 4, 64, generator=g, device=dev,
+                      requires_grad=True)
+    do = torch.randn(2, 300, 4, 64, generator=g, device=dev)
+    grads = [torch.autograd.grad(fused.packed_causal_attention(qkv), qkv,
+                                 do)[0] for _ in range(2)]
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_autograd_functions_match_cpu(dev, dtype):
+    """LN (kernel forward with saved statistics, plain backward), bias+GeLU
+    and packed causal attention through autograd on the card, against the
+    same Functions on the CPU (plain versions), from the same inputs."""
+    rs = np.random.RandomState(4)
+    x = rs.randn(2, 37, 64).astype(np.float32)
+    w = (1 + 0.1 * rs.randn(64)).astype(np.float32)
+    b = (0.1 * rs.randn(64)).astype(np.float32)
+    qkv = rs.randn(2, 37, 3, 4, 16).astype(np.float32)
+    grads = {}
+    for device in ("cpu", dev):
+        t = [torch.tensor(a, device=device, dtype=dtype, requires_grad=True)
+             for a in (x, w, b, qkv)]
+        y = fused.layer_norm(t[0], t[1], t[2])
+        y = fused.bias_gelu(y, t[2])
+        att = fused.packed_causal_attention(t[3])
+        loss = y.float().square().sum() + att.float().square().sum()
+        loss.backward()
+        grads[str(device)] = [a.grad.float().cpu() for a in t]
+    for got, ref in zip(grads[str(dev)], grads["cpu"]):
+        scale = max(1.0, ref.abs().max().item())
+        tol = (2e-5 if dtype == torch.float32 else 2 ** -5) * scale
+        assert (got - ref).abs().max().item() <= tol
+
+
+def test_tiny_gpt_gradients_match_cpu(dev):
+    """The slice-1 fault: on the card the kernels' outputs had no autograd
+    graph, so a loss's backward gave no gradient below the first kernel.
+    Every parameter of a tiny float32 GPT now gets the CPU's gradient."""
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    cfg = GPTConfig(vocab_size=211, hidden_size=64, num_layers=2,
+                    num_heads=4, max_position_embeddings=64, dropout=0.0,
+                    attn_dropout=0.0)
+    ids = np.random.RandomState(5).randint(0, 211, (2, 33))
+    result = {}
+    for device in ("cpu", dev):
+        seed(0)
+        model = GPTForCausalLM(cfg, device=device).train()
+        loss = model.loss(torch.tensor(ids, device=device))
+        loss.backward()
+        result[str(device)] = (loss.item(), {
+            n: p.grad for n, p in model.named_parameters()})
+    loss_gpu, grads_gpu = result[str(dev)]
+    loss_cpu, grads_cpu = result["cpu"]
+    assert abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu)
+    assert set(grads_gpu) == set(grads_cpu)
+    for name, ref in grads_cpu.items():
+        got = grads_gpu[name]
+        assert got is not None, f"{name} got no gradient on the card"
+        torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-6,
+                                   msg=name)
+
+
+def test_fused_linear_cross_entropy_matches_cpu(dev):
+    rs = np.random.RandomState(6)
+    h = rs.randn(37, 48).astype(np.float32)
+    w = (0.2 * rs.randn(48, 301)).astype(np.float32)
+    labels = rs.randint(0, 301, 37)
+    res = {}
+    for device in ("cpu", dev):
+        th = torch.tensor(h, device=device, requires_grad=True)
+        tw = torch.tensor(w, device=device, requires_grad=True)
+        loss = fused.fused_linear_cross_entropy(
+            th, tw, torch.tensor(labels, device=device), chunk_size=128)
+        loss.sum().backward()
+        res[str(device)] = [t.detach().cpu() for t in (loss, th.grad,
+                                                       tw.grad)]
+    for got, ref in zip(res[str(dev)], res["cpu"]):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_paged_decode_attention_raises_when_asked_for_a_gradient(dev):
+    q = torch.randn(2, 2, 16, device=dev, requires_grad=True)
+    pool = torch.randn(4, 4, 2, 16, device=dev)
+    rows = torch.tensor([[0, 1], [2, -1]], dtype=torch.int32, device=dev)
+    pos = torch.tensor([5, 2], dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        paged_attention.paged_decode_attention(q, pool, pool, rows, pos, 8)
+    with torch.no_grad():
+        out = paged_attention.paged_decode_attention(q, pool, pool, rows,
+                                                     pos, 8)
+    assert out.shape == (2, 2, 16)

@@ -47,7 +47,12 @@ def test_port_module_imports_no_jax(path):
 def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"generation.py", "gpt.py", "fused.py", "build.py",
-            "paged_attention.py", "chip_smoke.py"} <= names
+            "paged_attention.py", "chip_smoke.py", "flash_attention.py",
+            "lr.py", "clip.py", "model.py", "engine.py"} <= names
+    rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"paddle_tpu_torch/optimizer/__init__.py",
+            "paddle_tpu_torch/io/__init__.py",
+            "paddle_tpu_torch/hapi/engine.py"} <= rel
 
 
 def _no_cuda():
@@ -85,11 +90,16 @@ def _kernel_args(device):
     pool = torch.randn(4, 4, 2, 16, device=device)
     rows = torch.tensor([[0, 1], [2, -1]], dtype=torch.int32, device=device)
     pos = torch.tensor([5, 2], dtype=torch.int32, device=device)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    stats = torch.zeros(2, 5, device=device)       # lse / delta [B*H, S]
     return {
         "layer_norm": (x, w, w),
         "bias_gelu": (x, w),
-        "flash_attention": (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]),
+        "flash_attention": (q, k, v),
         "paged_decode_attention": (qkv[0, :2, 0], pool, pool, rows, pos, 8),
+        "bias_gelu_bwd": (x, w, x),
+        "flash_attention_dq": (q, k, v, q, stats, stats),
+        "flash_attention_dkv": (q, k, v, q, stats, stats),
     }
 
 
