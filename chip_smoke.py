@@ -27,6 +27,24 @@ passed over):
                   steps on one batch (the loss must fall; step time,
                   tokens/s, MFU), a profiled window, then Model.fit steps;
                   every training kernel's launch count must be > 0.
+8. gpt-labels   — the same model's forward(ids, labels) (the softmax
+                  cross-entropy kernels on logits[:, :-1]) against
+                  loss(ids), and one backward.
+9. bert-parity  — full-width BERT-base (BertConfig() defaults, dropout 0)
+                  in float32, B = 2, S = 128: loss() and every gradient,
+                  and the masked forward's logits, on the card against the
+                  CPU's.
+10. bert-train  — full-width bfloat16, B = 32, S = 128: 10 dygraph AdamW
+                  steps of loss() (the loss must fall; step time,
+                  samples/s, tokens/s, MFU), a profiled window.
+11. bert-fit    — 3 Model.fit steps on padded batches with their
+                  [B, 1, 1, S] attention mask and a loss on the logits
+                  through F.cross_entropy; the masked attention kernels
+                  and both cross-entropy kernels must launch.
+
+Phase 3 also holds the softmax cross-entropy kernels (BERT's MLM and NSP
+shapes and GPT's) and the non-causal and masked forms of the attention
+kernels (BERT's shape and S = 77) against their plain versions.
 
 The line before the last is the per-kernel JSON record; the last line is
 the result JSON.  Float32 phases run with TF32 off for matmuls and cuDNN.
@@ -62,12 +80,20 @@ REPLACES = {
                            "paddle_tpu/ops/pallas/flash_attention.py:186"),
     "flash_attention_dkv": ("paddle_tpu_torch/csrc/flash_attention_bwd.cu",
                             "paddle_tpu/ops/pallas/flash_attention.py:223"),
+    "softmax_xent": ("paddle_tpu_torch/csrc/softmax_xent.cu",
+                     "paddle_tpu/ops/pallas/softmax_xent.py:36"),
+    "softmax_xent_bwd": ("paddle_tpu_torch/csrc/softmax_xent.cu",
+                         "paddle_tpu/ops/pallas/softmax_xent.py:71"),
 }
 SERVING_KERNELS = ("layer_norm", "bias_gelu", "flash_attention",
                    "paged_decode_attention")
 TRAINING_KERNELS = ("layer_norm", "bias_gelu", "flash_attention",
                     "bias_gelu_bwd", "flash_attention_dq",
                     "flash_attention_dkv")
+XENT_KERNELS = ("softmax_xent", "softmax_xent_bwd")
+BERT_KERNELS = TRAINING_KERNELS + XENT_KERNELS
+ATTENTION_KERNELS = ("flash_attention", "flash_attention_dq",
+                     "flash_attention_dkv")
 
 
 def log(msg):
@@ -120,6 +146,14 @@ def time_ms(torch, fn, iters=20, reps=5):
             fn()
 
     return device, _events_ms(torch, eager, reps * iters)
+
+
+def mfu_text(flops, step_s):
+    """The MFU of a step and its terms, the peak printed as the divisor
+    it is (989e12 prints as 9.89e+14)."""
+    return (f"MFU {flops / step_s / PEAK_BF16_TENSOR:.4f} ({flops:.4e} "
+            f"flops/step / {step_s * 1e3:.3f} ms / {PEAK_BF16_TENSOR:.3g} "
+            f"FLOP/s)")
 
 
 def bound_ms(n_bytes, n_flops, peak):
@@ -577,23 +611,11 @@ def train_phase(torch, K, cfg, card):
     log(f"[train] bf16 full width B={B} S={S}, {n_params} parameters, "
         f"AdamW(2e-4, wd 0.01) on {card}: losses {losses}; step ms "
         f"{[round(t * 1e3, 3) for t in times]}; p50 {p50 * 1e3:.3f} ms; "
-        f"{tokens / p50:.1f} tokens/s; MFU {flops / p50 / PEAK_BF16_TENSOR:.4f}"
-        f" ({flops:.4e} flops/step / {PEAK_BF16_TENSOR:.0e}); peak memory "
+        f"{tokens / p50:.1f} tokens/s; {mfu_text(flops, p50)}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
         f"per step {per_step}")
 
-    def two_steps():
-        step()
-        step()
-
-    wall_ms, busy_ms, launches, top = profile_window(torch, two_steps)
-    if busy_ms is None:
-        log("[train-profile] no device time in the trace: busy share not "
-            "measured")
-    else:
-        log(f"[train-profile] 2 steps: wall {wall_ms:.3f} ms, device busy "
-            f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.2f}%), {launches} "
-            f"kernel launches; top: {top}")
+    profile_steps(torch, "train-profile", step)
 
     data = torch.from_numpy(rs.randint(0, cfg.vocab_size, (3 * B, S)))
     api = ptt.Model(model).prepare(opt, lm_loss)
@@ -613,6 +635,418 @@ def train_phase(torch, K, cfg, card):
     log(f"[fit] Model.fit 3 steps of B={B} S={S} with a loss on the "
         f"logits: step losses {hist['step_loss']}; {fit_s:.3f}s; launches "
         f"{fit_counts}")
+    return counts
+
+
+def xent_kernel_phase(torch, K):
+    """softmax_xent forward and backward against their plain versions at
+    the three shapes of the paths: BERT-base's MLM head (B = 32, S = 128,
+    V = 30522, 15 % of the tokens labelled), its NSP head (N = 32, V = 2)
+    and GPT forward(ids, labels) (the strided view logits[:, :-1] of
+    [8, 1024, 50304], a few ignored rows); float32 and bfloat16.  An
+    ignored row's gradient must be exactly 0.  Returns the records of the
+    bf16 MLM case."""
+    F = torch.nn.functional
+    SX = K.softmax_xent
+    g = torch.Generator(device="cuda").manual_seed(5)
+    main = {}
+    cases = (("mlm", (32, 128, 30522), 0.15, False),
+             ("nsp", (32, 2), 1.0, False),
+             ("gpt", (8, 1024, 50304), 0.99, True))
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        isz = torch.empty((), dtype=dtype).element_size()
+        for name, shape, frac, strided in cases:
+            V = shape[-1]
+            full = (2 * torch.randn(*shape, generator=g, device="cuda")
+                    ).to(dtype)
+            z = full[:, :-1] if strided else full
+            lead = tuple(z.shape[:-1])
+            keep = torch.rand(lead, generator=g, device="cuda") < frac
+            lab = torch.where(keep, torch.randint(
+                0, V, lead, generator=g, device="cuda"), -100)
+            flat = lab.reshape(-1).contiguous()
+            n, n_valid = flat.numel(), int(keep.sum())
+            gr = torch.randn(n, generator=g, device="cuda")
+            loss, lse = SX.softmax_xent_fwd(z, flat)
+            dz = SX.softmax_xent_bwd(z, flat, lse, gr)
+            torch.cuda.synchronize()
+            if not torch.all(dz.reshape(n, V)[~keep.reshape(-1)] == 0):
+                fail(f"softmax_xent_bwd {tag} {name}: an ignored row's "
+                     "gradient is not exactly 0")
+            logp = torch.log_softmax(z.reshape(n, V), -1)
+            zero = torch.zeros((), dtype=dtype, device="cuda")
+            gd = gr.to(dtype)
+            # the library takes [N, V] rows: a view of BERT's logits, a
+            # copy of GPT's strided logits[:, :-1] (timed with the call)
+            desc = f"{tag} {name} N={n} V={V}" + (
+                " (strided rows)" if strided else "")
+            rec_f = compare(
+                torch, f"softmax_xent {desc}",
+                lambda: SX.softmax_xent_fwd(z, flat),
+                lambda: SX.softmax_xent_plain(z, flat),
+                lambda: F.cross_entropy(z.reshape(n, V), flat,
+                                        reduction="none"), dtype,
+                n * V * isz + 16 * n, 4 * n * V, PEAK_F32)
+            rec_b = compare(
+                torch, f"softmax_xent_bwd {desc}",
+                lambda: SX.softmax_xent_bwd(z, flat, lse, gr),
+                lambda: SX.softmax_xent_bwd_plain(z, flat, lse, gr),
+                lambda: torch.ops.aten._log_softmax_backward_data(
+                    torch.ops.aten.nll_loss_backward(
+                        gd, logp, flat, None, 0, -100, zero), logp, 1,
+                    dtype), dtype,
+                (n_valid + n) * V * isz + 16 * n, 4 * n_valid * V, PEAK_F32)
+            if dtype == torch.bfloat16 and name == "mlm":
+                main["softmax_xent"], main["softmax_xent_bwd"] = rec_f, rec_b
+            del full, z, dz, logp
+    torch.cuda.synchronize()
+    return main
+
+
+def sdpa_masked_backward(torch, q, k, v, do, bias):
+    """The library yardstick for the masked attention backward: one call
+    of PyTorch's memory-efficient attention backward, on the same inputs
+    in its [B, H, S, D] layout, with the bias as it takes it (in q's
+    dtype, its rows padded to a multiple of 16), from its own forward."""
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    B, H, S, _ = qt.shape
+    sp = -(-S // 16) * 16
+    lib_bias = torch.zeros(B, H, S, sp, dtype=q.dtype,
+                           device=q.device)[..., :S]
+    lib_bias.copy_(bias)
+    out, lse, seed_t, offset_t = \
+        torch.ops.aten._scaled_dot_product_efficient_attention(
+            qt, kt, vt, lib_bias, True, 0.0, False)
+    return lambda: \
+        torch.ops.aten._scaled_dot_product_efficient_attention_backward(
+            dot, qt, kt, vt, lib_bias, out, lse, seed_t, offset_t, 0.0,
+            [True, True, True, False], False)
+
+
+def masked_attention_phase(torch, K):
+    """The non-causal and masked forms of the three attention kernels
+    against their plain versions: BERT-base's shape (B = 32, S = 128,
+    H = 12, D = 64), non-causal without a mask and with its [B, 1, 1, S]
+    bool padding mask (seeded lengths 64-128), and B = 4, S = 77 causal
+    with an additive [B, 1, S, S] mask; float32 and bfloat16.  The library
+    yardstick is scaled_dot_product_attention with the same mask,
+    forward, and its memory-efficient backward (bf16).  Returns the
+    records of the bf16 padding-mask case."""
+    F = torch.nn.functional
+    KF = K.flash_attention
+    g = torch.Generator(device="cuda").manual_seed(6)
+    H, D = 12, 64
+    main = {}
+    forms = (("non-causal", 32, 128, False, None),
+             ("bool-padding", 32, 128, False, "bool"),
+             ("causal+additive", 4, 77, True, "additive"))
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        isz = torch.empty((), dtype=dtype).element_size()
+        peak = PEAK_F32 if dtype == torch.float32 else PEAK_BF16_TENSOR
+        for form, B, S, causal, kind in forms:
+            qkv = torch.randn(B, S, 3, H, D, generator=g,
+                              device="cuda").to(dtype)
+            q, k, v = qkv.unbind(2)
+            do = torch.randn(B, S, H, D, generator=g,
+                             device="cuda").to(dtype)
+            mask, pairs, bias_bytes = None, B * H * S * S, 0
+            if kind == "bool":
+                lens = torch.randint(64, S + 1, (B,), generator=g,
+                                     device="cuda")
+                mask = (torch.arange(S, device="cuda")[None, :]
+                        < lens[:, None])[:, None, None, :]
+                pairs, bias_bytes = H * S * int(lens.sum()), B * S * 4
+            elif kind == "additive":
+                mask = torch.randn(B, 1, S, S, generator=g, device="cuda")
+                pairs, bias_bytes = B * H * S * (S + 1) // 2, B * S * S * 4
+            bias = None if mask is None else KF.fold_mask(mask, B, H, S, S)
+            # the library's additive mask: the same bias in q's dtype, the
+            # causal part as -inf (SDPA refuses a mask with is_causal)
+            lib_mask = None if bias is None else bias.to(dtype)
+            if causal:
+                upper = torch.ones(S, S, dtype=torch.bool,
+                                   device="cuda").triu(1)
+                lib_mask = lib_mask.masked_fill(upper, float("-inf"))
+            o, lse = KF.flash_attention(q, k, v, causal, bias)
+            delta = KF.flash_attention_delta(o, do)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib_bwd = None if dtype == torch.float32 else \
+                sdpa_masked_backward(
+                    torch, q, k, v, do,
+                    torch.zeros(B, H, S, S, device="cuda")
+                    if lib_mask is None else lib_mask)
+            one = B * S * H * D * isz
+            stats = 2 * B * H * S * 4
+            desc = f"{tag} {form} B={B} S={S} H={H} D={D}"
+            fkw = dict(causal=causal, bias=bias)
+            rec = {"flash_attention": compare(
+                torch, f"flash_attention {desc}",
+                lambda: KF.flash_attention(q, k, v, **fkw)[0],
+                lambda: KF.flash_attention_plain(q, k, v, **fkw)[0],
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=lib_mask), dtype,
+                4 * one + B * H * S * 4 + bias_bytes, 4 * D * pairs, peak)}
+            rec["flash_attention_dq"] = compare(
+                torch, f"flash_attention_dq {desc}",
+                lambda: KF.flash_attention_dq(q, k, v, do, lse, delta, **fkw),
+                lambda: KF.flash_attention_dq_plain(q, k, v, do, lse, delta,
+                                                    **fkw),
+                lib_bwd, dtype, 5 * one + stats + bias_bytes, 6 * D * pairs,
+                peak)
+            rec["flash_attention_dkv"] = compare(
+                torch, f"flash_attention_dkv {desc}",
+                lambda: KF.flash_attention_dkv(q, k, v, do, lse, delta,
+                                               **fkw),
+                lambda: KF.flash_attention_dkv_plain(q, k, v, do, lse,
+                                                     delta, **fkw),
+                lib_bwd, dtype, 6 * one + stats + bias_bytes, 8 * D * pairs,
+                peak)
+            if dtype == torch.bfloat16 and form == "bool-padding":
+                main = rec
+    torch.cuda.synchronize()
+    return main
+
+
+def profile_steps(torch, tag, step):
+    """Two more steps under torch.profiler: wall, busy share, launches
+    and the largest device entries."""
+    def two_steps():
+        step()
+        step()
+
+    wall_ms, busy_ms, launches, top = profile_window(torch, two_steps)
+    if busy_ms is None:
+        log(f"[{tag}] no device time in the trace: busy share not measured")
+    else:
+        log(f"[{tag}] 2 steps: wall {wall_ms:.3f} ms, device busy "
+            f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.2f}%), {launches} "
+            f"kernel launches; top: {top}")
+
+
+def gpt_labels_phase(torch, K, cfg):
+    """Full-width bfloat16 GPT-2-small, B = 8, S = 1024: forward(ids,
+    labels) — the softmax cross-entropy kernels on the strided view
+    logits[:, :-1] — against loss(ids) (the float32 fused LM-head loss),
+    and one backward through the kernels."""
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.models import GPTForCausalLM
+
+    seed(0)
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16).train()
+    ids = torch.from_numpy(np.random.RandomState(8).randint(
+        0, cfg.vocab_size, (8, 1024))).cuda()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, loss = model(ids, labels=ids)
+    loss.backward()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = K.launch_counts()
+    with torch.no_grad():
+        ref = model.loss(ids).item()
+    got = loss.item()
+    tol = BF16_TOL * max(1.0, abs(ref))
+    grads_ok = all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                   for p in model.parameters())
+    for name in TRAINING_KERNELS + XENT_KERNELS:
+        if counts[name] <= 0:
+            fail(f"gpt-labels: kernel {name} was not launched")
+    if not math.isfinite(got) or abs(got - ref) > tol or not grads_ok:
+        fail(f"gpt-labels: forward(ids, labels) loss {got} vs loss(ids) "
+             f"{ref} (tol {tol:.3e}), finite gradients {grads_ok}")
+    log(f"[gpt-labels] bf16 full width B=8 S=1024: forward(ids, labels) "
+        f"loss {got:.5f} vs loss(ids) {ref:.5f} (|d| {abs(got - ref):.3e}, "
+        f"tol {tol:.3e} = 2^-6 x max(1, |ref|): bf16 logits against the "
+        f"float32 fused head); logits {tuple(logits.shape)} "
+        f"{logits.dtype}; forward + backward {secs:.3f}s; every gradient "
+        f"finite; launches {counts}")
+
+
+def bert_batch(torch, rs, cfg, B, S):
+    """Seeded BERT pretraining inputs: ids, two segments, about 15 % of
+    the tokens carrying an MLM label (the rest -100), NSP labels."""
+    ids = rs.randint(0, cfg.vocab_size, (B, S))
+    cut = rs.randint(S // 4, 3 * S // 4, (B, 1))
+    tt = (np.arange(S)[None, :] >= cut).astype(np.int64)
+    mlm = np.where(rs.rand(B, S) < 0.15,
+                   rs.randint(0, cfg.vocab_size, (B, S)), -100)
+    nsp = rs.randint(0, 2, (B,))
+    return [torch.from_numpy(a) for a in (ids, tt, mlm, nsp)]
+
+
+def padding_mask(torch, rs, B, S):
+    """[B, 1, 1, S] bool key-padding mask (True = attend) from seeded
+    lengths 64..S, and the lengths."""
+    lens = rs.randint(64, S + 1, B)
+    mask = torch.from_numpy(np.arange(S)[None, :] < lens[:, None])
+    return mask[:, None, None, :], lens
+
+
+def bert_parity_phase(torch, K):
+    """Full-width float32 BertForPretraining (BertConfig() defaults,
+    dropout 0), B = 2, S = 128: loss() and every parameter's gradient,
+    and the masked forward's MLM and NSP logits, on the card (kernels)
+    against the CPU (plain versions), from the same seeded weights."""
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+
+    cfg = BertConfig(dropout=0.0)
+    rs = np.random.RandomState(6)
+    ids, tt, mlm, nsp = bert_batch(torch, rs, cfg, 2, 128)
+    mask, lens = padding_mask(torch, rs, 2, 128)
+    res = {}
+    for device in ("cpu", "cuda"):
+        seed(0)
+        model = BertForPretraining(cfg, device=device).train()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = model.loss(ids.to(device), mlm.to(device), nsp.to(device),
+                          tt.to(device))
+        loss.backward()
+        with torch.no_grad():
+            logits = model(ids.to(device), tt.to(device), mask.to(device))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+        res[device] = (loss.item(), {n: p.grad for n, p in
+                                     model.named_parameters()},
+                       [x.float().cpu() for x in logits],
+                       time.perf_counter() - t0)
+        del model, loss
+    (loss_g, grads_g, lg_g, t_g), (loss_c, grads_c, lg_c, t_c) = \
+        res["cuda"], res["cpu"]
+    for name in BERT_KERNELS:
+        if counts[name] <= 0:
+            fail(f"bert-parity: kernel {name} was not launched")
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    worst, worst_name = 0.0, None
+    for name, ref in grads_c.items():
+        got = grads_g[name]
+        if got is None or not torch.isfinite(got).all():
+            fail(f"bert-parity: {name} has no finite gradient on the card")
+        # the key projection's bias has an exactly-zero gradient (softmax
+        # is shift-invariant over a query's keys): both sides give
+        # rounding noise, held against the scale of the same layer's
+        # query-bias gradient instead of its own
+        scale = grads_c[name.replace("k_proj.bias", "q_proj.bias")]
+        rel = ((got.cpu() - ref).abs().max()
+               / scale.abs().max().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    logit_rel = max(((a - r).abs().max() / r.abs().max()).item()
+                    for a, r in zip(lg_g, lg_c))
+    if loss_rel > GRAD_REL_TOL or worst > GRAD_REL_TOL \
+            or not logit_rel <= LOGITS_REL_TOL:
+        fail(f"bert-parity: loss rel {loss_rel:.3e}, worst gradient "
+             f"{worst_name} rel {worst:.3e}, masked logits rel "
+             f"{logit_rel:.3e} (tol {GRAD_REL_TOL})")
+    log(f"[bert-parity] full-width f32 BERT-base B=2 S=128: loss() "
+        f"{loss_g:.6f} (cpu {loss_c:.6f}, rel {loss_rel:.3e}); "
+        f"{len(grads_c)} parameters, every gradient finite on the card; "
+        f"worst max|dgrad|/max|ref| {worst:.3e} ({worst_name}; tol "
+        f"{GRAD_REL_TOL}; k_proj.bias against its layer's q_proj.bias "
+        f"scale); masked forward (lengths {lens.tolist()}) "
+        f"max|dlogits|/max|ref| {logit_rel:.3e} (tol {LOGITS_REL_TOL}); "
+        f"card {t_g:.2f}s, cpu {t_c:.2f}s; launches {counts}")
+
+
+def bert_fit_loss(mlm_logits, nsp_logits, mlm_labels, nsp_labels):
+    """BertForPretraining.loss() on the logits, through F.cross_entropy:
+    the MLM loss summed over the labelled tokens over their count, plus
+    the mean NSP loss."""
+    from paddle_tpu_torch.nn import functional as PF
+
+    mlm = PF.cross_entropy(mlm_logits, mlm_labels, reduction="none")
+    denom = (mlm_labels != -100).float().sum().clamp(min=1.0)
+    return mlm.sum() / denom + PF.cross_entropy(nsp_logits, nsp_labels)
+
+
+def bert_train_phase(torch, K, card):
+    """Full-width bfloat16 BERT-base, B = 32, S = 128 (bench.py's BERT
+    shape): 10 dygraph steps of loss() and AdamW(1e-4, wd 0.01) on one
+    seeded batch, a profiled window of 2 more, then 3 Model.fit steps on
+    padded batches with their attention mask.  Returns the launch counts
+    of the 10 dygraph steps."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+
+    B, S, steps = 32, 128, 10
+    cfg = BertConfig(dropout=0.0)
+    seed(0)
+    model = BertForPretraining(cfg, device="cuda",
+                               dtype=torch.bfloat16).train()
+    n_params = sum(p.numel() for p in model.parameters())
+    rs = np.random.RandomState(7)
+    ids, tt, mlm, nsp = (t.cuda() for t in bert_batch(torch, rs, cfg, B, S))
+    opt = ptt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                              parameters=model.parameters())
+
+    def step():
+        loss = model.loss(ids, mlm, nsp, tt)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = K.launch_counts()
+    losses = torch.stack(losses).float().cpu().tolist()
+    for name in BERT_KERNELS:
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched on the BERT training path")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"BERT training loss did not fall: {losses}")
+    p50 = float(np.median(times))
+    tokens = B * S
+    # bench.py's encoder model-FLOPs convention (bench.py:795)
+    flops = 6.0 * n_params * tokens \
+        + cfg.num_layers * 12 * S * S * cfg.hidden_size * B
+    per_step = {n: counts[n] / steps for n in BERT_KERNELS}
+    log(f"[bert-train] bf16 BERT-base B={B} S={S}, {n_params} parameters, "
+        f"AdamW(1e-4, wd 0.01) on {card}: losses {losses}; step ms "
+        f"{[round(t * 1e3, 3) for t in times]}; p50 {p50 * 1e3:.3f} ms; "
+        f"{B / p50:.1f} samples/s; {tokens / p50:.1f} tokens/s; "
+        f"{mfu_text(flops, p50)}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+        f"per step {per_step}")
+    profile_steps(torch, "bert-profile", step)
+
+    data = bert_batch(torch, rs, cfg, 3 * B, S)
+    mask, lens = padding_mask(torch, rs, 3 * B, S)
+    api = ptt.Model(model, labels=["mlm_labels", "nsp_labels"]).prepare(
+        opt, bert_fit_loss)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = api.fit(ptt.io.TensorDataset([data[0], data[1], mask, data[2],
+                                         data[3]]),
+                   batch_size=B, epochs=1, shuffle=False, verbose=0,
+                   log_freq=1)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_counts = K.launch_counts()
+    if len(hist["step_loss"]) != 3 or not all(
+            math.isfinite(x) for x in hist["step_loss"]):
+        fail(f"BERT Model.fit: step losses {hist['step_loss']}")
+    for name in BERT_KERNELS:
+        if fit_counts[name] <= 0:
+            fail(f"kernel {name} was not launched on the BERT Model.fit "
+                 "path")
+    log(f"[bert-fit] Model.fit 3 steps of B={B} S={S}, inputs [ids, "
+        f"token_type_ids, [B, 1, 1, S] bool mask] (lengths "
+        f"{int(lens.min())}-{int(lens.max())}, mean {lens.mean():.1f}), "
+        f"labels [mlm, nsp], loss on the logits through F.cross_entropy: "
+        f"step losses {hist['step_loss']}; {fit_s:.3f}s; every attention "
+        f"launch took the mask; launches {fit_counts}")
     return counts
 
 
@@ -656,6 +1090,8 @@ def main():
 
     main_cases = kernel_phase(torch, K)
     main_cases.update(backward_kernel_phase(torch, K))
+    main_cases.update(xent_kernel_phase(torch, K))
+    bert_attention = masked_attention_phase(torch, K)
 
     cfg = GPTConfig(dropout=0.0, attn_dropout=0.0)
     seed(0)
@@ -676,20 +1112,42 @@ def main():
 
     train_parity_phase(torch, K, cfg)
     train_counts = train_phase(torch, K, cfg, card)
+    gpt_labels_phase(torch, K, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    bert_parity_phase(torch, K)
+    torch.cuda.empty_cache()
+    bert_counts = bert_train_phase(torch, K, card)
     torch.cuda.synchronize()
 
     kernels = []
     for name, rec in main_cases.items():
         source, replaces = REPLACES[name]
         # each kernel's launches on its own path: serving for the forward
-        # kernels of slice 1, the 10 training steps for the backward ones
-        counts = serve_counts if name in SERVING_KERNELS else train_counts
-        kernels.append({
+        # kernels of slice 1, the 10 GPT training steps for the backward
+        # ones, the 10 BERT training steps for the cross-entropy kernels
+        counts = serve_counts if name in SERVING_KERNELS else (
+            bert_counts if name in XENT_KERNELS else train_counts)
+        entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+        if name in ATTENTION_KERNELS:
+            # every form held against its plain version in this run; the
+            # main numbers stay the GPT paths' causal case, and the BERT
+            # path's padding-mask case stands beside them with its launches
+            b = bert_attention[name]
+            entry["forms"] = ["causal", "non-causal", "bool-padding",
+                              "causal+additive"]
+            entry["bert_padding_mask"] = {
+                "launches": bert_counts[name], "ms": b["ms"],
+                "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
+                "bound_by": b["bound_by"], "library_ms": b["library_ms"],
+                "max_abs_err": b["max_abs_err"]}
+        kernels.append(entry)
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

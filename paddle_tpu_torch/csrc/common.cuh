@@ -51,4 +51,25 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return red[0];
 }
 
+// An additive float32 attention bias over [B, H, S_q, S_k], read through
+// four element strides, 0 where a dimension is broadcast (a [B, 1, 1, S_k]
+// padding mask is never materialised).  p == nullptr: no bias.
+struct Bias {
+  const float* p;
+  long long b, h, q, k;
+
+  // The whole block copies the kRows x kCols tile at (q0, k0) of plane
+  // (bi, hi) into tile[row][col]; entries outside [S_q, S_k] are 0.
+  template <int kRows, int kCols>
+  __device__ __forceinline__ void stage(float (*tile)[kCols + 1], int bi,
+                                        int hi, int q0, int k0, int s_q,
+                                        int s_k) const {
+    const long long base = bi * b + hi * h;
+    for (int e = threadIdx.x; e < kRows * kCols; e += blockDim.x) {
+      const int i = e / kCols, j = e % kCols, qi = q0 + i, kj = k0 + j;
+      tile[i][j] = (qi < s_q && kj < s_k) ? p[base + qi * q + kj * k] : 0.f;
+    }
+  }
+};
+
 }  // namespace ptt

@@ -1,10 +1,12 @@
-// Causal flash-attention forward (FlashAttention-2 style), no mask.
+// Flash-attention forward (FlashAttention-2 style): causal or not, with an
+// optional additive float32 bias (the attention mask).
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (called
-// from `_fwd_call`) on its causal, unmasked form.  At the serving path's
-// prefill shapes (one sequence of at most a few hundred tokens, 12 heads of
-// 64) the work is small and the bound is operations, not bytes: each query
-// row costs 4 * keys * D flops against one read of q, k and v.
+// from `_fwd_call`) in all its forms: causal and not, with and without
+// `has_bias`.  At the serving path's prefill shapes and BERT's (S = 128,
+// 12 heads of 64) the work is small and the bound is operations, not
+// bytes: each query row costs 4 * keys * D flops against one read of q, k
+// and v.
 //
 // Design for the card (not the TPU's block-by-block grid): one block per
 // (batch*head, 64-row query tile), 256 threads, four threads per query row,
@@ -12,13 +14,20 @@
 // warp reading one shared-memory key row touches four consecutive banks).
 // K and V tiles of 32 keys are staged in shared memory as float32; scores
 // stay in registers; the online softmax (running max m, normaliser l)
-// runs in float32.  The key loop stops at the tile's diagonal and the
-// diagonal tile is masked.  q, k and v are read in paddle's [B, S, H, D]
-// layout through strides, so the slices of the fused qkv projection need
-// no transpose or copy.  O is written [B, S, H, D] contiguous in the input
-// dtype, LSE [B*H, S] float32 for the backward of a later port.  Any
-// S >= 1: the Pallas divisibility refusals were TPU tiling artefacts.
-// No tensor cores yet (no wgmma/TMA): right and simple first.
+// runs in float32.  Scores follow the reference's `_scores`: scale, add the
+// bias, then the causal replace.  Causal: the key loop stops at the tile's
+// diagonal and the diagonal tile is masked; otherwise it runs over all S
+// keys.  The bias is read through four element strides (b, h, q, k), 0
+// where it is broadcast, so a [B, 1, 1, S] padding mask is never
+// materialised as [B*H, S, S] as the reference's `_fold_mask` does; its
+// 64 x 32 tile is staged in shared memory beside K and V.  A row with no
+// visible key (an all -inf bias) gives 0, as the reference's `l_safe`
+// does.  q, k and v are read in paddle's [B, S, H, D] layout through
+// strides, so the slices of the fused qkv projection need no transpose or
+// copy.  O is written [B, S, H, D] contiguous in the input dtype, LSE
+// [B*H, S] float32 for the backward.  Any S >= 1: the Pallas divisibility
+// refusals were TPU tiling artefacts.  No tensor cores yet (no
+// wgmma/TMA): right and simple first.
 #include <math.h>
 
 #include "common.cuh"
@@ -35,17 +44,20 @@ __global__ void __launch_bounds__(kThreads)
                      const T* __restrict__ v, long long qb, long long qs,
                      long long qh, long long kb, long long ks, long long kh,
                      long long vb, long long vs, long long vh,
-                     T* __restrict__ o, float* __restrict__ lse, int H, int S,
-                     float sm_scale) {
+                     T* __restrict__ o, float* __restrict__ lse,
+                     ptt::Bias bias, int H, int S, float sm_scale,
+                     bool causal) {
   constexpr int kPer = D / 4;
   __shared__ float k_tile[kBlockK][D];
   __shared__ float v_tile[kBlockK][D];
+  __shared__ float b_tile[kBlockQ][kBlockK + 1];  // +1: rows in other banks
 
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * kBlockQ;
   const int r = threadIdx.x >> 2, part = threadIdx.x & 3;
   const int qi = q0 + r;
+  const bool has_bias = bias.p != nullptr;
 
   float qreg[kPer], acc[kPer];
 #pragma unroll
@@ -58,7 +70,8 @@ __global__ void __launch_bounds__(kThreads)
   float m = -INFINITY, l = 0.f;
 
   const long long k_base = b * kb + h * kh, v_base = b * vb + h * vh;
-  const int k_end = min(S, q0 + kBlockQ);  // causal: keys up to the diagonal
+  // causal: keys up to the tile's diagonal; otherwise every key
+  const int k_end = causal ? min(S, q0 + kBlockQ) : S;
   for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
     __syncthreads();  // the previous tile has been consumed
     for (int e = threadIdx.x; e < kBlockK * D; e += kThreads) {
@@ -66,6 +79,7 @@ __global__ void __launch_bounds__(kThreads)
       k_tile[j][c] = kj < S ? ptt::to_f32(k[k_base + kj * ks + c]) : 0.f;
       v_tile[j][c] = kj < S ? ptt::to_f32(v[v_base + kj * vs + c]) : 0.f;
     }
+    if (has_bias) bias.stage<kBlockQ, kBlockK>(b_tile, b, h, q0, k0, S, S);
     __syncthreads();
 
     float s[kBlockK];
@@ -77,20 +91,22 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = 0; i < kPer; ++i) dot += qreg[i] * k_tile[j][i * 4 + part];
       dot += __shfl_xor_sync(0xffffffffu, dot, 1);
       dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+      if (has_bias) dot += b_tile[r][j];
       const int kj = k0 + j;
-      s[j] = (kj <= qi && kj < S) ? dot : -INFINITY;
+      s[j] = (kj < S && (!causal || kj <= qi)) ? dot : -INFINITY;
       m_tile = fmaxf(m_tile, s[j]);
     }
-    // key 0 is visible to every row, so m_new is finite from the first
-    // tile on and exp(-inf - m_new) is an exact 0 for masked keys
+    // while every score so far is -inf (an all -inf bias), m_use = 0 keeps
+    // exp(-inf - m_use) an exact 0 instead of a NaN
     const float m_new = fmaxf(m, m_tile);
-    const float alpha = expf(m - m_new);
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    const float alpha = expf(m - m_use);
     float p_sum = 0.f;
 #pragma unroll
     for (int i = 0; i < kPer; ++i) acc[i] *= alpha;
 #pragma unroll
     for (int j = 0; j < kBlockK; ++j) {
-      const float p = expf(s[j] - m_new);
+      const float p = expf(s[j] - m_use);
       p_sum += p;
 #pragma unroll
       for (int i = 0; i < kPer; ++i) acc[i] += p * v_tile[j][i * 4 + part];
@@ -101,11 +117,14 @@ __global__ void __launch_bounds__(kThreads)
 
   if (qi < S) {
     T* orow = o + ((static_cast<long long>(b) * S + qi) * H + h) * D;
-    const float inv_l = 1.f / l;
+    const float l_safe = l == 0.f ? 1.f : l;  // no visible key: O = 0
+    const float inv_l = 1.f / l_safe;
 #pragma unroll
     for (int i = 0; i < kPer; ++i)
       orow[i * 4 + part] = ptt::from_f32<T>(acc[i] * inv_l);
-    if (part == 0) lse[static_cast<long long>(bh) * S + qi] = m + logf(l);
+    if (part == 0)
+      lse[static_cast<long long>(bh) * S + qi] =
+          (m == -INFINITY ? 0.f : m) + logf(l_safe);
   }
 }
 
@@ -113,8 +132,8 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, long long qb,
            long long qs, long long qh, long long kb, long long ks,
            long long kh, long long vb, long long vs, long long vh, void* o,
-           void* lse, int B, int S, int H, int D, float sm_scale,
-           cudaStream_t st) {
+           void* lse, const ptt::Bias& bias, int B, int S, int H, int D,
+           float sm_scale, bool causal, cudaStream_t st) {
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, B * H);
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
@@ -124,8 +143,8 @@ int launch(const void* q, const void* k, const void* v, long long qb,
 #define PTT_FLASH_CASE(DIM)                                                  \
   case DIM:                                                                  \
     flash_fwd_kernel<T, DIM><<<grid, kThreads, 0, st>>>(                     \
-        qp, kp, vp, qb, qs, qh, kb, ks, kh, vb, vs, vh, op, lp, H, S,        \
-        sm_scale);                                                           \
+        qp, kp, vp, qb, qs, qh, kb, ks, kh, vb, vs, vh, op, lp, bias, H, S,  \
+        sm_scale, causal);                                                   \
     break;
   switch (D) {
     PTT_FLASH_CASE(16)
@@ -143,18 +162,25 @@ int launch(const void* q, const void* k, const void* v, long long qb,
 
 // q, k, v: [B, S, H, D] with the given element strides over (b, s, h) and
 // unit stride over d; o: [B, S, H, D] contiguous; lse: [B*H, S] float32.
+// bias: NULL, or float32 [B, H, S, S] with element strides (bias_b, bias_h,
+// bias_q, bias_k), any of them 0.  causal: 0 or 1.
 extern "C" int ptt_flash_attention_fwd(
     const void* q, const void* k, const void* v, long long qb, long long qs,
     long long qh, long long kb, long long ks, long long kh, long long vb,
-    long long vs, long long vh, void* o, void* lse, int B, int S, int H, int D,
-    float sm_scale, int dtype, void* stream) {
+    long long vs, long long vh, void* o, void* lse, const void* bias,
+    long long bias_b, long long bias_h, long long bias_q, long long bias_k,
+    int B, int S, int H, int D, float sm_scale, int causal, int dtype,
+    void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const ptt::Bias bs{static_cast<const float*>(bias), bias_b, bias_h, bias_q,
+                     bias_k};
   if (dtype == ptt::kF32)
     return launch<float>(q, k, v, qb, qs, qh, kb, ks, kh, vb, vs, vh, o, lse,
-                         B, S, H, D, sm_scale, st);
+                         bs, B, S, H, D, sm_scale, causal != 0, st);
   if (dtype == ptt::kBF16)
     return launch<__nv_bfloat16>(q, k, v, qb, qs, qh, kb, ks, kh, vb, vs, vh,
-                                 o, lse, B, S, H, D, sm_scale, st);
+                                 o, lse, bs, B, S, H, D, sm_scale,
+                                 causal != 0, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

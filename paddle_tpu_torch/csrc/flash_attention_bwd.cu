@@ -1,28 +1,32 @@
-// Causal flash-attention backward (FlashAttention-2 style), no mask: dq,
-// and dk/dv, as two kernels.
+// Flash-attention backward (FlashAttention-2 style): dq, and dk/dv, as two
+// kernels; causal or not, with an optional additive float32 bias.
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py `_dq_kernel` and
-// `_dkv_kernel` (both called from `_bwd_call`) on their causal, unmasked
-// form.  At the training path's shapes (B = 8, S = 1024, 12 heads of 64)
-// the bound is operations: each (query, key) pair below the diagonal costs
-// 6 * D flops in dq and 8 * D in dk/dv, against one read of q, k, v, dO and
-// the row statistics.
+// `_dkv_kernel` (both called from `_bwd_call`) in all their forms: causal
+// and not, with and without `has_bias`.  At the training paths' shapes
+// (GPT: B = 8, S = 1024; BERT: B = 32, S = 128; 12 heads of 64) the bound
+// is operations: each visible (query, key) pair costs 6 * D flops in dq and
+// 8 * D in dk/dv, against one read of q, k, v, dO and the row statistics.
 //
 // Design for the card.  The two reductions run in two kernels, as in the
 // Pallas code, and neither uses atomics, so every gradient is summed in
 // one fixed order and is the same from run to run:
 // - dq: one block per (batch*head, 64-query tile).  The block walks the
-//   key tiles from 0 up to the diagonal, staging 32 keys of K and V in
-//   shared memory, and keeps its rows' q, dO and dq accumulator in
-//   registers.
+//   key tiles from 0 up to the diagonal (causal) or to S, staging 32 keys
+//   of K and V and the 64 x 32 bias tile in shared memory, and keeps its
+//   rows' q, dO and dq accumulator in registers.
 // - dk/dv: one block per (batch*head, 64-key tile).  The block walks the
-//   query tiles from the diagonal down to S, staging 32 queries of Q and dO
-//   plus their LSE and delta in shared memory, and keeps its rows' k, v and
-//   the dk, dv accumulators in registers.
-// Both recompute p = exp(s - lse) in float32 from the forward's LSE and
-// accumulate in float32; delta = rowsum(dO * O) is computed by the caller
-// in PyTorch (as the Pallas caller computes it in XLA).  Four threads own
-// a row, each with D/4 interleaved dims (a warp reading a shared-memory
+//   query tiles from the diagonal (causal) or from 0 down to S, staging 32
+//   queries of Q and dO, their LSE and delta and the 32 x 64 bias tile in
+//   shared memory, and keeps its rows' k, v and the dk, dv accumulators in
+//   registers.
+// Both recompute p = exp(s - lse) in float32 from the forward's LSE, with
+// the scores of the reference's `_scores` (scale, add the bias, causal
+// replace), and accumulate in float32; delta = rowsum(dO * O) is computed
+// by the caller in PyTorch (as the Pallas caller computes it in XLA).  The
+// bias is read through four element strides, 0 where it is broadcast; its
+// gradient is not formed (the reference defines it as zero).  Four threads
+// own a row, each with D/4 interleaved dims (a warp reading a shared-memory
 // row hits four consecutive banks), and two shuffles finish each dot
 // product.  Every tensor is read through its (batch, seq, head) element
 // strides with a unit stride over D, so the slices of the fused qkv
@@ -58,8 +62,10 @@ struct Args {
   void* d0;            // dq (dq kernel) or dk (dk/dv kernel)
   void* d1;            // dv (dk/dv kernel)
   Strides sq, sk, sv, sdo, sd0, sd1;
+  ptt::Bias bias;
   int H, S;
   float scale;
+  bool causal;
 };
 
 template <typename T, int D>
@@ -67,6 +73,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
   constexpr int kPer = D / 4;
   __shared__ float k_tile[kTile][D];
   __shared__ float v_tile[kTile][D];
+  __shared__ float b_tile[kBlockRows][kTile + 1];  // +1: rows in other banks
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
@@ -95,7 +102,9 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
 
   const long long k_base = offset(a.sk, b, 0, h);
   const long long v_base = offset(a.sv, b, 0, h);
-  const int k_end = min(S, q0 + kBlockRows);  // causal: keys to the diagonal
+  const bool has_bias = a.bias.p != nullptr;
+  // causal: keys up to the tile's diagonal; otherwise every key
+  const int k_end = a.causal ? min(S, q0 + kBlockRows) : S;
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();  // the previous tile has been consumed
     for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
@@ -103,6 +112,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
       k_tile[j][c] = kj < S ? ptt::to_f32(k[k_base + kj * a.sk.s + c]) : 0.f;
       v_tile[j][c] = kj < S ? ptt::to_f32(v[v_base + kj * a.sv.s + c]) : 0.f;
     }
+    if (has_bias)
+      a.bias.stage<kBlockRows, kTile>(b_tile, b, h, q0, k0, S, S);
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < kTile; ++j) {
@@ -116,8 +127,11 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
       s += __shfl_xor_sync(0xffffffffu, s, 2);
       dp += __shfl_xor_sync(0xffffffffu, dp, 1);
       dp += __shfl_xor_sync(0xffffffffu, dp, 2);
-      // kj <= qi < S: a visible key of a real row; everything else is 0
-      const float p = (row_ok && k0 + j <= qi) ? expf(s - lse) : 0.f;
+      if (has_bias) s += b_tile[r][j];
+      // a visible key (kj < S, and kj <= qi when causal) of a real row
+      const int kj = k0 + j;
+      const bool seen = row_ok && kj < S && (!a.causal || kj <= qi);
+      const float p = seen ? expf(s - lse) : 0.f;
       const float ds = p * (dp - delta) * a.scale;
 #pragma unroll
       for (int i = 0; i < kPer; ++i) acc[i] += ds * k_tile[j][i * 4 + part];
@@ -138,6 +152,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   __shared__ float do_tile[kTile][D];
   __shared__ float lse_tile[kTile];
   __shared__ float delta_tile[kTile];
+  __shared__ float b_tile[kTile][kBlockRows + 1];
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
@@ -165,8 +180,9 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   const long long q_base = offset(a.sq, b, 0, h);
   const long long do_base = offset(a.sdo, b, 0, h);
   const long long stat_base = static_cast<long long>(bh) * S;
+  const bool has_bias = a.bias.p != nullptr;
   // causal: only queries at or after this tile's first key see it
-  for (int q0 = k0; q0 < S; q0 += kTile) {
+  for (int q0 = a.causal ? k0 : 0; q0 < S; q0 += kTile) {
     __syncthreads();
     for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
       const int i = e / D, c = e % D, qi = q0 + i;
@@ -179,6 +195,8 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
       lse_tile[threadIdx.x] = qi < S ? a.lse[stat_base + qi] : 0.f;
       delta_tile[threadIdx.x] = qi < S ? a.delta[stat_base + qi] : 0.f;
     }
+    if (has_bias)
+      a.bias.stage<kTile, kBlockRows>(b_tile, b, h, q0, k0, S, S);
     __syncthreads();
 #pragma unroll 4
     for (int i = 0; i < kTile; ++i) {
@@ -192,10 +210,11 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
       s += __shfl_xor_sync(0xffffffffu, s, 2);
       dp += __shfl_xor_sync(0xffffffffu, dp, 1);
       dp += __shfl_xor_sync(0xffffffffu, dp, 2);
+      if (has_bias) s += b_tile[i][r];
       const int qi = q0 + i;
-      // kj <= qi < S: a real key seen by a real query; else 0
-      const float p =
-          (row_ok && kj <= qi && qi < S) ? expf(s - lse_tile[i]) : 0.f;
+      // a real key seen by a real query (kj <= qi when causal); else 0
+      const bool seen = row_ok && qi < S && (!a.causal || kj <= qi);
+      const float p = seen ? expf(s - lse_tile[i]) : 0.f;
       const float ds = p * (dp - delta_tile[i]) * a.scale;
 #pragma unroll
       for (int c = 0; c < kPer; ++c) {
@@ -255,35 +274,41 @@ int dispatch(const Args& a, int B, int D, int dtype, void* stream) {
 
 // q, k, v, dout, dq: [B, S, H, D] with unit stride over d; `strides` is a
 // host array of their (b, s, h) element strides, in that order (15
-// values).  lse, delta: [B*H, S] float32.
-extern "C" int ptt_flash_attention_dq(const void* q, const void* k,
-                                      const void* v, const void* dout,
-                                      const void* lse, const void* delta,
-                                      void* dq, const long long* strides,
-                                      int B, int S, int H, int D,
-                                      float sm_scale, int dtype,
-                                      void* stream) {
+// values).  lse, delta: [B*H, S] float32.  bias: NULL, or float32
+// [B, H, S, S] with element strides (bias_b, bias_h, bias_q, bias_k), any
+// of them 0.  causal: 0 or 1.
+extern "C" int ptt_flash_attention_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, const long long* strides,
+    const void* bias, long long bias_b, long long bias_h, long long bias_q,
+    long long bias_k, int B, int S, int H, int D, float sm_scale, int causal,
+    int dtype, void* stream) {
   Args a{q, k, v, dout, static_cast<const float*>(lse),
          static_cast<const float*>(delta), dq, nullptr,
          strides_at(strides, 0), strides_at(strides, 1),
          strides_at(strides, 2), strides_at(strides, 3),
-         strides_at(strides, 4), Strides{0, 0, 0}, H, S, sm_scale};
+         strides_at(strides, 4), Strides{0, 0, 0},
+         ptt::Bias{static_cast<const float*>(bias), bias_b, bias_h, bias_q,
+                   bias_k},
+         H, S, sm_scale, causal != 0};
   return dispatch<true>(a, B, D, dtype, stream);
 }
 
 // As above, with dk and dv as the outputs; `strides` holds the (b, s, h)
 // strides of q, k, v, dout, dk, dv (18 values).
-extern "C" int ptt_flash_attention_dkv(const void* q, const void* k,
-                                       const void* v, const void* dout,
-                                       const void* lse, const void* delta,
-                                       void* dk, void* dv,
-                                       const long long* strides, int B,
-                                       int S, int H, int D, float sm_scale,
-                                       int dtype, void* stream) {
+extern "C" int ptt_flash_attention_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv,
+    const long long* strides, const void* bias, long long bias_b,
+    long long bias_h, long long bias_q, long long bias_k, int B, int S, int H,
+    int D, float sm_scale, int causal, int dtype, void* stream) {
   Args a{q, k, v, dout, static_cast<const float*>(lse),
          static_cast<const float*>(delta), dk, dv,
          strides_at(strides, 0), strides_at(strides, 1),
          strides_at(strides, 2), strides_at(strides, 3),
-         strides_at(strides, 4), strides_at(strides, 5), H, S, sm_scale};
+         strides_at(strides, 4), strides_at(strides, 5),
+         ptt::Bias{static_cast<const float*>(bias), bias_b, bias_h, bias_q,
+                   bias_k},
+         H, S, sm_scale, causal != 0};
   return dispatch<false>(a, B, D, dtype, stream);
 }

@@ -5,13 +5,13 @@ Ported: ``GPTConfig``, ``GPTAttention.forward`` (prefill and training,
 through the causal flash-attention kernels, forward and backward) and
 ``decode_pages`` (through the paged decode kernel), ``GPTMLP`` (bias+GeLU
 kernels), ``GPTBlock``, ``GPTModel`` and ``GPTForCausalLM`` with
-``forward``, the training ``loss`` (the chunked fused LM-head cross
-entropy), ``_head``, ``slot_prefill`` and ``slot_decode_paged``.
-Parameter names equal the reference's (``gpt.h_0.attn.qkv.weight`` ...),
-so weights carry over by name (models/convert.py).  Not ported yet
-(ROADMAP.md): ``forward(ids, labels)`` (it needs the softmax
-cross-entropy kernels), attention dropout in training, tensor-parallel
-and sequence-parallel layouts, recompute, beam search and ``generate``.
+``forward`` (with labels: through the softmax cross-entropy kernels), the
+training ``loss`` (the chunked fused LM-head cross entropy), ``_head``,
+``slot_prefill`` and ``slot_decode_paged``.  Parameter names equal the
+reference's (``gpt.h_0.attn.qkv.weight`` ...), so weights carry over by
+name (models/convert.py).  Not ported yet (ROADMAP.md): attention dropout
+in training, tensor-parallel and sequence-parallel layouts, recompute,
+beam search and ``generate``.
 
 The paged decode updates the KV pool IN PLACE: where the reference's
 jitted step donates the pool and returns a functionally updated copy, the
@@ -216,13 +216,14 @@ class GPTForCausalLM(Layer):
         return self.gpt.wte.weight.dtype
 
     def forward(self, input_ids, labels=None):
-        if labels is not None:
-            raise NotImplementedError(
-                "GPTForCausalLM.forward(ids, labels) needs the softmax "
-                "cross-entropy kernels, not ported yet (ROADMAP.md B2/B3); "
-                "train through GPTForCausalLM.loss(ids) or a loss on the "
-                "logits")
-        return self._head(self.gpt(input_ids))
+        """Logits [B, S, V]; with ``labels`` [B, S], also the mean
+        next-token loss through the softmax cross-entropy kernels, which
+        read the strided view ``logits[:, :-1]`` in place."""
+        logits = self._head(self.gpt(input_ids))
+        if labels is None:
+            return logits
+        loss = fused.softmax_cross_entropy(logits[:, :-1], labels[:, 1:])
+        return logits, loss.mean()
 
     def loss(self, input_ids):
         """Next-token LM loss on a batch of token ids [B, S], through the

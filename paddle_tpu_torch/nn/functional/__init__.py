@@ -1,10 +1,14 @@
-"""Functional ops the GPT serving path uses (port of the subset of
-paddle_tpu/nn/functional/__init__.py: linear, gelu, layer_norm,
-embedding, dropout).
+"""Functional ops the GPT and BERT paths use (port of the subset of
+paddle_tpu/nn/functional/__init__.py: linear, the activations relu, tanh,
+gelu, softmax and log_softmax, layer_norm, embedding, dropout,
+cross_entropy and scaled_dot_product_attention).
 
 ``layer_norm`` routes a 1-D scale+shift through ops/fused.py, which
 launches the CUDA kernel for a CUDA tensor, as the reference routes it to
-the Pallas kernel (nn/functional/__init__.py:616).
+the Pallas kernel (nn/functional/__init__.py:616).  ``cross_entropy`` with
+hard labels, no class weight, softmax and the last axis goes to the
+softmax_xent kernels the same way (:823), and ``scaled_dot_product_attention``
+to the flash-attention kernels (:1098).
 """
 from __future__ import annotations
 
@@ -19,6 +23,24 @@ def linear(x, weight, bias=None):
             f"{x.shape[-1]}, expected {weight.shape[0]}")
     y = torch.matmul(x, weight)
     return y if bias is None else y + bias.to(y.dtype)
+
+
+def relu(x):
+    return torch.relu(x)
+
+
+def tanh(x):
+    return torch.tanh(x)
+
+
+def softmax(x, axis=-1, dtype=None):
+    if dtype is not None:
+        x = x.to(dtype)
+    return torch.softmax(x, axis)
+
+
+def log_softmax(x, axis=-1):
+    return torch.log_softmax(x, axis)
 
 
 def gelu(x, approximate=False):
@@ -59,3 +81,74 @@ def dropout(x, p=0.5, training=True):
     if not training or p == 0.0:
         return x
     return torch.nn.functional.dropout(x, p, training=True)
+
+
+def _reduce_loss(loss, reduction):
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True):
+    """Softmax cross entropy (reference :823).  Hard labels with no
+    weight, softmax on and the last axis go through
+    ops/fused.softmax_cross_entropy (the kernels) and reduce as the
+    reference's kernel route does: ``mean`` is a plain mean over every
+    entry.  Soft labels, class weights and ``use_softmax=False`` are the
+    reference's composite math in PyTorch (no kernel exists for them
+    there either), where ``mean`` is over the valid entries unless
+    ``ignore_index == -100`` and there is no weight."""
+    if not soft_label and label.is_floating_point():
+        raise TypeError(
+            "cross_entropy: hard labels must be integer class ids (got "
+            f"dtype {label.dtype}); pass soft_label=True for probability "
+            "targets")
+    from ...ops import fused
+
+    nd = input.dim()
+    ax = axis % nd
+    if use_softmax and not soft_label and weight is None \
+            and ax == nd - 1:
+        raw = fused.softmax_cross_entropy(input, label, ignore_index)
+        return _reduce_loss(raw, reduction)
+    if use_softmax:
+        logp = torch.log_softmax(input, ax)
+    else:
+        logp = torch.log(input.clamp(1e-15, 1.0))
+    if soft_label:
+        raw = -(label * logp).sum(ax)
+        return _reduce_loss(raw, reduction)
+    li = label.long()
+    if li.dim() == nd:
+        li = li.squeeze(ax)
+    valid = li != ignore_index
+    picked = logp.gather(ax, li.clamp(0, logp.shape[ax] - 1).unsqueeze(ax))
+    raw = torch.where(valid, -picked.squeeze(ax), 0.0)
+    cw = None
+    if weight is not None:
+        cw = torch.where(valid, weight[li.clamp_min(0)], 0.0)
+        raw = raw * cw
+    if reduction == "none":
+        return raw
+    if reduction == "sum":
+        return raw.sum()
+    if ignore_index == -100 and weight is None:
+        return raw.mean()
+    denom = cw.sum() if cw is not None else valid.float().sum()
+    return raw.sum() / denom
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True):
+    """[B, S, H, D] layout, through the flash-attention kernels
+    (ops/fused.py)."""
+    from ...ops import fused
+
+    return fused.scaled_dot_product_attention(
+        query, key, value, attn_mask=attn_mask, dropout_p=dropout_p,
+        is_causal=is_causal, training=training)

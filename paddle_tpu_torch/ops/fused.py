@@ -1,5 +1,5 @@
 """Fused transformer-path ops (port of paddle_tpu/ops/fused.py: the entries
-the GPT serving and training paths call).
+the GPT and BERT serving and training paths call).
 
 Dispatch depends only on the tensor's device: a CPU tensor takes the
 kernel module's plain PyTorch version, a CUDA tensor launches the
@@ -18,6 +18,7 @@ from .kernels import bias_gelu as _bg
 from .kernels import flash_attention as _fa
 from .kernels import layer_norm as _ln
 from .kernels import paged_attention as _pa
+from .kernels import softmax_xent as _sx
 
 
 def layer_norm(x, weight, bias, epsilon=1e-5):
@@ -37,30 +38,39 @@ def bias_gelu(x, bias, dropout_p=0.0, training=True):
 
 def linear_bias_gelu(x, weight, bias, dropout_p=0.0, training=True):
     """gelu(x @ weight + bias): the FFN expansion with its fused
-    epilogue."""
+    epilogue.  ``bias`` may be None: then the plain erf GeLU of the
+    matmul (the reference computes it in XLA, outside any kernel)."""
+    y = torch.matmul(x, weight)
     if bias is None:
-        raise NotImplementedError(
-            "linear_bias_gelu without a bias is not ported yet")
-    return bias_gelu(torch.matmul(x, weight), bias, dropout_p=dropout_p,
-                     training=training)
+        return _dropout(torch.nn.functional.gelu(y), dropout_p, training)
+    return bias_gelu(y, bias, dropout_p=dropout_p, training=training)
 
 
-def _check_attention_form(attn_mask, is_causal, dropout_p, training):
-    if attn_mask is not None or not is_causal:
-        raise NotImplementedError(
-            "masked and non-causal attention are not ported yet (the "
-            "masked flash-attention kernel is queued in ROADMAP.md)")
+def softmax_cross_entropy(logits, label, ignore_index=-100):
+    """Per-token softmax cross entropy over the last axis with hard
+    labels, through the softmax_xent kernels (the reference's Pallas
+    route; its shard_map branch waits for the distributed slice).
+    Returns the loss with logits' leading shape, in logits' dtype."""
+    return _sx.softmax_xent(logits, label, ignore_index=ignore_index)
+
+
+def _check_attention_form(dropout_p, training):
     if dropout_p > 0.0 and training:
-        raise NotImplementedError("attention dropout is not ported")
+        raise NotImplementedError(
+            "attention dropout in training is not ported (ROADMAP.md B7; "
+            "the reference leaves it to XLA outside the kernel)")
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True):
-    """[B, S, H, D] in, [B, S, H, D] out (paddle layout).  The port holds
-    the causal, unmasked, dropout-free form — the GPT path's."""
-    _check_attention_form(attn_mask, is_causal, dropout_p, training)
-    return _fa.causal_attention(query, key, value)
+    """[B, S, H, D] in, [B, S, H, D] out (paddle layout), through the
+    flash-attention kernels: causal or not, with an optional bool (True =
+    attend) or additive mask broadcastable to [B, H, S, S].  Dropout in
+    training is not ported."""
+    _check_attention_form(dropout_p, training)
+    return _fa.attention(query, key, value, causal=is_causal,
+                         mask=attn_mask)
 
 
 def packed_causal_attention(qkv, dropout_p=0.0, training=True):
@@ -68,7 +78,7 @@ def packed_causal_attention(qkv, dropout_p=0.0, training=True):
     (q, k, v = its three slices); [B, S, H, D] out.  The same function as
     :func:`scaled_dot_product_attention` on the slices, with the gradient
     written as one packed [B, S, 3, H, D] tensor."""
-    _check_attention_form(None, True, dropout_p, training)
+    _check_attention_form(dropout_p, training)
     return _fa.causal_attention_packed(qkv)
 
 

@@ -8,7 +8,8 @@ the card), a note naming the Pallas kernel it replaces, and, where the
 reference has a custom_vjp, the ``torch.autograd.Function`` that joins a
 forward kernel to its backward.
 """
-from . import bias_gelu, flash_attention, layer_norm, paged_attention
+from . import (bias_gelu, flash_attention, layer_norm, paged_attention,
+               softmax_xent)
 
 # one entry per CUDA kernel: the wrapper that launches it and counts
 WRAPPERS = {
@@ -19,6 +20,8 @@ WRAPPERS = {
     "bias_gelu_bwd": bias_gelu.bias_gelu_bwd,
     "flash_attention_dq": flash_attention.flash_attention_dq,
     "flash_attention_dkv": flash_attention.flash_attention_dkv,
+    "softmax_xent": softmax_xent.softmax_xent_fwd,
+    "softmax_xent_bwd": softmax_xent.softmax_xent_bwd,
 }
 
 

@@ -26,7 +26,7 @@ import time
 from pathlib import Path
 
 SOURCES = ("layer_norm", "bias_gelu", "flash_attention",
-           "flash_attention_bwd", "paged_attention")
+           "flash_attention_bwd", "paged_attention", "softmax_xent")
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "paddle_tpu_torch"

@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card, at shapes the serving and training
 paths do not reach: odd row counts and widths, S = 1, head dims 16-128,
-page sizes 1 and 5, unmapped and out-of-pool page ids, an inactive lane.
-Each kernel, forward and backward, is held against its plain PyTorch
-version on the same inputs; a tiny GPT's loss and gradients on the card
-are held against the CPU's.  Needs a CUDA device (skips elsewhere); on
+page sizes 1 and 5, unmapped and out-of-pool page ids, an inactive lane,
+odd vocab sizes, strided logits, every mask form of attention, causal or
+not.  Each kernel, forward and backward, is held against its plain
+PyTorch version on the same inputs; a tiny GPT's and a tiny BERT's loss
+and gradients on the card are held against the CPU's.  Needs a CUDA device (skips elsewhere); on
 the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -271,3 +272,162 @@ def test_paged_decode_attention_raises_when_asked_for_a_gradient(dev):
         out = paged_attention.paged_decode_attention(q, pool, pool, rows,
                                                      pos, 8)
     assert out.shape == (2, 2, 16)
+
+
+# ---------------------------------------------------------------------------
+# softmax cross entropy, and the non-causal and masked forms of attention
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,v", [(1, 2), (32, 2), (37, 1000), (129, 30522),
+                                 (5, 50304), (3, 2047)])
+def test_softmax_xent_kernels(dev, dtype, n, v):
+    """Forward (loss, lse) and backward against the plain versions, odd N
+    and V; ignored rows give loss 0 and a gradient of exactly 0."""
+    from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+
+    g = torch.Generator(device=dev).manual_seed(n + v)
+    z = (3 * torch.randn(n, v, generator=g, device=dev)).to(dtype)
+    lab = torch.randint(0, v, (n,), generator=g, device=dev)
+    lab[::4] = -100
+    gr = torch.randn(n, generator=g, device=dev)
+    before = (sx.softmax_xent_fwd.launches, sx.softmax_xent_bwd.launches)
+    loss, lse = sx.softmax_xent_fwd(z, lab)
+    dz = sx.softmax_xent_bwd(z, lab, lse, gr)
+    assert (sx.softmax_xent_fwd.launches, sx.softmax_xent_bwd.launches) \
+        == (before[0] + 1, before[1] + 1)
+    ref_loss, ref_lse = sx.softmax_xent_plain(z, lab)
+    _check(loss, ref_loss, torch.float32 if dtype == torch.float32 else dtype)
+    _check(lse, ref_lse, torch.float32 if dtype == torch.float32 else dtype)
+    _check(dz, sx.softmax_xent_bwd_plain(z, lab, ref_lse, gr), dtype)
+    assert dz.dtype == dtype and dz.shape == z.shape
+    assert torch.all(loss[::4] == 0) and torch.all(dz[::4] == 0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_softmax_xent_reads_strided_rows(dev, dtype):
+    """logits[:, :-1] of a [B, S, V] tensor, read in place, through the
+    autograd Function: the gradient of the last position is exactly 0."""
+    from paddle_tpu_torch.ops.kernels import softmax_xent as sx
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    logits = torch.randn(3, 17, 301, generator=g, device=dev).to(dtype)
+    labels = torch.randint(0, 301, (3, 17), generator=g, device=dev)
+    res = {}
+    for device in ("cpu", dev):
+        t = logits.to(device).requires_grad_()
+        loss = sx.softmax_xent(t[:, :-1], labels.to(device)[:, 1:])
+        loss.float().sum().backward()
+        res[str(device)] = (loss.detach().cpu(), t.grad.cpu())
+    for got, ref in zip(res[str(dev)], res["cpu"]):
+        _check(got.to(dev), ref.to(dev), dtype)
+    assert torch.all(res[str(dev)][1][:, -1] == 0)
+
+
+def _mask(kind, B, H, S, g, dev, causal):
+    """bool padding [B, 1, 1, S] (key 0 always visible; non-causal: one
+    batch row padded everywhere), additive [B, 1, S, S], per-head
+    [B, H, S, S], 2-D [S, S] — folded as the model folds them."""
+    if kind is None:
+        return None
+    if kind == "bool":
+        lens = torch.randint(1, S + 1, (B,), generator=g, device=dev)
+        m = torch.arange(S, device=dev)[None, :] < lens[:, None]
+        if not causal and B > 1:
+            m[1] = False                 # every row of batch 1 sees nothing
+        m = m[:, None, None, :]
+    elif kind == "additive":
+        m = torch.randn(B, 1, S, S, generator=g, device=dev)
+    elif kind == "per_head":
+        m = torch.randn(B, H, S, S, generator=g, device=dev)
+    else:
+        m = torch.randn(S, S, generator=g, device=dev)
+    return flash_attention.fold_mask(m, B, H, S, S)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kind", [None, "bool", "additive", "per_head",
+                                  "2d"])
+@pytest.mark.parametrize("S,D", [(1, 64), (77, 64), (130, 32)])
+def test_flash_attention_masked_kernels(dev, dtype, causal, kind, S, D):
+    """Forward, dq and dk/dv in the non-causal and masked forms against the
+    plain versions, reading the slices of one fused qkv."""
+    g = torch.Generator(device=dev).manual_seed(S + D)
+    B, H = 2, 3
+    qkv = torch.randn(B, S, 3, H, D, generator=g, device=dev).to(dtype)
+    q, k, v = qkv.unbind(2)
+    bias = _mask(kind, B, H, S, g, dev, causal)
+    form = dict(causal=causal, bias=bias)
+    out, lse = flash_attention.flash_attention(q, k, v, **form)
+    ref, ref_lse = flash_attention.flash_attention_plain(q, k, v, **form)
+    _check(out, ref, dtype)
+    _check(lse, ref_lse, torch.float32 if dtype == torch.float32 else dtype)
+    do = torch.randn(out.shape, generator=g, device=dev).to(dtype)
+    delta = flash_attention.flash_attention_delta(out, do)
+    dq = flash_attention.flash_attention_dq(q, k, v, do, lse, delta, **form)
+    dk, dv = flash_attention.flash_attention_dkv(q, k, v, do, lse, delta,
+                                                 **form)
+    _check(dq, flash_attention.flash_attention_dq_plain(
+        q, k, v, do, lse, delta, **form), dtype)
+    ref_k, ref_v = flash_attention.flash_attention_dkv_plain(
+        q, k, v, do, lse, delta, **form)
+    _check(dk, ref_k, dtype)
+    _check(dv, ref_v, dtype)
+
+
+def test_masked_attention_bwd_is_deterministic(dev):
+    """No atomics in the masked, non-causal form either: bitwise equal
+    gradients from two runs."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    q, k, v = (torch.randn(4, 128, 12, 64, generator=g, device=dev,
+                           requires_grad=True) for _ in range(3))
+    mask = torch.arange(128, device=dev)[None, :] < torch.tensor(
+        [128, 64, 100, 77], device=dev)[:, None]
+    do = torch.randn(4, 128, 12, 64, generator=g, device=dev)
+    grads = [torch.autograd.grad(fused.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask[:, None, None, :]), (q, k, v), do)
+        for _ in range(2)]
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
+def test_tiny_bert_gradients_match_cpu(dev):
+    """A tiny float32 BertForPretraining: loss() and every parameter's
+    gradient, and the masked forward's logits, on the card against the
+    CPU (kernels on one side, plain versions on the other)."""
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+
+    cfg = BertConfig(vocab_size=211, hidden_size=64, num_layers=2,
+                     num_heads=4, intermediate_size=128,
+                     max_position_embeddings=64, dropout=0.0)
+    rs = np.random.RandomState(5)
+    ids = torch.from_numpy(rs.randint(0, 211, (2, 33)))
+    tt = torch.from_numpy(rs.randint(0, 2, (2, 33)))
+    mlm = torch.from_numpy(np.where(rs.rand(2, 33) < 0.3,
+                                    rs.randint(0, 211, (2, 33)), -100))
+    nsp = torch.from_numpy(rs.randint(0, 2, (2,)))
+    mask = (torch.arange(33)[None, :] < torch.tensor([33, 20])[:, None])
+    result = {}
+    for device in ("cpu", dev):
+        seed(0)
+        model = BertForPretraining(cfg, device=device).train()
+        loss = model.loss(*(t.to(device) for t in (ids, mlm, nsp, tt)))
+        loss.backward()
+        with torch.no_grad():
+            logits = model(ids.to(device), tt.to(device),
+                           mask.to(device)[:, None, None, :])
+        result[str(device)] = (loss.item(), {
+            n: p.grad for n, p in model.named_parameters()},
+            [x.cpu() for x in logits])
+    loss_gpu, grads_gpu, logits_gpu = result[str(dev)]
+    loss_cpu, grads_cpu, logits_cpu = result["cpu"]
+    assert abs(loss_gpu - loss_cpu) <= 1e-5 * abs(loss_cpu)
+    assert set(grads_gpu) == set(grads_cpu)
+    for name, ref in grads_cpu.items():
+        got = grads_gpu[name]
+        assert got is not None, f"{name} got no gradient on the card"
+        torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-6,
+                                   msg=name)
+    for got, ref in zip(logits_gpu, logits_cpu):
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)

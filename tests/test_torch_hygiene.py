@@ -15,7 +15,9 @@ import pytest
 import torch
 
 from paddle_tpu_torch.framework.place import default_device, resolve_device
-from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
+                                     BertModel, ErnieModel, GPTConfig,
+                                     GPTForCausalLM)
 from paddle_tpu_torch.ops import kernels
 from paddle_tpu_torch.serving import GenerationEngine
 
@@ -48,11 +50,17 @@ def test_scan_covers_the_package():
     names = {p.name for p in PORT_FILES}
     assert {"generation.py", "gpt.py", "fused.py", "build.py",
             "paged_attention.py", "chip_smoke.py", "flash_attention.py",
-            "lr.py", "clip.py", "model.py", "engine.py"} <= names
+            "lr.py", "clip.py", "model.py", "engine.py", "bert.py",
+            "softmax_xent.py", "transformer.py", "container.py"} <= names
     rel = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"paddle_tpu_torch/optimizer/__init__.py",
             "paddle_tpu_torch/io/__init__.py",
-            "paddle_tpu_torch/hapi/engine.py"} <= rel
+            "paddle_tpu_torch/hapi/engine.py",
+            "paddle_tpu_torch/models/bert.py",
+            "paddle_tpu_torch/ops/kernels/softmax_xent.py",
+            "paddle_tpu_torch/nn/layer/transformer.py",
+            "paddle_tpu_torch/nn/layer/container.py",
+            "paddle_tpu_torch/nn/functional/__init__.py"} <= rel
 
 
 def _no_cuda():
@@ -83,6 +91,17 @@ def test_model_and_engine_default_to_cuda():
     assert eng.device == torch.device("cpu")
 
 
+@pytest.mark.parametrize("cls", [BertModel, BertForPretraining, ErnieModel])
+def test_bert_models_default_to_cuda(cls):
+    _no_cuda()
+    cfg = BertConfig(vocab_size=17, hidden_size=8, num_layers=1,
+                     num_heads=2, intermediate_size=16, dropout=0.0)
+    with pytest.raises(RuntimeError):
+        cls(cfg)
+    model = cls(cfg, device="cpu")
+    assert all(p.device.type == "cpu" for p in model.parameters())
+
+
 def _kernel_args(device):
     x = torch.randn(3, 8, device=device)
     w = torch.ones(8, device=device)
@@ -92,6 +111,8 @@ def _kernel_args(device):
     pos = torch.tensor([5, 2], dtype=torch.int32, device=device)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     stats = torch.zeros(2, 5, device=device)       # lse / delta [B*H, S]
+    labels = torch.tensor([1, -100, 7], device=device)
+    row = torch.zeros(3, device=device)             # lse / g [N]
     return {
         "layer_norm": (x, w, w),
         "bias_gelu": (x, w),
@@ -100,6 +121,8 @@ def _kernel_args(device):
         "bias_gelu_bwd": (x, w, x),
         "flash_attention_dq": (q, k, v, q, stats, stats),
         "flash_attention_dkv": (q, k, v, q, stats, stats),
+        "softmax_xent": (x, labels),
+        "softmax_xent_bwd": (x, labels, row, row),
     }
 
 
@@ -117,3 +140,17 @@ def test_wrapper_takes_plain_version_for_cpu_tensors(name):
 def test_wrapper_refuses_non_cuda_devices(name):
     with pytest.raises(RuntimeError):
         kernels.WRAPPERS[name](*_kernel_args("meta")[name])
+
+
+def test_chip_smoke_prints_the_peak_it_divides_by():
+    """The MFU line names its divisor: 989e12 printed as 9.89e+14 (it was
+    printed as 1e+15), and the ratio is flops / step / that peak."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    text = smoke.mfu_text(2.0e12, 0.04)
+    assert "9.89e+14" in text and "1e+15" not in text
+    assert text.startswith(f"MFU {2.0e12 / 0.04 / 989e12:.4f} ")

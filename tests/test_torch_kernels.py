@@ -115,15 +115,45 @@ def test_flash_attention_plain_vs_composite_short_sequence():
 
 
 def test_fused_attention_refuses_unported_forms():
-    x = torch.zeros(1, 4, 2, 8)
+    """Dropout in training is the one form left unported (ROADMAP B7);
+    cross-attention (S_q != S_k) waits for the decoder slice."""
+    x = torch.zeros(1, 4, 2, 16)
+    for causal in (False, True):
+        with pytest.raises(NotImplementedError):
+            fused.scaled_dot_product_attention(x, x, x, dropout_p=0.1,
+                                               is_causal=causal,
+                                               training=True)
     with pytest.raises(NotImplementedError):
-        fused.scaled_dot_product_attention(x, x, x, is_causal=False)
-    with pytest.raises(NotImplementedError):
-        fused.scaled_dot_product_attention(x, x, x, is_causal=True,
-                                           attn_mask=torch.ones(4, 4))
-    with pytest.raises(NotImplementedError):
-        fused.scaled_dot_product_attention(x, x, x, dropout_p=0.1,
-                                           is_causal=True, training=True)
+        fused.scaled_dot_product_attention(x, torch.zeros(1, 6, 2, 16),
+                                           torch.zeros(1, 6, 2, 16))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("mask", [None, "bool", "additive"])
+def test_fused_attention_forms_match_composite(causal, mask):
+    """Every form but dropout-in-training now runs: non-causal, causal,
+    bool and additive masks, and dropout outside training — held against
+    the reference's XLA composite, which adds an additive mask and (for
+    rows with a visible key) gives a bool mask's -1e30 replace the same
+    softmax."""
+    rs = np.random.RandomState(11)
+    B, S, H, D = 2, 9, 2, 16
+    q, k, v = (rs.randn(B, S, H, D).astype(np.float32) for _ in range(3))
+    m = None
+    if mask == "bool":
+        m = rs.rand(B, 1, S, S) > 0.3
+        m[..., 0] = True                       # every row sees key 0
+    elif mask == "additive":
+        m = rs.randn(B, H, S, S).astype(np.float32)
+    jm = None if m is None else Tensor(jnp.asarray(m))
+    ref = jfused.scaled_dot_product_attention(
+        Tensor(jnp.asarray(q)), Tensor(jnp.asarray(k)),
+        Tensor(jnp.asarray(v)), attn_mask=jm, dropout_p=0.1,
+        is_causal=causal, training=False)
+    got = fused.scaled_dot_product_attention(
+        _t(q), _t(k), _t(v), attn_mask=None if m is None else _t(m),
+        dropout_p=0.1, is_causal=causal, training=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref.numpy()), **TOL)
 
 
 def _paged_case(ps, seed=8):

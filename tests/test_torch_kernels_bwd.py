@@ -229,3 +229,88 @@ def test_functions_build_no_graph_under_no_grad():
         outs = (layer_norm.layer_norm(x, w, w), bias_gelu.bias_gelu(x, w),
                 fused.packed_causal_attention(qkv))
     assert all(o.grad_fn is None and not o.requires_grad for o in outs)
+
+
+# ---------------------------------------------------------------------------
+# the non-causal and masked forms of flash attention
+# ---------------------------------------------------------------------------
+# tolerances of tests/test_pallas_kernels.py's masked-attention parity
+MASK_FWD_TOL = dict(rtol=1e-4, atol=1e-5)
+MASK_GRAD_TOL = dict(rtol=1e-3, atol=1e-4)
+
+
+def _mask_case(kind, causal, B=2, S=16, H=3, seed=0):
+    """None, bool key padding [B, 1, 1, S], additive [B, 1, S, S],
+    per-head [B, H, S, S] and 2-D [S, S].  Causal bool masks keep key 0
+    visible (a causal row masked everywhere depends on the Pallas tiles);
+    non-causal, batch row 1 is masked everywhere."""
+    rs = np.random.RandomState(seed)
+    if kind is None:
+        return None
+    if kind == "bool":
+        m = rs.rand(B, 1, 1, S) > 0.3
+        m[..., 0] = True
+        if not causal:
+            m[1] = False
+        return m
+    shape = {"additive": (B, 1, S, S), "per_head": (B, H, S, S),
+             "2d": (S, S)}[kind]
+    return rs.randn(*shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kind", [None, "bool", "additive", "per_head",
+                                  "2d"])
+def test_masked_attention_vs_pallas_vjp(causal, kind):
+    """Forward and gradients of the port's ``attention`` (the reference's
+    public ``flash_attention``: ``_mha``/``_mha_masked``) against the
+    Pallas kernel in interpret mode with 8-wide tiles, and the plain
+    forward and backward, for causal x every mask form."""
+    B, S, H, D = 2, 16, 3, 16
+    rs = np.random.RandomState(21)
+    q, k, v, do = (rs.randn(B, S, H, D).astype(np.float32)
+                   for _ in range(4))
+    m = _mask_case(kind, causal)
+    jm = None if m is None else jnp.asarray(m)
+    ref_out, ref = _jax_vjp(
+        lambda q_, k_, v_: pallas_flash(q_, k_, v_, causal=causal, mask=jm,
+                                        block_q=8, block_k=8,
+                                        interpret=True), (q, k, v), do)
+    tm = None if m is None else torch.from_numpy(m)
+    out, got = _grads(lambda q_, k_, v_: flash_attention.attention(
+        q_, k_, v_, causal=causal, mask=tm), (q, k, v), do)
+    np.testing.assert_allclose(out, ref_out, **MASK_FWD_TOL)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g, r, **MASK_GRAD_TOL)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    bias = None if tm is None else flash_attention.fold_mask(tm, B, H, S, S)
+    o, lse = flash_attention.flash_attention_plain(tq, tk, tv, causal, bias)
+    plain = flash_attention.flash_attention_bwd_plain(
+        tq, tk, tv, o, lse, torch.from_numpy(do), causal, bias)
+    for g, r in zip(plain, ref):
+        np.testing.assert_allclose(g.numpy(), r, **MASK_GRAD_TOL)
+
+
+def test_fold_mask_broadcasts_without_copying_and_refuses_bad_shapes():
+    """A bool [B, 1, 1, S] mask becomes 0 / -1e30 float32, expanded to
+    [B, H, S, S] with stride 0 over the head and query dims; a mask that
+    does not broadcast, or of rank > 4, raises."""
+    m = torch.tensor([[True, True, False]])[:, None, None, :]
+    bias = flash_attention.fold_mask(m, 1, 4, 3, 3)
+    assert bias.shape == (1, 4, 3, 3) and bias.dtype == torch.float32
+    assert bias.stride()[1:3] == (0, 0)
+    assert torch.equal(bias[0, 2, 1],
+                       torch.tensor([0.0, 0.0, -1e30], dtype=torch.float32))
+    x = torch.zeros(1, 3, 4, 16)
+    with pytest.raises(ValueError):
+        flash_attention.attention(x, x, x, mask=torch.zeros(3, 1, 3, 3))
+    with pytest.raises(ValueError):
+        flash_attention.attention(x, x, x, mask=torch.zeros(1, 1, 1, 3, 3))
+
+
+def test_mask_gets_no_gradient():
+    """The mask is data: its cotangent is zero (None in autograd)."""
+    q = torch.randn(1, 5, 2, 16, requires_grad=True)
+    m = torch.randn(1, 1, 5, 5, requires_grad=True)
+    flash_attention.attention(q, q, q, mask=m).sum().backward()
+    assert q.grad is not None and m.grad is None

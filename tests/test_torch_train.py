@@ -268,10 +268,16 @@ def test_fit_with_eval_data_and_shuffle(state0):
 
 
 def test_forward_with_labels_names_the_missing_kernels(state0):
+    """forward(ids, labels) was refused until the softmax cross-entropy
+    kernels were ported; it now gives the reference's (logits, loss), and
+    the loss is loss(ids)'s up to the float32 head order (the fused loss
+    streams vocab chunks; tests/test_torch_xent.py holds it against JAX)."""
     model = _port_model(state0)
     ids = torch.from_numpy(IDS)
-    with pytest.raises(NotImplementedError, match="B2/B3"):
-        model(ids, labels=ids)
+    logits, loss = model(ids, labels=ids)
+    assert logits.shape == (2, 16, 64) and loss.shape == ()
+    np.testing.assert_allclose(loss.item(), model.loss(ids).item(),
+                               **GRAD_TOL)
 
 
 # ---------------------------------------------------------------------------
