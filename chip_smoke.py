@@ -44,13 +44,21 @@ passed over):
 
 Phase 3 also holds the softmax cross-entropy kernels (BERT's MLM and NSP
 shapes and GPT's) and the non-causal and masked forms of the attention
-kernels (BERT's shape and S = 77) against their plain versions.
+kernels (BERT's shape and S = 77) against their plain versions.  The
+attention forward and dk/dv each have a tensor-core kernel (bf16 on 16-byte
+boundaries) and a CUDA-core kernel (float32, unaligned bf16): every
+`[kernels]` line of theirs names the variant the launch took (`mma` or
+`simt`), both are held against the plain version, and a bf16 phase of the
+serving or training paths fails if one of its launches took `simt`.
 
 The line before the last is the per-kernel JSON record; the last line is
 the result JSON.  Float32 phases run with TF32 off for matmuls and cuDNN.
 """
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -94,6 +102,8 @@ XENT_KERNELS = ("softmax_xent", "softmax_xent_bwd")
 BERT_KERNELS = TRAINING_KERNELS + XENT_KERNELS
 ATTENTION_KERNELS = ("flash_attention", "flash_attention_dq",
                      "flash_attention_dkv")
+# the two with a tensor-core kernel for aligned bf16 beside the CUDA-core one
+MMA_KERNELS = ("flash_attention", "flash_attention_dkv")
 
 
 def log(msg):
@@ -163,12 +173,45 @@ def bound_ms(n_bytes, n_flops, peak):
                                                            "operations")
 
 
+def variant_taken(before, after, name):
+    """Which kernel of attention entry ``name`` the launches between two
+    ``variant_launches()`` readings took: "mma", "simt", "mixed" or
+    "none"."""
+    took = [v for v in ("mma", "simt") if after[name][v] > before[name][v]]
+    return took[0] if len(took) == 1 else ("mixed" if took else "none")
+
+
+def require_tensor_cores(K, before, what, kernels):
+    """Fail if an attention launch of a bf16 path since the reading
+    ``before`` took the CUDA-core kernel, or if one of ``kernels`` took no
+    tensor-core launch at all.  Returns the tensor-core launches."""
+    after = K.flash_attention.variant_launches()
+    took = {}
+    for name in after:
+        simt = after[name]["simt"] - before[name]["simt"]
+        took[name] = after[name]["mma"] - before[name]["mma"]
+        if simt or (name in kernels and took[name] <= 0):
+            fail(f"{what}: {name} took the CUDA-core kernel {simt} times and "
+                 f"the tensor-core kernel {took[name]} times in bf16")
+    return took
+
+
 def compare(torch, name, kernel_fn, plain_fn, library_fn, dtype, n_bytes,
-            n_flops, peak):
+            n_flops, peak, variant=None):
     """Run kernel and plain version on the same inputs, check, time.  A
-    function may return one tensor or a tuple (dk, dv)."""
+    function may return one tensor or a tuple (dk, dv).  ``variant``:
+    (attention entry, the variant its launch must take)."""
+    if variant is not None:
+        from paddle_tpu_torch.ops.kernels import flash_attention as KF
+        before = KF.variant_launches()
     outs, refs = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
+    if variant is not None:
+        took = variant_taken(before, KF.variant_launches(), variant[0])
+        if took != variant[1]:
+            fail(f"{name}: the launch took the {took} kernel, not "
+                 f"{variant[1]}")
+        name = f"{name} [{took}]"
     outs = outs if isinstance(outs, tuple) else (outs,)
     refs = refs if isinstance(refs, tuple) else (refs,)
     err = max((o.float() - r.float()).abs().max().item()
@@ -184,8 +227,11 @@ def compare(torch, name, kernel_fn, plain_fn, library_fn, dtype, n_bytes,
         rec[key], eager[key] = (time_ms(torch, fn) if fn is not None
                                 else (None, None))
     rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, n_flops, peak)
+    rec["tflops"] = n_flops / rec["ms"] / 1e9
+    rec["variant"] = variant[1] if variant is not None else None
     log(f"[kernels] {name}: max_abs_err={err:.3e} tol={tol:.3e} | device "
-        f"ms: kernel={rec['ms']} plain={rec['plain_ms']} "
+        f"ms: kernel={rec['ms']} ({rec['tflops']:.2f} TFLOP/s) "
+        f"plain={rec['plain_ms']} "
         f"library={rec['library_ms']} bound={rec['bound_ms']} "
         f"({rec['bound_by']}) | eager ms: kernel={eager['ms']} "
         f"plain={eager['plain_ms']} library={eager['library_ms']}")
@@ -245,7 +291,8 @@ def kernel_phase(torch, K):
                 lambda: F.scaled_dot_product_attention(
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                     is_causal=True), dtype,
-                4 * B * S * H * D * isz + B * H * S * 4, 4 * D * pairs, peak)
+                4 * B * S * H * D * isz + B * H * S * 4, 4 * D * pairs, peak,
+                variant=("flash_attention", variant_of(dtype)))
             if dtype == torch.bfloat16 and B == 1 and S == 128:
                 main["flash_attention"] = rec
         slots, nh, hd, ps, pps = 8, 12, 64, 16, 32
@@ -277,6 +324,41 @@ def kernel_phase(torch, K):
     return main
 
 
+def variant_of(dtype):
+    """The attention kernel an aligned operand of ``dtype`` must take."""
+    return "simt" if dtype.itemsize == 4 else "mma"
+
+
+def unaligned_attention_phase(torch, K):
+    """bf16 operands one element off a 16-byte boundary (B = 1, S = 128,
+    H = 12, D = 64, causal): the forward and dk/dv must take their
+    CUDA-core kernels, and agree with the plain versions like any other
+    case."""
+    KF = K.flash_attention
+    g = torch.Generator(device="cuda").manual_seed(9)
+    B, S, H, D = 1, 128, 12, 64
+    n = B * S * H * D
+    q, k, v, do = (torch.randn(n + 8, generator=g, device="cuda").to(
+        torch.bfloat16)[1:n + 1].view(B, S, H, D) for _ in range(4))
+    grads = torch.empty(2, n + 8, dtype=torch.bfloat16, device="cuda")
+    out = tuple(t[1:n + 1].view(B, S, H, D) for t in grads)
+    o, lse = KF.flash_attention(q, k, v)
+    delta = KF.flash_attention_delta(o, do)
+    pairs = B * H * S * (S + 1) // 2
+    shape = f"bf16 unaligned B={B} S={S} H={H} D={D}"
+    compare(torch, f"flash_attention {shape}",
+            lambda: KF.flash_attention(q, k, v)[0],
+            lambda: KF.flash_attention_plain(q, k, v)[0], None,
+            torch.bfloat16, 4 * n * 2 + B * H * S * 4, 4 * D * pairs,
+            PEAK_BF16_TENSOR, variant=("flash_attention", "simt"))
+    compare(torch, f"flash_attention_dkv {shape}",
+            lambda: KF.flash_attention_dkv(q, k, v, do, lse, delta, out=out),
+            lambda: KF.flash_attention_dkv_plain(q, k, v, do, lse, delta),
+            None, torch.bfloat16, 6 * n * 2 + 2 * B * H * S * 4,
+            8 * D * pairs, PEAK_BF16_TENSOR,
+            variant=("flash_attention_dkv", "simt"))
+
+
 def sdpa_backward(torch, q, k, v, do):
     """The library yardstick for the attention backward: one call of
     PyTorch's flash-attention backward
@@ -295,8 +377,8 @@ def sdpa_backward(torch, q, k, v, do):
 def backward_kernel_phase(torch, K):
     """The training path's backward kernels against their plain versions
     at its shapes (bias+GeLU over the FFN's [B*S, 4H]; attention at
-    B = 8, H = 12, D = 64 and S = 128, 1024); returns the record of each
-    kernel at its main case (bfloat16, S = 1024)."""
+    H = 12, D = 64 and B = 1, S = 128; B = 8, S = 128, 1024); returns the
+    record of each kernel at its main case (bfloat16, S = 1024)."""
     g = torch.Generator(device="cuda").manual_seed(1)
     main = {}
     KF = K.flash_attention
@@ -319,8 +401,8 @@ def backward_kernel_phase(torch, K):
             (3 * R * Fd + Fd) * isz, 12 * R * Fd, PEAK_F32)
         if dtype == torch.bfloat16:
             main["bias_gelu_bwd"] = rec
-        B, H, D = 8, 12, 64
-        for S in (128, 1024):
+        H, D = 12, 64
+        for B, S in ((1, 128), (8, 128), (8, 1024)):
             q, k, v = rnd(B, S, 3, H, D).unbind(2)   # the fused projection
             o, lse = KF.flash_attention(q, k, v)
             do = rnd(B, S, H, D)
@@ -341,7 +423,8 @@ def backward_kernel_phase(torch, K):
                 lambda: KF.flash_attention_dkv(q, k, v, do, lse, delta),
                 lambda: KF.flash_attention_dkv_plain(q, k, v, do, lse,
                                                      delta),
-                lib, dtype, 6 * one + stats, 8 * D * pairs, peak)
+                lib, dtype, 6 * one + stats, 8 * D * pairs, peak,
+                variant=("flash_attention_dkv", variant_of(dtype)))
             if dtype == torch.bfloat16 and S == 1024:
                 main["flash_attention_dq"] = rec_q
                 main["flash_attention_dkv"] = rec_kv
@@ -468,6 +551,7 @@ def serving_phase(torch, K, model, card):
         prompts = [rng.randint(0, model.cfg.vocab_size, n).tolist()
                    for n in lens]
         K.reset_launch_counts()
+        variants = K.flash_attention.variant_launches()
         t0 = time.perf_counter()
         handles = []
         for i, p in enumerate(prompts):
@@ -477,6 +561,8 @@ def serving_phase(torch, K, model, card):
         outs = [h.result(600) for h in handles]
         wall = time.perf_counter() - t0
         counts = K.launch_counts()
+        mma = require_tensor_cores(K, variants, "serving",
+                                   ("flash_attention",))
         snap = eng.metrics.snapshot()
         for i, o in enumerate(outs):
             if len(o) != 48 or min(o) < 0 or max(o) >= model.cfg.vocab_size:
@@ -500,6 +586,7 @@ def serving_phase(torch, K, model, card):
             f"{total} tokens in {wall:.3f}s = {total / wall:.1f} tokens/s; "
             f"TTFT p50 {snap['ttft_p50_ms']:.3f} ms; inter-token p50 "
             f"{snap['inter_token_p50_ms']:.3f} ms; launches {counts}; "
+            f"tensor-core attention launches {mma}; "
             f"greedy re-run alone identical; free_count back to "
             f"{eng.geometry.num_pages}")
         return counts
@@ -589,6 +676,7 @@ def train_phase(torch, K, cfg, card):
 
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
+    variants = K.flash_attention.variant_launches()
     losses, times = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -596,6 +684,7 @@ def train_phase(torch, K, cfg, card):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     counts = K.launch_counts()
+    mma = require_tensor_cores(K, variants, "train", MMA_KERNELS)
     losses = torch.stack(losses).float().cpu().tolist()
     for name in TRAINING_KERNELS:
         if counts[name] <= 0:
@@ -613,7 +702,7 @@ def train_phase(torch, K, cfg, card):
         f"{[round(t * 1e3, 3) for t in times]}; p50 {p50 * 1e3:.3f} ms; "
         f"{tokens / p50:.1f} tokens/s; {mfu_text(flops, p50)}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
-        f"per step {per_step}")
+        f"per step {per_step}; tensor-core attention launches {mma}")
 
     profile_steps(torch, "train-profile", step)
 
@@ -626,6 +715,7 @@ def train_phase(torch, K, cfg, card):
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     fit_counts = K.launch_counts()
+    require_tensor_cores(K, variants, "train and Model.fit", MMA_KERNELS)
     if len(hist["step_loss"]) != 3 or not all(
             math.isfinite(x) for x in hist["step_loss"]):
         fail(f"Model.fit: step losses {hist['step_loss']}")
@@ -787,7 +877,8 @@ def masked_attention_phase(torch, K):
                 lambda: KF.flash_attention_plain(q, k, v, **fkw)[0],
                 lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, attn_mask=lib_mask), dtype,
-                4 * one + B * H * S * 4 + bias_bytes, 4 * D * pairs, peak)}
+                4 * one + B * H * S * 4 + bias_bytes, 4 * D * pairs, peak,
+                variant=("flash_attention", variant_of(dtype)))}
             rec["flash_attention_dq"] = compare(
                 torch, f"flash_attention_dq {desc}",
                 lambda: KF.flash_attention_dq(q, k, v, do, lse, delta, **fkw),
@@ -802,7 +893,7 @@ def masked_attention_phase(torch, K):
                 lambda: KF.flash_attention_dkv_plain(q, k, v, do, lse,
                                                      delta, **fkw),
                 lib_bwd, dtype, 6 * one + stats + bias_bytes, 8 * D * pairs,
-                peak)
+                peak, variant=("flash_attention_dkv", variant_of(dtype)))
             if dtype == torch.bfloat16 and form == "bool-padding":
                 main = rec
     torch.cuda.synchronize()
@@ -838,12 +929,14 @@ def gpt_labels_phase(torch, K, cfg):
     ids = torch.from_numpy(np.random.RandomState(8).randint(
         0, cfg.vocab_size, (8, 1024))).cuda()
     K.reset_launch_counts()
+    variants = K.flash_attention.variant_launches()
     t0 = time.perf_counter()
     logits, loss = model(ids, labels=ids)
     loss.backward()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = K.launch_counts()
+    require_tensor_cores(K, variants, "gpt-labels", MMA_KERNELS)
     with torch.no_grad():
         ref = model.loss(ids).item()
     got = loss.item()
@@ -993,6 +1086,7 @@ def bert_train_phase(torch, K, card):
 
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
+    variants = K.flash_attention.variant_launches()
     losses, times = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -1000,6 +1094,7 @@ def bert_train_phase(torch, K, card):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     counts = K.launch_counts()
+    mma = require_tensor_cores(K, variants, "bert-train", MMA_KERNELS)
     losses = torch.stack(losses).float().cpu().tolist()
     for name in BERT_KERNELS:
         if counts[name] <= 0:
@@ -1018,7 +1113,7 @@ def bert_train_phase(torch, K, card):
         f"{B / p50:.1f} samples/s; {tokens / p50:.1f} tokens/s; "
         f"{mfu_text(flops, p50)}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
-        f"per step {per_step}")
+        f"per step {per_step}; tensor-core attention launches {mma}")
     profile_steps(torch, "bert-profile", step)
 
     data = bert_batch(torch, rs, cfg, 3 * B, S)
@@ -1034,6 +1129,8 @@ def bert_train_phase(torch, K, card):
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     fit_counts = K.launch_counts()
+    require_tensor_cores(K, variants, "bert-train and Model.fit",
+                         MMA_KERNELS)
     if len(hist["step_loss"]) != 3 or not all(
             math.isfinite(x) for x in hist["step_loss"]):
         fail(f"BERT Model.fit: step losses {hist['step_loss']}")
@@ -1048,6 +1145,25 @@ def bert_train_phase(torch, K, card):
         f"step losses {hist['step_loss']}; {fit_s:.3f}s; every attention "
         f"launch took the mask; launches {fit_counts}")
     return counts
+
+
+def sass_phase(paths):
+    """The machine code of the two attention libraries must hold
+    tensor-core opcodes (HMMA) and asynchronous copies (LDGSTS):
+    counted with cuobjdump where the toolkit has it."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        log("[build] no cuobjdump: SASS not checked")
+        return
+    for name in ("flash_attention", "flash_attention_bwd"):
+        sass = subprocess.run([tool, "-sass", str(paths[name])], check=True,
+                              capture_output=True, text=True).stdout
+        hmma, ldgsts = sass.count("HMMA."), sass.count("LDGSTS")
+        if hmma == 0 or ldgsts == 0:
+            fail(f"{name}: {hmma} HMMA and {ldgsts} LDGSTS opcodes in the "
+                 "SASS: the tensor-core kernel is not there")
+        log(f"[build] {name}: SASS holds {hmma} HMMA (tensor-core) and "
+            f"{ldgsts} LDGSTS (cp.async) opcodes")
 
 
 def main():
@@ -1081,17 +1197,32 @@ def main():
     paths = build.build_all()
     log(f"[build] {len(paths)} kernel libraries ready in "
         f"{time.perf_counter() - t0:.1f}s (nvcc {build.last_build_seconds:.1f}s)")
+    spills = []
     for name, path in paths.items():
         log_path = path.with_suffix(".log")
-        if log_path.exists():
-            for line in log_path.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"[build] {name}: {line.strip()}")
+        if not log_path.exists():
+            continue
+        entry = ""
+        for line in log_path.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:       # a mangled name: keep the kernel and its parameters
+                k = re.search(r"\d([a-z][a-z_]*_kernel)(I\w*?E)?E?v",
+                              m.group(1))
+                entry = "".join(filter(None, k.groups())) if k \
+                    else m.group(1)
+            if "registers" in line or "spill" in line:
+                if "spill" in line and " 0 bytes spill stores" not in line:
+                    spills.append(f"{entry}: {line.strip()}")
+                log(f"[build] {name} {entry}: {line.strip()}")
+    if spills:
+        fail(f"ptxas reports register spills: {spills}")
+    sass_phase(paths)
 
     main_cases = kernel_phase(torch, K)
     main_cases.update(backward_kernel_phase(torch, K))
     main_cases.update(xent_kernel_phase(torch, K))
     bert_attention = masked_attention_phase(torch, K)
+    unaligned_attention_phase(torch, K)
 
     cfg = GPTConfig(dropout=0.0, attn_dropout=0.0)
     seed(0)
@@ -1135,6 +1266,9 @@ def main():
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+        if name in MMA_KERNELS:
+            entry["variant"] = rec["variant"]
+            entry["tflops"] = rec["tflops"]
         if name in ATTENTION_KERNELS:
             # every form held against its plain version in this run; the
             # main numbers stay the GPT paths' causal case, and the BERT

@@ -5,8 +5,9 @@ Each ``paddle_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for
 use, into ``build/paddle_tpu_torch/`` at the root of the checkout (listed
 in ``.gitignore``).  All missing libraries are compiled at once, one
 ``nvcc`` process per source, started together.  A library's file name
-carries a hash of its source and the shared header, so an edited source
-rebuilds and a stale library is never loaded.  Libraries are loaded with
+carries a hash of its source and of every shared header (``csrc/*.cuh``),
+so an edited source or header rebuilds and a stale library is never
+loaded.  Libraries are loaded with
 ``ctypes``; each C entry point launches on the stream it is given and
 returns ``cudaGetLastError()``, which :func:`check` turns into an
 exception.
@@ -47,9 +48,13 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where library ``name`` is built: the file name carries a hash of
+    ``<name>.cu`` and of every header (``*.cuh``) beside it, so an edit to
+    any of them builds a new library."""
     h = hashlib.sha1()
-    for p in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for p in (csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))):
+        h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -11,10 +11,10 @@ the public entry.  At prefill and training shapes the bound is
 operations (4*D flops per visible (query, key) pair forward, 6*D in dq,
 8*D in dk/dv) against one read of q, k, v (and dO).
 
-- Forward (csrc/flash_attention.cu): one block per (batch*head, 64-row
-  query tile), float32 online softmax over 32-key tiles staged in shared
-  memory, stopping at the diagonal when causal; writes O and LSE
-  [B*H, S] float32.
+- Forward (csrc/flash_attention.cu): one block per (batch*head, query
+  tile), float32 online softmax over key tiles staged in shared memory,
+  stopping at the diagonal when causal; writes O and LSE [B*H, S]
+  float32.
 - Backward (csrc/flash_attention_bwd.cu): two kernels with no atomics, so
   the gradients are the same from run to run.  dq: one block per
   (batch*head, query tile), walking key tiles.  dk/dv: one block per
@@ -22,6 +22,14 @@ operations (4*D flops per visible (query, key) pair forward, 6*D in dq,
   p = exp(s - lse) in float32.  delta = rowsum(dO * O) is computed here
   in PyTorch (:func:`flash_attention_delta`), as the reference computes
   it in XLA.
+- The forward and dk/dv each have two hand-written kernels: bf16 operands
+  whose base pointers and (b, s, h) strides are 16-byte multiples (the
+  fused qkv's slices, separate projections: every path of the models)
+  run on the tensor cores (``mma.sync`` with float32 accumulators, P and
+  dS rounded to bf16 before the second product, as the reference rounds
+  them); float32, and bf16 that is not so aligned, run on the CUDA cores.
+  The C entry decides from dtype and alignment alone;
+  :func:`variant_launches` reports which kernel the launches took.
 - Scores follow the reference's ``_scores``: scale, add the bias, then
   the causal replace.  The bias is float32 [B, H, S, S], usually an
   ``expand``ed view: the kernels read it through its four strides, so a
@@ -383,6 +391,23 @@ def causal_attention_packed(qkv):
     if torch.is_grad_enabled() and qkv.requires_grad:
         return _PackedCausalAttention.apply(qkv)
     return flash_attention(*qkv.unbind(2))[0]
+
+
+def variant_launches():
+    """{"flash_attention": {"simt": n, "mma": n}, "flash_attention_dkv":
+    {...}}: how many launches took the CUDA-core kernel and the
+    tensor-core kernel since the libraries were loaded, as the C entries
+    counted them (builds the libraries if they are not built yet)."""
+    out = {}
+    for name, lib, symbol in (
+            ("flash_attention", "flash_attention",
+             "ptt_flash_attention_fwd_variant_launches"),
+            ("flash_attention_dkv", "flash_attention_bwd",
+             "ptt_flash_attention_dkv_variant_launches")):
+        fn = getattr(build.library(lib), symbol)
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+        out[name] = {"simt": fn(0), "mma": fn(1)}
+    return out
 
 
 flash_attention.launches = 0

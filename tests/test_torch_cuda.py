@@ -10,8 +10,10 @@ the card:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Tolerance, relative to max(1, max|ref|): float32 2e-5 (summation order),
-bfloat16 2**-6 (two ulps at the top binade: both sides compute in float32
-and round once at the end).
+bfloat16 2**-6 (two ulps at the top binade: both sides accumulate in
+float32 and round once at the end; the tensor-core attention kernels also
+round p and ds to bf16 before the second product, as the reference does,
+which stays well inside it).
 """
 import numpy as np
 import pytest
@@ -348,10 +350,15 @@ def _mask(kind, B, H, S, g, dev, causal):
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("kind", [None, "bool", "additive", "per_head",
                                   "2d"])
-@pytest.mark.parametrize("S,D", [(1, 64), (77, 64), (130, 32)])
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 63, 64, 65, 77, 127, 128,
+                               129, 130, 1000])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
 def test_flash_attention_masked_kernels(dev, dtype, causal, kind, S, D):
     """Forward, dq and dk/dv in the non-causal and masked forms against the
-    plain versions, reading the slices of one fused qkv."""
+    plain versions, reading the slices of one fused qkv: sequence lengths
+    on both sides of every tile edge (16, 64, 128), every head dim.  The
+    bf16 cases take the tensor-core kernels, the float32 ones the
+    CUDA-core kernels."""
     g = torch.Generator(device=dev).manual_seed(S + D)
     B, H = 2, 3
     qkv = torch.randn(B, S, 3, H, D, generator=g, device=dev).to(dtype)
@@ -373,6 +380,94 @@ def test_flash_attention_masked_kernels(dev, dtype, causal, kind, S, D):
         q, k, v, do, lse, delta, **form)
     _check(dk, ref_k, dtype)
     _check(dv, ref_v, dtype)
+
+
+def _variant_delta(before):
+    after = flash_attention.variant_launches()
+    return {k: {v: after[k][v] - before[k][v] for v in ("simt", "mma")}
+            for k in after}
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_bf16_variant_follows_alignment(dev, aligned,
+                                                        causal):
+    """bf16 operands on 16-byte boundaries take the tensor-core kernels;
+    the same values one element off them take the CUDA-core kernels.  Both
+    match the plain versions, and dk/dv are bitwise equal over two runs."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    B, S, H, D = 2, 200, 3, 64
+    n = B * S * H * D
+    off = 0 if aligned else 1
+    bufs = [torch.randn(n + 8, generator=g, device=dev).bfloat16()
+            for _ in range(4)]
+    q, k, v, do = (t[off:off + n].view(B, S, H, D) for t in bufs)
+    assert (q.data_ptr() % 16 == 0) == aligned
+    mask = torch.randn(B, 1, S, S, generator=g, device=dev)
+    form = dict(causal=causal, bias=flash_attention.fold_mask(mask, B, H, S,
+                                                              S))
+    before = flash_attention.variant_launches()
+    out, lse = flash_attention.flash_attention(q, k, v, **form)
+    delta = flash_attention.flash_attention_delta(out, do)
+    grads = torch.empty(2, 2, n + 8, dtype=torch.bfloat16, device=dev)
+    runs = [flash_attention.flash_attention_dkv(
+        q, k, v, do, lse, delta,
+        out=tuple(t[off:off + n].view(B, S, H, D) for t in grads[i]), **form)
+        for i in range(2)]
+    taken = "mma" if aligned else "simt"
+    other = "simt" if aligned else "mma"
+    got = _variant_delta(before)
+    assert got["flash_attention"] == {taken: 1, other: 0}
+    assert got["flash_attention_dkv"] == {taken: 2, other: 0}
+    ref, ref_lse = flash_attention.flash_attention_plain(q, k, v, **form)
+    _check(out, ref, torch.bfloat16)
+    _check(lse, ref_lse, torch.bfloat16)
+    ref_k, ref_v = flash_attention.flash_attention_dkv_plain(
+        q, k, v, do, lse, delta, **form)
+    _check(runs[0][0], ref_k, torch.bfloat16)
+    _check(runs[0][1], ref_v, torch.bfloat16)
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("fill", [-1e30, float("-inf")])
+@pytest.mark.parametrize("S", [40, 130])
+def test_flash_attention_rows_masked_everywhere(dev, dtype, fill, S):
+    """A query row whose every key is masked: by -1e30 it stays the uniform
+    average of V (the dot is absorbed in float32), by -inf it gives 0 and
+    lse 0; neither puts a NaN into the output or the gradients."""
+    g = torch.Generator(device=dev).manual_seed(S)
+    B, H, D = 2, 3, 32
+    qkv = torch.randn(B, S, 3, H, D, generator=g, device=dev).to(dtype)
+    q, k, v = qkv.unbind(2)
+    mask = torch.randn(B, 1, S, S, generator=g, device=dev)
+    mask[0, 0, 3] = fill
+    mask[1, 0, S - 1] = fill
+    mask[1, 0, :, 5] = fill          # and one key no query sees
+    bias = flash_attention.fold_mask(mask, B, H, S, S)
+    out, lse = flash_attention.flash_attention(q, k, v, False, bias)
+    ref, ref_lse = flash_attention.flash_attention_plain(q, k, v, False,
+                                                         bias)
+    assert torch.isfinite(out.float()).all()
+    _check(out, ref, dtype)
+    if fill == float("-inf"):
+        assert torch.all(out[0, 3] == 0) and torch.all(lse[:H, 3] == 0)
+    else:
+        _check(out[0, 3], v[0].float().mean(0), dtype)
+    do = torch.randn(out.shape, generator=g, device=dev).to(dtype)
+    delta = flash_attention.flash_attention_delta(out, do)
+    dq = flash_attention.flash_attention_dq(q, k, v, do, lse, delta,
+                                            causal=False, bias=bias)
+    dk, dv = flash_attention.flash_attention_dkv(q, k, v, do, lse, delta,
+                                                 causal=False, bias=bias)
+    ref_k, ref_v = flash_attention.flash_attention_dkv_plain(
+        q, k, v, do, lse, delta, False, bias)
+    for got, want in ((dq, flash_attention.flash_attention_dq_plain(
+            q, k, v, do, lse, delta, False, bias)), (dk, ref_k),
+            (dv, ref_v)):
+        assert torch.isfinite(got.float()).all()
+        _check(got, want, dtype)
 
 
 def test_masked_attention_bwd_is_deterministic(dev):

@@ -9,6 +9,7 @@
   counted) and refuses any other non-CUDA tensor.
 """
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -154,3 +155,40 @@ def test_chip_smoke_prints_the_peak_it_divides_by():
     text = smoke.mfu_text(2.0e12, 0.04)
     assert "9.89e+14" in text and "1e+15" not in text
     assert text.startswith(f"MFU {2.0e12 / 0.04 / 989e12:.4f} ")
+
+
+def test_library_path_changes_when_any_header_changes(tmp_path):
+    """A kernel library's file name hashes its source and every header
+    beside it: an edit to a header alone, or a new header, must build a new
+    library instead of loading the stale one."""
+    from paddle_tpu_torch.ops.kernels import build
+
+    (tmp_path / "a.cu").write_text('#include "one.cuh"\nint a;\n')
+    (tmp_path / "b.cu").write_text("int b;\n")
+    (tmp_path / "one.cuh").write_text("// one\n")
+    (tmp_path / "two.cuh").write_text("// two\n")
+    first = {n: build.library_path(n, tmp_path) for n in "ab"}
+    assert first["a"] != first["b"]
+    assert first == {n: build.library_path(n, tmp_path) for n in "ab"}
+    (tmp_path / "two.cuh").write_text("// two, edited\n")
+    second = {n: build.library_path(n, tmp_path) for n in "ab"}
+    assert second["a"] != first["a"] and second["b"] != first["b"]
+    (tmp_path / "three.cuh").write_text("// three\n")
+    assert build.library_path("a", tmp_path) != second["a"]
+    (tmp_path / "a.cu").write_text("int a2;\n")
+    third = build.library_path("a", tmp_path)
+    assert third not in (first["a"], second["a"])
+    assert third.parent == build.BUILD_DIR and third.suffix == ".so"
+
+
+def test_every_csrc_header_is_hashed():
+    """The real sources: the attention kernels include mma.cuh, so it must
+    be among the hashed headers."""
+    from paddle_tpu_torch.ops.kernels import build
+
+    headers = {p.name for p in build.CSRC.glob("*.cuh")}
+    assert {"common.cuh", "mma.cuh"} <= headers
+    for name in build.SOURCES:
+        for inc in re.findall(r'#include "(\w+\.cuh)"',
+                              (build.CSRC / f"{name}.cu").read_text()):
+            assert inc in headers, (name, inc)
