@@ -45,11 +45,14 @@ passed over):
 Phase 3 also holds the softmax cross-entropy kernels (BERT's MLM and NSP
 shapes and GPT's) and the non-causal and masked forms of the attention
 kernels (BERT's shape and S = 77) against their plain versions.  The
-attention forward and dk/dv each have a tensor-core kernel (bf16 on 16-byte
-boundaries) and a CUDA-core kernel (float32, unaligned bf16): every
-`[kernels]` line of theirs names the variant the launch took (`mma` or
-`simt`), both are held against the plain version, and a bf16 phase of the
-serving or training paths fails if one of its launches took `simt`.
+attention forward, dq and dk/dv each have a tensor-core kernel (bf16 on
+16-byte boundaries) and a CUDA-core kernel (float32, unaligned bf16), and
+LayerNorm a warp-per-row vector kernel (16-byte aligned rows of at most
+256 vectors) and a block-per-row kernel (any other width or alignment):
+every `[kernels]` line of theirs names the variant the launch took (`mma`
+or `simt`; `warp` or `block`), both are held against the plain version,
+and a phase of the serving or training paths fails if one of its bf16
+attention launches took `simt` or one of its LayerNorm launches `block`.
 
 The line before the last is the per-kernel JSON record; the last line is
 the result JSON.  Float32 phases run with TF32 off for matmuls and cuDNN.
@@ -102,8 +105,13 @@ XENT_KERNELS = ("softmax_xent", "softmax_xent_bwd")
 BERT_KERNELS = TRAINING_KERNELS + XENT_KERNELS
 ATTENTION_KERNELS = ("flash_attention", "flash_attention_dq",
                      "flash_attention_dkv")
-# the two with a tensor-core kernel for aligned bf16 beside the CUDA-core one
-MMA_KERNELS = ("flash_attention", "flash_attention_dkv")
+# the three with a tensor-core kernel for aligned bf16 beside the CUDA-core
+# one, and the one with a vector kernel for aligned rows beside the
+# block-per-row one; the variant each path must take
+MMA_KERNELS = ("flash_attention", "flash_attention_dq", "flash_attention_dkv")
+VECTOR_KERNELS = ("layer_norm",)
+FAST_VARIANT = {**{n: "mma" for n in MMA_KERNELS},
+                **{n: "warp" for n in VECTOR_KERNELS}}
 
 
 def log(msg):
@@ -174,25 +182,28 @@ def bound_ms(n_bytes, n_flops, peak):
 
 
 def variant_taken(before, after, name):
-    """Which kernel of attention entry ``name`` the launches between two
-    ``variant_launches()`` readings took: "mma", "simt", "mixed" or
-    "none"."""
-    took = [v for v in ("mma", "simt") if after[name][v] > before[name][v]]
+    """Which kernel of entry ``name`` the launches between two
+    ``variant_launches()`` readings took: its variant's name ("mma",
+    "simt", "warp", "block"), "mixed" or "none"."""
+    took = [v for v in after[name] if after[name][v] > before[name][v]]
     return took[0] if len(took) == 1 else ("mixed" if took else "none")
 
 
-def require_tensor_cores(K, before, what, kernels):
-    """Fail if an attention launch of a bf16 path since the reading
-    ``before`` took the CUDA-core kernel, or if one of ``kernels`` took no
-    tensor-core launch at all.  Returns the tensor-core launches."""
-    after = K.flash_attention.variant_launches()
+def require_fast_variants(K, before, what, kernels):
+    """Fail if a launch of a path since the reading ``before`` took the
+    slower kernel of its entry (an attention kernel on the CUDA cores in
+    bf16, LayerNorm's block per row), or if one of ``kernels`` took no
+    launch of its fast kernel at all.  Returns the fast launches."""
+    after = K.variant_launches()
     took = {}
-    for name in after:
-        simt = after[name]["simt"] - before[name]["simt"]
-        took[name] = after[name]["mma"] - before[name]["mma"]
-        if simt or (name in kernels and took[name] <= 0):
-            fail(f"{what}: {name} took the CUDA-core kernel {simt} times and "
-                 f"the tensor-core kernel {took[name]} times in bf16")
+    for name, counts in after.items():
+        fast = FAST_VARIANT[name]
+        took[name] = counts[fast] - before[name][fast]
+        slow = {v: n - before[name][v] for v, n in counts.items()
+                if v != fast}
+        if any(slow.values()) or (name in kernels and took[name] <= 0):
+            fail(f"{what}: {name} took {slow} and the {fast} kernel "
+                 f"{took[name]} times")
     return took
 
 
@@ -200,14 +211,14 @@ def compare(torch, name, kernel_fn, plain_fn, library_fn, dtype, n_bytes,
             n_flops, peak, variant=None):
     """Run kernel and plain version on the same inputs, check, time.  A
     function may return one tensor or a tuple (dk, dv).  ``variant``:
-    (attention entry, the variant its launch must take)."""
+    (entry, the variant its launch must take)."""
     if variant is not None:
-        from paddle_tpu_torch.ops.kernels import flash_attention as KF
-        before = KF.variant_launches()
+        import paddle_tpu_torch.ops.kernels as KV
+        before = KV.variant_launches()
     outs, refs = kernel_fn(), plain_fn()
     torch.cuda.synchronize()
     if variant is not None:
-        took = variant_taken(before, KF.variant_launches(), variant[0])
+        took = variant_taken(before, KV.variant_launches(), variant[0])
         if took != variant[1]:
             fail(f"{name}: the launch took the {took} kernel, not "
                  f"{variant[1]}")
@@ -265,7 +276,8 @@ def kernel_phase(torch, K):
                 lambda: K.layer_norm.layer_norm(x, w, b, 1e-5),
                 lambda: K.layer_norm.layer_norm_plain(x, w, b, 1e-5),
                 lambda: F.layer_norm(x, (N,), w, b, 1e-5), dtype,
-                (2 * R * N + 2 * N) * isz, 8 * R * N, PEAK_F32)
+                (2 * R * N + 2 * N) * isz, 8 * R * N, PEAK_F32,
+                variant=("layer_norm", "warp"))
             if main_case:
                 main["layer_norm"] = rec
         for R in (8, 128, 8192):
@@ -329,11 +341,12 @@ def variant_of(dtype):
     return "simt" if dtype.itemsize == 4 else "mma"
 
 
-def unaligned_attention_phase(torch, K):
-    """bf16 operands one element off a 16-byte boundary (B = 1, S = 128,
-    H = 12, D = 64, causal): the forward and dk/dv must take their
-    CUDA-core kernels, and agree with the plain versions like any other
-    case."""
+def unaligned_phase(torch, K):
+    """bf16 operands one element off a 16-byte boundary: attention (B = 1,
+    S = 128, H = 12, D = 64, causal) must take the CUDA-core forward, dq
+    and dk/dv, and LayerNorm (R = 8192, N = 768) its block-per-row kernel;
+    all agree with the plain versions like any other case."""
+    F = torch.nn.functional
     KF = K.flash_attention
     g = torch.Generator(device="cuda").manual_seed(9)
     B, S, H, D = 1, 128, 12, 64
@@ -351,12 +364,30 @@ def unaligned_attention_phase(torch, K):
             lambda: KF.flash_attention_plain(q, k, v)[0], None,
             torch.bfloat16, 4 * n * 2 + B * H * S * 4, 4 * D * pairs,
             PEAK_BF16_TENSOR, variant=("flash_attention", "simt"))
+    compare(torch, f"flash_attention_dq {shape}",
+            lambda: KF.flash_attention_dq(q, k, v, do, lse, delta,
+                                          out=out[0]),
+            lambda: KF.flash_attention_dq_plain(q, k, v, do, lse, delta),
+            None, torch.bfloat16, 5 * n * 2 + 2 * B * H * S * 4,
+            6 * D * pairs, PEAK_BF16_TENSOR,
+            variant=("flash_attention_dq", "simt"))
     compare(torch, f"flash_attention_dkv {shape}",
             lambda: KF.flash_attention_dkv(q, k, v, do, lse, delta, out=out),
             lambda: KF.flash_attention_dkv_plain(q, k, v, do, lse, delta),
             None, torch.bfloat16, 6 * n * 2 + 2 * B * H * S * 4,
             8 * D * pairs, PEAK_BF16_TENSOR,
             variant=("flash_attention_dkv", "simt"))
+    R, N = 8192, 768
+    x = torch.randn(R * N + 8, generator=g, device="cuda").to(
+        torch.bfloat16)[1:R * N + 1].view(R, N)
+    w = (1 + 0.1 * torch.randn(N, generator=g, device="cuda")).bfloat16()
+    b = (0.1 * torch.randn(N, generator=g, device="cuda")).bfloat16()
+    compare(torch, f"layer_norm bf16 unaligned R={R} N={N}",
+            lambda: K.layer_norm.layer_norm(x, w, b, 1e-5),
+            lambda: K.layer_norm.layer_norm_plain(x, w, b, 1e-5),
+            lambda: F.layer_norm(x, (N,), w, b, 1e-5), torch.bfloat16,
+            (2 * R * N + 2 * N) * 2, 8 * R * N, PEAK_F32,
+            variant=("layer_norm", "block"))
 
 
 def sdpa_backward(torch, q, k, v, do):
@@ -417,7 +448,8 @@ def backward_kernel_phase(torch, K):
                 torch, f"flash_attention_dq {tag} {shape}",
                 lambda: KF.flash_attention_dq(q, k, v, do, lse, delta),
                 lambda: KF.flash_attention_dq_plain(q, k, v, do, lse, delta),
-                lib, dtype, 5 * one + stats, 6 * D * pairs, peak)
+                lib, dtype, 5 * one + stats, 6 * D * pairs, peak,
+                variant=("flash_attention_dq", variant_of(dtype)))
             rec_kv = compare(
                 torch, f"flash_attention_dkv {tag} {shape}",
                 lambda: KF.flash_attention_dkv(q, k, v, do, lse, delta),
@@ -551,7 +583,7 @@ def serving_phase(torch, K, model, card):
         prompts = [rng.randint(0, model.cfg.vocab_size, n).tolist()
                    for n in lens]
         K.reset_launch_counts()
-        variants = K.flash_attention.variant_launches()
+        variants = K.variant_launches()
         t0 = time.perf_counter()
         handles = []
         for i, p in enumerate(prompts):
@@ -561,8 +593,8 @@ def serving_phase(torch, K, model, card):
         outs = [h.result(600) for h in handles]
         wall = time.perf_counter() - t0
         counts = K.launch_counts()
-        mma = require_tensor_cores(K, variants, "serving",
-                                   ("flash_attention",))
+        fast = require_fast_variants(K, variants, "serving",
+                                    ("flash_attention", "layer_norm"))
         snap = eng.metrics.snapshot()
         for i, o in enumerate(outs):
             if len(o) != 48 or min(o) < 0 or max(o) >= model.cfg.vocab_size:
@@ -586,7 +618,7 @@ def serving_phase(torch, K, model, card):
             f"{total} tokens in {wall:.3f}s = {total / wall:.1f} tokens/s; "
             f"TTFT p50 {snap['ttft_p50_ms']:.3f} ms; inter-token p50 "
             f"{snap['inter_token_p50_ms']:.3f} ms; launches {counts}; "
-            f"tensor-core attention launches {mma}; "
+            f"tensor-core and vector-kernel launches {fast}; "
             f"greedy re-run alone identical; free_count back to "
             f"{eng.geometry.num_pages}")
         return counts
@@ -676,7 +708,7 @@ def train_phase(torch, K, cfg, card):
 
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
-    variants = K.flash_attention.variant_launches()
+    variants = K.variant_launches()
     losses, times = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -684,7 +716,7 @@ def train_phase(torch, K, cfg, card):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     counts = K.launch_counts()
-    mma = require_tensor_cores(K, variants, "train", MMA_KERNELS)
+    fast = require_fast_variants(K, variants, "train", FAST_VARIANT)
     losses = torch.stack(losses).float().cpu().tolist()
     for name in TRAINING_KERNELS:
         if counts[name] <= 0:
@@ -702,7 +734,7 @@ def train_phase(torch, K, cfg, card):
         f"{[round(t * 1e3, 3) for t in times]}; p50 {p50 * 1e3:.3f} ms; "
         f"{tokens / p50:.1f} tokens/s; {mfu_text(flops, p50)}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
-        f"per step {per_step}; tensor-core attention launches {mma}")
+        f"per step {per_step}; tensor-core and vector-kernel launches {fast}")
 
     profile_steps(torch, "train-profile", step)
 
@@ -715,7 +747,7 @@ def train_phase(torch, K, cfg, card):
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     fit_counts = K.launch_counts()
-    require_tensor_cores(K, variants, "train and Model.fit", MMA_KERNELS)
+    require_fast_variants(K, variants, "train and Model.fit", FAST_VARIANT)
     if len(hist["step_loss"]) != 3 or not all(
             math.isfinite(x) for x in hist["step_loss"]):
         fail(f"Model.fit: step losses {hist['step_loss']}")
@@ -885,7 +917,7 @@ def masked_attention_phase(torch, K):
                 lambda: KF.flash_attention_dq_plain(q, k, v, do, lse, delta,
                                                     **fkw),
                 lib_bwd, dtype, 5 * one + stats + bias_bytes, 6 * D * pairs,
-                peak)
+                peak, variant=("flash_attention_dq", variant_of(dtype)))
             rec["flash_attention_dkv"] = compare(
                 torch, f"flash_attention_dkv {desc}",
                 lambda: KF.flash_attention_dkv(q, k, v, do, lse, delta,
@@ -929,14 +961,14 @@ def gpt_labels_phase(torch, K, cfg):
     ids = torch.from_numpy(np.random.RandomState(8).randint(
         0, cfg.vocab_size, (8, 1024))).cuda()
     K.reset_launch_counts()
-    variants = K.flash_attention.variant_launches()
+    variants = K.variant_launches()
     t0 = time.perf_counter()
     logits, loss = model(ids, labels=ids)
     loss.backward()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = K.launch_counts()
-    require_tensor_cores(K, variants, "gpt-labels", MMA_KERNELS)
+    require_fast_variants(K, variants, "gpt-labels", FAST_VARIANT)
     with torch.no_grad():
         ref = model.loss(ids).item()
     got = loss.item()
@@ -1086,7 +1118,7 @@ def bert_train_phase(torch, K, card):
 
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
-    variants = K.flash_attention.variant_launches()
+    variants = K.variant_launches()
     losses, times = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -1094,7 +1126,7 @@ def bert_train_phase(torch, K, card):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     counts = K.launch_counts()
-    mma = require_tensor_cores(K, variants, "bert-train", MMA_KERNELS)
+    fast = require_fast_variants(K, variants, "bert-train", FAST_VARIANT)
     losses = torch.stack(losses).float().cpu().tolist()
     for name in BERT_KERNELS:
         if counts[name] <= 0:
@@ -1113,7 +1145,7 @@ def bert_train_phase(torch, K, card):
         f"{B / p50:.1f} samples/s; {tokens / p50:.1f} tokens/s; "
         f"{mfu_text(flops, p50)}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
-        f"per step {per_step}; tensor-core attention launches {mma}")
+        f"per step {per_step}; tensor-core and vector-kernel launches {fast}")
     profile_steps(torch, "bert-profile", step)
 
     data = bert_batch(torch, rs, cfg, 3 * B, S)
@@ -1129,8 +1161,8 @@ def bert_train_phase(torch, K, card):
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     fit_counts = K.launch_counts()
-    require_tensor_cores(K, variants, "bert-train and Model.fit",
-                         MMA_KERNELS)
+    require_fast_variants(K, variants, "bert-train and Model.fit",
+                          FAST_VARIANT)
     if len(hist["step_loss"]) != 3 or not all(
             math.isfinite(x) for x in hist["step_loss"]):
         fail(f"BERT Model.fit: step losses {hist['step_loss']}")
@@ -1222,7 +1254,7 @@ def main():
     main_cases.update(backward_kernel_phase(torch, K))
     main_cases.update(xent_kernel_phase(torch, K))
     bert_attention = masked_attention_phase(torch, K)
-    unaligned_attention_phase(torch, K)
+    unaligned_phase(torch, K)
 
     cfg = GPTConfig(dropout=0.0, attn_dropout=0.0)
     seed(0)
@@ -1266,8 +1298,9 @@ def main():
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
-        if name in MMA_KERNELS:
+        if name in FAST_VARIANT:
             entry["variant"] = rec["variant"]
+        if name in MMA_KERNELS:
             entry["tflops"] = rec["tflops"]
         if name in ATTENTION_KERNELS:
             # every form held against its plain version in this run; the

@@ -21,13 +21,38 @@
 // projection are read in place and dq, dk, dv are written straight into
 // the slices of one packed [B, S, 3, H, D] gradient.  Any S >= 1.
 //
-// dk/dv has two hand-written kernels; the C entry picks one from the dtype
-// and the operands' alignment alone:
+// dq and dk/dv each have two hand-written kernels; the C entry picks one
+// from the dtype and the operands' alignment alone, and counts the choice:
 //
-// `flash_dkv_mma_kernel` (bf16 whose base pointers and (b, s, h) strides
-// are 16-byte multiples: every path of the models) does its four products
-// on the tensor cores, `mma.sync.m16n8k16` with bf16 operands and float32
-// accumulators.  A block owns 16 to 64 keys of one (batch, head), 16 a
+// `flash_dq_mma_kernel` (bf16 whose base pointers and (b, s, h) strides are
+// 16-byte multiples: every path of the models) does its three products on
+// the tensor cores, `mma.sync.m16n8k16` with bf16 operands and float32
+// accumulators.  A block owns 16 to 128 queries of one (batch, head), 16 a
+// warp; their Q and dO tiles are staged once in shared memory (and, for
+// D <= 64, kept as A fragments in registers), with the rows' LSE and delta
+// in registers, and the dq accumulator stays in registers for the whole
+// key loop.  K and V tiles of 32 keys stream through
+// padded shared memory by `cp.async` in two stages, so the next tile is in
+// flight while this one is multiplied.  S = Q K^T and dP = dO V^T take K
+// and V as they lie as the B operands (`ldmatrix`); the float32 softmax
+// runs on the accumulators (without a bias, the scale and log2(e) folded
+// into one FFMA before `ex2`; with one, the difference s - lse formed first
+// in natural units); dS = P * (dP - delta) is rounded to bf16 in registers
+// and is the A operand of dq += dS K, with K through `ldmatrix.trans`
+// (its contracted dimension is the row).  dS is formed without the scale,
+// which dq takes once at the end, as dk does (the reference scales before
+// it rounds dS to bf16; for D = 16 and 64 the scale is a power of two
+// and the two agree exactly).
+// Causal: the key loop ends at the block's diagonal, a warp skips key
+// tiles wholly above its rows, only a tile that straddles the diagonal or
+// S is masked entry by entry, and the last query tile, which walks the
+// most keys, is scheduled first.  The query tile shrinks (64, 32, 16)
+// until the grid has a block for every SM.  dq leaves through the warp's
+// own rows of the Q tile as 16-byte stores.
+//
+// `flash_dkv_mma_kernel` (bf16 on 16-byte boundaries, as above) does its
+// four products on the tensor cores, with the same primitives.  A block
+// owns 16 to 64 keys of one (batch, head), 16 a
 // warp; their K and V stay in shared memory (and, for D <= 64, as A
 // fragments in registers) and the dk, dv accumulators in registers for the
 // whole query loop.  Q and dO tiles of 32 queries, their LSE and delta,
@@ -47,9 +72,9 @@
 // every SM.  dk and dv leave through the block's K and V tiles as 16-byte
 // stores.
 //
-// `flash_dkv_kernel` (float32, where TF32 would not hold the parity limits,
-// and bf16 operands that are not 16-byte aligned) and `flash_dq_kernel`
-// (every dtype) run on the CUDA cores:
+// `flash_dq_kernel` and `flash_dkv_kernel` (float32, where TF32 would not
+// hold the parity limits, and bf16 operands that are not 16-byte aligned)
+// run on the CUDA cores:
 // - dq: one block per (batch*head, 64-query tile).  The block walks the
 //   key tiles from 0 up to the diagonal (causal) or to S, staging 32 keys
 //   of K and V and the 64 x 32 bias tile in shared memory, and keeps its
@@ -278,9 +303,10 @@ __device__ __forceinline__ void load_a(uint32_t (&frag)[4],
   ptt::ldmatrix_x4(frag, rows + (lane & 15) * kLd + kk * 16 + (lane >> 4) * 8);
 }
 
-// acc = A B^T over d, for S^T = K Q^T and dP^T = V dO^T: A is the warp's 16
-// rows of K or V (`af` when kRegA, else read from `a_rows`), and B[d][query]
-// is the row-major Q or dO tile as it lies.
+// acc = A B^T over d, for S^T = K Q^T and dP^T = V dO^T (dk/dv) or
+// S = Q K^T and dP = dO V^T (dq): A is the warp's 16 rows of one operand
+// (`af` when kRegA, else read from `a_rows`), and B[d][n] is the other's
+// row-major tile as it lies.
 template <int D, int kLd, int kNt, bool kRegA>
 __device__ __forceinline__ void times_transposed(
     float (&acc)[kNt][4], const uint32_t (&af)[kRegA ? D / 16 : 1][4],
@@ -309,9 +335,10 @@ __device__ __forceinline__ void times_transposed(
   }
 }
 
-// acc += X B over the tile's queries, for dv += P^T dO and dk += dS^T Q: X
-// (P^T or dS^T, float32 accumulators) is rounded to bf16 in registers, and
-// B[query][d] contracts the tile's rows, hence the transposed load.
+// acc += X B over the tile's rows, for dv += P^T dO and dk += dS^T Q (rows:
+// queries) or dq += dS K (rows: keys): X (float32 accumulators) is rounded
+// to bf16 in registers, and B[row][d] contracts the tile's rows, hence the
+// transposed load.
 template <int D, int kLd, int kNt>
 __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
                                            const float (&x)[kNt][4],
@@ -544,23 +571,224 @@ int launch_dkv_mma_dim(const Args& a, int B, cudaStream_t st) {
   return launch_dkv_mma_tile<D, 1>(a, B, st);
 }
 
-int launch_dkv_mma(const Args& a, int B, int D, cudaStream_t st) {
+// ---------------------------------------------------------------------------
+// the tensor-core dq kernel
+// ---------------------------------------------------------------------------
+// Keys per streamed tile: 32 was faster than 64 at every training shape.
+constexpr int kDqKeys = 32;
+
+// kWarps warps of 16 queries each; key tiles of kDqKeys rows.  The
+// minimum of one block an SM in the launch bounds lets ptxas give each
+// thread the registers it needs: without it, ptxas capped D = 64 at 4
+// warps below them and spilled.
+template <int D, int kWarps>
+__global__ void __launch_bounds__(kWarps * 32, 1) flash_dq_mma_kernel(Args a) {
+  using bf16 = __nv_bfloat16;
+  constexpr bool kRegA = D <= 64;  // Q, dO fragments stay in registers
+  constexpr int kThreads = kWarps * 32;
+  constexpr int kTileM = kWarps * 16;  // queries a block owns
+  constexpr int kTileN = kDqKeys;
+  constexpr int kLd = D + 8;  // padded row, in elements
+  constexpr int kKs = D / 16;
+  constexpr int kNt = kTileN / 8;  // 8-key tiles of S and dP
+  extern __shared__ __align__(16) unsigned char ptt_smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(ptt_smem);  // [kTileM][kLd]
+  bf16* do_s = q_s + kTileM * kLd;                // [kTileM][kLd]
+  bf16* k_s = do_s + kTileM * kLd;                // [2][kTileN][kLd]
+  bf16* v_s = k_s + 2 * kTileN * kLd;             // [2][kTileN][kLd]
+
+  const int S = a.S;
+  const int bh = blockIdx.x;
+  const int b = bh / a.H, h = bh % a.H;
+  // causal: the last query tile walks the most keys, so it goes first
+  const int q_tile = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = q_tile * kTileM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16;  // the warp's first query
+  const bool has_bias = a.bias.p != nullptr;
+  const long long bias_base = b * a.bias.b + h * a.bias.h;
+  const float scale_log2 = a.scale * ptt::kLog2e;
+
+  const bf16* q_src = static_cast<const bf16*>(a.q) + offset(a.sq, b, 0, h);
+  const bf16* k_src = static_cast<const bf16*>(a.k) + offset(a.sk, b, 0, h);
+  const bf16* v_src = static_cast<const bf16*>(a.v) + offset(a.sv, b, 0, h);
+  const bf16* do_src =
+      static_cast<const bf16*>(a.dout) + offset(a.sdo, b, 0, h);
+  // causal: keys up to the tile's diagonal; otherwise every key
+  const int k_end = a.causal ? min(S, q0 + kTileM) : S;
+  const int n_tiles = (k_end + kTileN - 1) / kTileN;
+
+  ptt::stage_rows<D, kLd, kTileM, kThreads>(q_s, q_src, a.sq.s, q0, S);
+  ptt::stage_rows<D, kLd, kTileM, kThreads>(do_s, do_src, a.sdo.s, q0, S);
+  ptt::stage_rows<D, kLd, kTileN, kThreads>(k_s, k_src, a.sk.s, 0, S);
+  ptt::stage_rows<D, kLd, kTileN, kThreads>(v_s, v_src, a.sv.s, 0, S);
+  ptt::cp_async_commit();
+
+  // LSE and delta of the lane's rows g and g + 8; without a bias LSE is
+  // taken in base-2 units, the scale folded into the exponent
+  float lse[2], delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + g + r * 8;
+    const long long row = static_cast<long long>(bh) * S + qi;
+    lse[r] = qi < S ? a.lse[row] : 0.f;
+    delta[r] = qi < S ? a.delta[row] : 0.f;
+    if (!has_bias) lse[r] *= ptt::kLog2e;
+  }
+
+  // the A operands: this warp's 16 rows of Q and of dO
+  const bf16* q_w = q_s + warp * 16 * kLd;
+  const bf16* do_w = do_s + warp * 16 * kLd;
+  uint32_t qf[kRegA ? kKs : 1][4], dof[kRegA ? kKs : 1][4];
+  float dq[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+    dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int stage = i & 1, k0 = i * kTileN;
+    if (i + 1 < n_tiles) {
+      const int next = (stage ^ 1) * kTileN * kLd;
+      ptt::stage_rows<D, kLd, kTileN, kThreads>(k_s + next, k_src, a.sk.s,
+                                                k0 + kTileN, S);
+      ptt::stage_rows<D, kLd, kTileN, kThreads>(v_s + next, v_src, a.sv.s,
+                                                k0 + kTileN, S);
+    }
+    ptt::cp_async_commit();
+    ptt::cp_async_wait<1>();  // tile i has landed; tile i + 1 is in flight
+    __syncthreads();
+    if (kRegA && i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < kKs; ++kk) {
+        load_a<kLd>(qf[kRegA ? kk : 0], q_w, kk, lane);
+        load_a<kLd>(dof[kRegA ? kk : 0], do_w, kk, lane);
+      }
+    }
+    // rows past S do no work; causal: a key tile wholly above the warp's
+    // rows changes nothing
+    if (row0 < S && (!a.causal || k0 <= row0 + 15)) {
+      const bf16* kt = k_s + stage * kTileN * kLd;
+      const bf16* vt = v_s + stage * kTileN * kLd;
+      float p[kNt][4];  // rows: queries g, g + 8; columns: keys
+      times_transposed<D, kLd, kNt, kRegA>(p, qf, q_w, kt, lane);
+      if (has_bias) {
+        // natural units, the difference formed first: a row masked
+        // everywhere by -1e30 gives exactly exp(0)
+#pragma unroll
+        for (int j = 0; j < kNt; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = row0 + g + (e >> 1) * 8;
+            const int kj = k0 + j * 8 + 2 * t + (e & 1);
+            float x = p[j][e] * a.scale;
+            if (qi < S && kj < S)
+              x += a.bias.p[bias_base + qi * a.bias.q + kj * a.bias.k];
+            p[j][e] = ptt::fast_exp2((x - lse[e >> 1]) * ptt::kLog2e);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kNt; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            p[j][e] = ptt::fast_exp2(fmaf(p[j][e], scale_log2, -lse[e >> 1]));
+        }
+      }
+      // keys past S, or pairs above the diagonal: only on a straddling tile
+      if (k0 + kTileN > S || (a.causal && k0 + kTileN - 1 > row0)) {
+#pragma unroll
+        for (int j = 0; j < kNt; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = row0 + g + (e >> 1) * 8;
+            const int kj = k0 + j * 8 + 2 * t + (e & 1);
+            if (kj >= S || (a.causal && kj > qi)) p[j][e] = 0.f;
+          }
+        }
+      }
+      float ds[kNt][4];  // without the scale, which dq takes at the end
+      times_transposed<D, kLd, kNt, kRegA>(ds, dof, do_w, vt, lane);
+#pragma unroll
+      for (int j = 0; j < kNt; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[j][e] = p[j][e] * (ds[j][e] - delta[e >> 1]);
+      }
+      accumulate<D, kLd, kNt>(dq, ds, kt, lane);
+    }
+    __syncthreads();  // the stage is free for the copy after next
+  }
+
+  // dq through the warp's own rows of the Q tile, then 16-byte stores
+  bf16* out_w = q_s + warp * 16 * kLd;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = j * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(out_w + g * kLd + c) =
+        ptt::pack_bf16(dq[j][0] * a.scale, dq[j][1] * a.scale);
+    *reinterpret_cast<uint32_t*>(out_w + (g + 8) * kLd + c) =
+        ptt::pack_bf16(dq[j][2] * a.scale, dq[j][3] * a.scale);
+  }
+  __syncwarp();
+  ptt::store_rows_16<D, kLd>(out_w,
+                             static_cast<bf16*>(a.d0) + offset(a.sd0, b, 0, h),
+                             a.sd0.s, row0, S);
+}
+
+template <int D, int kWarps>
+int launch_dq_mma_tile(const Args& a, int B, cudaStream_t st) {
+  constexpr int kTileM = kWarps * 16;
+  constexpr int kSmem = (2 * kTileM + 4 * kDqKeys) * (D + 8) * 2;
+  static bool configured = false;  // more than 48 KB needs asking for, once
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_dq_mma_kernel<D, kWarps>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid(B * a.H, (a.S + kTileM - 1) / kTileM);
+  flash_dq_mma_kernel<D, kWarps><<<grid, kWarps * 32, kSmem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The largest query tile that still gives every SM a block (and is not
+// mostly padding); 16 queries when no tile does.
+template <int D>
+int launch_dq_mma_dim(const Args& a, int B, cudaStream_t st) {
+  const long long bh = static_cast<long long>(B) * a.H;
+  const int sms = ptt::sm_count();
+  auto fills = [&](int tile) {
+    return a.S > tile / 2 && bh * ((a.S + tile - 1) / tile) >= sms;
+  };
+  if (fills(64)) return launch_dq_mma_tile<D, 4>(a, B, st);
+  if (fills(32)) return launch_dq_mma_tile<D, 2>(a, B, st);
+  return launch_dq_mma_tile<D, 1>(a, B, st);
+}
+
+template <bool kDq>
+int launch_mma(const Args& a, int B, int D, cudaStream_t st) {
+#define PTT_FLASH_BWD_MMA_CASE(DIM)               \
+  case DIM:                                       \
+    if constexpr (kDq)                            \
+      return launch_dq_mma_dim<DIM>(a, B, st);    \
+    else                                          \
+      return launch_dkv_mma_dim<DIM>(a, B, st);
   switch (D) {
-    case 16:
-      return launch_dkv_mma_dim<16>(a, B, st);
-    case 32:
-      return launch_dkv_mma_dim<32>(a, B, st);
-    case 64:
-      return launch_dkv_mma_dim<64>(a, B, st);
-    case 128:
-      return launch_dkv_mma_dim<128>(a, B, st);
+    PTT_FLASH_BWD_MMA_CASE(16)
+    PTT_FLASH_BWD_MMA_CASE(32)
+    PTT_FLASH_BWD_MMA_CASE(64)
+    PTT_FLASH_BWD_MMA_CASE(128)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef PTT_FLASH_BWD_MMA_CASE
 }
 
-// dk/dv launches of each variant since the library was loaded: [simt, mma]
-std::atomic<long long> dkv_variant_launches[2];
+// launches of each variant since the library was loaded, [simt, mma]: of
+// dq (index 0) and of dk/dv (index 1)
+std::atomic<long long> variant_launches[2][2];
 
 bool aligned_16(const void* p, const Strides& s) {
   return ptt::aligned_16(p, s.b, s.s, s.h);
@@ -598,14 +826,12 @@ int dispatch(const Args& a, int B, int D, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != ptt::kF32 && dtype != ptt::kBF16)
     return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (!kDq) {
-    const bool mma = dtype == ptt::kBF16 && aligned_16(a.q, a.sq) &&
-                     aligned_16(a.k, a.sk) && aligned_16(a.v, a.sv) &&
-                     aligned_16(a.dout, a.sdo) && aligned_16(a.d0, a.sd0) &&
-                     aligned_16(a.d1, a.sd1);
-    ++dkv_variant_launches[mma];
-    if (mma) return launch_dkv_mma(a, B, D, st);
-  }
+  const bool mma = dtype == ptt::kBF16 && aligned_16(a.q, a.sq) &&
+                   aligned_16(a.k, a.sk) && aligned_16(a.v, a.sv) &&
+                   aligned_16(a.dout, a.sdo) && aligned_16(a.d0, a.sd0) &&
+                   (kDq || aligned_16(a.d1, a.sd1));
+  ++variant_launches[kDq ? 0 : 1][mma];
+  if (mma) return launch_mma<kDq>(a, B, D, st);
   if (dtype == ptt::kF32) return launch<float, kDq>(a, B, D, st);
   return launch<__nv_bfloat16, kDq>(a, B, D, st);
 }
@@ -653,9 +879,15 @@ extern "C" int ptt_flash_attention_dkv(
   return dispatch<false>(a, B, D, dtype, stream);
 }
 
-// How many dk/dv launches took the CUDA-core kernel (variant 0) or the
+// How many dq launches took the CUDA-core kernel (variant 0) or the
 // tensor-core kernel (variant 1) since the library was loaded.
+extern "C" long long ptt_flash_attention_dq_variant_launches(int variant) {
+  return variant == 0 || variant == 1 ? variant_launches[0][variant].load()
+                                      : -1;
+}
+
+// The same for dk/dv.
 extern "C" long long ptt_flash_attention_dkv_variant_launches(int variant) {
-  return variant == 0 || variant == 1 ? dkv_variant_launches[variant].load()
+  return variant == 0 || variant == 1 ? variant_launches[1][variant].load()
                                       : -1;
 }

@@ -29,6 +29,15 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def variant_launches() -> dict:
+    """{kernel: {variant: launches}} of every kernel whose C entry chooses
+    between two hand-written kernels (the attention kernels' ``simt`` /
+    ``mma``, LayerNorm's ``block`` / ``warp``), since the libraries were
+    loaded."""
+    return {**flash_attention.variant_launches(),
+            **layer_norm.variant_launches()}
+
+
 def reset_launch_counts():
     for fn in WRAPPERS.values():
         fn.launches = 0

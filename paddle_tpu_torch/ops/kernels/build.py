@@ -116,6 +116,19 @@ def bind(name: str, symbol: str, argtypes):
     return fn
 
 
+def variant_counts(counters, variants):
+    """{kernel: {variant: launches}} as the C entries that choose between
+    two kernels counted them since the libraries were loaded.
+    ``counters``: kernel name -> (library, counting symbol, which takes the
+    variant's index); ``variants``: the names of index 0 and 1."""
+    out = {}
+    for name, (lib, symbol) in counters.items():
+        fn = getattr(library(lib), symbol)
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+        out[name] = {v: fn(i) for i, v in enumerate(variants)}
+    return out
+
+
 def check(err: int, what: str):
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t "

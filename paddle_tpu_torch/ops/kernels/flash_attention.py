@@ -22,12 +22,13 @@ operations (4*D flops per visible (query, key) pair forward, 6*D in dq,
   p = exp(s - lse) in float32.  delta = rowsum(dO * O) is computed here
   in PyTorch (:func:`flash_attention_delta`), as the reference computes
   it in XLA.
-- The forward and dk/dv each have two hand-written kernels: bf16 operands
-  whose base pointers and (b, s, h) strides are 16-byte multiples (the
-  fused qkv's slices, separate projections: every path of the models)
-  run on the tensor cores (``mma.sync`` with float32 accumulators, P and
-  dS rounded to bf16 before the second product, as the reference rounds
-  them); float32, and bf16 that is not so aligned, run on the CUDA cores.
+- The forward, dq and dk/dv each have two hand-written kernels: bf16
+  operands whose base pointers and (b, s, h) strides are 16-byte
+  multiples (the fused qkv's slices, separate projections: every path of
+  the models) run on the tensor cores (``mma.sync`` with float32
+  accumulators, P and dS rounded to bf16 before the second product, as
+  the reference rounds them); float32, and bf16 that is not so aligned,
+  run on the CUDA cores.
   The C entry decides from dtype and alignment alone;
   :func:`variant_launches` reports which kernel the launches took.
 - Scores follow the reference's ``_scores``: scale, add the bias, then
@@ -393,21 +394,26 @@ def causal_attention_packed(qkv):
     return flash_attention(*qkv.unbind(2))[0]
 
 
+# the entries whose C code chooses between a CUDA-core kernel (index 0) and
+# a tensor-core kernel (index 1): name -> (library, counting symbol)
+VARIANTS = ("simt", "mma")
+VARIANT_COUNTERS = {
+    "flash_attention": ("flash_attention",
+                        "ptt_flash_attention_fwd_variant_launches"),
+    "flash_attention_dq": ("flash_attention_bwd",
+                           "ptt_flash_attention_dq_variant_launches"),
+    "flash_attention_dkv": ("flash_attention_bwd",
+                            "ptt_flash_attention_dkv_variant_launches"),
+}
+
+
 def variant_launches():
-    """{"flash_attention": {"simt": n, "mma": n}, "flash_attention_dkv":
-    {...}}: how many launches took the CUDA-core kernel and the
-    tensor-core kernel since the libraries were loaded, as the C entries
-    counted them (builds the libraries if they are not built yet)."""
-    out = {}
-    for name, lib, symbol in (
-            ("flash_attention", "flash_attention",
-             "ptt_flash_attention_fwd_variant_launches"),
-            ("flash_attention_dkv", "flash_attention_bwd",
-             "ptt_flash_attention_dkv_variant_launches")):
-        fn = getattr(build.library(lib), symbol)
-        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
-        out[name] = {"simt": fn(0), "mma": fn(1)}
-    return out
+    """{"flash_attention": {"simt": n, "mma": n}, "flash_attention_dq":
+    {...}, "flash_attention_dkv": {...}}: how many launches took the
+    CUDA-core kernel and the tensor-core kernel since the libraries were
+    loaded, as the C entries counted them (builds the libraries if they
+    are not built yet)."""
+    return build.variant_counts(VARIANT_COUNTERS, VARIANTS)
 
 
 flash_attention.launches = 0

@@ -2,9 +2,14 @@
 autograd Function whose backward is plain PyTorch.
 
 Replaces paddle_tpu/ops/pallas/layer_norm.py ``_ln_kernel`` (via
-``_ln_fwd_call``).  Bound by bytes (one read of x, one write of y); the
-kernel (csrc/layer_norm.cu) is one block per row with two-pass float32
-statistics, and takes any row count and width.  In training it also
+``_ln_fwd_call``).  Bound by bytes (one read of x, one write of y);
+csrc/layer_norm.cu computes two-pass float32 statistics with any row
+count and width, in one of two kernels that its C entry chooses from the
+width and alignment alone: one warp a row holding the row in registers as
+16-byte vectors (x, y, w, b on 16-byte boundaries, N a multiple of 8 bf16
+or 4 float32 and at most 2048 or 1024: every path of the models), or one
+block a row with scalar loads (any other case); :func:`variant_launches`
+reports which kernel the launches took.  In training it also
 writes each row's mean and rstd (float32), the residuals of the backward,
 as ``_ln_fwd`` saves them.  The backward (``_ln_bwd``) is closed-form XLA
 math in the reference, with no Pallas kernel; here it is the same math in
@@ -117,6 +122,20 @@ def layer_norm(x, weight, bias, epsilon=1e-5):
                                     or bias.requires_grad):
         return _LayerNorm.apply(x, weight, bias, epsilon)
     return _forward(x, weight, bias, epsilon, stats=False)
+
+
+# the C entry chooses between the block-per-row kernel (index 0) and the
+# warp-per-row vector kernel (index 1): name -> (library, counting symbol)
+VARIANTS = ("block", "warp")
+VARIANT_COUNTERS = {"layer_norm": ("layer_norm",
+                                   "ptt_layer_norm_variant_launches")}
+
+
+def variant_launches():
+    """{"layer_norm": {"block": n, "warp": n}}: how many launches took each
+    kernel since the library was loaded, as the C entry counted them
+    (builds the library if it is not built yet)."""
+    return build.variant_counts(VARIANT_COUNTERS, VARIANTS)
 
 
 layer_norm.launches = 0

@@ -45,17 +45,41 @@ def _check(out, ref, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("rows,n", [(1, 7), (3, 768), (1000, 768),
+@pytest.mark.parametrize("rows,n", [(1, 7), (3, 768), (8, 768), (1000, 768),
+                                    (5, 100), (4, 776), (2, 2048),
                                     (5, 8192)])
-def test_layer_norm_kernel(dev, dtype, rows, n):
+@pytest.mark.parametrize("offset", [0, 1])
+def test_layer_norm_kernel(dev, dtype, rows, n, offset):
+    """y, and the mean and rstd the training path saves, against the plain
+    version: widths on both sides of the vector kernel's limits (a multiple
+    of 16 bytes, at most 256 vectors, partly filled lanes), the serving
+    path's R = 8, and x a view one element off a 16-byte boundary
+    (``offset`` 1).  The C entry takes the warp-per-row vector kernel
+    exactly where the width and alignment allow, else the block-per-row
+    kernel."""
     g = torch.Generator(device=dev).manual_seed(rows + n)
-    x = (torch.randn(rows, n, generator=g, device=dev) * 3 + 1).to(dtype)
+    buf = (torch.randn(rows * n + 8, generator=g, device=dev) * 3 + 1).to(
+        dtype)
+    x = buf[offset:offset + rows * n].view(rows, n)
     w = (1 + 0.1 * torch.randn(n, generator=g, device=dev)).to(dtype)
     b = (0.1 * torch.randn(n, generator=g, device=dev)).to(dtype)
+    variants = layer_norm.variant_launches()["layer_norm"]
     before = layer_norm.layer_norm.launches
     out = layer_norm.layer_norm(x, w, b)
     assert layer_norm.layer_norm.launches == before + 1
     _check(out, layer_norm.layer_norm_plain(x, w, b), dtype)
+    y, mean, rstd = layer_norm._forward(x, w, b, 1e-5, stats=True)
+    ref_y, ref_mean, ref_rstd = layer_norm._plain_with_stats(x, w, b, 1e-5)
+    _check(y, ref_y, dtype)
+    _check(mean, ref_mean, torch.float32)
+    _check(rstd, ref_rstd, torch.float32)
+    per = 16 // x.element_size()          # elements in a 16-byte vector
+    vector = offset == 0 and n % per == 0 and n <= 256 * per
+    after = layer_norm.variant_launches()["layer_norm"]
+    taken = "warp" if vector else "block"
+    other = "block" if vector else "warp"
+    assert after[taken] - variants[taken] == 2
+    assert after[other] == variants[other]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -394,7 +418,8 @@ def test_flash_attention_bf16_variant_follows_alignment(dev, aligned,
                                                         causal):
     """bf16 operands on 16-byte boundaries take the tensor-core kernels;
     the same values one element off them take the CUDA-core kernels.  Both
-    match the plain versions, and dk/dv are bitwise equal over two runs."""
+    match the plain versions, and dq and dk/dv are bitwise equal over two
+    runs."""
     g = torch.Generator(device=dev).manual_seed(11)
     B, S, H, D = 2, 200, 3, 64
     n = B * S * H * D
@@ -409,15 +434,19 @@ def test_flash_attention_bf16_variant_follows_alignment(dev, aligned,
     before = flash_attention.variant_launches()
     out, lse = flash_attention.flash_attention(q, k, v, **form)
     delta = flash_attention.flash_attention_delta(out, do)
-    grads = torch.empty(2, 2, n + 8, dtype=torch.bfloat16, device=dev)
+    grads = torch.empty(2, 3, n + 8, dtype=torch.bfloat16, device=dev)
     runs = [flash_attention.flash_attention_dkv(
         q, k, v, do, lse, delta,
-        out=tuple(t[off:off + n].view(B, S, H, D) for t in grads[i]), **form)
-        for i in range(2)]
+        out=tuple(t[off:off + n].view(B, S, H, D) for t in grads[i, :2]),
+        **form) for i in range(2)]
+    dqs = [flash_attention.flash_attention_dq(
+        q, k, v, do, lse, delta, out=grads[i, 2, off:off + n].view(
+            B, S, H, D), **form) for i in range(2)]
     taken = "mma" if aligned else "simt"
     other = "simt" if aligned else "mma"
     got = _variant_delta(before)
     assert got["flash_attention"] == {taken: 1, other: 0}
+    assert got["flash_attention_dq"] == {taken: 2, other: 0}
     assert got["flash_attention_dkv"] == {taken: 2, other: 0}
     ref, ref_lse = flash_attention.flash_attention_plain(q, k, v, **form)
     _check(out, ref, torch.bfloat16)
@@ -426,8 +455,36 @@ def test_flash_attention_bf16_variant_follows_alignment(dev, aligned,
         q, k, v, do, lse, delta, **form)
     _check(runs[0][0], ref_k, torch.bfloat16)
     _check(runs[0][1], ref_v, torch.bfloat16)
+    _check(dqs[0], flash_attention.flash_attention_dq_plain(
+        q, k, v, do, lse, delta, **form), torch.bfloat16)
     assert torch.equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1], runs[1][1])
+    assert torch.equal(dqs[0], dqs[1])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("S", [1, 200, 1024])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_flash_attention_dq_mma_kernel(dev, causal, S, D):
+    """The tensor-core dq kernel (bf16, the slices of one fused qkv, dq
+    written into the packed gradient) against the plain version at every
+    head dim, S = 1, S = 200 (not a multiple of any tile) and S = 1024;
+    every launch takes ``mma``."""
+    g = torch.Generator(device=dev).manual_seed(S * D + causal)
+    B, H = 2, 3
+    qkv = torch.randn(B, S, 3, H, D, generator=g, device=dev).bfloat16()
+    q, k, v = qkv.unbind(2)
+    o, lse = flash_attention.flash_attention(q, k, v, causal)
+    do = torch.randn(o.shape, generator=g, device=dev).bfloat16()
+    delta = flash_attention.flash_attention_delta(o, do)
+    grad = torch.empty_like(qkv)
+    before = flash_attention.variant_launches()
+    dq = flash_attention.flash_attention_dq(q, k, v, do, lse, delta,
+                                            out=grad[:, :, 0], causal=causal)
+    assert _variant_delta(before)["flash_attention_dq"] == {"mma": 1,
+                                                            "simt": 0}
+    _check(dq, flash_attention.flash_attention_dq_plain(
+        q, k, v, do, lse, delta, causal), torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -436,7 +493,9 @@ def test_flash_attention_bf16_variant_follows_alignment(dev, aligned,
 def test_flash_attention_rows_masked_everywhere(dev, dtype, fill, S):
     """A query row whose every key is masked: by -1e30 it stays the uniform
     average of V (the dot is absorbed in float32), by -inf it gives 0 and
-    lse 0; neither puts a NaN into the output or the gradients."""
+    lse 0, and a dq row of 0; neither puts a NaN into the output or the
+    gradients.  bf16 runs the tensor-core kernels, float32 the CUDA-core
+    ones."""
     g = torch.Generator(device=dev).manual_seed(S)
     B, H, D = 2, 3, 32
     qkv = torch.randn(B, S, 3, H, D, generator=g, device=dev).to(dtype)
@@ -457,10 +516,17 @@ def test_flash_attention_rows_masked_everywhere(dev, dtype, fill, S):
         _check(out[0, 3], v[0].float().mean(0), dtype)
     do = torch.randn(out.shape, generator=g, device=dev).to(dtype)
     delta = flash_attention.flash_attention_delta(out, do)
+    before = flash_attention.variant_launches()
     dq = flash_attention.flash_attention_dq(q, k, v, do, lse, delta,
                                             causal=False, bias=bias)
     dk, dv = flash_attention.flash_attention_dkv(q, k, v, do, lse, delta,
                                                  causal=False, bias=bias)
+    taken = "mma" if dtype == torch.bfloat16 else "simt"
+    got = _variant_delta(before)
+    assert got["flash_attention_dq"][taken] == 1
+    assert got["flash_attention_dkv"][taken] == 1
+    if fill == float("-inf"):
+        assert torch.all(dq[0, 3] == 0)
     ref_k, ref_v = flash_attention.flash_attention_dkv_plain(
         q, k, v, do, lse, delta, False, bias)
     for got, want in ((dq, flash_attention.flash_attention_dq_plain(

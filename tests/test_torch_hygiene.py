@@ -143,15 +143,21 @@ def test_wrapper_refuses_non_cuda_devices(name):
         kernels.WRAPPERS[name](*_kernel_args("meta")[name])
 
 
-def test_chip_smoke_prints_the_peak_it_divides_by():
-    """The MFU line names its divisor: 989e12 printed as 9.89e+14 (it was
-    printed as 1e+15), and the ratio is flops / step / that peak."""
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports torch only inside main)."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_chip_smoke_prints_the_peak_it_divides_by():
+    """The MFU line names its divisor: 989e12 printed as 9.89e+14 (it was
+    printed as 1e+15), and the ratio is flops / step / that peak."""
+    smoke = _chip_smoke()
     text = smoke.mfu_text(2.0e12, 0.04)
     assert "9.89e+14" in text and "1e+15" not in text
     assert text.startswith(f"MFU {2.0e12 / 0.04 / 989e12:.4f} ")
@@ -192,3 +198,84 @@ def test_every_csrc_header_is_hashed():
         for inc in re.findall(r'#include "(\w+\.cuh)"',
                               (build.CSRC / f"{name}.cu").read_text()):
             assert inc in headers, (name, inc)
+
+
+def _variant_symbols():
+    """{counting symbol: library} of every C entry in csrc/*.cu that
+    counts which of its two kernels a launch took."""
+    from paddle_tpu_torch.ops.kernels import build
+
+    found = {}
+    for src in sorted(build.CSRC.glob("*.cu")):
+        for sym in re.findall(r'extern "C" long long '
+                              r'(ptt_\w+_variant_launches)\(',
+                              src.read_text()):
+            found[sym] = src.stem
+    return found
+
+
+def test_every_variant_counter_is_read_and_held(monkeypatch):
+    """Each ``ptt_*_variant_launches`` counter of csrc/*.cu is read by
+    ``kernels.variant_launches()`` (through the attention and LayerNorm
+    modules' ``VARIANT_COUNTERS``) from its own library, and every kernel
+    so counted has the variant its paths must take in chip_smoke.py
+    (``MMA_KERNELS``: ``mma``; ``VECTOR_KERNELS``: ``warp``), so a new
+    variant that no phase holds fails here.  Static: the libraries are not
+    built; the reader is given zero counts."""
+    from paddle_tpu_torch.ops.kernels import build
+
+    read = {}
+
+    def fake_counts(counters, variants):
+        assert len(variants) == 2
+        read.update({sym: (name, lib, variants)
+                     for name, (lib, sym) in counters.items()})
+        return {name: dict.fromkeys(variants, 0) for name in counters}
+
+    monkeypatch.setattr(build, "variant_counts", fake_counts)
+    counts = kernels.variant_launches()
+    symbols = _variant_symbols()
+    assert len(symbols) >= 4
+    assert set(read) == set(symbols)
+    for sym, (name, lib, variants) in read.items():
+        assert lib == symbols[sym], sym
+        assert name in kernels.WRAPPERS, name
+        assert set(counts[name]) == set(variants)
+    smoke = _chip_smoke()
+    names = {name for name, _, _ in read.values()}
+    assert names == set(smoke.MMA_KERNELS) | set(smoke.VECTOR_KERNELS)
+    assert set(smoke.FAST_VARIANT) == names
+    for name, _, variants in read.values():
+        want = "mma" if name in smoke.MMA_KERNELS else "warp"
+        assert smoke.FAST_VARIANT[name] == want and want in variants
+
+
+def test_chip_smoke_fails_a_path_that_took_a_slow_kernel():
+    """``require_fast_variants`` passes a path whose every launch took the
+    fast kernel and fails one where a bf16 dq launch took the CUDA-core
+    kernel, LayerNorm took its block-per-row kernel, or a required kernel
+    never launched."""
+    smoke = _chip_smoke()
+    zero = {name: {v: 0 for v in ((fast, "simt") if fast == "mma"
+                                  else (fast, "block"))}
+            for name, fast in smoke.FAST_VARIANT.items()}
+
+    class K:
+        after = None
+
+        @classmethod
+        def variant_launches(cls):
+            return cls.after
+
+    def run(changes, kernels=smoke.FAST_VARIANT):
+        K.after = {n: dict(c) for n, c in zero.items()}
+        for name, variant in changes:
+            K.after[name][variant] += 1
+        return smoke.require_fast_variants(K, zero, "path", kernels)
+
+    every = [(n, fast) for n, fast in smoke.FAST_VARIANT.items()]
+    assert run(every) == dict.fromkeys(smoke.FAST_VARIANT, 1)
+    for bad in ([("flash_attention_dq", "simt")], [("layer_norm", "block")],
+                []):
+        with pytest.raises(SystemExit):
+            run(every + bad if bad else every[1:])

@@ -32,7 +32,12 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-@pytest.mark.parametrize("rows,n", [(8, 48), (16, 768)])
+# widths on both sides of the CUDA kernel's split (16-byte vectors: N a
+# multiple of 8 bf16 or 4 float32, at most 2048 or 1024; lanes filled or
+# partly filled) and the serving path's R = 8
+@pytest.mark.parametrize("rows,n", [(8, 48), (16, 768), (8, 768), (8, 7),
+                                    (8, 100), (16, 776), (8, 1024),
+                                    (8, 1028), (8, 2048), (8, 2056)])
 def test_layer_norm_plain_vs_pallas(rows, n):
     rs = np.random.RandomState(rows)
     x = rs.randn(rows, n).astype(np.float32) * 3 + 1
@@ -44,7 +49,8 @@ def test_layer_norm_plain_vs_pallas(rows, n):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
-@pytest.mark.parametrize("shape", [(3, 48), (1, 5, 48)])
+@pytest.mark.parametrize("shape", [(3, 48), (1, 5, 48), (3, 7), (5, 776),
+                                   (1, 7, 2056)])
 def test_layer_norm_plain_vs_composite_untileable_rows(shape):
     """Row counts the Pallas kernel refuses (not a multiple of 8): the
     port takes any R — held against the XLA composite."""
