@@ -20,7 +20,10 @@ passed over):
                   the card against the same on the CPU (plain versions).
 5. serving      — the same model in bfloat16 behind GenerationEngine: 16
                   requests in one wave, greedy and sampled alternating;
-                  every serving kernel's launch count must be > 0.
+                  every serving kernel's launch count must be > 0; then
+                  4 requests with every decode step under
+                  torch.cuda.set_sync_debug_mode("warn"): one sync a
+                  step, the token fetch, or the run fails.
 6. train-parity — full-width float32, B = 2, S = 128: loss(ids) and every
                   parameter's gradient on the card against the CPU's.
 7. train        — full-width bfloat16, B = 8, S = 1024: 10 dygraph AdamW
@@ -44,19 +47,24 @@ passed over):
 
 Phase 3 also holds the softmax cross-entropy kernels (BERT's MLM and NSP
 shapes and GPT's) and the non-causal and masked forms of the attention
-kernels (BERT's shape and S = 77) against their plain versions.  The
-attention forward, dq and dk/dv each have a tensor-core kernel (bf16 on
-16-byte boundaries) and a CUDA-core kernel (float32, unaligned bf16), and
-LayerNorm a warp-per-row vector kernel (16-byte aligned rows of at most
-256 vectors) and a block-per-row kernel (any other width or alignment):
-every `[kernels]` line of theirs names the variant the launch took (`mma`
-or `simt`; `warp` or `block`), both are held against the plain version,
-and a phase of the serving or training paths fails if one of its bf16
-attention launches took `simt` or one of its LayerNorm launches `block`.
+kernels (BERT's shape and S = 77) against their plain versions, paged
+decode at the serving table's shape and a serving wave's, and times the
+bias-GeLU Function's db reduction against the one it replaced.  Six C
+entries choose between two kernels (`VARIANTS`): the attention forward,
+dq and dk/dv a tensor-core kernel (bf16 on 16-byte boundaries) or a
+CUDA-core one (`mma` / `simt`); LayerNorm a warp-per-row vector kernel or
+a block per row (`warp` / `block`); paged decode the split
+(flash-decoding) kernel or a block per (head, lane) (`split` / `lane`);
+the bias-GeLU backward a 16-byte vector kernel or a scalar loop (`vec` /
+`scalar`).  Every `[kernels]` line of theirs names the variant the launch
+took, both are held against the plain version (the slower ones on
+operands one element off a 16-byte boundary), and a phase of the serving
+or training paths fails if one of its launches took the slower kernel.
 
 The line before the last is the per-kernel JSON record; the last line is
 the result JSON.  Float32 phases run with TF32 off for matmuls and cuDNN.
 """
+import gc
 import json
 import math
 import os
@@ -73,6 +81,9 @@ BF16_TOL = 2 ** -6   # x max(1, max|ref|): two bf16 ulps at the top binade
 LOGITS_REL_TOL = 1e-3  # max|dlogits| / max|ref| over 12 layers, float32
 GRAD_REL_TOL = 1e-3    # max|dgrad| / max|ref| per parameter, float32
 HBM_BYTES_PER_S = 3.35e12
+# what torch.cuda.set_sync_debug_mode("warn") says at a synchronizing call
+# (its first use also warns that the mode is a prototype: not a sync)
+SYNC_WARNING = "called a synchronizing CUDA operation"
 PEAK_BF16_TENSOR = 989e12   # dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12            # float32 CUDA-core FLOP/s
 
@@ -105,13 +116,21 @@ XENT_KERNELS = ("softmax_xent", "softmax_xent_bwd")
 BERT_KERNELS = TRAINING_KERNELS + XENT_KERNELS
 ATTENTION_KERNELS = ("flash_attention", "flash_attention_dq",
                      "flash_attention_dkv")
-# the three with a tensor-core kernel for aligned bf16 beside the CUDA-core
-# one, and the one with a vector kernel for aligned rows beside the
-# block-per-row one; the variant each path must take
+# every C entry that chooses between two hand-written kernels: (the kernel
+# for any other operand, the kernel every launch of a path must take) —
+# the three attention kernels' tensor-core kernel for aligned bf16 beside
+# the CUDA-core one, and the 16-byte vector kernels of LayerNorm, paged
+# decode and the bias-GeLU backward beside their scalar ones
 MMA_KERNELS = ("flash_attention", "flash_attention_dq", "flash_attention_dkv")
-VECTOR_KERNELS = ("layer_norm",)
-FAST_VARIANT = {**{n: "mma" for n in MMA_KERNELS},
-                **{n: "warp" for n in VECTOR_KERNELS}}
+VECTOR_KERNELS = ("layer_norm", "paged_decode_attention", "bias_gelu_bwd")
+VARIANTS = {**{n: ("simt", "mma") for n in MMA_KERNELS},
+            "layer_norm": ("block", "warp"),
+            "paged_decode_attention": ("lane", "split"),
+            "bias_gelu_bwd": ("scalar", "vec")}
+FAST_VARIANT = {n: fast for n, (_, fast) in VARIANTS.items()}
+# the kernels with a variant that each path launches
+SERVING_FAST = ("flash_attention", "layer_norm", "paged_decode_attention")
+TRAINING_FAST = MMA_KERNELS + ("layer_norm", "bias_gelu_bwd")
 
 
 def log(msg):
@@ -183,8 +202,8 @@ def bound_ms(n_bytes, n_flops, peak):
 
 def variant_taken(before, after, name):
     """Which kernel of entry ``name`` the launches between two
-    ``variant_launches()`` readings took: its variant's name ("mma",
-    "simt", "warp", "block"), "mixed" or "none"."""
+    ``variant_launches()`` readings took: its variant's name (a name of
+    ``VARIANTS``), "mixed" or "none"."""
     took = [v for v in after[name] if after[name][v] > before[name][v]]
     return took[0] if len(took) == 1 else ("mixed" if took else "none")
 
@@ -192,8 +211,9 @@ def variant_taken(before, after, name):
 def require_fast_variants(K, before, what, kernels):
     """Fail if a launch of a path since the reading ``before`` took the
     slower kernel of its entry (an attention kernel on the CUDA cores in
-    bf16, LayerNorm's block per row), or if one of ``kernels`` took no
-    launch of its fast kernel at all.  Returns the fast launches."""
+    bf16, LayerNorm's block per row, paged decode's block per (head,
+    lane), the scalar bias-GeLU backward), or if one of ``kernels`` took
+    no launch of its fast kernel at all.  Returns the fast launches."""
     after = K.variant_launches()
     took = {}
     for name, counts in after.items():
@@ -307,33 +327,64 @@ def kernel_phase(torch, K):
                 variant=("flash_attention", variant_of(dtype)))
             if dtype == torch.bfloat16 and B == 1 and S == 128:
                 main["flash_attention"] = rec
-        slots, nh, hd, ps, pps = 8, 12, 64, 16, 32
-        num_pages = slots * pps
-        pos = torch.tensor([511, 15, 16, 100, 255, 37, 480, 0],
-                           dtype=torch.int32, device=dev)
-        perm = torch.randperm(num_pages, generator=g, device=dev)
-        rows = torch.full((slots, pps), -1, dtype=torch.int32, device=dev)
-        live = 0
-        for lane in range(slots - 1):             # the last lane: inactive
-            n = int(pos[lane]) // ps + 1
-            rows[lane, :n] = perm[lane * pps:lane * pps + n].to(torch.int32)
-            live += int(pos[lane]) + 1
-        kp, vp = rnd(num_pages, ps, nh, hd), rnd(num_pages, ps, nh, hd)
-        q = rnd(slots, 1, 3, nh, hd)[:, 0, 0]
-        rec = compare(
-            torch, f"paged_decode_attention {tag} slots={slots} nh={nh} "
-            f"hd={hd} page={ps} pps={pps}",
-            lambda: K.paged_attention.paged_decode_attention(
-                q, kp, vp, rows, pos, pps * ps),
-            lambda: K.paged_attention.paged_decode_attention_plain(
-                q, kp, vp, rows, pos, pps * ps),
-            None, dtype,
-            2 * live * nh * hd * isz + 2 * slots * nh * hd * isz
-            + slots * (pps + 1) * 4, 4 * live * nh * hd, peak)
-        if dtype == torch.bfloat16:
-            main["paged_decode_attention"] = rec
+        # the serving table's shape (one lane at 512 tokens, six short,
+        # one inactive) and a serving wave's (8 lanes at 20-176 tokens)
+        for case, lane_pos in (
+                ("table", (511, 15, 16, 100, 255, 37, 480, -1)),
+                ("wave", (20, 176, 57, 131, 88, 160, 35, 113))):
+            rec = paged_case(torch, K, g, dtype, case, lane_pos, ps=16,
+                             hd=64)
+            if dtype == torch.bfloat16 and case == "table":
+                main["paged_decode_attention"] = rec
     torch.cuda.synchronize()
     return main
+
+
+def paged_case(torch, K, g, dtype, case, lane_pos, ps, hd, nh=12,
+               pps=32, variant="split", q_offset=None):
+    """paged_decode_attention against its plain version: lanes with the
+    inclusive extents ``lane_pos`` (-1: an inactive lane with an all -1
+    row, pos 0) over page tables scattered through the pool, the live
+    tokens' K/V the bound's bytes.  q is the slice of a fused qkv, as the
+    model gives it, or with ``q_offset`` a view that many elements into
+    its buffer."""
+    PA = K.paged_attention
+    dev = "cuda"
+    slots = len(lane_pos)
+    num_pages = slots * pps
+    isz = torch.empty((), dtype=dtype).element_size()
+    pos = torch.tensor([max(p, 0) for p in lane_pos], dtype=torch.int32,
+                       device=dev)
+    perm = torch.randperm(num_pages, generator=g, device=dev)
+    rows = torch.full((slots, pps), -1, dtype=torch.int32, device=dev)
+    live = 0
+    for lane, p in enumerate(lane_pos):
+        if p < 0:
+            continue
+        n = p // ps + 1
+        rows[lane, :n] = perm[lane * pps:lane * pps + n].to(torch.int32)
+        live += p + 1
+    kp = torch.randn(num_pages, ps, nh, hd, generator=g, device=dev).to(dtype)
+    vp = torch.randn(num_pages, ps, nh, hd, generator=g, device=dev).to(dtype)
+    if q_offset is None:
+        q = torch.randn(slots, 1, 3, nh, hd, generator=g,
+                        device=dev).to(dtype)[:, 0, 0]
+    else:
+        n = slots * nh * hd
+        q = torch.randn(n + 8, generator=g, device=dev).to(dtype)[
+            q_offset:q_offset + n].view(slots, nh, hd)
+    tag = "f32" if dtype == torch.float32 else "bf16"
+    return compare(
+        torch, f"paged_decode_attention {tag} {case} slots={slots} nh={nh} "
+        f"hd={hd} page={ps} pps={pps} pos={list(lane_pos)}",
+        lambda: PA.paged_decode_attention(q, kp, vp, rows, pos, pps * ps),
+        lambda: PA.paged_decode_attention_plain(q, kp, vp, rows, pos,
+                                                pps * ps),
+        None, dtype,
+        2 * live * nh * hd * isz + 2 * slots * nh * hd * isz
+        + slots * (pps + 1) * 4, 4 * live * nh * hd,
+        PEAK_F32 if dtype == torch.float32 else PEAK_BF16_TENSOR,
+        variant=("paged_decode_attention", variant))
 
 
 def variant_of(dtype):
@@ -344,8 +395,11 @@ def variant_of(dtype):
 def unaligned_phase(torch, K):
     """bf16 operands one element off a 16-byte boundary: attention (B = 1,
     S = 128, H = 12, D = 64, causal) must take the CUDA-core forward, dq
-    and dk/dv, and LayerNorm (R = 8192, N = 768) its block-per-row kernel;
-    all agree with the plain versions like any other case."""
+    and dk/dv, LayerNorm (R = 8192, N = 768) its block-per-row kernel, the
+    bias-GeLU backward (R = 8192, F = 3072, and F = 3071 aligned) its
+    scalar kernel and paged decode (the table's shape) its block per
+    (head, lane); all agree with the plain versions like any other
+    case."""
     F = torch.nn.functional
     KF = K.flash_attention
     g = torch.Generator(device="cuda").manual_seed(9)
@@ -388,6 +442,29 @@ def unaligned_phase(torch, K):
             lambda: F.layer_norm(x, (N,), w, b, 1e-5), torch.bfloat16,
             (2 * R * N + 2 * N) * 2, 8 * R * N, PEAK_F32,
             variant=("layer_norm", "block"))
+    # the bias-GeLU backward: an unaligned x and a width that is not a
+    # multiple of 8 take the scalar kernel
+    R, Fd = 8192, 3072
+    x = torch.randn(R * Fd + 8, generator=g, device="cuda").to(
+        torch.bfloat16)[1:R * Fd + 1].view(R, Fd)
+    b = (0.5 * torch.randn(Fd, generator=g, device="cuda")).bfloat16()
+    dy = torch.randn(R, Fd, generator=g, device="cuda").bfloat16()
+    for shape, (xs, bs, dys) in (
+            (f"unaligned R={R} F={Fd}", (x, b, dy)),
+            (f"R={R} F={Fd - 1}", (x[:, 1:].contiguous(), b[1:].contiguous(),
+                                   dy[:, 1:].contiguous()))):
+        compare(torch, f"bias_gelu_bwd bf16 {shape}",
+                lambda: K.bias_gelu.bias_gelu_bwd(xs, bs, dys),
+                lambda: K.bias_gelu.bias_gelu_bwd_plain(xs, bs, dys),
+                lambda: torch.ops.aten.gelu_backward(dys, xs + bs),
+                torch.bfloat16, (3 * xs.numel() + xs.shape[1]) * 2,
+                12 * xs.numel(), PEAK_F32, variant=("bias_gelu_bwd",
+                                                    "scalar"))
+    # paged decode: q one element off a 16-byte boundary takes the block
+    # per (head, lane)
+    paged_case(torch, K, g, torch.bfloat16, "unaligned q",
+               (511, 15, 16, 100, 255, 37, 480, -1), ps=16, hd=64,
+               variant="lane", q_offset=1)
 
 
 def sdpa_backward(torch, q, k, v, do):
@@ -422,16 +499,19 @@ def backward_kernel_phase(torch, K):
             return (torch.randn(*shape, generator=g, device="cuda") * scale
                     ).to(dtype)
 
-        R, Fd = 8192, 3072
-        x, b, dy = rnd(R, Fd, scale=2.0), rnd(Fd, scale=0.5), rnd(R, Fd)
-        rec = compare(
-            torch, f"bias_gelu_bwd {tag} R={R} F={Fd}",
-            lambda: K.bias_gelu.bias_gelu_bwd(x, b, dy),
-            lambda: K.bias_gelu.bias_gelu_bwd_plain(x, b, dy),
-            lambda: torch.ops.aten.gelu_backward(dy, x + b), dtype,
-            (3 * R * Fd + Fd) * isz, 12 * R * Fd, PEAK_F32)
-        if dtype == torch.bfloat16:
-            main["bias_gelu_bwd"] = rec
+        for R, Fd in ((8192, 3072), (4096, 3072), (37, 3072)):
+            # GPT's FFN rows, BERT's, and a ragged band of rows
+            x, b, dy = rnd(R, Fd, scale=2.0), rnd(Fd, scale=0.5), rnd(R, Fd)
+            rec = compare(
+                torch, f"bias_gelu_bwd {tag} R={R} F={Fd}",
+                lambda: K.bias_gelu.bias_gelu_bwd(x, b, dy),
+                lambda: K.bias_gelu.bias_gelu_bwd_plain(x, b, dy),
+                lambda: torch.ops.aten.gelu_backward(dy, x + b), dtype,
+                (3 * R * Fd + Fd) * isz, 12 * R * Fd, PEAK_F32,
+                variant=("bias_gelu_bwd", "vec"))
+            if dtype == torch.bfloat16 and R == 8192:
+                main["bias_gelu_bwd"] = rec
+                db_timing(torch, K, x, b, dy)
         H, D = 12, 64
         for B, S in ((1, 128), (8, 128), (8, 1024)):
             q, k, v = rnd(B, S, 3, H, D).unbind(2)   # the fused projection
@@ -462,6 +542,28 @@ def backward_kernel_phase(torch, K):
                 main["flash_attention_dkv"] = rec_kv
     torch.cuda.synchronize()
     return main
+
+
+def db_timing(torch, K, x, b, dy):
+    """The bias gradient of the bias-GeLU Function at the GPT shape, device
+    ms: the reduction it takes now (float32 accumulation over dx as it
+    lies) against the one it took before (a float32 copy of dx, summed);
+    the two must agree."""
+    dx = K.bias_gelu.bias_gelu_bwd(x, b, dy)
+    F = dx.shape[-1]
+    before = lambda: dx.float().reshape(-1, F).sum(0)   # noqa: E731
+    now = lambda: K.bias_gelu.bias_gelu_db(dx)          # noqa: E731
+    err = (now() - before()).abs().max().item()
+    # two float32 sums of the same 8192 terms in any order: held against
+    # the sum of the terms' magnitudes
+    tol = F32_TOL * max(1.0, dx.float().abs().sum(0).max().item())
+    if not err <= tol:
+        fail(f"bias_gelu db: |now - before| {err:.3e} > {tol:.3e}")
+    t_now, t_before = time_ms(torch, now)[0], time_ms(torch, before)[0]
+    log(f"[kernels] bias_gelu db bf16 R={dx.shape[0]} F={F}: device ms "
+        f"float32-accumulated sum={t_now} (before: float32 copy + sum "
+        f"{t_before}); |diff| {err:.3e}; bound "
+        f"{(dx.numel() * 2 + F * 4) / HBM_BYTES_PER_S * 1e3}")
 
 
 def decode_run(torch, model, prompt, n_steps, feed=None):
@@ -529,9 +631,10 @@ def logits_phase(torch, model_gpu, model_cpu):
 
 def profile_window(torch, run):
     """run() under torch.profiler: (wall ms, device busy ms, kernel
-    launches, the ten kernels that take the most device time).  Busy =
-    the sum of kernel times over the window (one stream, so kernels do
-    not overlap); None when the trace holds no device time."""
+    launches, the ten kernels that take the most device time, then the
+    device-to-host copies' ms and count).  Busy = the sum of kernel times
+    over the window (one stream, so kernels do not overlap); None when
+    the trace holds no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -551,6 +654,10 @@ def profile_window(torch, run):
     kernels.sort(reverse=True)
     top = "; ".join(f"{name[:60]} {t:.3f} ms x{n}"
                     for t, name, n in kernels[:10])
+    copies = [(t, n) for t, name, n in kernels
+              if name.startswith("Memcpy DtoH")]
+    top += (f"; device-to-host copies {sum(t for t, _ in copies):.3f} ms "
+            f"x{sum(n for _, n in copies)}")
     return wall_ms, busy_ms, sum(n for _, _, n in kernels), top
 
 
@@ -569,6 +676,47 @@ def profile_wave(torch, eng, prompts):
         f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
         f"({100 * busy_ms / wall_ms:.2f}%), {launches} kernel launches; "
         f"top: {top}")
+
+
+def sync_check(torch, eng, prompts):
+    """Every ``GenerationEngine.step()`` of a few requests (greedy and
+    sampled alternating) under ``torch.cuda.set_sync_debug_mode("warn")``:
+    a step makes exactly one synchronizing call, its copy of the tokens
+    to the host in serving/generation.py; any other sync fails the run.
+    Returns the summary for the serving line."""
+    import warnings
+
+    step, seen = eng.step, []
+
+    def checked_step():                 # runs on the decode thread
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        seen.append([(os.path.basename(w.filename), w.lineno)
+                     for w in caught
+                     if str(w.message).startswith(SYNC_WARNING)])
+        return out
+
+    eng.step = checked_step
+    try:
+        handles = [eng.submit(p, 8, **(dict(do_sample=True, temperature=0.8,
+                                            top_k=8, seed=i) if i % 2
+                                       else {}))
+                   for i, p in enumerate(prompts)]
+        for h in handles:
+            h.result(600)
+    finally:
+        del eng.step
+    where = {loc for syncs in seen for loc in syncs}
+    if not seen or any(len(syncs) != 1 for syncs in seen) \
+            or {f for f, _ in where} != {"generation.py"}:
+        fail(f"decode steps made other syncs than the token fetch: {seen}")
+    return (f"{len(seen)} decode steps under sync debug mode: one sync "
+            f"each, at {sorted(where)} (the token fetch)")
 
 
 def serving_phase(torch, K, model, card):
@@ -593,8 +741,7 @@ def serving_phase(torch, K, model, card):
         outs = [h.result(600) for h in handles]
         wall = time.perf_counter() - t0
         counts = K.launch_counts()
-        fast = require_fast_variants(K, variants, "serving",
-                                    ("flash_attention", "layer_norm"))
+        fast = require_fast_variants(K, variants, "serving", SERVING_FAST)
         snap = eng.metrics.snapshot()
         for i, o in enumerate(outs):
             if len(o) != 48 or min(o) < 0 or max(o) >= model.cfg.vocab_size:
@@ -611,6 +758,7 @@ def serving_phase(torch, K, model, card):
             fail("greedy request re-run alone gave different tokens")
         if eng.free_count != eng.geometry.num_pages:
             fail("free_count did not return to num_pages")
+        syncs = sync_check(torch, eng, prompts[:4])
         profile_wave(torch, eng, prompts[:8])
         total = sum(len(o) for o in outs)
         log(f"[serving] 16 requests (prompts 20-128, 48 new tokens, "
@@ -620,7 +768,7 @@ def serving_phase(torch, K, model, card):
             f"{snap['inter_token_p50_ms']:.3f} ms; launches {counts}; "
             f"tensor-core and vector-kernel launches {fast}; "
             f"greedy re-run alone identical; free_count back to "
-            f"{eng.geometry.num_pages}")
+            f"{eng.geometry.num_pages}; {syncs}")
         return counts
     finally:
         eng.stop()
@@ -707,6 +855,7 @@ def train_phase(torch, K, cfg, card):
         return loss.detach()
 
     torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
     K.reset_launch_counts()
     variants = K.variant_launches()
     losses, times = [], []
@@ -716,7 +865,7 @@ def train_phase(torch, K, cfg, card):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     counts = K.launch_counts()
-    fast = require_fast_variants(K, variants, "train", FAST_VARIANT)
+    fast = require_fast_variants(K, variants, "train", TRAINING_FAST)
     losses = torch.stack(losses).float().cpu().tolist()
     for name in TRAINING_KERNELS:
         if counts[name] <= 0:
@@ -733,7 +882,7 @@ def train_phase(torch, K, cfg, card):
         f"AdamW(2e-4, wd 0.01) on {card}: losses {losses}; step ms "
         f"{[round(t * 1e3, 3) for t in times]}; p50 {p50 * 1e3:.3f} ms; "
         f"{tokens / p50:.1f} tokens/s; {mfu_text(flops, p50)}; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+        f"{peak_text(torch, start)}; launches "
         f"per step {per_step}; tensor-core and vector-kernel launches {fast}")
 
     profile_steps(torch, "train-profile", step)
@@ -747,7 +896,7 @@ def train_phase(torch, K, cfg, card):
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     fit_counts = K.launch_counts()
-    require_fast_variants(K, variants, "train and Model.fit", FAST_VARIANT)
+    require_fast_variants(K, variants, "train and Model.fit", TRAINING_FAST)
     if len(hist["step_loss"]) != 3 or not all(
             math.isfinite(x) for x in hist["step_loss"]):
         fail(f"Model.fit: step losses {hist['step_loss']}")
@@ -968,7 +1117,7 @@ def gpt_labels_phase(torch, K, cfg):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = K.launch_counts()
-    require_fast_variants(K, variants, "gpt-labels", FAST_VARIANT)
+    require_fast_variants(K, variants, "gpt-labels", TRAINING_FAST)
     with torch.no_grad():
         ref = model.loss(ids).item()
     got = loss.item()
@@ -1117,6 +1266,7 @@ def bert_train_phase(torch, K, card):
         return loss.detach()
 
     torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
     K.reset_launch_counts()
     variants = K.variant_launches()
     losses, times = [], []
@@ -1126,7 +1276,7 @@ def bert_train_phase(torch, K, card):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     counts = K.launch_counts()
-    fast = require_fast_variants(K, variants, "bert-train", FAST_VARIANT)
+    fast = require_fast_variants(K, variants, "bert-train", TRAINING_FAST)
     losses = torch.stack(losses).float().cpu().tolist()
     for name in BERT_KERNELS:
         if counts[name] <= 0:
@@ -1144,7 +1294,7 @@ def bert_train_phase(torch, K, card):
         f"{[round(t * 1e3, 3) for t in times]}; p50 {p50 * 1e3:.3f} ms; "
         f"{B / p50:.1f} samples/s; {tokens / p50:.1f} tokens/s; "
         f"{mfu_text(flops, p50)}; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+        f"{peak_text(torch, start)}; launches "
         f"per step {per_step}; tensor-core and vector-kernel launches {fast}")
     profile_steps(torch, "bert-profile", step)
 
@@ -1162,7 +1312,7 @@ def bert_train_phase(torch, K, card):
     fit_s = time.perf_counter() - t0
     fit_counts = K.launch_counts()
     require_fast_variants(K, variants, "bert-train and Model.fit",
-                          FAST_VARIANT)
+                          TRAINING_FAST)
     if len(hist["step_loss"]) != 3 or not all(
             math.isfinite(x) for x in hist["step_loss"]):
         fail(f"BERT Model.fit: step losses {hist['step_loss']}")
@@ -1177,6 +1327,26 @@ def bert_train_phase(torch, K, card):
         f"step losses {hist['step_loss']}; {fit_s:.3f}s; every attention "
         f"launch took the mask; launches {fit_counts}")
     return counts
+
+
+def peak_text(torch, start):
+    """The peak memory since the last reset, and its part above the
+    ``start`` the phase found allocated."""
+    peak = torch.cuda.max_memory_allocated()
+    return (f"{peak / 2 ** 30:.2f} GiB ({(peak - start) / 2 ** 30:.3f} "
+            f"above the phase's start)")
+
+
+def release(torch, phase):
+    """Free what the finished phases left before ``phase``, so its peak
+    memory is its own: objects in reference cycles (a finished request's
+    handle and the request refer to each other, and the request to its
+    engine and KV pool) wait for the cyclic collector, whose timing
+    depends on how many objects the run made."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[memory] before {phase}: "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB allocated")
 
 
 def sass_phase(paths):
@@ -1271,16 +1441,16 @@ def main():
     serve_counts = serving_phase(torch, K, model, card)
     torch.cuda.synchronize()
     del model
-    torch.cuda.empty_cache()
+    release(torch, "GPT training")
 
     train_parity_phase(torch, K, cfg)
     train_counts = train_phase(torch, K, cfg, card)
     gpt_labels_phase(torch, K, cfg)
     torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    release(torch, "BERT")
 
     bert_parity_phase(torch, K)
-    torch.cuda.empty_cache()
+    release(torch, "BERT training")
     bert_counts = bert_train_phase(torch, K, card)
     torch.cuda.synchronize()
 

@@ -65,47 +65,6 @@ __global__ void layer_norm_fwd_kernel(const T* __restrict__ x,
   }
 }
 
-// 16 bytes of T as float32 and back.
-template <typename T>
-struct Vec16;
-
-template <>
-struct Vec16<float> {
-  static constexpr int kN = 4;
-  __device__ static void unpack(const uint4& r, float (&f)[kN]) {
-    f[0] = __uint_as_float(r.x);
-    f[1] = __uint_as_float(r.y);
-    f[2] = __uint_as_float(r.z);
-    f[3] = __uint_as_float(r.w);
-  }
-  __device__ static uint4 pack(const float (&f)[kN]) {
-    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
-                      __float_as_uint(f[2]), __float_as_uint(f[3]));
-  }
-};
-
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  __device__ static void unpack(const uint4& r, float (&f)[kN]) {
-    const uint32_t u[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {  // bf16 is the high half of a float32
-      f[2 * i] = __uint_as_float(u[i] << 16);
-      f[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-    }
-  }
-  __device__ static uint4 pack(const float (&f)[kN]) {
-    uint32_t u[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-      u[i] = *reinterpret_cast<const uint32_t*>(&h);
-    }
-    return make_uint4(u[0], u[1], u[2], u[3]);
-  }
-};
-
 constexpr int kRowsPerBlock = 8;  // one warp a row
 constexpr int kMaxVecs = 8;       // 16-byte vectors a lane, at most
 
@@ -117,7 +76,7 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
                            float* __restrict__ mean_out,
                            float* __restrict__ rstd_out, long long rows,
                            int n, float eps) {
-  using V = Vec16<T>;
+  using V = ptt::Vec16<T>;
   constexpr int kN = V::kN;
   const long long row =
       static_cast<long long>(blockIdx.x) * kRowsPerBlock + (threadIdx.x >> 5);
@@ -189,7 +148,7 @@ template <typename T>
 int launch_warp(const T* x, const T* w, const T* b, T* y, float* mean,
                 float* rstd, long long rows, int n, float eps,
                 cudaStream_t st) {
-  const int vecs = (n / Vec16<T>::kN + 31) / 32;
+  const int vecs = (n / ptt::Vec16<T>::kN + 31) / 32;
   const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
   switch (vecs) {
 #define PTT_LN_CASE(K)                                                      \
@@ -229,10 +188,6 @@ int launch(const void* x, const void* w, const void* b, void* y, void* mean,
   return static_cast<int>(cudaGetLastError());
 }
 
-bool aligned_16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 // launches of each variant since the library was loaded: [block, warp]
 std::atomic<long long> variant_launches[2];
 
@@ -250,8 +205,8 @@ extern "C" int ptt_layer_norm_fwd(const void* x, const void* w, const void* b,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int per_vec = dtype == ptt::kF32 ? 4 : 8;  // elements in 16 bytes
   const bool warp = n % per_vec == 0 && n <= 32 * kMaxVecs * per_vec &&
-                    aligned_16(x) && aligned_16(w) && aligned_16(b) &&
-                    aligned_16(y);
+                    ptt::aligned_16(x) && ptt::aligned_16(w) &&
+                    ptt::aligned_16(b) && ptt::aligned_16(y);
   ++variant_launches[warp];
   if (dtype == ptt::kF32)
     return launch<float>(x, w, b, y, mean, rstd, rows, n, eps, warp, st);

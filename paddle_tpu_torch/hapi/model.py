@@ -89,19 +89,22 @@ class Model:
             return batch, []
         return batch[:-n_label], batch[-n_label:]
 
-    def _loader(self, data, batch_size, shuffle):
+    def _loader(self, data, batch_size, shuffle, drop_last=False):
         if isinstance(data, DataLoader):
             return data
-        return DataLoader(data, batch_size=batch_size, shuffle=shuffle)
+        return DataLoader(data, batch_size=batch_size, shuffle=shuffle,
+                          drop_last=drop_last)
 
     def fit(self, train_data=None, eval_data=None, batch_size=1, epochs=1,
-            log_freq=10, verbose=2, shuffle=True):
+            log_freq=10, verbose=2, drop_last=False, shuffle=True):
         """Train for ``epochs`` over ``train_data`` (a Dataset or a
-        DataLoader).  Returns the history: ``loss`` (the mean loss of each
-        epoch), ``eval_loss`` (per epoch, with ``eval_data``) and
+        DataLoader).  ``drop_last`` drops an epoch's last, short batch (a
+        Dataset only; a DataLoader keeps its own batching), as the
+        reference's does.  Returns the history: ``loss`` (the mean loss of
+        each epoch), ``eval_loss`` (per epoch, with ``eval_data``) and
         ``step_loss`` (every step's loss; the reference hands these to its
         callbacks, which are not ported)."""
-        loader = self._loader(train_data, batch_size, shuffle)
+        loader = self._loader(train_data, batch_size, shuffle, drop_last)
         steps = len(loader)
         if self._engine is None:
             self._engine = TrainEngine(self)

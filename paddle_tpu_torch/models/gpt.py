@@ -72,16 +72,18 @@ def _scatter_token(k_pages, v_pages, k, v, rows, pos, active):
     page = rows[lane, (pos // ps).clamp(0, rows.shape[1] - 1)].long()
     ok = active & (page >= 0) & (page < num_pages)
     tgt = page.clamp(0, num_pages - 1) * ps + (pos % ps).long()
-    first = ok.to(torch.int32).argmax()
+    # the first writing lane as a 1-element index tensor: indexing with
+    # the 0-d argmax itself would copy it to the host (a sync per use)
+    first = ok.to(torch.int32).argmax().reshape(1)
     any_ok = ok.any()
-    tgt = torch.where(ok, tgt, torch.where(any_ok, tgt[first],
-                                           torch.zeros_like(tgt[first])))
+    fallback = torch.where(any_ok, tgt.index_select(0, first),
+                           torch.zeros_like(tgt[:1]))
+    tgt = torch.where(ok, tgt, fallback)
     for pool, new in ((k_pages, k), (v_pages, v)):
         flat = pool.view(num_pages * ps, nh, hd)
         new = new.to(pool.dtype)
-        fill = torch.where(any_ok, new[first], flat[0])
-        flat.index_copy_(0, tgt, torch.where(ok[:, None, None], new,
-                                             fill[None]))
+        fill = torch.where(any_ok, new.index_select(0, first), flat[:1])
+        flat.index_copy_(0, tgt, torch.where(ok[:, None, None], new, fill))
 
 
 class GPTAttention(Layer):

@@ -32,10 +32,13 @@ def launch_counts() -> dict:
 def variant_launches() -> dict:
     """{kernel: {variant: launches}} of every kernel whose C entry chooses
     between two hand-written kernels (the attention kernels' ``simt`` /
-    ``mma``, LayerNorm's ``block`` / ``warp``), since the libraries were
-    loaded."""
+    ``mma``, LayerNorm's ``block`` / ``warp``, paged decode's ``lane`` /
+    ``split``, the bias-GeLU backward's ``scalar`` / ``vec``), since the
+    libraries were loaded."""
     return {**flash_attention.variant_launches(),
-            **layer_norm.variant_launches()}
+            **layer_norm.variant_launches(),
+            **paged_attention.variant_launches(),
+            **bias_gelu.variant_launches()}
 
 
 def reset_launch_counts():

@@ -5,11 +5,19 @@ Replaces paddle_tpu/ops/pallas/bias_gelu.py ``_fwd_kernel`` and
 ``_bwd_kernel`` (via ``_row_call``; ``_bg_fwd``/``_bg_bwd`` are the
 custom_vjp).  Both are bound by bytes: the forward reads x and writes y,
 the backward reads x and dy and writes dx, once per element.  The kernels
-(csrc/bias_gelu.cu) are elementwise grid-stride loops with the add, the
-erf and the derivative in float32, for any row count; the backward
-recomputes u = x + b from the saved input instead of saving u.  db is the
-float32 row-sum of dx, a torch reduction, as the reference leaves it to
-XLA.
+(csrc/bias_gelu.cu) do the add, the erf and the derivative in float32,
+for any row count; the backward recomputes u = x + b from the saved input
+instead of saving u.  The forward is an elementwise grid-stride loop.  The
+backward's C entry picks one of two kernels from the width and the
+alignment alone (:func:`variant_launches` reports which): ``vec``
+(x, b, dy, dx on 16-byte boundaries and F a multiple of one 16-byte
+vector: every path of the models) indexes by (row, 16-byte column
+vector), loads its bias vector once and keeps 8 rows' loads in flight;
+``scalar``, the grid-stride loop, takes any other width or alignment.  db
+is dx's row-sum accumulated in float32 inside one torch reduction, with no
+float32 copy of dx, as the reference leaves it to XLA
+(``jnp.sum(dx.astype(jnp.float32), axis=0)``, where the convert fuses into
+the reduction).
 
 A CPU tensor takes the plain versions; a CUDA tensor launches the kernels
 or raises.  :func:`bias_gelu` builds the autograd graph only when grad
@@ -111,8 +119,14 @@ class _BiasGelu(torch.autograd.Function):
         dx = bias_gelu_bwd(x, bias, dy.contiguous())
         db = None
         if ctx.needs_input_grad[1]:
-            db = dx.float().reshape(-1, x.shape[-1]).sum(0).to(bias.dtype)
+            db = bias_gelu_db(dx).to(bias.dtype)
         return dx, db
+
+
+def bias_gelu_db(dx):
+    """db = dx's sum over every row [..., F] -> [F], accumulated in float32
+    by one reduction that reads dx as it is (no float32 copy of dx)."""
+    return dx.reshape(-1, dx.shape[-1]).sum(0, dtype=torch.float32)
 
 
 def bias_gelu(x, bias):
@@ -124,3 +138,18 @@ def bias_gelu(x, bias):
 
 bias_gelu.launches = 0
 bias_gelu_bwd.launches = 0
+
+
+# the C entry of the backward chooses between the scalar grid-stride kernel
+# (index 0) and the 16-byte vector kernel (index 1): name -> (library,
+# counting symbol)
+VARIANTS = ("scalar", "vec")
+VARIANT_COUNTERS = {"bias_gelu_bwd": ("bias_gelu",
+                                      "ptt_bias_gelu_bwd_variant_launches")}
+
+
+def variant_launches():
+    """{"bias_gelu_bwd": {"scalar": n, "vec": n}}: how many backward
+    launches took each kernel since the library was loaded, as the C entry
+    counted them (builds the library if it is not built yet)."""
+    return build.variant_counts(VARIANT_COUNTERS, VARIANTS)

@@ -104,14 +104,15 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def bind(name: str, symbol: str, argtypes):
+def bind(name: str, symbol: str, argtypes, restype=ctypes.c_int):
     """A C entry point of library ``name`` with its argtypes declared and
-    an int (cudaError_t) result; bound once, then cached."""
+    an int (cudaError_t) result, or ``restype``; bound once, then
+    cached."""
     fn = _fns.get(symbol)
     if fn is None:
         fn = getattr(library(name), symbol)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _fns[symbol] = fn
     return fn
 

@@ -455,11 +455,22 @@ class GenerationEngine:
 
     def _gumbel(self, reqs):
         """Standard Gumbel noise [len(reqs), V], one row drawn from each
-        request's own generator."""
+        request's own generator.  A None entry (a lane that does not
+        sample, whose noise is never read) gets a finite filler row and
+        draws nothing."""
         V = self.geometry.vocab_size
         tiny = torch.finfo(torch.float32).tiny
-        u = torch.stack([torch.rand(V, generator=r.generator,
-                                    device=self.device) for r in reqs])
+        filler = None
+        rows = []
+        for r in reqs:
+            if r is None:
+                if filler is None:
+                    filler = torch.full((V,), 0.5, device=self.device)
+                rows.append(filler)
+            else:
+                rows.append(torch.rand(V, generator=r.generator,
+                                       device=self.device))
+        u = torch.stack(rows)
         return -torch.log(-torch.log(u.clamp_min(tiny)))
 
     def _admit(self, req: _GenRequest, slot: int):
@@ -475,10 +486,11 @@ class GenerationEngine:
         write_prompt(self._state, slot, k_new, v_new, L)
         req.generator = make_generator(req.seed, dev)
         noise = self._gumbel([req]) if req.do_sample else None
+        # fill kernels, not host-to-device copies (each of which syncs)
         tok1 = sample_tokens(
-            logits[None], torch.tensor([req.do_sample], device=dev),
-            torch.tensor([req.temperature], device=dev),
-            torch.tensor([req.top_k], device=dev), noise,
+            logits[None], torch.full((1,), req.do_sample, device=dev),
+            torch.full((1,), req.temperature, device=dev),
+            torch.full((1,), req.top_k, device=dev), noise,
             min(self.max_top_k, self.geometry.vocab_size))[0]
         admit_slot(self._state, slot, tok1, L, req.do_sample,
                    req.temperature, req.top_k, L + req.max_new_tokens,
@@ -540,14 +552,13 @@ class GenerationEngine:
         logits, _, _ = self.model.slot_decode_paged(
             st["tok"], pos, active, st["kp"], st["vp"], ptab,
             self.max_seq_len)
-        sampled = [(s, r) for s, r in self._sched.occupied.items()
-                   if r.do_sample]
+        occupied = self._sched.occupied
         noise = None
-        if sampled:
-            noise = torch.zeros((self.max_slots, geom.vocab_size),
-                                device=self.device)
-            idx = torch.tensor([s for s, _ in sampled], device=self.device)
-            noise[idx] = self._gumbel([r for _, r in sampled])
+        if any(r.do_sample for r in occupied.values()):
+            # one row per lane, in lane order: no lane index to copy over
+            noise = self._gumbel([
+                r if r is not None and r.do_sample else None
+                for r in map(occupied.get, range(self.max_slots))])
         toks = sample_tokens(logits, st["do_sample"], st["temp"],
                              st["top_k"], noise,
                              min(self.max_top_k, geom.vocab_size))
@@ -558,7 +569,10 @@ class GenerationEngine:
         st["tok"].copy_(toks)
         st["pos"].copy_(new_pos)
         release_slots(st, finished)
-        host = torch.stack([toks, finished.to(torch.int32)]).cpu().numpy()
+        # the step's one device-to-host copy (copy=True: one aten._to_copy
+        # on every device; a CPU tensor's .cpu() would be the tensor itself)
+        host = torch.stack([toks, finished.to(torch.int32)]).to(
+            "cpu", copy=True).numpy()
         return host[0], host[1].astype(bool)
 
     def _distribute(self, toks_np, fin_np):

@@ -2,10 +2,13 @@
 paths do not reach: odd row counts and widths, S = 1, head dims 16-128,
 page sizes 1 and 5, unmapped and out-of-pool page ids, an inactive lane,
 odd vocab sizes, strided logits, every mask form of attention, causal or
-not.  Each kernel, forward and backward, is held against its plain
-PyTorch version on the same inputs; a tiny GPT's and a tiny BERT's loss
-and gradients on the card are held against the CPU's.  Needs a CUDA device (skips elsewhere); on
-the card:
+not.  Each kernel, forward and backward, and each of the two kernels an
+entry chooses between (by dtype and 16-byte alignment), is held against
+its plain PyTorch version on the same inputs; paged decode's split kernel
+is bitwise reproducible and independent of its batch mates; a decode step
+of the engine syncs once, to fetch its tokens; a tiny GPT's and a tiny
+BERT's loss and gradients on the card are held against the CPU's.  Needs
+a CUDA device (skips elsewhere); on the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
@@ -25,6 +28,8 @@ from paddle_tpu_torch.ops.kernels import (bias_gelu, flash_attention,
 
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.bfloat16]
+# what torch.cuda.set_sync_debug_mode("warn") says at a synchronizing call
+SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
 @pytest.fixture
@@ -138,6 +143,93 @@ def test_paged_decode_kernel(dev, dtype, ps, hd):
     assert torch.all(out[-1] == 0)
 
 
+def _paged_inputs(dev, dtype, lane_pos, ps, hd, nh, pps, offset=0,
+                  seed=0):
+    """Lanes with inclusive extents ``lane_pos`` (-1: inactive, an all -1
+    row at pos 0) over page tables scattered through the pool; q a [slots,
+    nh, hd] view starting ``offset`` elements into its buffer."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    slots = len(lane_pos)
+    num_pages = slots * pps
+    pos = torch.tensor([max(p, 0) for p in lane_pos], dtype=torch.int32,
+                       device=dev)
+    perm = torch.randperm(num_pages, generator=g, device=dev).to(torch.int32)
+    rows = torch.full((slots, pps), -1, dtype=torch.int32, device=dev)
+    for lane, p in enumerate(lane_pos):
+        if p >= 0:
+            n = p // ps + 1
+            rows[lane, :n] = perm[lane * pps:lane * pps + n]
+    n = slots * nh * hd
+    q = torch.randn(n + 8, generator=g, device=dev).to(dtype)[
+        offset:offset + n].view(slots, nh, hd)
+    kp = torch.randn(num_pages, ps, nh, hd, generator=g, device=dev).to(dtype)
+    vp = torch.randn(num_pages, ps, nh, hd, generator=g, device=dev).to(dtype)
+    return q, kp, vp, rows, pos
+
+
+def _paged_variant_check(dev, inputs, seq_cap, dtype, variant):
+    """The kernel against the plain version, through the variant named;
+    the split kernel's arrival counters are all back to 0 afterwards."""
+    before = paged_attention.variant_launches()["paged_decode_attention"]
+    out = paged_attention.paged_decode_attention(*inputs, seq_cap)
+    ref = paged_attention.paged_decode_attention_plain(*inputs, seq_cap)
+    _check(out, ref, dtype)
+    after = paged_attention.variant_launches()["paged_decode_attention"]
+    other = "lane" if variant == "split" else "split"
+    assert after[variant] == before[variant] + 1
+    assert after[other] == before[other]
+    assert not paged_attention._arrivals[inputs[0].device.index].any()
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ps", [1, 8, 16, 32])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("variant", ["split", "lane"])
+def test_paged_decode_variants(dev, dtype, ps, hd, variant):
+    """Both kernels against the plain version over lanes of very different
+    lengths (256 tokens beside 4, an inactive lane, one ending at a page
+    boundary): the split kernel on aligned operands, the block per (head,
+    lane) on a q one element off a 16-byte boundary."""
+    pps = -(-256 // ps)
+    inputs = _paged_inputs(dev, dtype, (255, 3, -1, 63, 127, 0, 200), ps,
+                           hd, nh=3, pps=pps,
+                           offset=0 if variant == "split" else 1,
+                           seed=ps * hd)
+    out = _paged_variant_check(dev, inputs, pps * ps, dtype, variant)
+    assert torch.all(out[2] == 0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lane_pos", [
+    (511, 15, 16, 100, 255, 37, 480, -1),       # the serving table's shape
+    (20, 176, 57, 131, 88, 160, 35, 113),       # a serving wave's
+])
+@pytest.mark.parametrize("variant", ["split", "lane"])
+def test_paged_decode_serving_shapes(dev, dtype, lane_pos, variant):
+    inputs = _paged_inputs(dev, dtype, lane_pos, 16, 64, nh=12, pps=32,
+                           offset=0 if variant == "split" else 1, seed=7)
+    _paged_variant_check(dev, inputs, 512, dtype, variant)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_decode_split_is_bitwise_reproducible(dev, dtype):
+    """The split kernel merges a lane's chunks in chunk order: two calls
+    give bitwise the same output, and each lane's output alone (a batch of
+    one) is bitwise its output beside its batch mates."""
+    q, kp, vp, rows, pos = _paged_inputs(
+        dev, dtype, (511, 15, 16, 100, 255, 37, 480, -1), 16, 64, nh=12,
+        pps=32, seed=3)
+    first = paged_attention.paged_decode_attention(q, kp, vp, rows, pos, 512)
+    again = paged_attention.paged_decode_attention(q, kp, vp, rows, pos, 512)
+    assert torch.equal(first, again)
+    for lane in range(q.shape[0]):
+        alone = paged_attention.paged_decode_attention(
+            q[lane:lane + 1], kp, vp, rows[lane:lane + 1],
+            pos[lane:lane + 1], 512)
+        assert torch.equal(alone[0], first[lane]), lane
+
+
 def test_engine_greedy_tokens_match_cpu_engine(dev):
     """A tiny float32 model served on the card gives the CPU engine's
     greedy tokens (kernels on one side, plain versions on the other)."""
@@ -173,6 +265,88 @@ def test_bias_gelu_bwd_kernel(dev, dtype, rows, n):
     out = bias_gelu.bias_gelu_bwd(x, b, dy)
     assert bias_gelu.bias_gelu_bwd.launches == before + 1
     _check(out, bias_gelu.bias_gelu_bwd_plain(x, b, dy), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,n,offset", [(8192, 3072, 0), (37, 3072, 0),
+                                           (3, 24, 0), (1, 4, 0),
+                                           (5, 3071, 0), (64, 3072, 1),
+                                           (9, 12, 0)])
+def test_bias_gelu_bwd_variants(dev, dtype, rows, n, offset):
+    """The backward takes the 16-byte vector kernel exactly where F is a
+    multiple of one vector and x, b, dy, dx lie on 16-byte boundaries (GPT's
+    F = 3072, a ragged row count, narrow widths), else the scalar loop
+    (F = 3071, x a view one element off a boundary, F = 12 in bf16); both
+    against the plain version."""
+    g = torch.Generator(device=dev).manual_seed(rows + n + offset)
+    x = (2 * torch.randn(rows * n + 8, generator=g, device=dev)).to(dtype)[
+        offset:offset + rows * n].view(rows, n)
+    b = (0.5 * torch.randn(n, generator=g, device=dev)).to(dtype)
+    dy = torch.randn(rows, n, generator=g, device=dev).to(dtype)
+    before = bias_gelu.variant_launches()["bias_gelu_bwd"]
+    out = bias_gelu.bias_gelu_bwd(x, b, dy)
+    _check(out, bias_gelu.bias_gelu_bwd_plain(x, b, dy), dtype)
+    per = 16 // x.element_size()
+    taken = "vec" if offset == 0 and n % per == 0 else "scalar"
+    other = "scalar" if taken == "vec" else "vec"
+    after = bias_gelu.variant_launches()["bias_gelu_bwd"]
+    assert after[taken] == before[taken] + 1
+    assert after[other] == before[other]
+
+
+def test_bias_gelu_db_matches_the_float32_copy_sum(dev):
+    """db through the Function on the card: the float32-accumulated sum of
+    bf16 dx equals the float32 copy's sum within float32 reordering."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    dx = torch.randn(8192, 3072, generator=g, device=dev).bfloat16()
+    got = bias_gelu.bias_gelu_db(dx)
+    ref = dx.float().sum(0)
+    assert got.dtype == torch.float32
+    tol = 2e-5 * dx.float().abs().sum(0).max().item()
+    assert (got - ref).abs().max().item() <= tol
+
+
+def test_engine_decode_step_syncs_only_to_fetch_tokens(dev):
+    """Every GenerationEngine.step() of a greedy and a sampled request
+    under torch.cuda.set_sync_debug_mode("warn") makes exactly one
+    synchronizing call, its copy of the tokens to the host."""
+    import warnings
+
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    cfg = GPTConfig(vocab_size=211, hidden_size=64, num_layers=2,
+                    num_heads=4, max_position_embeddings=64, dropout=0.0,
+                    attn_dropout=0.0)
+    seed(0)
+    model = GPTForCausalLM(cfg, device=dev).eval()
+    seen = []
+    with GenerationEngine(model, max_slots=3, max_seq_len=40,
+                          prompt_buckets="8,16", device=dev) as eng:
+        step = eng.step
+
+        def checked_step():
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = step()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            seen.append([w.filename for w in caught
+                         if str(w.message).startswith(SYNC_WARNING)])
+            return out
+
+        eng.step = checked_step
+        hs = [eng.submit([3, 4, 5], 10),
+              eng.submit(list(range(9)), 10, do_sample=True,
+                         temperature=0.8, top_k=5, seed=1)]
+        for h in hs:
+            h.result(120)
+    assert seen
+    for files in seen:
+        assert len(files) == 1 and files[0].endswith("generation.py"), seen
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

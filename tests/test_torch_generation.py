@@ -14,6 +14,7 @@ import time
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import paddle_tpu as paddle
 from paddle_tpu.models.gpt import GPTConfig as JGPTConfig
@@ -212,3 +213,52 @@ def test_metrics_count_and_expose_the_traffic(engine):
                  'paddle_genserve_requests_total{result="retired"}',
                  "paddle_genserve_tokens_total"):
         assert name in text
+
+
+class _HostSyncs(TorchDispatchMode):
+    """The ops of a step that reach the host: ``aten._local_scalar_dense``
+    (an .item(), int() or 0-d tensor index) and copies to the CPU device
+    (``aten._to_copy(device=cpu)``; a CPU tensor's ``.cpu()`` is the
+    tensor itself, which the dispatcher never sees)."""
+
+    def __init__(self):
+        super().__init__()
+        self.scalars = self.fetches = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func.overloadpacket is torch.ops.aten._local_scalar_dense:
+            self.scalars += 1
+        elif func.overloadpacket is torch.ops.aten._to_copy \
+                and kwargs.get("device") == torch.device("cpu"):
+            self.fetches += 1
+        return func(*args, **kwargs)
+
+
+def test_decode_step_fetches_to_the_host_once(model):
+    """Every ``step()`` of a wave with a sampling lane beside greedy ones
+    makes exactly one host round trip: the copy of the tokens and the
+    finished mask.  No ``_local_scalar_dense`` at all (the KV scatter ran
+    4 a layer), and the sampled lanes' noise needs no lane index copied
+    from the host."""
+    eng = GenerationEngine(model, device="cpu", **ENGINE).start()
+    step, seen = eng.step, []
+
+    def counted_step():                # runs on the decode thread
+        sampling = any(r.do_sample for r in eng._sched.occupied.values())
+        with _HostSyncs() as syncs:
+            out = step()
+        seen.append((sampling, syncs.scalars, syncs.fetches))
+        return out
+
+    eng.step = counted_step
+    try:
+        hs = [eng.submit(PROMPT_A, 8), eng.submit(PROMPT_B, 8, seed=2,
+                                                  **SAMPLE_KW),
+              eng.submit(PROMPT_C, 5)]
+        for h in hs:
+            h.result(60)
+    finally:
+        eng.stop()
+    assert any(sampling for sampling, _, _ in seen)
+    assert [(s, f) for _, s, f in seen] == [(0, 1)] * len(seen)

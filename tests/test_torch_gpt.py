@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import paddle_tpu as paddle
 from paddle_tpu.models.gpt import GPTConfig as JGPTConfig
@@ -129,6 +130,42 @@ def test_slot_decode_paged_matches_jax(jax_model, model):
         np.testing.assert_allclose(tkp.numpy(), np.asarray(jkp), **TOL)
         np.testing.assert_allclose(tvp.numpy(), np.asarray(jvp), **TOL)
         pos = np.where(active, pos + 1, pos).astype(np.int32)
+
+
+class _CountOps(TorchDispatchMode):
+    """How often each aten op ran under the mode."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func.overloadpacket)
+        self.counts[name] = self.counts.get(name, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("active", [(True, True, False),
+                                    (False, False, False)])
+def test_slot_decode_paged_makes_no_host_sync(model, active):
+    """``aten._local_scalar_dense`` (an .item(), an int() or an index by a
+    0-d tensor: on the card a device-to-host copy and a stream sync) runs
+    0 times in a decode step, with writing lanes and with none (it ran 4
+    times a layer when the KV scatter indexed by the 0-d argmax)."""
+    rs = np.random.RandomState(5)
+    shape = (2, 12, 4, 4, 12)
+    kp = torch.from_numpy(rs.randn(*shape).astype(np.float32))
+    vp = torch.from_numpy(rs.randn(*shape).astype(np.float32))
+    rows = torch.tensor([[2, 5, 8, -1], [7, 1, 3, 9], [-1, -1, -1, -1]],
+                        dtype=torch.int32)
+    with _CountOps() as ops:
+        logits, _, _ = model.slot_decode_paged(
+            torch.tensor([3, 4, 5]), torch.tensor([5, 9, 0],
+                                                  dtype=torch.int32),
+            torch.tensor(active), kp, vp, rows, 16)
+    assert logits.shape == (3, 211)
+    assert ops.counts.get("aten._local_scalar_dense", 0) == 0
+    assert ops.counts["aten.index_copy_"] == 2 * CFG["num_layers"]
 
 
 def test_serving_paths_are_eval_only(model):

@@ -216,10 +216,11 @@ def _variant_symbols():
 
 def test_every_variant_counter_is_read_and_held(monkeypatch):
     """Each ``ptt_*_variant_launches`` counter of csrc/*.cu is read by
-    ``kernels.variant_launches()`` (through the attention and LayerNorm
-    modules' ``VARIANT_COUNTERS``) from its own library, and every kernel
-    so counted has the variant its paths must take in chip_smoke.py
-    (``MMA_KERNELS``: ``mma``; ``VECTOR_KERNELS``: ``warp``), so a new
+    ``kernels.variant_launches()`` (through the attention, LayerNorm,
+    paged decode and bias-GeLU modules' ``VARIANT_COUNTERS``) from its own
+    library, and every kernel so counted is held by chip_smoke.py with the
+    same two variant names (``VARIANTS``: the slower kernel first, the one
+    its paths must take second; ``MMA_KERNELS`` take ``mma``), so a new
     variant that no phase holds fails here.  Static: the libraries are not
     built; the reader is given zero counts."""
     from paddle_tpu_torch.ops.kernels import build
@@ -235,7 +236,7 @@ def test_every_variant_counter_is_read_and_held(monkeypatch):
     monkeypatch.setattr(build, "variant_counts", fake_counts)
     counts = kernels.variant_launches()
     symbols = _variant_symbols()
-    assert len(symbols) >= 4
+    assert len(symbols) >= 6
     assert set(read) == set(symbols)
     for sym, (name, lib, variants) in read.items():
         assert lib == symbols[sym], sym
@@ -244,21 +245,24 @@ def test_every_variant_counter_is_read_and_held(monkeypatch):
     smoke = _chip_smoke()
     names = {name for name, _, _ in read.values()}
     assert names == set(smoke.MMA_KERNELS) | set(smoke.VECTOR_KERNELS)
-    assert set(smoke.FAST_VARIANT) == names
+    assert set(smoke.FAST_VARIANT) == set(smoke.VARIANTS) == names
+    assert set(smoke.SERVING_FAST) | set(smoke.TRAINING_FAST) == names
     for name, _, variants in read.values():
-        want = "mma" if name in smoke.MMA_KERNELS else "warp"
-        assert smoke.FAST_VARIANT[name] == want and want in variants
+        assert smoke.VARIANTS[name] == tuple(variants), name
+        assert smoke.FAST_VARIANT[name] == variants[1]
+        if name in smoke.MMA_KERNELS:
+            assert variants[1] == "mma"
 
 
 def test_chip_smoke_fails_a_path_that_took_a_slow_kernel():
     """``require_fast_variants`` passes a path whose every launch took the
     fast kernel and fails one where a bf16 dq launch took the CUDA-core
-    kernel, LayerNorm took its block-per-row kernel, or a required kernel
-    never launched."""
+    kernel, LayerNorm took its block-per-row kernel, paged decode its
+    block per (head, lane), the bias-GeLU backward its scalar loop, or a
+    required kernel never launched."""
     smoke = _chip_smoke()
-    zero = {name: {v: 0 for v in ((fast, "simt") if fast == "mma"
-                                  else (fast, "block"))}
-            for name, fast in smoke.FAST_VARIANT.items()}
+    zero = {name: dict.fromkeys(variants, 0)
+            for name, variants in smoke.VARIANTS.items()}
 
     class K:
         after = None
@@ -276,6 +280,7 @@ def test_chip_smoke_fails_a_path_that_took_a_slow_kernel():
     every = [(n, fast) for n, fast in smoke.FAST_VARIANT.items()]
     assert run(every) == dict.fromkeys(smoke.FAST_VARIANT, 1)
     for bad in ([("flash_attention_dq", "simt")], [("layer_norm", "block")],
-                []):
+                [("paged_decode_attention", "lane")],
+                [("bias_gelu_bwd", "scalar")], []):
         with pytest.raises(SystemExit):
             run(every + bad if bad else every[1:])

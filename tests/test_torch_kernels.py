@@ -208,6 +208,34 @@ def test_paged_decode_plain_vs_pallas():
     assert np.all(got.numpy()[-1] == 0.0)
 
 
+def test_paged_decode_plain_vs_pallas_ragged_lengths():
+    """Lanes of very different lengths, as the serving table has them: one
+    lane near the full 256-token extent, one of 4 tokens, one inactive
+    (row all -1), one mid-length ending mid-page, one at a page boundary;
+    page tables scattered over the pool."""
+    rs = np.random.RandomState(11)
+    ps, pps, nh, hd, num_pages = 8, 32, 2, 16, 80
+    pos = np.array([250, 3, 0, 100, 127], np.int32)
+    slots = len(pos)
+    perm = rs.permutation(num_pages).astype(np.int32)
+    rows = np.full((slots, pps), -1, np.int32)
+    used = 0
+    for lane in (0, 1, 3, 4):
+        n = pos[lane] // ps + 1
+        rows[lane, :n] = perm[used:used + n]
+        used += n
+    q = rs.randn(slots, nh, hd).astype(np.float32)
+    kp = rs.randn(num_pages, ps, nh, hd).astype(np.float32)
+    vp = rs.randn(num_pages, ps, nh, hd).astype(np.float32)
+    ref = pallas_paged(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                       jnp.asarray(rows), jnp.asarray(pos), pps * ps,
+                       interpret=True)
+    got = paged_attention.paged_decode_attention_plain(
+        _t(q), _t(kp), _t(vp), _t(rows), _t(pos), pps * ps)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    assert np.all(got.numpy()[2] == 0.0)
+
+
 @pytest.mark.parametrize("ps", [8, 4])
 def test_paged_decode_plain_vs_dense_composite(ps):
     """Lanes with mapped pages match the dense-gather composite; page size

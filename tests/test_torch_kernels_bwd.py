@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from paddle_tpu.ops import fused as jfused
+from paddle_tpu.ops.pallas.bias_gelu import _bg_bwd
 from paddle_tpu.ops.pallas.bias_gelu import bias_gelu as pallas_bias_gelu
 from paddle_tpu.ops.pallas.flash_attention import \
     flash_attention as pallas_flash
@@ -70,6 +71,34 @@ def test_bias_gelu_bwd_vs_pallas_vjp(rows, n):
                                        torch.from_numpy(b),
                                        torch.from_numpy(dy))
     np.testing.assert_allclose(dx.numpy(), ref[0], **TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,n", [(16, 192), (64, 3072)])
+def test_bias_gelu_db_vs_reference_bwd(dtype, rows, n):
+    """db, dx's row-sum accumulated in float32 without a float32 copy of
+    dx, against the reference's ``_bg_bwd`` db (its Pallas dx in interpret
+    mode, ``jnp.sum(dx.astype(float32), axis=0)``) from the same inputs.
+    float32: atol = rtol = 1e-5 (summation order); bfloat16: 2**-6 x
+    max(1, max|ref|) (both round a float32 sum of bf16 dx once)."""
+    rs = np.random.RandomState(rows + n)
+    x = (rs.randn(rows, n) * 2).astype(np.float32)
+    b = (0.5 * rs.randn(n)).astype(np.float32)
+    dy = rs.randn(rows, n).astype(np.float32)
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    _, ref = _bg_bwd(True, (jnp.asarray(x, jdt), jnp.asarray(b, jdt)),
+                     jnp.asarray(dy, jdt))
+    ref = np.asarray(ref.astype(jnp.float32))
+    dx = bias_gelu.bias_gelu_bwd_plain(*(torch.from_numpy(a).to(tdt)
+                                         for a in (x, b, dy)))
+    got = bias_gelu.bias_gelu_db(dx)
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    got = got.to(tdt).float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, **TOL)
+    else:
+        tol = 2 ** -6 * max(1.0, np.abs(ref).max())
+        assert np.abs(got - ref).max() <= tol
 
 
 @pytest.mark.parametrize("shape", [(3, 192), (1, 7, 192)])

@@ -235,6 +235,38 @@ def test_model_fit_losses_match_jax_fit(state0):
     _assert_params(net, _np(state_pytrees(jnet)[0]))
 
 
+@pytest.mark.parametrize("drop_last", [False, True])
+def test_fit_drop_last_steps_match_jax_fit(state0, drop_last):
+    """``fit(drop_last=...)`` over 7 samples in batches of 2: the
+    reference's fit takes 4 steps a epoch, the last of one sample, or 3
+    with ``drop_last``; the port's fit takes the same steps, with the same
+    losses, over two epochs."""
+    data = np.random.RandomState(6).randint(0, 64, (7, 16))
+    paddle.seed(3)
+    jnet = JGPTForCausalLM(JGPTConfig(**CFG))
+    jnet.set_state_dict({k: paddle.to_tensor(v) for k, v in state0.items()})
+    jmodel = paddle.Model(jnet)
+    jmodel.prepare(paddle.optimizer.SGD(learning_rate=0.05,
+                                        parameters=jnet.parameters()),
+                   _jax_lm_loss)
+    rec = _StepLosses()
+    jmodel.fit(paddle.io.TensorDataset([paddle.to_tensor(data),
+                                        paddle.to_tensor(data)]),
+               batch_size=2, epochs=2, shuffle=False, verbose=0,
+               drop_last=drop_last, callbacks=[rec])
+
+    net = _port_model(state0)
+    model = ptt.Model(net).prepare(
+        ptt.optimizer.SGD(learning_rate=0.05, parameters=net.parameters()),
+        _torch_lm_loss)
+    t = torch.from_numpy(data)
+    hist = model.fit(ptt.io.TensorDataset([t, t]), batch_size=2, epochs=2,
+                     shuffle=False, verbose=0, drop_last=drop_last)
+    assert len(rec.losses) == 2 * (3 if drop_last else 4)
+    assert len(hist["step_loss"]) == len(rec.losses)
+    np.testing.assert_allclose(hist["step_loss"], rec.losses, **GRAD_TOL)
+
+
 def test_model_batch_api_and_evaluate(state0):
     net = _port_model(state0)
     model = ptt.Model(net).prepare(ptt.optimizer.AdamW(learning_rate=LR),
