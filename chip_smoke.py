@@ -14,7 +14,11 @@ passed over):
 3. kernels      — each hand-written kernel against its plain PyTorch
                   version on the card, at the serving and training paths'
                   shapes, in float32 and bfloat16, with kernel / plain /
-                  library times.
+                  library times; then the whole-tree optimizer kernel
+                  bitwise against the per-parameter loop (SGD, Momentum,
+                  Nesterov, Adam, AdamW; float32 and bf16; clip, scheduled
+                  lr, no-grad parameter, resume), timed over GPT-2-small's
+                  parameters, and opt.step() under sync debug mode.
 4. logits       — full-width GPT-2-small (GPTConfig() defaults) in float32:
                   a 64-token slot_prefill and 8 slot_decode_paged steps on
                   the card against the same on the CPU (plain versions).
@@ -29,7 +33,10 @@ passed over):
 7. train        — full-width bfloat16, B = 8, S = 1024: 10 dygraph AdamW
                   steps on one batch (the loss must fall; step time,
                   tokens/s, MFU), a profiled window, then Model.fit steps;
-                  every training kernel's launch count must be > 0.
+                  every training kernel's launch count must be > 0, and
+                  every opt.step() one optimizer launch a dtype group with
+                  the per-parameter loop on no CUDA tensor (also phases 10
+                  and 11).
 8. gpt-labels   — the same model's forward(ids, labels) (the softmax
                   cross-entropy kernels on logits[:, :-1]) against
                   loss(ids), and one backward.
@@ -49,14 +56,14 @@ Phase 3 also holds the softmax cross-entropy kernels (BERT's MLM and NSP
 shapes and GPT's) and the non-causal and masked forms of the attention
 kernels (BERT's shape and S = 77) against their plain versions, paged
 decode at the serving table's shape and a serving wave's, and times the
-bias-GeLU Function's db reduction against the one it replaced.  Six C
+bias-GeLU Function's db reduction against the one it replaced.  Seven C
 entries choose between two kernels (`VARIANTS`): the attention forward,
 dq and dk/dv a tensor-core kernel (bf16 on 16-byte boundaries) or a
 CUDA-core one (`mma` / `simt`); LayerNorm a warp-per-row vector kernel or
 a block per row (`warp` / `block`); paged decode the split
 (flash-decoding) kernel or a block per (head, lane) (`split` / `lane`);
-the bias-GeLU backward a 16-byte vector kernel or a scalar loop (`vec` /
-`scalar`).  Every `[kernels]` line of theirs names the variant the launch
+the bias-GeLU forward and backward a 16-byte vector kernel or a scalar
+loop (`vec` / `scalar`).  Every `[kernels]` line of theirs names the variant the launch
 took, both are held against the plain version (the slower ones on
 operands one element off a 16-byte boundary), and a phase of the serving
 or training paths fails if one of its launches took the slower kernel.
@@ -106,6 +113,10 @@ REPLACES = {
                      "paddle_tpu/ops/pallas/softmax_xent.py:36"),
     "softmax_xent_bwd": ("paddle_tpu_torch/csrc/softmax_xent.cu",
                          "paddle_tpu/ops/pallas/softmax_xent.py:71"),
+    # apply_pytree: XLA-fused in the reference's jitted step, not a
+    # pallas_call
+    "multi_tensor_step": ("paddle_tpu_torch/csrc/multi_tensor_optim.cu",
+                          "paddle_tpu/optimizer/__init__.py:155"),
 }
 SERVING_KERNELS = ("layer_norm", "bias_gelu", "flash_attention",
                    "paged_decode_attention")
@@ -120,17 +131,20 @@ ATTENTION_KERNELS = ("flash_attention", "flash_attention_dq",
 # for any other operand, the kernel every launch of a path must take) —
 # the three attention kernels' tensor-core kernel for aligned bf16 beside
 # the CUDA-core one, and the 16-byte vector kernels of LayerNorm, paged
-# decode and the bias-GeLU backward beside their scalar ones
+# decode and the bias-GeLU forward and backward beside their scalar ones
 MMA_KERNELS = ("flash_attention", "flash_attention_dq", "flash_attention_dkv")
-VECTOR_KERNELS = ("layer_norm", "paged_decode_attention", "bias_gelu_bwd")
+VECTOR_KERNELS = ("layer_norm", "paged_decode_attention", "bias_gelu",
+                  "bias_gelu_bwd")
 VARIANTS = {**{n: ("simt", "mma") for n in MMA_KERNELS},
             "layer_norm": ("block", "warp"),
             "paged_decode_attention": ("lane", "split"),
+            "bias_gelu": ("scalar", "vec"),
             "bias_gelu_bwd": ("scalar", "vec")}
 FAST_VARIANT = {n: fast for n, (_, fast) in VARIANTS.items()}
 # the kernels with a variant that each path launches
-SERVING_FAST = ("flash_attention", "layer_norm", "paged_decode_attention")
-TRAINING_FAST = MMA_KERNELS + ("layer_norm", "bias_gelu_bwd")
+SERVING_FAST = ("flash_attention", "layer_norm", "paged_decode_attention",
+                "bias_gelu")
+TRAINING_FAST = MMA_KERNELS + ("layer_norm", "bias_gelu", "bias_gelu_bwd")
 
 
 def log(msg):
@@ -308,7 +322,8 @@ def kernel_phase(torch, K):
                 lambda: K.bias_gelu.bias_gelu(x, b),
                 lambda: K.bias_gelu.bias_gelu_plain(x, b),
                 lambda: F.gelu(x + b), dtype,
-                (2 * R * Fd + Fd) * isz, 5 * R * Fd, PEAK_F32)
+                (2 * R * Fd + Fd) * isz, 5 * R * Fd, PEAK_F32,
+                variant=("bias_gelu", "vec"))
             if dtype == torch.bfloat16 and R == 8:
                 main["bias_gelu"] = rec
         H, D = 12, 64
@@ -396,10 +411,10 @@ def unaligned_phase(torch, K):
     """bf16 operands one element off a 16-byte boundary: attention (B = 1,
     S = 128, H = 12, D = 64, causal) must take the CUDA-core forward, dq
     and dk/dv, LayerNorm (R = 8192, N = 768) its block-per-row kernel, the
-    bias-GeLU backward (R = 8192, F = 3072, and F = 3071 aligned) its
-    scalar kernel and paged decode (the table's shape) its block per
-    (head, lane); all agree with the plain versions like any other
-    case."""
+    bias-GeLU forward and backward (R = 8192, F = 3072, and F = 3071
+    aligned) their scalar kernels and paged decode (the table's shape) its
+    block per (head, lane); all agree with the plain versions like any
+    other case."""
     F = torch.nn.functional
     KF = K.flash_attention
     g = torch.Generator(device="cuda").manual_seed(9)
@@ -460,11 +475,202 @@ def unaligned_phase(torch, K):
                 torch.bfloat16, (3 * xs.numel() + xs.shape[1]) * 2,
                 12 * xs.numel(), PEAK_F32, variant=("bias_gelu_bwd",
                                                     "scalar"))
+    # the bias-GeLU forward: the same unaligned x and odd width take its
+    # scalar loop
+    for shape, (xs, bs) in ((f"unaligned R={R} F={Fd}", (x, b)),
+                            (f"R={R} F={Fd - 1}", (x[:, 1:].contiguous(),
+                                                   b[1:].contiguous()))):
+        compare(torch, f"bias_gelu bf16 {shape}",
+                lambda: K.bias_gelu.bias_gelu(xs, bs),
+                lambda: K.bias_gelu.bias_gelu_plain(xs, bs),
+                lambda: F.gelu(xs + bs), torch.bfloat16,
+                (2 * xs.numel() + xs.shape[1]) * 2, 5 * xs.numel(), PEAK_F32,
+                variant=("bias_gelu", "scalar"))
     # paged decode: q one element off a 16-byte boundary takes the block
     # per (head, lane)
     paged_case(torch, K, g, torch.bfloat16, "unaligned q",
                (511, 15, 16, 100, 255, 37, 480, -1), ps=16, hd=64,
                variant="lane", q_offset=1)
+
+
+OPT_RULES = {   # the optimizers the multi-tensor kernel computes
+    "sgd": lambda opt, ps, lr, clip: opt.SGD(
+        learning_rate=lr, parameters=ps, weight_decay=0.01, grad_clip=clip),
+    "momentum": lambda opt, ps, lr, clip: opt.Momentum(
+        learning_rate=lr, momentum=0.9, parameters=ps, grad_clip=clip),
+    "nesterov": lambda opt, ps, lr, clip: opt.Momentum(
+        learning_rate=lr, momentum=0.9, use_nesterov=True, parameters=ps,
+        grad_clip=clip),
+    "adam": lambda opt, ps, lr, clip: opt.Adam(
+        learning_rate=lr, parameters=ps, weight_decay=0.01, grad_clip=clip),
+    "adamw": lambda opt, ps, lr, clip: opt.AdamW(
+        learning_rate=lr, parameters=ps, weight_decay=0.05, grad_clip=clip),
+}
+
+
+def optimizer_run(torch, kind, dtype, plain, steps=3):
+    """``steps`` updates of a GPT-like spread of tensors (an embedding,
+    matrices, biases, one element, one view off a 16-byte boundary) by
+    step() (the kernel) or step_plain() (the per-parameter loop), from
+    seeded values: one parameter without a gradient, a global-norm clip,
+    an lr that changes every step and a resume through set_state_dict
+    after the second step.  Returns the parameters and the slots."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import nn as tnn
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    params = [torch.randn(*s, generator=g, device="cuda").to(dtype)
+              for s in ((3000, 77), (128, 384), (384,), (1,), (5, 3))]
+    buf = torch.randn(4 * 385 + 1, generator=g, device="cuda").to(dtype)
+    params = [torch.nn.Parameter(t) for t in params + [buf[1:].view(4, 385)]]
+
+    def make():
+        sched = ptt.optimizer.lr.StepDecay(0.01, step_size=1, gamma=0.8)
+        return sched, OPT_RULES[kind](ptt.optimizer, params, sched,
+                                      tnn.ClipGradByGlobalNorm(5.0))
+
+    sched, opt = make()
+    for i in range(steps):
+        for j, p in enumerate(params):
+            p.grad = None if j == 3 else torch.randn(
+                *p.shape, generator=g, device="cuda").to(dtype)
+        opt.step_plain() if plain else opt.step()
+        opt.clear_grad()
+        sched.step()
+        if i == 1:                  # the scheduler's state comes along
+            state = opt.state_dict()
+            sched, opt = make()
+            opt.set_state_dict(state)
+    torch.cuda.synchronize()
+    return params, [list(opt._slots.get(id(p), {}).values()) for p in params]
+
+
+def optimizer_tree_check(torch, model, steps=3):
+    """AdamW(2e-4, wd 0.01) on every parameter of ``model``: ``steps``
+    updates by step() (the kernel) on the model's parameters and by
+    step_plain() (the per-parameter loop) on copies of them, from the same
+    seeded gradients.  Fails unless every parameter and moment is bitwise
+    equal; returns the kernel's optimizer and the largest |difference|
+    (0.0)."""
+    import paddle_tpu_torch as ptt
+
+    params = list(model.parameters())
+    twins = [torch.nn.Parameter(p.detach().clone()) for p in params]
+    opt, twin_opt = (ptt.optimizer.AdamW(learning_rate=2e-4,
+                                         weight_decay=0.01, parameters=ps)
+                     for ps in (params, twins))
+    g = torch.Generator(device="cuda").manual_seed(32)
+    for _ in range(steps):
+        for p, q in zip(params, twins):
+            p.grad = (1e-3 * torch.randn(*p.shape, generator=g,
+                                         device="cuda")).to(p.dtype)
+            q.grad = p.grad.clone()
+        opt.step()
+        twin_opt.step_plain()
+    pairs = list(zip(params, twins))
+    for p, q in zip(params, twins):
+        pairs += [(opt._slots[id(p)][n], twin_opt._slots[id(q)][n])
+                  for n in ("moment1", "moment2")]
+    err = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+    if not all(torch.equal(a, b) for a, b in pairs):
+        fail(f"optimizer: kernel and loop differ after {steps} AdamW steps "
+             f"of {type(model).__name__}'s {len(params)} tensors "
+             f"(max |d| {err:.3e})")
+    ptt.optimizer.Optimizer.plain_cuda_updates = 0
+    del twins, twin_opt
+    return opt, err
+
+
+def optimizer_phase(torch, K, cfg):
+    """The whole-tree optimizer kernel: bitwise against the per-parameter
+    loop after 3 steps (every rule, float32 and bf16, on a small spread of
+    tensors; then AdamW on the full bf16 GPT-2-small and BERT-base
+    parameter trees, float32 moments); then one AdamW update of the GPT-2
+    tree: the kernel's device ms against the loop's (both from a replayed
+    CUDA graph) and against its bound, 22 bytes an element; and opt.step()
+    under torch.cuda.set_sync_debug_mode("warn"): any sync fails.
+    Returns the kernel's record."""
+    import warnings
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
+                                         GPTForCausalLM)
+
+    Opt = ptt.optimizer.Optimizer
+    checked = []
+    for kind in OPT_RULES:
+        for dtype in (torch.float32, torch.bfloat16):
+            Opt.plain_cuda_updates = 0
+            before = K.optimizer.multi_tensor_step.launches
+            got, got_slots = optimizer_run(torch, kind, dtype, plain=False)
+            launches = K.optimizer.multi_tensor_step.launches - before
+            if launches != 3 or Opt.plain_cuda_updates != 0:
+                fail(f"optimizer {kind}: {launches} kernel launches for 3 "
+                     f"steps, {Opt.plain_cuda_updates} loop updates")
+            want, want_slots = optimizer_run(torch, kind, dtype, plain=True)
+            same = all(torch.equal(a, b) for a, b in zip(got, want)) and all(
+                len(a) == len(b) and all(torch.equal(x, y)
+                                         for x, y in zip(a, b))
+                for a, b in zip(got_slots, want_slots))
+            if not same:
+                worst = max((a.float() - b.float()).abs().max().item()
+                            for a, b in zip(got, want))
+                fail(f"optimizer {kind} {dtype}: kernel and loop differ "
+                     f"after 3 steps (max |dp| {worst:.3e})")
+            checked.append(f"{kind}/{str(dtype)[6:]}")
+
+    bert = BertForPretraining(BertConfig(dropout=0.0), device="cuda",
+                              dtype=torch.bfloat16)
+    bert_n = len(list(bert.parameters()))
+    _, bert_err = optimizer_tree_check(torch, bert)
+    del bert
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16)
+    opt, gpt_err = optimizer_tree_check(torch, model)
+    params = list(model.parameters())
+    n = sum(p.numel() for p in params)
+    grads = [p.grad for p in params]
+    slots = [[opt._slots[id(p)][s] for s in ("moment1", "moment2")]
+             for p in params]
+    hyper = opt._kernel_spec()[1]
+    KO = K.optimizer
+    kernel = lambda: KO.multi_tensor_step(     # noqa: E731
+        "adamw", params, grads, slots, 2e-4, 2, hyper)
+    plain = lambda: KO.multi_tensor_step_plain(   # noqa: E731
+        "adamw", params, grads, slots, 2e-4, 2, hyper)
+    ms, eager_ms = time_ms(torch, kernel, iters=5, reps=3)
+    plain_ms, plain_eager = time_ms(torch, plain, iters=1, reps=3)
+    n_bytes = 22 * n            # p 2 + 2, g 2, moments 4 + 4 each way
+    bound, by = bound_ms(n_bytes, 15 * n, PEAK_F32)
+    seen = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            opt.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        seen = [(os.path.basename(w.filename), w.lineno) for w in caught
+                if str(w.message).startswith(SYNC_WARNING)]
+    if seen:
+        fail(f"opt.step() made host syncs: {seen}")
+    log(f"[optimizer] multi_tensor_step bitwise equal to the per-parameter "
+        f"loop after 3 steps (clip, scheduled lr, a parameter without a "
+        f"gradient, resume through set_state_dict, an unaligned view) for "
+        f"{checked}; one launch a step, the loop on no CUDA tensor | "
+        f"AdamW, 3 steps, bf16 parameters and float32 moments bitwise "
+        f"equal to the loop over GPT-2-small's {len(params)} tensors (max "
+        f"|d| {gpt_err}) and BERT-base's {bert_n} (max |d| {bert_err}) | "
+        f"AdamW over GPT-2-small's {len(params)} tensors, {n} bf16 "
+        f"elements, float32 moments: device ms kernel={ms} plain loop="
+        f"{plain_ms} bound={bound} ({by}, {n_bytes} bytes) | eager ms "
+        f"kernel={eager_ms} plain={plain_eager} | opt.step() under sync "
+        f"debug mode: no sync")
+    rec = {"max_abs_err": max(gpt_err, bert_err), "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+           "library_ms": None}
+    del model, params, grads, slots, opt
+    return rec
 
 
 def sdpa_backward(torch, q, k, v, do):
@@ -822,6 +1028,34 @@ def train_parity_phase(torch, K, cfg):
         f"{t_g:.2f}s, cpu {t_c:.2f}s; launches {counts}")
 
 
+def require_optimizer_kernel(counts, opt, steps, what):
+    """Every ``opt.step()`` of ``steps`` made one kernel launch for each
+    (device, dtype) group of its parameters and left the per-parameter
+    loop idle on CUDA tensors; returns the line's text."""
+    from paddle_tpu_torch.optimizer import Optimizer
+
+    groups = len({(p.device, p.dtype) for p in opt._parameter_list})
+    got = counts["multi_tensor_step"]
+    if got != steps * groups or Optimizer.plain_cuda_updates != 0:
+        fail(f"{what}: {got} optimizer kernel launches in {steps} steps of "
+             f"{groups} dtype group(s); the per-parameter loop updated "
+             f"{Optimizer.plain_cuda_updates} CUDA parameters")
+    return (f"optimizer kernel {got / steps:g} launch(es) a step "
+            f"({groups} dtype group(s)), per-parameter loop on 0 CUDA "
+            f"tensors")
+
+
+def losses_vs(losses, first, last):
+    """Fails unless a trajectory's first and last losses are those PERF.md
+    records for this seed, to their printed 5 decimals (the update is
+    bitwise the per-parameter loop's, so they do not move)."""
+    got = (f"{losses[0]:.5f}", f"{losses[-1]:.5f}")
+    if got != (first, last):
+        fail(f"losses first/last {got[0]}/{got[1]}, PERF.md records "
+             f"{first}/{last} for this seed")
+    return f"first/last {got[0]}/{got[1]} equal to PERF.md's"
+
+
 def lm_loss(logits, labels):
     """Next-token cross entropy on the logits, in float32 (the user loss
     of bench.py's GPT Model.fit configuration)."""
@@ -857,6 +1091,7 @@ def train_phase(torch, K, cfg, card):
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.memory_allocated()
     K.reset_launch_counts()
+    ptt.optimizer.Optimizer.plain_cuda_updates = 0
     variants = K.variant_launches()
     losses, times = [], []
     for _ in range(steps):
@@ -866,6 +1101,7 @@ def train_phase(torch, K, cfg, card):
         times.append(time.perf_counter() - t0)
     counts = K.launch_counts()
     fast = require_fast_variants(K, variants, "train", TRAINING_FAST)
+    opt_text = require_optimizer_kernel(counts, opt, steps, "train")
     losses = torch.stack(losses).float().cpu().tolist()
     for name in TRAINING_KERNELS:
         if counts[name] <= 0:
@@ -883,7 +1119,9 @@ def train_phase(torch, K, cfg, card):
         f"{[round(t * 1e3, 3) for t in times]}; p50 {p50 * 1e3:.3f} ms; "
         f"{tokens / p50:.1f} tokens/s; {mfu_text(flops, p50)}; peak memory "
         f"{peak_text(torch, start)}; launches "
-        f"per step {per_step}; tensor-core and vector-kernel launches {fast}")
+        f"per step {per_step}; tensor-core and vector-kernel launches "
+        f"{fast}; {opt_text}; losses "
+        f"{losses_vs(losses, '10.98327', '8.48247')}")
 
     profile_steps(torch, "train-profile", step)
 
@@ -897,6 +1135,8 @@ def train_phase(torch, K, cfg, card):
     fit_s = time.perf_counter() - t0
     fit_counts = K.launch_counts()
     require_fast_variants(K, variants, "train and Model.fit", TRAINING_FAST)
+    fit_opt = require_optimizer_kernel(fit_counts, opt, 3,
+                                       "Model.fit")
     if len(hist["step_loss"]) != 3 or not all(
             math.isfinite(x) for x in hist["step_loss"]):
         fail(f"Model.fit: step losses {hist['step_loss']}")
@@ -905,7 +1145,7 @@ def train_phase(torch, K, cfg, card):
             fail(f"kernel {name} was not launched on the Model.fit path")
     log(f"[fit] Model.fit 3 steps of B={B} S={S} with a loss on the "
         f"logits: step losses {hist['step_loss']}; {fit_s:.3f}s; launches "
-        f"{fit_counts}")
+        f"{fit_counts}; {fit_opt}")
     return counts
 
 
@@ -1094,7 +1334,7 @@ def profile_steps(torch, tag, step):
     else:
         log(f"[{tag}] 2 steps: wall {wall_ms:.3f} ms, device busy "
             f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.2f}%), {launches} "
-            f"kernel launches; top: {top}")
+            f"kernel launches ({launches / 2:g} a step); top: {top}")
 
 
 def gpt_labels_phase(torch, K, cfg):
@@ -1268,6 +1508,7 @@ def bert_train_phase(torch, K, card):
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.memory_allocated()
     K.reset_launch_counts()
+    ptt.optimizer.Optimizer.plain_cuda_updates = 0
     variants = K.variant_launches()
     losses, times = [], []
     for _ in range(steps):
@@ -1277,6 +1518,8 @@ def bert_train_phase(torch, K, card):
         times.append(time.perf_counter() - t0)
     counts = K.launch_counts()
     fast = require_fast_variants(K, variants, "bert-train", TRAINING_FAST)
+    opt_text = require_optimizer_kernel(counts, opt, steps,
+                                        "bert-train")
     losses = torch.stack(losses).float().cpu().tolist()
     for name in BERT_KERNELS:
         if counts[name] <= 0:
@@ -1295,7 +1538,9 @@ def bert_train_phase(torch, K, card):
         f"{B / p50:.1f} samples/s; {tokens / p50:.1f} tokens/s; "
         f"{mfu_text(flops, p50)}; peak memory "
         f"{peak_text(torch, start)}; launches "
-        f"per step {per_step}; tensor-core and vector-kernel launches {fast}")
+        f"per step {per_step}; tensor-core and vector-kernel launches "
+        f"{fast}; {opt_text}; losses "
+        f"{losses_vs(losses, '11.18664', '6.58306')}")
     profile_steps(torch, "bert-profile", step)
 
     data = bert_batch(torch, rs, cfg, 3 * B, S)
@@ -1313,6 +1558,8 @@ def bert_train_phase(torch, K, card):
     fit_counts = K.launch_counts()
     require_fast_variants(K, variants, "bert-train and Model.fit",
                           TRAINING_FAST)
+    fit_opt = require_optimizer_kernel(fit_counts, opt, 3,
+                                       "BERT Model.fit")
     if len(hist["step_loss"]) != 3 or not all(
             math.isfinite(x) for x in hist["step_loss"]):
         fail(f"BERT Model.fit: step losses {hist['step_loss']}")
@@ -1325,7 +1572,7 @@ def bert_train_phase(torch, K, card):
         f"{int(lens.min())}-{int(lens.max())}, mean {lens.mean():.1f}), "
         f"labels [mlm, nsp], loss on the logits through F.cross_entropy: "
         f"step losses {hist['step_loss']}; {fit_s:.3f}s; every attention "
-        f"launch took the mask; launches {fit_counts}")
+        f"launch took the mask; launches {fit_counts}; {fit_opt}")
     return counts
 
 
@@ -1427,6 +1674,8 @@ def main():
     unaligned_phase(torch, K)
 
     cfg = GPTConfig(dropout=0.0, attn_dropout=0.0)
+    main_cases["multi_tensor_step"] = optimizer_phase(torch, K, cfg)
+    release(torch, "GPT serving")
     seed(0)
     model = GPTForCausalLM(cfg, device="cuda")
     model.eval()
@@ -1459,7 +1708,8 @@ def main():
         source, replaces = REPLACES[name]
         # each kernel's launches on its own path: serving for the forward
         # kernels of slice 1, the 10 GPT training steps for the backward
-        # ones, the 10 BERT training steps for the cross-entropy kernels
+        # ones and the optimizer's, the 10 BERT training steps for the
+        # cross-entropy kernels
         counts = serve_counts if name in SERVING_KERNELS else (
             bert_counts if name in XENT_KERNELS else train_counts)
         entry = {

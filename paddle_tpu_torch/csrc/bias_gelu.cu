@@ -10,22 +10,29 @@
 // row-sum of dx, is left to the caller, as `_bg_bwd` leaves it to XLA.  Any
 // row count: the Pallas `rows % 8` refusal was a TPU tiling artefact.
 //
-// The forward is an elementwise grid-stride loop with scalar loads.  The
-// backward has two kernels; its C entry picks one from the width and the
-// pointers' alignment alone, and counts the choice:
+// Forward and backward each have two kernels; each C entry picks one from
+// the width and the pointers' alignment alone, and counts the choice:
 //
-// `bias_gelu_bwd_vec_kernel` (x, b, dy, dx on 16-byte boundaries, F a
-// multiple of one 16-byte vector: every path of the models) indexes by
-// (row, 16-byte column vector): a thread owns one column vector, loads its
-// bias vector once and walks kRows rows of it, issuing all 2 * kRows
-// 16-byte loads of x and dy before it computes, so each thread keeps
-// 2 * kRows * 16 bytes in flight; dx leaves as 16-byte vectors.  No 64-bit
-// `%` per element: the bias offset is the thread's column.  A block is 128
-// column vectors wide (F = 3072 bf16: 3 blocks a row band) and a row band
-// of kRows = 8 rows tall, so R = 8192 gives 3072 blocks, about 23 a SM.
+// `bias_gelu_fwd_vec_kernel` and `bias_gelu_bwd_vec_kernel` (every operand
+// on a 16-byte boundary, F a multiple of one 16-byte vector: every path of
+// the models) index by (row, 16-byte column vector): a thread owns one
+// column vector, loads its bias vector once and walks kRows rows of it,
+// issuing all its 16-byte loads of those rows (x, and dy for the backward)
+// before the first erff, so each thread keeps kRows loads of each operand
+// in flight; the result leaves as 16-byte vectors.  No 64-bit `%` per
+// element: the bias offset is the thread's column.  The backward's block
+// is 128 column vectors wide (F = 3072 bf16: 3 blocks a row band) and
+// kRows = 8 rows tall, so R = 8192 gives 3072 blocks, about 23 a SM.  The
+// forward also runs at serving shapes (R = 8 a decode step, R <= 128 a
+// prefill), where 8 rows a thread would leave three blocks for 132 SMs:
+// its entry takes 8 rows a thread where that still gives at least two
+// blocks a SM (the count read from the device), else one row a thread in
+// blocks 64 column vectors wide (R = 8, F = 3072 bf16: 48 blocks of one
+// 16-byte load each).
 //
-// `bias_gelu_bwd_kernel` (any other width or alignment) is the scalar
-// grid-stride loop, one element a thread, with the bias found by `i % n`.
+// `bias_gelu_fwd_kernel` and `bias_gelu_bwd_kernel` (any other width or
+// alignment) are the scalar grid-stride loops, one element a thread, with
+// the bias found by `i % n`.
 #include <atomic>
 
 #include "common.cuh"
@@ -115,6 +122,83 @@ __global__ void __launch_bounds__(kVecThreads, 4)
   }
 }
 
+template <typename T, int kRowsT>
+__global__ void __launch_bounds__(kVecThreads, 4)
+    bias_gelu_fwd_vec_kernel(const T* __restrict__ x,
+                             const T* __restrict__ b, T* __restrict__ y,
+                             long long rows, int nv) {
+  using V = ptt::Vec16<T>;
+  constexpr int kN = V::kN;
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;  // column vector
+  if (c >= nv) return;
+  float bf[kN];
+  V::unpack(__ldg(reinterpret_cast<const uint4*>(b) + c), bf);
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  uint4* yv = reinterpret_cast<uint4*>(y);
+  for (long long r0 = static_cast<long long>(blockIdx.y) * kRowsT; r0 < rows;
+       r0 += static_cast<long long>(gridDim.y) * kRowsT) {
+    uint4 xr[kRowsT];
+#pragma unroll
+    for (int i = 0; i < kRowsT; ++i) {
+      if (r0 + i < rows) xr[i] = xv[(r0 + i) * nv + c];
+    }
+#pragma unroll
+    for (int i = 0; i < kRowsT; ++i) {
+      if (r0 + i >= rows) break;
+      float u[kN];
+      V::unpack(xr[i], u);
+#pragma unroll
+      for (int e = 0; e < kN; ++e) {
+        const float ue = u[e] + bf[e];
+        u[e] = 0.5f * ue * (1.f + erff(ue * 0.70710678118654752f));
+      }
+      yv[(r0 + i) * nv + c] = V::pack(u);
+    }
+  }
+}
+
+// launches of each forward kernel since the library was loaded:
+// [scalar, vec]
+std::atomic<long long> fwd_variant_launches[2];
+
+template <typename T, int kRowsT>
+void launch_fwd_vec(const T* x, const T* b, T* y, long long rows, int nv,
+                    int width, cudaStream_t st) {
+  const long long bands = (rows + kRowsT - 1) / kRowsT;
+  const dim3 grid((nv + width - 1) / width,
+                  static_cast<unsigned>(bands < 65535 ? bands : 65535));
+  bias_gelu_fwd_vec_kernel<T, kRowsT><<<grid, width, 0, st>>>(x, b, y, rows,
+                                                              nv);
+}
+
+template <typename T>
+int launch_fwd(const void* x, const void* b, void* y, long long total, int n,
+               cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  const T* bt = static_cast<const T*>(b);
+  T* yt = static_cast<T*>(y);
+  constexpr int kN = ptt::Vec16<T>::kN;
+  const bool vec = n % kN == 0 && ptt::aligned_16(x) && ptt::aligned_16(b) &&
+                   ptt::aligned_16(y);
+  ++fwd_variant_launches[vec];
+  if (!vec) {
+    const int threads = 256;
+    bias_gelu_fwd_kernel<T><<<grid_for(total, threads), threads, 0, st>>>(
+        xt, bt, yt, total, n);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int nv = n / kN;
+  const long long rows = total / n;
+  // kRows rows a thread where that still leaves two blocks a SM, else one
+  const long long cols = (nv + kVecThreads - 1) / kVecThreads;
+  if (cols * ((rows + kRows - 1) / kRows) >= 2LL * ptt::sm_count()) {
+    launch_fwd_vec<T, kRows>(xt, bt, yt, rows, nv, kVecThreads, st);
+  } else {
+    launch_fwd_vec<T, 1>(xt, bt, yt, rows, nv, kVecThreads / 2, st);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // launches of each backward kernel since the library was loaded:
 // [scalar, vec]
 std::atomic<long long> bwd_variant_launches[2];
@@ -153,22 +237,11 @@ extern "C" int ptt_bias_gelu_fwd(const void* x, const void* b, void* y,
                                  long long total, int n, int dtype,
                                  void* stream) {
   if (total <= 0 || n <= 0) return 0;
-  const int threads = 256;
-  const long long blocks = grid_for(total, threads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::kF32) {
-    bias_gelu_fwd_kernel<float><<<blocks, threads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(b),
-        static_cast<float*>(y), total, n);
-  } else if (dtype == ptt::kBF16) {
-    bias_gelu_fwd_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(b),
-        static_cast<__nv_bfloat16*>(y), total, n);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == ptt::kF32) return launch_fwd<float>(x, b, y, total, n, st);
+  if (dtype == ptt::kBF16)
+    return launch_fwd<__nv_bfloat16>(x, b, y, total, n, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // x, dy, dx: [total / n, n] contiguous; b: [n]; all in one dtype.
@@ -187,5 +260,12 @@ extern "C" int ptt_bias_gelu_bwd(const void* x, const void* b, const void* dy,
 // 16-byte vector kernel (variant 1) since the library was loaded.
 extern "C" long long ptt_bias_gelu_bwd_variant_launches(int variant) {
   return variant == 0 || variant == 1 ? bwd_variant_launches[variant].load()
+                                      : -1;
+}
+
+// How many forward launches took the scalar kernel (variant 0) or the
+// 16-byte vector kernel (variant 1) since the library was loaded.
+extern "C" long long ptt_bias_gelu_fwd_variant_launches(int variant) {
+  return variant == 0 || variant == 1 ? fwd_variant_launches[variant].load()
                                       : -1;
 }

@@ -119,4 +119,15 @@ struct Bias {
   }
 };
 
+// Streaming multiprocessors of the current device (asked once).
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
 }  // namespace ptt

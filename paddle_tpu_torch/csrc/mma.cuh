@@ -153,15 +153,4 @@ inline bool aligned_16(const void* p, long long sb, long long ss,
          ss % 8 == 0 && sh % 8 == 0;
 }
 
-// Streaming multiprocessors of the current device (asked once).
-inline int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
-}
-
 }  // namespace ptt

@@ -48,9 +48,10 @@ def load_numpy_optimizer_state(opt, model: torch.nn.Module, state: dict,
     """Install ``state`` = {param name: {slot name: array}} as ``opt``'s
     slots for ``model``'s parameters of those names, and its step count.
     Strict: every trainable parameter needs an entry with exactly the
-    optimizer's slot names and the parameter's shape.  Slots keep their
-    float32 precision (Adam-family moments are float32 for any parameter
-    dtype) and move to the parameter's device."""
+    optimizer's slot names and the parameter's shape.  Each slot becomes a
+    contiguous tensor on the parameter's device in the dtype the optimizer
+    keeps it in (Adam-family moments float32 for any parameter dtype), as
+    the multi-tensor kernel takes it."""
     params = {n: p for n, p in model.named_parameters() if p.requires_grad}
     missing = sorted(set(params) - set(state))
     unexpected = sorted(set(state) - set(params))
@@ -70,8 +71,8 @@ def load_numpy_optimizer_state(opt, model: torch.nn.Module, state: dict,
             if tuple(a.shape) != tuple(p.shape):
                 raise ValueError(f"shape mismatch for {name}/{slot}: "
                                  f"loaded {a.shape} vs {tuple(p.shape)}")
-            slots[id(p)][slot] = torch.from_numpy(
-                a.astype(np.float32)).to(p.device)
+            slots[id(p)][slot] = opt._slot_from(slot, p, torch.from_numpy(
+                a.astype(np.float32)))
     opt._slots.update(slots)
     opt._step_count = int(step_count)
     return opt

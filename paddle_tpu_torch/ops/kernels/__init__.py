@@ -6,10 +6,12 @@ kernel does not take), the plain PyTorch version of the same function
 (taken for a CPU tensor, and the reference the kernel is held against on
 the card), a note naming the Pallas kernel it replaces, and, where the
 reference has a custom_vjp, the ``torch.autograd.Function`` that joins a
-forward kernel to its backward.
+forward kernel to its backward.  ``optimizer`` is the one kernel beyond the
+``pallas_call`` set: the whole-tree optimizer update the reference gets
+from XLA inside its jitted step.
 """
-from . import (bias_gelu, flash_attention, layer_norm, paged_attention,
-               softmax_xent)
+from . import (bias_gelu, flash_attention, layer_norm, optimizer,
+               paged_attention, softmax_xent)
 
 # one entry per CUDA kernel: the wrapper that launches it and counts
 WRAPPERS = {
@@ -22,6 +24,7 @@ WRAPPERS = {
     "flash_attention_dkv": flash_attention.flash_attention_dkv,
     "softmax_xent": softmax_xent.softmax_xent_fwd,
     "softmax_xent_bwd": softmax_xent.softmax_xent_bwd,
+    "multi_tensor_step": optimizer.multi_tensor_step,
 }
 
 
@@ -33,8 +36,8 @@ def variant_launches() -> dict:
     """{kernel: {variant: launches}} of every kernel whose C entry chooses
     between two hand-written kernels (the attention kernels' ``simt`` /
     ``mma``, LayerNorm's ``block`` / ``warp``, paged decode's ``lane`` /
-    ``split``, the bias-GeLU backward's ``scalar`` / ``vec``), since the
-    libraries were loaded."""
+    ``split``, the bias-GeLU forward's and backward's ``scalar`` /
+    ``vec``), since the libraries were loaded."""
     return {**flash_attention.variant_launches(),
             **layer_norm.variant_launches(),
             **paged_attention.variant_launches(),

@@ -7,13 +7,15 @@ custom_vjp).  Both are bound by bytes: the forward reads x and writes y,
 the backward reads x and dy and writes dx, once per element.  The kernels
 (csrc/bias_gelu.cu) do the add, the erf and the derivative in float32,
 for any row count; the backward recomputes u = x + b from the saved input
-instead of saving u.  The forward is an elementwise grid-stride loop.  The
-backward's C entry picks one of two kernels from the width and the
-alignment alone (:func:`variant_launches` reports which): ``vec``
-(x, b, dy, dx on 16-byte boundaries and F a multiple of one 16-byte
-vector: every path of the models) indexes by (row, 16-byte column
-vector), loads its bias vector once and keeps 8 rows' loads in flight;
-``scalar``, the grid-stride loop, takes any other width or alignment.  db
+instead of saving u.  Each C entry, forward and backward, picks one of two
+kernels from the width and the alignment alone (:func:`variant_launches`
+reports which): ``vec`` (every operand on a 16-byte boundary and F a
+multiple of one 16-byte vector: every path of the models) indexes by
+(row, 16-byte column vector), loads its bias vector once and keeps
+several rows' loads in flight (the backward 8; the forward 8, 4, 2 or 1,
+the most that still gives two blocks a SM, so a decode step's R = 8 is
+spread over 48 blocks); ``scalar``, the grid-stride loop, takes any other
+width or alignment.  db
 is dx's row-sum accumulated in float32 inside one torch reduction, with no
 float32 copy of dx, as the reference leaves it to XLA
 (``jnp.sum(dx.astype(jnp.float32), axis=0)``, where the convert fuses into
@@ -140,16 +142,18 @@ bias_gelu.launches = 0
 bias_gelu_bwd.launches = 0
 
 
-# the C entry of the backward chooses between the scalar grid-stride kernel
-# (index 0) and the 16-byte vector kernel (index 1): name -> (library,
-# counting symbol)
+# the C entries of the forward and the backward choose between the scalar
+# grid-stride kernel (index 0) and the 16-byte vector kernel (index 1):
+# name -> (library, counting symbol)
 VARIANTS = ("scalar", "vec")
-VARIANT_COUNTERS = {"bias_gelu_bwd": ("bias_gelu",
-                                      "ptt_bias_gelu_bwd_variant_launches")}
+VARIANT_COUNTERS = {
+    "bias_gelu": ("bias_gelu", "ptt_bias_gelu_fwd_variant_launches"),
+    "bias_gelu_bwd": ("bias_gelu", "ptt_bias_gelu_bwd_variant_launches")}
 
 
 def variant_launches():
-    """{"bias_gelu_bwd": {"scalar": n, "vec": n}}: how many backward
-    launches took each kernel since the library was loaded, as the C entry
-    counted them (builds the library if it is not built yet)."""
+    """{"bias_gelu": {"scalar": n, "vec": n}, "bias_gelu_bwd": {...}}: how
+    many forward and backward launches took each kernel since the library
+    was loaded, as the C entries counted them (builds the library if it is
+    not built yet)."""
     return build.variant_counts(VARIANT_COUNTERS, VARIANTS)

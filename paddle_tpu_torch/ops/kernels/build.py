@@ -27,7 +27,8 @@ import time
 from pathlib import Path
 
 SOURCES = ("layer_norm", "bias_gelu", "flash_attention",
-           "flash_attention_bwd", "paged_attention", "softmax_xent")
+           "flash_attention_bwd", "paged_attention", "softmax_xent",
+           "multi_tensor_optim")
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "paddle_tpu_torch"

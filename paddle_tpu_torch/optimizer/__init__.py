@@ -4,22 +4,29 @@ base with its eager ``step``, ``SGD``, ``Momentum``, ``Adam`` and
 
 Each optimizer is one update rule
     _update(param, grad, slots, lr, t) -> (new_param, new_slots)
-written with the reference's arithmetic in the reference's order, so the
-rounding is the same: Adam-family moments are float32 whatever the
-parameter's dtype, the step ``t`` enters the bias corrections as a
-float32, the update is cast to the parameter's dtype before it is
-subtracted, and AdamW's decoupled decay subtracts ``lr * wd * p_old``
-afterwards.
+written with the reference's arithmetic in the reference's order
+(``ops.kernels.optimizer.update_plain``), so the rounding is the same:
+Adam-family moments are float32 whatever the parameter's dtype, the step
+``t`` enters the bias corrections as a float32, the update is cast to the
+parameter's dtype before it is subtracted, and AdamW's decoupled decay
+subtracts ``lr * wd * p_old`` afterwards.
 
 The update is written IN PLACE into the module's own parameters (and the
 moments are kept per parameter): PyTorch runs eagerly on the parameters
-the model holds, so there is no parameter pytree to return.  The
-reference's functional ``init_pytree``/``apply_pytree`` and their
-donation contract (jit with ``donate_argnums`` so XLA aliases the state
-buffers) have no counterpart here and are not ported.  Not ported yet
-(ROADMAP.md): Adagrad, Adamax, Adadelta, RMSProp, Lamb, LarsMomentum, Ftrl,
-Dpsgd, the wrappers, regularizer objects as ``weight_decay`` and AdamW's
-``apply_decay_param_fun`` (both need parameter names, which torch
+the model holds, so there is no parameter pytree to return.  What the
+reference's ``apply_pytree`` gives it, one update over the whole tree
+inside its jitted step, is here one CUDA launch a step for each (device,
+dtype) group of CUDA parameters (``ops.kernels.optimizer``, bitwise the
+per-parameter loop's result), with the moments updated in place; so
+``state_dict()`` hands out copies, as the reference's immutable state
+arrays are.  CPU parameters take that wrapper's plain version; an
+optimizer whose rule has no kernel (a subclass that overrides ``_update``
+or ``_apply_decay``) takes the per-parameter loop of
+:meth:`Optimizer.step_plain` on any device.  The
+functional ``init_pytree``/``apply_pytree`` are not ported.  Not ported
+yet (ROADMAP.md): Adagrad, Adamax, Adadelta, RMSProp, Lamb, LarsMomentum,
+Ftrl, Dpsgd, the wrappers, regularizer objects as ``weight_decay`` and
+AdamW's ``apply_decay_param_fun`` (both need parameter names, which torch
 parameters do not carry).
 """
 from __future__ import annotations
@@ -29,6 +36,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..ops.kernels import optimizer as _kernel
 from . import lr  # noqa: F401
 from .lr import LRScheduler
 
@@ -68,10 +76,27 @@ class Optimizer:
     def _init_slot(self, name: str, p) -> Any:
         return torch.zeros_like(p)
 
+    def _slot_dtype(self, name: str, p):
+        return p.dtype
+
     def _update(self, p, g, slots: dict, lr, t):
         """p/g tensors, slots dict of tensors, lr a float, t the step;
         returns (new_p, new_slots) without touching p."""
         raise NotImplementedError
+
+    def _kernel_spec(self):
+        """(rule, hyper) of the multi-tensor kernel that computes this
+        optimizer's ``_update`` and ``_apply_decay``, or None: then every
+        device takes the per-parameter loop."""
+        return None
+
+    def _own_rule(self) -> bool:
+        """Whether the update rule and the decay are this module's own (the
+        kernel computes those; a subclass that replaces either keeps the
+        per-parameter loop)."""
+        cls = type(self)
+        return cls._update.__module__ == cls._apply_decay.__module__ \
+            == __name__
 
     # -- eager path --------------------------------------------------------
     def _get_slots(self, p) -> dict:
@@ -81,18 +106,46 @@ class Optimizer:
                                 for n in self._slot_names()}
         return self._slots[key]
 
-    @torch.no_grad()
-    def step(self):
-        self._step_count += 1
+    def _params_grads(self):
         params = self._parameter_list or []
         params_grads = [(p, p.grad) for p in params
                         if p.grad is not None and p.requires_grad]
         if self._grad_clip is not None:
             params_grads = self._grad_clip(params_grads)
-        lr = self.get_lr()
+        return [(p, g) for p, g in params_grads if g is not None]
+
+    @torch.no_grad()
+    def step(self):
+        """One update of every parameter with a gradient: each (device,
+        dtype) group through the multi-tensor wrapper (one launch on CUDA,
+        its plain version on the CPU); an optimizer whose rule has no
+        kernel takes the per-parameter loop."""
+        self._step_count += 1
+        params_grads, lr = self._params_grads(), self.get_lr()
+        spec = self._kernel_spec()
+        if spec is None:
+            self._step_plain(params_grads, lr)
+            return
+        groups = {}
         for p, g in params_grads:
-            if g is None:
-                continue
+            groups.setdefault((p.device, p.dtype), []).append((p, g))
+        for group in groups.values():
+            self._step_kernel(spec, group, lr)
+
+    @torch.no_grad()
+    def step_plain(self):
+        """The plain version of :meth:`step`: the same update through the
+        per-parameter loop on every device (what the kernel is held
+        against on the card)."""
+        self._step_count += 1
+        self._step_plain(self._params_grads(), self.get_lr())
+
+    plain_cuda_updates = 0   # CUDA parameters the loop updated, all optimizers
+
+    def _step_plain(self, params_grads, lr):
+        """The per-parameter loop: :meth:`step_plain`, and :meth:`step` of
+        an optimizer whose rule has no kernel."""
+        for p, g in params_grads:
             slots = self._get_slots(p)
             g = g.to(p.dtype) if g.dtype != p.dtype else g
             g = self._apply_decay(p, g)
@@ -100,6 +153,20 @@ class Optimizer:
                                             self._step_count)
             p.copy_(new_p)
             self._slots[id(p)] = new_slots
+            if p.device.type == "cuda":
+                Optimizer.plain_cuda_updates += 1
+
+    def _step_kernel(self, spec, params_grads, lr):
+        rule, hyper = spec
+        params, grads, slots = [], [], []
+        for p, g in params_grads:
+            g = g.to(p.dtype) if g.dtype != p.dtype else g
+            params.append(p)
+            grads.append(self._apply_decay(p, g))
+            own = self._get_slots(p)
+            slots.append([own[n] for n in self._slot_names()])
+        _kernel.multi_tensor_step(rule, params, grads, slots, lr,
+                                  self._step_count, hyper)
 
     def _apply_decay(self, p, g):
         """Coupled decay (fluid regularizer semantics); AdamW overrides."""
@@ -116,11 +183,13 @@ class Optimizer:
     # -- checkpointing ----------------------------------------------------
     # slots are keyed by the parameter's index in the list (the reference
     # uses the parameter's name where it has one; torch parameters do not)
+    # (copies: the kernel updates the slots in place, and a saved state
+    # stays what it was, as the reference's immutable arrays do)
     def state_dict(self):
         sd = {"step_count": self._step_count}
         for i, p in enumerate(self._parameter_list or []):
             for n, v in self._slots.get(id(p), {}).items():
-                sd[f"{i}__{n}"] = v
+                sd[f"{i}__{n}"] = v.detach().clone()
         if self._lr_scheduler is not None:
             sd["LR_Scheduler"] = self._lr_scheduler.state_dict()
         return sd
@@ -132,17 +201,27 @@ class Optimizer:
             for n in self._slot_names():
                 key = f"{i}__{n}"
                 if key in state_dict:
-                    slots[n] = torch.as_tensor(state_dict[key]).to(
-                        p.device).clone()
+                    slots[n] = self._slot_from(n, p, state_dict[key])
             if slots:
                 self._slots[id(p)] = slots
         if "LR_Scheduler" in state_dict and self._lr_scheduler is not None:
             self._lr_scheduler.set_state_dict(state_dict["LR_Scheduler"])
 
+    def _slot_from(self, name, p, value):
+        """A fresh contiguous copy of ``value`` as slot ``name`` of ``p``:
+        on p's device, in the slot's own dtype (float32 moments, p's dtype
+        for a velocity), as the kernel takes it."""
+        return torch.as_tensor(value).to(
+            device=p.device, dtype=self._slot_dtype(name, p),
+            copy=True).contiguous()
+
 
 class SGD(Optimizer):
     def _update(self, p, g, slots, lr, t):
-        return p - lr * g, slots
+        return _kernel.update_plain("sgd", p, g, [], lr, t, {})[0], slots
+
+    def _kernel_spec(self):
+        return ("sgd", {}) if self._own_rule() else None
 
 
 class Momentum(Optimizer):
@@ -155,19 +234,18 @@ class Momentum(Optimizer):
     def _slot_names(self):
         return ["velocity"]
 
+    def _rule(self):
+        return "nesterov" if self._use_nesterov else "momentum"
+
     def _update(self, p, g, slots, lr, t):
-        v = self._momentum * slots["velocity"] + g
-        if self._use_nesterov:
-            new_p = p - lr * (g + self._momentum * v)
-        else:
-            new_p = p - lr * v
+        new_p, (v,) = _kernel.update_plain(
+            self._rule(), p, g, [slots["velocity"]], lr, t,
+            {"momentum": self._momentum})
         return new_p, {"velocity": v}
 
-
-def _bias_correction(beta, t):
-    """1 - beta ** t in float32, the step as a float32 (the reference
-    computes it on device from ``jnp.asarray(t, jnp.float32)``)."""
-    return float(np.float32(1.0) - np.float32(beta) ** np.float32(t))
+    def _kernel_spec(self):
+        return (self._rule(), {"momentum": self._momentum}) \
+            if self._own_rule() else None
 
 
 class Adam(Optimizer):
@@ -186,15 +264,23 @@ class Adam(Optimizer):
         # float32 moments for any parameter dtype
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
+    def _slot_dtype(self, name, p):
+        return torch.float32
+
+    _RULE = "adam"
+
+    def _hyper(self):
+        return {"beta1": self._beta1, "beta2": self._beta2,
+                "epsilon": self._epsilon}
+
     def _update(self, p, g, slots, lr, t):
-        b1, b2 = self._beta1, self._beta2
-        g32 = g.float()
-        m = b1 * slots["moment1"] + (1 - b1) * g32
-        v = b2 * slots["moment2"] + (1 - b2) * g32.square()
-        mhat = m / _bias_correction(b1, t)
-        vhat = v / _bias_correction(b2, t)
-        upd = lr * mhat / (vhat.sqrt() + self._epsilon)
-        return p - upd.to(p.dtype), {"moment1": m, "moment2": v}
+        new_p, (m, v) = _kernel.update_plain(
+            self._RULE, p, g, [slots["moment1"], slots["moment2"]], lr, t,
+            self._hyper())
+        return new_p, {"moment1": m, "moment2": v}
+
+    def _kernel_spec(self):
+        return (self._RULE, self._hyper()) if self._own_rule() else None
 
 
 class AdamW(Adam):
@@ -205,10 +291,10 @@ class AdamW(Adam):
                          None, grad_clip)
         self._wd_coeff = float(weight_decay)
 
+    _RULE = "adamw"     # decoupled decay: new_p - lr * wd * p_old
+
     def _apply_decay(self, p, g):
         return g  # decoupled
 
-    def _update(self, p, g, slots, lr, t):
-        new_p, new_slots = super()._update(p, g, slots, lr, t)
-        # decoupled decay (the adamw flag in optimizers/adam_op.cc)
-        return new_p - lr * self._wd_coeff * p, new_slots
+    def _hyper(self):
+        return dict(super()._hyper(), weight_decay=self._wd_coeff)

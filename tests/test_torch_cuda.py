@@ -7,8 +7,10 @@ entry chooses between (by dtype and 16-byte alignment), is held against
 its plain PyTorch version on the same inputs; paged decode's split kernel
 is bitwise reproducible and independent of its batch mates; a decode step
 of the engine syncs once, to fetch its tokens; a tiny GPT's and a tiny
-BERT's loss and gradients on the card are held against the CPU's.  Needs
-a CUDA device (skips elsewhere); on the card:
+BERT's loss and gradients on the card are held against the CPU's; the
+whole-tree optimizer kernel gives bitwise the per-parameter loop's
+parameters and moments and makes no host sync.  Needs a CUDA device
+(skips elsewhere); on the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
@@ -22,9 +24,12 @@ import numpy as np
 import pytest
 import torch
 
+import paddle_tpu_torch as ptt
+from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch.ops import fused
 from paddle_tpu_torch.ops.kernels import (bias_gelu, flash_attention,
                                           layer_norm, paged_attention)
+from paddle_tpu_torch.ops.kernels import optimizer as multi_tensor
 
 pytestmark = pytest.mark.cuda
 DTYPES = [torch.float32, torch.bfloat16]
@@ -252,6 +257,32 @@ def test_engine_greedy_tokens_match_cpu_engine(dev):
             outs[str(device)] = [h.result(120) for h in hs]
             assert eng.free_count == eng.geometry.num_pages
     assert outs["cpu"] == outs[str(dev)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows", [1, 8, 37, 128, 8192])
+@pytest.mark.parametrize("n,offset", [(3072, 0), (3072, 1), (3071, 0),
+                                      (24, 0), (12, 0)])
+def test_bias_gelu_fwd_variants(dev, dtype, rows, n, offset):
+    """The forward takes the 16-byte vector kernel exactly where F is a
+    multiple of one vector and x, b, y lie on 16-byte boundaries (GPT's
+    F = 3072 at a decode step's R = 8, a prefill's 128, training's 8192,
+    and ragged row counts), else the scalar loop (x a view one element
+    off a boundary, F = 3071, F = 12 in bf16); both against the plain
+    version."""
+    g = torch.Generator(device=dev).manual_seed(rows + n + offset)
+    x = (2 * torch.randn(rows * n + 8, generator=g, device=dev)).to(dtype)[
+        offset:offset + rows * n].view(rows, n)
+    b = (0.5 * torch.randn(n, generator=g, device=dev)).to(dtype)
+    before = bias_gelu.variant_launches()["bias_gelu"]
+    out = bias_gelu.bias_gelu(x, b)
+    _check(out, bias_gelu.bias_gelu_plain(x, b), dtype)
+    per = 16 // x.element_size()
+    taken = "vec" if offset == 0 and n % per == 0 else "scalar"
+    other = "scalar" if taken == "vec" else "vec"
+    after = bias_gelu.variant_launches()["bias_gelu"]
+    assert after[taken] == before[taken] + 1
+    assert after[other] == before[other]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -766,3 +797,160 @@ def test_tiny_bert_gradients_match_cpu(dev):
                                    msg=name)
     for got, ref in zip(logits_gpu, logits_cpu):
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the whole-tree optimizer update: bitwise the per-parameter loop
+# ---------------------------------------------------------------------------
+OPTIMIZERS = {
+    "sgd": lambda ps, lr, clip: ptt.optimizer.SGD(
+        learning_rate=lr, parameters=ps, weight_decay=0.01, grad_clip=clip),
+    "momentum": lambda ps, lr, clip: ptt.optimizer.Momentum(
+        learning_rate=lr, momentum=0.9, parameters=ps, grad_clip=clip),
+    "nesterov": lambda ps, lr, clip: ptt.optimizer.Momentum(
+        learning_rate=lr, momentum=0.9, use_nesterov=True, parameters=ps,
+        grad_clip=clip),
+    "adam": lambda ps, lr, clip: ptt.optimizer.Adam(
+        learning_rate=lr, parameters=ps, weight_decay=0.01, grad_clip=clip),
+    "adamw": lambda ps, lr, clip: ptt.optimizer.AdamW(
+        learning_rate=lr, parameters=ps, weight_decay=0.05, grad_clip=clip),
+}
+# a GPT-like spread of sizes: a large embedding, matrices, biases, one
+# element, a view one element off a 16-byte boundary (element loop)
+OPT_SHAPES = [(3000, 77), (128, 384), (384,), (1,), (5, 3), (70000,)]
+
+
+def _opt_params(dev, dtype, unaligned=False):
+    g = torch.Generator(device=dev).manual_seed(21)
+    out = [torch.randn(*s, generator=g, device=dev).to(dtype)
+           for s in OPT_SHAPES]
+    if unaligned:
+        buf = torch.randn(4 * 385 + 1, generator=g, device=dev).to(dtype)
+        out.append(buf[1:].view(4, 385))
+    return [torch.nn.Parameter(t) for t in out]
+
+
+def _opt_run(dev, kind, dtype, plain, steps=3, unaligned=False,
+             resume_at=None):
+    """``steps`` updates through step() (kernel) or step_plain() (the
+    loop) from seeded values: a parameter without a gradient, a global
+    norm clip, an lr that changes every step, and optionally a resume
+    through set_state_dict after step ``resume_at``."""
+    params = _opt_params(dev, dtype, unaligned)
+    sched = ptt.optimizer.lr.StepDecay(0.01, step_size=1, gamma=0.8)
+    opt = OPTIMIZERS[kind](params, sched, tnn.ClipGradByGlobalNorm(5.0))
+    g = torch.Generator(device=dev).manual_seed(22)
+    for i in range(steps):
+        for j, p in enumerate(params):
+            p.grad = None if j == 3 else torch.randn(
+                *p.shape, generator=g, device=dev).to(dtype)
+        opt.step_plain() if plain else opt.step()
+        opt.clear_grad()
+        sched.step()
+        if resume_at == i:
+            state = opt.state_dict()
+            sched = ptt.optimizer.lr.StepDecay(0.01, step_size=1, gamma=0.8)
+            opt = OPTIMIZERS[kind](params, sched,
+                                   tnn.ClipGradByGlobalNorm(5.0))
+            opt.set_state_dict(state)
+    torch.cuda.synchronize()
+    slots = [[v.clone() for v in opt._slots.get(id(p), {}).values()]
+             for p in params]
+    return params, slots
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", sorted(OPTIMIZERS))
+@pytest.mark.parametrize("case", ["plain", "unaligned", "resume"])
+def test_multi_tensor_step_is_bitwise_the_loop(dev, kind, dtype, case):
+    """After 3 steps the kernel's parameters and moments equal the
+    per-parameter loop's bit for bit; one launch a step, and the loop
+    runs on no CUDA tensor."""
+    kw = dict(unaligned=case == "unaligned",
+              resume_at=1 if case == "resume" else None)
+    ptt.optimizer.Optimizer.plain_cuda_updates = 0
+    before = multi_tensor.multi_tensor_step.launches
+    got, got_slots = _opt_run(dev, kind, dtype, plain=False, **kw)
+    assert multi_tensor.multi_tensor_step.launches == before + 3
+    assert ptt.optimizer.Optimizer.plain_cuda_updates == 0
+    want, want_slots = _opt_run(dev, kind, dtype, plain=True, **kw)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), (i, (a.float() - b.float()).abs().max())
+    for i, (a, b) in enumerate(zip(got_slots, want_slots)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y), (i, (x - y).abs().max())
+
+
+def test_multi_tensor_step_splits_a_large_tree(dev):
+    """More tensors than one launch takes: two launches, bitwise the
+    loop."""
+    n = multi_tensor.MAX_TENSORS + 88
+    runs = []
+    for plain in (False, True):
+        g = torch.Generator(device=dev).manual_seed(23)
+        ps = [torch.nn.Parameter(torch.randn(
+            1 + i % 37, generator=torch.Generator(device=dev).manual_seed(i),
+            device=dev)) for i in range(n)]
+        opt = ptt.optimizer.AdamW(learning_rate=0.01, parameters=ps)
+        for p in ps:
+            p.grad = torch.randn(*p.shape, generator=g, device=dev)
+        before = multi_tensor.multi_tensor_step.launches
+        opt.step_plain() if plain else opt.step()
+        if not plain:
+            assert multi_tensor.multi_tensor_step.launches == before + 2
+        runs.append(ps)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_multi_tensor_step_makes_no_host_sync(dev):
+    """opt.step() with a global-norm clip and a scheduled lr runs under
+    torch.cuda.set_sync_debug_mode("error"): any sync raises."""
+    params = _opt_params(dev, torch.bfloat16)
+    opt = OPTIMIZERS["adamw"](params, ptt.optimizer.lr.StepDecay(
+        0.01, step_size=1), tnn.ClipGradByGlobalNorm(1.0))
+    for step in range(2):
+        for p in params:
+            p.grad = torch.ones_like(p)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            opt.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_multi_tensor_state_dict_is_a_snapshot_on_the_card(dev):
+    """The kernel updates the moments in place; a state_dict() taken
+    before a step keeps what it had."""
+    params = _opt_params(dev, torch.float32)
+    opt = OPTIMIZERS["adam"](params, 0.01, None)
+    for p in params:
+        p.grad = torch.ones_like(p)
+    opt.step()
+    saved = opt.state_dict()
+    frozen = {k: v.clone() for k, v in saved.items()
+              if isinstance(v, torch.Tensor)}
+    opt.step()
+    for k, v in frozen.items():
+        assert torch.equal(saved[k], v), k
+
+
+def test_multi_tensor_step_refuses_float16(dev):
+    p = torch.nn.Parameter(torch.zeros(8, device=dev, dtype=torch.float16))
+    p.grad = torch.ones_like(p)
+    with pytest.raises(TypeError, match="float16"):
+        ptt.optimizer.SGD(learning_rate=0.1, parameters=[p]).step()
+
+
+def test_multi_tensor_step_refuses_shared_memory(dev):
+    """A parameter listed twice would be updated by racing blocks of one
+    launch: refused before any launch."""
+    p = torch.nn.Parameter(torch.zeros(8, device=dev))
+    p.grad = torch.ones_like(p)
+    before = multi_tensor.multi_tensor_step.launches
+    with pytest.raises(ValueError, match="share memory"):
+        ptt.optimizer.AdamW(learning_rate=0.1, parameters=[p, p]).step()
+    assert multi_tensor.multi_tensor_step.launches == before

@@ -124,6 +124,11 @@ def _kernel_args(device):
         "flash_attention_dkv": (q, k, v, q, stats, stats),
         "softmax_xent": (x, labels),
         "softmax_xent_bwd": (x, labels, row, row),
+        "multi_tensor_step": ("adamw", [x], [x.clone()],
+                              [[torch.zeros(3, 8, device=device),
+                                torch.ones(3, 8, device=device)]], 1e-3, 2,
+                              {"beta1": 0.9, "beta2": 0.999,
+                               "epsilon": 1e-8, "weight_decay": 0.01}),
     }
 
 

@@ -404,6 +404,24 @@ def test_optimizer_state_dict_round_trip_and_lr():
     assert plain.get_lr() == 0.2
 
 
+@pytest.mark.parametrize("name", sorted(set(OPTIMIZERS) - {"sgd"}))
+def test_state_dict_is_a_snapshot(name):
+    """A state_dict() taken before a step keeps its moments through the
+    step (the reference's state arrays are immutable; the port's kernel
+    updates the slots in place, so state_dict() hands out copies)."""
+    ours, _ = OPTIMIZERS[name]
+    _, opt = _run_port(ours, _GRADS[:2])
+    saved = opt.state_dict()
+    frozen = {k: v.clone() for k, v in saved.items()
+              if isinstance(v, torch.Tensor)}
+    p = opt._parameter_list[0]
+    p.grad = torch.tensor(_GRADS[2])
+    opt.step()
+    for k, v in frozen.items():
+        assert torch.equal(saved[k], v), k
+        assert not torch.equal(opt.state_dict()[k], v), k
+
+
 def test_optimizer_with_global_norm_clip_matches_reference():
     def factory(m, ps):
         clip = (paddle.nn.ClipGradByGlobalNorm if m is paddle.optimizer
