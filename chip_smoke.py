@@ -51,6 +51,15 @@ passed over):
                   [B, 1, 1, S] attention mask and a loss on the logits
                   through F.cross_entropy; the masked attention kernels
                   and both cross-entropy kernels must launch.
+12. dropout-train — GPTForCausalLM(GPTConfig()) and
+                  BertForPretraining(BertConfig()) at their published
+                  dropout 0.1 (attention dropout inside the three
+                  attention kernels), full width and depth, bf16: 10
+                  dygraph AdamW steps and 3 Model.fit steps each, twice
+                  from the same paddle_tpu_torch.seed: every loss finite,
+                  the 10 steps falling, both runs bitwise equal, every
+                  attention launch with dropout on the tensor cores; step
+                  time, tokens/s and MFU beside the dropout-0 phases'.
 
 Phase 3 also holds the softmax cross-entropy kernels (BERT's MLM and NSP
 shapes and GPT's) and the non-causal and masked forms of the attention
@@ -67,6 +76,14 @@ loop (`vec` / `scalar`).  Every `[kernels]` line of theirs names the variant the
 took, both are held against the plain version (the slower ones on
 operands one element off a 16-byte boundary), and a phase of the serving
 or training paths fails if one of its launches took the slower kernel.
+
+Attention dropout (phase 3): the keep mask the kernels draw (Philox, one
+pure function of seed, plane, query and key) is held bitwise against the
+plain version's at GPT's and BERT's training shapes, with its keep rate;
+a one-hot V shows that the forward applies exactly that mask on both its
+kernels; forward, dq and dk/dv with p = 0.1 are held against their plain
+versions at both shapes and timed against p = 0 and against SDPA with
+the same dropout.
 
 The line before the last is the per-kernel JSON record; the last line is
 the result JSON.  Float32 phases run with TF32 off for matmuls and cuDNN.
@@ -88,6 +105,8 @@ BF16_TOL = 2 ** -6   # x max(1, max|ref|): two bf16 ulps at the top binade
 LOGITS_REL_TOL = 1e-3  # max|dlogits| / max|ref| over 12 layers, float32
 GRAD_REL_TOL = 1e-3    # max|dgrad| / max|ref| per parameter, float32
 HBM_BYTES_PER_S = 3.35e12
+DROPOUT_P = 0.1             # GPTConfig()'s and BertConfig()'s dropout
+DROPOUT_SEED = 0x5EED0FD809
 # what torch.cuda.set_sync_debug_mode("warn") says at a synchronizing call
 # (its first use also warns that the mode is a prototype: not a sync)
 SYNC_WARNING = "called a synchronizing CUDA operation"
@@ -673,18 +692,19 @@ def optimizer_phase(torch, K, cfg):
     return rec
 
 
-def sdpa_backward(torch, q, k, v, do):
+def sdpa_backward(torch, q, k, v, do, dropout_p=0.0):
     """The library yardstick for the attention backward: one call of
     PyTorch's flash-attention backward
     (aten._scaled_dot_product_flash_attention_backward), which computes dq,
     dk and dv together, on the same inputs in its [B, H, S, D] layout,
-    from its own forward's output and logsumexp.  bfloat16 only."""
+    from its own forward's output and logsumexp (and dropout's seed and
+    offset).  bfloat16 only."""
     qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
     out, lse, cq, ck, mq, mk, seed_t, offset_t = \
         torch.ops.aten._scaled_dot_product_flash_attention(
-            qt, kt, vt, 0.0, True)[:8]
+            qt, kt, vt, dropout_p, True)[:8]
     return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
-        dot, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, True, seed_t,
+        dot, qt, kt, vt, out, lse, cq, ck, mq, mk, dropout_p, True, seed_t,
         offset_t)
 
 
@@ -1067,7 +1087,8 @@ def train_phase(torch, K, cfg, card):
     """Full-width bfloat16 GPT-2-small, B = 8, S = 1024: 10 dygraph AdamW
     steps on one fixed batch (the loop of bench.py's GPT training body),
     a profiled window of 2 more, then 3 Model.fit steps.  Returns the
-    launch counts of the 10 dygraph steps."""
+    launch counts of the 10 dygraph steps and (p50 s, model flops, tokens)
+    of a step."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.framework.random import seed
     from paddle_tpu_torch.models import GPTForCausalLM
@@ -1146,7 +1167,7 @@ def train_phase(torch, K, cfg, card):
     log(f"[fit] Model.fit 3 steps of B={B} S={S} with a loss on the "
         f"logits: step losses {hist['step_loss']}; {fit_s:.3f}s; launches "
         f"{fit_counts}; {fit_opt}")
-    return counts
+    return counts, (p50, flops, tokens)
 
 
 def xent_kernel_phase(torch, K):
@@ -1215,11 +1236,12 @@ def xent_kernel_phase(torch, K):
     return main
 
 
-def sdpa_masked_backward(torch, q, k, v, do, bias):
+def sdpa_masked_backward(torch, q, k, v, do, bias, dropout_p=0.0):
     """The library yardstick for the masked attention backward: one call
     of PyTorch's memory-efficient attention backward, on the same inputs
     in its [B, H, S, D] layout, with the bias as it takes it (in q's
-    dtype, its rows padded to a multiple of 16), from its own forward."""
+    dtype, its rows padded to a multiple of 16), from its own forward
+    (with ``dropout_p``, its own dropout)."""
     qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
     B, H, S, _ = qt.shape
     sp = -(-S // 16) * 16
@@ -1228,10 +1250,16 @@ def sdpa_masked_backward(torch, q, k, v, do, bias):
     lib_bias.copy_(bias)
     out, lse, seed_t, offset_t = \
         torch.ops.aten._scaled_dot_product_efficient_attention(
-            qt, kt, vt, lib_bias, True, 0.0, False)
+            qt, kt, vt, lib_bias, True, dropout_p, False)
+    # with dropout, the backward reads the forward's Philox seed and offset
+    # from host tensors when it runs eagerly and from device memory while a
+    # CUDA graph captures it (time_ms does both)
+    rng = {False: (seed_t, offset_t),
+           True: (seed_t.cuda(), offset_t.cuda())}
     return lambda: \
         torch.ops.aten._scaled_dot_product_efficient_attention_backward(
-            dot, qt, kt, vt, lib_bias, out, lse, seed_t, offset_t, 0.0,
+            dot, qt, kt, vt, lib_bias, out, lse,
+            *rng[torch.cuda.is_current_stream_capturing()], dropout_p,
             [True, True, True, False], False)
 
 
@@ -1319,6 +1347,274 @@ def masked_attention_phase(torch, K):
                 main = rec
     torch.cuda.synchronize()
     return main
+
+
+def dropout_mask_phase(torch, K):
+    """Attention dropout's keep mask: the kernels' own device function
+    (through its test entry) bitwise against dropout_keep_plain at GPT's
+    and BERT's training shapes, its keep rate within 4 sigma of 1 - p;
+    then the forward applies exactly that mask on both its kernels: with
+    V's row t the one-hot e_t (S = D = 64), O's non-zero pattern is the
+    set of kept (query, key) pairs."""
+    KF = K.flash_attention
+    p, H = DROPOUT_P, 12
+    for what, B, S in (("GPT", 8, 1024), ("BERT", 32, 128)):
+        got = KF.dropout_keep(DROPOUT_SEED, B, H, S, p, "cuda")
+        want = KF.dropout_keep_plain(DROPOUT_SEED, B, H, S, p, "cuda")
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"dropout mask {what}: the kernels' mask differs from "
+                 f"dropout_keep_plain at {int((got != want).sum())} of "
+                 f"{got.numel()} pairs")
+        n = got.numel()
+        rate = int(got.sum()) / n
+        sigma = math.sqrt(p * (1 - p) / n)
+        if abs(rate - (1 - p)) > 4 * sigma:
+            fail(f"dropout mask {what}: keep rate {rate} is "
+                 f"{abs(rate - (1 - p)) / sigma:.2f} sigma from {1 - p}")
+        log(f"[dropout-mask] {what} B={B} H={H} S={S} p={p} seed="
+            f"{DROPOUT_SEED:#x}: the kernels' mask bitwise equal to "
+            f"dropout_keep_plain over {n} pairs; keep rate {rate:.7f} "
+            f"(1 - p = {1 - p}, {abs(rate - (1 - p)) / sigma:.2f} sigma); "
+            f"effective p {KF.dropout_threshold(p) / 65536}")
+        del got, want
+    B, S, H, D = 2, 64, 12, 64
+    n = B * S * H * D
+    g = torch.Generator(device="cuda").manual_seed(12)
+    keep = KF.dropout_keep_plain(DROPOUT_SEED, B, H, S, p, "cuda")
+    for dtype, offset, variant in ((torch.bfloat16, 0, "mma"),
+                                   (torch.bfloat16, 1, "simt"),
+                                   (torch.float32, 0, "simt")):
+        q, k, v = ((0.3 * torch.randn(n + 8, generator=g, device="cuda")).to(
+            dtype)[offset:offset + n].view(B, S, H, D) for _ in range(3))
+        v.copy_(torch.eye(S, dtype=dtype, device="cuda")[None, :, None, :]
+                .expand(B, S, H, D))
+        before = K.variant_launches()
+        out, _ = KF.flash_attention(q, k, v, causal=False, dropout_p=p,
+                                    seed=DROPOUT_SEED)
+        torch.cuda.synchronize()
+        took = variant_taken(before, K.variant_launches(), "flash_attention")
+        if took != variant:
+            fail(f"dropout one-hot V {dtype} offset {offset}: the launch "
+                 f"took the {took} kernel, not {variant}")
+        kept = out.permute(0, 2, 1, 3) != 0
+        if not torch.equal(kept, keep):
+            fail(f"dropout one-hot V [{took}] {dtype}: O's non-zero pattern "
+                 f"differs from the plain mask at "
+                 f"{int((kept != keep).sum())} pairs")
+        log(f"[dropout-mask] one-hot V, B={B} S={S} H={H} D={D}, "
+            f"{str(dtype)[6:]} offset {offset} [{took}]: O's non-zero "
+            f"pattern equals the plain mask at all {keep.numel()} pairs "
+            f"({int(keep.sum())} kept)")
+
+
+def dropout_kernel_phase(torch, K):
+    """Forward, dq and dk/dv with dropout p = 0.1 against their plain
+    versions with the same seed, bf16 on the tensor-core kernels, at GPT's
+    causal training shape (B = 8, S = 1024) and BERT's padding-mask one
+    (B = 32, S = 128, seeded lengths 64-128): device ms at p = 0.1 beside
+    the same kernel at p = 0, and scaled_dot_product_attention with the
+    same dropout (forward; its flash / memory-efficient backward) as the
+    library yardstick.  The bound is the p = 0 one: the same products and
+    bytes.  Returns {kernel: {"gpt_causal": rec, "bert_padding_mask":
+    rec}}."""
+    F = torch.nn.functional
+    KF = K.flash_attention
+    g = torch.Generator(device="cuda").manual_seed(13)
+    H, D, p = 12, 64, DROPOUT_P
+    recs = {name: {} for name in ATTENTION_KERNELS}
+    for form, B, S in (("gpt_causal", 8, 1024),
+                       ("bert_padding_mask", 32, 128)):
+        q, k, v = torch.randn(B, S, 3, H, D, generator=g,
+                              device="cuda").bfloat16().unbind(2)
+        do = torch.randn(B, S, H, D, generator=g, device="cuda").bfloat16()
+        causal = form == "gpt_causal"
+        bias, lib_mask, bias_bytes = None, None, 0
+        pairs = B * H * S * (S + 1) // 2
+        if not causal:
+            lens = torch.randint(64, S + 1, (B,), generator=g, device="cuda")
+            bias = KF.fold_mask((torch.arange(S, device="cuda")[None, :]
+                                 < lens[:, None])[:, None, None, :],
+                                B, H, S, S)
+            lib_mask = bias.to(torch.bfloat16)
+            pairs, bias_bytes = H * S * int(lens.sum()), B * S * 4
+        plain_kw = dict(causal=causal, bias=bias)
+        kw = dict(plain_kw, dropout_p=p, seed=DROPOUT_SEED)
+        o, lse = KF.flash_attention(q, k, v, **kw)
+        delta = KF.flash_attention_delta(o, do)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_bwd = sdpa_backward(torch, q, k, v, do, p) if causal else \
+            sdpa_masked_backward(torch, q, k, v, do, bias, p)
+        one, stats = B * S * H * D * 2, 2 * B * H * S * 4
+        desc = f"bf16 {form} dropout p={p} B={B} S={S} H={H} D={D}"
+        calls = {
+            "flash_attention": (
+                lambda **a: KF.flash_attention(q, k, v, **a)[0],
+                lambda: KF.flash_attention_plain(q, k, v, **kw)[0],
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=lib_mask, dropout_p=p,
+                    is_causal=causal),
+                4 * one + B * H * S * 4, 4 * D * pairs),
+            "flash_attention_dq": (
+                lambda **a: KF.flash_attention_dq(q, k, v, do, lse, delta,
+                                                  **a),
+                lambda: KF.flash_attention_dq_plain(q, k, v, do, lse, delta,
+                                                    **kw),
+                lib_bwd, 5 * one + stats, 6 * D * pairs),
+            "flash_attention_dkv": (
+                lambda **a: KF.flash_attention_dkv(q, k, v, do, lse, delta,
+                                                   **a),
+                lambda: KF.flash_attention_dkv_plain(q, k, v, do, lse,
+                                                     delta, **kw),
+                lib_bwd, 6 * one + stats, 8 * D * pairs)}
+        for name, (kernel, plain, lib, n_bytes, flops) in calls.items():
+            rec = compare(torch, f"{name} {desc}", lambda: kernel(**kw),
+                          plain, lib, torch.bfloat16, n_bytes + bias_bytes,
+                          flops, PEAK_BF16_TENSOR, variant=(name, "mma"))
+            rec["ms_p0"] = time_ms(torch, lambda: kernel(**plain_kw))[0]
+            log(f"[kernels] {name} {desc}: device ms with dropout "
+                f"{rec['ms']} against p=0 {rec['ms_p0']} (x"
+                f"{rec['ms'] / rec['ms_p0']:.3f}); SDPA with dropout "
+                f"{rec['library_ms']}; bound {rec['bound_ms']} "
+                f"({rec['bound_by']})")
+            recs[name][form] = rec
+        del q, k, v, do, o, lse, delta
+    torch.cuda.synchronize()
+    return recs
+
+
+def dropout_train_run(torch, K, tag, model, batches, fit_data, fit_batch,
+                      fit_loss, lr, labels=None):
+    """10 dygraph AdamW(lr, wd 0.01) steps of ``model`` (its loss from
+    ``batches()``), a profiled window of 2 more (``[tag]`` line), then 3
+    Model.fit steps over the tensors ``fit_data`` in batches of
+    ``fit_batch`` with ``fit_loss``.  Returns (10 losses, step seconds,
+    fit step losses, dygraph launch counts, dropout launch counts,
+    fast-kernel launches, optimizer text)."""
+    import paddle_tpu_torch as ptt
+
+    opt = ptt.optimizer.AdamW(learning_rate=lr, weight_decay=0.01,
+                              parameters=model.parameters())
+    KF = K.flash_attention
+    K.reset_launch_counts()
+    ptt.optimizer.Optimizer.plain_cuda_updates = 0
+    variants = K.variant_launches()
+    def step():
+        loss = batches()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    losses, times = [], []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        losses.append(step())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts, dropped = K.launch_counts(), KF.dropout_launches()
+    fast = require_fast_variants(K, variants, "dropout-train", TRAINING_FAST)
+    opt_text = require_optimizer_kernel(counts, opt, 10, "dropout-train")
+    profile_steps(torch, tag, step)
+    api = ptt.Model(model, labels=labels).prepare(opt, fit_loss)
+    K.reset_launch_counts()
+    hist = api.fit(ptt.io.TensorDataset(fit_data), batch_size=fit_batch,
+                   epochs=1, shuffle=False, verbose=0, log_freq=1)
+    torch.cuda.synchronize()
+    fit_dropped = KF.dropout_launches()
+    require_fast_variants(K, variants, "dropout-train and Model.fit",
+                          TRAINING_FAST)
+    require_optimizer_kernel(K.launch_counts(), opt, 3, "dropout Model.fit")
+    for name in ATTENTION_KERNELS:
+        if dropped[name] != counts[name] or fit_dropped[name] <= 0:
+            fail(f"dropout-train: {name} made {dropped[name]} of its "
+                 f"{counts[name]} launches with dropout, {fit_dropped[name]} "
+                 f"in Model.fit")
+    return (torch.stack(losses).float().cpu().tolist(), times,
+            hist["step_loss"], counts, dropped, fast, opt_text)
+
+
+def dropout_train_phase(torch, K, card, dropout0):
+    """GPT-2-small and BERT-base at their published configs (GPTConfig(),
+    BertConfig(): attention and hidden dropout 0.1), full width and depth,
+    bf16: GPT on the train phase's batch (B = 8, S = 1024), BERT on
+    padded batches with their [B, 1, 1, S] bool mask (B = 32, S = 128),
+    each 10 dygraph steps and 3 Model.fit steps, twice from the same
+    paddle_tpu_torch.seed.  Fails unless every loss is finite, the 10
+    steps fall, the two runs agree bitwise and every attention launch of
+    the path took the dropout kernels (tensor cores); each run also
+    profiles 2 steps.  ``dropout0``: the
+    dropout-0 phases' (p50 s, flops a step, tokens a step) for the line.
+    Returns {model: dropout launch counts of the 10 steps}."""
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
+                                         GPTConfig, GPTForCausalLM)
+
+    out = {}
+    for name in ("gpt", "bert"):
+        runs = []
+        for _ in range(2):
+            release(torch, f"dropout-train {name}")
+            seed(0)
+            if name == "gpt":
+                cfg = GPTConfig()
+                B, S, lr = 8, 1024, 2e-4
+                model = GPTForCausalLM(cfg, device="cuda",
+                                       dtype=torch.bfloat16).train()
+                rs = np.random.RandomState(4)
+                ids = torch.from_numpy(rs.randint(0, cfg.vocab_size,
+                                                  (B, S))).cuda()
+                data = torch.from_numpy(rs.randint(0, cfg.vocab_size,
+                                                   (3 * B, S)))
+                run = dropout_train_run(
+                    torch, K, "dropout-gpt-profile", model,
+                    lambda: model.loss(ids), [data, data], B, lm_loss, lr)
+            else:
+                cfg = BertConfig()
+                B, S, lr = 32, 128, 1e-4
+                model = BertForPretraining(cfg, device="cuda",
+                                           dtype=torch.bfloat16).train()
+                rs = np.random.RandomState(7)
+                ids, tt, mlm, nsp = (t.cuda() for t in
+                                     bert_batch(torch, rs, cfg, B, S))
+                mask = padding_mask(torch, rs, B, S)[0].cuda()
+                data = bert_batch(torch, rs, cfg, 3 * B, S)
+                fit_mask = padding_mask(torch, rs, 3 * B, S)[0]
+                run = dropout_train_run(
+                    torch, K, "dropout-bert-profile", model,
+                    lambda: bert_fit_loss(*model(ids, tt, mask), mlm, nsp),
+                    [data[0], data[1], fit_mask, data[2], data[3]], B,
+                    bert_fit_loss, lr, labels=["mlm_labels", "nsp_labels"])
+            n_params = sum(p.numel() for p in model.parameters())
+            runs.append(run)
+            del model
+        (losses, times, fit_losses, counts, dropped, fast, opt_text), \
+            second = runs
+        every = losses + list(fit_losses)
+        if not all(math.isfinite(x) for x in every) \
+                or losses[-1] >= losses[0]:
+            fail(f"dropout-train {name}: losses {losses}, Model.fit "
+                 f"{fit_losses}")
+        if every != second[0] + list(second[2]):
+            fail(f"dropout-train {name}: two runs from one seed differ: "
+                 f"{every} / {second[0] + list(second[2])}")
+        p50 = float(np.median(times))
+        p50_0, flops, tokens = dropout0[name]
+        log(f"[dropout-train] {name} bf16 default config (dropout "
+            f"{cfg.dropout}, attention dropout "
+            f"{getattr(cfg, 'attn_dropout', cfg.dropout)}) B={B} S={S}, "
+            f"{n_params} parameters, AdamW({lr}, wd 0.01) on {card}: "
+            f"losses {losses}; Model.fit step losses {list(fit_losses)}; "
+            f"second run from the same seed bitwise equal; step ms "
+            f"{[round(t * 1e3, 3) for t in times]}; p50 {p50 * 1e3:.3f} ms "
+            f"(dropout 0: {p50_0 * 1e3:.3f}); {tokens / p50:.1f} tokens/s "
+            f"(dropout 0: {tokens / p50_0:.1f}); {mfu_text(flops, p50)} "
+            f"(dropout 0: {flops / p50_0 / PEAK_BF16_TENSOR:.4f}); "
+            f"attention launches with dropout per step "
+            f"{ {n: c / 10 for n, c in dropped.items()} }; tensor-core and "
+            f"vector-kernel launches {fast}; {opt_text}")
+        out[name] = dropped
+    return out
 
 
 def profile_steps(torch, tag, step):
@@ -1482,7 +1778,7 @@ def bert_train_phase(torch, K, card):
     shape): 10 dygraph steps of loss() and AdamW(1e-4, wd 0.01) on one
     seeded batch, a profiled window of 2 more, then 3 Model.fit steps on
     padded batches with their attention mask.  Returns the launch counts
-    of the 10 dygraph steps."""
+    of the 10 dygraph steps and (p50 s, model flops, tokens) of a step."""
     import paddle_tpu_torch as ptt
     from paddle_tpu_torch.framework.random import seed
     from paddle_tpu_torch.models import BertConfig, BertForPretraining
@@ -1573,7 +1869,7 @@ def bert_train_phase(torch, K, card):
         f"labels [mlm, nsp], loss on the logits through F.cross_entropy: "
         f"step losses {hist['step_loss']}; {fit_s:.3f}s; every attention "
         f"launch took the mask; launches {fit_counts}; {fit_opt}")
-    return counts
+    return counts, (p50, flops, tokens)
 
 
 def peak_text(torch, start):
@@ -1672,6 +1968,8 @@ def main():
     main_cases.update(xent_kernel_phase(torch, K))
     bert_attention = masked_attention_phase(torch, K)
     unaligned_phase(torch, K)
+    dropout_mask_phase(torch, K)
+    dropout_attention = dropout_kernel_phase(torch, K)
 
     cfg = GPTConfig(dropout=0.0, attn_dropout=0.0)
     main_cases["multi_tensor_step"] = optimizer_phase(torch, K, cfg)
@@ -1693,14 +1991,17 @@ def main():
     release(torch, "GPT training")
 
     train_parity_phase(torch, K, cfg)
-    train_counts = train_phase(torch, K, cfg, card)
+    train_counts, gpt_step = train_phase(torch, K, cfg, card)
     gpt_labels_phase(torch, K, cfg)
     torch.cuda.synchronize()
     release(torch, "BERT")
 
     bert_parity_phase(torch, K)
     release(torch, "BERT training")
-    bert_counts = bert_train_phase(torch, K, card)
+    bert_counts, bert_step = bert_train_phase(torch, K, card)
+    torch.cuda.synchronize()
+    dropout_counts = dropout_train_phase(
+        torch, K, card, {"gpt": gpt_step, "bert": bert_step})
     torch.cuda.synchronize()
 
     kernels = []
@@ -1728,12 +2029,22 @@ def main():
             # path's padding-mask case stands beside them with its launches
             b = bert_attention[name]
             entry["forms"] = ["causal", "non-causal", "bool-padding",
-                              "causal+additive"]
+                              "causal+additive", "dropout"]
             entry["bert_padding_mask"] = {
                 "launches": bert_counts[name], "ms": b["ms"],
                 "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
                 "bound_by": b["bound_by"], "library_ms": b["library_ms"],
                 "max_abs_err": b["max_abs_err"]}
+            # the dropout form (p = 0.1) at both shapes, beside the same
+            # kernel at p = 0, with its launches in the default-config
+            # training steps
+            entry["dropout"] = {"p": DROPOUT_P, **{
+                form: {"launches": dropout_counts[model][name],
+                       **{key: d[key] for key in (
+                           "ms", "ms_p0", "plain_ms", "bound_ms", "bound_by",
+                           "library_ms", "max_abs_err")}}
+                for (form, d), model in zip(
+                    dropout_attention[name].items(), ("gpt", "bert"))}}
         kernels.append(entry)
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -55,11 +55,22 @@
 // contiguous in the input dtype, LSE [B*H, S] float32 (natural log) for the
 // backward.  Any S >= 1: the Pallas divisibility refusals were TPU tiling
 // artefacts.
+//
+// Dropout (the reference's composite, paddle_tpu/ops/fused.py: keep =
+// bernoulli(1 - p), w = where(keep, w / (1 - p), 0) before w . V) is a
+// template flag of both kernels, so p = 0 launches the instantiations
+// without it.  The keep mask comes from dropout.cuh, a pure function of
+// (seed, b * H + h, q, k): the running sum, and so the LSE, are of the
+// weights before dropout, and only the operand of P V takes p * z / (1 - p).
+// The tensor-core kernel draws a tile's mask once per warp, one Philox call
+// per 8 keys of a row, and hands each lane its fragment's bits by shuffles;
+// the CUDA-core kernel's four threads of a row draw one 8-key group each.
 #include <math.h>
 
 #include <atomic>
 
 #include "common.cuh"
+#include "dropout.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -68,7 +79,7 @@ constexpr int kBlockQ = 64;
 constexpr int kBlockK = 32;
 constexpr int kThreads = 256;  // 4 threads per query row
 
-template <typename T, int D>
+template <typename T, int D, bool kDropout>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, long long qb, long long qs,
@@ -76,7 +87,7 @@ __global__ void __launch_bounds__(kThreads)
                      long long vb, long long vs, long long vh,
                      T* __restrict__ o, float* __restrict__ lse,
                      ptt::Bias bias, int H, int S, float sm_scale,
-                     bool causal) {
+                     bool causal, ptt::Dropout drop) {
   constexpr int kPer = D / 4;
   __shared__ float k_tile[kBlockK][D];
   __shared__ float v_tile[kBlockK][D];
@@ -110,6 +121,8 @@ __global__ void __launch_bounds__(kThreads)
       v_tile[j][c] = kj < S ? ptt::to_f32(v[v_base + kj * vs + c]) : 0.f;
     }
     if (has_bias) bias.stage<kBlockQ, kBlockK>(b_tile, b, h, q0, k0, S, S);
+    uint32_t keep = 0;  // dropout: bit j keeps key k0 + j
+    if constexpr (kDropout) keep = ptt::quad_keep_bits(drop, bh, qi, k0, part);
     __syncthreads();
 
     float s[kBlockK];
@@ -136,8 +149,9 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < kPer; ++i) acc[i] *= alpha;
 #pragma unroll
     for (int j = 0; j < kBlockK; ++j) {
-      const float p = expf(s[j] - m_use);
-      p_sum += p;
+      float p = expf(s[j] - m_use);
+      p_sum += p;  // the sum (and the LSE) is of the weights before dropout
+      if constexpr (kDropout) p = (keep >> j) & 1u ? p * drop.scale : 0.f;
 #pragma unroll
       for (int i = 0; i < kPer; ++i) acc[i] += p * v_tile[j][i * 4 + part];
     }
@@ -158,12 +172,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, bool kDropout>
 int launch(const void* q, const void* k, const void* v, long long qb,
            long long qs, long long qh, long long kb, long long ks,
            long long kh, long long vb, long long vs, long long vh, void* o,
            void* lse, const ptt::Bias& bias, int B, int S, int H, int D,
-           float sm_scale, bool causal, cudaStream_t st) {
+           float sm_scale, bool causal, const ptt::Dropout& drop,
+           cudaStream_t st) {
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, B * H);
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
@@ -172,9 +187,9 @@ int launch(const void* q, const void* k, const void* v, long long qb,
   float* lp = static_cast<float*>(lse);
 #define PTT_FLASH_CASE(DIM)                                                  \
   case DIM:                                                                  \
-    flash_fwd_kernel<T, DIM><<<grid, kThreads, 0, st>>>(                     \
+    flash_fwd_kernel<T, DIM, kDropout><<<grid, kThreads, 0, st>>>(           \
         qp, kp, vp, qb, qs, qh, kb, ks, kh, vb, vs, vh, op, lp, bias, H, S,  \
-        sm_scale, causal);                                                   \
+        sm_scale, causal, drop);                                             \
     break;
   switch (D) {
     PTT_FLASH_CASE(16)
@@ -207,6 +222,7 @@ struct MmaArgs {
   int H, S;
   float scale;
   bool causal;
+  ptt::Dropout drop;
 };
 
 // One 16-row tile's online-softmax step over a staged tile's scores, on the
@@ -219,11 +235,14 @@ struct MmaArgs {
 // entry; m is kept in raw units.  Otherwise x = s * scale + bias in natural
 // units and p = 2^((x - m) * log2(e)): the difference is formed first, so a
 // row masked everywhere by -1e30 gives exactly 2^0 whatever the rounding.
-template <int D, bool kFast>
+// kDropout: m, l (and so the LSE) are of the weights before dropout; only
+// pf takes p * z / (1 - p), z the keep bit of `keep`.
+template <int D, bool kFast, bool kDropout>
 __device__ __forceinline__ void softmax_tile(
     float (&s)[kKeys<D> / 8][4], uint32_t (&pf)[kKeys<D> / 16][4],
     float (&o)[D / 8][4], float (&m)[2], float (&l)[2], const MmaArgs& a,
-    long long bias_base, int r0, int k0, int t, bool edge) {
+    long long bias_base, int r0, int k0, int t, bool edge,
+    const uint32_t (&keep)[2][2]) {
   constexpr int kTileN = kKeys<D>;
   const int S = a.S;
   if constexpr (!kFast) {
@@ -290,6 +309,15 @@ __device__ __forceinline__ void softmax_tile(
     o[j][2] *= alpha[1];
     o[j][3] *= alpha[1];
   }
+  if constexpr (kDropout) {
+#pragma unroll
+    for (int j = 0; j < kTileN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] =
+            ptt::row_kept<kTileN>(keep, j, e) ? s[j][e] * a.drop.scale : 0.f;
+    }
+  }
   // two score tiles side by side are one A operand
 #pragma unroll
   for (int kk = 0; kk < kTileN / 16; ++kk) {
@@ -301,7 +329,7 @@ __device__ __forceinline__ void softmax_tile(
 }
 
 // kWarps warps, each owning 16 of the block's kWarps * 16 query rows.
-template <int D, int kWarps>
+template <int D, int kWarps, bool kDropout>
 __global__ void __launch_bounds__(kWarps * 32)
     flash_fwd_mma_kernel(MmaArgs a) {
   constexpr int kThreads = kWarps * 32;
@@ -384,13 +412,16 @@ __global__ void __launch_bounds__(kWarps * 32)
         }
       }
       uint32_t pf[kTileN / 16][4];
+      uint32_t keep[2][2];
+      if constexpr (kDropout)
+        ptt::row_keep_bits<kTileN>(keep, a.drop, bh, row0, k0, lane);
       const bool edge = k0 + kTileN > S || (a.causal && k0 + kTileN - 1 > row0);
       if (fast)
-        softmax_tile<D, true>(s, pf, o, m, l, a, bias_base, row0 + g, k0, t,
-                              edge);
+        softmax_tile<D, true, kDropout>(s, pf, o, m, l, a, bias_base, row0 + g,
+                                        k0, t, edge, keep);
       else
-        softmax_tile<D, false>(s, pf, o, m, l, a, bias_base, row0 + g, k0, t,
-                               edge);
+        softmax_tile<D, false, kDropout>(s, pf, o, m, l, a, bias_base,
+                                         row0 + g, k0, t, edge, keep);
       // O += P V: B[key][d] contracts V's rows, hence the transposed load
 #pragma unroll
       for (int kk = 0; kk < kTileN / 16; ++kk) {
@@ -441,48 +472,56 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <int D, int kWarps>
+template <int D, int kWarps, bool kDropout>
 int launch_mma_tile(const MmaArgs& a, int B, cudaStream_t st) {
   constexpr int kTileM = kWarps * 16;
   constexpr int kSmem = (kTileM + 4 * kKeys<D>) * (D + 8) * 2;
   static bool configured = false;  // more than 48 KB needs asking for, once
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_mma_kernel<D, kWarps>,
+        flash_fwd_mma_kernel<D, kWarps, kDropout>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid(B * a.H, (a.S + kTileM - 1) / kTileM);
-  flash_fwd_mma_kernel<D, kWarps><<<grid, kWarps * 32, kSmem, st>>>(a);
+  flash_fwd_mma_kernel<D, kWarps, kDropout>
+      <<<grid, kWarps * 32, kSmem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The largest query tile that still gives every SM a block (and is not
-// mostly padding); 16 rows when no tile does.
-template <int D>
+// mostly padding); 16 rows when no tile does.  With dropout at most 64
+// rows: an 8-warp tile with dropout needed about 148 registers a thread,
+// which left one block (8 warps) an SM to hide the mask's integer work,
+// against three 4-warp blocks (0.124 against 0.095 ms at the GPT causal
+// shape on the H100).
+template <int D, bool kDropout>
 int launch_mma_dim(const MmaArgs& a, int B, cudaStream_t st) {
   const long long bh = static_cast<long long>(B) * a.H;
   const int sms = ptt::sm_count();
   auto fills = [&](int tile) {
     return a.S > tile / 2 && bh * ((a.S + tile - 1) / tile) >= sms;
   };
-  if (fills(128)) return launch_mma_tile<D, 8>(a, B, st);
-  if (fills(64)) return launch_mma_tile<D, 4>(a, B, st);
-  if (fills(32)) return launch_mma_tile<D, 2>(a, B, st);
-  return launch_mma_tile<D, 1>(a, B, st);
+  if constexpr (!kDropout) {
+    if (fills(128)) return launch_mma_tile<D, 8, false>(a, B, st);
+  }
+  if (fills(64)) return launch_mma_tile<D, 4, kDropout>(a, B, st);
+  if (fills(32)) return launch_mma_tile<D, 2, kDropout>(a, B, st);
+  return launch_mma_tile<D, 1, kDropout>(a, B, st);
 }
 
+template <bool kDropout>
 int launch_mma(const MmaArgs& a, int B, int D, cudaStream_t st) {
   switch (D) {
     case 16:
-      return launch_mma_dim<16>(a, B, st);
+      return launch_mma_dim<16, kDropout>(a, B, st);
     case 32:
-      return launch_mma_dim<32>(a, B, st);
+      return launch_mma_dim<32, kDropout>(a, B, st);
     case 64:
-      return launch_mma_dim<64>(a, B, st);
+      return launch_mma_dim<64, kDropout>(a, B, st);
     case 128:
-      return launch_mma_dim<128>(a, B, st);
+      return launch_mma_dim<128, kDropout>(a, B, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -496,20 +535,25 @@ std::atomic<long long> variant_launches[2];
 // q, k, v: [B, S, H, D] with the given element strides over (b, s, h) and
 // unit stride over d; o: [B, S, H, D] contiguous; lse: [B*H, S] float32.
 // bias: NULL, or float32 [B, H, S, S] with element strides (bias_b, bias_h,
-// bias_q, bias_k), any of them 0.  causal: 0 or 1.
+// bias_q, bias_k), any of them 0.  causal: 0 or 1.  dropout_p in [0, 1]:
+// the weights' dropout (dropout.cuh) with the 64-bit `seed`; 0 launches
+// the kernels without it.
 extern "C" int ptt_flash_attention_fwd(
     const void* q, const void* k, const void* v, long long qb, long long qs,
     long long qh, long long kb, long long ks, long long kh, long long vb,
     long long vs, long long vh, void* o, void* lse, const void* bias,
     long long bias_b, long long bias_h, long long bias_q, long long bias_k,
-    int B, int S, int H, int D, float sm_scale, int causal, int dtype,
-    void* stream) {
+    int B, int S, int H, int D, float sm_scale, int causal,
+    unsigned long long seed, float dropout_p, int dtype, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ptt::Bias bs{static_cast<const float*>(bias), bias_b, bias_h, bias_q,
                      bias_k};
-  if (dtype != ptt::kF32 && dtype != ptt::kBF16)
+  if ((dtype != ptt::kF32 && dtype != ptt::kBF16) || !(dropout_p >= 0.f) ||
+      dropout_p > 1.f)
     return static_cast<int>(cudaErrorInvalidValue);
+  const ptt::Dropout drop = ptt::Dropout::make(seed, dropout_p);
+  const bool dropout = dropout_p > 0.f;
   const bool mma = dtype == ptt::kBF16 && ptt::aligned_16(q, qb, qs, qh) &&
                    ptt::aligned_16(k, kb, ks, kh) &&
                    ptt::aligned_16(v, vb, vs, vh) &&
@@ -520,15 +564,56 @@ extern "C" int ptt_flash_attention_fwd(
     const MmaArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                     static_cast<const bf16*>(v), qb, qs, qh, kb, ks, kh, vb,
                     vs, vh, static_cast<bf16*>(o), static_cast<float*>(lse),
-                    bs, H, S, sm_scale, causal != 0};
-    return launch_mma(a, B, D, st);
+                    bs, H, S, sm_scale, causal != 0, drop};
+    return dropout ? launch_mma<true>(a, B, D, st)
+                   : launch_mma<false>(a, B, D, st);
   }
+#define PTT_FLASH_SIMT(T, DROP)                                               \
+  launch<T, DROP>(q, k, v, qb, qs, qh, kb, ks, kh, vb, vs, vh, o, lse, bs, B, \
+                  S, H, D, sm_scale, causal != 0, drop, st)
   if (dtype == ptt::kF32)
-    return launch<float>(q, k, v, qb, qs, qh, kb, ks, kh, vb, vs, vh, o, lse,
-                         bs, B, S, H, D, sm_scale, causal != 0, st);
-  return launch<__nv_bfloat16>(q, k, v, qb, qs, qh, kb, ks, kh, vb, vs, vh, o,
-                               lse, bs, B, S, H, D, sm_scale, causal != 0,
-                               st);
+    return dropout ? PTT_FLASH_SIMT(float, true) : PTT_FLASH_SIMT(float, false);
+  return dropout ? PTT_FLASH_SIMT(__nv_bfloat16, true)
+                 : PTT_FLASH_SIMT(__nv_bfloat16, false);
+#undef PTT_FLASH_SIMT
+}
+
+namespace {
+
+// One thread per (plane, query, 8-key group): the keep mask as 0 / 1 bytes.
+__global__ void dropout_mask_kernel(unsigned char* __restrict__ out,
+                                    ptt::Dropout d, long long rows, int S) {
+  const int groups = (S + 7) / 8;
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  if (i >= rows * groups) return;
+  const long long row = i / groups;  // plane * S + query
+  const int group = static_cast<int>(i % groups);
+  const uint32_t bits = ptt::keep_byte(d, static_cast<int>(row / S),
+                                       static_cast<int>(row % S), group);
+  unsigned char* dst = out + row * S + 8 * group;
+  for (int e = 0; e < 8 && 8 * group + e < S; ++e) dst[e] = (bits >> e) & 1u;
+}
+
+}  // namespace
+
+// The keep mask the attention kernels apply with (seed, dropout_p), as
+// bytes (1 = kept) over [planes, S, S] (planes = B * H, in b * H + h
+// order): the mask through the kernels' own device function, for the
+// tests to hold against the plain version.
+extern "C" int ptt_flash_dropout_mask(void* out, unsigned long long seed,
+                                      float dropout_p, int planes, int S,
+                                      void* stream) {
+  if (planes <= 0 || S <= 0) return 0;
+  if (!(dropout_p >= 0.f) || dropout_p > 1.f)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(planes) * S;
+  const long long n = rows * ((S + 7) / 8);
+  dropout_mask_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned char*>(out), ptt::Dropout::make(seed, dropout_p),
+      rows, S);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // How many launches took the CUDA-core kernel (variant 0) or the

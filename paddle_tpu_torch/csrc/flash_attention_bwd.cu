@@ -87,11 +87,21 @@
 // Four threads own a row, each with D/4 interleaved dims (a warp reading a
 // shared-memory row hits four consecutive banks), and two shuffles finish
 // each dot product.
+//
+// Dropout is a template flag of all four kernels (p = 0 launches the
+// instantiations without it): both draw the forward's mask again from
+// dropout.cuh with its seed.  dv takes the dropped weights P Z / (1 - p);
+// dP = dO V^T is masked and rescaled the same way before dS = P (dP - delta),
+// delta = rowsum(dO O) of the dropped output.  dq draws as the forward does
+// (a warp's rows, shuffles); dk/dv holds the score tile transposed, so each
+// lane draws its query's groups of the warp's 16 keys and ballots turn the
+// bits into each lane's key columns.
 #include <math.h>
 
 #include <atomic>
 
 #include "common.cuh"
+#include "dropout.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -123,9 +133,10 @@ struct Args {
   int H, S;
   float scale;
   bool causal;
+  ptt::Dropout drop;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kDropout>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
   constexpr int kPer = D / 4;
   __shared__ float k_tile[kTile][D];
@@ -171,6 +182,9 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
     }
     if (has_bias)
       a.bias.stage<kBlockRows, kTile>(b_tile, b, h, q0, k0, S, S);
+    uint32_t keep = 0;  // bit j keeps key k0 + j
+    if constexpr (kDropout)
+      keep = ptt::quad_keep_bits(a.drop, bh, qi, k0, part);
     __syncthreads();
 #pragma unroll 4
     for (int j = 0; j < kTile; ++j) {
@@ -189,6 +203,8 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
       const int kj = k0 + j;
       const bool seen = row_ok && kj < S && (!a.causal || kj <= qi);
       const float p = seen ? expf(s - lse) : 0.f;
+      // dropout: dP of the dropped weights, masked and rescaled likewise
+      if constexpr (kDropout) dp = (keep >> j) & 1u ? dp * a.drop.scale : 0.f;
       const float ds = p * (dp - delta) * a.scale;
 #pragma unroll
       for (int i = 0; i < kPer; ++i) acc[i] += ds * k_tile[j][i * 4 + part];
@@ -202,7 +218,7 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kDropout>
 __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   constexpr int kPer = D / 4;
   __shared__ float q_tile[kTile][D];
@@ -254,6 +270,13 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
     }
     if (has_bias)
       a.bias.stage<kTile, kBlockRows>(b_tile, b, h, q0, k0, S, S);
+    // dropout: each warp owns the 8 keys k0 + 8 * warp + (lane >> 2); bit i
+    // keeps (q0 + i, kj)
+    uint32_t keep[1] = {0};
+    if constexpr (kDropout)
+      ptt::column_keep_bits<1>(keep, a.drop, bh, q0,
+                               k0 + 8 * (threadIdx.x >> 5),
+                               (threadIdx.x & 31) >> 2);
     __syncthreads();
 #pragma unroll 4
     for (int i = 0; i < kTile; ++i) {
@@ -272,10 +295,16 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
       // a real key seen by a real query (kj <= qi when causal); else 0
       const bool seen = row_ok && qi < S && (!a.causal || kj <= qi);
       const float p = seen ? expf(s - lse_tile[i]) : 0.f;
+      float pd = p;  // the weight dv takes: after dropout
+      if constexpr (kDropout) {
+        const bool z = (keep[0] >> i) & 1u;
+        pd = z ? p * a.drop.scale : 0.f;
+        dp = z ? dp * a.drop.scale : 0.f;
+      }
       const float ds = p * (dp - delta_tile[i]) * a.scale;
 #pragma unroll
       for (int c = 0; c < kPer; ++c) {
-        dv[c] += p * do_tile[i][c * 4 + part];
+        dv[c] += pd * do_tile[i][c * 4 + part];
         dk[c] += ds * q_tile[i][c * 4 + part];
       }
     }
@@ -368,7 +397,7 @@ __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
 constexpr int kTileM = 32;
 
 // kWarps warps of 16 keys each; query tiles of kTileM rows.
-template <int D, int kWarps>
+template <int D, int kWarps, bool kDropout>
 __global__ void __launch_bounds__(kWarps * 32) flash_dkv_mma_kernel(Args a) {
   using bf16 = __nv_bfloat16;
   constexpr bool kRegA = D <= 64;  // K, V fragments stay in registers
@@ -500,18 +529,42 @@ __global__ void __launch_bounds__(kWarps * 32) flash_dkv_mma_kernel(Args a) {
           }
         }
       }
-      accumulate<D, kLd, kNt>(dv, p, dot, lane);
-      float ds[kNt][4];  // without the scale, which dk takes at the end
-      times_transposed<D, kLd, kNt, kRegA>(ds, vf, v_w, dot, lane);
+      if constexpr (!kDropout) {
+        accumulate<D, kLd, kNt>(dv, p, dot, lane);
+        float ds[kNt][4];  // without the scale, which dk takes at the end
+        times_transposed<D, kLd, kNt, kRegA>(ds, vf, v_w, dot, lane);
 #pragma unroll
-      for (int j = 0; j < kNt; ++j) {
-        const float2 delta = delta_t[j * 4];
-        ds[j][0] = p[j][0] * (ds[j][0] - delta.x);
-        ds[j][1] = p[j][1] * (ds[j][1] - delta.y);
-        ds[j][2] = p[j][2] * (ds[j][2] - delta.x);
-        ds[j][3] = p[j][3] * (ds[j][3] - delta.y);
+        for (int j = 0; j < kNt; ++j) {
+          const float2 delta = delta_t[j * 4];
+          ds[j][0] = p[j][0] * (ds[j][0] - delta.x);
+          ds[j][1] = p[j][1] * (ds[j][1] - delta.y);
+          ds[j][2] = p[j][2] * (ds[j][2] - delta.x);
+          ds[j][3] = p[j][3] * (ds[j][3] - delta.y);
+        }
+        accumulate<D, kLd, kNt>(dk, ds, qt, lane);
+      } else {
+        // keep[n] bit 8j + i (after the shift by 2t) keeps the lane's key
+        // key_w + g + 8n against query q0 + 8j + 2t + i
+        uint32_t keep[2];
+        ptt::column_keep_bits<2>(keep, a.drop, bh, q0, key_w, g);
+        keep[0] >>= 2 * t;
+        keep[1] >>= 2 * t;
+        float ds[kNt][4];  // dS^T = P^T (dP^T Z / (1 - p) - delta)
+        times_transposed<D, kLd, kNt, kRegA>(ds, vf, v_w, dot, lane);
+#pragma unroll
+        for (int j = 0; j < kNt; ++j) {
+          const float2 delta = delta_t[j * 4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool z = (keep[e >> 1] >> (8 * j + (e & 1))) & 1u;
+            const float dp = z ? ds[j][e] * a.drop.scale : 0.f;
+            ds[j][e] = p[j][e] * (dp - (e & 1 ? delta.y : delta.x));
+            p[j][e] = z ? p[j][e] * a.drop.scale : 0.f;  // dv's weights
+          }
+        }
+        accumulate<D, kLd, kNt>(dv, p, dot, lane);
+        accumulate<D, kLd, kNt>(dk, ds, qt, lane);
       }
-      accumulate<D, kLd, kNt>(dk, ds, qt, lane);
     }
     __syncthreads();  // the stage is free for the copy after next
   }
@@ -539,7 +592,7 @@ __global__ void __launch_bounds__(kWarps * 32) flash_dkv_mma_kernel(Args a) {
                              a.sd1.s, key_w, S);
 }
 
-template <int D, int kWarps>
+template <int D, int kWarps, bool kDropout>
 int launch_dkv_mma_tile(const Args& a, int B, cudaStream_t st) {
   constexpr int kTileN = kWarps * 16;
   constexpr int kSmem =
@@ -547,28 +600,29 @@ int launch_dkv_mma_tile(const Args& a, int B, cudaStream_t st) {
   static bool configured = false;  // more than 48 KB needs asking for, once
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_dkv_mma_kernel<D, kWarps>,
+        flash_dkv_mma_kernel<D, kWarps, kDropout>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid(B * a.H, (a.S + kTileN - 1) / kTileN);
-  flash_dkv_mma_kernel<D, kWarps><<<grid, kWarps * 32, kSmem, st>>>(a);
+  flash_dkv_mma_kernel<D, kWarps, kDropout>
+      <<<grid, kWarps * 32, kSmem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The largest key tile that still gives every SM a block (and is not
 // mostly padding); 16 keys when no tile does.
-template <int D>
+template <int D, bool kDropout>
 int launch_dkv_mma_dim(const Args& a, int B, cudaStream_t st) {
   const long long bh = static_cast<long long>(B) * a.H;
   const int sms = ptt::sm_count();
   auto fills = [&](int tile) {
     return a.S > tile / 2 && bh * ((a.S + tile - 1) / tile) >= sms;
   };
-  if (fills(64)) return launch_dkv_mma_tile<D, 4>(a, B, st);
-  if (fills(32)) return launch_dkv_mma_tile<D, 2>(a, B, st);
-  return launch_dkv_mma_tile<D, 1>(a, B, st);
+  if (fills(64)) return launch_dkv_mma_tile<D, 4, kDropout>(a, B, st);
+  if (fills(32)) return launch_dkv_mma_tile<D, 2, kDropout>(a, B, st);
+  return launch_dkv_mma_tile<D, 1, kDropout>(a, B, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -581,7 +635,7 @@ constexpr int kDqKeys = 32;
 // minimum of one block an SM in the launch bounds lets ptxas give each
 // thread the registers it needs: without it, ptxas capped D = 64 at 4
 // warps below them and spilled.
-template <int D, int kWarps>
+template <int D, int kWarps, bool kDropout>
 __global__ void __launch_bounds__(kWarps * 32, 1) flash_dq_mma_kernel(Args a) {
   using bf16 = __nv_bfloat16;
   constexpr bool kRegA = D <= 64;  // Q, dO fragments stay in registers
@@ -709,6 +763,19 @@ __global__ void __launch_bounds__(kWarps * 32, 1) flash_dq_mma_kernel(Args a) {
       }
       float ds[kNt][4];  // without the scale, which dq takes at the end
       times_transposed<D, kLd, kNt, kRegA>(ds, dof, do_w, vt, lane);
+      if constexpr (kDropout) {
+        // dP of the dropped weights, masked and rescaled likewise
+        uint32_t keep[2][2];
+        ptt::row_keep_bits<kTileN>(keep, a.drop, bh, row0, k0, lane);
+#pragma unroll
+        for (int j = 0; j < kNt; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            ds[j][e] = ptt::row_kept<kTileN>(keep, j, e)
+                           ? ds[j][e] * a.drop.scale
+                           : 0.f;
+        }
+      }
 #pragma unroll
       for (int j = 0; j < kNt; ++j) {
 #pragma unroll
@@ -736,45 +803,46 @@ __global__ void __launch_bounds__(kWarps * 32, 1) flash_dq_mma_kernel(Args a) {
                              a.sd0.s, row0, S);
 }
 
-template <int D, int kWarps>
+template <int D, int kWarps, bool kDropout>
 int launch_dq_mma_tile(const Args& a, int B, cudaStream_t st) {
   constexpr int kTileM = kWarps * 16;
   constexpr int kSmem = (2 * kTileM + 4 * kDqKeys) * (D + 8) * 2;
   static bool configured = false;  // more than 48 KB needs asking for, once
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_dq_mma_kernel<D, kWarps>,
+        flash_dq_mma_kernel<D, kWarps, kDropout>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid(B * a.H, (a.S + kTileM - 1) / kTileM);
-  flash_dq_mma_kernel<D, kWarps><<<grid, kWarps * 32, kSmem, st>>>(a);
+  flash_dq_mma_kernel<D, kWarps, kDropout>
+      <<<grid, kWarps * 32, kSmem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The largest query tile that still gives every SM a block (and is not
 // mostly padding); 16 queries when no tile does.
-template <int D>
+template <int D, bool kDropout>
 int launch_dq_mma_dim(const Args& a, int B, cudaStream_t st) {
   const long long bh = static_cast<long long>(B) * a.H;
   const int sms = ptt::sm_count();
   auto fills = [&](int tile) {
     return a.S > tile / 2 && bh * ((a.S + tile - 1) / tile) >= sms;
   };
-  if (fills(64)) return launch_dq_mma_tile<D, 4>(a, B, st);
-  if (fills(32)) return launch_dq_mma_tile<D, 2>(a, B, st);
-  return launch_dq_mma_tile<D, 1>(a, B, st);
+  if (fills(64)) return launch_dq_mma_tile<D, 4, kDropout>(a, B, st);
+  if (fills(32)) return launch_dq_mma_tile<D, 2, kDropout>(a, B, st);
+  return launch_dq_mma_tile<D, 1, kDropout>(a, B, st);
 }
 
-template <bool kDq>
+template <bool kDq, bool kDropout>
 int launch_mma(const Args& a, int B, int D, cudaStream_t st) {
-#define PTT_FLASH_BWD_MMA_CASE(DIM)               \
-  case DIM:                                       \
-    if constexpr (kDq)                            \
-      return launch_dq_mma_dim<DIM>(a, B, st);    \
-    else                                          \
-      return launch_dkv_mma_dim<DIM>(a, B, st);
+#define PTT_FLASH_BWD_MMA_CASE(DIM)                        \
+  case DIM:                                                \
+    if constexpr (kDq)                                     \
+      return launch_dq_mma_dim<DIM, kDropout>(a, B, st);   \
+    else                                                   \
+      return launch_dkv_mma_dim<DIM, kDropout>(a, B, st);
   switch (D) {
     PTT_FLASH_BWD_MMA_CASE(16)
     PTT_FLASH_BWD_MMA_CASE(32)
@@ -794,15 +862,15 @@ bool aligned_16(const void* p, const Strides& s) {
   return ptt::aligned_16(p, s.b, s.s, s.h);
 }
 
-template <typename T, bool kDq>
+template <typename T, bool kDq, bool kDropout>
 int launch(const Args& a, int B, int D, cudaStream_t st) {
   const dim3 grid((a.S + kBlockRows - 1) / kBlockRows, B * a.H);
 #define PTT_FLASH_BWD_CASE(DIM)                                            \
   case DIM:                                                                \
     if constexpr (kDq)                                                     \
-      flash_dq_kernel<T, DIM><<<grid, kThreads, 0, st>>>(a);               \
+      flash_dq_kernel<T, DIM, kDropout><<<grid, kThreads, 0, st>>>(a);     \
     else                                                                   \
-      flash_dkv_kernel<T, DIM><<<grid, kThreads, 0, st>>>(a);              \
+      flash_dkv_kernel<T, DIM, kDropout><<<grid, kThreads, 0, st>>>(a);    \
     break;
   switch (D) {
     PTT_FLASH_BWD_CASE(16)
@@ -820,20 +888,30 @@ Strides strides_at(const long long* s, int i) {
   return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
 
+template <bool kDq, bool kDropout>
+int dispatch_as(const Args& a, bool mma, int B, int D, int dtype,
+                cudaStream_t st) {
+  if (mma) return launch_mma<kDq, kDropout>(a, B, D, st);
+  if (dtype == ptt::kF32) return launch<float, kDq, kDropout>(a, B, D, st);
+  return launch<__nv_bfloat16, kDq, kDropout>(a, B, D, st);
+}
+
 template <bool kDq>
-int dispatch(const Args& a, int B, int D, int dtype, void* stream) {
+int dispatch(Args a, int B, int D, int dtype, unsigned long long seed,
+             float dropout_p, void* stream) {
   if (B <= 0 || a.S <= 0 || a.H <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype != ptt::kF32 && dtype != ptt::kBF16)
+  if ((dtype != ptt::kF32 && dtype != ptt::kBF16) || !(dropout_p >= 0.f) ||
+      dropout_p > 1.f)
     return static_cast<int>(cudaErrorInvalidValue);
+  a.drop = ptt::Dropout::make(seed, dropout_p);
   const bool mma = dtype == ptt::kBF16 && aligned_16(a.q, a.sq) &&
                    aligned_16(a.k, a.sk) && aligned_16(a.v, a.sv) &&
                    aligned_16(a.dout, a.sdo) && aligned_16(a.d0, a.sd0) &&
                    (kDq || aligned_16(a.d1, a.sd1));
   ++variant_launches[kDq ? 0 : 1][mma];
-  if (mma) return launch_mma<kDq>(a, B, D, st);
-  if (dtype == ptt::kF32) return launch<float, kDq>(a, B, D, st);
-  return launch<__nv_bfloat16, kDq>(a, B, D, st);
+  return dropout_p > 0.f ? dispatch_as<kDq, true>(a, mma, B, D, dtype, st)
+                         : dispatch_as<kDq, false>(a, mma, B, D, dtype, st);
 }
 
 }  // namespace
@@ -842,13 +920,15 @@ int dispatch(const Args& a, int B, int D, int dtype, void* stream) {
 // host array of their (b, s, h) element strides, in that order (15
 // values).  lse, delta: [B*H, S] float32.  bias: NULL, or float32
 // [B, H, S, S] with element strides (bias_b, bias_h, bias_q, bias_k), any
-// of them 0.  causal: 0 or 1.
+// of them 0.  causal: 0 or 1.  seed, dropout_p: the forward's dropout
+// (dropout.cuh), whose mask is drawn again here; dropout_p 0 launches the
+// kernels without it.
 extern "C" int ptt_flash_attention_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, const long long* strides,
     const void* bias, long long bias_b, long long bias_h, long long bias_q,
     long long bias_k, int B, int S, int H, int D, float sm_scale, int causal,
-    int dtype, void* stream) {
+    unsigned long long seed, float dropout_p, int dtype, void* stream) {
   Args a{q, k, v, dout, static_cast<const float*>(lse),
          static_cast<const float*>(delta), dq, nullptr,
          strides_at(strides, 0), strides_at(strides, 1),
@@ -856,8 +936,8 @@ extern "C" int ptt_flash_attention_dq(
          strides_at(strides, 4), Strides{0, 0, 0},
          ptt::Bias{static_cast<const float*>(bias), bias_b, bias_h, bias_q,
                    bias_k},
-         H, S, sm_scale, causal != 0};
-  return dispatch<true>(a, B, D, dtype, stream);
+         H, S, sm_scale, causal != 0, ptt::Dropout{}};
+  return dispatch<true>(a, B, D, dtype, seed, dropout_p, stream);
 }
 
 // As above, with dk and dv as the outputs; `strides` holds the (b, s, h)
@@ -867,7 +947,8 @@ extern "C" int ptt_flash_attention_dkv(
     const void* lse, const void* delta, void* dk, void* dv,
     const long long* strides, const void* bias, long long bias_b,
     long long bias_h, long long bias_q, long long bias_k, int B, int S, int H,
-    int D, float sm_scale, int causal, int dtype, void* stream) {
+    int D, float sm_scale, int causal, unsigned long long seed,
+    float dropout_p, int dtype, void* stream) {
   Args a{q, k, v, dout, static_cast<const float*>(lse),
          static_cast<const float*>(delta), dk, dv,
          strides_at(strides, 0), strides_at(strides, 1),
@@ -875,8 +956,8 @@ extern "C" int ptt_flash_attention_dkv(
          strides_at(strides, 4), strides_at(strides, 5),
          ptt::Bias{static_cast<const float*>(bias), bias_b, bias_h, bias_q,
                    bias_k},
-         H, S, sm_scale, causal != 0};
-  return dispatch<false>(a, B, D, dtype, stream);
+         H, S, sm_scale, causal != 0, ptt::Dropout{}};
+  return dispatch<false>(a, B, D, dtype, seed, dropout_p, stream);
 }
 
 // How many dq launches took the CUDA-core kernel (variant 0) or the

@@ -15,8 +15,9 @@ weights carry over by name (models/convert.py).
 The top-level models are built on the CPU from the framework generator
 (framework/random.py), then moved to ``device`` (None = the CUDA card;
 raises where there is none) in ``dtype``, as ``GPTForCausalLM`` is.
-Attention dropout in training is not ported (ROADMAP.md B7): train with
-``dropout=0.0``, as the reference's BERT benchmarks do.
+``dropout`` is also the attention dropout, applied inside the
+flash-attention kernels in training, so ``BertConfig()`` trains at its
+defaults.
 """
 from __future__ import annotations
 

@@ -9,8 +9,10 @@ kernels), ``GPTBlock``, ``GPTModel`` and ``GPTForCausalLM`` with
 training ``loss`` (the chunked fused LM-head cross entropy), ``_head``,
 ``slot_prefill`` and ``slot_decode_paged``.  Parameter names equal the
 reference's (``gpt.h_0.attn.qkv.weight`` ...), so weights carry over by
-name (models/convert.py).  Not ported yet (ROADMAP.md): attention dropout
-in training, tensor-parallel and sequence-parallel layouts, recompute,
+name (models/convert.py).  In training, ``attn_dropout`` drops the
+attention weights inside the flash-attention kernels and ``dropout`` the
+hidden states, so ``GPTConfig()`` trains at its defaults.  Not ported yet
+(ROADMAP.md): tensor-parallel and sequence-parallel layouts, recompute,
 beam search and ``generate``.
 
 The paged decode updates the KV pool IN PLACE: where the reference's

@@ -4,12 +4,13 @@
 
 The attention core goes through ``F.scaled_dot_product_attention`` to
 ops/fused.py and the flash-attention kernels, which take the
-self-attention forms: causal or not, with a bool or additive mask.  The
-FFN's GeLU goes through ``fused.linear_bias_gelu`` (the bias+GeLU
-kernel).  Not ported yet (ROADMAP.md): the KV caches (``Cache``,
-``StaticCache``, ``gen_cache``), cross-attention with S_q != S_k,
-``TransformerDecoderLayer``, ``TransformerDecoder`` and ``Transformer``,
-and attention dropout in training.
+self-attention forms: causal or not, with a bool or additive mask, and
+in training ``MultiHeadAttention``'s dropout on the weights inside the
+kernels.  The FFN's GeLU goes through ``fused.linear_bias_gelu`` (the
+bias+GeLU kernel).  Not ported yet (ROADMAP.md): the KV caches
+(``Cache``, ``StaticCache``, ``gen_cache``), cross-attention with
+S_q != S_k, ``TransformerDecoderLayer``, ``TransformerDecoder`` and
+``Transformer``.
 """
 from __future__ import annotations
 

@@ -54,23 +54,18 @@ def softmax_cross_entropy(logits, label, ignore_index=-100):
     return _sx.softmax_xent(logits, label, ignore_index=ignore_index)
 
 
-def _check_attention_form(dropout_p, training):
-    if dropout_p > 0.0 and training:
-        raise NotImplementedError(
-            "attention dropout in training is not ported (ROADMAP.md B7; "
-            "the reference leaves it to XLA outside the kernel)")
-
-
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True):
     """[B, S, H, D] in, [B, S, H, D] out (paddle layout), through the
     flash-attention kernels: causal or not, with an optional bool (True =
-    attend) or additive mask broadcastable to [B, H, S, S].  Dropout in
-    training is not ported."""
-    _check_attention_form(dropout_p, training)
+    attend) or additive mask broadcastable to [B, H, S, S], and in
+    training dropout ``dropout_p`` on the softmax weights, inside the
+    kernels (the reference's composite: ``where(keep, w / (1 - p), 0)``
+    before ``w . V``)."""
     return _fa.attention(query, key, value, causal=is_causal,
-                         mask=attn_mask)
+                         mask=attn_mask,
+                         dropout_p=dropout_p if training else 0.0)
 
 
 def packed_causal_attention(qkv, dropout_p=0.0, training=True):
@@ -78,8 +73,8 @@ def packed_causal_attention(qkv, dropout_p=0.0, training=True):
     (q, k, v = its three slices); [B, S, H, D] out.  The same function as
     :func:`scaled_dot_product_attention` on the slices, with the gradient
     written as one packed [B, S, 3, H, D] tensor."""
-    _check_attention_form(dropout_p, training)
-    return _fa.causal_attention_packed(qkv)
+    return _fa.causal_attention_packed(
+        qkv, dropout_p=dropout_p if training else 0.0)
 
 
 def paged_decode_attention(q, k_pages, v_pages, rows, pos, seq_cap):

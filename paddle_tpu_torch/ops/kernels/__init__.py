@@ -47,3 +47,5 @@ def variant_launches() -> dict:
 def reset_launch_counts():
     for fn in WRAPPERS.values():
         fn.launches = 0
+        if hasattr(fn, "dropout_launches"):
+            fn.dropout_launches = 0

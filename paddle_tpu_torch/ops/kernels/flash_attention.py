@@ -37,6 +37,17 @@ operations (4*D flops per visible (query, key) pair forward, 6*D in dq,
   [B, 1, 1, S] padding mask costs S floats per batch row, not the
   reference's folded [B*H, S, S].  A bool mask becomes 0 / -1e30
   (:func:`fold_mask`).  The mask is data: its gradient is zero.
+- Dropout on the softmax weights (the reference's composite,
+  paddle_tpu/ops/fused.py: ``keep = bernoulli(1 - p)``, then
+  ``where(keep, w / (1 - p), 0)`` before ``w . V``) runs inside all three
+  kernels: the keep mask is a pure function of (seed, b*H + h, q, k, p)
+  (csrc/dropout.cuh, Philox4x32-10; :func:`dropout_keep_plain` here), so
+  dq and dk/dv draw the forward's mask again instead of storing it.  The
+  LSE is of the weights before dropout; dv takes the dropped, rescaled
+  weights, and dP = dO V^T is masked and rescaled the same way before
+  dS.  Each call draws its seed from the framework generator
+  (framework/random.py ``dropout_seed``); the autograd Functions keep the
+  seed, not a mask.
 
 Every kernel reads the paddle [B, S, H, D] layout through strides, so the
 fused qkv projection's slices need no transpose or copy, and the backward
@@ -56,13 +67,16 @@ import math
 
 import torch
 
+from ...framework import random as _random
 from . import build
 
 HEAD_DIMS = (16, 32, 64, 128)
 NEG_INF = -1e30       # what a False entry of a bool mask adds (reference)
 _BIAS_ARGTYPES = (ctypes.c_void_p,) + (ctypes.c_longlong,) * 4
-_TAIL_ARGTYPES = (ctypes.c_int,) * 4 + (ctypes.c_float, ctypes.c_int,
-                                        ctypes.c_int, ctypes.c_void_p)
+# B, S, H, D, sm_scale, causal, dropout seed and p, dtype, stream
+_TAIL_ARGTYPES = (ctypes.c_int,) * 4 + (
+    ctypes.c_float, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_float,
+    ctypes.c_int, ctypes.c_void_p)
 _ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_longlong,) * 9 \
     + (ctypes.c_void_p,) * 2 + _BIAS_ARGTYPES + _TAIL_ARGTYPES
 _DQ_ARGTYPES = (ctypes.c_void_p,) * 8 + _BIAS_ARGTYPES + _TAIL_ARGTYPES
@@ -72,6 +86,84 @@ _DKV_ARGTYPES = (ctypes.c_void_p,) * 9 + _BIAS_ARGTYPES + _TAIL_ARGTYPES
 def _scale(q, sm_scale):
     return 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None \
         else float(sm_scale)
+
+
+# Philox4x32-10 (Salmon et al., SC'11), as csrc/dropout.cuh computes it
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_U32 = 0xFFFFFFFF
+
+
+def _mulhilo(m, x):
+    """(high, low) 32-bit words of the product of the constant ``m`` and
+    ``x`` (an int64 tensor of 32-bit values).  int64 cannot hold
+    0xD2511F53 * 0xFFFFFFFF, so x is split into 16-bit halves: no partial
+    product passes 2^49."""
+    a = m * (x & 0xFFFF)
+    t = m * (x >> 16) + (a >> 16)
+    return t >> 16, ((t & 0xFFFF) << 16) | (a & 0xFFFF)
+
+
+def philox4x32_10(counter, key):
+    """The four output words of Philox4x32-10 for ``counter`` (four int64
+    tensors of 32-bit values, broadcastable) and ``key`` (two ints)."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for i in range(10):
+        if i:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _U32, (k1 + _PHILOX_W[1]) & _U32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def _check_dropout(dropout_p):
+    if not 0.0 <= dropout_p <= 1.0:
+        raise ValueError(f"flash_attention: dropout_p {dropout_p} is not in "
+                         "[0, 1]")
+
+
+def dropout_threshold(p):
+    """round(p * 2^16) of p as the kernels receive it (float32): a 16-bit
+    draw below it drops its (query, key) pair."""
+    p32 = torch.tensor(float(p), dtype=torch.float32).item()
+    return math.floor(p32 * 65536.0 + 0.5)
+
+
+def dropout_scale(p):
+    """1 / (1 - p) in float32, as the kernels compute it."""
+    p32 = torch.tensor(float(p), dtype=torch.float32)
+    return (1.0 / (1.0 - p32)).item()
+
+
+def dropout_keep_plain(seed, B, H, S, p, device="cpu"):
+    """The kernels' keep mask (csrc/dropout.cuh) as a bool [B, H, S, S]
+    tensor (True = kept), in int64 arithmetic.  Philox4x32-10 keyed by the
+    64-bit ``seed``, counter (k // 8, q, b*H + h, 0): its four words hold
+    the eight 16-bit draws of keys 8 * (k // 8) + e, draw e the low (e
+    even) or high half of word e // 2; a pair is kept when its draw is at
+    least :func:`dropout_threshold`."""
+    planes, groups = B * H, -(-S // 8)
+
+    def ax(n, dim):
+        shape = [1, 1, 1]
+        shape[dim] = n
+        return torch.arange(n, dtype=torch.int64, device=device).view(shape)
+
+    c0, c1, c2 = ax(groups, 2), ax(S, 1), ax(planes, 0)
+    words = philox4x32_10(
+        (c0, c1, c2, torch.zeros((), dtype=torch.int64, device=device)),
+        (seed & _U32, (seed >> 32) & _U32))
+    w = torch.stack(torch.broadcast_tensors(*words), -1)  # [P, S, G, 4]
+    draws = torch.stack((w & 0xFFFF, w >> 16), -1).reshape(
+        planes, S, 8 * groups)[..., :S]
+    return (draws >= dropout_threshold(p)).reshape(B, H, S, S)
+
+
+def _dropped(w, keep, p):
+    """The weights after dropout: w / (1 - p) where kept, else 0."""
+    return torch.where(keep, w * dropout_scale(p), 0.0)
 
 
 def _scores_plain(q, k, causal, bias, sm_scale):
@@ -88,14 +180,17 @@ def _scores_plain(q, k, causal, bias, sm_scale):
     return s
 
 
-def flash_attention_plain(q, k, v, causal=True, bias=None, sm_scale=None):
+def flash_attention_plain(q, k, v, causal=True, bias=None, sm_scale=None,
+                          dropout_p=0.0, seed=0):
     """Softmax attention over [B, S, H, D] in float32.  Returns (out
     [B, S, H, D] in q's dtype, lse [B*H, S] float32).  The softmax is
     normalised by its sum, as the kernels' is, not by exp(lse): for a
     row masked everywhere by -1e30, lse = -1e30 + log(S) rounds to -1e30
     and exp(s - lse) would sum V instead of averaging it.  A row with no
     visible key at all (an all -inf bias) gives 0 (the reference's
-    ``l_safe``)."""
+    ``l_safe``).  ``dropout_p`` > 0: the weights take the mask of
+    (``seed``, ``dropout_p``) before V; the LSE is of the weights before
+    dropout."""
     B, S, H, D = q.shape
     s = _scores_plain(q, k, causal, bias, sm_scale)
     m = s.amax(-1, keepdim=True)
@@ -103,7 +198,11 @@ def flash_attention_plain(q, k, v, causal=True, bias=None, sm_scale=None):
     e = torch.exp(s - m)
     l = e.sum(-1, keepdim=True)
     l = torch.where(l == 0, 1.0, l)
-    out = torch.einsum("bhst,bthd->bshd", e / l, v.float())
+    w = e / l
+    if dropout_p > 0:
+        w = _dropped(w, dropout_keep_plain(seed, B, H, S, dropout_p,
+                                           q.device), dropout_p)
+    out = torch.einsum("bhst,bthd->bshd", w, v.float())
     lse = (m + torch.log(l))[..., 0]
     return out.to(q.dtype), lse.reshape(B * H, S)
 
@@ -116,40 +215,51 @@ def flash_attention_delta(o, do):
     return delta.permute(0, 2, 1).reshape(B * H, S).contiguous()
 
 
-def _bwd_plain_terms(q, k, v, do, lse, delta, causal, bias, sm_scale):
-    """p = exp(s - lse) and ds = p * (dO.V^T - delta) * scale, float32
-    [B, H, S, S], from the forward's lse and the caller's delta."""
+def _bwd_plain_terms(q, k, v, do, lse, delta, causal, bias, sm_scale,
+                     dropout_p, seed):
+    """The weights dv takes and ds = p * (dP - delta) * scale, float32
+    [B, H, S, S], from the forward's lse and the caller's delta:
+    p = exp(s - lse) and dP = dO.V^T, or with dropout the weights
+    p * z / (1 - p) and dP * z / (1 - p), z the forward's keep mask."""
     B, S, H, D = q.shape
     s = _scores_plain(q, k, causal, bias, sm_scale)
     p = torch.exp(s - lse.reshape(B, H, S, 1))
     dp = torch.einsum("bshd,bthd->bhst", do.float(), v.float())
+    pd = p
+    if dropout_p > 0:
+        keep = dropout_keep_plain(seed, B, H, S, dropout_p, q.device)
+        pd, dp = _dropped(p, keep, dropout_p), _dropped(dp, keep, dropout_p)
     ds = p * (dp - delta.reshape(B, H, S, 1)) * _scale(q, sm_scale)
-    return p, ds
+    return pd, ds
 
 
 def flash_attention_dq_plain(q, k, v, do, lse, delta, causal=True,
-                             bias=None, sm_scale=None):
+                             bias=None, sm_scale=None, dropout_p=0.0,
+                             seed=0):
     """dq = ds . k over [B, S, H, D], in q's dtype."""
     _, ds = _bwd_plain_terms(q, k, v, do, lse, delta, causal, bias,
-                             sm_scale)
+                             sm_scale, dropout_p, seed)
     return torch.einsum("bhst,bthd->bshd", ds, k.float()).to(q.dtype)
 
 
 def flash_attention_dkv_plain(q, k, v, do, lse, delta, causal=True,
-                              bias=None, sm_scale=None):
-    """(dk = ds^T . q, dv = p^T . dO) over [B, S, H, D], in k's dtype."""
+                              bias=None, sm_scale=None, dropout_p=0.0,
+                              seed=0):
+    """(dk = ds^T . q, dv = p^T . dO) over [B, S, H, D], in k's dtype (p
+    after dropout)."""
     p, ds = _bwd_plain_terms(q, k, v, do, lse, delta, causal, bias,
-                             sm_scale)
+                             sm_scale, dropout_p, seed)
     dk = torch.einsum("bhst,bshd->bthd", ds, q.float())
     dv = torch.einsum("bhst,bshd->bthd", p, do.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True, bias=None,
-                              sm_scale=None):
+                              sm_scale=None, dropout_p=0.0, seed=0):
     """(dq, dk, dv) from the forward's O and LSE."""
     delta = flash_attention_delta(o, do)
-    form = dict(causal=causal, bias=bias, sm_scale=sm_scale)
+    form = dict(causal=causal, bias=bias, sm_scale=sm_scale,
+                dropout_p=dropout_p, seed=seed)
     dq = flash_attention_dq_plain(q, k, v, do, lse, delta, **form)
     return (dq, *flash_attention_dkv_plain(q, k, v, do, lse, delta, **form))
 
@@ -200,14 +310,18 @@ def _device(name, q):
     return q.device.type
 
 
-def flash_attention(q, k, v, causal=True, bias=None, sm_scale=None):
+def flash_attention(q, k, v, causal=True, bias=None, sm_scale=None,
+                    dropout_p=0.0, seed=0):
     """The forward kernel: attention over q/k/v [B, S, H, D] (paddle
     layout, any strides with a unit stride over D), causal (the GPT
     path's form, the default) or not, plus an optional float32
-    [B, H, S, S] bias.  Returns (out [B, S, H, D] contiguous, lse
-    [B*H, S] float32).  No graph: see :func:`attention`."""
+    [B, H, S, S] bias, and dropout ``dropout_p`` on the weights with the
+    mask of ``seed``.  Returns (out [B, S, H, D] contiguous, lse [B*H, S]
+    float32).  No graph: see :func:`attention`."""
+    _check_dropout(dropout_p)
     if _device("flash_attention", q) == "cpu":
-        return flash_attention_plain(q, k, v, causal, bias, sm_scale)
+        return flash_attention_plain(q, k, v, causal, bias, sm_scale,
+                                     dropout_p, seed)
     B, S, H, D = q.shape
     _check("flash_attention", q, k, v)
     bias_args = _bias_args("flash_attention", q, bias)
@@ -219,22 +333,26 @@ def flash_attention(q, k, v, causal=True, bias=None, sm_scale=None):
              k.stride(0), k.stride(1), k.stride(2),
              v.stride(0), v.stride(1), v.stride(2),
              out.data_ptr(), lse.data_ptr(), *bias_args, B, S, H, D,
-             _scale(q, sm_scale), int(causal), build.dtype_code(q),
-             build.stream_of(q))
+             _scale(q, sm_scale), int(causal), seed, dropout_p,
+             build.dtype_code(q), build.stream_of(q))
     build.check(err, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.dropout_launches += dropout_p > 0
     return out, lse
 
 
 def flash_attention_dq(q, k, v, do, lse, delta, out=None, causal=True,
-                       bias=None, sm_scale=None):
+                       bias=None, sm_scale=None, dropout_p=0.0, seed=0):
     """dq, written into ``out`` (a [B, S, H, D] view with unit stride over
-    D, allocated when None).  Returns it."""
+    D, allocated when None).  Returns it.  ``dropout_p`` and ``seed``: the
+    forward's."""
+    _check_dropout(dropout_p)
     if out is None:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if _device("flash_attention_dq", q) == "cpu":
         return out.copy_(flash_attention_dq_plain(
-            q, k, v, do, lse, delta, causal, bias, sm_scale))
+            q, k, v, do, lse, delta, causal, bias, sm_scale, dropout_p,
+            seed))
     B, S, H, D = q.shape
     _check("flash_attention_dq", q, k, v, do, out)
     _check_stats("flash_attention_dq", q, lse, delta)
@@ -244,24 +362,27 @@ def flash_attention_dq(q, k, v, do, lse, delta, out=None, causal=True,
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), out.data_ptr(),
              build.strides(q, k, v, do, out), *bias_args, B, S, H, D,
-             _scale(q, sm_scale), int(causal), build.dtype_code(q),
-             build.stream_of(q))
+             _scale(q, sm_scale), int(causal), seed, dropout_p,
+             build.dtype_code(q), build.stream_of(q))
     build.check(err, "flash_attention_dq")
     flash_attention_dq.launches += 1
+    flash_attention_dq.dropout_launches += dropout_p > 0
     return out
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, out=None, causal=True,
-                        bias=None, sm_scale=None):
+                        bias=None, sm_scale=None, dropout_p=0.0, seed=0):
     """(dk, dv), written into ``out`` (two [B, S, H, D] views with unit
-    stride over D, allocated when None)."""
+    stride over D, allocated when None).  ``dropout_p`` and ``seed``: the
+    forward's."""
+    _check_dropout(dropout_p)
     if out is None:
         out = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device)
                     for _ in range(2))
     dk, dv = out
     if _device("flash_attention_dkv", q) == "cpu":
         pk, pv = flash_attention_dkv_plain(q, k, v, do, lse, delta, causal,
-                                           bias, sm_scale)
+                                           bias, sm_scale, dropout_p, seed)
         return dk.copy_(pk), dv.copy_(pv)
     B, S, H, D = q.shape
     _check("flash_attention_dkv", q, k, v, do, dk, dv)
@@ -272,15 +393,16 @@ def flash_attention_dkv(q, k, v, do, lse, delta, out=None, causal=True,
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              build.strides(q, k, v, do, dk, dv), *bias_args, B, S, H, D,
-             _scale(q, sm_scale), int(causal), build.dtype_code(q),
-             build.stream_of(q))
+             _scale(q, sm_scale), int(causal), seed, dropout_p,
+             build.dtype_code(q), build.stream_of(q))
     build.check(err, "flash_attention_dkv")
     flash_attention_dkv.launches += 1
+    flash_attention_dkv.dropout_launches += dropout_p > 0
     return dk, dv
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, out=None, causal=True,
-                        bias=None, sm_scale=None):
+                        bias=None, sm_scale=None, dropout_p=0.0, seed=0):
     """(dq, dk, dv) from the forward's O and LSE, by the dq kernel and the
     dk/dv kernel.  ``out``: three [B, S, H, D] views to write into; by
     default the slices of one packed [B, S, 3, H, D] tensor."""
@@ -290,11 +412,32 @@ def flash_attention_bwd(q, k, v, o, lse, do, out=None, causal=True,
                           device=q.device).unbind(2)
     do = do.contiguous()
     delta = flash_attention_delta(o, do)
-    form = dict(causal=causal, bias=bias, sm_scale=sm_scale)
+    form = dict(causal=causal, bias=bias, sm_scale=sm_scale,
+                dropout_p=dropout_p, seed=seed)
     dq = flash_attention_dq(q, k, v, do, lse, delta, out=out[0], **form)
     dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, out=out[1:],
                                  **form)
     return dq, dk, dv
+
+
+def dropout_keep(seed, B, H, S, p, device):
+    """The keep mask as the kernels draw it, bool [B, H, S, S]: on a CUDA
+    device written by the kernels' own device function (a test entry: no
+    path calls it, so it counts no launches), on the CPU
+    :func:`dropout_keep_plain`."""
+    _check_dropout(p)
+    device = torch.device(device)
+    if device.type == "cpu":
+        return dropout_keep_plain(seed, B, H, S, p, device)
+    if device.type != "cuda":
+        raise RuntimeError(f"dropout_keep: no kernel for device {device}")
+    out = torch.empty((B, H, S, S), dtype=torch.bool, device=device)
+    fn = build.bind("flash_attention", "ptt_flash_dropout_mask",
+                    (ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_float,
+                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+    err = fn(out.data_ptr(), seed, p, B * H, S, build.stream_of(out))
+    build.check(err, "dropout_keep")
+    return out
 
 
 def fold_mask(mask, B, H, S_q, S_k):
@@ -320,13 +463,16 @@ def fold_mask(mask, B, H, S_q, S_k):
 
 class _Attention(torch.autograd.Function):
     """``_mha`` / ``_mha_masked`` with their custom_vjps: saves q, k, v,
-    the bias, O and LSE; the bias's cotangent is zero (None)."""
+    the bias, O and LSE, and the dropout's seed (the backward kernels draw
+    its mask again); the bias's cotangent is zero (None)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, causal, sm_scale):
-        out, lse = flash_attention(q, k, v, causal, bias, sm_scale)
+    def forward(ctx, q, k, v, bias, causal, sm_scale, dropout_p, seed):
+        out, lse = flash_attention(q, k, v, causal, bias, sm_scale,
+                                   dropout_p, seed)
         ctx.save_for_backward(q, k, v, bias, out, lse)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.form = dict(causal=causal, sm_scale=sm_scale,
+                        dropout_p=dropout_p, seed=seed)
         return out
 
     @staticmethod
@@ -335,9 +481,8 @@ class _Attention(torch.autograd.Function):
         grads = tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
                       for t in (q, k, v))
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, out=grads,
-                                         causal=ctx.causal, bias=bias,
-                                         sm_scale=ctx.sm_scale)
-        return dq, dk, dv, None, None, None
+                                         bias=bias, **ctx.form)
+        return dq, dk, dv, None, None, None, None, None
 
 
 class _PackedCausalAttention(torch.autograd.Function):
@@ -346,9 +491,11 @@ class _PackedCausalAttention(torch.autograd.Function):
     qkv's shape, so the three slices cost no extra copy or sum."""
 
     @staticmethod
-    def forward(ctx, qkv):
-        out, lse = flash_attention(*qkv.unbind(2))
+    def forward(ctx, qkv, dropout_p, seed):
+        out, lse = flash_attention(*qkv.unbind(2), dropout_p=dropout_p,
+                                   seed=seed)
         ctx.save_for_backward(qkv, out, lse)
+        ctx.dropout = dict(dropout_p=dropout_p, seed=seed)
         return out
 
     @staticmethod
@@ -356,16 +503,25 @@ class _PackedCausalAttention(torch.autograd.Function):
         qkv, out, lse = ctx.saved_tensors
         grad = torch.empty_like(qkv)
         flash_attention_bwd(*qkv.unbind(2), out, lse, do,
-                            out=grad.unbind(2))
-        return grad
+                            out=grad.unbind(2), **ctx.dropout)
+        return grad, None, None
 
 
-def attention(q, k, v, causal=False, sm_scale=None, mask=None):
+def _seed_for(dropout_p):
+    """Each call with dropout draws its own mask's seed; 0 without."""
+    _check_dropout(dropout_p)
+    return _random.dropout_seed() if dropout_p > 0 else 0
+
+
+def attention(q, k, v, causal=False, sm_scale=None, mask=None,
+              dropout_p=0.0):
     """The reference's public ``flash_attention`` (:412): q, k, v
     [B, S, H, D] -> [B, S, H, D]; ``mask`` is bool (True = attend) or
-    additive, broadcastable to [B, H, S, S], composable with ``causal``.
-    Differentiable in q, k and v.  Cross-attention (S_q != S_k) and
-    grouped heads are not ported."""
+    additive, broadcastable to [B, H, S, S], composable with ``causal``;
+    ``dropout_p`` > 0 drops the weights (the reference's composite form,
+    :mod:`ops.fused`), with a mask of its own for each call, also under
+    ``torch.no_grad()``.  Differentiable in q, k and v.  Cross-attention
+    (S_q != S_k) and grouped heads are not ported."""
     B, S, H, _ = q.shape
     if k.shape[1] != S or v.shape[1] != S:
         raise NotImplementedError(
@@ -375,10 +531,13 @@ def attention(q, k, v, causal=False, sm_scale=None, mask=None):
         raise NotImplementedError("flash_attention: GQA head mismatch")
     bias = None if mask is None else fold_mask(mask.to(q.device), B, H, S,
                                                S)
+    seed = _seed_for(dropout_p)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _Attention.apply(q, k, v, bias, causal, sm_scale)
-    return flash_attention(q, k, v, causal, bias, sm_scale)[0]
+        return _Attention.apply(q, k, v, bias, causal, sm_scale, dropout_p,
+                                seed)
+    return flash_attention(q, k, v, causal, bias, sm_scale, dropout_p,
+                           seed)[0]
 
 
 def causal_attention(q, k, v):
@@ -386,12 +545,14 @@ def causal_attention(q, k, v):
     return attention(q, k, v, causal=True)
 
 
-def causal_attention_packed(qkv):
+def causal_attention_packed(qkv, dropout_p=0.0):
     """Causal attention over the fused projection qkv [B, S, 3, H, D];
     differentiable, with one packed gradient."""
+    seed = _seed_for(dropout_p)
     if torch.is_grad_enabled() and qkv.requires_grad:
-        return _PackedCausalAttention.apply(qkv)
-    return flash_attention(*qkv.unbind(2))[0]
+        return _PackedCausalAttention.apply(qkv, dropout_p, seed)
+    return flash_attention(*qkv.unbind(2), dropout_p=dropout_p,
+                           seed=seed)[0]
 
 
 # the entries whose C code chooses between a CUDA-core kernel (index 0) and
@@ -416,6 +577,13 @@ def variant_launches():
     return build.variant_counts(VARIANT_COUNTERS, VARIANTS)
 
 
-flash_attention.launches = 0
-flash_attention_dq.launches = 0
-flash_attention_dkv.launches = 0
+def dropout_launches():
+    """{entry: launches with dropout} of the three attention wrappers
+    (each also counted in its ``launches``)."""
+    return {fn.__name__: fn.dropout_launches
+            for fn in (flash_attention, flash_attention_dq,
+                       flash_attention_dkv)}
+
+
+for _fn in (flash_attention, flash_attention_dq, flash_attention_dkv):
+    _fn.launches = _fn.dropout_launches = 0

@@ -954,3 +954,141 @@ def test_multi_tensor_step_refuses_shared_memory(dev):
     with pytest.raises(ValueError, match="share memory"):
         ptt.optimizer.AdamW(learning_rate=0.1, parameters=[p, p]).step()
     assert multi_tensor.multi_tensor_step.launches == before
+
+
+# ---------------------------------------------------------------------------
+# attention dropout inside the three attention kernels
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("B,H,S", [(2, 3, 77), (1, 2, 1024), (4, 12, 128)])
+@pytest.mark.parametrize("p", [0.1, 0.5])
+def test_dropout_mask_entry_matches_plain(dev, B, H, S, p):
+    """The keep mask written by the kernels' own device function
+    (``ptt_flash_dropout_mask``) is bitwise the plain version's."""
+    seed = 0x123456789ABCDEF0 + S
+    got = flash_attention.dropout_keep(seed, B, H, S, p, dev)
+    assert torch.equal(got, flash_attention.dropout_keep_plain(
+        seed, B, H, S, p, dev))
+
+
+def _views(g, dev, dtype, shape, offset, scale=1.0):
+    """Seeded [B, S, H, D] operands, ``offset`` elements into their
+    buffers (1: off every 16-byte boundary)."""
+    n = int(np.prod(shape))
+    return [(scale * torch.randn(n + 8, generator=g, device=dev)).to(dtype)[
+        offset:offset + n].view(shape) for _ in range(4)]
+
+
+# (dtype, offset, the kernel the C entries must take)
+DROPOUT_VARIANTS = [(torch.bfloat16, 0, "mma"), (torch.bfloat16, 1, "simt"),
+                    (torch.float32, 0, "simt")]
+
+
+@pytest.mark.parametrize("dtype,offset,variant", DROPOUT_VARIANTS)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [64, 128])
+def test_dropout_forward_applies_the_mask(dev, dtype, offset, variant,
+                                          causal, D):
+    """V's row t is the one-hot e_t (S = D), so O's non-zero pattern is the
+    set of kept visible (query, key) pairs: it must equal the plain mask
+    exactly, on the tensor-core and the CUDA-core kernel."""
+    g = torch.Generator(device=dev).manual_seed(D + causal)
+    B, S, H = 2, D, 3
+    q, k, _, _ = _views(g, dev, dtype, (B, S, H, D), offset, scale=0.3)
+    v = torch.zeros(B * S * H * D + 8, dtype=dtype, device=dev)[
+        offset:offset + B * S * H * D].view(B, S, H, D)
+    v.copy_(torch.eye(S, dtype=dtype, device=dev)[None, :, None, :].expand(
+        B, S, H, D))
+    before = flash_attention.variant_launches()
+    out, _ = flash_attention.flash_attention(q, k, v, causal, dropout_p=0.3,
+                                             seed=99 + D)
+    assert _variant_delta(before)["flash_attention"][variant] == 1
+    keep = flash_attention.dropout_keep_plain(99 + D, B, H, S, 0.3, dev)
+    if causal:
+        keep &= torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+    assert torch.equal(out.permute(0, 2, 1, 3) != 0, keep)
+
+
+@pytest.mark.parametrize("dtype,offset,variant", DROPOUT_VARIANTS)
+@pytest.mark.parametrize("kind", ["causal", "bool"])
+# every head dim; (B, H) = (4, 12) at S = 100 and 200 gives the tensor-core
+# kernels their 32- and 64-row tiles, the others their 16-row ones
+@pytest.mark.parametrize("B,H,S,D", [(2, 3, 33, 16), (2, 3, 130, 32),
+                                     (2, 3, 200, 64), (4, 12, 100, 64),
+                                     (4, 12, 200, 64), (2, 3, 77, 128)])
+def test_dropout_kernels_match_plain(dev, dtype, offset, variant, kind, B,
+                                     H, S, D):
+    """Forward (O and the LSE before dropout), dq and dk/dv with p = 0.1
+    against the plain versions with the same seed, causal and with a
+    [B, 1, 1, S] padding mask; each takes its kernel."""
+    g = torch.Generator(device=dev).manual_seed(S * D)
+    q, k, v, do = _views(g, dev, dtype, (B, S, H, D), offset)
+    bias = None
+    if kind == "bool":
+        lens = torch.tensor([S, max(1, S // 2)] * (B // 2), device=dev)
+        bias = flash_attention.fold_mask(
+            (torch.arange(S, device=dev) < lens[:, None])[:, None, None],
+            B, H, S, S)
+    form = dict(causal=kind == "causal", bias=bias, dropout_p=0.1,
+                seed=7 * S + D)
+    before = flash_attention.variant_launches()
+    out, lse = flash_attention.flash_attention(q, k, v, **form)
+    ref, ref_lse = flash_attention.flash_attention_plain(q, k, v, **form)
+    _check(out, ref, dtype)
+    _check(lse, ref_lse, torch.float32 if dtype == torch.float32 else dtype)
+    delta = flash_attention.flash_attention_delta(out, do)
+    dq = flash_attention.flash_attention_dq(q, k, v, do, lse, delta, **form)
+    dk, dv = flash_attention.flash_attention_dkv(q, k, v, do, lse, delta,
+                                                 **form)
+    _check(dq, flash_attention.flash_attention_dq_plain(
+        q, k, v, do, lse, delta, **form), dtype)
+    ref_k, ref_v = flash_attention.flash_attention_dkv_plain(
+        q, k, v, do, lse, delta, **form)
+    _check(dk, ref_k, dtype)
+    _check(dv, ref_v, dtype)
+    took = _variant_delta(before)
+    assert all(took[name][variant] == 1 for name in took), took
+
+
+@pytest.mark.parametrize("dtype,offset,variant", DROPOUT_VARIANTS)
+def test_dropout_zero_is_the_kernel_without_it(dev, dtype, offset, variant):
+    """p = 0 with any seed launches the kernels without dropout: O, LSE,
+    dq, dk and dv bitwise those of a call that names no dropout."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, do = _views(g, dev, dtype, (2, 130, 3, 64), offset)
+    runs = []
+    for kw in ({}, dict(dropout_p=0.0, seed=12345)):
+        out, lse = flash_attention.flash_attention(q, k, v, **kw)
+        delta = flash_attention.flash_attention_delta(out, do)
+        runs.append((out, lse,
+                     flash_attention.flash_attention_dq(q, k, v, do, lse,
+                                                        delta, **kw),
+                     *flash_attention.flash_attention_dkv(q, k, v, do, lse,
+                                                          delta, **kw)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dropout_through_autograd_matches_cpu(dev, dtype):
+    """Training-mode attention with dropout through the autograd Functions
+    (packed causal and masked non-causal): the card's output and gradients
+    against the CPU's (plain versions) from the same framework seed, which
+    draws the same mask seeds on both; the backward draws the forward's
+    mask again."""
+    rs = np.random.RandomState(8)
+    qkv = rs.randn(2, 37, 3, 4, 16).astype(np.float32)
+    mask = rs.rand(2, 1, 1, 37) > 0.2
+    mask[..., 0] = True
+    res = {}
+    for device in ("cpu", dev):
+        ptt.seed(11)
+        t = torch.tensor(qkv, device=device, dtype=dtype, requires_grad=True)
+        a = fused.packed_causal_attention(t, dropout_p=0.1, training=True)
+        b = fused.scaled_dot_product_attention(
+            *t.unbind(2), attn_mask=torch.tensor(mask, device=device),
+            dropout_p=0.2, training=True)
+        (a.float().square().sum() + b.float().square().sum()).backward()
+        res[str(device)] = [x.detach().float().cpu() for x in (a, b, t.grad)]
+    for got, ref in zip(res[str(dev)], res["cpu"]):
+        scale = max(1.0, ref.abs().max().item())
+        tol = (2e-5 if dtype == torch.float32 else 2 ** -5) * scale
+        assert (got - ref).abs().max().item() <= tol

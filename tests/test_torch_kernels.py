@@ -121,14 +121,18 @@ def test_flash_attention_plain_vs_composite_short_sequence():
 
 
 def test_fused_attention_refuses_unported_forms():
-    """Dropout in training is the one form left unported (ROADMAP B7);
-    cross-attention (S_q != S_k) waits for the decoder slice."""
-    x = torch.zeros(1, 4, 2, 16)
+    """Cross-attention (S_q != S_k) waits for the decoder slice.  Dropout
+    in training, once refused, now runs inside the attention kernels: a
+    finite result of the right shape that differs from p = 0."""
+    x = torch.from_numpy(np.random.RandomState(12).randn(
+        1, 4, 2, 16).astype(np.float32))
     for causal in (False, True):
-        with pytest.raises(NotImplementedError):
-            fused.scaled_dot_product_attention(x, x, x, dropout_p=0.1,
-                                               is_causal=causal,
-                                               training=True)
+        out = fused.scaled_dot_product_attention(x, x, x, dropout_p=0.5,
+                                                 is_causal=causal,
+                                                 training=True)
+        assert out.shape == x.shape and torch.isfinite(out).all()
+        assert not torch.equal(out, fused.scaled_dot_product_attention(
+            x, x, x, is_causal=causal, training=True))
     with pytest.raises(NotImplementedError):
         fused.scaled_dot_product_attention(x, torch.zeros(1, 6, 2, 16),
                                            torch.zeros(1, 6, 2, 16))
@@ -137,11 +141,10 @@ def test_fused_attention_refuses_unported_forms():
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("mask", [None, "bool", "additive"])
 def test_fused_attention_forms_match_composite(causal, mask):
-    """Every form but dropout-in-training now runs: non-causal, causal,
-    bool and additive masks, and dropout outside training — held against
-    the reference's XLA composite, which adds an additive mask and (for
-    rows with a visible key) gives a bool mask's -1e30 replace the same
-    softmax."""
+    """Non-causal, causal, bool and additive masks, and dropout outside
+    training — held against the reference's XLA composite, which adds an
+    additive mask and (for rows with a visible key) gives a bool mask's
+    -1e30 replace the same softmax."""
     rs = np.random.RandomState(11)
     B, S, H, D = 2, 9, 2, 16
     q, k, v = (rs.randn(B, S, H, D).astype(np.float32) for _ in range(3))
