@@ -22,12 +22,28 @@ passed over):
 4. logits       — full-width GPT-2-small (GPTConfig() defaults) in float32:
                   a 64-token slot_prefill and 8 slot_decode_paged steps on
                   the card against the same on the CPU (plain versions).
-5. serving      — the same model in bfloat16 behind GenerationEngine: 16
-                  requests in one wave, greedy and sampled alternating;
-                  every serving kernel's launch count must be > 0; then
-                  4 requests with every decode step under
-                  torch.cuda.set_sync_debug_mode("warn"): one sync a
-                  step, the token fetch, or the run fails.
+   prefix-f32 / chunked — the same float32 model behind
+                  GenerationEngine: 3 prefix-cache hits give the miss's
+                  greedy tokens (and a prefix-free engine's); 8 prompts of
+                  65-128 tokens with prefill_chunk=32 give the unchunked
+                  engine's greedy tokens.
+5. serving      — the same model in bfloat16 behind GenerationEngine at
+                  the reference's defaults (prefix cache on), its decode
+                  step captured once as a CUDA graph at start() and
+                  replayed: 16 requests in one wave, greedy and sampled
+                  alternating; every serving kernel's launch count (the
+                  eager prefills plus the graph's launches times its
+                  replays) must be > 0 and every launch in the graph on
+                  its fast kernel; then 4 requests with every decode step
+                  under torch.cuda.set_sync_debug_mode("warn"): one sync
+                  a step, the token fetch, or the run fails.
+   serving-graph — the same wave through the graph and through
+                  `_step_eager`, paired (graph, eager, eager, graph):
+                  tokens/s, TTFT, inter-token p50, busy share, launches
+                  a decode step; greedy tokens identical.
+   prefix       — 16 requests sharing a 64-token prefix: hit ratio, TTFT
+                  of hits and misses; a hit's bf16 first-token logits
+                  within BF16_TOL of the miss's.
 6. train-parity — full-width float32, B = 2, S = 128: loss(ids) and every
                   parameter's gradient on the card against the CPU's.
 7. train        — full-width bfloat16, B = 8, S = 1024: 10 dygraph AdamW
@@ -160,6 +176,18 @@ VARIANTS = {**{n: ("simt", "mma") for n in MMA_KERNELS},
             "bias_gelu": ("scalar", "vec"),
             "bias_gelu_bwd": ("scalar", "vec")}
 FAST_VARIANT = {n: fast for n, (_, fast) in VARIANTS.items()}
+# the CUDA kernel behind each variant of the serving path's entries, as a
+# profiler trace names it: the serving wave's launches are read from its
+# trace, which shows the decode graph's replayed launches as well
+TRACE_KERNELS = {
+    "flash_attention": {"simt": "flash_fwd_kernel",
+                        "mma": "flash_fwd_mma_kernel"},
+    "layer_norm": {"block": "layer_norm_fwd_kernel",
+                   "warp": "layer_norm_warp_kernel"},
+    "paged_decode_attention": {"lane": "paged_decode_kernel",
+                               "split": "paged_decode_split_kernel"},
+    "bias_gelu": {"scalar": "bias_gelu_fwd_kernel",
+                  "vec": "bias_gelu_fwd_vec_kernel"}}
 # the kernels with a variant that each path launches
 SERVING_FAST = ("flash_attention", "layer_norm", "paged_decode_attention",
                 "bias_gelu")
@@ -855,25 +883,43 @@ def logits_phase(torch, model_gpu, model_cpu):
         f"/{len(ref)} positions")
 
 
-def profile_window(torch, run):
-    """run() under torch.profiler: (wall ms, device busy ms, kernel
-    launches, the ten kernels that take the most device time, then the
-    device-to-host copies' ms and count).  Busy = the sum of kernel times
-    over the window (one stream, so kernels do not overlap); None when
-    the trace holds no device time."""
+def trace_window(torch, run):
+    """run() under torch.profiler: (run's result, wall ms, the trace's
+    device events as (ms, name, count))."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run()
+        out = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [(e.self_device_time_total / 1e3, e.key, e.count)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    return out, wall_ms, [(e.self_device_time_total / 1e3, e.key, e.count)
+                          for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA
+                          and e.self_device_time_total > 0]
+
+
+def traced_launches(kernels):
+    """{entry: {variant: launches}} of the serving path's entries in a
+    trace's device events, matched by CUDA kernel name."""
+    out = {n: dict.fromkeys(v, 0) for n, v in TRACE_KERNELS.items()}
+    for _, key, count in kernels:
+        for name, per in TRACE_KERNELS.items():
+            for variant, kernel in per.items():
+                if re.search(rf"(?<!\w){kernel}[<(]", key):
+                    out[name][variant] += count
+    return out
+
+
+def profile_window(torch, run):
+    """run() under torch.profiler: (wall ms, device busy ms, kernel
+    launches, the ten kernels that take the most device time, then the
+    device-to-host copies' ms and count).  Busy = the sum of kernel times
+    over the window (one stream, so kernels do not overlap); None when
+    the trace holds no device time."""
+    _, wall_ms, kernels = trace_window(torch, run)
     busy_ms = sum(t for t, _, _ in kernels)
     if busy_ms == 0:
         return wall_ms, None, 0, ""
@@ -887,29 +933,32 @@ def profile_window(torch, run):
     return wall_ms, busy_ms, sum(n for _, _, n in kernels), top
 
 
-def profile_wave(torch, eng, prompts):
-    """Where a serving wave's time goes: a second wave of greedy requests
-    (16 new tokens each) under torch.profiler."""
+def profile_wave(torch, eng, prompts, tag="[profile]"):
+    """Where a serving wave's time goes: a wave of greedy requests (16 new
+    tokens each) under torch.profiler.  Returns (wall ms, busy ms or
+    None)."""
     def wave():
         for h in [eng.submit(p, 16) for p in prompts]:
             h.result(600)
 
     wall_ms, busy_ms, launches, top = profile_window(torch, wave)
     if busy_ms is None:
-        log("[profile] no device time in the trace: busy share not measured")
-        return
-    log(f"[profile] {len(prompts)} greedy requests x 16 tokens: wall "
+        log(f"{tag} no device time in the trace: busy share not measured")
+        return wall_ms, None
+    log(f"{tag} {len(prompts)} greedy requests x 16 tokens: wall "
         f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-        f"({100 * busy_ms / wall_ms:.2f}%), {launches} kernel launches; "
+        f"({100 * busy_ms / wall_ms:.2f}%), {launches} device launches; "
         f"top: {top}")
+    return wall_ms, busy_ms
 
 
 def sync_check(torch, eng, prompts):
     """Every ``GenerationEngine.step()`` of a few requests (greedy and
     sampled alternating) under ``torch.cuda.set_sync_debug_mode("warn")``:
-    a step makes exactly one synchronizing call, its copy of the tokens
-    to the host in serving/generation.py; any other sync fails the run.
-    Returns the summary for the serving line."""
+    a step (the noise draw, the graph's replay and the fetch) makes
+    exactly one synchronizing call, its copy of the tokens to the host in
+    serving/generation.py; any other sync fails the run.  Returns the
+    summary for the serving line."""
     import warnings
 
     step, seen = eng.step, []
@@ -945,29 +994,103 @@ def sync_check(torch, eng, prompts):
             f"each, at {sorted(where)} (the token fetch)")
 
 
+def graph_check(eng, what):
+    """The captured decode step: captured once, holding paged decode, and
+    every launch in it on its entry's fast kernel.  Returns the fast
+    launches of one replay."""
+    if eng.capture_count != 1:
+        fail(f"{what}: the decode step was captured {eng.capture_count} "
+             "times")
+    if eng.graph_launches.get("paged_decode_attention", 0) <= 0:
+        fail(f"{what}: the decode graph holds no paged_decode_attention "
+             f"launch: {eng.graph_launches}")
+    fast = {}
+    for name, counts in eng.graph_variants.items():
+        slow = {v: n for v, n in counts.items()
+                if v != FAST_VARIANT[name] and n}
+        if slow:
+            fail(f"{what}: launches in the decode graph took the slower "
+                 f"kernel of {name}: {counts}")
+        fast[name] = counts[FAST_VARIANT[name]]
+    return fast
+
+
+def serve_wave(eng, prompts, new_tokens, sampled=True):
+    """Submit every prompt at once (greedy and sampled alternating) and
+    wait for all: (outputs, wall seconds)."""
+    t0 = time.perf_counter()
+    handles = []
+    for i, p in enumerate(prompts):
+        kw = (dict(do_sample=True, temperature=0.8, top_k=8, seed=i)
+              if sampled and i % 2 else {})
+        handles.append(eng.submit(p, new_tokens, **kw))
+    outs = [h.result(600) for h in handles]
+    return outs, time.perf_counter() - t0
+
+
+def pages_accounted(eng, what):
+    """Idle: every page is on the free list or held by the prefix
+    cache."""
+    t0 = time.monotonic()
+    while eng._sched.occupied or eng._backlog:
+        if time.monotonic() - t0 > 60:
+            fail(f"{what}: the engine did not go idle")
+        time.sleep(0.01)
+    free, resident = eng.free_count, eng.resident_pages
+    if free + resident != eng.geometry.num_pages:
+        fail(f"{what}: free_count {free} + resident_pages {resident} != "
+             f"num_pages {eng.geometry.num_pages}")
+    return f"free_count {free} + resident_pages {resident} == num_pages"
+
+
+SERVING_ENGINE = dict(max_slots=8, max_seq_len=512, prompt_buckets="64,128",
+                      page_size=16, num_pages=0)
+
+
 def serving_phase(torch, K, model, card):
+    """The reference's default engine (prefix cache on) on full-width
+    bf16 GPT-2-small, decode steps replayed from the captured graph."""
     from paddle_tpu_torch.serving import GenerationEngine
 
-    eng = GenerationEngine(model, max_slots=8, max_seq_len=512,
-                           prompt_buckets="64,128", page_size=16,
-                           num_pages=0, device="cuda").start()
+    eng = GenerationEngine(model, device=model.device,
+                           **SERVING_ENGINE).start()
     try:
-        rng = np.random.RandomState(2)
-        lens = rng.randint(20, 129, 16)
-        prompts = [rng.randint(0, model.cfg.vocab_size, n).tolist()
-                   for n in lens]
+        graph_check(eng, "serving")
+        prompts = wave_prompts(model.cfg.vocab_size, 2)
+
+        def wave():
+            out = serve_wave(eng, prompts, 48)
+            eng._idle.wait(60)
+            return out
+
         K.reset_launch_counts()
         variants = K.variant_launches()
-        t0 = time.perf_counter()
-        handles = []
-        for i, p in enumerate(prompts):
-            kw = (dict(do_sample=True, temperature=0.8, top_k=8, seed=i)
-                  if i % 2 else {})
-            handles.append(eng.submit(p, 48, **kw))
-        outs = [h.result(600) for h in handles]
-        wall = time.perf_counter() - t0
-        counts = K.launch_counts()
-        fast = require_fast_variants(K, variants, "serving", SERVING_FAST)
+        replays0 = eng.replays
+        (outs, wall), _, kernels = trace_window(torch, wave)
+        replays = eng.replays - replays0
+        # the wrappers count the eager launches (prefills); a replay
+        # counts nothing, so the path's launches are the trace's, which
+        # must be the eager ones plus the graph's once per replay
+        eager = K.launch_counts()
+        fast = require_fast_variants(
+            K, variants, "serving prefill",
+            tuple(n for n in SERVING_FAST if n != "paged_decode_attention"))
+        traced = traced_launches(kernels)
+        counts = dict(eager)
+        for name, per in traced.items():
+            counts[name] = sum(per.values())
+            want = eager[name] + eng.graph_launches.get(name, 0) * replays
+            if counts[name] != want:
+                fail(f"serving: the trace holds {counts[name]} launches of "
+                     f"{name}, not {eager[name]} eager + "
+                     f"{eng.graph_launches.get(name, 0)} x {replays} "
+                     f"replays = {want}")
+            slow = {v: n for v, n in per.items()
+                    if v != FAST_VARIANT[name] and n}
+            if slow:
+                fail(f"serving: the trace shows {name} launches of its "
+                     f"slower kernel: {per}")
+            fast[name] = per[FAST_VARIANT[name]]
         snap = eng.metrics.snapshot()
         for i, o in enumerate(outs):
             if len(o) != 48 or min(o) < 0 or max(o) >= model.cfg.vocab_size:
@@ -976,28 +1099,260 @@ def serving_phase(torch, K, model, card):
         for name in SERVING_KERNELS:
             if counts[name] <= 0:
                 fail(f"kernel {name} was not launched on the serving path")
-        if eng.free_count != eng.geometry.num_pages:
-            fail(f"free_count {eng.free_count} != num_pages "
-                 f"{eng.geometry.num_pages} after the wave")
-        alone = eng.generate(prompts[0], 48, timeout=600)
+        accounted = pages_accounted(eng, "serving wave")
+        # the wave's first request (greedy, a miss) alone on an engine
+        # without the prefix cache, so it takes the wave's path again
+        solo = GenerationEngine(model, device=model.device,
+                                prefix_cache=False, **SERVING_ENGINE).start()
+        try:
+            alone = solo.generate(prompts[0], 48, timeout=600)
+        finally:
+            solo.stop()
         if alone != outs[0]:
             fail("greedy request re-run alone gave different tokens")
-        if eng.free_count != eng.geometry.num_pages:
-            fail("free_count did not return to num_pages")
         syncs = sync_check(torch, eng, prompts[:4])
         profile_wave(torch, eng, prompts[:8])
         total = sum(len(o) for o in outs)
         log(f"[serving] 16 requests (prompts 20-128, 48 new tokens, "
-            f"greedy/sampled alternating) on {card}: "
+            f"greedy/sampled alternating, prefix cache on) on {card}, "
+            f"under the profiler: "
             f"{total} tokens in {wall:.3f}s = {total / wall:.1f} tokens/s; "
             f"TTFT p50 {snap['ttft_p50_ms']:.3f} ms; inter-token p50 "
-            f"{snap['inter_token_p50_ms']:.3f} ms; launches {counts}; "
-            f"tensor-core and vector-kernel launches {fast}; "
-            f"greedy re-run alone identical; free_count back to "
-            f"{eng.geometry.num_pages}; {syncs}")
+            f"{snap['inter_token_p50_ms']:.3f} ms; decode graph captured "
+            f"{eng.capture_count}x, {replays} replays of "
+            f"{eng.graph_launches} launches (variants "
+            f"{eng.graph_variants}); launches in the trace {counts} (eager "
+            f"ones {eager}); tensor-core and vector-kernel launches {fast}; "
+            f"greedy re-run alone (no prefix cache) identical; {accounted}; "
+            f"{syncs}")
         return counts
     finally:
         eng.stop()
+
+
+def step_launches(torch, eng, form, n=20):
+    """Device launches and busy ms of one idle decode step (the
+    all-inactive state, which a step leaves as it was), by the profiler:
+    ``form`` "graph" replays the captured step, "eager" issues it op by
+    op."""
+    run = eng.step if form == "graph" else eng._step_eager
+    eng._idle.wait(60)
+    wall_ms, busy_ms, launches, _ = profile_window(
+        torch, lambda: [run() for _ in range(n)])
+    return launches / n, (busy_ms / n if busy_ms is not None else None)
+
+
+def wave_prompts(vocab, seed, n=16):
+    """``n`` prompts of 20-128 random tokens (the serving wave's), drawn
+    from ``seed``: a fresh seed gives prompts no page of which is in the
+    prefix cache yet."""
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, vocab, k).tolist()
+            for k in rng.randint(20, 129, n)]
+
+
+def serving_graph_phase(torch, model, card):
+    """The decode step replayed from its graph against the same engine
+    with ``_step_eager`` swapped in, paired in this run (graph, eager,
+    eager, graph), every wave on fresh prompts (all prefix-cache misses,
+    as in the serving wave) and the same prompts for both forms: the
+    serving wave's tokens/s, TTFT and inter-token p50 (a fresh metrics
+    window each), a profiled wave's busy share, and the device launches
+    of one decode step."""
+    from paddle_tpu_torch.serving import GenerationEngine
+    from paddle_tpu_torch.serving.metrics import GenerationMetrics
+
+    V = model.cfg.vocab_size
+    engines = {}
+    for form in ("graph", "eager"):
+        eng = GenerationEngine(model, device=model.device,
+                               **SERVING_ENGINE).start()
+        if form == "eager":
+            eng.step = eng._step_eager
+        serve_wave(eng, wave_prompts(V, 10, 8), 8)      # warm-up
+        engines[form] = eng
+    try:
+        rows, tokens = [], {"graph": [], "eager": []}
+        for form in ("graph", "eager", "eager", "graph"):
+            eng, rep = engines[form], len(tokens[form])
+            eng.metrics = GenerationMetrics(
+                max_slots=eng.max_slots, num_pages=eng.geometry.num_pages)
+            outs, wall = serve_wave(eng, wave_prompts(V, 20 + rep), 48)
+            tokens[form].append(outs)
+            snap = eng.metrics.snapshot()
+            if snap["prefix_cache_hits"]:
+                fail(f"serving-graph {form}: a fresh prompt hit")
+            pages_accounted(eng, f"serving-graph {form}")
+            wall_p, busy = profile_wave(torch, eng,
+                                        wave_prompts(V, 30 + rep, 8),
+                                        tag=f"[serving-graph-profile] "
+                                            f"{form}")
+            per_step, step_busy = step_launches(torch, eng, form)
+            total = sum(len(o) for o in outs)
+            rows.append(
+                f"{form}: {total / wall:.1f} tokens/s ({total} in "
+                f"{wall:.3f}s), TTFT p50 {snap['ttft_p50_ms']:.3f} ms, "
+                f"inter-token p50 {snap['inter_token_p50_ms']:.3f} ms, "
+                f"profiled wave busy "
+                + (f"{busy:.3f} of {wall_p:.3f} ms "
+                   f"({100 * busy / wall_p:.2f}%)" if busy is not None
+                   else "not measured")
+                + f", {per_step:.1f} launches an idle decode step ("
+                + (f"{step_busy:.4f} device ms" if step_busy is not None
+                   else "device ms not measured") + ")")
+        # one model, the same prompts, one seed a sampled request: the
+        # graph's tokens are bitwise the eager step's, greedy (even
+        # requests) and sampled (odd)
+        for rep in range(2):
+            a, b = tokens["graph"][rep], tokens["eager"][rep]
+            diff = [i for i in range(len(a)) if a[i] != b[i]]
+            if diff:
+                fail(f"serving-graph: requests {diff} of wave {rep} differ "
+                     "between the graph and the eager step")
+        if engines["eager"].replays or engines["graph"].capture_count != 1:
+            fail("serving-graph: the eager engine replayed or the graph "
+                 "engine captured again")
+        log(f"[serving-graph] 16 requests (prompts 20-128, 48 new tokens, "
+            f"greedy/sampled alternating) on {card}, paired in this run: "
+            + "; ".join(rows)
+            + "; greedy and sampled tokens of graph and eager identical")
+    finally:
+        for eng in engines.values():
+            eng.stop()
+
+
+def prefix_phase(torch, model, card):
+    """The prefix cache at the reference's defaults: 16 requests whose
+    prompts share a 64-token prefix (4 pages of 16) followed by 20-64
+    distinct tokens, 48 new tokens each; then TTFT of 8 hits and 8
+    misses, one request at a time (a fresh metrics window each); then the
+    first-token logits of a hit
+    (``slot_prefill_prefix`` over the miss's prefix K/V) against the
+    miss's ``slot_prefill``, within BF16_TOL."""
+    from paddle_tpu_torch.serving import GenerationEngine
+    from paddle_tpu_torch.serving.metrics import GenerationMetrics
+
+    V = model.cfg.vocab_size
+    rng = np.random.RandomState(5)
+    shared = rng.randint(0, V, 64).tolist()
+    prompts = [shared + rng.randint(0, V, n).tolist()
+               for n in rng.randint(20, 65, 16)]
+    eng = GenerationEngine(model, device=model.device,
+                           **SERVING_ENGINE).start()
+    try:
+        graph_check(eng, "prefix")
+        outs, wall = serve_wave(eng, prompts, 48)
+        snap = eng.metrics.snapshot()
+        if snap["prefix_cache_hits"] != 15 or snap["prefix_cache_misses"] \
+                != 1:
+            fail(f"prefix wave: {snap['prefix_cache_hits']} hits, "
+                 f"{snap['prefix_cache_misses']} misses (expected 15, 1)")
+        if any(len(o) != 48 for o in outs):
+            fail("prefix wave: a request did not give 48 tokens")
+        ttft = {}
+        for kind in ("miss", "hit"):
+            ms = []
+            for _ in range(8):
+                head = shared if kind == "hit" else \
+                    rng.randint(0, V, 64).tolist()
+                eng.metrics = GenerationMetrics(
+                    max_slots=eng.max_slots,
+                    num_pages=eng.geometry.num_pages)
+                eng.generate(head + rng.randint(0, V, 40).tolist(), 8,
+                             timeout=600)
+                one = eng.metrics.snapshot()
+                if bool(one["prefix_cache_hits"]) != (kind == "hit"):
+                    fail(f"prefix TTFT: a {kind} request counted "
+                         f"{one['prefix_cache_hits']} hits")
+                ms.append(one["ttft_p50_ms"])
+            ttft[kind] = float(np.median(ms))
+        accounted = pages_accounted(eng, "prefix wave")
+    finally:
+        eng.stop()
+    # first-token logits of a hit against the miss's, bf16
+    p = prompts[0]
+    L = len(p)
+    ids = torch.zeros((1, 128), dtype=torch.long, device=model.device)
+    ids[0, :L] = torch.tensor(p)
+    k, v, ref = model.slot_prefill(ids, L)
+    suf = torch.zeros((1, 64), dtype=torch.long, device=model.device)
+    suf[0, :L - 64] = torch.tensor(p[64:])
+    _, _, got = model.slot_prefill_prefix(suf, k[:, :64], v[:, :64], 64, L)
+    err = (got.float() - ref.float()).abs().max().item()
+    tol = BF16_TOL * max(1.0, ref.float().abs().max().item())
+    if not math.isfinite(err) or err > tol:
+        fail(f"prefix: first-token logits of a hit differ from the miss's "
+             f"by {err:.3e} > {tol:.3e}")
+    log(f"[prefix] 16 requests sharing a 64-token prefix (+20-64 tokens, "
+        f"48 new) on {card}: hit ratio {snap['prefix_cache_hit_ratio']:.4f}"
+        f" ({snap['prefix_cache_hits']} hits, "
+        f"{snap['prefix_cache_misses']} miss), "
+        f"{sum(map(len, outs)) / wall:.1f} tokens/s, wave TTFT p50 "
+        f"{snap['ttft_p50_ms']:.3f} ms; one at a time (104 prompt tokens):"
+        f" TTFT p50 hit {ttft['hit']:.3f} ms, miss {ttft['miss']:.3f} ms; "
+        f"bf16 first-token logits hit vs miss max|d| {err:.3e} (tol "
+        f"{tol:.3e}); {accounted}")
+
+
+def f32_prefix_chunk_phase(torch, model, card):
+    """Full-width float32 (summation order is the only difference, so
+    greedy tokens are comparable): a prefix hit's greedy tokens equal
+    the miss's, and chunked prefill (prompts of 65-128 tokens,
+    prefill_chunk=32, buckets 32, 64 and 128) gives the unchunked
+    engine's greedy tokens."""
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    V = model.cfg.vocab_size
+    rng = np.random.RandomState(6)
+    kw = dict(max_slots=8, max_seq_len=256, page_size=16, device=model.device)
+    eng = GenerationEngine(model, prompt_buckets="64,128", **kw).start()
+    try:
+        shared = rng.randint(0, V, 64).tolist()
+        tails = [rng.randint(0, V, n).tolist() for n in (20, 40, 64)]
+        miss = [eng.generate(shared + tails[0], 48, timeout=600)]
+        hits = [eng.generate(shared + t, 48, timeout=600) for t in tails]
+        snap = eng.metrics.snapshot()
+        if snap["prefix_cache_hits"] != 3:
+            fail(f"f32 prefix: {snap['prefix_cache_hits']} hits, not 3")
+        ref = GenerationEngine(model, prompt_buckets="64,128",
+                               prefix_cache=False, **kw).start()
+        try:
+            cold = [ref.generate(shared + t, 48, timeout=600)
+                    for t in tails]
+        finally:
+            ref.stop()
+        if hits[0] != miss[0] or hits != cold:
+            fail("f32 prefix: a hit's greedy tokens differ from the miss's")
+    finally:
+        eng.stop()
+    prompts = [rng.randint(0, V, n).tolist()
+               for n in rng.randint(65, 129, 8)]
+    outs, walls, chunks = {}, {}, 0
+    for form, chunk in (("chunked", 32), ("unchunked", 0)):
+        e = GenerationEngine(model, prompt_buckets="32,64,128",
+                             prefill_chunk=chunk, **kw).start()
+        try:
+            outs[form], walls[form] = serve_wave(e, prompts, 24,
+                                                 sampled=False)
+            if form == "chunked":
+                chunks = e.metrics.snapshot()["prefill_chunks"]
+                graph_check(e, "chunked")
+        finally:
+            e.stop()
+    if outs["chunked"] != outs["unchunked"]:
+        fail("chunked prefill: greedy tokens differ from the unchunked "
+             "engine's")
+    if chunks < sum(-(-len(p) // 32) for p in prompts):
+        fail(f"chunked prefill ran {chunks} chunks")
+    log(f"[prefix-f32] full-width float32 on {card}: 3 hits on a 64-token "
+        f"prefix (+20/40/64 tokens, 48 greedy tokens) identical to the "
+        f"miss and to a prefix-free engine")
+    log(f"[chunked] full-width float32 on {card}: 8 prompts of "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))} tokens, 24 "
+        f"greedy tokens each, prefill_chunk=32, buckets 32/64/128: "
+        f"{chunks} chunks, tokens identical to the unchunked engine's; "
+        f"wave {walls['chunked']:.3f}s chunked, {walls['unchunked']:.3f}s "
+        f"unchunked")
 
 
 def train_parity_phase(torch, K, cfg):
@@ -1983,9 +2338,13 @@ def main():
     model_cpu.eval()
     logits_phase(torch, model, model_cpu)
     del model_cpu
+    f32_prefix_chunk_phase(torch, model, card)
+    release(torch, "GPT bf16 serving")
 
     model.to(dtype=torch.bfloat16)
     serve_counts = serving_phase(torch, K, model, card)
+    serving_graph_phase(torch, model, card)
+    prefix_phase(torch, model, card)
     torch.cuda.synchronize()
     del model
     release(torch, "GPT training")

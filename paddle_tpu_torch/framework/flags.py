@@ -48,3 +48,12 @@ define_flag("FLAGS_genserve_page_size", 16,
 define_flag("FLAGS_genserve_num_pages", 0,
             "KV page-pool capacity; 0 sizes it dense-equivalently "
             "(max_slots * ceil(max_seq_len / page_size))")
+define_flag("FLAGS_genserve_prefix_cache", 1,
+            "1 shares identical tokenized prompt prefixes as refcounted "
+            "read-only KV pages (hits skip prefill for shared pages); "
+            "0 disables sharing")
+define_flag("FLAGS_genserve_prefill_chunk", 0,
+            "chunked-prefill slice length in tokens (page_size multiple, "
+            "<= largest prompt bucket); prompts whose un-shared suffix "
+            "exceeds it prefill one chunk per decode iteration instead of "
+            "stalling every lane; 0 disables chunking")

@@ -7,7 +7,9 @@ through the causal flash-attention kernels, forward and backward) and
 kernels), ``GPTBlock``, ``GPTModel`` and ``GPTForCausalLM`` with
 ``forward`` (with labels: through the softmax cross-entropy kernels), the
 training ``loss`` (the chunked fused LM-head cross entropy), ``_head``,
-``slot_prefill`` and ``slot_decode_paged``.  Parameter names equal the
+``slot_prefill``, ``slot_prefill_prefix`` (a prefix-cache hit or a prefill
+chunk: the suffix attends over gathered prefix K/V) and
+``slot_decode_paged``.  Parameter names equal the
 reference's (``gpt.h_0.attn.qkv.weight`` ...), so weights carry over by
 name (models/convert.py).  In training, ``attn_dropout`` drops the
 attention weights inside the flash-attention kernels and ``dropout`` the
@@ -133,6 +135,51 @@ class GPTAttention(Layer):
         out = self.out(ctx.reshape(B, 1, cfg.hidden_size))
         return out, k_pages, v_pages
 
+    def prefill_prefix(self, x, prefix_k, prefix_v, prefix_len, bias=None):
+        """Suffix-only prefill attending over a cached prefix: queries
+        are the suffix tokens (absolute positions ``prefix_len + i``),
+        keys are [prefix ++ suffix] with the prefix entries valid below
+        ``prefix_len`` and the suffix causal.
+
+        x: [1, Ss, H] suffix hidden; prefix_k/prefix_v: [C, nh, hd]
+        gathered prefix K/V (entries >= prefix_len are garbage the mask
+        hides); prefix_len: host int; bias: :func:`prefix_bias` of these
+        shapes (made here when None; a model passes one to every layer).
+        Returns (out, k_suf, v_suf), k_suf and v_suf [1, Ss, nh, hd].  The
+        reference computes this with an explicit softmax (no
+        ``pallas_call``); so does the port, in float32 whatever the
+        model's dtype, which keeps a bf16 hit close to the flash kernel's
+        float32 softmax on a miss."""
+        cfg = self.cfg
+        S = x.shape[1]
+        nh, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+        qkv = self.qkv(x).reshape(1, S, 3, nh, hd)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if bias is None:
+            bias = prefix_bias(S, prefix_k.shape[0], prefix_len, x.device)
+        # [nh, tokens, hd] in float32
+        qh = q[0].transpose(0, 1).float()
+        kh = torch.cat([prefix_k.to(k.dtype), k[0]]).transpose(0, 1).float()
+        vh = torch.cat([prefix_v.to(v.dtype), v[0]]).transpose(0, 1).float()
+        scores = torch.baddbmm(bias, qh, kh.transpose(1, 2),
+                               alpha=1.0 / float(hd) ** 0.5)
+        ctx = torch.bmm(torch.softmax(scores, dim=-1), vh)   # [nh, Ss, hd]
+        ctx = ctx.transpose(0, 1).reshape(1, S, cfg.hidden_size)
+        out = self.dropout(self.out(ctx.to(x.dtype)))
+        return out, k, v
+
+
+def prefix_bias(S: int, C: int, prefix_len: int, device):
+    """The additive mask of a suffix prefill, float32 [S, C + S]: 0 where
+    suffix query i sees key j (a prefix key below ``prefix_len``, or a
+    suffix key at or before i), -inf elsewhere.  Every row sees its own
+    key, so no row is masked everywhere."""
+    i = torch.arange(S, device=device)[:, None]
+    j = torch.arange(C + S, device=device)[None, :]
+    ok = (j < int(prefix_len)) | ((j >= C) & (j - C <= i))
+    return torch.zeros(ok.shape, device=device).masked_fill_(
+        ~ok, float("-inf"))
+
 
 class GPTMLP(Layer):
     def __init__(self, cfg: GPTConfig):
@@ -171,6 +218,13 @@ class GPTBlock(Layer):
         x = x + a
         x = x + self.mlp(self.ln_2(x))
         return x, k_pages, v_pages
+
+    def prefill_prefix(self, x, prefix_k, prefix_v, prefix_len, bias=None):
+        a, k, v = self.attn.prefill_prefix(self.ln_1(x), prefix_k, prefix_v,
+                                           prefix_len, bias)
+        x = x + a
+        x = x + self.mlp(self.ln_2(x))
+        return x, k, v
 
 
 class GPTModel(Layer):
@@ -273,6 +327,44 @@ class GPTForCausalLM(Layer):
             vs.append(v[0])
         hidden = gpt.ln_f(x)                         # [1, Sp, H]
         logits = self._head(hidden[:, length - 1:length])
+        return torch.stack(ks), torch.stack(vs), logits[0, 0]
+
+    @torch.no_grad()
+    def slot_prefill_prefix(self, input_ids, prefix_k, prefix_v, prefix_len,
+                            length):
+        """Prefix-cache-hit (or prefill-chunk) prefill: run ONLY the
+        prompt's suffix through the model, attending over the cached
+        prefix K/V; the shared pages are never recomputed.
+
+        input_ids [1, Ss]: the suffix tokens (absolute positions
+        ``prefix_len ..``) right-padded to the suffix bucket;
+        prefix_k/prefix_v [layers, C, nh, hd]: prefix K/V gathered from
+        the page pool (entries >= prefix_len are garbage the mask hides);
+        ``prefix_len`` the shared prefix's length and ``length`` the
+        prompt's length so far, host ints.  Returns (k_suf [layers, Ss,
+        nh, hd], v_suf, logits [V] at suffix index length - prefix_len -
+        1).  Token- (not bitwise-) equivalent to ``slot_prefill`` of the
+        whole prompt: the explicit softmax sums in another order than the
+        flash kernel."""
+        self._check_eval()
+        gpt, cfg = self.gpt, self.cfg
+        prefix_len, length = int(prefix_len), int(length)
+        S = input_ids.shape[1]
+        # the padded tail may run past max_position_embeddings: clip it
+        # into the table (rows the causal mask and the slice never read)
+        pos = (prefix_len + torch.arange(S, device=input_ids.device)).clamp(
+            0, cfg.max_position_embeddings - 1)
+        x = gpt.drop(gpt.wte(input_ids) + gpt.wpe(pos))
+        bias = prefix_bias(S, prefix_k.shape[1], prefix_len, x.device)
+        ks, vs = [], []
+        for i, blk in enumerate(gpt.h):
+            x, k, v = blk.prefill_prefix(x, prefix_k[i], prefix_v[i],
+                                         prefix_len, bias)
+            ks.append(k[0])
+            vs.append(v[0])
+        last = length - prefix_len - 1
+        hidden = gpt.ln_f(x[:, last:last + 1])        # [1, 1, H]
+        logits = self._head(hidden)
         return torch.stack(ks), torch.stack(vs), logits[0, 0]
 
     @torch.no_grad()

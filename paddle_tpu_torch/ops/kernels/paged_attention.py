@@ -22,6 +22,8 @@ The wrapper allocates the split kernel's float32 partials with
 ``torch.empty`` each call and keeps its int32 arrival counters, zeroed
 once, per device: the kernel leaves them 0, so launches on one device
 must follow each other in stream order (as every path of the port does).
+A buffer that a larger call replaces is kept alive: a captured CUDA graph
+(the serving engine's decode step) still launches on it.
 
 A CPU tensor takes :func:`paged_decode_attention_plain`; a CUDA tensor
 launches a kernel or raises.
@@ -42,6 +44,7 @@ _ARGTYPES = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong) \
     + (ctypes.c_int,) * 7 + (ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
 _SCRATCH_ARGTYPES = (ctypes.c_int,) * 5
 _arrivals = {}      # device index -> int32 arrival counters, all 0
+_replaced = []      # smaller counters a captured graph may still use
 
 
 def _arrival_counters(device, n):
@@ -49,6 +52,8 @@ def _arrival_counters(device, n):
     (the kernel sets each back to 0 after it merges)."""
     buf = _arrivals.get(device.index)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _replaced.append(buf)
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _arrivals[device.index] = buf
     return buf

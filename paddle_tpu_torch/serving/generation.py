@@ -1,5 +1,5 @@
 """Continuous-batching autoregressive generation engine over a paged KV
-cache (port of paddle_tpu/serving/generation.py, the prefix-miss path).
+cache (port of paddle_tpu/serving/generation.py).
 
 * **prefill/decode split** — each admitted prompt runs ONE
   ``slot_prefill`` (padded to its prompt bucket) that fills freshly mapped
@@ -14,24 +14,41 @@ cache (port of paddle_tpu/serving/generation.py, the prefix-miss path).
   The decode step always runs all ``max_slots`` lanes, so a lane's
   arithmetic does not depend on which other lanes are live: a request
   admitted mid-decode produces the tokens it would alone.
-* **in place, one copy per step** — the reference AOT-compiles every
-  transition and donates the decode state; PyTorch runs eagerly, so the
-  state tensors are allocated once at ``start()`` and updated in place
-  (serving/kv_cache.py).  Each ``step()`` ends in ONE device-to-host copy
+* **prefix sharing** (``FLAGS_genserve_prefix_cache``, on by default) —
+  identical page-aligned prompt prefixes occupy the pool once
+  (serving/prefix_cache.py): a hit maps the cached read-only pages into
+  the slot's page table and prefills only the suffix through
+  ``slot_prefill_prefix``, attending over the cached prefix K/V.
+* **chunked prefill** (``FLAGS_genserve_prefill_chunk``) — a prompt whose
+  unshared suffix is longer than the chunk streams into its pages one
+  chunk per loop iteration, each followed by a decode step of the armed
+  lanes, so a long prompt does not stall the streams in flight.
+* **the decode step as one CUDA graph** — the reference AOT-compiles its
+  decode step at ``start()`` and calls the executable afterwards; on a
+  CUDA device ``start()`` captures the step once (after one warm-up step
+  on a side stream, on the all-inactive state) and ``step()`` replays it.
+  The state tensors are allocated before the capture and only ever
+  written in place, by the replays and by the eager admission, chunk,
+  release and reclaim transitions between them, on the same stream.  A
+  failed capture raises at ``start()``; there is no eager fallback on the
+  card.  The CPU runs the same step eagerly (``_step_eager``).
+* **one copy per step** — each ``step()`` ends in ONE device-to-host copy
   of the sampled tokens and the finished mask together; admission fetches
-  the first token.  No per-lane ``.item()``.
+  the first token (with the page-table row when the prefix cache is on).
 
 Sampling is greedy (argmax of the raw logits) or temperature / top-k
 categorical.  JAX's per-slot threefry chain cannot be reproduced in
 PyTorch: each request draws from its own ``torch.Generator`` on the
 engine's device, seeded from the request's seed, once at admission and
 once per decode step — deterministic per seed and independent of batch
-mates.  Top-k keeps the reference's ``lg2 < kth`` rule, so ties at the
-k-th value survive.
+mates.  The decode graph always takes the sampling form and reads its
+Gumbel noise from a static buffer that the host fills before a replay in
+which some lane samples; greedy lanes take the argmax through the same
+``where``, so their tokens do not depend on the noise.  Top-k keeps the
+reference's ``lg2 < kth`` rule, so ties at the k-th value survive.
 
-Not ported yet (ROADMAP.md): the prefix cache, speculative decode,
-chunked prefill, tensor-parallel serving, tracing spans, ``op_report``
-and ``resume_pos`` failover.
+Not ported yet (ROADMAP.md): speculative decode, tensor-parallel serving,
+tracing spans, ``op_report`` and ``resume_pos`` failover.
 """
 from __future__ import annotations
 
@@ -47,10 +64,12 @@ import torch
 from ..framework import flags as _flags
 from ..framework.place import resolve_device
 from ..framework.random import make_generator
+from ..ops import kernels
 from .engine import DeadlineExceededError, EngineStoppedError, QueueFullError
-from .kv_cache import (CacheGeometry, admit_slot, make_state, release_slots,
-                       take_pages, write_prompt)
+from .kv_cache import (CacheGeometry, admit_slot, make_state, reclaim_pages,
+                       release_slots, take_pages, write_prompt)
 from .metrics import GenerationMetrics
+from .prefix_cache import PrefixCache
 from .scheduler import SlotScheduler
 
 logger = logging.getLogger("paddle_tpu_torch.serving")
@@ -141,7 +160,8 @@ class _GenRequest:
     __slots__ = ("prompt", "bucket", "max_new_tokens", "do_sample",
                  "temperature", "top_k", "seed", "eos", "deadline",
                  "handle", "engine", "cancelled", "t_last_token",
-                 "generator")
+                 "generator", "prefilling", "prefill_cursor", "chunk_row",
+                 "j_hit", "pin_final")
 
     def __init__(self, engine, prompt, bucket, max_new_tokens, do_sample,
                  temperature, top_k, seed, eos, deadline):
@@ -157,7 +177,12 @@ class _GenRequest:
         self.deadline = deadline           # absolute monotonic or None
         self.cancelled = False
         self.t_last_token = None
-        self.generator = None              # set at admission
+        self.generator = None              # set when the lane is armed
+        self.prefilling = False            # chunked prefill in flight
+        self.prefill_cursor = 0            # tokens already prefilled
+        self.chunk_row = None              # the slot's page row (device)
+        self.j_hit = 0                     # prefix-cache pages mapped
+        self.pin_final = 0                 # pinned count once armed
         self.handle = GenerationHandle(len(prompt), max_new_tokens)
         self.handle._req = self
 
@@ -186,23 +211,51 @@ class GenerationEngine:
 
     Args:
       model: a causal LM exposing ``slot_prefill`` / ``slot_decode_paged``
-        and a ``cfg`` (models/gpt.py GPTForCausalLM), on ``device``.
+        (and ``slot_prefill_prefix`` when the prefix cache or chunked
+        prefill is on) and a ``cfg`` (models/gpt.py GPTForCausalLM), on
+        ``device``.
       max_slots, max_seq_len, prompt_buckets, queue_depth, page_size,
         num_pages: as in the reference (``FLAGS_genserve_*`` defaults).
       max_top_k: largest per-request top_k accepted.
+      prefix_cache: share identical page-aligned prompt prefixes as
+        refcounted read-only pages (``FLAGS_genserve_prefix_cache``,
+        default on); hits prefill only the suffix.
+      prefill_chunk: tokens per prefill chunk, a multiple of page_size
+        and at most the largest bucket (``FLAGS_genserve_prefill_chunk``;
+        0 prefills whole prompts).
       device: where the engine runs; None means the CUDA card (raises
         where there is none).  The model's parameters must live there.
 
-    Lifecycle: ``start()`` allocates the decode state and starts the
-    decode thread, ``submit()`` returns a streaming
-    :class:`GenerationHandle`, ``drain()`` finishes in-flight decodes and
-    rejects new work, ``stop()`` kills the loop.
+    Lifecycle: ``start()`` allocates the decode state, captures the
+    decode step on a CUDA device and starts the decode thread,
+    ``submit()`` returns a streaming :class:`GenerationHandle`,
+    ``drain()`` finishes in-flight decodes and rejects new work,
+    ``stop()`` kills the loop.  The model's parameters must not be
+    replaced or moved after ``start()``: the captured step reads them
+    where they were.
+
+    Capture bookkeeping: ``capture_count`` (captures made, 1 after
+    ``start()`` on a CUDA device), ``replays`` (decode steps replayed),
+    ``graph_launches`` (kernel wrapper name -> launches in one replay, as
+    the wrappers counted them while the step was captured: a replay runs
+    the kernels again without passing through the wrappers) and
+    ``graph_variants`` (kernel -> {variant: launches in one replay}).
     """
 
     def __init__(self, model, *, max_slots=None, max_seq_len=None,
                  prompt_buckets=None, queue_depth=None, max_top_k=64,
-                 page_size=None, num_pages=None, device=None):
-        for req_attr in ("slot_prefill", "slot_decode_paged", "cfg"):
+                 page_size=None, num_pages=None, prefix_cache=None,
+                 prefill_chunk=None, device=None):
+        if prefix_cache is None:
+            prefix_cache = bool(int(
+                _flags.flag("FLAGS_genserve_prefix_cache", 1)))
+        if prefill_chunk is None:
+            prefill_chunk = int(
+                _flags.flag("FLAGS_genserve_prefill_chunk", 0))
+        needs = ["slot_prefill", "slot_decode_paged", "cfg"]
+        if prefix_cache or prefill_chunk:
+            needs.append("slot_prefill_prefix")
+        for req_attr in needs:
             if not hasattr(model, req_attr):
                 raise TypeError(
                     f"GenerationEngine needs a model with `{req_attr}` "
@@ -244,6 +297,17 @@ class GenerationEngine:
                         or _flags.flag("FLAGS_genserve_page_size", 16))
         if num_pages is None:
             num_pages = int(_flags.flag("FLAGS_genserve_num_pages", 0))
+        self.prefill_chunk = int(prefill_chunk)
+        if self.prefill_chunk:
+            if self.prefill_chunk % page_size:
+                raise ValueError(
+                    f"prefill_chunk {self.prefill_chunk} must be a "
+                    f"multiple of page_size {page_size} (chunk cursors "
+                    "resume at page boundaries)")
+            if self.prefill_chunk > self.prompt_buckets[-1]:
+                raise ValueError(
+                    f"prefill_chunk {self.prefill_chunk} exceeds the "
+                    f"largest prompt bucket {self.prompt_buckets[-1]}")
         self.geometry = CacheGeometry(
             num_layers=cfg.num_layers, max_slots=self.max_slots,
             max_seq_len=self.max_seq_len, num_heads=cfg.num_heads,
@@ -252,6 +316,8 @@ class GenerationEngine:
             num_pages=int(num_pages), dtype=param.dtype)
         self.metrics = GenerationMetrics(
             max_slots=self.max_slots, num_pages=self.geometry.num_pages)
+        self._prefix = PrefixCache(page_size) if prefix_cache else None
+        self._slot_pins: dict[int, list] = {}   # slot -> pinned page ids
         self._queue: queue.Queue = queue.Queue(self.queue_depth)
         self._backlog: collections.deque = collections.deque()
         self._sched = SlotScheduler(self.max_slots,
@@ -264,31 +330,89 @@ class GenerationEngine:
         self._idle.set()
         self._state = None
         self._lane = None
+        self._noise = None       # [max_slots, V] Gumbel rows the graph reads
+        self._out = None         # [2, max_slots] int32: tokens, finished
+        self._graph = None
+        self.capture_count = 0
+        self.replays = 0
+        self.graph_launches: dict[str, int] = {}
+        self.graph_variants: dict[str, dict] = {}
 
-    # -- warmup: allocate the decode state ---------------------------------
+    # -- warmup: allocate the decode state, capture the step ---------------
     def start(self) -> "GenerationEngine":
         if self._started:
             return self
         self.model.eval()
         geom = self.geometry
-        self._state = make_state(geom, self.device)
-        self._lane = torch.arange(self.max_slots, device=self.device)
+        dev = self.device
+        self._state = make_state(geom, dev)
+        self._lane = torch.arange(self.max_slots, device=dev)
+        self._noise = torch.zeros((self.max_slots, geom.vocab_size),
+                                  dtype=torch.float32, device=dev)
+        self._out = torch.zeros((2, self.max_slots), dtype=torch.int32,
+                                device=dev)
+        if dev.type == "cuda":
+            with torch.no_grad():
+                self._capture()
         logger.info(
             "generation engine on %s: slots=%d S_max=%d prompt buckets=%s "
-            "pages=%dx%d cache=%.1f MB", self.device, self.max_slots,
+            "pages=%dx%d cache=%.1f MB prefix cache=%s prefill chunk=%d "
+            "decode graph launches=%s", dev, self.max_slots,
             self.max_seq_len, self.prompt_buckets, geom.num_pages,
-            geom.page_size, geom.kv_bytes() / 1048576)
+            geom.page_size, geom.kv_bytes() / 1048576,
+            self._prefix is not None, self.prefill_chunk,
+            self.graph_launches)
         self._started = True
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="paddle-genserve-decode")
         self._thread.start()
         return self
 
+    def _capture(self):
+        """Capture the decode step into one CUDA graph.  A warm-up step
+        runs first on a side stream, so that the kernel libraries load,
+        the paged decode kernel's arrival counters and cuBLAS's workspace
+        are allocated and every lazy choice is made outside the capture.
+        Both run on the all-inactive state, which a step leaves as it
+        was; any change to the state raises, as does a capture that
+        fails (an op that syncs or allocates on the host)."""
+        st, dev = self._state, self.device
+        before = {k: t.clone() for k, t in st.items()}
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._graph_step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        counts, variants = kernels.launch_counts(), kernels.variant_launches()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self._graph_step()
+        after = kernels.variant_launches()
+        self.graph_launches = {n: c - counts[n] for n, c in
+                               kernels.launch_counts().items()
+                               if c != counts[n]}
+        self.graph_variants = {
+            n: {v: c - variants[n][v] for v, c in vs.items()}
+            for n, vs in after.items() if vs != variants[n]}
+        changed = [k for k, t in st.items() if not torch.equal(t, before[k])]
+        if changed:
+            raise RuntimeError(f"the decode step's warm-up and capture "
+                               f"changed the idle state: {changed}")
+        self._graph = graph
+        self.capture_count += 1
+
     @property
     def free_count(self) -> int:
         """Pages on the device free list (a device sync; for tests and
         diagnostics, not the decode loop)."""
         return int(self._state["free_count"])
+
+    @property
+    def resident_pages(self) -> int:
+        """Pages the prefix cache holds resident (0 without one): idle,
+        ``free_count + resident_pages == num_pages``."""
+        return self._prefix.resident_pages if self._prefix is not None \
+            else 0
 
     # -- request intake ----------------------------------------------------
     def _bucket_for(self, n: int) -> int:
@@ -389,10 +513,16 @@ class GenerationEngine:
             self._preempt_swept()
             occupied = self._sched.occupied
             self.metrics.set_occupancy(len(occupied))
-            self.metrics.set_page_occupancy(self._sched.pages_reserved)
+            self.metrics.set_page_occupancy(
+                self.geometry.num_pages - self._sched.pages_available)
             if occupied and not self._stopped:
-                toks, fin = self.step()
-                self._distribute(toks, fin)
+                # at most ONE prefill chunk per iteration, then a decode
+                # step for the armed lanes: a long prompt streams in
+                # without stalling the streams in flight
+                self._advance_chunk()
+                if len(self._sched.occupied) > self._sched.prefilling():
+                    toks, fin = self.step()
+                    self._distribute(toks, fin)
                 continue
             if self._queue.empty() and not self._backlog:
                 self._idle.set()
@@ -432,19 +562,51 @@ class GenerationEngine:
                 keep.append(req)
         self._backlog = keep
 
+    def _lookup(self, req):
+        """(shared pages, their ids, pages to reserve) of the backlog
+        head: a prefix-cache hit maps its shared pages and reserves the
+        rest of its worst case."""
+        j_hit, shared = (self._prefix.lookup(req.prompt)
+                         if self._prefix is not None else (0, ()))
+        need = self.geometry.pages_for(
+            len(req.prompt) + req.max_new_tokens) - j_hit
+        return j_hit, shared, need
+
     def _admit_ready(self):
         while self._backlog and not self._stopped:
             req = self._backlog[0]
-            need = self.geometry.pages_for(
-                len(req.prompt) + req.max_new_tokens)
+            j_hit, shared, need = self._lookup(req)
             if not self._sched.can_admit(need):
-                # no free lane, or the pool cannot reserve the worst case:
-                # FIFO head-of-line wait until a retirement frees some
-                break
+                # pool pressure: when a lane is free and idle prefix-cache
+                # residents exhaust the pool, evict LRU entries until the
+                # head's reservation fits; else distinct prompts park
+                # one-reader prefixes over the pool and the backlog never
+                # drains.  The lookup is made again: eviction may have
+                # dropped the entry the head hit.
+                if (self._prefix is not None and self._sched.has_free()
+                        and len(self._prefix)
+                        and need > self._sched.pages_available):
+                    short = need - self._sched.pages_available
+                    self._reclaim(self._prefix.evict_idle(short))
+                    self._sched.set_shared_resident(
+                        self._prefix.resident_pages)
+                    j_hit, shared, need = self._lookup(req)
+                if not self._sched.can_admit(need):
+                    # no free lane, or the pool cannot reserve the worst
+                    # case: FIFO head-of-line wait until a retirement
+                    # frees some
+                    break
             self._backlog.popleft()
             slot = self._sched.admit(req, n_pages=need)
             try:
-                self._admit(req, slot)
+                if self._prefix is not None:
+                    self.metrics.count_prefix(hit=j_hit > 0)
+                suffix_len = len(req.prompt) \
+                    - j_hit * self.geometry.page_size
+                if self.prefill_chunk and suffix_len > self.prefill_chunk:
+                    self._admit_chunked(req, slot, j_hit, shared)
+                else:
+                    self._admit(req, slot, j_hit, shared)
             except Exception as e:  # noqa: BLE001 - fail THIS request,
                 # keep the decode loop alive for the others
                 logger.exception("generation admission failed")
@@ -452,6 +614,22 @@ class GenerationEngine:
                 self._release([slot])
                 self._host_retire(slot)
                 req.handle._finish(e)
+
+    def _upload(self, a: np.ndarray):
+        """A host array on the engine's device.  On the card it is copied
+        from pinned memory without blocking the host (a copy from
+        pageable memory waits for the stream)."""
+        t = torch.from_numpy(a)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _shared_row(self, shared, j_hit: int):
+        """The slot's table row as far as it is shared: ``shared[:j_hit]``
+        then -1, on the device."""
+        row = np.full((self.geometry.pages_per_slot,), -1, np.int32)
+        row[:j_hit] = shared[:j_hit]
+        return self._upload(row)
 
     def _gumbel(self, reqs):
         """Standard Gumbel noise [len(reqs), V], one row drawn from each
@@ -473,29 +651,90 @@ class GenerationEngine:
         u = torch.stack(rows)
         return -torch.log(-torch.log(u.clamp_min(tiny)))
 
-    def _admit(self, req: _GenRequest, slot: int):
-        """Prefill + insert: fill the slot's freshly mapped pages and arm
-        the lane with its first sampled token — the request joins the
-        in-flight batch at this iteration boundary."""
-        L = len(req.prompt)
+    def _first_token(self, req, logits):
+        """Arm the request's generator and sample its first token from
+        the prefill logits [V] (a 0-d device tensor)."""
         dev = self.device
-        ids = np.zeros((1, req.bucket), np.int64)
-        ids[0, :L] = req.prompt
-        k_new, v_new, logits = self.model.slot_prefill(
-            torch.from_numpy(ids).to(dev), L)
-        write_prompt(self._state, slot, k_new, v_new, L)
         req.generator = make_generator(req.seed, dev)
         noise = self._gumbel([req]) if req.do_sample else None
         # fill kernels, not host-to-device copies (each of which syncs)
-        tok1 = sample_tokens(
+        return sample_tokens(
             logits[None], torch.full((1,), req.do_sample, device=dev),
             torch.full((1,), req.temperature, device=dev),
             torch.full((1,), req.top_k, device=dev), noise,
             min(self.max_top_k, self.geometry.vocab_size))[0]
-        admit_slot(self._state, slot, tok1, L, req.do_sample,
-                   req.temperature, req.top_k, L + req.max_new_tokens,
-                   req.eos)
-        t1 = int(tok1)      # the admission's one device-to-host copy
+
+    def _suffix_prefill(self, tokens, shared_row, shared_n: int,
+                        length: int):
+        """Prefill ``tokens`` (the prompt from page ``shared_n`` on, up to
+        ``length``) over the ``shared_n`` resident pages of
+        ``shared_row``: the prefix K/V is gathered from the pool and only
+        the suffix runs through the model.  Returns (k, v, logits)."""
+        geom = self.geometry
+        ps = geom.page_size
+        ids = np.zeros((1, self._bucket_for(len(tokens))), np.int64)
+        ids[0, :len(tokens)] = tokens
+        idx = shared_row[:shared_n].long()
+        shape = (geom.num_layers, shared_n * ps, geom.num_heads,
+                 geom.head_dim)
+        pk = self._state["kp"][:, idx].reshape(shape)
+        pv = self._state["vp"][:, idx].reshape(shape)
+        return self.model.slot_prefill_prefix(self._upload(ids), pk, pv,
+                                              shared_n * ps, length)
+
+    def _admit(self, req: _GenRequest, slot: int, j_hit: int, shared):
+        """Prefill + insert: map the slot's pages (the cached prefix
+        pages on a hit, prefilling only the suffix) and arm the lane with
+        its first sampled token — the request joins the in-flight batch
+        at this iteration boundary."""
+        st = self._state
+        L = len(req.prompt)
+        j_reg = (self._prefix.shareable_pages(L)
+                 if self._prefix is not None else 0)
+        # a failure before the lane is armed releases its private pages
+        st["pinned"][slot] = j_hit
+        if j_hit > 0:
+            shared_row = self._shared_row(shared, j_hit)
+            k_new, v_new, logits = self._suffix_prefill(
+                req.prompt[j_hit * self.geometry.page_size:], shared_row,
+                j_hit, L)
+            row = write_prompt(st, slot, k_new, v_new, L, shared_row, j_hit)
+        else:
+            ids = np.zeros((1, req.bucket), np.int64)
+            ids[0, :L] = req.prompt
+            k_new, v_new, logits = self.model.slot_prefill(
+                self._upload(ids), L)
+            row = write_prompt(st, slot, k_new, v_new, L)
+        tok1 = self._first_token(req, logits)
+        pinned = max(j_hit, j_reg)
+        admit_slot(st, slot, tok1, L, req.do_sample, req.temperature,
+                   req.top_k, L + req.max_new_tokens, req.eos, pinned)
+        self._deliver_first(req, slot,
+                            self._fetch_first(req, slot, tok1, row, j_hit,
+                                              pinned))
+
+    def _fetch_first(self, req, slot: int, tok1, row, j_hit: int,
+                     pinned: int) -> int:
+        """The admission's one device-to-host copy: the first token, and
+        with the prefix cache the slot's table row, whose first
+        ``pinned`` pages the slot pins and whose unshared full-page
+        prefixes it registers.  Returns the token."""
+        if self._prefix is None:
+            return int(tok1)
+        host = torch.cat([tok1.reshape(1).to(torch.int32), row]).to(
+            "cpu", copy=True).numpy()
+        row_np = host[1:]
+        pin_pages = [int(p) for p in row_np[:pinned]]
+        held = len(self._slot_pins.get(slot, ()))
+        self._prefix.pin(pin_pages[held:])
+        self._slot_pins[slot] = pin_pages
+        self._reclaim(self._prefix.register(
+            req.prompt, row_np, j_hit,
+            self._prefix.shareable_pages(len(req.prompt))))
+        self._sched.set_shared_resident(self._prefix.resident_pages)
+        return int(host[0])
+
+    def _deliver_first(self, req, slot: int, t1: int):
         now = time.monotonic()
         req.t_last_token = now
         req.handle._push(t1)
@@ -507,16 +746,90 @@ class GenerationEngine:
             self.metrics.count("retired")
             req.handle._finish()
 
+    def _admit_chunked(self, req: _GenRequest, slot: int, j_hit: int,
+                       shared):
+        """Admit a long prompt WITHOUT prefilling it: the slot holds its
+        worst-case reservation while ``_advance_chunk`` streams
+        ``prefill_chunk``-token slices into its pages, one per loop
+        iteration.  Only the last chunk arms the lane.  Until then the
+        lane's ``pinned`` register stays at the cache-hit count, so a
+        cancel or deadline mid-prefill frees every chunk page."""
+        L = len(req.prompt)
+        req.j_hit = j_hit
+        req.pin_final = max(j_hit, self._prefix.shareable_pages(L)
+                            if self._prefix is not None else 0)
+        req.prefilling = True
+        req.prefill_cursor = j_hit * self.geometry.page_size
+        req.chunk_row = self._shared_row(shared, j_hit)
+        self._state["pinned"][slot] = j_hit
+        if self._prefix is not None:
+            # the cache-shared head must stay resident for every later
+            # chunk's prefix gather (LRU cannot evict it)
+            pin_pages = [int(p) for p in shared[:j_hit]]
+            self._prefix.pin(pin_pages)
+            self._slot_pins[slot] = pin_pages
+            self._sched.set_shared_resident(self._prefix.resident_pages)
+
+    def _advance_chunk(self):
+        """Advance ONE prefilling slot by one chunk: bounded work per
+        loop iteration, so the armed lanes' inter-token gap stays flat
+        while a long prompt streams in.  A chunk that is not the last
+        only writes pages (no token, no host copy)."""
+        if not self.prefill_chunk:
+            return
+        slot = req = None
+        for s, r in self._sched.occupied.items():
+            if r.prefilling:
+                slot, req = s, r
+                break
+        if req is None:
+            return
+        st = self._state
+        L = len(req.prompt)
+        cur = req.prefill_cursor
+        end = min(cur + self.prefill_chunk, L)
+        shared_n = cur // self.geometry.page_size
+        k_new, v_new, logits = self._suffix_prefill(
+            req.prompt[cur:end], req.chunk_row, shared_n, end)
+        req.chunk_row = write_prompt(st, slot, k_new, v_new, end,
+                                     req.chunk_row, shared_n)
+        req.prefill_cursor = end
+        self.metrics.count_chunk()
+        if end < L:
+            return
+        # the last chunk: sample the first token and arm the lane
+        req.prefilling = False
+        tok1 = self._first_token(req, logits)
+        admit_slot(st, slot, tok1, L, req.do_sample, req.temperature,
+                   req.top_k, L + req.max_new_tokens, req.eos,
+                   req.pin_final)
+        self._deliver_first(req, slot, self._fetch_first(
+            req, slot, tok1, req.chunk_row, req.j_hit, req.pin_final))
+
     def _release(self, slots):
-        mask = torch.zeros((self.max_slots,), dtype=torch.bool)
+        mask = np.zeros((self.max_slots,), np.bool_)
         mask[list(slots)] = True
-        release_slots(self._state, mask.to(self.device))
+        release_slots(self._state, self._upload(mask))
 
     def _host_retire(self, slot: int):
-        """Drop the slot's scheduler reservation (the device-side page
-        free already happened in the step or release).  Returns the
-        slot's request."""
-        return self._sched.retire(slot)
+        """Host-side retirement: drop the slot's scheduler reservation
+        and its prefix-cache pins, reclaiming shared pages whose refcount
+        reached zero (the device-side free of its private pages happened
+        in the step or the release).  Returns the slot's request."""
+        req = self._sched.retire(slot)
+        pages = self._slot_pins.pop(slot, None)
+        if self._prefix is not None:
+            if pages:
+                self._reclaim(self._prefix.unpin(pages))
+            self._sched.set_shared_resident(self._prefix.resident_pages)
+        return req
+
+    def _reclaim(self, pages):
+        """Return evicted or orphaned prefix-cache pages to the device
+        free stack."""
+        if pages:
+            reclaim_pages(self._state,
+                          self._upload(np.asarray(pages, np.int32)))
 
     def _preempt_swept(self):
         swept = self._sched.sweep()
@@ -531,13 +844,22 @@ class GenerationEngine:
                 None if reason == "cancelled" else DeadlineExceededError(
                     "request deadline passed mid-decode"))
 
-    def step(self):
-        """ONE decode iteration: every in-flight lane advances a token.
-        Pops tail pages for lanes crossing a page boundary, runs
-        ``slot_decode_paged`` (KV written into the pool in place), samples,
-        retires finished lanes and returns their pages — all on the
-        device — then copies the tokens and the finished mask to the host
-        in one transfer."""
+    def _sampling_lanes(self):
+        """The request of each lane, in lane order, whose Gumbel row a
+        step draws (None for a lane that does not sample or is still in a
+        chunked prefill); None when no lane samples."""
+        occupied = self._sched.occupied
+        reqs = [r if r is not None and r.do_sample and not r.prefilling
+                else None for r in map(occupied.get, range(self.max_slots))]
+        return reqs if any(r is not None for r in reqs) else None
+
+    def _decode(self, noise):
+        """The device work of ONE decode iteration, with no host sync:
+        pops tail pages for lanes crossing a page boundary, runs
+        ``slot_decode_paged`` (KV written into the pool in place),
+        samples (greedy only when ``noise`` is None), retires finished
+        lanes and returns their private pages.  Returns (toks int32,
+        finished bool), both [max_slots]."""
         st, geom = self._state, self.geometry
         ps, pps = geom.page_size, geom.pages_per_slot
         lane = self._lane
@@ -552,13 +874,6 @@ class GenerationEngine:
         logits, _, _ = self.model.slot_decode_paged(
             st["tok"], pos, active, st["kp"], st["vp"], ptab,
             self.max_seq_len)
-        occupied = self._sched.occupied
-        noise = None
-        if any(r.do_sample for r in occupied.values()):
-            # one row per lane, in lane order: no lane index to copy over
-            noise = self._gumbel([
-                r if r is not None and r.do_sample else None
-                for r in map(occupied.get, range(self.max_slots))])
         toks = sample_tokens(logits, st["do_sample"], st["temp"],
                              st["top_k"], noise,
                              min(self.max_top_k, geom.vocab_size))
@@ -569,6 +884,39 @@ class GenerationEngine:
         st["tok"].copy_(toks)
         st["pos"].copy_(new_pos)
         release_slots(st, finished)
+        return toks, finished
+
+    def _graph_step(self):
+        """What the decode graph holds: the step in its sampling form over
+        the static noise buffer, its tokens and finished mask written into
+        the static output."""
+        toks, finished = self._decode(self._noise)
+        self._out[0].copy_(toks)
+        self._out[1].copy_(finished)
+
+    def step(self):
+        """ONE decode iteration: every in-flight lane advances a token.
+        On a CUDA device: fill the noise rows of the sampling lanes (when
+        there are any), replay the captured step, and copy its tokens and
+        finished mask to the host in one transfer.  On the CPU:
+        :meth:`_step_eager`."""
+        if self._graph is None:
+            return self._step_eager()
+        reqs = self._sampling_lanes()
+        if reqs is not None:
+            self._noise.copy_(self._gumbel(reqs))
+        self._graph.replay()
+        self.replays += 1
+        # the step's one device-to-host copy
+        host = self._out.to("cpu", copy=True).numpy()
+        return host[0], host[1].astype(bool)
+
+    def _step_eager(self):
+        """The same iteration issued op by op (the CPU's step, and the
+        card tests' reference for the graph)."""
+        reqs = self._sampling_lanes()
+        toks, finished = self._decode(
+            None if reqs is None else self._gumbel(reqs))
         # the step's one device-to-host copy (copy=True: one aten._to_copy
         # on every device; a CPU tensor's .cpu() would be the tensor itself)
         host = torch.stack([toks, finished.to(torch.int32)]).to(
@@ -577,7 +925,8 @@ class GenerationEngine:
 
     def _distribute(self, toks_np, fin_np):
         now = time.monotonic()
-        occupied = list(self._sched.occupied.items())
+        occupied = [(s, r) for s, r in self._sched.occupied.items()
+                    if not r.prefilling]
         self.metrics.observe_tokens(len(occupied))
         for slot, req in occupied:
             if req.t_last_token is not None:
@@ -585,8 +934,8 @@ class GenerationEngine:
             req.t_last_token = now
             req.handle._push(int(toks_np[slot]))
             if fin_np[slot]:
-                # the step already returned the lane's pages on device;
-                # this drops the host bookkeeping
+                # the step already returned the lane's private pages on
+                # device; this drops the host bookkeeping
                 self._host_retire(slot)
                 self.metrics.count("retired")
                 req.handle._finish()

@@ -1,6 +1,5 @@
 """Device-resident PAGED KV cache for continuous-batching decode (port of
-paddle_tpu/serving/kv_cache.py without prefix sharing: every mapped page
-of a slot is private).
+paddle_tpu/serving/kv_cache.py, without the speculative draft pool).
 
 The engine's mutable decode state is one dict of fixed-shape tensors on
 its device: a page pool ``[layers, num_pages, page_size, nh, hd]`` for K
@@ -16,9 +15,15 @@ step.
 Page allocation stays on the device, as in the reference, without host
 syncs: admission maps ``ceil(len / page_size)`` pages off the free stack,
 decode pops a tail page the step a lane's write position crosses a page
-boundary, and retirement pushes a lane's pages back.  The host admits
-only requests whose worst case is reserved (serving/scheduler.py), so the
-stack never underflows.
+boundary, and retirement pushes a lane's PRIVATE pages back.  Pages at
+table index below a lane's ``pinned`` register are SHARED prefix-cache
+pages (serving/prefix_cache.py): the device never frees them; the host
+returns them through :func:`reclaim_pages` once their refcount drops to
+zero.  The host admits only requests whose worst case is reserved
+(serving/scheduler.py), so the stack never underflows.
+
+The tensors of the state are never rebound: the engine's decode step is
+one captured CUDA graph that reads and writes them at fixed addresses.
 """
 from __future__ import annotations
 
@@ -81,10 +86,12 @@ def make_state(geom: CacheGeometry, device) -> dict:
     ``free_stack``/``free_count`` the free list (free page ids at
     ``free_stack[:free_count]``, popped from the top); per-slot lanes
     ``tok`` (pending token, written at ``pos`` next step), ``pos``,
-    ``active`` and the sampling registers ``do_sample``/``temp``/
-    ``top_k``/``eos``/``stop_pos`` (a lane retires when its next write
-    position would reach ``stop_pos``, or on eos).  Per-slot random
-    generators live with the engine, on the host side of the device."""
+    ``active``, ``pinned`` (table indices below it are shared prefix
+    pages the device must not free) and the sampling registers
+    ``do_sample``/``temp``/``top_k``/``eos``/``stop_pos`` (a lane retires
+    when its next write position would reach ``stop_pos``, or on eos).
+    Per-slot random generators live with the engine, on the host side of
+    the device."""
     S, dev = geom.max_slots, torch.device(device)
     i32 = dict(dtype=torch.int32, device=dev)
     return {
@@ -93,6 +100,7 @@ def make_state(geom: CacheGeometry, device) -> dict:
         "ptab": torch.full((S, geom.pages_per_slot), -1, **i32),
         "free_stack": torch.arange(geom.num_pages, **i32),
         "free_count": torch.tensor(geom.num_pages, **i32),
+        "pinned": torch.zeros((S,), **i32),
         "tok": torch.zeros((S,), **i32),
         "pos": torch.zeros((S,), **i32),
         "active": torch.zeros((S,), dtype=torch.bool, device=dev),
@@ -135,44 +143,60 @@ def push_pages(free_stack, free_count, pages):
 
 # -- transitions (in place) ---------------------------------------------------
 
-def write_prompt(state, slot: int, k_new, v_new, length: int):
-    """Map and fill one admitted request's pages: ``ceil(length /
-    page_size)`` pages are popped off the free stack, the slot's table
-    row points at them, and ``k_new``/``v_new`` ``[layers, Sb, nh, hd]``
-    (the prefill K/V of the padded prompt bucket) are written into them
-    page by page.  ``slot`` and ``length`` are host ints, so the number of
-    pages written is known without a device sync.  Returns the row."""
+def write_prompt(state, slot: int, k_new, v_new, length: int,
+                 shared_ids=None, shared_n: int = 0):
+    """Map and fill one admitted request's pages.
+
+    ``k_new``/``v_new`` ``[layers, Sb, nh, hd]`` hold the prefill K/V of
+    absolute positions ``[shared_n * page_size, shared_n * page_size +
+    Sb)``: the whole prompt's bucket on a prefix miss, the suffix's (or a
+    prefill chunk's) on a hit.  Table columns ``[0, shared_n)`` of the
+    slot's row come from ``shared_ids`` (an int32 ``[pages_per_slot]``
+    tensor on the state's device: already resident pages, mapped and not
+    written); columns ``[shared_n, ceil(length / page_size))`` are popped
+    off the free stack and written page by page.  ``slot``, ``length``
+    and ``shared_n`` are host ints, so the number of pages written is
+    known without a device sync.  Returns the row (a device tensor)."""
     kp, vp, ptab = state["kp"], state["vp"], state["ptab"]
     ps = kp.shape[2]
     pps = ptab.shape[1]
     Sb = k_new.shape[1]
-    n_total = -(-int(length) // ps)
-    if not 1 <= length <= Sb or n_total > pps:
-        raise ValueError(f"write_prompt: length {length} does not fit a "
-                         f"{Sb}-token bucket and {pps} pages")
-    need = torch.arange(pps, device=ptab.device) < n_total
-    row, free_count = take_pages(state["free_stack"], state["free_count"],
-                                 need)
-    idx = row[:n_total].long()
+    length, shared_n = int(length), int(shared_n)
+    n_total = -(-length // ps)
+    if not shared_n * ps < length <= shared_n * ps + Sb or n_total > pps:
+        raise ValueError(f"write_prompt: length {length} does not fit "
+                         f"{shared_n} shared pages of {ps}, a {Sb}-token "
+                         f"bucket and {pps} pages")
+    j = torch.arange(pps, device=ptab.device)
+    need = (j >= shared_n) & (j < n_total)
+    pages, free_count = take_pages(state["free_stack"], state["free_count"],
+                                   need)
+    row = pages if shared_n == 0 else torch.where(j < shared_n, shared_ids,
+                                                  pages)
+    n_priv = n_total - shared_n
+    idx = row[shared_n:n_total].long()
     for pool, new in ((kp, k_new), (vp, v_new)):
-        pad = new.new_zeros((new.shape[0], n_total * ps) + new.shape[2:])
-        m = min(Sb, n_total * ps)
+        pad = new.new_zeros((new.shape[0], n_priv * ps) + new.shape[2:])
+        m = min(Sb, n_priv * ps)
         pad[:, :m] = new[:, :m]
         pool[:, idx] = pad.reshape(
-            (new.shape[0], n_total, ps) + new.shape[2:]).to(pool.dtype)
+            (new.shape[0], n_priv, ps) + new.shape[2:]).to(pool.dtype)
     ptab[slot] = row
     state["free_count"].copy_(free_count)
     return row
 
 
 def admit_slot(state, slot: int, tok, length: int, do_sample: bool,
-               temp: float, top_k: int, stop_pos: int, eos: int):
+               temp: float, top_k: int, stop_pos: int, eos: int,
+               pinned: int = 0):
     """Arm lane ``slot``: pending token ``tok`` (the first generated
     token, a 0-d device tensor) will be written at position ``length`` on
-    the next decode step."""
+    the next decode step; table indices below ``pinned`` are shared
+    prefix pages the device never frees."""
     state["tok"][slot] = tok
     state["pos"][slot] = int(length)
     state["active"][slot] = True
+    state["pinned"][slot] = int(pinned)
     state["do_sample"][slot] = bool(do_sample)
     state["temp"][slot] = float(temp)
     state["top_k"][slot] = int(top_k)
@@ -182,9 +206,14 @@ def admit_slot(state, slot: int, tok, length: int, do_sample: bool,
 
 def release_slots(state, mask):
     """Deactivate the lanes of bool ``mask`` [max_slots] (retire, cancel,
-    deadline) and push their pages back onto the free stack."""
+    deadline) and push their PRIVATE pages (table index >= the lane's
+    ``pinned`` register) back onto the free stack; shared prefix pages
+    stay resident for the prefix cache, which returns them through
+    :func:`reclaim_pages` when their refcount reaches zero."""
     ptab = state["ptab"]
-    freeable = mask[:, None] & (ptab >= 0)
+    col = torch.arange(ptab.shape[1], device=ptab.device)[None, :]
+    freeable = mask[:, None] & (ptab >= 0) \
+        & (col >= state["pinned"][:, None])
     free_stack, free_count = push_pages(
         state["free_stack"], state["free_count"],
         torch.where(freeable, ptab, -1).reshape(-1))
@@ -192,3 +221,13 @@ def release_slots(state, mask):
     state["free_count"].copy_(free_count)
     ptab.masked_fill_(mask[:, None], -1)
     state["active"].logical_and_(~mask)
+
+
+def reclaim_pages(state, pages):
+    """Return evicted prefix-cache pages (an int32 tensor, -1-padded) to
+    the free stack: the host calls this once a shared page's refcount
+    reaches zero (its entry evicted and no slot still reading it)."""
+    free_stack, free_count = push_pages(state["free_stack"],
+                                        state["free_count"], pages)
+    state["free_stack"].copy_(free_stack)
+    state["free_count"].copy_(free_count)

@@ -1,6 +1,7 @@
 """Decode-path observability for the continuous-batching generation
 engine (port of ``GenerationMetrics`` in paddle_tpu/serving/metrics.py:
-tokens/s, TTFT and inter-token reservoirs, occupancy, request counters).
+tokens/s, TTFT and inter-token reservoirs, occupancy, request counters,
+prefix-cache hits and misses, prefill chunks).
 
 Every number here is taken on the host clock around work the engine has
 already synchronised (each decode step ends in a device-to-host copy), so
@@ -17,7 +18,9 @@ from ..utils.metrics import MetricsRegistry
 class GenerationMetrics:
     """Exposes: paddle_genserve_decode_tokens_per_sec, _ttft_p50_ms /
     _p99_ms, _inter_token_p50_ms / _p99_ms, _slot_occupancy,
-    _page_occupancy, _tokens_total, _requests_total{result}."""
+    _page_occupancy, _tokens_total, _requests_total{result},
+    _prefix_cache_hits_total / _misses_total, _prefix_cache_hit_ratio,
+    _prefill_chunks_total."""
 
     WINDOW_S = 60.0
     RESERVOIR = 4096
@@ -48,8 +51,12 @@ class GenerationMetrics:
                   "occupied decode slots / max_slots",
                   fn=lambda: self._occupied / self.max_slots)
         reg.gauge("paddle_genserve_page_occupancy",
-                  "KV cache pages reserved / num_pages",
+                  "KV cache pages in use (reserved + prefix-shared) / "
+                  "num_pages",
                   fn=lambda: self._pages_in_use / self.num_pages)
+        reg.gauge("paddle_genserve_prefix_cache_hit_ratio",
+                  "prefix-cache hits / (hits + misses) since start",
+                  fn=self._prefix_ratio_locked)
         self._requests = reg.counter(
             "paddle_genserve_requests_total",
             "generation request outcomes by result", label="result",
@@ -60,6 +67,15 @@ class GenerationMetrics:
             fixed=True)
         self._tokens = reg.counter("paddle_genserve_tokens_total",
                                    "generated tokens streamed")
+        self._prefix_hits = reg.counter(
+            "paddle_genserve_prefix_cache_hits_total",
+            "admissions that reused cached prefix pages")
+        self._prefix_misses = reg.counter(
+            "paddle_genserve_prefix_cache_misses_total",
+            "admissions that found no cached prefix")
+        self._chunks = reg.counter(
+            "paddle_genserve_prefill_chunks_total",
+            "prefill chunks streamed into slot pages")
         self._ttft = collections.deque(maxlen=self.RESERVOIR)
         self._gaps = collections.deque(maxlen=self.RESERVOIR)
         self._token_stamps = collections.deque()   # (monotonic, count)
@@ -99,7 +115,18 @@ class GenerationMetrics:
         with self._lock:
             self._pages_in_use = int(pages_in_use)
 
+    def count_prefix(self, hit: bool):
+        (self._prefix_hits if hit else self._prefix_misses).inc()
+
+    def count_chunk(self, n: int = 1):
+        self._chunks.inc(n)
+
     # -- derived values ----------------------------------------------------
+    def _prefix_ratio_locked(self):
+        hits = self._prefix_hits.value
+        total = hits + self._prefix_misses.value
+        return hits / total if total else 0.0
+
     def _quantile_locked(self, deque_, q: float):
         if not deque_:
             return 0.0
@@ -126,6 +153,10 @@ class GenerationMetrics:
                 "slot_occupancy": self._occupied / self.max_slots,
                 "page_occupancy": self._pages_in_use / self.num_pages,
                 "tokens": self._tokens.value,
+                "prefix_cache_hits": self._prefix_hits.value,
+                "prefix_cache_misses": self._prefix_misses.value,
+                "prefix_cache_hit_ratio": self._prefix_ratio_locked(),
+                "prefill_chunks": self._chunks.value,
                 **dict(sorted(self.counters.items())),
             }
 

@@ -1,13 +1,14 @@
 """Iteration-level slot + page scheduler for continuous-batching
-generation (port of paddle_tpu/serving/scheduler.py without the prefix
-cache's shared-page accounting and chunked prefill).
+generation (port of paddle_tpu/serving/scheduler.py).
 
 Host-side bookkeeping only: which decode lane holds which request, which
 lanes are free, which occupied lanes must be swept (cancellation,
 deadline), and whether the page pool can absorb a request's worst case.
-Admission reserves ``ceil((prompt + max_new) / page_size)`` pages; the
-reservation keeps the device's ``free_count`` from ever dropping below
-what decode's tail-page allocation needs.
+Admission reserves ``ceil((prompt + max_new) / page_size)`` pages minus
+the shared prefix pages it maps; pages the prefix cache holds resident
+are not promised to anyone.  The reservation keeps the device's
+``free_count`` from ever dropping below what decode's tail-page
+allocation needs.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ class SlotScheduler:
         self._occupants: dict[int, object] = {}   # slot -> request
         self.num_pages = None if num_pages is None else int(num_pages)
         self._reserved: dict[int, int] = {}       # slot -> pages reserved
+        self._shared_resident = 0                 # prefix-cache pages
 
     @property
     def free_slots(self) -> int:
@@ -46,10 +48,18 @@ class SlotScheduler:
 
     @property
     def pages_available(self) -> int:
-        """Pages the pool can still promise to a new admission."""
+        """Pages the pool can still promise to a new admission: total
+        minus active worst-case reservations minus prefix-cache residents
+        (conservative: a slot's own registered pages may be counted in
+        both, never in neither)."""
         if self.num_pages is None:
             return 1 << 30
-        return self.num_pages - self.pages_reserved
+        return self.num_pages - self.pages_reserved - self._shared_resident
+
+    def set_shared_resident(self, n_pages: int):
+        """Pages the prefix cache holds (refcount > 0): the engine
+        refreshes this after register, unpin and eviction."""
+        self._shared_resident = int(n_pages)
 
     def can_admit(self, n_pages: int) -> bool:
         """True when a free slot exists AND the pool can reserve the
@@ -72,9 +82,18 @@ class SlotScheduler:
         self._reserved.pop(slot, None)
         return req
 
+    def prefilling(self) -> int:
+        """Occupied lanes still in a chunked prefill (their request's
+        ``prefilling`` is true): they hold a slot and their worst-case
+        reservation but are not yet armed for decode."""
+        return sum(1 for req in self._occupants.values()
+                   if getattr(req, "prefilling", False))
+
     def sweep(self, now=None):
         """Occupied lanes whose request is cancelled or past deadline:
-        [(slot, request, reason)]."""
+        [(slot, request, reason)].  A lane in a chunked prefill is swept
+        like an armed one: its chunk pages are private (at or above its
+        ``pinned`` register), so the engine's release returns them all."""
         now = time.monotonic() if now is None else now
         out = []
         for slot, req in self._occupants.items():

@@ -9,8 +9,12 @@ is bitwise reproducible and independent of its batch mates; a decode step
 of the engine syncs once, to fetch its tokens; a tiny GPT's and a tiny
 BERT's loss and gradients on the card are held against the CPU's; the
 whole-tree optimizer kernel gives bitwise the per-parameter loop's
-parameters and moments and makes no host sync.  Needs a CUDA device
-(skips elsewhere); on the card:
+parameters and moments and makes no host sync; the serving engine's
+decode step, captured once as a CUDA graph at ``start()``, gives the
+eager step's tokens bitwise through hits, chunks, both sampling modes, a
+mid-decode admission and a cancel, is never captured again, leaves the
+idle state as it was, and a replayed step syncs once.  Needs a CUDA
+device (skips elsewhere); on the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
@@ -340,7 +344,8 @@ def test_bias_gelu_db_matches_the_float32_copy_sum(dev):
 def test_engine_decode_step_syncs_only_to_fetch_tokens(dev):
     """Every GenerationEngine.step() of a greedy and a sampled request
     under torch.cuda.set_sync_debug_mode("warn") makes exactly one
-    synchronizing call, its copy of the tokens to the host."""
+    synchronizing call, its copy of the tokens to the host: the noise
+    draw and the replay of the captured step make none."""
     import warnings
 
     from paddle_tpu_torch.framework.random import seed
@@ -375,6 +380,7 @@ def test_engine_decode_step_syncs_only_to_fetch_tokens(dev):
                          temperature=0.8, top_k=5, seed=1)]
         for h in hs:
             h.result(120)
+        assert eng.capture_count == 1 and eng.replays == len(seen)
     assert seen
     for files in seen:
         assert len(files) == 1 and files[0].endswith("generation.py"), seen
@@ -1092,3 +1098,103 @@ def test_dropout_through_autograd_matches_cpu(dev, dtype):
         scale = max(1.0, ref.abs().max().item())
         tol = (2e-5 if dtype == torch.float32 else 2 ** -5) * scale
         assert (got - ref).abs().max().item() <= tol
+
+
+SERVE_CFG = dict(vocab_size=211, hidden_size=64, num_layers=2, num_heads=4,
+                 max_position_embeddings=128, dropout=0.0, attn_dropout=0.0)
+SERVE_ENGINE = dict(max_slots=4, max_seq_len=96, prompt_buckets="16,48",
+                    page_size=8, prefill_chunk=16)
+
+
+def _serving_model(dev, dtype=torch.float32):
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    seed(0)
+    return GPTForCausalLM(GPTConfig(**SERVE_CFG), device=dev,
+                          dtype=dtype).eval()
+
+
+def _mixed_wave(eng):
+    """Prefix hits, chunked prefills (a miss and a sampled one), both
+    sampling modes, both buckets, a mid-decode admission and a cancel, in
+    an order that gives every request the same path on every run.
+    Returns the tokens of the requests that ran to their end."""
+    rs = np.random.RandomState(7)
+    shared = rs.randint(0, 211, 24).tolist()           # 3 pages of 8
+    a = eng.submit(shared + [1, 2, 3, 4, 5, 6], 10)    # chunked miss
+    assert a.next_token(timeout=120) is not None       # registered
+    hs = {"b": eng.submit(shared + [9, 8, 7, 6, 5], 10),        # hit
+          "c": eng.submit(shared + rs.randint(0, 211, 9).tolist(), 10,
+                          do_sample=True, temperature=0.8, top_k=5,
+                          seed=1),                               # hit
+          "d": eng.submit(rs.randint(0, 211, 44).tolist(), 8,
+                          do_sample=True, temperature=0.9, top_k=0,
+                          seed=2)}                               # chunked
+    doomed = eng.submit(rs.randint(0, 211, 10).tolist(), 30)
+    assert hs["b"].next_token(timeout=120) is not None
+    hs["e"] = eng.submit(rs.randint(0, 211, 12).tolist(), 12,
+                         do_sample=True, temperature=0.8, top_k=8, seed=3)
+    assert doomed.next_token(timeout=120) is not None
+    doomed.cancel()
+    out = {k: h.result(120) for k, h in hs.items()}
+    out["a"] = a.result(120)
+    assert doomed.done and doomed.error is None
+    return out
+
+
+def _idle(eng, timeout=60):
+    import time
+
+    t0 = time.monotonic()
+    while eng._sched.occupied or eng._backlog or not eng._queue.empty():
+        assert time.monotonic() - t0 < timeout
+        time.sleep(0.005)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_engine_graph_step_is_bitwise_the_eager_step(dev, dtype):
+    """The captured decode step against ``_step_eager`` swapped in, on
+    the same model: greedy and sampled tokens bitwise equal; the graph is
+    captured once at start() and only replayed after, through admissions
+    in both buckets, hits, chunks and both sampling modes."""
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    model = _serving_model(dev, dtype)
+    outs = {}
+    for form in ("graph", "eager"):
+        with GenerationEngine(model, device=dev, **SERVE_ENGINE) as eng:
+            assert eng.capture_count == 1
+            if form == "eager":
+                eng.step = eng._step_eager
+            outs[form] = _mixed_wave(eng)
+            _idle(eng)
+            snap = eng.metrics.snapshot()
+            assert snap["prefix_cache_hits"] >= 2
+            assert snap["prefill_chunks"] >= 5
+            assert eng.free_count + eng.resident_pages \
+                == eng.geometry.num_pages
+            assert eng.capture_count == 1
+            assert (eng.replays > 0) == (form == "graph")
+            assert eng.graph_launches["paged_decode_attention"] == 2
+            assert eng.graph_launches["layer_norm"] == 5
+            assert eng.graph_launches["bias_gelu"] == 2
+            assert sum(eng.graph_variants["paged_decode_attention"]
+                       .values()) == 2
+    assert outs["graph"] == outs["eager"]
+
+
+def test_engine_capture_leaves_the_idle_state_unchanged(dev):
+    """The warm-up step and the capture run on the all-inactive state:
+    after start() every tensor of the state (pools, page table, free
+    list, lane registers) is bitwise a fresh one."""
+    from paddle_tpu_torch.serving import GenerationEngine
+    from paddle_tpu_torch.serving import kv_cache
+
+    model = _serving_model(dev, torch.bfloat16)
+    with GenerationEngine(model, device=dev, **SERVE_ENGINE) as eng:
+        fresh = kv_cache.make_state(eng.geometry, dev)
+        assert set(eng._state) == set(fresh)
+        for key, t in fresh.items():
+            assert torch.equal(eng._state[key], t), key
+        assert eng.capture_count == 1 and eng.replays == 0

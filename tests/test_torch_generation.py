@@ -1,5 +1,6 @@
 """The port's GenerationEngine on the CPU against the JAX package's
-(``prefix_cache=False``, CPU, same weights).
+(both with ``prefix_cache=False``, CPU, same weights: the miss path; the
+prefix cache is held in tests/test_torch_prefix_cache.py).
 
 Greedy tokens must be identical to the JAX engine's, including a request
 admitted mid-decode and slot reuse after retirement.  JAX's threefry
@@ -64,7 +65,8 @@ def jax_refs(jax_model):
 
 @pytest.fixture(scope="module")
 def engine(model):
-    eng = GenerationEngine(model, device="cpu", **ENGINE).start()
+    eng = GenerationEngine(model, device="cpu", prefix_cache=False,
+                           **ENGINE).start()
     yield eng
     eng.stop()
 
@@ -108,7 +110,8 @@ def test_sampling_is_deterministic_per_seed(model, engine):
           for _ in range(3)]
     assert all(h.result(60) == ref for h in hs)
     # on a fresh engine
-    fresh = GenerationEngine(model, device="cpu", **ENGINE).start()
+    fresh = GenerationEngine(model, device="cpu", prefix_cache=False,
+                             **ENGINE).start()
     try:
         assert fresh.generate(PROMPT_B, 12, timeout=60, seed=7,
                               **SAMPLE_KW) == ref
@@ -151,7 +154,7 @@ def test_cancel_frees_slot_and_pages(engine):
 
 def test_deadline_mid_decode_frees_slot(model):
     eng = GenerationEngine(model, device="cpu", max_slots=2, max_seq_len=40,
-                           prompt_buckets="8").start()
+                           prompt_buckets="8", prefix_cache=False).start()
     step = eng.step
 
     def slow_step():                   # make the expiry land mid-decode
@@ -172,7 +175,8 @@ def test_deadline_mid_decode_frees_slot(model):
 
 
 def test_drain_finishes_in_flight_requests(model, jax_refs):
-    eng = GenerationEngine(model, device="cpu", **ENGINE).start()
+    eng = GenerationEngine(model, device="cpu", prefix_cache=False,
+                           **ENGINE).start()
     hs = [eng.submit(PROMPT_A, 12), eng.submit(PROMPT_C, 9),
           eng.submit(PROMPT_A, 8)]
     assert eng.drain(timeout=60)
@@ -241,7 +245,8 @@ def test_decode_step_fetches_to_the_host_once(model):
     finished mask.  No ``_local_scalar_dense`` at all (the KV scatter ran
     4 a layer), and the sampled lanes' noise needs no lane index copied
     from the host."""
-    eng = GenerationEngine(model, device="cpu", **ENGINE).start()
+    eng = GenerationEngine(model, device="cpu", prefix_cache=False,
+                           **ENGINE).start()
     step, seen = eng.step, []
 
     def counted_step():                # runs on the decode thread
