@@ -76,6 +76,24 @@ passed over):
                   the 10 steps falling, both runs bitwise equal, every
                   attention launch with dropout on the tensor cores; step
                   time, tokens/s and MFU beside the dropout-0 phases'.
+13. train-graph — Model.fit through the training engine's captured step
+                  (one CUDA graph a batch signature, replayed) against
+                  `_step_eager` swapped in, paired in one run (graph,
+                  eager, eager, graph): GPTConfig() at dropout 0.1 and 0,
+                  BertConfig() at 0.1, full width, bf16, 12 steps + 2
+                  profiled + 4 under torch.cuda.set_sync_debug_mode each;
+                  fails unless the four runs' losses are bitwise equal,
+                  the graph runs captured once, their replayed steps made
+                  no sync but the drain, and every launch in the traces
+                  took its fast kernel (with dropout exactly when p > 0)
+                  with one optimizer launch a step; step p50, tokens/s,
+                  MFU, busy share, launches a step.
+
+Model.fit replays a captured step, whose launches the kernel wrappers do
+not count (they count the first, eager step and the capture): every
+Model.fit check (phases 7, 11, 12, 13) reads its launches from a profiler
+trace by CUDA kernel name (`TRACE_KERNELS`), with the same expected
+numbers as before (one optimizer launch a step for each dtype group).
 
 Phase 3 also holds the softmax cross-entropy kernels (BERT's MLM and NSP
 shapes and GPT's) and the non-causal and masked forms of the attention
@@ -176,18 +194,28 @@ VARIANTS = {**{n: ("simt", "mma") for n in MMA_KERNELS},
             "bias_gelu": ("scalar", "vec"),
             "bias_gelu_bwd": ("scalar", "vec")}
 FAST_VARIANT = {n: fast for n, (_, fast) in VARIANTS.items()}
-# the CUDA kernel behind each variant of the serving path's entries, as a
-# profiler trace names it: the serving wave's launches are read from its
-# trace, which shows the decode graph's replayed launches as well
+# the CUDA kernel behind each variant of the port's entries, as a profiler
+# trace names it (an entry with one kernel: variant "kernel"): the launches
+# of a path that replays a CUDA graph (the serving wave, Model.fit) are read
+# from its trace, which shows a graph's replayed launches as well
 TRACE_KERNELS = {
     "flash_attention": {"simt": "flash_fwd_kernel",
                         "mma": "flash_fwd_mma_kernel"},
+    "flash_attention_dq": {"simt": "flash_dq_kernel",
+                           "mma": "flash_dq_mma_kernel"},
+    "flash_attention_dkv": {"simt": "flash_dkv_kernel",
+                            "mma": "flash_dkv_mma_kernel"},
     "layer_norm": {"block": "layer_norm_fwd_kernel",
                    "warp": "layer_norm_warp_kernel"},
     "paged_decode_attention": {"lane": "paged_decode_kernel",
                                "split": "paged_decode_split_kernel"},
     "bias_gelu": {"scalar": "bias_gelu_fwd_kernel",
-                  "vec": "bias_gelu_fwd_vec_kernel"}}
+                  "vec": "bias_gelu_fwd_vec_kernel"},
+    "bias_gelu_bwd": {"scalar": "bias_gelu_bwd_kernel",
+                      "vec": "bias_gelu_bwd_vec_kernel"},
+    "softmax_xent": {"kernel": "xent_fwd_kernel"},
+    "softmax_xent_bwd": {"kernel": "xent_bwd_kernel"},
+    "multi_tensor_step": {"kernel": "multi_tensor_kernel"}}
 # the kernels with a variant that each path launches
 SERVING_FAST = ("flash_attention", "layer_norm", "paged_decode_attention",
                 "bias_gelu")
@@ -680,8 +708,12 @@ def optimizer_phase(torch, K, cfg):
              for p in params]
     hyper = opt._kernel_spec()[1]
     KO = K.optimizer
+    # the scalars are written before the timing's capture, as the training
+    # engine's prologue writes them before a replay
+    scalars = KO.write_scalars(KO.make_scalars("cuda"), "adamw", 2e-4, 2,
+                               hyper)
     kernel = lambda: KO.multi_tensor_step(     # noqa: E731
-        "adamw", params, grads, slots, 2e-4, 2, hyper)
+        "adamw", params, grads, slots, 2e-4, 2, hyper, scalars)
     plain = lambda: KO.multi_tensor_step_plain(   # noqa: E731
         "adamw", params, grads, slots, 2e-4, 2, hyper)
     ms, eager_ms = time_ms(torch, kernel, iters=5, reps=3)
@@ -883,9 +915,10 @@ def logits_phase(torch, model_gpu, model_cpu):
         f"/{len(ref)} positions")
 
 
-def trace_window(torch, run):
+def trace_window(torch, run, cpu=None):
     """run() under torch.profiler: (run's result, wall ms, the trace's
-    device events as (ms, name, count))."""
+    device events as (ms, name, count)).  ``cpu``: a list that receives
+    the host events as (self ms, name, count)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -895,22 +928,66 @@ def trace_window(torch, run):
         out = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    if cpu is not None:
+        cpu.extend((e.self_cpu_time_total / 1e3, e.key, e.count)
+                   for e in events if e.device_type == DeviceType.CPU)
     return out, wall_ms, [(e.self_device_time_total / 1e3, e.key, e.count)
-                          for e in prof.key_averages()
+                          for e in events
                           if e.device_type == DeviceType.CUDA
                           and e.self_device_time_total > 0]
 
 
-def traced_launches(kernels):
-    """{entry: {variant: launches}} of the serving path's entries in a
-    trace's device events, matched by CUDA kernel name."""
+def traced_launches(kernels, dropped=None):
+    """{entry: {variant: launches}} of the port's entries in a trace's
+    device events, matched by CUDA kernel name.  ``dropped``: a dict that
+    receives, for each attention entry, its launches of the dropout
+    instantiation (the kernels' last template argument, kDropout, true)."""
     out = {n: dict.fromkeys(v, 0) for n, v in TRACE_KERNELS.items()}
     for _, key, count in kernels:
         for name, per in TRACE_KERNELS.items():
             for variant, kernel in per.items():
-                if re.search(rf"(?<!\w){kernel}[<(]", key):
-                    out[name][variant] += count
+                m = re.search(rf"(?<!\w){kernel}(?:<([^()]*)>|\()", key)
+                if not m:
+                    continue
+                out[name][variant] += count
+                if dropped is not None and name in ATTENTION_KERNELS:
+                    args = (m.group(1) or "").split(",")
+                    dropped[name] = dropped.get(name, 0) + count * (
+                        args[-1].strip() == "true")
     return out
+
+
+def require_traced(kernels, what, expected, dropout=None):
+    """A training window's launches read from its trace (``kernels``, as
+    trace_window returns them): fails unless each entry of ``expected``
+    launched, no launch took an entry's slower kernel and, with
+    ``dropout`` True (False), every attention launch took the dropout
+    (the p = 0) instantiation.  Returns ({entry: launches}, {entry: fast
+    launches})."""
+    dropped = {}
+    traced = traced_launches(kernels, dropped)
+    counts, fast = {}, {}
+    for name, per in traced.items():
+        counts[name] = sum(per.values())
+        if name in FAST_VARIANT:
+            slow = {v: n for v, n in per.items()
+                    if v != FAST_VARIANT[name] and n}
+            if slow:
+                fail(f"{what}: the trace shows {name} launches of its "
+                     f"slower kernel: {per}")
+            fast[name] = per[FAST_VARIANT[name]]
+    for name in expected:
+        if counts[name] <= 0:
+            fail(f"{what}: the trace holds no launch of {name}")
+    if dropout is not None:
+        for name in ATTENTION_KERNELS:
+            want = counts[name] if dropout else 0
+            if dropped.get(name, 0) != want:
+                fail(f"{what}: {dropped.get(name, 0)} of the {counts[name]} "
+                     f"{name} launches in the trace took the dropout "
+                     f"kernel, not {want}")
+    return counts, fast
 
 
 def profile_window(torch, run):
@@ -1077,7 +1154,8 @@ def serving_phase(torch, K, model, card):
             tuple(n for n in SERVING_FAST if n != "paged_decode_attention"))
         traced = traced_launches(kernels)
         counts = dict(eager)
-        for name, per in traced.items():
+        for name in SERVING_KERNELS:
+            per = traced[name]
             counts[name] = sum(per.values())
             want = eager[name] + eng.graph_launches.get(name, 0) * replays
             if counts[name] != want:
@@ -1503,25 +1581,22 @@ def train_phase(torch, K, cfg, card):
 
     data = torch.from_numpy(rs.randint(0, cfg.vocab_size, (3 * B, S)))
     api = ptt.Model(model).prepare(opt, lm_loss)
-    K.reset_launch_counts()
-    t0 = time.perf_counter()
-    hist = api.fit(ptt.io.TensorDataset([data, data]), batch_size=B,
-                   epochs=1, shuffle=False, verbose=0, log_freq=1)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    fit_counts = K.launch_counts()
-    require_fast_variants(K, variants, "train and Model.fit", TRAINING_FAST)
+    # Model.fit replays a captured step, which the wrappers do not count:
+    # its launches are read from its trace
+    hist, fit_ms, kernels = trace_window(torch, lambda: api.fit(
+        ptt.io.TensorDataset([data, data]), batch_size=B, epochs=1,
+        shuffle=False, verbose=0, log_freq=1))
+    fit_counts, _ = require_traced(kernels, "Model.fit", TRAINING_KERNELS,
+                                   dropout=False)
     fit_opt = require_optimizer_kernel(fit_counts, opt, 3,
                                        "Model.fit")
     if len(hist["step_loss"]) != 3 or not all(
             math.isfinite(x) for x in hist["step_loss"]):
         fail(f"Model.fit: step losses {hist['step_loss']}")
-    for name in TRAINING_KERNELS:
-        if fit_counts[name] <= 0:
-            fail(f"kernel {name} was not launched on the Model.fit path")
     log(f"[fit] Model.fit 3 steps of B={B} S={S} with a loss on the "
-        f"logits: step losses {hist['step_loss']}; {fit_s:.3f}s; launches "
-        f"{fit_counts}; {fit_opt}")
+        f"logits (1 eager, the capture, 2 replays): step losses "
+        f"{hist['step_loss']}; {fit_ms / 1e3:.3f}s under the profiler; "
+        f"launches in the trace {fit_counts}; {fit_opt}")
     return counts, (p50, flops, tokens)
 
 
@@ -1872,19 +1947,17 @@ def dropout_train_run(torch, K, tag, model, batches, fit_data, fit_batch,
     opt_text = require_optimizer_kernel(counts, opt, 10, "dropout-train")
     profile_steps(torch, tag, step)
     api = ptt.Model(model, labels=labels).prepare(opt, fit_loss)
-    K.reset_launch_counts()
-    hist = api.fit(ptt.io.TensorDataset(fit_data), batch_size=fit_batch,
-                   epochs=1, shuffle=False, verbose=0, log_freq=1)
-    torch.cuda.synchronize()
-    fit_dropped = KF.dropout_launches()
-    require_fast_variants(K, variants, "dropout-train and Model.fit",
-                          TRAINING_FAST)
-    require_optimizer_kernel(K.launch_counts(), opt, 3, "dropout Model.fit")
+    hist, _, kernels = trace_window(torch, lambda: api.fit(
+        ptt.io.TensorDataset(fit_data), batch_size=fit_batch, epochs=1,
+        shuffle=False, verbose=0, log_freq=1))
+    # the trace's attention launches all took the dropout kernels
+    fit_counts, _ = require_traced(kernels, "dropout Model.fit",
+                                   ATTENTION_KERNELS, dropout=True)
+    require_optimizer_kernel(fit_counts, opt, 3, "dropout Model.fit")
     for name in ATTENTION_KERNELS:
-        if dropped[name] != counts[name] or fit_dropped[name] <= 0:
+        if dropped[name] != counts[name]:
             fail(f"dropout-train: {name} made {dropped[name]} of its "
-                 f"{counts[name]} launches with dropout, {fit_dropped[name]} "
-                 f"in Model.fit")
+                 f"{counts[name]} launches with dropout")
     return (torch.stack(losses).float().cpu().tolist(), times,
             hist["step_loss"], counts, dropped, fast, opt_text)
 
@@ -1970,6 +2043,239 @@ def dropout_train_phase(torch, K, card, dropout0):
             f"vector-kernel launches {fast}; {opt_text}")
         out[name] = dropped
     return out
+
+
+TRAIN_GRAPH_STEPS = 12
+
+
+def train_graph_run(torch, name, dropout, form):
+    """One run of the training engine at a default config from seed 0,
+    full width and depth, bf16: ``TRAIN_GRAPH_STEPS`` Model.fit steps (log
+    every step, so each step's time ends at its drain) through the
+    captured step (``form`` "graph") or through ``_step_eager`` swapped
+    in ("eager"), then 2 more under the profiler and (graph) 4 more under
+    torch.cuda.set_sync_debug_mode("warn") with one drain at the end (the
+    graph's replays must make no other sync).
+    GPT: GPTConfig() with hidden and attention dropout ``dropout``, B = 8,
+    S = 1024, its fused LM-head loss computed in the network (``loss``);
+    BERT: BertConfig(), B = 32, S = 128, padded batches with their bool
+    mask, the MLM and NSP losses through F.cross_entropy.  Returns a
+    dict of what the phase checks and prints."""
+    import warnings
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.hapi.engine import TrainEngine
+    from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
+                                         GPTConfig, GPTForCausalLM)
+
+    n = TRAIN_GRAPH_STEPS + 6
+    seed(0)
+    if name == "gpt":
+        cfg = GPTConfig(dropout=dropout, attn_dropout=dropout)
+        B, S, lr = 8, 1024, 2e-4
+        model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16)
+
+        class LMLoss(torch.nn.Module):      # the network computes its loss
+            def __init__(self):
+                super().__init__()
+                self.model = model
+
+            def forward(self, ids):
+                return self.model.loss(ids)
+
+        net, labels, loss = LMLoss(), None, (lambda x: x)
+        rs = np.random.RandomState(4)
+        data = [torch.from_numpy(rs.randint(0, cfg.vocab_size, (n * B, S)))]
+    else:
+        cfg = BertConfig()
+        B, S, lr = 32, 128, 1e-4
+        model = net = BertForPretraining(cfg, device="cuda",
+                                         dtype=torch.bfloat16)
+        labels, loss = ["mlm_labels", "nsp_labels"], bert_fit_loss
+        rs = np.random.RandomState(7)
+        ids, tt, mlm, nsp = bert_batch(torch, rs, cfg, n * B, S)
+        data = [ids, tt, padding_mask(torch, rs, n * B, S)[0], mlm, nsp]
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = ptt.optimizer.AdamW(learning_rate=lr, weight_decay=0.01,
+                              parameters=model.parameters())
+    api = ptt.Model(net, labels=labels).prepare(opt, loss)
+    engine = api._engine = TrainEngine(api)
+    if form == "eager":
+        engine.step = engine._step_eager
+    # the host's time in each step() call and (graph) in each replay
+    # call, cudaGraphLaunch, without the profiler
+    step, capture, step_ms, replay_ms = engine.step, engine._capture, [], []
+
+    def timed(fn, into):
+        def run(*args):
+            t = time.perf_counter()
+            out = fn(*args)
+            into.append((time.perf_counter() - t) * 1e3)
+            return out
+        return run
+
+    def timed_capture(*args):
+        g = capture(*args)
+        g.replay = timed(g.replay, replay_ms)
+        return g
+
+    engine.step, engine._capture = timed(step, step_ms), timed_capture
+    drain, stamps = engine.drain, []
+
+    def stamped():
+        out = drain()
+        stamps.append(time.perf_counter())
+        return out
+
+    engine.drain = stamped
+
+    def fit(lo, hi, log_freq):
+        return api.fit(ptt.io.TensorDataset([t[lo * B:hi * B] for t in data]),
+                       batch_size=B, shuffle=False, verbose=0,
+                       log_freq=log_freq)["step_loss"]
+
+    t0 = time.perf_counter()
+    losses = fit(0, TRAIN_GRAPH_STEPS, 1)
+    times = np.diff([t0] + stamps[:TRAIN_GRAPH_STEPS]) * 1e3
+    # unprofiled host ms a step after the first (graph: all replays)
+    host_step = float(np.median(step_ms[1:TRAIN_GRAPH_STEPS]))
+    host_replay = float(np.median(replay_ms[:TRAIN_GRAPH_STEPS - 1])) \
+        if replay_ms else None
+    host = []
+    losses2, wall_ms, kernels = trace_window(
+        torch, lambda: fit(TRAIN_GRAPH_STEPS, TRAIN_GRAPH_STEPS + 2, 1),
+        cpu=host)
+    host.sort(reverse=True)
+    # the host's share of a step that no profiler event holds: the
+    # DataLoader's indexing and collation of one batch
+    t1 = time.perf_counter()
+    for _ in ptt.io.DataLoader(ptt.io.TensorDataset([t[:4 * B] for t in data]),
+                               batch_size=B):
+        pass
+    collate_ms = (time.perf_counter() - t1) * 1e3 / 4
+    expected = TRAINING_KERNELS + (XENT_KERNELS if name == "bert" else ())
+    counts, fast = require_traced(kernels, f"train-graph {name} {form}",
+                                  expected, dropout=dropout > 0)
+    opt_text = require_optimizer_kernel(counts, opt, 2,
+                                        f"train-graph {name} {form}")
+    # device events of the window, kernels and copies (as profile_window
+    # counts them)
+    busy = sum(t for t, _, _ in kernels)
+    launches = sum(c for _, _, c in kernels)
+    copies = {key: c for _, key, c in kernels if key.startswith("Mem")}
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            losses2 += fit(TRAIN_GRAPH_STEPS + 2, n, 0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [(os.path.basename(w.filename), w.lineno) for w in caught
+             if str(w.message).startswith(SYNC_WARNING)]
+    graph_launches = list(engine.graph_launches.values())
+    if form == "graph":
+        if len(syncs) != 1 or syncs[0][0] != "engine.py":
+            fail(f"train-graph {name}: 4 replayed steps and one drain made "
+                 f"the syncs {syncs}, not the drain's one")
+        if engine.captures != 1 or engine.replays != n - 1:
+            fail(f"train-graph {name}: {engine.captures} captures and "
+                 f"{engine.replays} replays in {n} steps of one signature")
+        # the 2 profiled steps are replays: each entry's launches in the
+        # trace are its launches at the capture x 2, less what the trace
+        # drops at the window's start (never a whole step's)
+        for key in expected + ("multi_tensor_step",):
+            c = graph_launches[0].get(key, 0)
+            if not c <= counts[key] <= 2 * c:
+                fail(f"train-graph {name}: {counts[key]} {key} launches in "
+                     f"the trace of 2 replays, {c} at the capture")
+    every = losses + losses2
+    if not all(math.isfinite(x) for x in every):
+        fail(f"train-graph {name} {form}: losses {every}")
+    tokens = B * S
+    flops = 6.0 * n_params * tokens \
+        + cfg.num_layers * 12 * S * S * cfg.hidden_size * B
+    out = dict(losses=every, times=times, p50=float(np.median(times[1:])),
+               tokens=tokens, flops=flops, busy=busy, wall=wall_ms,
+               launches=launches / 2, counts={k: v / 2 for k, v in
+                                              counts.items() if v},
+               copies=copies, host=host[:8], collate_ms=collate_ms,
+               fast=fast, opt_text=opt_text,
+               syncs=syncs, host_step=host_step, host_replay=host_replay,
+               captures=engine.captures, graph_launches=graph_launches,
+               n_params=n_params, B=B, S=S)
+    del engine, api, opt, net, model, data
+    return out
+
+
+def train_graph_phase(torch, K, card):
+    """The training engine's captured step against its eager step, at
+    full width and depth, bf16: GPTConfig() at its dropout 0.1 and at 0,
+    BertConfig() at its 0.1, each run four times from one seed in the
+    order graph, eager, eager, graph (``train_graph_run``).  Fails unless
+    the losses of all four runs are bitwise equal, the graph runs captured
+    once (one signature), made no host sync in replayed steps but the
+    drain's, and every launch in the traces took its fast kernel (and the
+    dropout kernels exactly when dropout > 0), with one optimizer launch a
+    step.  Prints step p50 (each step's wall time up to its loss's
+    drain), tokens/s, MFU, the busy share and launches a step of the 2
+    profiled steps, the host's unprofiled ms in step() and in the graph's
+    replay call, and p50 less the device ms a step (the unprofiled idle).
+    Returns {model: each entry's launches a step in the trace of the first
+    graph run's 2 profiled replays} of the default configs."""
+    out = {}
+    for name, dropout in (("gpt", DROPOUT_P), ("gpt", 0.0),
+                          ("bert", DROPOUT_P)):
+        runs = []
+        for form in ("graph", "eager", "eager", "graph"):
+            release(torch, f"train-graph {name} {dropout} {form}")
+            K.reset_launch_counts()
+            runs.append(train_graph_run(torch, name, dropout, form))
+            if any(K.launch_counts()[k] <= 0 for k in TRAINING_KERNELS):
+                fail(f"train-graph {name}: a training kernel's wrapper was "
+                     f"never called: {K.launch_counts()}")
+        first = runs[0]["losses"]
+        for r, form in zip(runs[1:], ("eager", "eager", "graph")):
+            if r["losses"] != first:
+                fail(f"train-graph {name} dropout {dropout}: the {form} "
+                     f"run's losses {r['losses']} differ from the first "
+                     f"graph run's {first}")
+        r0 = runs[0]
+        text = []
+        for i, (r, form) in enumerate(zip(runs, ("graph", "eager", "eager",
+                                                 "graph"))):
+            busy = (f"{r['busy']:.3f} of {r['wall']:.3f} ms "
+                    f"({100 * r['busy'] / r['wall']:.2f}%)")
+            replay = "" if r["host_replay"] is None else \
+                f", in the replay call {r['host_replay']:.3f}"
+            host = (f"unprofiled host ms a step: in step() "
+                    f"{r['host_step']:.3f}{replay}; p50 less device ms a "
+                    f"step {r['p50'] - r['busy'] / 2:.3f}")
+            text.append(
+                f"{form} run {i + 1}: step ms {np.round(r['times'], 3).tolist()}"
+                f" p50 {r['p50']:.3f} ms, {r['tokens'] / r['p50'] * 1e3:.1f} "
+                f"tokens/s, {mfu_text(r['flops'], r['p50'] / 1e3)}; 2 "
+                f"profiled steps: busy {busy}, {r['launches']:g} kernel "
+                f"launches a step, copies {r['copies']}; {host}; DataLoader "
+                f"{r['collate_ms']:.3f} ms a batch; host self ms: "
+                + ", ".join(f"{key} {ms:.3f} x{n}"
+                            for ms, key, n in r["host"]))
+        g = runs[0]
+        log(f"[train-graph] {name} bf16 default config"
+            f"{'' if dropout else ' at dropout 0'} (dropout {dropout}) "
+            f"B={g['B']} S={g['S']}, {g['n_params']} parameters, Model.fit "
+            f"on {card}: losses bitwise equal in the 4 runs (graph, eager, "
+            f"eager, graph): {first}; captures {g['captures']} (one "
+            f"signature), graph launches {g['graph_launches']}; replayed "
+            f"steps under sync debug: one sync, the drain at {g['syncs']} "
+            f"(eager steps: {runs[1]['syncs']}); "
+            f"trace launches a step {g['counts']}, fast kernels {g['fast']};"
+            f" {g['opt_text']} | " + " | ".join(text))
+        if dropout:
+            out[name] = r0["counts"]
+    return out
+
 
 
 def profile_steps(torch, tag, step):
@@ -2198,32 +2504,24 @@ def bert_train_phase(torch, K, card):
     mask, lens = padding_mask(torch, rs, 3 * B, S)
     api = ptt.Model(model, labels=["mlm_labels", "nsp_labels"]).prepare(
         opt, bert_fit_loss)
-    K.reset_launch_counts()
-    t0 = time.perf_counter()
-    hist = api.fit(ptt.io.TensorDataset([data[0], data[1], mask, data[2],
-                                         data[3]]),
-                   batch_size=B, epochs=1, shuffle=False, verbose=0,
-                   log_freq=1)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    fit_counts = K.launch_counts()
-    require_fast_variants(K, variants, "bert-train and Model.fit",
-                          TRAINING_FAST)
+    hist, fit_ms, kernels = trace_window(torch, lambda: api.fit(
+        ptt.io.TensorDataset([data[0], data[1], mask, data[2], data[3]]),
+        batch_size=B, epochs=1, shuffle=False, verbose=0, log_freq=1))
+    fit_counts, _ = require_traced(kernels, "BERT Model.fit", BERT_KERNELS,
+                                   dropout=False)
     fit_opt = require_optimizer_kernel(fit_counts, opt, 3,
                                        "BERT Model.fit")
     if len(hist["step_loss"]) != 3 or not all(
             math.isfinite(x) for x in hist["step_loss"]):
         fail(f"BERT Model.fit: step losses {hist['step_loss']}")
-    for name in BERT_KERNELS:
-        if fit_counts[name] <= 0:
-            fail(f"kernel {name} was not launched on the BERT Model.fit "
-                 "path")
     log(f"[bert-fit] Model.fit 3 steps of B={B} S={S}, inputs [ids, "
         f"token_type_ids, [B, 1, 1, S] bool mask] (lengths "
         f"{int(lens.min())}-{int(lens.max())}, mean {lens.mean():.1f}), "
-        f"labels [mlm, nsp], loss on the logits through F.cross_entropy: "
-        f"step losses {hist['step_loss']}; {fit_s:.3f}s; every attention "
-        f"launch took the mask; launches {fit_counts}; {fit_opt}")
+        f"labels [mlm, nsp], loss on the logits through F.cross_entropy "
+        f"(1 eager, the capture, 2 replays): step losses "
+        f"{hist['step_loss']}; {fit_ms / 1e3:.3f}s under the profiler; "
+        f"every attention launch took the mask; launches in the trace "
+        f"{fit_counts}; {fit_opt}")
     return counts, (p50, flops, tokens)
 
 
@@ -2362,6 +2660,8 @@ def main():
     dropout_counts = dropout_train_phase(
         torch, K, card, {"gpt": gpt_step, "bert": bert_step})
     torch.cuda.synchronize()
+    graph_counts = train_graph_phase(torch, K, card)
+    torch.cuda.synchronize()
 
     kernels = []
     for name, rec in main_cases.items():
@@ -2378,6 +2678,13 @@ def main():
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+        if name in TRAINING_KERNELS or name in XENT_KERNELS \
+                or name == "multi_tensor_step":
+            # launches a step of Model.fit's replayed step at the default
+            # configs, read from the trace of 2 replays
+            entry["train_graph_launches_a_step"] = {
+                model: c[name] for model, c in graph_counts.items()
+                if name in c}
         if name in FAST_VARIANT:
             entry["variant"] = rec["variant"]
         if name in MMA_KERNELS:

@@ -11,7 +11,12 @@
 //
 // Generator: Philox4x32-10 (Salmon et al., SC'11; the Random123 constants).
 // Key: the call's 64-bit seed.  Counter: (key group k / 8, query q, plane
-// b * H + h, 0).  One call gives 128 bits, eight 16-bit draws: draw e is
+// b * H + h, step).  `step` is 0, or the 32-bit word at a device pointer the
+// call names: the training engine's step counter, which its host writes
+// before every step, so one captured CUDA graph draws a new mask at every
+// replay with keys that stay launch parameters (the reference draws a new
+// key for every step, `split_key`).  One call gives 128 bits, eight 16-bit
+// draws: draw e is
 // the low (e even) or high (e odd) half of word e / 2 and belongs to key
 // 8 * group + e.  (q, k) is kept when its draw is >= round(p * 2^16), so
 // the effective p lies within 2^-17 of the requested one; the kept weights
@@ -31,13 +36,16 @@ struct Dropout {
   // bumped by the Weyl constants), made once on the host: the kernels read
   // them as launch parameters instead of adding them up for every call
   uint32_t key[10][2];
-  uint32_t threshold;  // round(p * 2^16): a lower draw drops its pair
-  float scale;         // 1 / (1 - p)
+  uint32_t threshold;    // round(p * 2^16): a lower draw drops its pair
+  float scale;           // 1 / (1 - p)
+  const uint32_t* step;  // the counter's fourth word, or nullptr for 0
 
   // p in [0, 1]; p == 0 keeps everything (the kernels then take their
-  // instantiations without dropout).
-  static Dropout make(unsigned long long seed, float p) {
+  // instantiations without dropout).  `step`: a device pointer or nullptr.
+  static Dropout make(unsigned long long seed, float p,
+                      const void* step = nullptr) {
     Dropout d;
+    d.step = static_cast<const uint32_t*>(step);
     d.key[0][0] = static_cast<uint32_t>(seed);
     d.key[0][1] = static_cast<uint32_t>(seed >> 32);
     for (int i = 1; i < 10; ++i) {
@@ -68,9 +76,11 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c,
 // bit e for key 8 * group + e.
 __device__ __forceinline__ uint32_t keep_byte(const Dropout& d, int bh,
                                               int q, int group) {
+  // one read-only load of a uniform address (an L1 hit after the first)
+  const uint32_t step = d.step != nullptr ? __ldg(d.step) : 0u;
   const uint4 r = philox4x32_10(
       make_uint4(static_cast<uint32_t>(group), static_cast<uint32_t>(q),
-                 static_cast<uint32_t>(bh), 0u),
+                 static_cast<uint32_t>(bh), step),
       d.key);
   const uint32_t w[4] = {r.x, r.y, r.z, r.w};
   uint32_t bits = 0;

@@ -536,15 +536,17 @@ std::atomic<long long> variant_launches[2];
 // unit stride over d; o: [B, S, H, D] contiguous; lse: [B*H, S] float32.
 // bias: NULL, or float32 [B, H, S, S] with element strides (bias_b, bias_h,
 // bias_q, bias_k), any of them 0.  causal: 0 or 1.  dropout_p in [0, 1]:
-// the weights' dropout (dropout.cuh) with the 64-bit `seed`; 0 launches
-// the kernels without it.
+// the weights' dropout (dropout.cuh) with the 64-bit `seed` and `step`
+// (NULL, or a device pointer to the Philox counter's fourth word); 0
+// launches the kernels without it.
 extern "C" int ptt_flash_attention_fwd(
     const void* q, const void* k, const void* v, long long qb, long long qs,
     long long qh, long long kb, long long ks, long long kh, long long vb,
     long long vs, long long vh, void* o, void* lse, const void* bias,
     long long bias_b, long long bias_h, long long bias_q, long long bias_k,
     int B, int S, int H, int D, float sm_scale, int causal,
-    unsigned long long seed, float dropout_p, int dtype, void* stream) {
+    unsigned long long seed, const void* step, float dropout_p, int dtype,
+    void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ptt::Bias bs{static_cast<const float*>(bias), bias_b, bias_h, bias_q,
@@ -552,7 +554,7 @@ extern "C" int ptt_flash_attention_fwd(
   if ((dtype != ptt::kF32 && dtype != ptt::kBF16) || !(dropout_p >= 0.f) ||
       dropout_p > 1.f)
     return static_cast<int>(cudaErrorInvalidValue);
-  const ptt::Dropout drop = ptt::Dropout::make(seed, dropout_p);
+  const ptt::Dropout drop = ptt::Dropout::make(seed, dropout_p, step);
   const bool dropout = dropout_p > 0.f;
   const bool mma = dtype == ptt::kBF16 && ptt::aligned_16(q, qb, qs, qh) &&
                    ptt::aligned_16(k, kb, ks, kh) &&
@@ -597,13 +599,13 @@ __global__ void dropout_mask_kernel(unsigned char* __restrict__ out,
 
 }  // namespace
 
-// The keep mask the attention kernels apply with (seed, dropout_p), as
-// bytes (1 = kept) over [planes, S, S] (planes = B * H, in b * H + h
+// The keep mask the attention kernels apply with (seed, step, dropout_p),
+// as bytes (1 = kept) over [planes, S, S] (planes = B * H, in b * H + h
 // order): the mask through the kernels' own device function, for the
 // tests to hold against the plain version.
 extern "C" int ptt_flash_dropout_mask(void* out, unsigned long long seed,
-                                      float dropout_p, int planes, int S,
-                                      void* stream) {
+                                      const void* step, float dropout_p,
+                                      int planes, int S, void* stream) {
   if (planes <= 0 || S <= 0) return 0;
   if (!(dropout_p >= 0.f) || dropout_p > 1.f)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -611,8 +613,8 @@ extern "C" int ptt_flash_dropout_mask(void* out, unsigned long long seed,
   const long long n = rows * ((S + 7) / 8);
   dropout_mask_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<unsigned char*>(out), ptt::Dropout::make(seed, dropout_p),
-      rows, S);
+      static_cast<unsigned char*>(out),
+      ptt::Dropout::make(seed, dropout_p, step), rows, S);
   return static_cast<int>(cudaGetLastError());
 }
 

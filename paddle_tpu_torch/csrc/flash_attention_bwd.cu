@@ -136,8 +136,16 @@ struct Args {
   ptt::Dropout drop;
 };
 
+// Blocks an SM for __launch_bounds__ (0: ptxas's own choice).  At D = 16
+// with dropout ptxas fitted the kernel to 48 registers (five blocks an SM)
+// and spilled once the Philox counter's fourth word became a loaded value;
+// three blocks give it 80 registers and no spill.
+template <int D, bool kDropout>
+constexpr int kDqMinBlocks = D == 16 && kDropout ? 3 : 0;
+
 template <typename T, int D, bool kDropout>
-__global__ void __launch_bounds__(kThreads) flash_dq_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads, (kDqMinBlocks<D, kDropout>))
+    flash_dq_kernel(Args a) {
   constexpr int kPer = D / 4;
   __shared__ float k_tile[kTile][D];
   __shared__ float v_tile[kTile][D];
@@ -898,13 +906,13 @@ int dispatch_as(const Args& a, bool mma, int B, int D, int dtype,
 
 template <bool kDq>
 int dispatch(Args a, int B, int D, int dtype, unsigned long long seed,
-             float dropout_p, void* stream) {
+             const void* step, float dropout_p, void* stream) {
   if (B <= 0 || a.S <= 0 || a.H <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if ((dtype != ptt::kF32 && dtype != ptt::kBF16) || !(dropout_p >= 0.f) ||
       dropout_p > 1.f)
     return static_cast<int>(cudaErrorInvalidValue);
-  a.drop = ptt::Dropout::make(seed, dropout_p);
+  a.drop = ptt::Dropout::make(seed, dropout_p, step);
   const bool mma = dtype == ptt::kBF16 && aligned_16(a.q, a.sq) &&
                    aligned_16(a.k, a.sk) && aligned_16(a.v, a.sv) &&
                    aligned_16(a.dout, a.sdo) && aligned_16(a.d0, a.sd0) &&
@@ -920,15 +928,16 @@ int dispatch(Args a, int B, int D, int dtype, unsigned long long seed,
 // host array of their (b, s, h) element strides, in that order (15
 // values).  lse, delta: [B*H, S] float32.  bias: NULL, or float32
 // [B, H, S, S] with element strides (bias_b, bias_h, bias_q, bias_k), any
-// of them 0.  causal: 0 or 1.  seed, dropout_p: the forward's dropout
-// (dropout.cuh), whose mask is drawn again here; dropout_p 0 launches the
-// kernels without it.
+// of them 0.  causal: 0 or 1.  seed, step, dropout_p: the forward's
+// dropout (dropout.cuh), whose mask is drawn again here; dropout_p 0
+// launches the kernels without it.
 extern "C" int ptt_flash_attention_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, const long long* strides,
     const void* bias, long long bias_b, long long bias_h, long long bias_q,
     long long bias_k, int B, int S, int H, int D, float sm_scale, int causal,
-    unsigned long long seed, float dropout_p, int dtype, void* stream) {
+    unsigned long long seed, const void* step, float dropout_p, int dtype,
+    void* stream) {
   Args a{q, k, v, dout, static_cast<const float*>(lse),
          static_cast<const float*>(delta), dq, nullptr,
          strides_at(strides, 0), strides_at(strides, 1),
@@ -937,7 +946,7 @@ extern "C" int ptt_flash_attention_dq(
          ptt::Bias{static_cast<const float*>(bias), bias_b, bias_h, bias_q,
                    bias_k},
          H, S, sm_scale, causal != 0, ptt::Dropout{}};
-  return dispatch<true>(a, B, D, dtype, seed, dropout_p, stream);
+  return dispatch<true>(a, B, D, dtype, seed, step, dropout_p, stream);
 }
 
 // As above, with dk and dv as the outputs; `strides` holds the (b, s, h)
@@ -948,7 +957,7 @@ extern "C" int ptt_flash_attention_dkv(
     const long long* strides, const void* bias, long long bias_b,
     long long bias_h, long long bias_q, long long bias_k, int B, int S, int H,
     int D, float sm_scale, int causal, unsigned long long seed,
-    float dropout_p, int dtype, void* stream) {
+    const void* step, float dropout_p, int dtype, void* stream) {
   Args a{q, k, v, dout, static_cast<const float*>(lse),
          static_cast<const float*>(delta), dk, dv,
          strides_at(strides, 0), strides_at(strides, 1),
@@ -957,7 +966,7 @@ extern "C" int ptt_flash_attention_dkv(
          ptt::Bias{static_cast<const float*>(bias), bias_b, bias_h, bias_q,
                    bias_k},
          H, S, sm_scale, causal != 0, ptt::Dropout{}};
-  return dispatch<false>(a, B, D, dtype, seed, dropout_p, stream);
+  return dispatch<false>(a, B, D, dtype, seed, step, dropout_p, stream);
 }
 
 // How many dq launches took the CUDA-core kernel (variant 0) or the

@@ -17,8 +17,12 @@
 // Design.  The host passes a table of per-tensor pointers (p, g, two
 // slots), element counts and each tensor's first chunk as ONE kernel
 // parameter (`__grid_constant__`, up to 32,764 bytes of parameters on
-// CUDA >= 12.1, sm_70+), so a step copies nothing to the device and never
-// synchronises.  Each block takes one fixed-size chunk of one tensor,
+// CUDA >= 12.1, sm_70+), so a step never synchronises.  The nine scalars
+// (`Hyper`) are read from device memory, which the host writes before the
+// launch (ops/kernels/optimizer.py): the learning rate and the bias
+// corrections of the step change every step, and a launch captured in a
+// CUDA graph keeps its parameters, so the captured training step reads
+// this step's values where a parameter would hold the capture's.  Each block takes one fixed-size chunk of one tensor,
 // found by a binary search of the chunk prefix (uniform over the block,
 // read from the constant bank), so the 38.6 M-element embedding and a
 // 768-element bias are cut into like pieces of work.  A tensor whose
@@ -144,8 +148,10 @@ __device__ __forceinline__ void store4(__nv_bfloat16* q, const float (&f)[4]) {
 
 template <typename T, int K>
 __global__ void __launch_bounds__(kThreads)
-    multi_tensor_kernel(__grid_constant__ const Table tab, const Hyper h) {
+    multi_tensor_kernel(__grid_constant__ const Table tab,
+                        const Hyper* __restrict__ hyper) {
   using S = typename Slot<T, K>::type;
+  const Hyper h = *hyper;
   constexpr int kSlots = K == kSGD ? 0 : (K >= kAdam ? 2 : 1);
   // the tensor of this block's chunk: the last t with chunk0[t] <= chunk
   const int chunk = blockIdx.x;
@@ -205,7 +211,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T>
-int launch(int kind, const Table& tab, const Hyper& h, cudaStream_t st) {
+int launch(int kind, const Table& tab, const Hyper* h, cudaStream_t st) {
   const unsigned blocks = static_cast<unsigned>(tab.chunk0[tab.count]);
   switch (kind) {
     case kSGD:
@@ -236,12 +242,13 @@ int launch(int kind, const Table& tab, const Hyper& h, cudaStream_t st) {
 // p[i], g[i] in `dtype`, slots s0[i], s1[i] (nullptr where the rule has
 // fewer), n[i] elements each, all contiguous on one device; chunk0[i] the
 // first chunk of tensor i in chunks of `chunk` elements (a multiple of 4),
-// chunk0[count] the number of chunks; `hyper` the nine floats of Hyper.
+// chunk0[count] the number of chunks; `hyper` a DEVICE pointer to the nine
+// floats of Hyper, in its order, which the launch reads when it runs.
 extern "C" int ptt_multi_tensor_step(int kind, int dtype, int count,
                                      void* const* p, void* const* g,
                                      void* const* s0, void* const* s1,
                                      const long long* n, const int* chunk0,
-                                     int chunk, const float* hyper,
+                                     int chunk, const void* hyper,
                                      void* stream) {
   if (count < 0 || count > kMaxTensors || chunk <= 0 || chunk % 4 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -258,10 +265,8 @@ extern "C" int ptt_multi_tensor_step(int kind, int dtype, int count,
   tab.chunk0[count] = chunk0[count];
   tab.count = count;
   tab.chunk = chunk;
-  Hyper h;
-  h.lr = hyper[0], h.beta1 = hyper[1], h.omb1 = hyper[2], h.beta2 = hyper[3];
-  h.omb2 = hyper[4], h.inv_bc1 = hyper[5], h.inv_bc2 = hyper[6];
-  h.eps = hyper[7], h.lr_wd = hyper[8];
+  if (hyper == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const Hyper* h = static_cast<const Hyper*>(hyper);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::kF32) return launch<float>(kind, tab, h, st);
   if (dtype == ptt::kBF16) return launch<__nv_bfloat16>(kind, tab, h, st);

@@ -28,3 +28,17 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(f"device {device!r} requested but CUDA is not "
                            "available on this host")
     return dev
+
+
+def copy_to_device(dst, src):
+    """``dst.copy_(src)`` from host data without blocking the host: ``src``
+    (a CPU tensor, array or list) is staged in pinned memory and copied on
+    the current stream when the stream reaches it.  The staging buffer is
+    PyTorch's caching host allocator's, which keeps it until the copy has
+    run (one buffer refilled for every copy could be overwritten while an
+    earlier copy from it is still queued).  A CPU ``dst`` is filled at
+    once; a CUDA ``src`` is copied on the device.  Returns ``dst``."""
+    src = torch.as_tensor(src, dtype=dst.dtype)
+    if dst.device.type == "cuda" and src.device.type == "cpu":
+        return dst.copy_(src.pin_memory(), non_blocking=True)
+    return dst.copy_(src)

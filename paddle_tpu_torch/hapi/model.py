@@ -5,7 +5,10 @@ and ``evaluate``).
 Every batch runs eagerly on the network's own parameters, on the device
 they live on; the step math is one function shared with the training
 engine (hapi/engine.py).  ``fit`` drives the engine: no host sync inside
-a step, losses fetched in one copy at ``log_freq`` steps and epoch ends.
+a step, losses fetched in one copy at ``log_freq`` steps and epoch ends;
+on a CUDA device the step of each batch signature is captured once as a
+CUDA graph and replayed, as the reference compiles its donated step
+(``train_batch`` and a user's own loop stay eager, as there).
 Of ``fit``'s options, ``epochs``, ``batch_size``, ``shuffle``,
 ``eval_data``, ``log_freq`` and ``verbose`` are ported.
 Not ported yet (ROADMAP.md): callbacks and metrics, checkpointing and
@@ -60,6 +63,7 @@ class Model:
         if self._train_step_fn is None:
             self._train_step_fn = build_train_step(
                 self.network, self._loss, self._optimizer)
+        self._optimizer.begin_step()
         loss, _ = self._train_step_fn(
             to_device(_to_list(inputs), self.device),
             to_device(_to_list(labels), self.device))

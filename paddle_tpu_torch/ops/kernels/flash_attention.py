@@ -47,7 +47,11 @@ operations (4*D flops per visible (query, key) pair forward, 6*D in dq,
   weights, and dP = dO V^T is masked and rescaled the same way before
   dS.  Each call draws its seed from the framework generator
   (framework/random.py ``dropout_seed``); the autograd Functions keep the
-  seed, not a mask.
+  seed, not a mask.  A seed is an int (Philox key; counter word 3 is 0)
+  or, inside the training engine's step, a ``StepSeed``: a key fixed for
+  the engine and a device int32 counter that the kernels read as word 3
+  when they run, so the step captured as a CUDA graph draws new masks at
+  every replay (csrc/dropout.cuh).
 
 Every kernel reads the paddle [B, S, H, D] layout through strides, so the
 fused qkv projection's slices need no transpose or copy, and the backward
@@ -73,10 +77,11 @@ from . import build
 HEAD_DIMS = (16, 32, 64, 128)
 NEG_INF = -1e30       # what a False entry of a bool mask adds (reference)
 _BIAS_ARGTYPES = (ctypes.c_void_p,) + (ctypes.c_longlong,) * 4
-# B, S, H, D, sm_scale, causal, dropout seed and p, dtype, stream
+# B, S, H, D, sm_scale, causal, dropout key, step word's pointer and p,
+# dtype, stream
 _TAIL_ARGTYPES = (ctypes.c_int,) * 4 + (
-    ctypes.c_float, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_float,
-    ctypes.c_int, ctypes.c_void_p)
+    ctypes.c_float, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_void_p,
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
 _ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_longlong,) * 9 \
     + (ctypes.c_void_p,) * 2 + _BIAS_ARGTYPES + _TAIL_ARGTYPES
 _DQ_ARGTYPES = (ctypes.c_void_p,) * 8 + _BIAS_ARGTYPES + _TAIL_ARGTYPES
@@ -124,6 +129,28 @@ def _check_dropout(dropout_p):
                          "[0, 1]")
 
 
+def _seed_args(name, seed, device):
+    """(64-bit key, pointer to the counter's fourth word or None) of a
+    seed as the C entries take it: an int, or a ``StepSeed`` whose counter
+    is an int32 [1] tensor on ``device``."""
+    if isinstance(seed, _random.StepSeed):
+        c = seed.counter
+        if c.shape != (1,) or c.dtype != torch.int32 or c.device != device:
+            raise ValueError(f"{name}: a StepSeed's counter must be an int32 "
+                             f"[1] tensor on {device}, got {tuple(c.shape)} "
+                             f"{c.dtype} on {c.device}")
+        return seed.key, c.data_ptr()
+    return int(seed), None
+
+
+def _key_and_step(seed):
+    """(key, counter word 3) of a seed, for the plain versions (reading a
+    CUDA counter is a host sync: the plain versions are references)."""
+    if isinstance(seed, _random.StepSeed):
+        return seed.key, int(seed.counter.reshape(())) & _U32
+    return int(seed), 0
+
+
 def dropout_threshold(p):
     """round(p * 2^16) of p as the kernels receive it (float32): a 16-bit
     draw below it drops its (query, key) pair."""
@@ -140,10 +167,12 @@ def dropout_scale(p):
 def dropout_keep_plain(seed, B, H, S, p, device="cpu"):
     """The kernels' keep mask (csrc/dropout.cuh) as a bool [B, H, S, S]
     tensor (True = kept), in int64 arithmetic.  Philox4x32-10 keyed by the
-    64-bit ``seed``, counter (k // 8, q, b*H + h, 0): its four words hold
+    64-bit key of ``seed``, counter (k // 8, q, b*H + h, step), step 0 for
+    an int seed and a ``StepSeed``'s counter value: its four words hold
     the eight 16-bit draws of keys 8 * (k // 8) + e, draw e the low (e
     even) or high half of word e // 2; a pair is kept when its draw is at
     least :func:`dropout_threshold`."""
+    seed, step = _key_and_step(seed)
     planes, groups = B * H, -(-S // 8)
 
     def ax(n, dim):
@@ -153,7 +182,7 @@ def dropout_keep_plain(seed, B, H, S, p, device="cpu"):
 
     c0, c1, c2 = ax(groups, 2), ax(S, 1), ax(planes, 0)
     words = philox4x32_10(
-        (c0, c1, c2, torch.zeros((), dtype=torch.int64, device=device)),
+        (c0, c1, c2, torch.full((), step, dtype=torch.int64, device=device)),
         (seed & _U32, (seed >> 32) & _U32))
     w = torch.stack(torch.broadcast_tensors(*words), -1)  # [P, S, G, 4]
     draws = torch.stack((w & 0xFFFF, w >> 16), -1).reshape(
@@ -316,8 +345,9 @@ def flash_attention(q, k, v, causal=True, bias=None, sm_scale=None,
     layout, any strides with a unit stride over D), causal (the GPT
     path's form, the default) or not, plus an optional float32
     [B, H, S, S] bias, and dropout ``dropout_p`` on the weights with the
-    mask of ``seed``.  Returns (out [B, S, H, D] contiguous, lse [B*H, S]
-    float32).  No graph: see :func:`attention`."""
+    mask of ``seed`` (an int or a ``StepSeed``).  Returns (out
+    [B, S, H, D] contiguous, lse [B*H, S] float32).  No graph: see
+    :func:`attention`."""
     _check_dropout(dropout_p)
     if _device("flash_attention", q) == "cpu":
         return flash_attention_plain(q, k, v, causal, bias, sm_scale,
@@ -325,6 +355,7 @@ def flash_attention(q, k, v, causal=True, bias=None, sm_scale=None,
     B, S, H, D = q.shape
     _check("flash_attention", q, k, v)
     bias_args = _bias_args("flash_attention", q, bias)
+    key, step = _seed_args("flash_attention", seed, q.device)
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
     fn = build.bind("flash_attention", "ptt_flash_attention_fwd", _ARGTYPES)
@@ -333,7 +364,7 @@ def flash_attention(q, k, v, causal=True, bias=None, sm_scale=None,
              k.stride(0), k.stride(1), k.stride(2),
              v.stride(0), v.stride(1), v.stride(2),
              out.data_ptr(), lse.data_ptr(), *bias_args, B, S, H, D,
-             _scale(q, sm_scale), int(causal), seed, dropout_p,
+             _scale(q, sm_scale), int(causal), key, step, dropout_p,
              build.dtype_code(q), build.stream_of(q))
     build.check(err, "flash_attention")
     flash_attention.launches += 1
@@ -357,12 +388,13 @@ def flash_attention_dq(q, k, v, do, lse, delta, out=None, causal=True,
     _check("flash_attention_dq", q, k, v, do, out)
     _check_stats("flash_attention_dq", q, lse, delta)
     bias_args = _bias_args("flash_attention_dq", q, bias)
+    key, step = _seed_args("flash_attention_dq", seed, q.device)
     fn = build.bind("flash_attention_bwd", "ptt_flash_attention_dq",
                     _DQ_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), out.data_ptr(),
              build.strides(q, k, v, do, out), *bias_args, B, S, H, D,
-             _scale(q, sm_scale), int(causal), seed, dropout_p,
+             _scale(q, sm_scale), int(causal), key, step, dropout_p,
              build.dtype_code(q), build.stream_of(q))
     build.check(err, "flash_attention_dq")
     flash_attention_dq.launches += 1
@@ -388,12 +420,13 @@ def flash_attention_dkv(q, k, v, do, lse, delta, out=None, causal=True,
     _check("flash_attention_dkv", q, k, v, do, dk, dv)
     _check_stats("flash_attention_dkv", q, lse, delta)
     bias_args = _bias_args("flash_attention_dkv", q, bias)
+    key, step = _seed_args("flash_attention_dkv", seed, q.device)
     fn = build.bind("flash_attention_bwd", "ptt_flash_attention_dkv",
                     _DKV_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              build.strides(q, k, v, do, dk, dv), *bias_args, B, S, H, D,
-             _scale(q, sm_scale), int(causal), seed, dropout_p,
+             _scale(q, sm_scale), int(causal), key, step, dropout_p,
              build.dtype_code(q), build.stream_of(q))
     build.check(err, "flash_attention_dkv")
     flash_attention_dkv.launches += 1
@@ -432,10 +465,12 @@ def dropout_keep(seed, B, H, S, p, device):
     if device.type != "cuda":
         raise RuntimeError(f"dropout_keep: no kernel for device {device}")
     out = torch.empty((B, H, S, S), dtype=torch.bool, device=device)
+    key, step = _seed_args("dropout_keep", seed, out.device)
     fn = build.bind("flash_attention", "ptt_flash_dropout_mask",
-                    (ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_float,
-                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
-    err = fn(out.data_ptr(), seed, p, B * H, S, build.stream_of(out))
+                    (ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_void_p,
+                     ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_void_p))
+    err = fn(out.data_ptr(), key, step, p, B * H, S, build.stream_of(out))
     build.check(err, "dropout_keep")
     return out
 

@@ -12,8 +12,12 @@ the reference's order, and the optimizers' ``_update`` call it.
 
 The kernel (csrc/multi_tensor_optim.cu) is bound by bytes (bf16 AdamW: 22
 bytes an element).  The host builds a table of per-tensor pointers and
-counts and passes it as the launch's parameter: no copy to the device and
-no host sync.  Blocks take fixed-size chunks of elements
+counts and passes it as the launch's parameter: no host sync.  The nine
+scalars (:func:`hyper_floats`) are a float32 [9] device tensor that the
+kernel reads when it runs, written from the host by :func:`write_scalars`
+without a sync: the training engine's host prologue writes the step's
+before each replay of its captured step, whose launch holds the tensor's
+address, not the values.  Blocks take fixed-size chunks of elements
 (:func:`chunk_groups`), so one large embedding and many small biases
 balance.  Its result is bitwise the eager loop's on the card: it copies
 each eager op's float32 (or bf16) rounding, and gets each scalar as the
@@ -31,6 +35,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ...framework.place import copy_to_device
 from . import build
 
 KINDS = ("sgd", "momentum", "nesterov", "adam", "adamw")
@@ -41,6 +46,7 @@ _ARGTYPES = (ctypes.c_int, ctypes.c_int, ctypes.c_int) \
     + (ctypes.c_void_p,) * 4 + (ctypes.c_void_p, ctypes.c_void_p,
                                 ctypes.c_int, ctypes.c_void_p,
                                 ctypes.c_void_p)
+N_SCALARS = 9            # the kernel's Hyper
 
 
 def bias_correction(beta, t):
@@ -103,7 +109,22 @@ def hyper_floats(kind, lr, t, hyper):
                 lr * hyper.get("weight_decay", 0.0))
     else:
         vals = (lr, hyper.get("momentum", 0.0)) + (0.0,) * 7
-    return (ctypes.c_float * 9)(*(float(f(v)) for v in vals))
+    return tuple(float(f(v)) for v in vals)
+
+
+def write_scalars(scalars, kind, lr, t, hyper):
+    """Write :func:`hyper_floats` of (``kind``, ``lr``, step ``t``) into
+    ``scalars`` (a float32 [9] tensor), on the current stream and without
+    a host sync; the kernels that read them later in the stream see
+    them."""
+    copy_to_device(scalars, hyper_floats(kind, lr, t, hyper))
+    return scalars
+
+
+def make_scalars(device):
+    """An (unwritten) float32 [9] tensor of kernel scalars on
+    ``device``."""
+    return torch.empty(N_SCALARS, dtype=torch.float32, device=device)
 
 
 def chunk_groups(numels, chunk=CHUNK, max_tensors=MAX_TENSORS):
@@ -164,12 +185,16 @@ def _check_disjoint(params):
                              "(one listed twice?); list each once")
 
 
-def multi_tensor_step(kind, params, grads, slots, lr, t, hyper):
+def multi_tensor_step(kind, params, grads, slots, lr, t, hyper,
+                      scalars=None):
     """One ``kind`` update of every tensor in ``params`` (one dtype, one
     device), in place: ``grads`` in the parameters' dtype, ``slots`` a
     list per tensor (see :func:`update_plain`), ``lr`` a float, ``t`` the
-    step.  One launch per :data:`MAX_TENSORS` tensors.  Returns the
-    parameters as a tuple."""
+    step (the plain version's).  On CUDA the kernel reads its scalars
+    from ``scalars``, a float32 [9] tensor on the parameters' device
+    that :func:`write_scalars` filled before it runs (``lr`` and ``t``
+    are not read there).  One launch per :data:`MAX_TENSORS` tensors.
+    Returns the parameters as a tuple."""
     if not (len(params) == len(grads) == len(slots)):
         raise ValueError("multi_tensor_step: params, grads and slots "
                          "differ in length")
@@ -184,11 +209,15 @@ def multi_tensor_step(kind, params, grads, slots, lr, t, hyper):
         return multi_tensor_step_plain(kind, params, grads, slots, lr, t,
                                        hyper)
     _check(kind, params, grads, slots)
+    if scalars is None or scalars.shape != (N_SCALARS,) \
+            or scalars.dtype != torch.float32 \
+            or scalars.device != params[0].device:
+        raise ValueError("multi_tensor_step: scalars must be a float32 "
+                         f"[{N_SCALARS}] tensor on {params[0].device}")
     fn = build.bind("multi_tensor_optim", "ptt_multi_tensor_step",
                     _ARGTYPES)
     code = KINDS.index(kind)
     dtype = build.dtype_code(params[0])
-    floats = hyper_floats(kind, lr, t, hyper)
     stream = build.stream_of(params[0])
     nslots = SLOTS[kind]
     for idx, chunk0 in chunk_groups([p.numel() for p in params]):
@@ -201,7 +230,8 @@ def multi_tensor_step(kind, params, grads, slots, lr, t, hyper):
                 ptrs[2 + k][j] = slots[i][k].data_ptr()
         err = fn(code, dtype, n, *ptrs,
                  (ctypes.c_longlong * n)(*(params[i].numel() for i in idx)),
-                 (ctypes.c_int * (n + 1))(*chunk0), CHUNK, floats, stream)
+                 (ctypes.c_int * (n + 1))(*chunk0), CHUNK,
+                 scalars.data_ptr(), stream)
         build.check(err, "multi_tensor_step")
         multi_tensor_step.launches += 1
     return tuple(params)

@@ -19,7 +19,13 @@ inside its jitted step, is here one CUDA launch a step for each (device,
 dtype) group of CUDA parameters (``ops.kernels.optimizer``, bitwise the
 per-parameter loop's result), with the moments updated in place; so
 ``state_dict()`` hands out copies, as the reference's immutable state
-arrays are.  CPU parameters take that wrapper's plain version; an
+arrays are.  ``step()`` is two halves: :meth:`Optimizer.begin_step`, the
+host's (advance the step count, read the learning rate, write the
+kernel's scalars to each CUDA device without a sync), and
+:meth:`Optimizer.apply_step`, the device's (the update, reading those
+scalars), which touches no host state; the training engine runs the first
+once per executed step and captures the second in its CUDA graph, as the
+reference's engine keeps ``lr`` and ``step`` in its donated state.  CPU parameters take that wrapper's plain version; an
 optimizer whose rule has no kernel (a subclass that overrides ``_update``
 or ``_apply_decay``) takes the per-parameter loop of
 :meth:`Optimizer.step_plain` on any device.  The
@@ -52,6 +58,9 @@ class Optimizer:
         # per-parameter slot storage keyed by id(param)
         self._slots: dict[int, dict[str, Any]] = {}
         self._step_count = 0
+        self._lr_now = None       # the lr begin_step() read for this step
+        # the kernel's scalars (float32 [9]) on each CUDA device
+        self._scalars: dict[torch.device, torch.Tensor] = {}
 
     # -- lr ----------------------------------------------------------------
     def get_lr(self) -> float:
@@ -119,9 +128,41 @@ class Optimizer:
         """One update of every parameter with a gradient: each (device,
         dtype) group through the multi-tensor wrapper (one launch on CUDA,
         its plain version on the CPU); an optimizer whose rule has no
-        kernel takes the per-parameter loop."""
+        kernel takes the per-parameter loop.  :meth:`begin_step`, then
+        :meth:`apply_step`."""
+        self.begin_step()
+        self.apply_step()
+
+    def begin_step(self):
+        """The host half of a step: advance the step count, read the
+        learning rate (a scheduler's current value) and, for an optimizer
+        with a kernel, write the kernel's scalars of (lr, step) to every
+        CUDA device of the parameters, on the current stream and without a
+        host sync.  Run once per executed step."""
         self._step_count += 1
-        params_grads, lr = self._params_grads(), self.get_lr()
+        self._lr_now = self.get_lr()
+        spec = self._kernel_spec()
+        if spec is None:
+            return
+        rule, hyper = spec
+        for dev in {p.device for p in self._parameter_list or []
+                    if p.device.type == "cuda"}:
+            if dev not in self._scalars:
+                self._scalars[dev] = _kernel.make_scalars(dev)
+            _kernel.write_scalars(self._scalars[dev], rule, self._lr_now,
+                                  self._step_count, hyper)
+
+    @torch.no_grad()
+    def apply_step(self):
+        """The device half: the update of every parameter with a gradient
+        by the step count, lr and scalars of the last :meth:`begin_step`.
+        It reads and writes no host state of the optimizer but its slots'
+        first creation, so a CUDA graph can capture it (the per-parameter
+        loop of an optimizer without a kernel bakes lr and the step into
+        its launches, and so cannot be replayed)."""
+        if self._lr_now is None:
+            raise RuntimeError("apply_step() before begin_step()")
+        params_grads, lr = self._params_grads(), self._lr_now
         spec = self._kernel_spec()
         if spec is None:
             self._step_plain(params_grads, lr)
@@ -166,7 +207,8 @@ class Optimizer:
             own = self._get_slots(p)
             slots.append([own[n] for n in self._slot_names()])
         _kernel.multi_tensor_step(rule, params, grads, slots, lr,
-                                  self._step_count, hyper)
+                                  self._step_count, hyper,
+                                  self._scalars.get(params[0].device))
 
     def _apply_decay(self, p, g):
         """Coupled decay (fluid regularizer semantics); AdamW overrides."""

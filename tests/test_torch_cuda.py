@@ -1198,3 +1198,341 @@ def test_engine_capture_leaves_the_idle_state_unchanged(dev):
         for key, t in fresh.items():
             assert torch.equal(eng._state[key], t), key
         assert eng.capture_count == 1 and eng.replays == 0
+
+
+# ---------------------------------------------------------------------------
+# the training engine's captured step: Model.fit through one CUDA graph per
+# batch signature, with the dropout counter and the optimizer's scalars
+# read from device memory
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("step", [0, 5, -7])
+def test_dropout_mask_entry_reads_the_step_from_the_card(dev, step):
+    """The kernels' mask in the engine's seed form (a key and a device
+    counter, Philox's fourth counter word) is bitwise the plain
+    version's; counter 0 is the int seed's mask."""
+    from paddle_tpu_torch.framework.random import StepSeed
+
+    key = 0x0F0E0D0C0B0A0908
+    seed = StepSeed(key, torch.tensor([step], dtype=torch.int32,
+                                      device=dev))
+    got = flash_attention.dropout_keep(seed, 2, 3, 77, 0.1, dev)
+    assert torch.equal(got, flash_attention.dropout_keep_plain(
+        seed, 2, 3, 77, 0.1, dev))
+    same = torch.equal(got, flash_attention.dropout_keep(key, 2, 3, 77, 0.1,
+                                                          dev))
+    assert same == (step == 0)
+
+
+def _dropout_calls(q, k, v, do, seed):
+    form = dict(causal=True, dropout_p=0.1, seed=seed)
+    out, lse = flash_attention.flash_attention(q, k, v, **form)
+    delta = flash_attention.flash_attention_delta(out, do)
+    return (out, lse,
+            flash_attention.flash_attention_dq(q, k, v, do, lse, delta,
+                                               **form),
+            *flash_attention.flash_attention_dkv(q, k, v, do, lse, delta,
+                                                 **form))
+
+
+@pytest.mark.parametrize("dtype,offset,variant", DROPOUT_VARIANTS)
+def test_dropout_kernels_take_the_step_from_the_card(dev, dtype, offset,
+                                                     variant):
+    """Forward, dq and dk/dv with a StepSeed: at counter 0 bitwise the int
+    seed's; at counter 3 within the tolerance of the plain versions (which
+    draw that step's mask) and a different result; captured once in a
+    CUDA graph and replayed after the counter moved to 3, bitwise the
+    eager calls at 3."""
+    from paddle_tpu_torch.framework.random import StepSeed
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    q, k, v, do = _views(g, dev, dtype, (2, 130, 3, 64), offset)
+    key = 0x5EED0FD809
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    seed = StepSeed(key, counter)
+    at0 = _dropout_calls(q, k, v, do, seed)
+    assert all(torch.equal(a, b) for a, b in
+               zip(at0, _dropout_calls(q, k, v, do, key)))
+    counter.fill_(3)
+    before = flash_attention.variant_launches()
+    at3 = _dropout_calls(q, k, v, do, seed)
+    assert all(n[variant] == 1 for n in _variant_delta(before).values())
+    assert not torch.equal(at3[0], at0[0])
+    form = dict(causal=True, dropout_p=0.1, seed=seed)
+    ref, ref_lse = flash_attention.flash_attention_plain(q, k, v, **form)
+    _check(at3[0], ref, dtype)
+    delta = flash_attention.flash_attention_delta(at3[0], do)
+    _check(at3[2], flash_attention.flash_attention_dq_plain(
+        q, k, v, do, at3[1], delta, **form), dtype)
+    ref_k, ref_v = flash_attention.flash_attention_dkv_plain(
+        q, k, v, do, at3[1], delta, **form)
+    _check(at3[3], ref_k, dtype)
+    _check(at3[4], ref_v, dtype)
+    counter.fill_(0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _dropout_calls(q, k, v, do, seed)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static = _dropout_calls(q, k, v, do, seed)
+    counter.fill_(3)
+    graph.replay()
+    assert all(torch.equal(a, b) for a, b in zip(static, at3))
+
+
+def test_multi_tensor_step_reads_its_scalars_when_it_runs(dev):
+    """One AdamW launch captured in a CUDA graph over a scalars tensor
+    that the host rewrites before each replay, with the lr and the step
+    changing every time: bitwise the per-parameter loop at those lrs and
+    steps, parameters and moments."""
+    hyper = dict(beta1=0.9, beta2=0.999, epsilon=1e-8, weight_decay=0.05)
+    g = torch.Generator(device=dev).manual_seed(41)
+    shapes = [(300, 77), (128,), (5, 3)]
+    params = [torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)
+              for s in shapes]
+    grads = [(1e-2 * torch.randn(*s, generator=g, device=dev)).to(
+        torch.bfloat16) for s in shapes]
+    slots = [[torch.zeros(s, device=dev), torch.zeros(s, device=dev)]
+             for s in shapes]
+    twins = [p.clone() for p in params]
+    twin_slots = [[t.clone() for t in ss] for ss in slots]
+    scalars = multi_tensor.make_scalars(dev)
+    graph = torch.cuda.CUDAGraph()
+    before = multi_tensor.multi_tensor_step.launches
+    with torch.cuda.graph(graph):
+        multi_tensor.multi_tensor_step("adamw", params, grads, slots, None,
+                                       None, hyper, scalars)
+    assert multi_tensor.multi_tensor_step.launches == before + 1
+    for t, lr in ((1, 0.01), (2, 0.004), (3, 0.02)):
+        multi_tensor.write_scalars(scalars, "adamw", lr, t, hyper)
+        graph.replay()
+        multi_tensor.multi_tensor_step_plain("adamw", twins, grads,
+                                             twin_slots, lr, t, hyper)
+    torch.cuda.synchronize()
+    for a, b in zip(params, twins):
+        assert torch.equal(a, b), (a.float() - b.float()).abs().max()
+    for a, b in zip(slots, twin_slots):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _train_gpt(dev, dtype, dropout, seed=3):
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    ptt.seed(seed)
+    return GPTForCausalLM(GPTConfig(
+        vocab_size=96, hidden_size=64, num_layers=2, num_heads=2,
+        max_position_embeddings=64, dropout=dropout, attn_dropout=dropout),
+        device=dev, dtype=dtype)
+
+
+def _lm_loss(logits, labels):
+    logp = logits[:, :-1].float().log_softmax(-1)
+    return -logp.gather(-1, labels[:, 1:, None])[..., 0].mean()
+
+
+def _train_api(net, form, lr=0.01, loss=_lm_loss, labels=None):
+    """A Model over ``net`` whose engine takes the graph path ("graph") or
+    ``_step_eager`` ("eager")."""
+    from paddle_tpu_torch.hapi.engine import TrainEngine
+
+    model = ptt.Model(net, labels=labels).prepare(
+        ptt.optimizer.AdamW(learning_rate=lr, weight_decay=0.01,
+                            parameters=net.parameters()), loss)
+    engine = model._engine = TrainEngine(model)
+    if form == "eager":
+        engine.step = engine._step_eager
+    return model, engine
+
+
+def _params(net):
+    return [p.detach().clone() for p in net.parameters()]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_train_graph_is_bitwise_the_eager_step(dev, dtype, dropout):
+    """Model.fit over 6 batches through the captured step and through
+    ``_step_eager`` from one seed: losses and parameters bitwise equal;
+    one capture holding every training kernel (one optimizer launch),
+    five replays."""
+    data = torch.from_numpy(np.random.RandomState(6).randint(0, 96,
+                                                             (24, 32)))
+    runs = {}
+    for form in ("graph", "eager"):
+        net = _train_gpt(dev, dtype, dropout)
+        model, engine = _train_api(net, form)
+        hist = model.fit(ptt.io.TensorDataset([data, data]), batch_size=4,
+                         shuffle=False, verbose=0, log_freq=2)
+        runs[form] = (hist["step_loss"], _params(net))
+        if form == "graph":
+            assert engine.captures == 1 and engine.replays == 5
+            (launches,) = engine.graph_launches.values()
+            assert launches["multi_tensor_step"] == 1
+            for name in ("layer_norm", "bias_gelu", "bias_gelu_bwd",
+                         "flash_attention", "flash_attention_dq",
+                         "flash_attention_dkv"):
+                assert launches[name] > 0, name
+        else:
+            assert engine.captures == engine.replays == 0
+    losses, params = runs["graph"]
+    assert len(losses) == 6 and all(np.isfinite(losses))
+    assert losses == runs["eager"][0]
+    assert all(torch.equal(a, b) for a, b in zip(params, runs["eager"][1]))
+
+
+def test_train_graph_takes_a_scheduled_lr(dev):
+    """A StepDecay stepped twice in the middle of the run, after the
+    capture: the replays take each new lr (bitwise the eager steps), and
+    differ from a run at the first lr throughout."""
+    ids = [torch.from_numpy(np.random.RandomState(i).randint(0, 96, (4, 32)))
+           for i in range(6)]
+    runs = []
+    for form, gamma in (("graph", 0.5), ("eager", 0.5), ("graph", 1.0)):
+        net = _train_gpt(dev, torch.float32, 0.1)
+        sched = ptt.optimizer.lr.StepDecay(0.01, step_size=1, gamma=gamma)
+        model, engine = _train_api(net, form, lr=sched)
+        engine.begin()
+        for i, x in enumerate(ids):
+            engine.step([x], [x])
+            if i in (1, 3):
+                sched.step()
+        runs.append((engine.drain(), _params(net)))
+        assert engine.replays == (5 if form == "graph" else 0)
+    (g_loss, g_par), (e_loss, e_par), (c_loss, c_par) = runs
+    assert g_loss == e_loss
+    assert all(torch.equal(a, b) for a, b in zip(g_par, e_par))
+    assert g_loss[:3] == c_loss[:3] and g_loss[3:] != c_loss[3:]
+    assert not all(torch.equal(a, b) for a, b in zip(g_par, c_par))
+
+
+def test_train_graph_short_last_batch_is_a_second_capture(dev):
+    """22 samples in batches of 4 over 2 epochs: the short last batch
+    gets its own graph, captured at its first step and replayed in the
+    second epoch; losses bitwise the eager steps'."""
+    data = torch.from_numpy(np.random.RandomState(7).randint(0, 96,
+                                                             (22, 32)))
+    runs = []
+    for form in ("graph", "eager"):
+        net = _train_gpt(dev, torch.bfloat16, 0.1)
+        model, engine = _train_api(net, form)
+        hist = model.fit(ptt.io.TensorDataset([data, data]), batch_size=4,
+                         epochs=2, shuffle=False, verbose=0)
+        runs.append(hist["step_loss"])
+        if form == "graph":
+            assert engine.captures == 2 and engine.replays == 10
+            assert len(engine.graph_launches) == 2
+    assert len(runs[0]) == 12 and runs[0] == runs[1]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_train_graph_after_a_loaded_optimizer_state(dev, dtype):
+    """fit 3 steps, save the optimizer's state, fit 2 more, load the saved
+    state (fresh slot tensors: the old ones are freed) and fit 3 again:
+    the graph captured over the old slots is dropped and the step is
+    captured anew, so the replays update the loaded moments; losses and
+    parameters bitwise ``_step_eager`` doing the same."""
+    data = torch.from_numpy(np.random.RandomState(8).randint(0, 96,
+                                                             (32, 32)))
+    runs = []
+    for form in ("graph", "eager"):
+        net = _train_gpt(dev, dtype, 0.1)
+        model, engine = _train_api(net, form)
+        opt = model._optimizer
+
+        def fit(lo, hi):
+            part = data[lo * 4:hi * 4]
+            return model.fit(ptt.io.TensorDataset([part, part]),
+                             batch_size=4, shuffle=False,
+                             verbose=0)["step_loss"]
+
+        losses = fit(0, 3)
+        saved = opt.state_dict()
+        losses += fit(3, 5)
+        opt.set_state_dict(saved)
+        # a tensor that may take the freed slots' memory
+        junk = [torch.full_like(v, 7.0) for v in saved.values()
+                if isinstance(v, torch.Tensor)]
+        losses += fit(5, 8)
+        del junk
+        runs.append((losses, _params(net)))
+        if form == "graph":
+            assert engine.captures == 2 and engine.replays == 6
+    (losses, params), (eager_losses, eager_params) = runs
+    assert len(losses) == 8 and all(np.isfinite(losses))
+    assert losses == eager_losses
+    assert all(torch.equal(a, b) for a, b in zip(params, eager_params))
+
+
+def test_train_graph_replay_syncs_only_to_drain(dev):
+    """Replayed steps under torch.cuda.set_sync_debug_mode("warn") make no
+    host sync; the drain makes one (in hapi/engine.py)."""
+    import os
+    import warnings
+
+    net = _train_gpt(dev, torch.bfloat16, 0.1)
+    model, engine = _train_api(net, "graph")
+    engine.begin()
+    ids = [torch.from_numpy(np.random.RandomState(i).randint(0, 96, (4, 32)))
+           for i in range(6)]
+    for x in ids[:2]:
+        engine.step([x], [x])
+    engine.drain()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for x in ids[2:]:
+                engine.step([x], [x])
+            steps = [w for w in caught
+                     if str(w.message).startswith(SYNC_WARNING)]
+            losses = engine.drain()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [os.path.basename(w.filename) for w in caught
+             if str(w.message).startswith(SYNC_WARNING)]
+    assert steps == [] and engine.replays == 5
+    assert syncs == ["engine.py"] and len(losses) == 4
+
+
+def test_train_graph_bert_masked_is_bitwise_the_eager_step(dev):
+    """A tiny BERT at its default dropout 0.1, bf16, on padded batches
+    with a [B, 1, 1, S] bool mask and the MLM and NSP losses through
+    F.cross_entropy (both softmax cross-entropy kernels): graph and eager
+    steps bitwise equal over 4 steps."""
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    from paddle_tpu_torch.nn import functional as PF
+
+    rs = np.random.RandomState(9)
+    n, S = 16, 32
+    lens = rs.randint(S // 2, S + 1, n)
+    data = [rs.randint(0, 120, (n, S)), rs.randint(0, 2, (n, S)),
+            (np.arange(S)[None] < lens[:, None])[:, None, None, :],
+            np.where(rs.rand(n, S) < 0.15, rs.randint(0, 120, (n, S)), -100),
+            rs.randint(0, 2, n)]
+    data = [torch.from_numpy(a) for a in data]
+
+    def loss(mlm_logits, nsp_logits, mlm_labels, nsp_labels):
+        mlm = PF.cross_entropy(mlm_logits, mlm_labels, reduction="none")
+        denom = (mlm_labels != -100).float().sum().clamp(min=1.0)
+        return mlm.sum() / denom + PF.cross_entropy(nsp_logits, nsp_labels)
+
+    runs = []
+    for form in ("graph", "eager"):
+        ptt.seed(4)
+        net = BertForPretraining(BertConfig(
+            vocab_size=120, hidden_size=64, num_layers=2, num_heads=2,
+            intermediate_size=128), device=dev, dtype=torch.bfloat16)
+        model, engine = _train_api(net, form, lr=1e-3, loss=loss,
+                                   labels=["mlm", "nsp"])
+        hist = model.fit(ptt.io.TensorDataset(data), batch_size=4,
+                         shuffle=False, verbose=0)
+        runs.append((hist["step_loss"], _params(net)))
+        if form == "graph":
+            (launches,) = engine.graph_launches.values()
+            assert launches["softmax_xent"] == 2
+            assert launches["softmax_xent_bwd"] == 2
+            assert launches["flash_attention"] == 2
+    assert len(runs[0][0]) == 4 and runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
