@@ -88,6 +88,21 @@ passed over):
                   took its fast kernel (with dropout exactly when p > 0)
                   with one optimizer launch a step; step p50, tokens/s,
                   MFU, busy share, launches a step.
+14. fit-api     — Model.fit's user surface on BertConfig() (bf16, B = 32,
+                  S = 128, padded): a dygraph loss kept alive, then fit
+                  with an NSP accuracy metric, eval data, checkpoints,
+                  EarlyStopping and VisualDL, a fresh model's load and
+                  predict; fails unless the eval graph is bitwise the
+                  eager _eval, its traced launches equal its capture's x
+                  the replays (fast kernels, no dropout), the metric equals
+                  np.argsort(-pred) of the fetched logits, predict after
+                  load is bitwise the trained model's and every file is
+                  there; eval graph and eager ms a batch, train-graph p50
+                  with and without the metric, save/load times.
+
+The AccumulateGrad stream warning (a backward accumulating into a node of
+another stream: the training engine's warm-up meeting a dygraph graph
+still alive) is an error for the whole run.
 
 Model.fit replays a captured step, whose launches the kernel wrappers do
 not count (they count the first, eager step and the capture): every
@@ -131,9 +146,11 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
+START = time.perf_counter()   # the run's start (phases log their start)
 F32_TOL = 2e-5       # x max(1, max|ref|): float32 summation-order noise
 BF16_TOL = 2 ** -6   # x max(1, max|ref|): two bf16 ulps at the top binade
 LOGITS_REL_TOL = 1e-3  # max|dlogits| / max|ref| over 12 layers, float32
@@ -2277,6 +2294,286 @@ def train_graph_phase(torch, K, card):
     return out
 
 
+FIT_API_STEPS = 8      # steps an epoch of [fit-api]
+FIT_API_EVAL = 4       # eval batches
+EVAL_KERNELS = ("layer_norm", "bias_gelu", "flash_attention", "softmax_xent")
+# what autograd says when an AccumulateGrad node of another stream takes a
+# gradient (the graph warm-up's hazard); main() makes it an error
+ACCUMULATE_WARNING = "The AccumulateGrad node's stream does not match"
+
+
+def fit_api_phase(torch, K, card):
+    """Model.fit's user surface on full-width BERT-base (BertConfig(),
+    bf16, dropout 0.1, B = 32, S = 128, padded batches with their
+    [B, 1, 1, S] mask): a dygraph step whose loss stays alive, then
+    Model(net, labels=["mlm_labels", "nsp_labels"]).prepare(AdamW, loss,
+    metrics=[NSP accuracy]).fit(2 epochs x FIT_API_STEPS, eval_data of
+    FIT_API_EVAL batches, eval_freq=1, save_dir, save_freq=1, callbacks
+    [EarlyStopping(monitor="eval_loss"), VisualDL]), then a fresh model's
+    load(final) and predict.  Fails unless: the eval graph's losses and
+    logits are bitwise the eager _eval's; its launches in a profiler
+    trace of FIT_API_EVAL replays equal graph_launches x replays, every
+    one on its fast kernel and without dropout; the NSP accuracy of fit's
+    epoch logs equals one recomputed from the fetched logits with
+    np.argsort(-pred); predict after load is bitwise the trained model's
+    and the loaded slots and step count are the trained ones; the
+    .pdparams/.pdopt files exist for each epoch and final and
+    scalars.jsonl has a line a step.  Prints the eval graph's p50 a batch
+    against the eager _eval's, the train graph's p50 a step with the
+    metric (and its per-step fetch) against a run without metric or user
+    callback (log_freq=1, as [train-graph]), save and load times and file
+    sizes, and the eval graph's first capture.  Returns each kernel
+    wrapper's launches in fit (counted from just before it: the train
+    step's warm-up and capture, the eval step's first batch and capture;
+    a replay runs no wrapper) and the eval graph's launches a replay."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.hapi.callbacks import (Callback, EarlyStopping,
+                                                 VisualDL)
+    from paddle_tpu_torch.hapi.engine import EvalEngine, TrainEngine
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+
+    cfg = BertConfig()
+    B, S, n = 32, 128, FIT_API_STEPS
+    rs = np.random.RandomState(17)
+    rows = (n + FIT_API_EVAL) * B
+    ids, tt, mlm, nsp = bert_batch(torch, rs, cfg, rows, S)
+    data = [ids, tt, padding_mask(torch, rs, rows, S)[0], mlm, nsp]
+    train = ptt.io.TensorDataset([t[:n * B] for t in data])
+    evals = [t[n * B:] for t in data]
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "fit-api")
+    shutil.rmtree(root, ignore_errors=True)
+
+    class NspAccuracy(ptt.metric.Accuracy):
+        """Accuracy of the NSP head (the model's second output)."""
+
+        def compute(self, mlm_logits, nsp_logits, mlm_labels, nsp_labels):
+            return super().compute(nsp_logits, nsp_labels)
+
+    class Record(Callback):
+        """The time at each train batch's end and the epoch logs."""
+
+        def __init__(self):
+            super().__init__()
+            self.stamps, self.epochs = [], []
+
+        def on_epoch_begin(self, epoch, logs=None):
+            self.stamps.append([])
+
+        def on_train_batch_end(self, step, logs=None):
+            self.stamps[-1].append(time.perf_counter())
+
+        def on_epoch_end(self, epoch, logs=None):
+            self.epochs.append(dict(logs))
+
+    def model_of(net, metrics):
+        opt = ptt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                  parameters=net.parameters())
+        return ptt.Model(net, labels=["mlm_labels", "nsp_labels"]).prepare(
+            opt, bert_fit_loss, metrics=metrics)
+
+    seed(0)
+    net = BertForPretraining(cfg, device="cuda", dtype=torch.bfloat16)
+    api = model_of(net, [NspAccuracy(name="nsp_acc")])
+    # the C2 hazard: an earlier dygraph step's loss, kept alive, holds the
+    # parameters' AccumulateGrad nodes of the default stream
+    dev_batch = [t[:B].cuda() for t in data]
+    kept = bert_fit_loss(*net(*dev_batch[:3]), *dev_batch[3:])
+    kept.backward()
+    api._optimizer.clear_grad()
+    engine = api._engine = TrainEngine(api)
+    nsp_seen = []                      # (NSP logits, labels) of each step
+    step = engine.step
+
+    def recording(inputs, labels):
+        outs = step(inputs, labels)
+        nsp_seen.append((outs[1].detach().clone(), labels[1]))
+        return outs
+
+    engine.step = recording
+    evaluator = api._eval_engine = EvalEngine(api)
+    capture, first = evaluator._capture, evaluator._first_step
+    eval_first = {}
+
+    def timed(fn, key):
+        def run(*args):
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            # the first signature's (fit's evaluation), not predict's
+            eval_first.setdefault(key, (time.perf_counter() - t) * 1e3)
+            return out
+        return run
+
+    evaluator._capture = timed(capture, "capture")
+    evaluator._first_step = timed(first, "first")
+    rec = Record()
+    K.reset_launch_counts()         # fit's own launches, from here
+    t0 = time.perf_counter()
+    hist = api.fit(train, eval_data=ptt.io.TensorDataset(evals),
+                   batch_size=B, epochs=2, eval_freq=1, log_freq=4,
+                   save_dir=os.path.join(root, "ckpt"), save_freq=1,
+                   verbose=0, callbacks=[EarlyStopping(monitor="eval_loss"),
+                                         VisualDL(os.path.join(root, "vdl")),
+                                         rec])
+    fit_s = time.perf_counter() - t0
+    fit_counts = K.launch_counts()
+    for name in BERT_KERNELS + ("multi_tensor_step",):
+        if fit_counts[name] <= 0:
+            fail(f"fit-api: {name} was never launched: {fit_counts}")
+    engine.step = step
+    del kept
+    losses = hist["step_loss"] + hist["eval_loss"]
+    if len(hist["step_loss"]) != 2 * n or not all(map(math.isfinite,
+                                                       losses)):
+        fail(f"fit-api: fit's losses {hist}")
+    if engine.captures != 1 or evaluator.captures != 1:
+        fail(f"fit-api: {engine.captures} train and {evaluator.captures} "
+             "eval captures, not one each")
+    # the metric: fit's epoch values against np.argsort(-pred)
+    preds = [(p.float().cpu().numpy(), y.numpy()) for p, y in nsp_seen]
+    for e, logs in enumerate(rec.epochs):
+        part = preds[e * n:(e + 1) * n]
+        right = sum(int((np.argsort(-p, axis=-1)[:, 0] == y).sum())
+                    for p, y in part)
+        want = right / sum(len(y) for _, y in part)
+        if logs["nsp_acc"] != want:
+            fail(f"fit-api: epoch {e} NSP accuracy {logs['nsp_acc']} from "
+                 f"fit's logs, {want} from the fetched logits")
+    step_ms = [1e3 * b for ep in rec.stamps for b in np.diff(ep)]
+    # the eval graph against the eager _eval, on the trained weights
+    batches = [[t[i * B:(i + 1) * B] for t in evals]
+               for i in range(FIT_API_EVAL)]
+    evaluator.begin()
+    g_out = [tuple(t.clone() for t in evaluator.step(b[:3], b[3:]))
+             for b in batches]
+    g_loss = evaluator.drain()
+    e_out, e_loss = [], []
+    for b in batches:
+        outs, loss = api._eval(b[:3], b[3:])
+        e_out.append(outs)
+        e_loss.append(loss.float())
+    e_loss = torch.stack(e_loss).cpu().tolist()
+    if g_loss != e_loss or not all(torch.equal(a, b) for g, e in zip(
+            g_out, e_out) for a, b in zip(g, e)):
+        fail(f"fit-api: eval graph losses {g_loss} against eager {e_loss}, "
+             "or their logits, differ")
+    # its launches, read from a trace of FIT_API_EVAL replays
+    (sig, per_replay), = evaluator.graph_launches.items()
+
+    def replays():
+        warm = torch.zeros(1, device="cuda")
+        for _ in range(200):        # the trace's start, before the replays
+            warm.add_(1)
+        for b in batches:
+            evaluator.step(b[:3], b[3:])
+        return evaluator.drain()
+
+    evaluator.begin()
+    _, _, kernels = trace_window(torch, replays)
+    counts, fast = require_traced(kernels, "fit-api eval graph",
+                                  EVAL_KERNELS, dropout=False)
+    want = {k: c * FIT_API_EVAL for k, c in per_replay.items()}
+    got = {k: c for k, c in counts.items() if c}
+    if got != want:
+        fail(f"fit-api: the eval graph's trace holds {got} launches, "
+             f"graph_launches x {FIT_API_EVAL} replays is {want}")
+
+    def p50_ms(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            for b in batches:
+                t = time.perf_counter()
+                fn(b)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(times))
+
+    evaluator.begin()
+    graph_ms = p50_ms(lambda b: evaluator.step(b[:3], b[3:]))
+    eager_ms = p50_ms(lambda b: api._eval(b[:3], b[3:]))
+    evaluator.drain()
+    # files, then save / load / predict
+    files = {}
+    for tag in ("0", "1", "final"):
+        for ext in (".pdparams", ".pdopt"):
+            path = os.path.join(root, "ckpt", tag + ext)
+            if not os.path.exists(path):
+                fail(f"fit-api: {path} was not written")
+            files[tag + ext] = os.path.getsize(path)
+    with open(os.path.join(root, "vdl", "scalars.jsonl")) as f:
+        lines = [json.loads(x) for x in f]
+    if len(lines) != 2 * n or any("nsp_acc" not in x for x in lines):
+        fail(f"fit-api: scalars.jsonl holds {len(lines)} lines, not one a "
+             f"step ({2 * n}) with the metric")
+    t = time.perf_counter()
+    api.save(os.path.join(root, "timed"))
+    save_s = time.perf_counter() - t
+    seed(1)
+    fresh = model_of(BertForPretraining(cfg, device="cuda",
+                                        dtype=torch.bfloat16),
+                     [NspAccuracy(name="nsp_acc")])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fresh.load(os.path.join(root, "ckpt", "final"))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    pred_data = ptt.io.TensorDataset(evals)
+    mine = api.predict(pred_data, batch_size=B)
+    theirs = fresh.predict(pred_data, batch_size=B)
+    opt, fopt = api._optimizer, fresh._optimizer
+    slots_same = fopt._step_count == opt._step_count and all(
+        torch.equal(fopt._slots[id(q)][k], v)
+        for p, q in zip(net.parameters(), fresh.network.parameters())
+        for k, v in opt._slots[id(p)].items())
+    if len(mine) != FIT_API_EVAL or not slots_same or not all(
+            torch.equal(a, b) for m, t_ in zip(mine, theirs)
+            for a, b in zip(m, t_)):
+        fail("fit-api: predict after load differs from the trained "
+             "model's, or the loaded slots or step count do")
+    del fresh, mine, theirs, g_out, e_out
+    # the train graph a step without the metric and user callbacks (the
+    # trained network, a fresh optimizer and engine)
+    plain = model_of(net, None)
+    plain_engine = plain._engine = TrainEngine(plain)
+    drain, stamps = plain_engine.drain, []
+
+    def stamped():
+        out = drain()
+        stamps.append(time.perf_counter())
+        return out
+
+    plain_engine.drain = stamped
+    plain.fit(train, batch_size=B, shuffle=False, verbose=0, log_freq=1)
+    plain_ms = np.diff(stamps[:n]) * 1e3
+    metric_p50 = float(np.median(step_ms))
+    plain_p50 = float(np.median(plain_ms))
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[fit-api] BertConfig() bf16 B={B} S={S} on {card}: fit 2 epochs x "
+        f"{n} steps + eval of {FIT_API_EVAL} batches each in {fit_s:.2f}s "
+        f"(a dygraph step's loss kept alive: no AccumulateGrad warning); "
+        f"losses {hist['step_loss']}, eval_loss {hist['eval_loss']}; "
+        f"nsp_acc {[float(e['nsp_acc']) for e in rec.epochs]} = "
+        f"np.argsort(-pred) "
+        f"of the fetched logits; train graph p50 with the metric (one "
+        f"fetch a step) {metric_p50:.3f} ms (steps {np.round(step_ms, 3).tolist()}) "
+        f"against {plain_p50:.3f} ms without metric or user callback, "
+        f"log_freq=1 (steps {np.round(plain_ms, 3).tolist()})")
+    log(f"[fit-api] eval graph bitwise the eager _eval over "
+        f"{FIT_API_EVAL} batches (losses {g_loss}); p50 a batch {graph_ms:.3f} "
+        f"ms against eager {eager_ms:.3f} ms ({eager_ms / graph_ms:.2f}x); "
+        f"first batch of the signature {eval_first['first']:.1f} ms, of it "
+        f"the capture {eval_first['capture']:.1f} ms; launches a replay "
+        f"{per_replay}, in the trace of {FIT_API_EVAL} replays {got} (fast "
+        f"{fast})")
+    log(f"[fit-api] save {save_s * 1e3:.1f} ms, load into a fresh model "
+        f"{load_s * 1e3:.1f} ms; files (bytes) {files}; predict after load "
+        f"bitwise the trained model's, slots and step count equal; "
+        f"scalars.jsonl {len(lines)} lines; launches in fit (train warm-up "
+        f"and capture, eval first batch and capture) {fit_counts}")
+    return fit_counts, per_replay
+
 
 def profile_steps(torch, tag, step):
     """Two more steps under torch.profiler: wall, busy share, launches
@@ -2542,7 +2839,8 @@ def release(torch, phase):
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[memory] before {phase}: "
-        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB allocated")
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB allocated, "
+        f"{time.perf_counter() - START:.1f}s into the run")
 
 
 def sass_phase(paths):
@@ -2582,6 +2880,9 @@ def main():
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the training engine's warm-up must never meet AccumulateGrad nodes
+    # of another stream (a dygraph loss kept alive before Model.fit)
+    warnings.filterwarnings("error", message=ACCUMULATE_WARNING)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2662,6 +2963,9 @@ def main():
     torch.cuda.synchronize()
     graph_counts = train_graph_phase(torch, K, card)
     torch.cuda.synchronize()
+    release(torch, "fit-api")
+    fit_api_counts, eval_launches = fit_api_phase(torch, K, card)
+    torch.cuda.synchronize()
 
     kernels = []
     for name, rec in main_cases.items():
@@ -2685,6 +2989,13 @@ def main():
             entry["train_graph_launches_a_step"] = {
                 model: c[name] for model, c in graph_counts.items()
                 if name in c}
+        if name in fit_api_counts and name in BERT_KERNELS + (
+                "multi_tensor_step",):
+            # the [fit-api] path: launches in its fit (the train step's
+            # warm-up and capture, the eval step's first batch and
+            # capture), and a replay of its eval graph
+            entry["fit_api_launches"] = fit_api_counts[name]
+            entry["eval_graph_launches_a_batch"] = eval_launches.get(name, 0)
         if name in FAST_VARIANT:
             entry["variant"] = rec["variant"]
         if name in MMA_KERNELS:
@@ -2712,6 +3023,7 @@ def main():
                 for (form, d), model in zip(
                     dropout_attention[name].items(), ("gpt", "bert"))}}
         kernels.append(entry)
+    log(f"[time] the run took {time.perf_counter() - START:.1f}s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

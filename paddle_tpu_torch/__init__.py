@@ -11,9 +11,10 @@ Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 ``RuntimeError`` where CUDA is absent.  Pass ``device="cpu"`` to run the
 kernels' plain PyTorch versions instead (the tests do).
 """
-from . import io, optimizer  # noqa: F401
+from . import io, metric, optimizer  # noqa: F401
+from .framework.io_state import load, save  # noqa: F401
 from .framework.place import default_device  # noqa: F401
 from .framework.random import seed  # noqa: F401
-from .hapi import Model  # noqa: F401
+from .hapi import Model, callbacks  # noqa: F401
 
 __version__ = "0.1.0"

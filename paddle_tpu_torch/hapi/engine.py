@@ -42,7 +42,20 @@ Steps are issued without a host sync: each loss stays on the card in the
 every pending loss back in ONE device-to-host copy.  The step math
 (forward, loss, backward, update) is one function,
 :func:`build_train_step`, shared by ``Model.train_batch`` and the engine,
-as the reference shares ``build_pure_train_step``.  Not ported yet
+as the reference shares ``build_pure_train_step``.
+
+Autograd keeps one AccumulateGrad node a parameter for as long as any
+graph holds it, and the node keeps the stream it was made on.  A graph
+the caller still holds from an earlier step (a dygraph loss kept alive)
+would make the warm-up's and the capture's backward, on streams of their
+own, accumulate across streams, so both first give every parameter a
+fresh node (:func:`_fresh_grad_accumulators`).
+
+:class:`EvalEngine` is the counterpart of the reference's jitted eval step
+(``Model._build_eval_step``): the forward and the loss under
+``torch.no_grad()`` in eval mode, captured once per batch signature in a
+memory pool of its own and replayed; ``Model.evaluate``, ``eval_batch``,
+``predict`` and ``predict_batch`` go through it.  Not ported yet
 (ROADMAP.md): meshes and layouts, recompute, gradient accumulation, the
 pod hooks, checkpoint state and the op report.
 """
@@ -56,7 +69,8 @@ from ..framework.place import copy_to_device
 from ..framework.random import StepKeys
 from ..ops import kernels
 
-__all__ = ["TrainEngine", "build_train_step", "to_device"]
+__all__ = ["EvalEngine", "TrainEngine", "build_eval_step",
+           "build_train_step", "fetch", "to_device"]
 
 
 def _to_list(x):
@@ -75,6 +89,33 @@ def to_device(xs, device):
             for x in map(torch.as_tensor, xs)]
 
 
+def fetch(tensors):
+    """Tensors of any dtypes and devices to host tensors in ONE
+    device-to-host copy: their bytes are concatenated on the device, copied
+    once and split again.  A tensor already on the host, or a value that
+    is no tensor, is returned as it is."""
+    def on_device(t):
+        return isinstance(t, torch.Tensor) and t.device.type != "cpu"
+
+    tensors = [t.detach() if isinstance(t, torch.Tensor) else t
+               for t in tensors]
+    dev = [t for t in tensors if on_device(t)]
+    if not dev:
+        return tensors
+    flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
+                      for t in dev]).cpu()
+    out, at = [], 0
+    for t in tensors:
+        if not on_device(t):
+            out.append(t)
+            continue
+        n = t.numel() * t.element_size()
+        # a copy starts at offset 0, where any dtype may view the bytes
+        out.append(flat[at:at + n].clone().view(t.dtype).reshape(t.shape))
+        at += n
+    return out
+
+
 class _LossRing:
     """Loss scalars still on the card, awaiting one batched fetch.
 
@@ -91,11 +132,16 @@ class _LossRing:
         return len(self._pending)
 
     def drain(self):
-        if not self._pending:
-            return []
-        out = torch.stack(self._pending).cpu().tolist()
+        return self.drain_with(())[0]
+
+    def drain_with(self, extra):
+        """The pending losses and the tensors ``extra`` in the same single
+        copy: (losses as floats, ``extra`` as host tensors)."""
+        n = len(self._pending)
+        host = fetch(self._pending + list(extra))
         self._pending = []
-        return out
+        losses = torch.stack(host[:n]).tolist() if n else []
+        return losses, host[n:]
 
 
 def build_train_step(network, loss_layer, opt):
@@ -119,6 +165,26 @@ def build_train_step(network, loss_layer, opt):
     return step
 
 
+def _fresh_grad_accumulators(params):
+    """Make every parameter take a new AccumulateGrad node at its next use
+    in a graph, made on the stream current then.
+
+    A graph the caller still holds (an earlier step's loss) keeps its
+    nodes, and each node the stream it was made on: reused by a backward
+    on another stream, it accumulates across the two streams (autograd
+    warns, and a node of the default stream breaks a capture).  Setting
+    ``.data`` to a tensor of another dtype drops the parameter's node
+    (autograd's ``set_data``); setting the same tensor back leaves the
+    parameter as it was, its address and its gradient included.  The
+    held graph keeps its own node."""
+    with torch.no_grad():
+        for p in params:
+            data = p.data
+            p.data = data.new_empty(0, dtype=torch.float16 if data.dtype
+                                    != torch.float16 else torch.float32)
+            p.data = data
+
+
 def _map(fn, outs):
     """``fn`` on each tensor of a network's outputs (a tensor, or a list or
     tuple of them), in the same structure."""
@@ -127,6 +193,25 @@ def _map(fn, outs):
     if isinstance(outs, (list, tuple)):
         return type(outs)(_map(fn, o) for o in outs)
     return outs
+
+
+def build_eval_step(network, loss_layer):
+    """THE eval-step math (the reference's ``_build_eval_step``):
+    ``step(inputs, labels) -> (loss, outs)`` runs the network in eval mode
+    under ``torch.no_grad()`` and the loss (its mean) when there are labels
+    and a loss, else ``loss`` is None.  Shared by ``Model._eval`` and
+    :class:`EvalEngine`."""
+
+    @torch.no_grad()
+    def step(inputs, labels):
+        network.eval()
+        outs = network(*inputs)
+        loss = None
+        if loss_layer is not None and labels:
+            loss = loss_layer(*(_to_list(outs) + list(labels))).mean()
+        return loss, outs
+
+    return step
 
 
 def _signature(inputs, labels):
@@ -146,21 +231,33 @@ class _StepGraph:
         self.loss, self.outs, self.launches = loss, outs, launches
 
 
-class TrainEngine:
-    """Owns the sync-free step loop for one Model across fit() runs.
+class _GraphEngine:
+    """The graph cache both engines share: on a CUDA device one CUDA graph
+    per batch signature, replayed; elsewhere the eager step.
 
-    Lifecycle: ``begin()`` → N x ``step()`` (no host sync) → ``drain()``
-    at log and epoch boundaries → ``finish()`` at fit exit.  The graphs
-    and the dropout key state live as long as the engine (a ``prepare()``
-    makes a new one) while the training state stays where the graphs
-    captured it: a graph reads and writes the parameters, the optimizer's
-    slots and its scalars at fixed addresses, so ``begin()`` drops every
-    graph once any of them was replaced (a loaded optimizer state, a
-    cast), as the reference re-snapshots its state at ``begin()``.
-    Capture bookkeeping: ``captures`` (graphs made, one per signature and
-    state), ``replays`` (steps replayed), ``graph_launches`` (signature ->
-    kernel wrapper -> launches in one replay, as the wrappers counted them
-    while the step was captured: a replay runs no Python)."""
+    A signature's first batch runs as the real step over static copies of
+    the batch (``_warm_up``), then the step (``_body``) is captured over
+    the same buffers into the engine's memory pool; later batches copy
+    into those buffers (from pinned memory) and replay.  A replay returns
+    the graph's static outputs, which the next replay overwrites, and
+    hands the ring a copy of its static loss.  A graph reads and writes
+    the network's parameters and buffers (gathered by ``begin()``) and
+    the tensors of :meth:`_own_state` at their captured addresses, so
+    :meth:`refresh` (run by ``begin()``) drops every graph once any of
+    them was replaced.  A capture that fails raises: there is no eager
+    fallback.  Bookkeeping: ``captures`` (graphs made, one per signature
+    and state), ``replays`` (steps replayed), ``graph_launches``
+    (signature -> kernel wrapper -> launches in one replay, as the
+    wrappers counted them while the step was captured: a replay runs no
+    Python).
+
+    A subclass supplies ``_what`` (its name in errors), ``begin()`` (which
+    builds ``_body``: ``(inputs, labels) -> (loss or None, outputs)``,
+    then calls ``_begin``), and, where it differs from doing nothing,
+    ``_own_state``, ``_prologue`` (host work before each executed step),
+    ``_scope`` (the context the body runs in) and ``_warm_up``."""
+
+    _what = "step"
 
     def __init__(self, model):
         self.model = model
@@ -169,7 +266,8 @@ class TrainEngine:
         self._graphs: dict[tuple, _StepGraph] = {}
         self._pool = None          # the graphs' shared memory pool
         self._state = None         # _state_key() of the graphs' state
-        self._keys = None          # StepKeys: steps go through graphs
+        self._held = ()            # the network's tensors, from begin()
+        self._replaying = model.device.type == "cuda"
         self.captures = 0
         self.replays = 0
 
@@ -177,42 +275,35 @@ class TrainEngine:
     def graph_launches(self) -> dict:
         return {sig: g.launches for sig, g in self._graphs.items()}
 
-    def begin(self):
-        m = self.model
-        opt = m._optimizer
-        if opt is None or m._loss is None:
-            raise RuntimeError("prepare() an optimizer and a loss before "
-                               "fit()")
-        self._body = build_train_step(m.network, m._loss, opt)
+    def _begin(self):
+        net = self.model.network
         self.ring = _LossRing()
-        if self._graphs and self._state_key() != self._state:
-            self._graphs, self._pool = {}, None
-        if m.device.type == "cuda" and self._keys is None:
-            if opt._kernel_spec() is None:
-                raise NotImplementedError(
-                    f"{type(opt).__name__}'s update rule has no kernel: its "
-                    "per-parameter loop takes the lr and step by value, so "
-                    "the captured train step cannot replay it")
-            self._keys = StepKeys(m.device)
+        # gathered once here: a walk of the module tree costs the host
+        # more than the addresses refresh() reads before each step
+        self._held = (*net.parameters(), *net.buffers())
+        self.refresh()
         return self
 
+    def refresh(self):
+        """Drop every graph (and the pool) once a tensor the graphs hold
+        was replaced since the captures (a cast, a loaded optimizer
+        state, a callback's new ``p.data``).  Call it only while no
+        replay is pending on the card."""
+        if self._graphs and self._state_key() != self._state:
+            self._graphs, self._pool = {}, None
+
+    def _own_state(self):
+        """Tensors a graph holds besides the network's."""
+        return ()
+
     def _state_key(self):
-        """The addresses of the state a graph updates in place: the
-        network's parameters and buffers, the optimizer's slots and its
-        scalars."""
-        net, opt = self.model.network, self.model._optimizer
-        return tuple(t.data_ptr() for t in (
-            *net.parameters(), *net.buffers(),
-            *(v for slots in opt._slots.values() for v in slots.values()),
-            *opt._scalars.values()))
+        return tuple(t.data_ptr() for t in (*self._held, *self._own_state()))
 
     def step(self, inputs, labels):
-        """Issue one train step WITHOUT a host sync.  The loss lands in the
-        ring; returns the step's model outputs (on the graph path the
-        graph's static outputs, which its next replay overwrites).  On a
-        CUDA device: the first step of a signature runs eagerly and is
-        captured, later ones replay the capture."""
-        if self._keys is None:
+        """Issue one step WITHOUT a host sync: its loss (if any) lands in
+        the ring; returns the step's outputs (on the graph path the
+        graph's static outputs)."""
+        if not self._replaying:
             return self._step_eager(inputs, labels)
         inputs = [torch.as_tensor(x) for x in inputs]
         labels = [torch.as_tensor(x) for x in labels]
@@ -225,40 +316,37 @@ class TrainEngine:
             copy_to_device(dst, src)
         g.replay()
         self.replays += 1
-        self.ring.append(g.loss.to(torch.float32, copy=True))
+        if g.loss is not None:
+            self.ring.append(g.loss.to(torch.float32, copy=True))
         return g.outs
 
     def _step_eager(self, inputs, labels):
         """The same step issued op by op on the current stream: the CPU's
-        step, and on the card the graph's reference (it runs the same
-        prologue and draws what a replay draws)."""
+        step, and on the card the graph's reference."""
         dev = self.model.device
         return self._eager(to_device(inputs, dev), to_device(labels, dev))
 
     def _prologue(self):
-        """The host prologue, once per executed step: the optimizer's step
-        count, lr and kernel scalars, and the dropout step counter, each
-        written to the device without a sync."""
-        self.model._optimizer.begin_step()
-        if self._keys is not None:
-            self._keys.advance()
+        pass
 
     def _scope(self):
-        return contextlib.nullcontext() if self._keys is None \
-            else self._keys.scope()
+        return contextlib.nullcontext()
 
     def _eager(self, inputs, labels):
         self._prologue()
         with self._scope():
             loss, outs = self._body(inputs, labels)
-        self.ring.append(loss)
+        if loss is not None:
+            self.ring.append(loss)
         return outs
 
+    def _warm_up(self, s_in, s_lab):
+        return self._eager(s_in, s_lab)
+
     def _first_step(self, sig, inputs, labels):
-        """A new signature's first step: the real step, issued eagerly over
-        static copies of the batch (``_warm_up``), then the capture of the
-        step over the same buffers, which runs nothing and advances no
-        host state."""
+        """A new signature's first step: the real step over static copies
+        of the batch (``_warm_up``), then the capture of the step over the
+        same buffers, which runs nothing and advances no host state."""
         dev = self.model.device
         static = [copy_to_device(torch.empty(t.shape, dtype=t.dtype,
                                              device=dev), t)
@@ -274,21 +362,6 @@ class TrainEngine:
         self.captures += 1
         return outs
 
-    def _warm_up(self, s_in, s_lab):
-        """The eager step on a side stream, so the kernel libraries load
-        and cuBLAS's workspace, the optimizer's slots and scalars and the
-        dropout keys are made outside the capture."""
-        current = torch.cuda.current_stream(self.model.device)
-        side = torch.cuda.Stream(self.model.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            outs = self._eager(s_in, s_lab)
-        current.wait_stream(side)
-        # what the caller and the ring hold was made on the side stream
-        _map(lambda t: t.record_stream(current), outs)
-        self.ring._pending[-1].record_stream(current)
-        return outs
-
     def _capture(self, sig, s_in, s_lab):
         """Capture the step over the static batch into one CUDA graph in
         the engine's memory pool; raises if the capture fails."""
@@ -296,21 +369,120 @@ class TrainEngine:
         try:
             with torch.cuda.graph(graph, pool=self._pool,
                                   capture_error_mode="thread_local"):
-                with self._keys.scope():
-                    loss, g_outs = self._body(s_in, s_lab)
+                with self._scope():
+                    loss, outs = self._body(s_in, s_lab)
         except RuntimeError as e:
             raise RuntimeError(
-                "the train step could not be captured as a CUDA graph (a "
-                "host sync, or host-dependent control flow, in the network "
-                f"or the loss?) for inputs/labels {sig}: {e}") from e
+                f"the {self._what} step could not be captured as a CUDA "
+                "graph (a host sync, or host-dependent control flow, in the "
+                f"network or the loss?) for inputs/labels {sig}: {e}") from e
         if self._pool is None:
             self._pool = graph.pool()
         return _StepGraph(graph.replay, s_in, s_lab, loss,
-                          _map(torch.Tensor.detach, g_outs), {})
+                          _map(torch.Tensor.detach, outs), {})
 
     def drain(self):
         """Batched fetch of every pending loss (the sanctioned sync)."""
         return self.ring.drain()
 
+
+class TrainEngine(_GraphEngine):
+    """Owns the sync-free step loop for one Model across fit() runs.
+
+    Lifecycle: ``begin()`` → N x ``step()`` (no host sync) → ``drain()``
+    at log and epoch boundaries → ``finish()`` at fit exit.  The graphs
+    and the dropout key state live as long as the engine (a ``prepare()``
+    makes a new one) while the training state stays where the graphs
+    captured it: a graph reads and writes the parameters, the optimizer's
+    slots and its scalars at fixed addresses, so ``begin()`` drops every
+    graph once any of them was replaced (a loaded optimizer state, a
+    cast), as the reference re-snapshots its state at ``begin()``; with
+    user callbacks ``fit`` runs that check (``refresh``) before every
+    step, as the reference refreshes its state from the layers then."""
+
+    _what = "train"
+
+    def __init__(self, model):
+        super().__init__(model)
+        self._keys = None          # StepKeys of the graph path
+
+    def begin(self):
+        m = self.model
+        opt = m._optimizer
+        if opt is None or m._loss is None:
+            raise RuntimeError("prepare() an optimizer and a loss before "
+                               "fit()")
+        self._body = build_train_step(m.network, m._loss, opt)
+        self._begin()
+        if self._replaying and self._keys is None:
+            if opt._kernel_spec() is None:
+                raise NotImplementedError(
+                    f"{type(opt).__name__}'s update rule has no kernel: its "
+                    "per-parameter loop takes the lr and step by value, so "
+                    "the captured train step cannot replay it")
+            self._keys = StepKeys(m.device)
+        return self
+
+    def _own_state(self):
+        """The optimizer's slots and scalars, which a graph updates in
+        place with the parameters."""
+        opt = self.model._optimizer
+        return (*(v for slots in opt._slots.values() for v in slots.values()),
+                *opt._scalars.values())
+
+    def _prologue(self):
+        """The host prologue, once per executed step: the optimizer's step
+        count, lr and kernel scalars, and the dropout step counter, each
+        written to the device without a sync."""
+        self.model._optimizer.begin_step()
+        if self._keys is not None:
+            self._keys.advance()
+
+    def _scope(self):
+        return contextlib.nullcontext() if self._keys is None \
+            else self._keys.scope()
+
+    def _warm_up(self, s_in, s_lab):
+        """The eager step on a side stream, so the kernel libraries load
+        and cuBLAS's workspace, the optimizer's slots and scalars and the
+        dropout keys are made outside the capture.  Its outputs come back
+        detached, so its autograd graph is gone before the capture."""
+        current = torch.cuda.current_stream(self.model.device)
+        side = torch.cuda.Stream(self.model.device)
+        side.wait_stream(current)
+        _fresh_grad_accumulators(self.model.network.parameters())
+        with torch.cuda.stream(side):
+            outs = _map(torch.Tensor.detach, self._eager(s_in, s_lab))
+        current.wait_stream(side)
+        # what the caller and the ring hold was made on the side stream
+        _map(lambda t: t.record_stream(current), outs)
+        self.ring._pending[-1].record_stream(current)
+        return outs
+
+    def _capture(self, sig, s_in, s_lab):
+        _fresh_grad_accumulators(self.model.network.parameters())
+        return super()._capture(sig, s_in, s_lab)
+
     def finish(self):
         self._body = None
+
+
+class EvalEngine(_GraphEngine):
+    """The eval step of one Model (the reference jits its eval step and
+    calls it per batch): the forward and the loss under
+    ``torch.no_grad()`` in eval mode, its graphs in a memory pool of the
+    engine's own (a train graph's replay never writes it).  Nothing of the
+    step draws a dropout key or advances a host counter: in eval mode
+    dropout is off.  The graphs read the parameters and buffers, so
+    ``begin()`` drops them once any of those was replaced."""
+
+    _what = "eval"
+
+    def begin(self):
+        m = self.model
+        self._body = build_eval_step(m.network, m._loss)
+        return self._begin()
+
+    def _prologue(self):
+        # a replay runs no Python: leave the network as the eager step does
+        self.model.network.eval()

@@ -11,13 +11,17 @@ JAX side runs with 64-bit types enabled).
 ``load_numpy_optimizer_state(opt, model, state, step_count)`` takes the
 JAX optimizer's state pytree (``{param name: {slot: array}}``, as
 ``opt.init_pytree``/``apply_pytree`` give it, converted to numpy) and
-its step count, and installs them as the port optimizer's slots for the
-model's parameters, so training resumes where the JAX run stopped.
+its step count, and copies them into the port optimizer's slots for the
+model's parameters (making those it lacks), so training resumes where
+the JAX run stopped.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..framework.io_state import as_array
+from ..nn.layer_base import set_state_dict
 
 
 def load_numpy_state(model: torch.nn.Module, state: dict):
@@ -27,19 +31,7 @@ def load_numpy_state(model: torch.nn.Module, state: dict):
     if missing or unexpected:
         raise KeyError(f"load_numpy_state: missing {missing}, "
                        f"unexpected {unexpected}")
-    with torch.no_grad():
-        for name, target in own.items():
-            a = np.asarray(state[name])
-            if tuple(a.shape) != tuple(target.shape):
-                raise ValueError(
-                    f"shape mismatch for {name}: loaded {a.shape} vs "
-                    f"{tuple(target.shape)}")
-            # float32 for every float source (bfloat16 included), int64 for
-            # integers, then the model's own dtype
-            a = a.astype(np.float32 if target.is_floating_point()
-                         else np.int64)
-            target.copy_(torch.from_numpy(a).to(device=target.device,
-                                                dtype=target.dtype))
+    set_state_dict(model, state)
     return model
 
 
@@ -51,7 +43,9 @@ def load_numpy_optimizer_state(opt, model: torch.nn.Module, state: dict,
     optimizer's slot names and the parameter's shape.  Each slot becomes a
     contiguous tensor on the parameter's device in the dtype the optimizer
     keeps it in (Adam-family moments float32 for any parameter dtype), as
-    the multi-tensor kernel takes it."""
+    the multi-tensor kernel takes it.  A slot the optimizer already holds
+    is overwritten where it lies (a captured train step that updates it
+    stays valid); only a missing one is made anew."""
     params = {n: p for n, p in model.named_parameters() if p.requires_grad}
     missing = sorted(set(params) - set(state))
     unexpected = sorted(set(state) - set(params))
@@ -65,14 +59,17 @@ def load_numpy_optimizer_state(opt, model: torch.nn.Module, state: dict,
         if sorted(entry) != names:
             raise KeyError(f"load_numpy_optimizer_state: {name} has slots "
                            f"{sorted(entry)}, the optimizer {names}")
+        own = opt._slots.get(id(p), {})
         slots[id(p)] = {}
         for slot, value in entry.items():
-            a = np.asarray(value)
+            a = as_array(value)
             if tuple(a.shape) != tuple(p.shape):
                 raise ValueError(f"shape mismatch for {name}/{slot}: "
                                  f"loaded {a.shape} vs {tuple(p.shape)}")
-            slots[id(p)][slot] = opt._slot_from(slot, p, torch.from_numpy(
+            new = opt._slot_from(slot, p, torch.from_numpy(
                 a.astype(np.float32)))
+            slots[id(p)][slot] = own[slot].copy_(new) if slot in own \
+                else new
     opt._slots.update(slots)
     opt._step_count = int(step_count)
     return opt

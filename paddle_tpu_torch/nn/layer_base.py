@@ -5,13 +5,47 @@ with :meth:`Layer.add_sublayer` keep their given names (GPT blocks are
 ``h_0``, ``h_1``, ... as in paddle_tpu/models/gpt.py), which is why the
 port never uses ``nn.ModuleList`` (it would rename them ``h.0``).
 JAX's functional parameter swapping has no counterpart here: PyTorch runs
-eagerly on the module's own parameters.
+eagerly on the module's own parameters.  ``set_state_dict`` (aliases
+``load_dict``, ``set_dict``) writes a loaded value into the tensor the
+module holds, in place, so a captured CUDA graph that reads it stays
+valid.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..framework.io_state import as_array
 from . import initializer as I
+
+
+def set_state_dict(module: torch.nn.Module, state_dict: dict):
+    """Copy ``state_dict`` (name -> numpy array or tensor) into
+    ``module``'s parameters and buffers of those names, in place, with the
+    reference's semantics (paddle_tpu/nn/layer_base.py ``set_state_dict``):
+    a shape mismatch raises ``ValueError``, each value is cast to its
+    target's dtype (through float32 from any float source, bfloat16
+    included; integers through int64), names the module does not hold are
+    skipped.  Returns ``(missing, unexpected)``: the module's names that
+    ``state_dict`` lacks, and the names of ``state_dict`` the module
+    lacks."""
+    own = module.state_dict()
+    unexpected = []
+    with torch.no_grad():
+        for name, value in state_dict.items():
+            if name not in own:
+                unexpected.append(name)
+                continue
+            target, a = own[name], as_array(value)
+            if tuple(a.shape) != tuple(target.shape):
+                raise ValueError(
+                    f"shape mismatch for {name}: loaded {a.shape} vs "
+                    f"{tuple(target.shape)}")
+            a = a.astype(np.float32 if target.is_floating_point()
+                         else np.int64)
+            target.copy_(torch.from_numpy(a).to(device=target.device,
+                                                dtype=target.dtype))
+    return [n for n in own if n not in state_dict], unexpected
 
 
 class ParamAttr:
@@ -53,3 +87,11 @@ class Layer(torch.nn.Module):
     def add_sublayer(self, name, sublayer):
         self.add_module(str(name), sublayer)
         return sublayer
+
+    def set_state_dict(self, state_dict, use_structured_name=True):
+        """Load ``state_dict`` in place (:func:`set_state_dict`); returns
+        ``(missing, unexpected)``."""
+        return set_state_dict(self, state_dict)
+
+    load_dict = set_state_dict
+    set_dict = set_state_dict

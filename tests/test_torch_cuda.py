@@ -1349,6 +1349,80 @@ def _params(net):
     return [p.detach().clone() for p in net.parameters()]
 
 
+def _bert_data(n=16, S=32):
+    """Padded BERT batches: ids, token types, a [n, 1, 1, S] bool mask,
+    MLM labels (~15 %, else -100) and NSP labels."""
+    rs = np.random.RandomState(9)
+    lens = rs.randint(S // 2, S + 1, n)
+    data = [rs.randint(0, 120, (n, S)), rs.randint(0, 2, (n, S)),
+            (np.arange(S)[None] < lens[:, None])[:, None, None, :],
+            np.where(rs.rand(n, S) < 0.15, rs.randint(0, 120, (n, S)), -100),
+            rs.randint(0, 2, n)]
+    return [torch.from_numpy(a) for a in data]
+
+
+def _bert_loss(mlm_logits, nsp_logits, mlm_labels, nsp_labels):
+    from paddle_tpu_torch.nn import functional as PF
+
+    mlm = PF.cross_entropy(mlm_logits, mlm_labels, reduction="none")
+    denom = (mlm_labels != -100).float().sum().clamp(min=1.0)
+    return mlm.sum() / denom + PF.cross_entropy(nsp_logits, nsp_labels)
+
+
+def _tiny_bert(dev, dtype=torch.bfloat16):
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+
+    ptt.seed(4)
+    return BertForPretraining(BertConfig(
+        vocab_size=120, hidden_size=64, num_layers=2, num_heads=2,
+        intermediate_size=128), device=dev, dtype=dtype)
+
+
+def test_fit_after_a_kept_dygraph_loss(dev):
+    """A dygraph step whose loss (and so its autograd graph, holding the
+    parameters' AccumulateGrad nodes, made on the default stream) is kept
+    alive, then Model.fit on the same network: no warning at all (autograd
+    warns when an AccumulateGrad node of another stream takes a gradient;
+    the engine gives the warm-up and the capture fresh nodes), and a later
+    fit of replayed steps makes no host sync but its drain."""
+    import os
+    import warnings
+
+    net = _train_gpt(dev, torch.bfloat16, 0.1)
+    opt = ptt.optimizer.AdamW(learning_rate=0.01, parameters=net.parameters())
+    data = torch.from_numpy(np.random.RandomState(12).randint(0, 96,
+                                                              (24, 32)))
+    first_batch = data[:4].to(dev)
+    kept = _lm_loss(net(first_batch), first_batch)
+    kept.backward()
+    opt.step()
+    opt.clear_grad()
+    model = ptt.Model(net).prepare(opt, _lm_loss)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        first = model.fit(ptt.io.TensorDataset([data[:12], data[:12]]),
+                          batch_size=4, shuffle=False, verbose=0,
+                          log_freq=0)["step_loss"]
+    engine = model._engine
+    assert engine.captures == 1 and engine.replays == 2
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            second = model.fit(ptt.io.TensorDataset([data[12:], data[12:]]),
+                               batch_size=4, shuffle=False, verbose=0,
+                               log_freq=0)["step_loss"]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [os.path.basename(w.filename) for w in caught
+             if str(w.message).startswith(SYNC_WARNING)]
+    assert syncs == ["engine.py"] and engine.replays == 5
+    assert not any("AccumulateGrad" in str(w.message) for w in caught)
+    assert kept.grad_fn is not None
+    assert all(np.isfinite(first + second)) and len(second) == 3
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
 def test_train_graph_is_bitwise_the_eager_step(dev, dtype, dropout):
@@ -1464,6 +1538,52 @@ def test_train_graph_after_a_loaded_optimizer_state(dev, dtype):
     assert all(torch.equal(a, b) for a, b in zip(params, eager_params))
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_train_graph_after_a_callback_replaced_the_state(dev, dtype):
+    """A user callback replaces, between two steps of one fit, a
+    parameter's tensor (clipped ``p.data``) and later the optimizer's
+    slots (``set_state_dict``), then fills new tensors that may take the
+    freed memory: fit drops the graph before the next step and captures
+    anew, so the replays update the new tensors; losses and parameters
+    bitwise ``_step_eager`` with the same callback."""
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class Replacer(Callback):
+        def __init__(self, net, opt):
+            super().__init__()
+            self.net, self.opt, self.junk = net, opt, []
+
+        def on_train_batch_end(self, step, logs=None):
+            if step == 0:
+                self.saved = self.opt.state_dict()
+            elif step == 2:
+                p = next(self.net.parameters())
+                p.data = p.data.clamp(-0.05, 0.05)
+            elif step == 4:
+                self.opt.set_state_dict(self.saved)
+            else:
+                return
+            self.junk += [torch.full_like(p, 7.0)
+                          for p in self.net.parameters()]
+
+    data = torch.from_numpy(np.random.RandomState(16).randint(0, 96,
+                                                              (32, 32)))
+    runs = []
+    for form in ("graph", "eager"):
+        net = _train_gpt(dev, dtype, 0.1)
+        model, engine = _train_api(net, form)
+        hist = model.fit(ptt.io.TensorDataset([data, data]), batch_size=4,
+                         shuffle=False, verbose=0,
+                         callbacks=[Replacer(net, model._optimizer)])
+        runs.append((hist["step_loss"], _params(net)))
+        if form == "graph":
+            assert engine.captures == 3 and engine.replays == 5
+    (losses, params), (eager_losses, eager_params) = runs
+    assert len(losses) == 8 and all(np.isfinite(losses))
+    assert losses == eager_losses
+    assert all(torch.equal(a, b) for a, b in zip(params, eager_params))
+
+
 def test_train_graph_replay_syncs_only_to_drain(dev):
     """Replayed steps under torch.cuda.set_sync_debug_mode("warn") make no
     host sync; the drain makes one (in hapi/engine.py)."""
@@ -1501,30 +1621,11 @@ def test_train_graph_bert_masked_is_bitwise_the_eager_step(dev):
     with a [B, 1, 1, S] bool mask and the MLM and NSP losses through
     F.cross_entropy (both softmax cross-entropy kernels): graph and eager
     steps bitwise equal over 4 steps."""
-    from paddle_tpu_torch.models import BertConfig, BertForPretraining
-    from paddle_tpu_torch.nn import functional as PF
-
-    rs = np.random.RandomState(9)
-    n, S = 16, 32
-    lens = rs.randint(S // 2, S + 1, n)
-    data = [rs.randint(0, 120, (n, S)), rs.randint(0, 2, (n, S)),
-            (np.arange(S)[None] < lens[:, None])[:, None, None, :],
-            np.where(rs.rand(n, S) < 0.15, rs.randint(0, 120, (n, S)), -100),
-            rs.randint(0, 2, n)]
-    data = [torch.from_numpy(a) for a in data]
-
-    def loss(mlm_logits, nsp_logits, mlm_labels, nsp_labels):
-        mlm = PF.cross_entropy(mlm_logits, mlm_labels, reduction="none")
-        denom = (mlm_labels != -100).float().sum().clamp(min=1.0)
-        return mlm.sum() / denom + PF.cross_entropy(nsp_logits, nsp_labels)
-
+    data = _bert_data()
     runs = []
     for form in ("graph", "eager"):
-        ptt.seed(4)
-        net = BertForPretraining(BertConfig(
-            vocab_size=120, hidden_size=64, num_layers=2, num_heads=2,
-            intermediate_size=128), device=dev, dtype=torch.bfloat16)
-        model, engine = _train_api(net, form, lr=1e-3, loss=loss,
+        net = _tiny_bert(dev)
+        model, engine = _train_api(net, form, lr=1e-3, loss=_bert_loss,
                                    labels=["mlm", "nsp"])
         hist = model.fit(ptt.io.TensorDataset(data), batch_size=4,
                          shuffle=False, verbose=0)
@@ -1536,3 +1637,171 @@ def test_train_graph_bert_masked_is_bitwise_the_eager_step(dev):
             assert launches["flash_attention"] == 2
     assert len(runs[0][0]) == 4 and runs[0][0] == runs[1][0]
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+def _eval_model(net, form, metrics=(), loss=_lm_loss, labels=None):
+    """A Model over ``net`` whose eval engine replays graphs ("graph") or
+    whose evaluation runs the eager ``_eval`` ("eager")."""
+    model = ptt.Model(net, labels=labels).prepare(
+        ptt.optimizer.AdamW(learning_rate=0.01,
+                            parameters=net.parameters()), loss,
+        metrics=list(metrics))
+    if form == "eager":
+        model._eval_begin()._replaying = False
+    return model
+
+
+@pytest.mark.parametrize("kind", ["gpt-f32", "gpt-bf16", "bert-bf16"])
+def test_eval_graph_is_bitwise_the_eager_eval(dev, kind):
+    """evaluate and predict through the eval graphs against the eager
+    ``_eval``, at the networks' default dropout (off in eval): losses,
+    metric and outputs bitwise equal; one capture per signature (the
+    short last batch and predict's label-free step get their own), the
+    rest replays, with no dropout key drawn; the eval graph holds the
+    forward kernels (masked attention and both cross-entropy forwards for
+    BERT)."""
+    from paddle_tpu_torch.framework import random as port_random
+
+    if kind == "bert-bf16":
+        data = _bert_data(n=22)
+        n_in = len(data)            # predict splits the labels off
+        make = lambda: _tiny_bert(dev)          # noqa: E731
+        kw = dict(loss=_bert_loss, labels=["mlm", "nsp"])
+
+        class Metric(ptt.metric.Accuracy):
+            def compute(self, mlm_logits, nsp_logits, mlm, nsp):
+                return super().compute(nsp_logits, nsp)
+    else:
+        ids = torch.from_numpy(np.random.RandomState(13).randint(
+            0, 96, (22, 32)))
+        data, n_in, kw, Metric = [ids, ids], 1, {}, ptt.metric.Accuracy
+        dtype = torch.float32 if kind == "gpt-f32" else torch.bfloat16
+        make = lambda: _train_gpt(dev, dtype, 0.1)   # noqa: E731
+    runs = []
+    for form in ("graph", "eager"):
+        model = _eval_model(make(), form, [Metric()], **kw)
+        draws = port_random._generator.get_state()
+        res = model.evaluate(ptt.io.TensorDataset(data), batch_size=4,
+                             verbose=0)
+        outs = model.predict(ptt.io.TensorDataset(data[:n_in]),
+                             batch_size=4)
+        assert torch.equal(port_random._generator.get_state(), draws)
+        runs.append((res, outs))
+        engine = model._eval_engine
+        if form == "graph":
+            assert engine.captures == 4 and engine.replays == 8
+            launches = engine.graph_launches
+            assert len(launches) == 4
+            for got in launches.values():
+                for name in ("layer_norm", "bias_gelu", "flash_attention"):
+                    assert got[name] > 0, (name, got)
+                assert "flash_attention_dq" not in got
+            if kind == "bert-bf16":
+                assert max(g.get("softmax_xent", 0)
+                           for g in launches.values()) == 2
+        else:
+            assert engine.captures == engine.replays == 0
+    (res, outs), (e_res, e_outs) = runs
+    assert res == e_res
+    flat = [t for o in outs for t in (o if isinstance(o, tuple) else (o,))]
+    e_flat = [t for o in e_outs for t in (o if isinstance(o, tuple)
+                                          else (o,))]
+    assert len(flat) == len(e_flat) > 0
+    assert all(torch.equal(a, b) for a, b in zip(flat, e_flat))
+
+
+def test_predict_returns_copies_a_later_replay_leaves_alone(dev):
+    net = _train_gpt(dev, torch.bfloat16, 0.1)
+    model = _eval_model(net, "graph")
+    ids = [torch.from_numpy(np.random.RandomState(i).randint(0, 96, (4, 32)))
+           for i in range(3)]
+    model.predict_batch([ids[0]])                      # the capture
+    out = model.predict_batch([ids[1]])               # a replay
+    held = out.clone()
+    again = model.predict_batch([ids[2]])             # the next replay
+    g = next(iter(model._eval_engine._graphs.values()))
+    assert model._eval_engine.replays == 2
+    assert out is not g.outs and again is not g.outs
+    assert torch.equal(out, held) and not torch.equal(out, again)
+    outs, loss = model.eval_batch([ids[1]], [ids[1]])
+    assert torch.equal(outs, held) and np.isfinite(loss)
+
+
+def test_load_in_place_keeps_the_graphs(dev, tmp_path):
+    """fit (train graph captured), evaluate (eval graph captured), save,
+    fit on, load the saved files: they are copied into the parameters and
+    slots where they lie, so the next fit and evaluate replay the graphs
+    they had, and the losses are bitwise those of the eager steps doing
+    the same.  A load that replaces the slot tensors
+    (``Optimizer.set_state_dict``) makes the next fit capture again."""
+    data = torch.from_numpy(np.random.RandomState(14).randint(0, 96,
+                                                              (24, 32)))
+    ds = [ptt.io.TensorDataset([data[i:i + 8], data[i:i + 8]])
+          for i in (0, 8, 16)]
+    runs = []
+    for form in ("graph", "eager"):
+        net = _train_gpt(dev, torch.bfloat16, 0.1)
+        model, engine = _train_api(net, form)
+        if form == "eager":
+            model._eval_begin()._replaying = False
+        path = str(tmp_path / form)
+
+        def fit(d):
+            return model.fit(d, batch_size=4, shuffle=False,
+                             verbose=0)["step_loss"]
+
+        losses = fit(ds[0]) + [model.evaluate(ds[2], batch_size=4,
+                                              verbose=0)["loss"]]
+        model.save(path)
+        losses += fit(ds[1])
+        model.load(path)
+        losses += fit(ds[1]) + [model.evaluate(ds[2], batch_size=4,
+                                               verbose=0)["loss"]]
+        if form == "graph":
+            assert engine.captures == 1 and engine.replays == 5
+            assert model._eval_engine.captures == 1
+            assert model._eval_engine.replays == 3
+        model._optimizer.set_state_dict(model._optimizer.state_dict())
+        losses += fit(ds[1])
+        if form == "graph":
+            assert engine.captures == 2
+        runs.append((losses, _params(net)))
+    (losses, params), (e_losses, e_params) = runs
+    assert len(losses) == 10 and all(np.isfinite(losses))
+    assert losses == e_losses
+    assert all(torch.equal(a, b) for a, b in zip(params, e_params))
+
+
+@pytest.mark.parametrize("metric", [False, True])
+def test_fit_syncs_only_to_drain(dev, metric):
+    """Replayed Model.fit steps under torch.cuda.set_sync_debug_mode:
+    without a metric (or a callback of the user's) only the drains sync,
+    at log_freq steps and the epoch's end; with a metric each step makes
+    one copy, its loss and the metric's compute values together (as the
+    reference syncs every step then), and nothing else does."""
+    import os
+    import warnings
+
+    net = _train_gpt(dev, torch.bfloat16, 0.1)
+    model = ptt.Model(net).prepare(
+        ptt.optimizer.AdamW(learning_rate=0.01, parameters=net.parameters()),
+        _lm_loss, metrics=[ptt.metric.Accuracy()] if metric else None)
+    data = torch.from_numpy(np.random.RandomState(15).randint(0, 96,
+                                                              (28, 32)))
+    model.fit(ptt.io.TensorDataset([data[:4], data[:4]]), batch_size=4,
+              verbose=0)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            hist = model.fit(ptt.io.TensorDataset([data[4:], data[4:]]),
+                             batch_size=4, shuffle=False, verbose=0,
+                             log_freq=4)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [os.path.basename(w.filename) for w in caught
+             if str(w.message).startswith(SYNC_WARNING)]
+    assert model._engine.captures == 1 and model._engine.replays == 6
+    assert syncs == ["engine.py"] * (6 if metric else 3)
+    assert len(hist["step_loss"]) == 6 and all(np.isfinite(hist["loss"]))

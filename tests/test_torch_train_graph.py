@@ -41,6 +41,7 @@ from paddle_tpu.ops import fused as jfused
 from paddle_tpu.tensor import Tensor, unwrap
 from paddle_tpu_torch.framework import random as port_random
 from paddle_tpu_torch.framework.random import StepKeys, StepSeed
+from paddle_tpu_torch.hapi.callbacks import Callback
 from paddle_tpu_torch.hapi.engine import TrainEngine, _StepGraph
 from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
@@ -233,6 +234,7 @@ def _stand_in(engine):
     engine._warm_up = engine._eager
     engine._capture = capture
     engine._keys = StepKeys("cpu")
+    engine._replaying = True
     return engine
 
 
@@ -387,6 +389,51 @@ def test_a_loaded_optimizer_state_is_captured_again(dropout):
             assert engine.captures == 2 and engine.replays == 6
     (losses, params), (eager_losses, eager_params) = runs
     assert len(losses) == 8 and all(math.isfinite(x) for x in losses)
+    assert losses == eager_losses
+    assert all(torch.equal(a, b) for a, b in zip(params, eager_params))
+
+
+class _Replacer(Callback):
+    """A user callback that replaces training state mid-fit: after step 1
+    the first parameter's ``.data`` (clipped, a new tensor), after step 3
+    the optimizer's slots (``set_state_dict`` of a state saved after step
+    0)."""
+
+    def __init__(self, net, opt):
+        super().__init__()
+        self.net, self.opt = net, opt
+
+    def on_train_batch_end(self, step, logs=None):
+        if step == 0:
+            self.saved = self.opt.state_dict()
+        elif step == 1:
+            p = next(self.net.parameters())
+            p.data = p.data.clamp(-0.05, 0.05)
+        elif step == 3:
+            self.opt.set_state_dict(self.saved)
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_a_callback_that_replaces_state_mid_fit_is_captured_again(dropout):
+    """A user callback replaces a parameter's tensor and then the
+    optimizer's slots between two steps of one fit: fit drops the graph
+    before the next step and captures anew (three captures in all), and
+    losses and parameters are bitwise the eager step's with the same
+    callback."""
+    data = torch.cat(_batches(6))
+    runs = []
+    for graph in (True, False):
+        net = _gpt(dropout=dropout, attn_dropout=dropout)
+        model, engine = _engine(net, 0.01, graph)
+        hist = model.fit(ptt.io.TensorDataset([data, data]), batch_size=2,
+                         shuffle=False, verbose=0,
+                         callbacks=[_Replacer(net, model._optimizer)])
+        runs.append((hist["step_loss"],
+                     [p.detach().clone() for p in net.parameters()]))
+        if graph:
+            assert engine.captures == 3 and engine.replays == 3
+    (losses, params), (eager_losses, eager_params) = runs
+    assert len(losses) == 6 and all(math.isfinite(x) for x in losses)
     assert losses == eager_losses
     assert all(torch.equal(a, b) for a, b in zip(params, eager_params))
 
