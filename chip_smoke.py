@@ -99,6 +99,27 @@ passed over):
                   load is bitwise the trained model's and every file is
                   there; eval graph and eager ms a batch, train-graph p50
                   with and without the metric, save/load times.
+15. seq2seq     — the encoder-decoder Transformer at nn.Transformer()'s
+                  defaults (Transformer-base: d_model 512, 8 heads,
+                  6 + 6 layers, FFN 2048, dropout 0.1, ReLU, post-LN), a
+                  shared 37,000-token embedding, bf16, batches of 48
+                  pairs (sources 16-72 tokens padded to 72, targets 16-64
+                  padded to 64): the cross form of the three attention
+                  kernels (S_q = 64 over S_k = 72, and the decode step's
+                  S_q = 1) against their plain versions, and LayerNorm
+                  (width 512), softmax cross-entropy (V = 37,000) and the
+                  optimizer (Adam, beta2 0.98, eps 1e-9) at the path's
+                  shapes; float32 loss and
+                  gradients at B = 2 against the CPU's; Model.fit with
+                  Adam and NoamDecay, graph, eager, eager, graph: losses
+                  bitwise equal and falling, 18 attention forward launches
+                  a step (6 cross), all on the tensor cores with dropout,
+                  one optimizer launch a step; the eval graph bitwise the
+                  eager _eval; greedy decoding with the caches equal to the
+                  recompute (float32), and (bf16) every step's logits
+                  within BF16_TOL of the recompute's up to the first step
+                  whose tokens differ.  Step p50, tokens/s (real tokens;
+                  positions/s beside it), MFU, eval and decode ms.
 
 The AccumulateGrad stream warning (a backward accumulating into a node of
 another stream: the training engine's warm-up meeting a dygraph graph
@@ -241,6 +262,12 @@ TRAINING_FAST = MMA_KERNELS + ("layer_norm", "bias_gelu", "bias_gelu_bwd")
 
 def log(msg):
     print(msg, flush=True)
+
+
+def mark(what):
+    """Log how far into the run ``what`` was reached (the serving phases'
+    parts, whose depth a later phase's time is paid from)."""
+    log(f"[time] {what}: {time.perf_counter() - START:.1f}s into the run")
 
 
 def fail(msg):
@@ -637,20 +664,22 @@ def optimizer_run(torch, kind, dtype, plain, steps=3):
     return params, [list(opt._slots.get(id(p), {}).values()) for p in params]
 
 
-def optimizer_tree_check(torch, model, steps=3):
-    """AdamW(2e-4, wd 0.01) on every parameter of ``model``: ``steps``
-    updates by step() (the kernel) on the model's parameters and by
-    step_plain() (the per-parameter loop) on copies of them, from the same
-    seeded gradients.  Fails unless every parameter and moment is bitwise
-    equal; returns the kernel's optimizer and the largest |difference|
-    (0.0)."""
+def optimizer_tree_check(torch, model, steps=3, make=None):
+    """``make(parameters)``'s optimizer (by default AdamW(2e-4, wd 0.01))
+    on every parameter of ``model``: ``steps`` updates by step() (the
+    kernel) on the model's parameters and by step_plain() (the
+    per-parameter loop) on copies of them, from the same seeded
+    gradients.  Fails unless every parameter and moment is bitwise equal;
+    returns the kernel's optimizer and the largest |difference| (0.0)."""
     import paddle_tpu_torch as ptt
 
+    if make is None:
+        def make(ps):
+            return ptt.optimizer.AdamW(learning_rate=2e-4,
+                                       weight_decay=0.01, parameters=ps)
     params = list(model.parameters())
     twins = [torch.nn.Parameter(p.detach().clone()) for p in params]
-    opt, twin_opt = (ptt.optimizer.AdamW(learning_rate=2e-4,
-                                         weight_decay=0.01, parameters=ps)
-                     for ps in (params, twins))
+    opt, twin_opt = make(params), make(twins)
     g = torch.Generator(device="cuda").manual_seed(32)
     for _ in range(steps):
         for p, q in zip(params, twins):
@@ -665,9 +694,9 @@ def optimizer_tree_check(torch, model, steps=3):
                   for n in ("moment1", "moment2")]
     err = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
     if not all(torch.equal(a, b) for a, b in pairs):
-        fail(f"optimizer: kernel and loop differ after {steps} AdamW steps "
-             f"of {type(model).__name__}'s {len(params)} tensors "
-             f"(max |d| {err:.3e})")
+        fail(f"optimizer: kernel and loop differ after {steps} "
+             f"{type(opt).__name__} steps of {type(model).__name__}'s "
+             f"{len(params)} tensors (max |d| {err:.3e})")
     ptt.optimizer.Optimizer.plain_cuda_updates = 0
     del twins, twin_opt
     return opt, err
@@ -719,24 +748,10 @@ def optimizer_phase(torch, K, cfg):
     model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16)
     opt, gpt_err = optimizer_tree_check(torch, model)
     params = list(model.parameters())
-    n = sum(p.numel() for p in params)
-    grads = [p.grad for p in params]
-    slots = [[opt._slots[id(p)][s] for s in ("moment1", "moment2")]
-             for p in params]
-    hyper = opt._kernel_spec()[1]
-    KO = K.optimizer
-    # the scalars are written before the timing's capture, as the training
-    # engine's prologue writes them before a replay
-    scalars = KO.write_scalars(KO.make_scalars("cuda"), "adamw", 2e-4, 2,
-                               hyper)
-    kernel = lambda: KO.multi_tensor_step(     # noqa: E731
-        "adamw", params, grads, slots, 2e-4, 2, hyper, scalars)
-    plain = lambda: KO.multi_tensor_step_plain(   # noqa: E731
-        "adamw", params, grads, slots, 2e-4, 2, hyper)
-    ms, eager_ms = time_ms(torch, kernel, iters=5, reps=3)
-    plain_ms, plain_eager = time_ms(torch, plain, iters=1, reps=3)
-    n_bytes = 22 * n            # p 2 + 2, g 2, moments 4 + 4 each way
-    bound, by = bound_ms(n_bytes, 15 * n, PEAK_F32)
+    rec = tree_step_record(torch, K, opt, params, 2e-4)
+    n, ms, eager_ms = rec["elements"], rec["ms"], rec["eager_ms"]
+    plain_ms, plain_eager = rec["plain_ms"], rec["plain_eager_ms"]
+    bound, by, n_bytes = rec["bound_ms"], rec["bound_by"], rec["bytes"]
     seen = []
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -765,8 +780,37 @@ def optimizer_phase(torch, K, cfg):
     rec = {"max_abs_err": max(gpt_err, bert_err), "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
            "library_ms": None}
-    del model, params, grads, slots, opt
+    del model, params, opt
     return rec
+
+
+def tree_step_record(torch, K, opt, params, lr):
+    """One update of the bf16 tree ``params`` (float32 moments) in the
+    rule of ``opt`` (Adam or AdamW, slots and gradients in place from
+    ``optimizer_tree_check``): the kernel's device ms against the loop's
+    (both from a replayed CUDA graph) and its bound, 22 bytes an
+    element."""
+    kind, hyper = opt._kernel_spec()
+    n = sum(p.numel() for p in params)
+    grads = [p.grad for p in params]
+    slots = [[opt._slots[id(p)][s] for s in ("moment1", "moment2")]
+             for p in params]
+    KO = K.optimizer
+    # the scalars are written before the timing's capture, as the training
+    # engine's prologue writes them before a replay
+    scalars = KO.write_scalars(KO.make_scalars("cuda"), kind, lr, 2, hyper)
+    kernel = lambda: KO.multi_tensor_step(     # noqa: E731
+        kind, params, grads, slots, lr, 2, hyper, scalars)
+    plain = lambda: KO.multi_tensor_step_plain(   # noqa: E731
+        kind, params, grads, slots, lr, 2, hyper)
+    ms, eager_ms = time_ms(torch, kernel, iters=5, reps=3)
+    plain_ms, plain_eager = time_ms(torch, plain, iters=1, reps=3)
+    n_bytes = 22 * n            # p 2 + 2, g 2, moments 4 + 4 each way
+    bound, by = bound_ms(n_bytes, 15 * n, PEAK_F32)
+    return {"kind": kind, "elements": n, "tensors": len(params), "ms": ms,
+            "eager_ms": eager_ms, "plain_ms": plain_ms,
+            "plain_eager_ms": plain_eager, "bound_ms": bound,
+            "bound_by": by, "bytes": n_bytes, "library_ms": None}
 
 
 def sdpa_backward(torch, q, k, v, do, dropout_p=0.0):
@@ -1154,13 +1198,14 @@ def serving_phase(torch, K, model, card):
 
         def wave():
             out = serve_wave(eng, prompts, 48)
-            eng._idle.wait(60)
+            wait_idle(eng)
             return out
 
         K.reset_launch_counts()
         variants = K.variant_launches()
         replays0 = eng.replays
         (outs, wall), _, kernels = trace_window(torch, wave)
+        mark("serving: the traced wave")
         replays = eng.replays - replays0
         # the wrappers count the eager launches (prefills); a replay
         # counts nothing, so the path's launches are the trace's, which
@@ -1205,8 +1250,11 @@ def serving_phase(torch, K, model, card):
             solo.stop()
         if alone != outs[0]:
             fail("greedy request re-run alone gave different tokens")
+        mark("serving: the solo re-run")
         syncs = sync_check(torch, eng, prompts[:4])
+        mark("serving: the sync check")
         profile_wave(torch, eng, prompts[:8])
+        mark("serving: the profiled wave")
         total = sum(len(o) for o in outs)
         log(f"[serving] 16 requests (prompts 20-128, 48 new tokens, "
             f"greedy/sampled alternating, prefix cache on) on {card}, "
@@ -1225,13 +1273,23 @@ def serving_phase(torch, K, model, card):
         eng.stop()
 
 
+def wait_idle(eng, timeout=60):
+    """Until the engine's decode loop is idle.  The loop sets its idle
+    event only on a pass that finds no work, and after the last request it
+    blocks for the next one first (as the reference's does), so wake it:
+    without the wake the wait ran out its whole timeout."""
+    eng._wake()
+    if not eng._idle.wait(timeout):
+        fail(f"the serving engine did not go idle in {timeout}s")
+
+
 def step_launches(torch, eng, form, n=20):
     """Device launches and busy ms of one idle decode step (the
     all-inactive state, which a step leaves as it was), by the profiler:
     ``form`` "graph" replays the captured step, "eager" issues it op by
     op."""
     run = eng.step if form == "graph" else eng._step_eager
-    eng._idle.wait(60)
+    wait_idle(eng)
     wall_ms, busy_ms, launches, _ = profile_window(
         torch, lambda: [run() for _ in range(n)])
     return launches / n, (busy_ms / n if busy_ms is not None else None)
@@ -1282,7 +1340,9 @@ def serving_graph_phase(torch, model, card):
                                         wave_prompts(V, 30 + rep, 8),
                                         tag=f"[serving-graph-profile] "
                                             f"{form}")
+            mark(f"serving-graph {form}: the wave and its profile")
             per_step, step_busy = step_launches(torch, eng, form)
+            mark(f"serving-graph {form}: the idle steps' profile")
             total = sum(len(o) for o in outs)
             rows.append(
                 f"{form}: {total / wall:.1f} tokens/s ({total} in "
@@ -1362,6 +1422,7 @@ def prefix_phase(torch, model, card):
                 ms.append(one["ttft_p50_ms"])
             ttft[kind] = float(np.median(ms))
         accounted = pages_accounted(eng, "prefix wave")
+        mark("prefix: the wave and the TTFT requests")
     finally:
         eng.stop()
     # first-token logits of a hit against the miss's, bf16
@@ -1687,13 +1748,14 @@ def sdpa_masked_backward(torch, q, k, v, do, bias, dropout_p=0.0):
     """The library yardstick for the masked attention backward: one call
     of PyTorch's memory-efficient attention backward, on the same inputs
     in its [B, H, S, D] layout, with the bias as it takes it (in q's
-    dtype, its rows padded to a multiple of 16), from its own forward
+    dtype, its key rows padded to a multiple of 16), from its own forward
     (with ``dropout_p``, its own dropout)."""
     qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
-    B, H, S, _ = qt.shape
-    sp = -(-S // 16) * 16
-    lib_bias = torch.zeros(B, H, S, sp, dtype=q.dtype,
-                           device=q.device)[..., :S]
+    B, H, S_q, _ = qt.shape
+    S_k = kt.shape[2]
+    sp = -(-S_k // 16) * 16
+    lib_bias = torch.zeros(B, H, S_q, sp, dtype=q.dtype,
+                           device=q.device)[..., :S_k]
     lib_bias.copy_(bias)
     out, lse, seed_t, offset_t = \
         torch.ops.aten._scaled_dot_product_efficient_attention(
@@ -2575,6 +2637,663 @@ def fit_api_phase(torch, K, card):
     return fit_counts, per_replay
 
 
+# nn.Transformer()'s defaults, Transformer-base (Vaswani et al., 2017,
+# Table 3), with the shared source-target vocabulary of the paper's WMT14
+# en-de BPE (37,000 tokens, section 5.1)
+S2S = dict(vocab=37000, d_model=512, nhead=8, layers=6, ffn=2048,
+           dropout=0.1)
+S2S_B, S2S_SRC, S2S_TGT = 48, 72, 64   # ~3.1 k target tokens a batch
+S2S_PAD, S2S_BOS, S2S_IGNORE = 0, 1, -100
+S2S_BATCHES, S2S_EPOCHS = 4, 3         # fit: 12 steps over 4 batches
+S2S_EVAL = 2                           # eval batches
+S2S_DECODE = (8, 32)                   # sources, new tokens
+S2S_KERNELS = ("layer_norm",) + ATTENTION_KERNELS + XENT_KERNELS
+
+
+def sinusoid(n, d):
+    """Sinusoidal positions (Vaswani et al., 2017, section 3.5), float32
+    [n, d]."""
+    pos = np.arange(n, dtype=np.float64)[:, None]
+    rate = np.power(10000.0, -np.arange(0, d, 2, dtype=np.float64) / d)
+    pe = np.zeros((n, d))
+    pe[:, 0::2], pe[:, 1::2] = np.sin(pos * rate), np.cos(pos * rate)
+    return pe.astype(np.float32)
+
+
+def seq2seq_model(torch, device, dtype=None, tgt_len=S2S_TGT, **kw):
+    """Transformer-base as a user of ``nn.Transformer`` trains it (neither
+    package has a seq2seq model class): ``nn.Transformer`` at its
+    defaults (``S2S``, overridable by ``kw``), one Embedding shared by
+    source, target and the pre-softmax projection (logits = h E^T),
+    scaled by sqrt(d_model), sinusoidal positions and dropout.  The
+    source's padding mask is built from the ids in the forward, the
+    subsequent mask once on ``device`` as a buffer: a mask made on the
+    host and moved inside the captured step would copy from pageable
+    memory.  Weights come from the framework generator on the CPU, so a
+    seed gives the same model on any device."""
+    from paddle_tpu_torch import nn
+
+    cfg = dict(S2S, **kw)
+    d = cfg["d_model"]
+
+    class Seq2Seq(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embedding = nn.Embedding(
+                cfg["vocab"], d,
+                weight_attr=nn.initializer.Normal(0.0, d ** -0.5))
+            self.transformer = nn.Transformer(
+                d, cfg["nhead"], cfg["layers"], cfg["layers"], cfg["ffn"],
+                cfg["dropout"])
+            self.dropout = nn.Dropout(cfg["dropout"])
+
+        def embed(self, ids, start=0):
+            x = self.embedding(ids) * math.sqrt(d) \
+                + self.pos[start:start + ids.shape[1]]
+            return self.dropout(x)
+
+        def logits(self, h):
+            return torch.matmul(h, self.embedding.weight.t())
+
+        def forward(self, src, tgt):
+            mask = (src != S2S_PAD)[:, None, None, :]
+            n = tgt.shape[1]
+            h = self.transformer(self.embed(src), self.embed(tgt), mask,
+                                 self.tgt_mask[:n, :n], mask)
+            return self.logits(h)
+
+    model = Seq2Seq().to(device=device, dtype=dtype)
+    model.register_buffer("pos", torch.from_numpy(sinusoid(256, d)).to(
+        device=device, dtype=model.embedding.weight.dtype), persistent=False)
+    model.register_buffer("tgt_mask", nn.Transformer
+                          .generate_square_subsequent_mask(tgt_len, device),
+                          persistent=False)
+    return model
+
+
+def s2s_batches(torch, rs, n, vocab=S2S["vocab"]):
+    """``n`` sentence pairs: source lengths 16-72 padded to 72, target
+    16-64 padded to 64 (``S2S_PAD``); the decoder's input is BOS and the
+    target but its last token, the labels the target, -100 at its pads.
+    int64 [n, 72], [n, 64], [n, 64] on the CPU."""
+    src_len = rs.randint(16, S2S_SRC + 1, n)
+    tgt_len = rs.randint(16, S2S_TGT + 1, n)
+    src = np.where(np.arange(S2S_SRC)[None] < src_len[:, None],
+                   rs.randint(2, vocab, (n, S2S_SRC)), S2S_PAD)
+    words = rs.randint(2, vocab, (n, S2S_TGT))
+    inside = np.arange(S2S_TGT)[None] < tgt_len[:, None]
+    labels = np.where(inside, words, S2S_IGNORE)
+    tgt_in = np.concatenate([np.full((n, 1), S2S_BOS), words[:, :-1]], 1)
+    tgt_in = np.where(inside, tgt_in, S2S_PAD)
+    return [torch.from_numpy(a.astype(np.int64))
+            for a in (src, tgt_in, labels)]
+
+
+def s2s_loss(logits, labels):
+    """The token-level cross entropy through the softmax cross-entropy
+    kernels (hard labels, -100 at the target's pads), summed over the
+    target's tokens in float32 and divided by their count (a bf16 sum of
+    3,072 losses would round the loss to about 0.06)."""
+    from paddle_tpu_torch.nn import functional as PF
+
+    tokens = PF.cross_entropy(logits, labels, reduction="none")
+    return tokens.float().sum() / (labels != S2S_IGNORE).sum()
+
+
+def s2s_flops(cfg=S2S, B=S2S_B, S_src=S2S_SRC, S_tgt=S2S_TGT):
+    """Model flops of one training step: 6 x matmul parameters x the
+    tokens each sees (the encoder's and the cross-attention's K/V
+    projections the source tokens, the rest of the decoder the target
+    tokens), 12 B H S_q S_k D an attention layer (forward and backward),
+    and 6 T d V for the logits against the shared embedding."""
+    d, f, L, H = cfg["d_model"], cfg["ffn"], cfg["layers"], cfg["nhead"]
+    hd = d // H
+    enc = L * (4 * d * d + 2 * d * f)
+    cross_kv = L * 2 * d * d
+    dec = L * (6 * d * d + 2 * d * f)
+    src_tok, tgt_tok = B * S_src, B * S_tgt
+    matmul = 6 * ((enc + cross_kv) * src_tok + dec * tgt_tok)
+    attention = 12 * B * H * hd * L * (S_src * S_src + S_tgt * S_tgt
+                                       + S_tgt * S_src)
+    return matmul + attention + 6 * tgt_tok * d * cfg["vocab"]
+
+
+def seq2seq_kernel_phase(torch, K):
+    """The cross form of the three attention kernels against their plain
+    versions at the path's cross-attention shape (B = 48, H = 8, S_q = 64
+    queries over S_k = 72 keys, D = 64) with the source's padding mask
+    (seeded lengths 16-72): bf16 (tensor cores) and float32 (CUDA cores),
+    p = 0 and 0.1, causal off and on (top-left); the dropout mask at that
+    shape bitwise ``dropout_keep_plain``'s; then the decode step's forward
+    (S_q = 1 over S_k = 32 and 72, B = 8).  The library yardstick is
+    scaled_dot_product_attention with the same mask (and dropout),
+    forward, and its memory-efficient backward (bf16).  Then the path's
+    other kernels at its shapes (``seq2seq_row_kernels``).  Returns (the
+    attention records of the training form, bf16 p = 0.1 non-causal, the
+    other kernels' records)."""
+    F = torch.nn.functional
+    KF = K.flash_attention
+    g = torch.Generator(device="cuda").manual_seed(21)
+    B, H, S_q, S_k, D = S2S_B, S2S["nhead"], S2S_TGT, S2S_SRC, 64
+    lens = torch.randint(16, S_k + 1, (B,), generator=g, device="cuda")
+    keys = torch.arange(S_k, device="cuda")
+    pad = (keys[None, :] < lens[:, None])[:, None, None, :]
+    bias = KF.fold_mask(pad, B, H, S_q, S_k)
+    got = KF.dropout_keep(DROPOUT_SEED, B, H, S_q, DROPOUT_P, "cuda",
+                          S_k=S_k)
+    want = KF.dropout_keep_plain(DROPOUT_SEED, B, H, S_q, DROPOUT_P, "cuda",
+                                 S_k=S_k)
+    if not torch.equal(got, want):
+        fail(f"seq2seq dropout mask: the kernels' [B, H, {S_q}, {S_k}] mask "
+             f"differs from dropout_keep_plain at "
+             f"{int((got != want).sum())} pairs")
+    log(f"[seq2seq] dropout mask B={B} H={H} S_q={S_q} S_k={S_k} "
+        f"p={DROPOUT_P}: the kernels' mask bitwise dropout_keep_plain's "
+        f"over {got.numel()} pairs")
+    main = {}
+    upper = torch.ones(S_q, S_k, dtype=torch.bool, device="cuda").triu(1)
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        isz = torch.empty((), dtype=dtype).element_size()
+        peak = PEAK_F32 if dtype == torch.float32 else PEAK_BF16_TENSOR
+        q, do = (torch.randn(B, S_q, H, D, generator=g, device="cuda")
+                 .to(dtype) for _ in range(2))
+        k, v = (torch.randn(B, S_k, H, D, generator=g, device="cuda")
+                .to(dtype) for _ in range(2))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        nq, nk = B * S_q * H * D * isz, B * S_k * H * D * isz
+        stats, bias_bytes = 2 * B * H * S_q * 4, B * S_k * 4
+        for p in (0.0, DROPOUT_P):
+            for causal in (False, True):
+                visible = (keys[None, None, :] < lens[:, None, None]
+                           ).expand(B, S_q, S_k)
+                if causal:
+                    visible = visible & ~upper
+                pairs = H * int(visible.sum())
+                kw = dict(causal=causal, bias=bias, dropout_p=p,
+                          seed=DROPOUT_SEED)
+                o, lse = KF.flash_attention(q, k, v, **kw)
+                delta = KF.flash_attention_delta(o, do)
+                lib_mask = bias.to(dtype)
+                if causal:
+                    lib_mask = lib_mask.masked_fill(upper, float("-inf"))
+                lib_bwd = None if dtype == torch.float32 else \
+                    sdpa_masked_backward(torch, q, k, v, do, lib_mask, p)
+                desc = (f"{tag} cross {'causal ' if causal else ''}padding "
+                        f"p={p} B={B} H={H} S_q={S_q} S_k={S_k} D={D}")
+                rec = {"flash_attention": compare(
+                    torch, f"flash_attention {desc}",
+                    lambda: KF.flash_attention(q, k, v, **kw)[0],
+                    lambda: KF.flash_attention_plain(q, k, v, **kw)[0],
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=lib_mask, dropout_p=p), dtype,
+                    2 * nq + 2 * nk + B * H * S_q * 4 + bias_bytes,
+                    4 * D * pairs, peak,
+                    variant=("flash_attention", variant_of(dtype)))}
+                rec["flash_attention_dq"] = compare(
+                    torch, f"flash_attention_dq {desc}",
+                    lambda: KF.flash_attention_dq(q, k, v, do, lse, delta,
+                                                  **kw),
+                    lambda: KF.flash_attention_dq_plain(q, k, v, do, lse,
+                                                        delta, **kw),
+                    lib_bwd, dtype, 3 * nq + 2 * nk + stats + bias_bytes,
+                    6 * D * pairs, peak,
+                    variant=("flash_attention_dq", variant_of(dtype)))
+                rec["flash_attention_dkv"] = compare(
+                    torch, f"flash_attention_dkv {desc}",
+                    lambda: KF.flash_attention_dkv(q, k, v, do, lse, delta,
+                                                   **kw),
+                    lambda: KF.flash_attention_dkv_plain(q, k, v, do, lse,
+                                                         delta, **kw),
+                    lib_bwd, dtype, 2 * nq + 4 * nk + stats + bias_bytes,
+                    8 * D * pairs, peak,
+                    variant=("flash_attention_dkv", variant_of(dtype)))
+                if dtype == torch.bfloat16 and p > 0 and not causal:
+                    main = rec
+        # the decode step: one query over the cache, under no_grad
+        for n_keys in (32, S_k):
+            q1 = torch.randn(8, 1, H, D, generator=g, device="cuda").to(dtype)
+            k1, v1 = k[:8, :n_keys], v[:8, :n_keys]
+            b1 = KF.fold_mask(pad[:8, ..., :n_keys], 8, H, 1, n_keys)
+            lib1 = b1.to(dtype)
+            compare(torch, f"flash_attention {tag} decode S_q=1 "
+                    f"S_k={n_keys} B=8 H={H} D={D} padding",
+                    lambda: KF.flash_attention(q1, k1, v1, False, b1)[0],
+                    lambda: KF.flash_attention_plain(q1, k1, v1, False,
+                                                     b1)[0],
+                    lambda: F.scaled_dot_product_attention(
+                        q1.transpose(1, 2), k1.transpose(1, 2),
+                        v1.transpose(1, 2), attn_mask=lib1), dtype,
+                    2 * 8 * H * D * isz + 2 * 8 * n_keys * H * D * isz
+                    + 8 * H * 4 + 8 * n_keys * 4,
+                    4 * D * H * int(pad[:8, 0, 0, :n_keys].sum()), peak,
+                    variant=("flash_attention", variant_of(dtype)))
+    torch.cuda.synchronize()
+    return main, seq2seq_row_kernels(torch, K)
+
+
+def seq2seq_row_kernels(torch, K):
+    """The path's other kernels against their plain versions at its
+    shapes, in bf16: LayerNorm (the warp kernel) over the encoder's
+    48 x 72 rows and the decoder's 48 x 64 at width 512; softmax_xent
+    forward and backward over the 3,072 target rows of a seeded batch
+    (-100 at its pads, whose gradient rows must be exactly 0) at V =
+    37,000; and multi_tensor_step in the path's Adam form (beta2 0.98,
+    eps 1e-9, no weight decay) over Transformer-base's bf16 tree, bitwise
+    the per-parameter loop after 3 steps.  Returns {name: record},
+    LayerNorm's under "layer_norm" (encoder) and "layer_norm_decoder"."""
+    import paddle_tpu_torch as ptt
+
+    F = torch.nn.functional
+    SX = K.softmax_xent
+    g = torch.Generator(device="cuda").manual_seed(22)
+    dt = torch.bfloat16
+    d, V = S2S["d_model"], S2S["vocab"]
+    recs = {}
+    for key, R in (("layer_norm", S2S_B * S2S_SRC),
+                   ("layer_norm_decoder", S2S_B * S2S_TGT)):
+        x = torch.randn(R, d, generator=g, device="cuda").to(dt)
+        w = (1 + 0.1 * torch.randn(d, generator=g, device="cuda")).to(dt)
+        b = (0.1 * torch.randn(d, generator=g, device="cuda")).to(dt)
+        recs[key] = compare(
+            torch, f"layer_norm bf16 seq2seq R={R} N={d}",
+            lambda: K.layer_norm.layer_norm(x, w, b, 1e-5),
+            lambda: K.layer_norm.layer_norm_plain(x, w, b, 1e-5),
+            lambda: F.layer_norm(x, (d,), w, b, 1e-5), dt,
+            (2 * R * d + 2 * d) * 2, 8 * R * d, PEAK_F32,
+            variant=("layer_norm", "warp"))
+    labels = s2s_batches(torch, np.random.RandomState(34), S2S_B)[2]
+    flat = labels.reshape(-1).cuda()
+    n = flat.numel()
+    keep = flat != S2S_IGNORE
+    n_valid = int(keep.sum())
+    z = torch.randn(S2S_B, S2S_TGT, V, generator=g, device="cuda").to(dt)
+    gr = torch.randn(n, generator=g, device="cuda")
+    loss, lse = SX.softmax_xent_fwd(z, flat)
+    dz = SX.softmax_xent_bwd(z, flat, lse, gr)
+    torch.cuda.synchronize()
+    if not torch.all(dz.reshape(n, V)[~keep] == 0):
+        fail("softmax_xent_bwd bf16 seq2seq: a pad row's gradient is not "
+             "exactly 0")
+    del dz
+    logp = torch.log_softmax(z.reshape(n, V), -1)
+    zero = torch.zeros((), dtype=dt, device="cuda")
+    gd = gr.to(dt)
+    desc = f"bf16 seq2seq N={n} ({n_valid} labelled) V={V}"
+    recs["softmax_xent"] = compare(
+        torch, f"softmax_xent {desc}",
+        lambda: SX.softmax_xent_fwd(z, flat),
+        lambda: SX.softmax_xent_plain(z, flat),
+        lambda: F.cross_entropy(z.reshape(n, V), flat, reduction="none"),
+        dt, n * V * 2 + 16 * n, 4 * n * V, PEAK_F32)
+    recs["softmax_xent_bwd"] = compare(
+        torch, f"softmax_xent_bwd {desc}",
+        lambda: SX.softmax_xent_bwd(z, flat, lse, gr),
+        lambda: SX.softmax_xent_bwd_plain(z, flat, lse, gr),
+        lambda: torch.ops.aten._log_softmax_backward_data(
+            torch.ops.aten.nll_loss_backward(
+                gd, logp, flat, None, 0, -100, zero), logp, 1, dt),
+        dt, (n_valid + n) * V * 2 + 16 * n, 4 * n_valid * V, PEAK_F32)
+    del z, logp
+    net = seq2seq_model(torch, "cuda", dt)
+
+    def make(ps):
+        # the schedule at its peak (the end of warm-up): an lr of the
+        # first steps (~1.7e-7) moves no bf16 parameter
+        sched = ptt.optimizer.lr.NoamDecay(d_model=d, warmup_steps=4000)
+        sched.step(4000)
+        return ptt.optimizer.Adam(learning_rate=sched, beta1=0.9,
+                                  beta2=0.98, epsilon=1e-9, parameters=ps)
+
+    opt, err = optimizer_tree_check(torch, net, make=make)
+    params = list(net.parameters())
+    lr = opt.get_lr()
+    rec = tree_step_record(torch, K, opt, params, lr)
+    if rec["kind"] != "adam":
+        fail(f"seq2seq optimizer: Adam took the {rec['kind']} rule")
+    rec["max_abs_err"] = err
+    log(f"[kernels] multi_tensor_step seq2seq Adam(0.9, 0.98, 1e-9, no "
+        f"decay) lr {lr:.6e}: 3 steps bitwise the per-parameter loop over "
+        f"Transformer-base's {rec['tensors']} bf16 tensors, float32 moments "
+        f"(max |d| {err}) | one update of {rec['elements']} elements: "
+        f"device ms kernel={rec['ms']} plain loop={rec['plain_ms']} "
+        f"bound={rec['bound_ms']} ({rec['bound_by']}, {rec['bytes']} bytes)"
+        f" | eager ms kernel={rec['eager_ms']} plain="
+        f"{rec['plain_eager_ms']}")
+    recs["multi_tensor_step"] = rec
+    del net, params, opt
+    torch.cuda.synchronize()
+    return recs
+
+
+def seq2seq_parity(torch, K):
+    """The full-width model in float32 at dropout 0, B = 2: the loss and
+    every parameter's gradient on the card (kernels) against the CPU
+    (plain versions), from one seed."""
+    from paddle_tpu_torch.framework.random import seed
+
+    batch = s2s_batches(torch, np.random.RandomState(31), 2)
+    res = {}
+    for device in ("cpu", "cuda"):
+        seed(0)
+        model = seq2seq_model(torch, device, dropout=0.0).train()
+        K.reset_launch_counts()
+        src, tgt_in, labels = (t.to(device) for t in batch)
+        loss = s2s_loss(model(src, tgt_in), labels)
+        loss.backward()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+            cross = K.flash_attention.cross_launches()
+        res[device] = (loss.item(), {n: p.grad.cpu() for n, p in
+                                     model.named_parameters()})
+        del model, loss
+    (loss_g, grads_g), (loss_c, grads_c) = res["cuda"], res["cpu"]
+    for name in S2S_KERNELS:
+        if counts[name] <= 0:
+            fail(f"seq2seq parity: kernel {name} was not launched")
+    layers = S2S["layers"]
+    if cross != dict.fromkeys(cross, layers):
+        fail(f"seq2seq parity: cross-form launches {cross}, not {layers} "
+             "of each attention kernel")
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    worst, worst_name = 0.0, None
+    for name, ref in grads_c.items():
+        got = grads_g[name]
+        if not torch.isfinite(got).all():
+            fail(f"seq2seq parity: {name} has no finite gradient on the "
+                 "card")
+        # a key projection's bias has an exactly-zero gradient (softmax is
+        # shift-invariant over a query's keys): both sides give rounding
+        # noise, held against the scale of the same attention's query-bias
+        # gradient instead of its own (as [bert-parity] does)
+        scale = grads_c[name.replace("k_proj.bias", "q_proj.bias")]
+        rel = ((got - ref).abs().max()
+               / scale.abs().max().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+    if loss_rel > GRAD_REL_TOL or worst > GRAD_REL_TOL:
+        fail(f"seq2seq parity: loss rel {loss_rel:.3e}, worst gradient "
+             f"{worst_name} rel {worst:.3e} > {GRAD_REL_TOL}")
+    log(f"[seq2seq] parity: full-width f32 Transformer-base, dropout 0, "
+        f"B=2 (source 72, target 64): loss {loss_g:.6f} (cpu {loss_c:.6f}, "
+        f"rel {loss_rel:.3e}); {len(grads_c)} parameters, every gradient "
+        f"finite; worst max|dgrad|/max|ref| {worst:.3e} ({worst_name}; tol "
+        f"{GRAD_REL_TOL}; k_proj.bias against its attention's q_proj.bias "
+        f"scale); launches {counts}, of them cross-form {cross}")
+
+
+def s2s_decode(torch, model, src, n, cache=True):
+    """Greedy decoding under no_grad: the encoder once, then one decoder
+    step a token over ``gen_cache``'s incremental Cache (S_q = 1 over the
+    tokens so far) and the memory's StaticCache (S_q = 1 over 72), or
+    (``cache`` False) the whole prefix recomputed each step under the
+    subsequent mask.  Returns (tokens [B, n], each step's logits, ms a
+    token)."""
+    from paddle_tpu_torch import nn
+
+    dec = model.transformer.decoder
+    mask = (src != S2S_PAD)[:, None, None, :]
+    tokens = torch.full((src.shape[0], 1), S2S_BOS, dtype=torch.int64,
+                        device=src.device)
+    logits = []
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        memory = model.transformer.encoder(model.embed(src), mask)
+        caches = dec.gen_cache(memory)
+        for t in range(n):
+            if cache:
+                h, caches = dec(model.embed(tokens[:, -1:], t), memory, None,
+                                mask, caches)
+            else:
+                sub = nn.Transformer.generate_square_subsequent_mask(
+                    t + 1, src.device)
+                h = dec(model.embed(tokens), memory, sub, mask)
+            logits.append(model.logits(h[:, -1]))
+            tokens = torch.cat([tokens, logits[-1].argmax(-1)[:, None]], 1)
+        torch.cuda.synchronize()
+    return tokens[:, 1:], logits, (time.perf_counter() - t0) * 1e3 / n
+
+
+def seq2seq_fit_run(torch, K, form, data, evals):
+    """One run of Model.fit on Transformer-base (bf16, dropout 0.1) from
+    seed 0: Adam(0.9, 0.98, 1e-9) with NoamDecay(512, 4000) stepped a
+    batch, ``S2S_EPOCHS`` epochs over ``S2S_BATCHES`` batches (log every
+    step, so each step's time ends at its drain) through the captured
+    step ("graph") or ``_step_eager`` ("eager"), then 2 more steps under
+    the profiler.  The graph run also evaluates ``evals`` through the
+    eval graph and the eager ``_eval``.  Returns what the phase checks
+    and prints."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.hapi.engine import EvalEngine, TrainEngine
+
+    seed(0)
+    net = seq2seq_model(torch, "cuda", torch.bfloat16)
+    sched = ptt.optimizer.lr.NoamDecay(d_model=S2S["d_model"],
+                                       warmup_steps=4000)
+    opt = ptt.optimizer.Adam(learning_rate=sched, beta1=0.9, beta2=0.98,
+                             epsilon=1e-9, parameters=net.parameters())
+    api = ptt.Model(net, inputs=["src", "tgt_in"], labels=["tgt_out"])
+    api.prepare(opt, s2s_loss)
+    engine = api._engine = TrainEngine(api)
+    if form == "eager":
+        engine.step = engine._step_eager
+    drain, stamps = engine.drain, []
+
+    def stamped():
+        # an epoch's end drains again, with nothing pending: not a step
+        out = drain()
+        if out:
+            stamps.append(time.perf_counter())
+        return out
+
+    engine.drain = stamped
+    n = S2S_BATCHES * S2S_B
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = api.fit(ptt.io.TensorDataset([t[:n] for t in data]),
+                     batch_size=S2S_B, epochs=S2S_EPOCHS, shuffle=False,
+                     verbose=0, log_freq=1)["step_loss"]
+    steps = S2S_BATCHES * S2S_EPOCHS
+    times = np.diff([t0] + stamps[:steps]) * 1e3
+    counts, cross = K.launch_counts(), K.flash_attention.cross_launches()
+    losses2, wall, kernels = trace_window(torch, lambda: api.fit(
+        ptt.io.TensorDataset([t[n:n + 2 * S2S_B] for t in data]),
+        batch_size=S2S_B, shuffle=False, verbose=0, log_freq=1)[
+            "step_loss"])
+    traced, fast = require_traced(kernels, f"seq2seq {form}",
+                                  S2S_KERNELS, dropout=True)
+    opt_text = require_optimizer_kernel(traced, opt, 2, f"seq2seq {form}")
+    out = dict(losses=losses + losses2, times=times,
+               p50=float(np.median(times[1:])), counts=counts, cross=cross,
+               traced={k: v / 2 for k, v in traced.items() if v},
+               fast=fast, opt_text=opt_text, busy=sum(t for t, _, _ in
+                                                     kernels), wall=wall,
+               launches=sum(c for _, _, c in kernels) / 2,
+               captures=engine.captures, replays=engine.replays,
+               graph_launches=list(engine.graph_launches.values()),
+               lr=sched.last_lr)
+    if form == "graph":
+        evaluator = api._eval_engine = EvalEngine(api)
+        batches = [[t[i * S2S_B:(i + 1) * S2S_B] for t in evals]
+                   for i in range(S2S_EVAL)]
+        evaluator.begin()
+        for b in batches:
+            evaluator.step(b[:2], b[2:])
+        g_loss = evaluator.drain()
+        e_loss = torch.stack([api._eval(b[:2], b[2:])[1].float()
+                              for b in batches]).cpu().tolist()
+        if g_loss != e_loss or evaluator.captures != 1:
+            fail(f"seq2seq eval: graph losses {g_loss} ({evaluator.captures}"
+                 f" captures) against eager {e_loss}")
+
+        def p50_ms(fn, reps=5):
+            ms = []
+            for _ in range(reps):
+                for b in batches:
+                    t = time.perf_counter()
+                    fn(b)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t) * 1e3)
+            return float(np.median(ms))
+
+        evaluator.begin()
+        out["eval"] = dict(
+            losses=g_loss, graph_ms=p50_ms(
+                lambda b: evaluator.step(b[:2], b[2:])),
+            eager_ms=p50_ms(lambda b: api._eval(b[:2], b[2:])),
+            launches=evaluator.graph_launches)
+        evaluator.drain()
+        out["net"] = net
+    return out
+
+
+def seq2seq_phase(torch, K, card):
+    """The encoder-decoder path at Transformer-base (``S2S``): the cross
+    form of the attention kernels against their plain versions
+    (``seq2seq_kernel_phase``), float32 parity (``seq2seq_parity``), then
+    Model.fit on bf16 batches of 48 pairs (sources 16-72 tokens padded to
+    72, targets 16-64 padded to 64) four times from one seed (graph,
+    eager, eager, graph): losses bitwise equal and falling, one capture,
+    every attention launch in the traces on the tensor cores with dropout,
+    18 forward launches a step of which 6 are the cross form, one
+    optimizer launch a step; the eval graph bitwise the eager _eval;
+    greedy decoding of 8 sources for 32 tokens in float32 with the caches
+    equal to recomputing the prefix, and in bf16 every step's logits
+    within BF16_TOL of the recompute's up to the first step whose tokens
+    differ.  Returns (the cross records, the other kernels' records at
+    the path's shapes, the cross-form launches a step, the launches of
+    each kernel in the first graph run's fit (the warm-up and the
+    capture), its traced launches a step)."""
+    from paddle_tpu_torch.framework.random import seed
+
+    t0 = time.perf_counter()
+    cross_recs, row_recs = seq2seq_kernel_phase(torch, K)
+    seq2seq_parity(torch, K)
+    rs = np.random.RandomState(33)
+    data = s2s_batches(torch, rs, (S2S_BATCHES + 2) * S2S_B)
+    evals = s2s_batches(torch, rs, S2S_EVAL * S2S_B)
+    runs = []
+    for form in ("graph", "eager", "eager", "graph"):
+        release(torch, f"seq2seq {form}")
+        runs.append(seq2seq_fit_run(torch, K, form, data, evals))
+    first = runs[0]["losses"]
+    for r, form in zip(runs[1:], ("eager", "eager", "graph")):
+        if r["losses"] != first:
+            fail(f"seq2seq: the {form} run's losses {r['losses']} differ "
+                 f"from the first graph run's {first}")
+    # the same batches, the first epoch's against the last's
+    epochs = np.reshape(first[:S2S_BATCHES * S2S_EPOCHS], (S2S_EPOCHS, -1))
+    if not all(map(math.isfinite, first)) or \
+            epochs[-1].mean() >= epochs[0].mean():
+        fail(f"seq2seq: the losses do not fall from the first epoch to the "
+             f"last: {first}")
+    g, layers = runs[0], S2S["layers"]
+    steps = S2S_BATCHES * S2S_EPOCHS
+    # the graph run's wrappers counted its first step (eager) and the
+    # capture: each a step's launches
+    per_step = {k: v / 2 for k, v in g["counts"].items() if v}
+    want = {"flash_attention": 3 * layers, "flash_attention_dq": 3 * layers,
+            "flash_attention_dkv": 3 * layers,
+            "layer_norm": 5 * layers, "softmax_xent": 1,
+            "softmax_xent_bwd": 1}
+    if g["captures"] != 1 or g["replays"] != steps + 1 \
+            or any(per_step.get(k) != c for k, c in want.items()) \
+            or g["cross"] != dict.fromkeys(g["cross"], 2 * layers):
+        fail(f"seq2seq graph: {g['captures']} captures, {g['replays']} "
+             f"replays, launches a step {per_step} (want {want}), "
+             f"cross-form launches over the warm-up and the capture "
+             f"{g['cross']} (want {2 * layers} each)")
+    for r in runs:
+        if not all(want[k] <= r["traced"].get(k, 0) * 2 <= 2 * want[k]
+                   for k in want):
+            fail(f"seq2seq: launches a step in the trace of 2 steps "
+                 f"{r['traced']}, not those of one step {want}")
+    flops = s2s_flops()
+    positions = S2S_B * (S2S_SRC + S2S_TGT)
+    # the real tokens of a step (source and target, pads out), averaged
+    # over the fit's batches, each of which it takes once an epoch
+    fit_src, _, fit_labels = (t[:S2S_BATCHES * S2S_B] for t in data)
+    tokens = (int((fit_src != S2S_PAD).sum()) + int((fit_labels != S2S_IGNORE)
+                                                 .sum())) / S2S_BATCHES
+    rows = []
+    for i, (r, form) in enumerate(zip(runs, ("graph", "eager", "eager",
+                                            "graph"))):
+        rows.append(
+            f"{form} run {i + 1}: p50 {r['p50']:.3f} ms, "
+            f"{tokens / r['p50'] * 1e3:.1f} tokens/s (real source + target "
+            f"tokens, {tokens:g} a step), {positions / r['p50'] * 1e3:.1f} "
+            f"positions/s (padded, {positions} a step), "
+            f"{mfu_text(flops, r['p50'] / 1e3)}; 2 profiled steps busy "
+            f"{r['busy']:.3f} of {r['wall']:.3f} ms "
+            f"({100 * r['busy'] / r['wall']:.2f}%), {r['launches']:g} "
+            f"launches a step; step ms {np.round(r['times'], 3).tolist()}")
+    log(f"[seq2seq] Model.fit Transformer-base bf16 (d_model 512, 8 heads, "
+        f"6 + 6 layers, FFN 2048, dropout 0.1, vocab {S2S['vocab']}) "
+        f"B={S2S_B} source {S2S_SRC} target {S2S_TGT}, Adam(0.9, 0.98, "
+        f"1e-9) + NoamDecay(512, 4000) on {card}: losses bitwise equal in "
+        f"the 4 runs (graph, eager, eager, graph): {first}; lr after "
+        f"{steps + 2} steps {g['lr']:.6e}; captures {g['captures']}, "
+        f"replays {g['replays']}, graph launches {g['graph_launches']}; "
+        f"cross-form launches (warm-up + capture) {g['cross']}; traced "
+        f"launches a step {g['traced']}, fast kernels {g['fast']}; "
+        f"{g['opt_text']}; flops a step {flops:.4e} (over the padded "
+        f"positions, which the matmuls compute) | " + " | ".join(rows))
+    ev = g["eval"]
+    log(f"[seq2seq] eval graph bitwise the eager _eval over {S2S_EVAL} "
+        f"batches (losses {ev['losses']}); p50 a batch {ev['graph_ms']:.3f} "
+        f"ms against eager {ev['eager_ms']:.3f} ms "
+        f"({ev['eager_ms'] / ev['graph_ms']:.2f}x); launches a replay "
+        f"{ev['launches']}")
+    # greedy decoding: float32 with and without the caches (tokens
+    # equal), then the trained bf16 model: every step's logits until the
+    # first step whose tokens differ (its logits too: a step's inputs are
+    # the same in both until then)
+    n_src, n_new = S2S_DECODE
+    src = evals[0][:n_src].cuda()
+    seed(0)
+    f32 = seq2seq_model(torch, "cuda", dropout=0.0).eval()
+    cached, _, f32_ms = s2s_decode(torch, f32, src, n_new)
+    again, _, f32_re_ms = s2s_decode(torch, f32, src, n_new, cache=False)
+    if not torch.equal(cached, again):
+        fail(f"seq2seq decode f32: greedy tokens with the caches differ "
+             f"from the recompute's at "
+             f"{int((cached != again).sum())} of {cached.numel()}")
+    del f32
+    bf16 = runs[0]["net"].eval()
+    tok_c, log_c, bf_ms = s2s_decode(torch, bf16, src, n_new)
+    tok_r, log_r, bf_re_ms = s2s_decode(torch, bf16, src, n_new,
+                                        cache=False)
+    differ = (tok_c != tok_r).any(0).nonzero()
+    held = int(differ[0]) + 1 if len(differ) else n_new
+    err, tol = 0.0, 0.0
+    for t in range(held):
+        e = (log_c[t].float() - log_r[t].float()).abs().max().item()
+        s_tol = BF16_TOL * max(1.0, log_r[t].float().abs().max().item())
+        if not math.isfinite(e) or e > s_tol:
+            fail(f"seq2seq decode bf16: step {t}'s logits with the caches "
+                 f"differ from the recompute's by {e:.3e} > {s_tol:.3e}")
+        if e >= err:
+            err, tol = e, s_tol
+    same = int((tok_c == tok_r).sum())
+    log(f"[seq2seq] greedy decoding of {n_src} sources x {n_new} tokens: "
+        f"f32 tokens with the caches equal the recompute's; ms a token "
+        f"f32 {f32_ms:.3f} with the caches, {f32_re_ms:.3f} recomputing; "
+        f"bf16 (the trained model) logits of steps 0-{held - 1} held, "
+        f"worst max|d| {err:.3e} (tol {tol:.3e}), {same} of "
+        f"{tok_c.numel()} tokens equal, ms a "
+        f"token {bf_ms:.3f} with the caches, {bf_re_ms:.3f} recomputing; "
+        f"the phase took {time.perf_counter() - t0:.1f}s")
+    for r in runs:
+        r.pop("net", None)
+    # the cross form's launches a step, read from the warm-up and the
+    # capture of the first graph run (two steps' worth)
+    cross = {k: v / 2 for k, v in g["cross"].items()}
+    return cross_recs, row_recs, cross, g["counts"], g["traced"]
+
+
 def profile_steps(torch, tag, step):
     """Two more steps under torch.profiler: wall, busy share, launches
     and the largest device entries."""
@@ -2966,6 +3685,10 @@ def main():
     release(torch, "fit-api")
     fit_api_counts, eval_launches = fit_api_phase(torch, K, card)
     torch.cuda.synchronize()
+    release(torch, "seq2seq")
+    s2s_cross, s2s_rows, s2s_cross_steps, s2s_counts, s2s_traced = \
+        seq2seq_phase(torch, K, card)
+    torch.cuda.synchronize()
 
     kernels = []
     for name, rec in main_cases.items():
@@ -2996,6 +3719,21 @@ def main():
             # capture), and a replay of its eval graph
             entry["fit_api_launches"] = fit_api_counts[name]
             entry["eval_graph_launches_a_batch"] = eval_launches.get(name, 0)
+        if name in S2S_KERNELS + ("multi_tensor_step",):
+            # the seq2seq path (Transformer-base Model.fit): launches in
+            # its first graph run's fit (the first step and the capture),
+            # and a step of its replays in the trace
+            entry["seq2seq_launches"] = s2s_counts[name]
+            entry["seq2seq_launches_a_step"] = s2s_traced.get(name, 0)
+        if name in s2s_rows:
+            # held against its plain version at the seq2seq path's shape
+            # (LayerNorm: the encoder's rows, the decoder's beside them)
+            keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "max_abs_err")
+            entry["seq2seq_shape"] = {k: s2s_rows[name][k] for k in keys}
+            if name == "layer_norm":
+                entry["seq2seq_shape"]["decoder_rows"] = {
+                    k: s2s_rows["layer_norm_decoder"][k] for k in keys}
         if name in FAST_VARIANT:
             entry["variant"] = rec["variant"]
         if name in MMA_KERNELS:
@@ -3006,7 +3744,7 @@ def main():
             # path's padding-mask case stands beside them with its launches
             b = bert_attention[name]
             entry["forms"] = ["causal", "non-causal", "bool-padding",
-                              "causal+additive", "dropout"]
+                              "causal+additive", "dropout", "cross"]
             entry["bert_padding_mask"] = {
                 "launches": bert_counts[name], "ms": b["ms"],
                 "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
@@ -3022,6 +3760,17 @@ def main():
                            "library_ms", "max_abs_err")}}
                 for (form, d), model in zip(
                     dropout_attention[name].items(), ("gpt", "bert"))}}
+            # the cross form (S_q != S_k) at the seq2seq path's shape, in
+            # its training form (bf16, padding mask, dropout 0.1), with
+            # its launches a step (one a decoder layer)
+            c = s2s_cross[name]
+            entry["seq2seq_cross"] = {
+                "shape": f"B={S2S_B} H={S2S['nhead']} S_q={S2S_TGT} "
+                         f"S_k={S2S_SRC} D=64 bf16 padding p={DROPOUT_P}",
+                "launches_a_step": s2s_cross_steps[name],
+                **{key: c[key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "max_abs_err")}}
         kernels.append(entry)
     log(f"[time] the run took {time.perf_counter() - START:.1f}s")
     log(card)

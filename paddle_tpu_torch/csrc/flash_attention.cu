@@ -1,12 +1,15 @@
 // Flash-attention forward (FlashAttention-2 style): causal or not, with an
-// optional additive float32 bias (the attention mask).
+// optional additive float32 bias (the attention mask), over S_q queries and
+// S_k keys (self-attention, S_q == S_k; cross-attention and a cached decode
+// step, S_q != S_k).
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py `_fwd_kernel` (called
 // from `_fwd_call`) in all its forms: causal and not, with and without
-// `has_bias`.  At the serving path's prefill shapes and the training paths'
-// (S = 128 to 1024, 12 heads of 64) the bound is operations, not bytes:
-// each visible (query, key) pair costs 4 * D flops against one read of q,
-// k and v.
+// `has_bias`, at any (S_q, S_k).  At the serving path's prefill shapes and
+// the training paths' (S = 64 to 1024, 8 or 12 heads of 64) the bound is
+// operations, not bytes: each visible (query, key) pair costs 4 * D flops
+// against one read of q, k and v.  A decode step (S_q = 1) is bound by the
+// bytes of K and V.
 //
 // Two hand-written kernels; the C entry picks one from the dtype and the
 // operands' alignment alone:
@@ -32,8 +35,10 @@
 // never folded into a bf16 operand: a row masked by -1e30 everywhere
 // absorbs the dot in float32 and stays a uniform average.  Without a bias
 // the scale is folded into the exponent (one FFMA and one ex2 an entry).
-// Causal: the key loop stops at the tile's diagonal, a warp skips key tiles
-// wholly above its rows, and the heaviest query tiles are scheduled first.
+// Causal (top-left aligned, as the reference's `_causal_mask`: query i sees
+// key j iff j <= i, whatever S_q and S_k): the key loop stops at the tile's
+// diagonal, a warp skips key tiles wholly above its rows, and the heaviest
+// query tiles are scheduled first.
 // The query tile shrinks (128, 64, 32, 16 rows) until the grid has a block
 // for every SM, so a one-sequence prefill still spreads over the card.  O
 // leaves through the block's Q tile in shared memory as 16-byte stores.
@@ -47,14 +52,17 @@
 //
 // Both: scores follow the reference's `_scores`.  The bias is read through
 // four element strides (b, h, q, k), 0 where it is broadcast, so a
-// [B, 1, 1, S] padding mask is never materialised as [B*H, S, S] as the
-// reference's `_fold_mask` does.  A row with no visible key (an all -inf
-// bias) gives 0, as the reference's `l_safe` does.  q, k and v are read in
-// paddle's [B, S, H, D] layout through strides, so the slices of the fused
-// qkv projection need no transpose or copy.  O is written [B, S, H, D]
-// contiguous in the input dtype, LSE [B*H, S] float32 (natural log) for the
-// backward.  Any S >= 1: the Pallas divisibility refusals were TPU tiling
-// artefacts.
+// [B, 1, 1, S_k] padding mask is never materialised as [B*H, S_q, S_k] as
+// the reference's `_fold_mask` does.  A row with no visible key (an all -inf
+// bias) gives 0, as the reference's `l_safe` does.  q is read in paddle's
+// [B, S_q, H, D] layout, k and v in [B, S_k, H, D], through strides, so the
+// slices of the fused qkv projection need no transpose or copy.  O is
+// written [B, S_q, H, D] contiguous in the input dtype, LSE [B*H, S_q]
+// float32 (natural log) for the backward.  Any S_q, S_k >= 1: the Pallas
+// divisibility and block-size refusals were TPU tiling artefacts.  Query
+// rows past S_q (a one-token decode step fills one row of a 16-row tile)
+// read zeros and write nothing; keys past S_k are masked in the scores and
+// staged as zeros.
 //
 // Dropout (the reference's composite, paddle_tpu/ops/fused.py: keep =
 // bernoulli(1 - p), w = where(keep, w / (1 - p), 0) before w . V) is a
@@ -86,7 +94,7 @@ __global__ void __launch_bounds__(kThreads)
                      long long qh, long long kb, long long ks, long long kh,
                      long long vb, long long vs, long long vh,
                      T* __restrict__ o, float* __restrict__ lse,
-                     ptt::Bias bias, int H, int S, float sm_scale,
+                     ptt::Bias bias, int H, int S_q, int S_k, float sm_scale,
                      bool causal, ptt::Dropout drop) {
   constexpr int kPer = D / 4;
   __shared__ float k_tile[kBlockK][D];
@@ -104,23 +112,25 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
     const int d = i * 4 + part;
-    qreg[i] = qi < S ? ptt::to_f32(q[b * qb + qi * qs + h * qh + d]) * sm_scale
-                     : 0.f;
+    qreg[i] = qi < S_q
+                  ? ptt::to_f32(q[b * qb + qi * qs + h * qh + d]) * sm_scale
+                  : 0.f;
     acc[i] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
 
   const long long k_base = b * kb + h * kh, v_base = b * vb + h * vh;
   // causal: keys up to the tile's diagonal; otherwise every key
-  const int k_end = causal ? min(S, q0 + kBlockQ) : S;
+  const int k_end = causal ? min(S_k, q0 + kBlockQ) : S_k;
   for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
     __syncthreads();  // the previous tile has been consumed
     for (int e = threadIdx.x; e < kBlockK * D; e += kThreads) {
       const int j = e / D, c = e % D, kj = k0 + j;
-      k_tile[j][c] = kj < S ? ptt::to_f32(k[k_base + kj * ks + c]) : 0.f;
-      v_tile[j][c] = kj < S ? ptt::to_f32(v[v_base + kj * vs + c]) : 0.f;
+      k_tile[j][c] = kj < S_k ? ptt::to_f32(k[k_base + kj * ks + c]) : 0.f;
+      v_tile[j][c] = kj < S_k ? ptt::to_f32(v[v_base + kj * vs + c]) : 0.f;
     }
-    if (has_bias) bias.stage<kBlockQ, kBlockK>(b_tile, b, h, q0, k0, S, S);
+    if (has_bias)
+      bias.stage<kBlockQ, kBlockK>(b_tile, b, h, q0, k0, S_q, S_k);
     uint32_t keep = 0;  // dropout: bit j keeps key k0 + j
     if constexpr (kDropout) keep = ptt::quad_keep_bits(drop, bh, qi, k0, part);
     __syncthreads();
@@ -136,7 +146,7 @@ __global__ void __launch_bounds__(kThreads)
       dot += __shfl_xor_sync(0xffffffffu, dot, 2);
       if (has_bias) dot += b_tile[r][j];
       const int kj = k0 + j;
-      s[j] = (kj < S && (!causal || kj <= qi)) ? dot : -INFINITY;
+      s[j] = (kj < S_k && (!causal || kj <= qi)) ? dot : -INFINITY;
       m_tile = fmaxf(m_tile, s[j]);
     }
     // while every score so far is -inf (an all -inf bias), m_use = 0 keeps
@@ -159,15 +169,15 @@ __global__ void __launch_bounds__(kThreads)
     m = m_new;
   }
 
-  if (qi < S) {
-    T* orow = o + ((static_cast<long long>(b) * S + qi) * H + h) * D;
+  if (qi < S_q) {
+    T* orow = o + ((static_cast<long long>(b) * S_q + qi) * H + h) * D;
     const float l_safe = l == 0.f ? 1.f : l;  // no visible key: O = 0
     const float inv_l = 1.f / l_safe;
 #pragma unroll
     for (int i = 0; i < kPer; ++i)
       orow[i * 4 + part] = ptt::from_f32<T>(acc[i] * inv_l);
     if (part == 0)
-      lse[static_cast<long long>(bh) * S + qi] =
+      lse[static_cast<long long>(bh) * S_q + qi] =
           (m == -INFINITY ? 0.f : m) + logf(l_safe);
   }
 }
@@ -176,10 +186,10 @@ template <typename T, bool kDropout>
 int launch(const void* q, const void* k, const void* v, long long qb,
            long long qs, long long qh, long long kb, long long ks,
            long long kh, long long vb, long long vs, long long vh, void* o,
-           void* lse, const ptt::Bias& bias, int B, int S, int H, int D,
-           float sm_scale, bool causal, const ptt::Dropout& drop,
+           void* lse, const ptt::Bias& bias, int B, int S_q, int S_k, int H,
+           int D, float sm_scale, bool causal, const ptt::Dropout& drop,
            cudaStream_t st) {
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, B * H);
+  const dim3 grid((S_q + kBlockQ - 1) / kBlockQ, B * H);
   const T* qp = static_cast<const T*>(q);
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
@@ -188,8 +198,8 @@ int launch(const void* q, const void* k, const void* v, long long qb,
 #define PTT_FLASH_CASE(DIM)                                                  \
   case DIM:                                                                  \
     flash_fwd_kernel<T, DIM, kDropout><<<grid, kThreads, 0, st>>>(           \
-        qp, kp, vp, qb, qs, qh, kb, ks, kh, vb, vs, vh, op, lp, bias, H, S,  \
-        sm_scale, causal, drop);                                             \
+        qp, kp, vp, qb, qs, qh, kb, ks, kh, vb, vs, vh, op, lp, bias, H, S_q, \
+        S_k, sm_scale, causal, drop);                                        \
     break;
   switch (D) {
     PTT_FLASH_CASE(16)
@@ -219,7 +229,7 @@ struct MmaArgs {
   __nv_bfloat16* o;
   float* lse;
   ptt::Bias bias;
-  int H, S;
+  int H, S_q, S_k;  // heads; queries and keys of a plane
   float scale;
   bool causal;
   ptt::Dropout drop;
@@ -244,7 +254,6 @@ __device__ __forceinline__ void softmax_tile(
     long long bias_base, int r0, int k0, int t, bool edge,
     const uint32_t (&keep)[2][2]) {
   constexpr int kTileN = kKeys<D>;
-  const int S = a.S;
   if constexpr (!kFast) {
     const bool has_bias = a.bias.p != nullptr;
 #pragma unroll
@@ -253,19 +262,19 @@ __device__ __forceinline__ void softmax_tile(
       for (int e = 0; e < 4; ++e) {
         const int qi = r0 + (e >> 1) * 8, kj = k0 + j * 8 + 2 * t + (e & 1);
         float x = s[j][e] * a.scale;
-        if (has_bias && qi < S && kj < S)
+        if (has_bias && qi < a.S_q && kj < a.S_k)
           x += a.bias.p[bias_base + qi * a.bias.q + kj * a.bias.k];
         s[j][e] = x;
       }
     }
   }
-  if (edge) {  // keys past S, or past a row's diagonal
+  if (edge) {  // keys past S_k, or past a row's diagonal
 #pragma unroll
     for (int j = 0; j < kTileN / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int qi = r0 + (e >> 1) * 8, kj = k0 + j * 8 + 2 * t + (e & 1);
-        if (kj >= S || (a.causal && kj > qi)) s[j][e] = -INFINITY;
+        if (kj >= a.S_k || (a.causal && kj > qi)) s[j][e] = -INFINITY;
       }
     }
   }
@@ -342,7 +351,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   __nv_bfloat16* k_s = q_s + kTileM * kLd;      // [2][kTileN][kLd]
   __nv_bfloat16* v_s = k_s + 2 * kTileN * kLd;  // [2][kTileN][kLd]
 
-  const int S = a.S;
+  const int S_q = a.S_q, S_k = a.S_k;
   const int bh = blockIdx.x;
   const int b = bh / a.H, h = bh % a.H;
   // causal: the last query tile walks the most keys, so it goes first
@@ -358,12 +367,12 @@ __global__ void __launch_bounds__(kWarps * 32)
   const __nv_bfloat16* k_src = a.k + b * a.kb + h * a.kh;
   const __nv_bfloat16* v_src = a.v + b * a.vb + h * a.vh;
   // causal: keys up to the tile's diagonal; otherwise every key
-  const int k_end = a.causal ? min(S, q0 + kTileM) : S;
+  const int k_end = a.causal ? min(S_k, q0 + kTileM) : S_k;
   const int n_tiles = (k_end + kTileN - 1) / kTileN;
 
-  ptt::stage_rows<D, kLd, kTileM, kThreads>(q_s, q_src, a.qs, q0, S);
-  ptt::stage_rows<D, kLd, kTileN, kThreads>(k_s, k_src, a.ks, 0, S);
-  ptt::stage_rows<D, kLd, kTileN, kThreads>(v_s, v_src, a.vs, 0, S);
+  ptt::stage_rows<D, kLd, kTileM, kThreads>(q_s, q_src, a.qs, q0, S_q);
+  ptt::stage_rows<D, kLd, kTileN, kThreads>(k_s, k_src, a.ks, 0, S_k);
+  ptt::stage_rows<D, kLd, kTileN, kThreads>(v_s, v_src, a.vs, 0, S_k);
   ptt::cp_async_commit();
 
   // the warp's rows of Q: the A operand, read again for every key tile (128
@@ -380,9 +389,9 @@ __global__ void __launch_bounds__(kWarps * 32)
     if (i + 1 < n_tiles) {
       const int next = (stage ^ 1) * kTileN * kLd;
       ptt::stage_rows<D, kLd, kTileN, kThreads>(k_s + next, k_src, a.ks,
-                                                k0 + kTileN, S);
+                                                k0 + kTileN, S_k);
       ptt::stage_rows<D, kLd, kTileN, kThreads>(v_s + next, v_src, a.vs,
-                                                k0 + kTileN, S);
+                                                k0 + kTileN, S_k);
     }
     ptt::cp_async_commit();
     ptt::cp_async_wait<1>();  // tile i has landed; tile i + 1 is in flight
@@ -415,7 +424,8 @@ __global__ void __launch_bounds__(kWarps * 32)
       uint32_t keep[2][2];
       if constexpr (kDropout)
         ptt::row_keep_bits<kTileN>(keep, a.drop, bh, row0, k0, lane);
-      const bool edge = k0 + kTileN > S || (a.causal && k0 + kTileN - 1 > row0);
+      const bool edge =
+          k0 + kTileN > S_k || (a.causal && k0 + kTileN - 1 > row0);
       if (fast)
         softmax_tile<D, true, kDropout>(s, pf, o, m, l, a, bias_base, row0 + g,
                                         k0, t, edge, keep);
@@ -461,13 +471,13 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
   __syncwarp();
   ptt::store_rows_16<D, kLd>(
-      q_w, a.o + (static_cast<long long>(b) * S * a.H + h) * D,
-      static_cast<long long>(a.H) * D, row0, S);
+      q_w, a.o + (static_cast<long long>(b) * S_q * a.H + h) * D,
+      static_cast<long long>(a.H) * D, row0, S_q);
   if (t == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int qi = row0 + g + r * 8;
-      if (qi < S) a.lse[static_cast<long long>(bh) * S + qi] = lse[r];
+      if (qi < S_q) a.lse[static_cast<long long>(bh) * S_q + qi] = lse[r];
     }
   }
 }
@@ -484,7 +494,7 @@ int launch_mma_tile(const MmaArgs& a, int B, cudaStream_t st) {
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const dim3 grid(B * a.H, (a.S + kTileM - 1) / kTileM);
+  const dim3 grid(B * a.H, (a.S_q + kTileM - 1) / kTileM);
   flash_fwd_mma_kernel<D, kWarps, kDropout>
       <<<grid, kWarps * 32, kSmem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -501,7 +511,7 @@ int launch_mma_dim(const MmaArgs& a, int B, cudaStream_t st) {
   const long long bh = static_cast<long long>(B) * a.H;
   const int sms = ptt::sm_count();
   auto fills = [&](int tile) {
-    return a.S > tile / 2 && bh * ((a.S + tile - 1) / tile) >= sms;
+    return a.S_q > tile / 2 && bh * ((a.S_q + tile - 1) / tile) >= sms;
   };
   if constexpr (!kDropout) {
     if (fills(128)) return launch_mma_tile<D, 8, false>(a, B, st);
@@ -532,22 +542,23 @@ std::atomic<long long> variant_launches[2];
 
 }  // namespace
 
-// q, k, v: [B, S, H, D] with the given element strides over (b, s, h) and
-// unit stride over d; o: [B, S, H, D] contiguous; lse: [B*H, S] float32.
-// bias: NULL, or float32 [B, H, S, S] with element strides (bias_b, bias_h,
-// bias_q, bias_k), any of them 0.  causal: 0 or 1.  dropout_p in [0, 1]:
-// the weights' dropout (dropout.cuh) with the 64-bit `seed` and `step`
-// (NULL, or a device pointer to the Philox counter's fourth word); 0
-// launches the kernels without it.
+// q: [B, S_q, H, D], k and v: [B, S_k, H, D], with the given element
+// strides over (b, s, h) and unit stride over d; o: [B, S_q, H, D]
+// contiguous; lse: [B*H, S_q] float32.  bias: NULL, or float32
+// [B, H, S_q, S_k] with element strides (bias_b, bias_h, bias_q, bias_k),
+// any of them 0.  causal: 0 or 1 (top-left: query i sees key j <= i).
+// dropout_p in [0, 1]: the weights' dropout (dropout.cuh) with the 64-bit
+// `seed` and `step` (NULL, or a device pointer to the Philox counter's
+// fourth word); 0 launches the kernels without it.
 extern "C" int ptt_flash_attention_fwd(
     const void* q, const void* k, const void* v, long long qb, long long qs,
     long long qh, long long kb, long long ks, long long kh, long long vb,
     long long vs, long long vh, void* o, void* lse, const void* bias,
     long long bias_b, long long bias_h, long long bias_q, long long bias_k,
-    int B, int S, int H, int D, float sm_scale, int causal,
+    int B, int S_q, int S_k, int H, int D, float sm_scale, int causal,
     unsigned long long seed, const void* step, float dropout_p, int dtype,
     void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0) return 0;
+  if (B <= 0 || S_q <= 0 || S_k <= 0 || H <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ptt::Bias bs{static_cast<const float*>(bias), bias_b, bias_h, bias_q,
                      bias_k};
@@ -566,13 +577,13 @@ extern "C" int ptt_flash_attention_fwd(
     const MmaArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                     static_cast<const bf16*>(v), qb, qs, qh, kb, ks, kh, vb,
                     vs, vh, static_cast<bf16*>(o), static_cast<float*>(lse),
-                    bs, H, S, sm_scale, causal != 0, drop};
+                    bs, H, S_q, S_k, sm_scale, causal != 0, drop};
     return dropout ? launch_mma<true>(a, B, D, st)
                    : launch_mma<false>(a, B, D, st);
   }
 #define PTT_FLASH_SIMT(T, DROP)                                               \
   launch<T, DROP>(q, k, v, qb, qs, qh, kb, ks, kh, vb, vs, vh, o, lse, bs, B, \
-                  S, H, D, sm_scale, causal != 0, drop, st)
+                  S_q, S_k, H, D, sm_scale, causal != 0, drop, st)
   if (dtype == ptt::kF32)
     return dropout ? PTT_FLASH_SIMT(float, true) : PTT_FLASH_SIMT(float, false);
   return dropout ? PTT_FLASH_SIMT(__nv_bfloat16, true)
@@ -584,37 +595,40 @@ namespace {
 
 // One thread per (plane, query, 8-key group): the keep mask as 0 / 1 bytes.
 __global__ void dropout_mask_kernel(unsigned char* __restrict__ out,
-                                    ptt::Dropout d, long long rows, int S) {
-  const int groups = (S + 7) / 8;
+                                    ptt::Dropout d, long long rows, int S_q,
+                                    int S_k) {
+  const int groups = (S_k + 7) / 8;
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                       threadIdx.x;
   if (i >= rows * groups) return;
-  const long long row = i / groups;  // plane * S + query
+  const long long row = i / groups;  // plane * S_q + query
   const int group = static_cast<int>(i % groups);
-  const uint32_t bits = ptt::keep_byte(d, static_cast<int>(row / S),
-                                       static_cast<int>(row % S), group);
-  unsigned char* dst = out + row * S + 8 * group;
-  for (int e = 0; e < 8 && 8 * group + e < S; ++e) dst[e] = (bits >> e) & 1u;
+  const uint32_t bits = ptt::keep_byte(d, static_cast<int>(row / S_q),
+                                       static_cast<int>(row % S_q), group);
+  unsigned char* dst = out + row * S_k + 8 * group;
+  for (int e = 0; e < 8 && 8 * group + e < S_k; ++e)
+    dst[e] = (bits >> e) & 1u;
 }
 
 }  // namespace
 
 // The keep mask the attention kernels apply with (seed, step, dropout_p),
-// as bytes (1 = kept) over [planes, S, S] (planes = B * H, in b * H + h
+// as bytes (1 = kept) over [planes, S_q, S_k] (planes = B * H, in b * H + h
 // order): the mask through the kernels' own device function, for the
 // tests to hold against the plain version.
 extern "C" int ptt_flash_dropout_mask(void* out, unsigned long long seed,
                                       const void* step, float dropout_p,
-                                      int planes, int S, void* stream) {
-  if (planes <= 0 || S <= 0) return 0;
+                                      int planes, int S_q, int S_k,
+                                      void* stream) {
+  if (planes <= 0 || S_q <= 0 || S_k <= 0) return 0;
   if (!(dropout_p >= 0.f) || dropout_p > 1.f)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long rows = static_cast<long long>(planes) * S;
-  const long long n = rows * ((S + 7) / 8);
+  const long long rows = static_cast<long long>(planes) * S_q;
+  const long long n = rows * ((S_k + 7) / 8);
   dropout_mask_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<unsigned char*>(out),
-      ptt::Dropout::make(seed, dropout_p, step), rows, S);
+      ptt::Dropout::make(seed, dropout_p, step), rows, S_q, S_k);
   return static_cast<int>(cudaGetLastError());
 }
 

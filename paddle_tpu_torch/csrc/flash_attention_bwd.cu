@@ -1,12 +1,15 @@
 // Flash-attention backward (FlashAttention-2 style): dq, and dk/dv, as two
-// entries; causal or not, with an optional additive float32 bias.
+// entries; causal or not, with an optional additive float32 bias, over S_q
+// queries and S_k keys (self-attention, or cross-attention with S_q != S_k).
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py `_dq_kernel` and
 // `_dkv_kernel` (both called from `_bwd_call`) in all their forms: causal
-// and not, with and without `has_bias`.  At the training paths' shapes
-// (GPT: B = 8, S = 1024; BERT: B = 32, S = 128; 12 heads of 64) the bound
-// is operations: each visible (query, key) pair costs 6 * D flops in dq and
-// 8 * D in dk/dv, against one read of q, k, v, dO and the row statistics.
+// and not, with and without `has_bias`, at any (S_q, S_k).  At the training
+// paths' shapes (GPT: B = 8, S = 1024; BERT: B = 32, S = 128; 12 heads of
+// 64; Transformer-base: B = 48, S_q = 64, S_k = 72, 8 heads of 64) the
+// bound is operations: each visible (query, key) pair costs 6 * D flops in
+// dq and 8 * D in dk/dv, against one read of q, k, v, dO and the row
+// statistics.
 //
 // The two reductions run in separate kernels, as in the Pallas code, and
 // none uses atomics, so every gradient is summed in one fixed order and is
@@ -19,7 +22,12 @@
 // it as zero).  Every tensor is read through its (batch, seq, head) element
 // strides with a unit stride over D, so the slices of the fused qkv
 // projection are read in place and dq, dk, dv are written straight into
-// the slices of one packed [B, S, 3, H, D] gradient.  Any S >= 1.
+// the slices of one packed [B, S, 3, H, D] gradient.  q, dO and dq are
+// [B, S_q, H, D], k, v, dk and dv [B, S_k, H, D], LSE and delta
+// [B*H, S_q]; any S_q, S_k >= 1.  Causal is top-left aligned (query i sees
+// key j iff j <= i), as the reference's `_causal_mask`: with S_q < S_k the
+// keys past the last query see no query, and their dk and dv are written
+// as zeros.
 //
 // dq and dk/dv each have two hand-written kernels; the C entry picks one
 // from the dtype and the operands' alignment alone, and counts the choice:
@@ -45,7 +53,7 @@
 // and the two agree exactly).
 // Causal: the key loop ends at the block's diagonal, a warp skips key
 // tiles wholly above its rows, only a tile that straddles the diagonal or
-// S is masked entry by entry, and the last query tile, which walks the
+// S_k is masked entry by entry, and the last query tile, which walks the
 // most keys, is scheduled first.  The query tile shrinks (64, 32, 16)
 // until the grid has a block for every SM.  dq leaves through the warp's
 // own rows of the Q tile as 16-byte stores.
@@ -76,11 +84,11 @@
 // hold the parity limits, and bf16 operands that are not 16-byte aligned)
 // run on the CUDA cores:
 // - dq: one block per (batch*head, 64-query tile).  The block walks the
-//   key tiles from 0 up to the diagonal (causal) or to S, staging 32 keys
+//   key tiles from 0 up to the diagonal (causal) or to S_k, staging 32 keys
 //   of K and V and the 64 x 32 bias tile in shared memory, and keeps its
 //   rows' q, dO and dq accumulator in registers.
 // - dk/dv: one block per (batch*head, 64-key tile).  The block walks the
-//   query tiles from the diagonal (causal) or from 0 down to S, staging 32
+//   query tiles from the diagonal (causal) or from 0 up to S_q, staging 32
 //   queries of Q and dO, their LSE and delta and the 32 x 64 bias tile in
 //   shared memory, and keeps its rows' k, v and the dk, dv accumulators in
 //   registers.
@@ -124,13 +132,13 @@ struct Args {
   const void* k;
   const void* v;
   const void* dout;
-  const float* lse;    // [B*H, S]
-  const float* delta;  // [B*H, S]
+  const float* lse;    // [B*H, S_q]
+  const float* delta;  // [B*H, S_q]
   void* d0;            // dq (dq kernel) or dk (dk/dv kernel)
   void* d1;            // dv (dk/dv kernel)
   Strides sq, sk, sv, sdo, sd0, sd1;
   ptt::Bias bias;
-  int H, S;
+  int H, S_q, S_k;  // heads; queries and keys of a plane
   float scale;
   bool causal;
   ptt::Dropout drop;
@@ -155,12 +163,12 @@ __global__ void __launch_bounds__(kThreads, (kDqMinBlocks<D, kDropout>))
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
 
-  const int bh = blockIdx.y, S = a.S;
+  const int bh = blockIdx.y, S_q = a.S_q, S_k = a.S_k;
   const int b = bh / a.H, h = bh % a.H;
   const int q0 = blockIdx.x * kBlockRows;
   const int r = threadIdx.x >> 2, part = threadIdx.x & 3;
   const int qi = q0 + r;
-  const bool row_ok = qi < S;
+  const bool row_ok = qi < S_q;
 
   float qreg[kPer], doreg[kPer], acc[kPer];
   const long long q_off = offset(a.sq, b, qi, h);
@@ -172,7 +180,7 @@ __global__ void __launch_bounds__(kThreads, (kDqMinBlocks<D, kDropout>))
     doreg[i] = row_ok ? ptt::to_f32(dout[do_off + d]) : 0.f;
     acc[i] = 0.f;
   }
-  const long long row = static_cast<long long>(bh) * S + qi;
+  const long long row = static_cast<long long>(bh) * S_q + qi;
   const float lse = row_ok ? a.lse[row] : 0.f;
   const float delta = row_ok ? a.delta[row] : 0.f;
 
@@ -180,16 +188,18 @@ __global__ void __launch_bounds__(kThreads, (kDqMinBlocks<D, kDropout>))
   const long long v_base = offset(a.sv, b, 0, h);
   const bool has_bias = a.bias.p != nullptr;
   // causal: keys up to the tile's diagonal; otherwise every key
-  const int k_end = a.causal ? min(S, q0 + kBlockRows) : S;
+  const int k_end = a.causal ? min(S_k, q0 + kBlockRows) : S_k;
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();  // the previous tile has been consumed
     for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
       const int j = e / D, c = e % D, kj = k0 + j;
-      k_tile[j][c] = kj < S ? ptt::to_f32(k[k_base + kj * a.sk.s + c]) : 0.f;
-      v_tile[j][c] = kj < S ? ptt::to_f32(v[v_base + kj * a.sv.s + c]) : 0.f;
+      k_tile[j][c] =
+          kj < S_k ? ptt::to_f32(k[k_base + kj * a.sk.s + c]) : 0.f;
+      v_tile[j][c] =
+          kj < S_k ? ptt::to_f32(v[v_base + kj * a.sv.s + c]) : 0.f;
     }
     if (has_bias)
-      a.bias.stage<kBlockRows, kTile>(b_tile, b, h, q0, k0, S, S);
+      a.bias.stage<kBlockRows, kTile>(b_tile, b, h, q0, k0, S_q, S_k);
     uint32_t keep = 0;  // bit j keeps key k0 + j
     if constexpr (kDropout)
       keep = ptt::quad_keep_bits(a.drop, bh, qi, k0, part);
@@ -207,9 +217,9 @@ __global__ void __launch_bounds__(kThreads, (kDqMinBlocks<D, kDropout>))
       dp += __shfl_xor_sync(0xffffffffu, dp, 1);
       dp += __shfl_xor_sync(0xffffffffu, dp, 2);
       if (has_bias) s += b_tile[r][j];
-      // a visible key (kj < S, and kj <= qi when causal) of a real row
+      // a visible key (kj < S_k, and kj <= qi when causal) of a real row
       const int kj = k0 + j;
-      const bool seen = row_ok && kj < S && (!a.causal || kj <= qi);
+      const bool seen = row_ok && kj < S_k && (!a.causal || kj <= qi);
       const float p = seen ? expf(s - lse) : 0.f;
       // dropout: dP of the dropped weights, masked and rescaled likewise
       if constexpr (kDropout) dp = (keep >> j) & 1u ? dp * a.drop.scale : 0.f;
@@ -239,12 +249,12 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
 
-  const int bh = blockIdx.y, S = a.S;
+  const int bh = blockIdx.y, S_q = a.S_q, S_k = a.S_k;
   const int b = bh / a.H, h = bh % a.H;
   const int k0 = blockIdx.x * kBlockRows;
   const int r = threadIdx.x >> 2, part = threadIdx.x & 3;
   const int kj = k0 + r;
-  const bool row_ok = kj < S;
+  const bool row_ok = kj < S_k;
 
   float kreg[kPer], vreg[kPer], dk[kPer], dv[kPer];
   const long long k_off = offset(a.sk, b, kj, h);
@@ -260,24 +270,26 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
 
   const long long q_base = offset(a.sq, b, 0, h);
   const long long do_base = offset(a.sdo, b, 0, h);
-  const long long stat_base = static_cast<long long>(bh) * S;
+  const long long stat_base = static_cast<long long>(bh) * S_q;
   const bool has_bias = a.bias.p != nullptr;
-  // causal: only queries at or after this tile's first key see it
-  for (int q0 = a.causal ? k0 : 0; q0 < S; q0 += kTile) {
+  // causal: only queries at or after this tile's first key see it (none
+  // when the tile starts at or past S_q: dk and dv stay 0)
+  for (int q0 = a.causal ? k0 : 0; q0 < S_q; q0 += kTile) {
     __syncthreads();
     for (int e = threadIdx.x; e < kTile * D; e += kThreads) {
       const int i = e / D, c = e % D, qi = q0 + i;
-      q_tile[i][c] = qi < S ? ptt::to_f32(q[q_base + qi * a.sq.s + c]) : 0.f;
+      q_tile[i][c] =
+          qi < S_q ? ptt::to_f32(q[q_base + qi * a.sq.s + c]) : 0.f;
       do_tile[i][c] =
-          qi < S ? ptt::to_f32(dout[do_base + qi * a.sdo.s + c]) : 0.f;
+          qi < S_q ? ptt::to_f32(dout[do_base + qi * a.sdo.s + c]) : 0.f;
     }
     if (threadIdx.x < kTile) {
       const int qi = q0 + threadIdx.x;
-      lse_tile[threadIdx.x] = qi < S ? a.lse[stat_base + qi] : 0.f;
-      delta_tile[threadIdx.x] = qi < S ? a.delta[stat_base + qi] : 0.f;
+      lse_tile[threadIdx.x] = qi < S_q ? a.lse[stat_base + qi] : 0.f;
+      delta_tile[threadIdx.x] = qi < S_q ? a.delta[stat_base + qi] : 0.f;
     }
     if (has_bias)
-      a.bias.stage<kTile, kBlockRows>(b_tile, b, h, q0, k0, S, S);
+      a.bias.stage<kTile, kBlockRows>(b_tile, b, h, q0, k0, S_q, S_k);
     // dropout: each warp owns the 8 keys k0 + 8 * warp + (lane >> 2); bit i
     // keeps (q0 + i, kj)
     uint32_t keep[1] = {0};
@@ -301,7 +313,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
       if (has_bias) s += b_tile[i][r];
       const int qi = q0 + i;
       // a real key seen by a real query (kj <= qi when causal); else 0
-      const bool seen = row_ok && qi < S && (!a.causal || kj <= qi);
+      const bool seen = row_ok && qi < S_q && (!a.causal || kj <= qi);
       const float p = seen ? expf(s - lse_tile[i]) : 0.f;
       float pd = p;  // the weight dv takes: after dropout
       if constexpr (kDropout) {
@@ -422,7 +434,7 @@ __global__ void __launch_bounds__(kWarps * 32) flash_dkv_mma_kernel(Args a) {
   float* lse_s = reinterpret_cast<float*>(do_s + 2 * kTileM * kLd);
   float* delta_s = lse_s + 2 * kTileM;            // both [2][kTileM]
 
-  const int S = a.S;
+  const int S_q = a.S_q, S_k = a.S_k;
   const int bh = blockIdx.x;
   const int b = bh / a.H, h = bh % a.H;
   const int k0 = blockIdx.y * kTileN;  // causal: key tile 0 is the heaviest
@@ -438,27 +450,30 @@ __global__ void __launch_bounds__(kWarps * 32) flash_dkv_mma_kernel(Args a) {
   const bf16* v_src = static_cast<const bf16*>(a.v) + offset(a.sv, b, 0, h);
   const bf16* do_src =
       static_cast<const bf16*>(a.dout) + offset(a.sdo, b, 0, h);
-  const float* lse_src = a.lse + static_cast<long long>(bh) * S;
-  const float* delta_src = a.delta + static_cast<long long>(bh) * S;
-  // causal: only queries at or after this tile's first key see it
+  const float* lse_src = a.lse + static_cast<long long>(bh) * S_q;
+  const float* delta_src = a.delta + static_cast<long long>(bh) * S_q;
+  // causal: only queries at or after this tile's first key see it; a tile
+  // at or past S_q (S_q < S_k) sees none, stages nothing and writes zeros
   const int q_begin = a.causal ? k0 / kTileM * kTileM : 0;
-  const int n_tiles = (S - q_begin + kTileM - 1) / kTileM;
+  const int n_tiles = max(0, (S_q - q_begin + kTileM - 1) / kTileM);
 
   auto stage_queries = [&](int stage, int q0) {
     ptt::stage_rows<D, kLd, kTileM, kThreads>(q_s + stage * kTileM * kLd,
-                                              q_src, a.sq.s, q0, S);
+                                              q_src, a.sq.s, q0, S_q);
     ptt::stage_rows<D, kLd, kTileM, kThreads>(do_s + stage * kTileM * kLd,
-                                              do_src, a.sdo.s, q0, S);
+                                              do_src, a.sdo.s, q0, S_q);
     for (int i = threadIdx.x; i < kTileM; i += kThreads) {
-      const bool ok = q0 + i < S;
+      const bool ok = q0 + i < S_q;
       const int qi = ok ? q0 + i : 0;
       ptt::cp_async_4(lse_s + stage * kTileM + i, lse_src + qi, ok);
       ptt::cp_async_4(delta_s + stage * kTileM + i, delta_src + qi, ok);
     }
   };
-  ptt::stage_rows<D, kLd, kTileN, kThreads>(k_s, k_src, a.sk.s, k0, S);
-  ptt::stage_rows<D, kLd, kTileN, kThreads>(v_s, v_src, a.sv.s, k0, S);
-  stage_queries(0, q_begin);
+  if (n_tiles > 0) {
+    ptt::stage_rows<D, kLd, kTileN, kThreads>(k_s, k_src, a.sk.s, k0, S_k);
+    ptt::stage_rows<D, kLd, kTileN, kThreads>(v_s, v_src, a.sv.s, k0, S_k);
+    stage_queries(0, q_begin);
+  }
   ptt::cp_async_commit();
 
   // the A operands: this warp's 16 rows of K and of V
@@ -507,7 +522,7 @@ __global__ void __launch_bounds__(kWarps * 32) flash_dkv_mma_kernel(Args a) {
             const int qi = q0 + j * 8 + 2 * t + (e & 1);
             const int kj = key_w + g + (e >> 1) * 8;
             float x = p[j][e] * a.scale;
-            if (qi < S && kj < S)
+            if (qi < S_q && kj < S_k)
               x += a.bias.p[bias_base + qi * a.bias.q + kj * a.bias.k];
             p[j][e] = ptt::fast_exp2((x - (e & 1 ? lse.y : lse.x)) *
                                      ptt::kLog2e);
@@ -524,8 +539,8 @@ __global__ void __launch_bounds__(kWarps * 32) flash_dkv_mma_kernel(Args a) {
           p[j][3] = ptt::fast_exp2(fmaf(p[j][3], scale_log2, -ly));
         }
       }
-      // queries past S, keys past S or pairs above the diagonal
-      if (q0 + kTileM > S || key_w + 16 > S ||
+      // queries past S_q, keys past S_k or pairs above the diagonal
+      if (q0 + kTileM > S_q || key_w + 16 > S_k ||
           (a.causal && q0 < key_w + 15)) {
 #pragma unroll
         for (int j = 0; j < kNt; ++j) {
@@ -533,7 +548,8 @@ __global__ void __launch_bounds__(kWarps * 32) flash_dkv_mma_kernel(Args a) {
           for (int e = 0; e < 4; ++e) {
             const int qi = q0 + j * 8 + 2 * t + (e & 1);
             const int kj = key_w + g + (e >> 1) * 8;
-            if (qi >= S || kj >= S || (a.causal && kj > qi)) p[j][e] = 0.f;
+            if (qi >= S_q || kj >= S_k || (a.causal && kj > qi))
+              p[j][e] = 0.f;
           }
         }
       }
@@ -594,10 +610,10 @@ __global__ void __launch_bounds__(kWarps * 32) flash_dkv_mma_kernel(Args a) {
   __syncwarp();
   ptt::store_rows_16<D, kLd>(k_w,
                              static_cast<bf16*>(a.d0) + offset(a.sd0, b, 0, h),
-                             a.sd0.s, key_w, S);
+                             a.sd0.s, key_w, S_k);
   ptt::store_rows_16<D, kLd>(v_w,
                              static_cast<bf16*>(a.d1) + offset(a.sd1, b, 0, h),
-                             a.sd1.s, key_w, S);
+                             a.sd1.s, key_w, S_k);
 }
 
 template <int D, int kWarps, bool kDropout>
@@ -613,7 +629,7 @@ int launch_dkv_mma_tile(const Args& a, int B, cudaStream_t st) {
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const dim3 grid(B * a.H, (a.S + kTileN - 1) / kTileN);
+  const dim3 grid(B * a.H, (a.S_k + kTileN - 1) / kTileN);
   flash_dkv_mma_kernel<D, kWarps, kDropout>
       <<<grid, kWarps * 32, kSmem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -626,7 +642,7 @@ int launch_dkv_mma_dim(const Args& a, int B, cudaStream_t st) {
   const long long bh = static_cast<long long>(B) * a.H;
   const int sms = ptt::sm_count();
   auto fills = [&](int tile) {
-    return a.S > tile / 2 && bh * ((a.S + tile - 1) / tile) >= sms;
+    return a.S_k > tile / 2 && bh * ((a.S_k + tile - 1) / tile) >= sms;
   };
   if (fills(64)) return launch_dkv_mma_tile<D, 4, kDropout>(a, B, st);
   if (fills(32)) return launch_dkv_mma_tile<D, 2, kDropout>(a, B, st);
@@ -659,7 +675,7 @@ __global__ void __launch_bounds__(kWarps * 32, 1) flash_dq_mma_kernel(Args a) {
   bf16* k_s = do_s + kTileM * kLd;                // [2][kTileN][kLd]
   bf16* v_s = k_s + 2 * kTileN * kLd;             // [2][kTileN][kLd]
 
-  const int S = a.S;
+  const int S_q = a.S_q, S_k = a.S_k;
   const int bh = blockIdx.x;
   const int b = bh / a.H, h = bh % a.H;
   // causal: the last query tile walks the most keys, so it goes first
@@ -678,13 +694,13 @@ __global__ void __launch_bounds__(kWarps * 32, 1) flash_dq_mma_kernel(Args a) {
   const bf16* do_src =
       static_cast<const bf16*>(a.dout) + offset(a.sdo, b, 0, h);
   // causal: keys up to the tile's diagonal; otherwise every key
-  const int k_end = a.causal ? min(S, q0 + kTileM) : S;
+  const int k_end = a.causal ? min(S_k, q0 + kTileM) : S_k;
   const int n_tiles = (k_end + kTileN - 1) / kTileN;
 
-  ptt::stage_rows<D, kLd, kTileM, kThreads>(q_s, q_src, a.sq.s, q0, S);
-  ptt::stage_rows<D, kLd, kTileM, kThreads>(do_s, do_src, a.sdo.s, q0, S);
-  ptt::stage_rows<D, kLd, kTileN, kThreads>(k_s, k_src, a.sk.s, 0, S);
-  ptt::stage_rows<D, kLd, kTileN, kThreads>(v_s, v_src, a.sv.s, 0, S);
+  ptt::stage_rows<D, kLd, kTileM, kThreads>(q_s, q_src, a.sq.s, q0, S_q);
+  ptt::stage_rows<D, kLd, kTileM, kThreads>(do_s, do_src, a.sdo.s, q0, S_q);
+  ptt::stage_rows<D, kLd, kTileN, kThreads>(k_s, k_src, a.sk.s, 0, S_k);
+  ptt::stage_rows<D, kLd, kTileN, kThreads>(v_s, v_src, a.sv.s, 0, S_k);
   ptt::cp_async_commit();
 
   // LSE and delta of the lane's rows g and g + 8; without a bias LSE is
@@ -693,9 +709,9 @@ __global__ void __launch_bounds__(kWarps * 32, 1) flash_dq_mma_kernel(Args a) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qi = row0 + g + r * 8;
-    const long long row = static_cast<long long>(bh) * S + qi;
-    lse[r] = qi < S ? a.lse[row] : 0.f;
-    delta[r] = qi < S ? a.delta[row] : 0.f;
+    const long long row = static_cast<long long>(bh) * S_q + qi;
+    lse[r] = qi < S_q ? a.lse[row] : 0.f;
+    delta[r] = qi < S_q ? a.delta[row] : 0.f;
     if (!has_bias) lse[r] *= ptt::kLog2e;
   }
 
@@ -713,9 +729,9 @@ __global__ void __launch_bounds__(kWarps * 32, 1) flash_dq_mma_kernel(Args a) {
     if (i + 1 < n_tiles) {
       const int next = (stage ^ 1) * kTileN * kLd;
       ptt::stage_rows<D, kLd, kTileN, kThreads>(k_s + next, k_src, a.sk.s,
-                                                k0 + kTileN, S);
+                                                k0 + kTileN, S_k);
       ptt::stage_rows<D, kLd, kTileN, kThreads>(v_s + next, v_src, a.sv.s,
-                                                k0 + kTileN, S);
+                                                k0 + kTileN, S_k);
     }
     ptt::cp_async_commit();
     ptt::cp_async_wait<1>();  // tile i has landed; tile i + 1 is in flight
@@ -727,9 +743,9 @@ __global__ void __launch_bounds__(kWarps * 32, 1) flash_dq_mma_kernel(Args a) {
         load_a<kLd>(dof[kRegA ? kk : 0], do_w, kk, lane);
       }
     }
-    // rows past S do no work; causal: a key tile wholly above the warp's
-    // rows changes nothing
-    if (row0 < S && (!a.causal || k0 <= row0 + 15)) {
+    // rows past S_q do no work; causal: a key tile wholly above the
+    // warp's rows changes nothing
+    if (row0 < S_q && (!a.causal || k0 <= row0 + 15)) {
       const bf16* kt = k_s + stage * kTileN * kLd;
       const bf16* vt = v_s + stage * kTileN * kLd;
       float p[kNt][4];  // rows: queries g, g + 8; columns: keys
@@ -744,7 +760,7 @@ __global__ void __launch_bounds__(kWarps * 32, 1) flash_dq_mma_kernel(Args a) {
             const int qi = row0 + g + (e >> 1) * 8;
             const int kj = k0 + j * 8 + 2 * t + (e & 1);
             float x = p[j][e] * a.scale;
-            if (qi < S && kj < S)
+            if (qi < S_q && kj < S_k)
               x += a.bias.p[bias_base + qi * a.bias.q + kj * a.bias.k];
             p[j][e] = ptt::fast_exp2((x - lse[e >> 1]) * ptt::kLog2e);
           }
@@ -757,15 +773,16 @@ __global__ void __launch_bounds__(kWarps * 32, 1) flash_dq_mma_kernel(Args a) {
             p[j][e] = ptt::fast_exp2(fmaf(p[j][e], scale_log2, -lse[e >> 1]));
         }
       }
-      // keys past S, or pairs above the diagonal: only on a straddling tile
-      if (k0 + kTileN > S || (a.causal && k0 + kTileN - 1 > row0)) {
+      // keys past S_k, or pairs above the diagonal: only on a straddling
+      // tile
+      if (k0 + kTileN > S_k || (a.causal && k0 + kTileN - 1 > row0)) {
 #pragma unroll
         for (int j = 0; j < kNt; ++j) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int qi = row0 + g + (e >> 1) * 8;
             const int kj = k0 + j * 8 + 2 * t + (e & 1);
-            if (kj >= S || (a.causal && kj > qi)) p[j][e] = 0.f;
+            if (kj >= S_k || (a.causal && kj > qi)) p[j][e] = 0.f;
           }
         }
       }
@@ -808,7 +825,7 @@ __global__ void __launch_bounds__(kWarps * 32, 1) flash_dq_mma_kernel(Args a) {
   __syncwarp();
   ptt::store_rows_16<D, kLd>(out_w,
                              static_cast<bf16*>(a.d0) + offset(a.sd0, b, 0, h),
-                             a.sd0.s, row0, S);
+                             a.sd0.s, row0, S_q);
 }
 
 template <int D, int kWarps, bool kDropout>
@@ -823,7 +840,7 @@ int launch_dq_mma_tile(const Args& a, int B, cudaStream_t st) {
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const dim3 grid(B * a.H, (a.S + kTileM - 1) / kTileM);
+  const dim3 grid(B * a.H, (a.S_q + kTileM - 1) / kTileM);
   flash_dq_mma_kernel<D, kWarps, kDropout>
       <<<grid, kWarps * 32, kSmem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -836,7 +853,7 @@ int launch_dq_mma_dim(const Args& a, int B, cudaStream_t st) {
   const long long bh = static_cast<long long>(B) * a.H;
   const int sms = ptt::sm_count();
   auto fills = [&](int tile) {
-    return a.S > tile / 2 && bh * ((a.S + tile - 1) / tile) >= sms;
+    return a.S_q > tile / 2 && bh * ((a.S_q + tile - 1) / tile) >= sms;
   };
   if (fills(64)) return launch_dq_mma_tile<D, 4, kDropout>(a, B, st);
   if (fills(32)) return launch_dq_mma_tile<D, 2, kDropout>(a, B, st);
@@ -872,7 +889,9 @@ bool aligned_16(const void* p, const Strides& s) {
 
 template <typename T, bool kDq, bool kDropout>
 int launch(const Args& a, int B, int D, cudaStream_t st) {
-  const dim3 grid((a.S + kBlockRows - 1) / kBlockRows, B * a.H);
+  // dq: a block per query tile; dk/dv: a block per key tile
+  const int rows = kDq ? a.S_q : a.S_k;
+  const dim3 grid((rows + kBlockRows - 1) / kBlockRows, B * a.H);
 #define PTT_FLASH_BWD_CASE(DIM)                                            \
   case DIM:                                                                \
     if constexpr (kDq)                                                     \
@@ -907,7 +926,7 @@ int dispatch_as(const Args& a, bool mma, int B, int D, int dtype,
 template <bool kDq>
 int dispatch(Args a, int B, int D, int dtype, unsigned long long seed,
              const void* step, float dropout_p, void* stream) {
-  if (B <= 0 || a.S <= 0 || a.H <= 0) return 0;
+  if (B <= 0 || a.S_q <= 0 || a.S_k <= 0 || a.H <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if ((dtype != ptt::kF32 && dtype != ptt::kBF16) || !(dropout_p >= 0.f) ||
       dropout_p > 1.f)
@@ -924,20 +943,21 @@ int dispatch(Args a, int B, int D, int dtype, unsigned long long seed,
 
 }  // namespace
 
-// q, k, v, dout, dq: [B, S, H, D] with unit stride over d; `strides` is a
-// host array of their (b, s, h) element strides, in that order (15
-// values).  lse, delta: [B*H, S] float32.  bias: NULL, or float32
-// [B, H, S, S] with element strides (bias_b, bias_h, bias_q, bias_k), any
-// of them 0.  causal: 0 or 1.  seed, step, dropout_p: the forward's
+// q, dout, dq: [B, S_q, H, D], k, v: [B, S_k, H, D], with unit stride over
+// d; `strides` is a host array of the (b, s, h) element strides of q, k, v,
+// dout, dq, in that order (15 values).  lse, delta: [B*H, S_q] float32.
+// bias: NULL, or float32 [B, H, S_q, S_k] with element strides (bias_b,
+// bias_h, bias_q, bias_k), any of them 0.  causal: 0 or 1 (top-left: query
+// i sees key j <= i).  seed, step, dropout_p: the forward's
 // dropout (dropout.cuh), whose mask is drawn again here; dropout_p 0
 // launches the kernels without it.
 extern "C" int ptt_flash_attention_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, const long long* strides,
     const void* bias, long long bias_b, long long bias_h, long long bias_q,
-    long long bias_k, int B, int S, int H, int D, float sm_scale, int causal,
-    unsigned long long seed, const void* step, float dropout_p, int dtype,
-    void* stream) {
+    long long bias_k, int B, int S_q, int S_k, int H, int D, float sm_scale,
+    int causal, unsigned long long seed, const void* step, float dropout_p,
+    int dtype, void* stream) {
   Args a{q, k, v, dout, static_cast<const float*>(lse),
          static_cast<const float*>(delta), dq, nullptr,
          strides_at(strides, 0), strides_at(strides, 1),
@@ -945,18 +965,18 @@ extern "C" int ptt_flash_attention_dq(
          strides_at(strides, 4), Strides{0, 0, 0},
          ptt::Bias{static_cast<const float*>(bias), bias_b, bias_h, bias_q,
                    bias_k},
-         H, S, sm_scale, causal != 0, ptt::Dropout{}};
+         H, S_q, S_k, sm_scale, causal != 0, ptt::Dropout{}};
   return dispatch<true>(a, B, D, dtype, seed, step, dropout_p, stream);
 }
 
-// As above, with dk and dv as the outputs; `strides` holds the (b, s, h)
-// strides of q, k, v, dout, dk, dv (18 values).
+// As above, with dk and dv ([B, S_k, H, D]) as the outputs; `strides` holds
+// the (b, s, h) strides of q, k, v, dout, dk, dv (18 values).
 extern "C" int ptt_flash_attention_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv,
     const long long* strides, const void* bias, long long bias_b,
-    long long bias_h, long long bias_q, long long bias_k, int B, int S, int H,
-    int D, float sm_scale, int causal, unsigned long long seed,
+    long long bias_h, long long bias_q, long long bias_k, int B, int S_q,
+    int S_k, int H, int D, float sm_scale, int causal, unsigned long long seed,
     const void* step, float dropout_p, int dtype, void* stream) {
   Args a{q, k, v, dout, static_cast<const float*>(lse),
          static_cast<const float*>(delta), dk, dv,
@@ -965,7 +985,7 @@ extern "C" int ptt_flash_attention_dkv(
          strides_at(strides, 4), strides_at(strides, 5),
          ptt::Bias{static_cast<const float*>(bias), bias_b, bias_h, bias_q,
                    bias_k},
-         H, S, sm_scale, causal != 0, ptt::Dropout{}};
+         H, S_q, S_k, sm_scale, causal != 0, ptt::Dropout{}};
   return dispatch<false>(a, B, D, dtype, seed, step, dropout_p, stream);
 }
 

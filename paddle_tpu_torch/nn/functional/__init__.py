@@ -145,7 +145,9 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True):
-    """[B, S, H, D] layout, through the flash-attention kernels
+    """query [B, S_q, H, D] over key and value [B, S_k, H, D] (paddle
+    layout; S_q == S_k or not), ``attn_mask`` broadcastable to
+    [B, H, S_q, S_k], through the flash-attention kernels
     (ops/fused.py)."""
     from ...ops import fused
 

@@ -57,12 +57,14 @@ def softmax_cross_entropy(logits, label, ignore_index=-100):
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True):
-    """[B, S, H, D] in, [B, S, H, D] out (paddle layout), through the
-    flash-attention kernels: causal or not, with an optional bool (True =
-    attend) or additive mask broadcastable to [B, H, S, S], and in
-    training dropout ``dropout_p`` on the softmax weights, inside the
-    kernels (the reference's composite: ``where(keep, w / (1 - p), 0)``
-    before ``w . V``)."""
+    """query [B, S_q, H, D] over key and value [B, S_k, H, D], [B, S_q,
+    H, D] out (paddle layout), through the flash-attention kernels:
+    self-attention (S_q == S_k) or cross-attention and a cached decode
+    step (S_q != S_k), causal (top-left aligned) or not, with an optional
+    bool (True = attend) or additive mask broadcastable to
+    [B, H, S_q, S_k], and in training dropout ``dropout_p`` on the
+    softmax weights, inside the kernels (the reference's composite:
+    ``where(keep, w / (1 - p), 0)`` before ``w . V``)."""
     return _fa.attention(query, key, value, causal=is_causal,
                          mask=attn_mask,
                          dropout_p=dropout_p if training else 0.0)

@@ -47,5 +47,6 @@ def variant_launches() -> dict:
 def reset_launch_counts():
     for fn in WRAPPERS.values():
         fn.launches = 0
-        if hasattr(fn, "dropout_launches"):
-            fn.dropout_launches = 0
+        for sub in ("dropout_launches", "cross_launches"):
+            if hasattr(fn, sub):
+                setattr(fn, sub, 0)

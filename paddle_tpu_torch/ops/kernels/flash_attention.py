@@ -1,6 +1,6 @@
 """Flash attention, forward and backward, causal or not, with an optional
-additive mask: CUDA kernels, plain versions, launch counts and the
-autograd Functions that join them.
+additive mask, over S_q queries and S_k keys: CUDA kernels, plain
+versions, launch counts and the autograd Functions that join them.
 
 Replaces paddle_tpu/ops/pallas/flash_attention.py ``_fwd_kernel`` (via
 ``_fwd_call``), ``_dq_kernel`` and ``_dkv_kernel`` (via ``_bwd_call``) in
@@ -13,7 +13,7 @@ operations (4*D flops per visible (query, key) pair forward, 6*D in dq,
 
 - Forward (csrc/flash_attention.cu): one block per (batch*head, query
   tile), float32 online softmax over key tiles staged in shared memory,
-  stopping at the diagonal when causal; writes O and LSE [B*H, S]
+  stopping at the diagonal when causal; writes O and LSE [B*H, S_q]
   float32.
 - Backward (csrc/flash_attention_bwd.cu): two kernels with no atomics, so
   the gradients are the same from run to run.  dq: one block per
@@ -32,15 +32,18 @@ operations (4*D flops per visible (query, key) pair forward, 6*D in dq,
   The C entry decides from dtype and alignment alone;
   :func:`variant_launches` reports which kernel the launches took.
 - Scores follow the reference's ``_scores``: scale, add the bias, then
-  the causal replace.  The bias is float32 [B, H, S, S], usually an
-  ``expand``ed view: the kernels read it through its four strides, so a
-  [B, 1, 1, S] padding mask costs S floats per batch row, not the
-  reference's folded [B*H, S, S].  A bool mask becomes 0 / -1e30
-  (:func:`fold_mask`).  The mask is data: its gradient is zero.
+  the causal replace, top-left aligned as the reference's
+  ``_causal_mask``: query i sees key j iff j <= i, whatever S_q and S_k.
+  The bias is float32 [B, H, S_q, S_k], usually an ``expand``ed view: the
+  kernels read it through its four strides, so a [B, 1, 1, S_k] padding
+  mask costs S_k floats per batch row, not the reference's folded
+  [B*H, S_q, S_k].  A bool mask becomes 0 / -1e30 (:func:`fold_mask`).
+  The mask is data: its gradient is zero.
 - Dropout on the softmax weights (the reference's composite,
   paddle_tpu/ops/fused.py: ``keep = bernoulli(1 - p)``, then
   ``where(keep, w / (1 - p), 0)`` before ``w . V``) runs inside all three
-  kernels: the keep mask is a pure function of (seed, b*H + h, q, k, p)
+  kernels: the keep mask is a pure function of (seed, b*H + h, q, k, p),
+  whatever S_q and S_k
   (csrc/dropout.cuh, Philox4x32-10; :func:`dropout_keep_plain` here), so
   dq and dk/dv draw the forward's mask again instead of storing it.  The
   LSE is of the weights before dropout; dv takes the dropped, rescaled
@@ -53,11 +56,16 @@ operations (4*D flops per visible (query, key) pair forward, 6*D in dq,
   when they run, so the step captured as a CUDA graph draws new masks at
   every replay (csrc/dropout.cuh).
 
-Every kernel reads the paddle [B, S, H, D] layout through strides, so the
-fused qkv projection's slices need no transpose or copy, and the backward
-can write dq, dk, dv straight into one packed [B, S, 3, H, D] gradient
-(:func:`causal_attention_packed`).  Any S >= 1; head dim 16, 32, 64 or
-128; self-attention only (S_q == S_k).
+Every kernel reads the paddle layout through strides (q, O, dO and dq
+[B, S_q, H, D]; k, v, dk and dv [B, S_k, H, D]), so the fused qkv
+projection's slices need no transpose or copy, and the backward can write
+dq, dk, dv straight into one packed [B, S, 3, H, D] gradient
+(:func:`causal_attention_packed`).  Self-attention (S_q == S_k) and the
+cross form (S_q != S_k: the encoder-decoder's cross-attention, S_q = 64
+against S_k = 72 in Transformer-base training, and a cached decode step,
+S_q = 1 against the cache) take the same kernels.  Any S_q, S_k >= 1;
+head dim 16, 32, 64 or 128; k and v have q's batch and heads (grouped
+heads are not ported).
 
 A CPU tensor takes the plain versions; a CUDA tensor launches the kernels
 or raises.  The Functions build a graph only when grad mode is on and an
@@ -77,9 +85,9 @@ from . import build
 HEAD_DIMS = (16, 32, 64, 128)
 NEG_INF = -1e30       # what a False entry of a bool mask adds (reference)
 _BIAS_ARGTYPES = (ctypes.c_void_p,) + (ctypes.c_longlong,) * 4
-# B, S, H, D, sm_scale, causal, dropout key, step word's pointer and p,
-# dtype, stream
-_TAIL_ARGTYPES = (ctypes.c_int,) * 4 + (
+# B, S_q, S_k, H, D, sm_scale, causal, dropout key, step word's pointer
+# and p, dtype, stream
+_TAIL_ARGTYPES = (ctypes.c_int,) * 5 + (
     ctypes.c_float, ctypes.c_int, ctypes.c_ulonglong, ctypes.c_void_p,
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
 _ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_longlong,) * 9 \
@@ -164,16 +172,19 @@ def dropout_scale(p):
     return (1.0 / (1.0 - p32)).item()
 
 
-def dropout_keep_plain(seed, B, H, S, p, device="cpu"):
-    """The kernels' keep mask (csrc/dropout.cuh) as a bool [B, H, S, S]
-    tensor (True = kept), in int64 arithmetic.  Philox4x32-10 keyed by the
-    64-bit key of ``seed``, counter (k // 8, q, b*H + h, step), step 0 for
-    an int seed and a ``StepSeed``'s counter value: its four words hold
-    the eight 16-bit draws of keys 8 * (k // 8) + e, draw e the low (e
-    even) or high half of word e // 2; a pair is kept when its draw is at
-    least :func:`dropout_threshold`."""
+def dropout_keep_plain(seed, B, H, S, p, device="cpu", S_k=None):
+    """The kernels' keep mask (csrc/dropout.cuh) as a bool [B, H, S, S_k]
+    tensor (True = kept) over S queries and ``S_k`` keys (``S`` when None),
+    in int64 arithmetic.  Philox4x32-10 keyed by the 64-bit key of
+    ``seed``, counter (k // 8, q, b*H + h, step), step 0 for an int seed
+    and a ``StepSeed``'s counter value: its four words hold the eight
+    16-bit draws of keys 8 * (k // 8) + e, draw e the low (e even) or high
+    half of word e // 2; a pair is kept when its draw is at least
+    :func:`dropout_threshold`.  No word depends on S or S_k, so a mask is
+    the top-left corner of any larger one."""
     seed, step = _key_and_step(seed)
-    planes, groups = B * H, -(-S // 8)
+    S_k = S if S_k is None else S_k
+    planes, groups = B * H, -(-S_k // 8)
 
     def ax(n, dim):
         shape = [1, 1, 1]
@@ -186,8 +197,8 @@ def dropout_keep_plain(seed, B, H, S, p, device="cpu"):
         (seed & _U32, (seed >> 32) & _U32))
     w = torch.stack(torch.broadcast_tensors(*words), -1)  # [P, S, G, 4]
     draws = torch.stack((w & 0xFFFF, w >> 16), -1).reshape(
-        planes, S, 8 * groups)[..., :S]
-    return (draws >= dropout_threshold(p)).reshape(B, H, S, S)
+        planes, S, 8 * groups)[..., :S_k]
+    return (draws >= dropout_threshold(p)).reshape(B, H, S, S_k)
 
 
 def _dropped(w, keep, p):
@@ -196,31 +207,34 @@ def _dropped(w, keep, p):
 
 
 def _scores_plain(q, k, causal, bias, sm_scale):
-    """The reference's ``_scores`` in float32 [B, H, S, S]: scale, add the
-    bias, then the causal replace (by -inf, which gives the kernels' 0)."""
-    S = q.shape[1]
+    """The reference's ``_scores`` in float32 [B, H, S_q, S_k]: scale, add
+    the bias, then the causal replace, top-left aligned (query i sees key
+    j <= i), by -inf, which gives the kernels' 0."""
+    S_q, S_k = q.shape[1], k.shape[1]
     s = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) \
         * _scale(q, sm_scale)
     if bias is not None:
         s = s + bias
     if causal:
-        visible = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        visible = torch.ones(S_q, S_k, dtype=torch.bool,
+                             device=q.device).tril()
         s = s.masked_fill(~visible, float("-inf"))
     return s
 
 
 def flash_attention_plain(q, k, v, causal=True, bias=None, sm_scale=None,
                           dropout_p=0.0, seed=0):
-    """Softmax attention over [B, S, H, D] in float32.  Returns (out
-    [B, S, H, D] in q's dtype, lse [B*H, S] float32).  The softmax is
-    normalised by its sum, as the kernels' is, not by exp(lse): for a
-    row masked everywhere by -1e30, lse = -1e30 + log(S) rounds to -1e30
-    and exp(s - lse) would sum V instead of averaging it.  A row with no
+    """Softmax attention of q [B, S_q, H, D] over k, v [B, S_k, H, D] in
+    float32.  Returns (out [B, S_q, H, D] in q's dtype, lse [B*H, S_q]
+    float32).  The softmax is normalised by its sum, as the kernels' is,
+    not by exp(lse): for a row masked everywhere by -1e30,
+    lse = -1e30 + log(S_k) rounds to -1e30 and exp(s - lse) would sum V
+    instead of averaging it.  A row with no
     visible key at all (an all -inf bias) gives 0 (the reference's
     ``l_safe``).  ``dropout_p`` > 0: the weights take the mask of
     (``seed``, ``dropout_p``) before V; the LSE is of the weights before
     dropout."""
-    B, S, H, D = q.shape
+    B, S_q, H, D = q.shape
     s = _scores_plain(q, k, causal, bias, sm_scale)
     m = s.amax(-1, keepdim=True)
     m = torch.where(m == float("-inf"), 0.0, m)
@@ -229,15 +243,16 @@ def flash_attention_plain(q, k, v, causal=True, bias=None, sm_scale=None,
     l = torch.where(l == 0, 1.0, l)
     w = e / l
     if dropout_p > 0:
-        w = _dropped(w, dropout_keep_plain(seed, B, H, S, dropout_p,
-                                           q.device), dropout_p)
+        w = _dropped(w, dropout_keep_plain(seed, B, H, S_q, dropout_p,
+                                           q.device, S_k=k.shape[1]),
+                     dropout_p)
     out = torch.einsum("bhst,bthd->bshd", w, v.float())
     lse = (m + torch.log(l))[..., 0]
-    return out.to(q.dtype), lse.reshape(B * H, S)
+    return out.to(q.dtype), lse.reshape(B * H, S_q)
 
 
 def flash_attention_delta(o, do):
-    """delta = rowsum(dO * O) in float32, as [B*H, S] (the reference's
+    """delta = rowsum(dO * O) in float32, as [B*H, S_q] (the reference's
     ``_bwd_call`` computes it in XLA before the two kernels)."""
     B, S, H, _ = o.shape
     delta = (do.float() * o.float()).sum(-1)          # [B, S, H]
@@ -247,25 +262,26 @@ def flash_attention_delta(o, do):
 def _bwd_plain_terms(q, k, v, do, lse, delta, causal, bias, sm_scale,
                      dropout_p, seed):
     """The weights dv takes and ds = p * (dP - delta) * scale, float32
-    [B, H, S, S], from the forward's lse and the caller's delta:
+    [B, H, S_q, S_k], from the forward's lse and the caller's delta:
     p = exp(s - lse) and dP = dO.V^T, or with dropout the weights
     p * z / (1 - p) and dP * z / (1 - p), z the forward's keep mask."""
-    B, S, H, D = q.shape
+    B, S_q, H, D = q.shape
     s = _scores_plain(q, k, causal, bias, sm_scale)
-    p = torch.exp(s - lse.reshape(B, H, S, 1))
+    p = torch.exp(s - lse.reshape(B, H, S_q, 1))
     dp = torch.einsum("bshd,bthd->bhst", do.float(), v.float())
     pd = p
     if dropout_p > 0:
-        keep = dropout_keep_plain(seed, B, H, S, dropout_p, q.device)
+        keep = dropout_keep_plain(seed, B, H, S_q, dropout_p, q.device,
+                                  S_k=k.shape[1])
         pd, dp = _dropped(p, keep, dropout_p), _dropped(dp, keep, dropout_p)
-    ds = p * (dp - delta.reshape(B, H, S, 1)) * _scale(q, sm_scale)
+    ds = p * (dp - delta.reshape(B, H, S_q, 1)) * _scale(q, sm_scale)
     return pd, ds
 
 
 def flash_attention_dq_plain(q, k, v, do, lse, delta, causal=True,
                              bias=None, sm_scale=None, dropout_p=0.0,
                              seed=0):
-    """dq = ds . k over [B, S, H, D], in q's dtype."""
+    """dq = ds . k, [B, S_q, H, D] in q's dtype."""
     _, ds = _bwd_plain_terms(q, k, v, do, lse, delta, causal, bias,
                              sm_scale, dropout_p, seed)
     return torch.einsum("bhst,bthd->bshd", ds, k.float()).to(q.dtype)
@@ -274,7 +290,7 @@ def flash_attention_dq_plain(q, k, v, do, lse, delta, causal=True,
 def flash_attention_dkv_plain(q, k, v, do, lse, delta, causal=True,
                               bias=None, sm_scale=None, dropout_p=0.0,
                               seed=0):
-    """(dk = ds^T . q, dv = p^T . dO) over [B, S, H, D], in k's dtype (p
+    """(dk = ds^T . q, dv = p^T . dO), [B, S_k, H, D] in k's dtype (p
     after dropout)."""
     p, ds = _bwd_plain_terms(q, k, v, do, lse, delta, causal, bias,
                              sm_scale, dropout_p, seed)
@@ -293,14 +309,23 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True, bias=None,
     return (dq, *flash_attention_dkv_plain(q, k, v, do, lse, delta, **form))
 
 
-def _check(name, q, *others):
-    B, S, H, D = q.shape
-    for t in others:
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} on "
-                             f"{t.device} does not match q {tuple(q.shape)} "
-                             f"{q.dtype} on {q.device}")
-    for t in (q, *others):
+def _check(name, q, k, queries=(), keys=()):
+    """q [B, S_q, H, D] and the tensors of its shape (``queries``: dO,
+    O, dq), k [B, S_k, H, D] and the tensors of its shape (``keys``: v,
+    dk, dv): one dtype and device, unit stride over D."""
+    B, S_q, H, D = q.shape
+    if k.dim() != 4 or (k.shape[0], k.shape[2], k.shape[3]) != (B, H, D):
+        raise ValueError(f"{name}: k {tuple(k.shape)} must be [{B}, S_k, "
+                         f"{H}, {D}] for q {tuple(q.shape)}")
+    for ref, group in ((q, queries), (k, (k, *keys))):
+        for t in group:
+            if t.shape != ref.shape or t.dtype != q.dtype \
+                    or t.device != q.device:
+                raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} on "
+                                 f"{t.device} does not match "
+                                 f"{tuple(ref.shape)} {q.dtype} on "
+                                 f"{q.device}")
+    for t in (q, *queries, k, *keys):
         if t.stride(3) != 1:
             raise ValueError(f"{name}: every [B, S, H, D] operand needs unit "
                              "stride over the head dim")
@@ -311,24 +336,26 @@ def _check(name, q, *others):
 
 
 def _check_stats(name, q, *stats):
-    B, S, H, _ = q.shape
+    B, S_q, H, _ = q.shape
     for t in stats:
-        if t.shape != (B * H, S) or t.dtype != torch.float32 \
+        if t.shape != (B * H, S_q) or t.dtype != torch.float32 \
                 or t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name}: lse and delta must be contiguous "
-                             f"float32 [{B * H}, {S}] tensors on {q.device}")
+                             f"float32 [{B * H}, {S_q}] tensors on "
+                             f"{q.device}")
 
 
-def _bias_args(name, q, bias):
-    """(pointer, b, h, q, k strides) of a float32 [B, H, S, S] bias, any
-    strides; NULL and zeros without one."""
+def _bias_args(name, q, k, bias):
+    """(pointer, b, h, q, k strides) of a float32 [B, H, S_q, S_k] bias,
+    any strides; NULL and zeros without one."""
     if bias is None:
         return (None, 0, 0, 0, 0)
-    B, S, H, _ = q.shape
-    if bias.shape != (B, H, S, S) or bias.dtype != torch.float32 \
+    B, S_q, H, _ = q.shape
+    S_k = k.shape[1]
+    if bias.shape != (B, H, S_q, S_k) or bias.dtype != torch.float32 \
             or bias.device != q.device:
-        raise ValueError(f"{name}: bias must be a float32 [{B}, {H}, {S}, "
-                         f"{S}] tensor (any strides) on {q.device}, got "
+        raise ValueError(f"{name}: bias must be a float32 [{B}, {H}, {S_q}, "
+                         f"{S_k}] tensor (any strides) on {q.device}, got "
                          f"{tuple(bias.shape)} {bias.dtype} on {bias.device}")
     return (bias.data_ptr(), *bias.stride())
 
@@ -339,44 +366,52 @@ def _device(name, q):
     return q.device.type
 
 
+def _count(fn, q, k, dropout_p):
+    """One launch of the kernel behind wrapper ``fn``: its count, its
+    count with dropout and its count of the cross form (S_q != S_k)."""
+    fn.launches += 1
+    fn.dropout_launches += dropout_p > 0
+    fn.cross_launches += q.shape[1] != k.shape[1]
+
+
 def flash_attention(q, k, v, causal=True, bias=None, sm_scale=None,
                     dropout_p=0.0, seed=0):
-    """The forward kernel: attention over q/k/v [B, S, H, D] (paddle
-    layout, any strides with a unit stride over D), causal (the GPT
-    path's form, the default) or not, plus an optional float32
-    [B, H, S, S] bias, and dropout ``dropout_p`` on the weights with the
-    mask of ``seed`` (an int or a ``StepSeed``).  Returns (out
-    [B, S, H, D] contiguous, lse [B*H, S] float32).  No graph: see
-    :func:`attention`."""
+    """The forward kernel: attention of q [B, S_q, H, D] over k, v
+    [B, S_k, H, D] (paddle layout, any strides with a unit stride over D),
+    causal (the GPT path's form, the default; top-left aligned) or not,
+    plus an optional float32 [B, H, S_q, S_k] bias, and dropout
+    ``dropout_p`` on the weights with the mask of ``seed`` (an int or a
+    ``StepSeed``).  Returns (out [B, S_q, H, D] contiguous, lse
+    [B*H, S_q] float32).  No graph: see :func:`attention`."""
     _check_dropout(dropout_p)
     if _device("flash_attention", q) == "cpu":
         return flash_attention_plain(q, k, v, causal, bias, sm_scale,
                                      dropout_p, seed)
-    B, S, H, D = q.shape
-    _check("flash_attention", q, k, v)
-    bias_args = _bias_args("flash_attention", q, bias)
+    B, S_q, H, D = q.shape
+    S_k = k.shape[1]
+    _check("flash_attention", q, k, keys=(v,))
+    bias_args = _bias_args("flash_attention", q, k, bias)
     key, step = _seed_args("flash_attention", seed, q.device)
-    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B * H, S), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, S_q, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B * H, S_q), dtype=torch.float32, device=q.device)
     fn = build.bind("flash_attention", "ptt_flash_attention_fwd", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
              q.stride(0), q.stride(1), q.stride(2),
              k.stride(0), k.stride(1), k.stride(2),
              v.stride(0), v.stride(1), v.stride(2),
-             out.data_ptr(), lse.data_ptr(), *bias_args, B, S, H, D,
+             out.data_ptr(), lse.data_ptr(), *bias_args, B, S_q, S_k, H, D,
              _scale(q, sm_scale), int(causal), key, step, dropout_p,
              build.dtype_code(q), build.stream_of(q))
     build.check(err, "flash_attention")
-    flash_attention.launches += 1
-    flash_attention.dropout_launches += dropout_p > 0
+    _count(flash_attention, q, k, dropout_p)
     return out, lse
 
 
 def flash_attention_dq(q, k, v, do, lse, delta, out=None, causal=True,
                        bias=None, sm_scale=None, dropout_p=0.0, seed=0):
-    """dq, written into ``out`` (a [B, S, H, D] view with unit stride over
-    D, allocated when None).  Returns it.  ``dropout_p`` and ``seed``: the
-    forward's."""
+    """dq, written into ``out`` (a [B, S_q, H, D] view with unit stride
+    over D, allocated when None).  Returns it.  ``dropout_p`` and
+    ``seed``: the forward's."""
     _check_dropout(dropout_p)
     if out is None:
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -384,62 +419,63 @@ def flash_attention_dq(q, k, v, do, lse, delta, out=None, causal=True,
         return out.copy_(flash_attention_dq_plain(
             q, k, v, do, lse, delta, causal, bias, sm_scale, dropout_p,
             seed))
-    B, S, H, D = q.shape
-    _check("flash_attention_dq", q, k, v, do, out)
+    B, S_q, H, D = q.shape
+    _check("flash_attention_dq", q, k, queries=(do, out), keys=(v,))
     _check_stats("flash_attention_dq", q, lse, delta)
-    bias_args = _bias_args("flash_attention_dq", q, bias)
+    bias_args = _bias_args("flash_attention_dq", q, k, bias)
     key, step = _seed_args("flash_attention_dq", seed, q.device)
     fn = build.bind("flash_attention_bwd", "ptt_flash_attention_dq",
                     _DQ_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), out.data_ptr(),
-             build.strides(q, k, v, do, out), *bias_args, B, S, H, D,
-             _scale(q, sm_scale), int(causal), key, step, dropout_p,
-             build.dtype_code(q), build.stream_of(q))
+             build.strides(q, k, v, do, out), *bias_args, B, S_q,
+             k.shape[1], H, D, _scale(q, sm_scale), int(causal), key, step,
+             dropout_p, build.dtype_code(q), build.stream_of(q))
     build.check(err, "flash_attention_dq")
-    flash_attention_dq.launches += 1
-    flash_attention_dq.dropout_launches += dropout_p > 0
+    _count(flash_attention_dq, q, k, dropout_p)
     return out
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, out=None, causal=True,
                         bias=None, sm_scale=None, dropout_p=0.0, seed=0):
-    """(dk, dv), written into ``out`` (two [B, S, H, D] views with unit
+    """(dk, dv), written into ``out`` (two [B, S_k, H, D] views with unit
     stride over D, allocated when None).  ``dropout_p`` and ``seed``: the
     forward's."""
     _check_dropout(dropout_p)
     if out is None:
-        out = tuple(torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        out = tuple(torch.empty(k.shape, dtype=k.dtype, device=k.device)
                     for _ in range(2))
     dk, dv = out
     if _device("flash_attention_dkv", q) == "cpu":
         pk, pv = flash_attention_dkv_plain(q, k, v, do, lse, delta, causal,
                                            bias, sm_scale, dropout_p, seed)
         return dk.copy_(pk), dv.copy_(pv)
-    B, S, H, D = q.shape
-    _check("flash_attention_dkv", q, k, v, do, dk, dv)
+    B, S_q, H, D = q.shape
+    _check("flash_attention_dkv", q, k, queries=(do,), keys=(v, dk, dv))
     _check_stats("flash_attention_dkv", q, lse, delta)
-    bias_args = _bias_args("flash_attention_dkv", q, bias)
+    bias_args = _bias_args("flash_attention_dkv", q, k, bias)
     key, step = _seed_args("flash_attention_dkv", seed, q.device)
     fn = build.bind("flash_attention_bwd", "ptt_flash_attention_dkv",
                     _DKV_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             build.strides(q, k, v, do, dk, dv), *bias_args, B, S, H, D,
-             _scale(q, sm_scale), int(causal), key, step, dropout_p,
-             build.dtype_code(q), build.stream_of(q))
+             build.strides(q, k, v, do, dk, dv), *bias_args, B, S_q,
+             k.shape[1], H, D, _scale(q, sm_scale), int(causal), key, step,
+             dropout_p, build.dtype_code(q), build.stream_of(q))
     build.check(err, "flash_attention_dkv")
-    flash_attention_dkv.launches += 1
-    flash_attention_dkv.dropout_launches += dropout_p > 0
+    _count(flash_attention_dkv, q, k, dropout_p)
     return dk, dv
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, out=None, causal=True,
                         bias=None, sm_scale=None, dropout_p=0.0, seed=0):
     """(dq, dk, dv) from the forward's O and LSE, by the dq kernel and the
-    dk/dv kernel.  ``out``: three [B, S, H, D] views to write into; by
-    default the slices of one packed [B, S, 3, H, D] tensor."""
+    dk/dv kernel.  ``out``: three views to write into (dq of q's shape, dk
+    and dv of k's); by default the slices of one packed [B, S, 3, H, D]
+    tensor, which needs S_q == S_k."""
     if out is None:
+        if q.shape != k.shape:
+            raise ValueError("flash_attention_bwd: S_q != S_k needs out=")
         B, S, H, D = q.shape
         out = torch.empty((B, S, 3, H, D), dtype=q.dtype,
                           device=q.device).unbind(2)
@@ -453,24 +489,26 @@ def flash_attention_bwd(q, k, v, o, lse, do, out=None, causal=True,
     return dq, dk, dv
 
 
-def dropout_keep(seed, B, H, S, p, device):
-    """The keep mask as the kernels draw it, bool [B, H, S, S]: on a CUDA
-    device written by the kernels' own device function (a test entry: no
-    path calls it, so it counts no launches), on the CPU
+def dropout_keep(seed, B, H, S, p, device, S_k=None):
+    """The keep mask as the kernels draw it, bool [B, H, S, S_k] (``S_k``
+    None: S): on a CUDA device written by the kernels' own device function
+    (a test entry: no path calls it, so it counts no launches), on the CPU
     :func:`dropout_keep_plain`."""
     _check_dropout(p)
     device = torch.device(device)
+    S_k = S if S_k is None else S_k
     if device.type == "cpu":
-        return dropout_keep_plain(seed, B, H, S, p, device)
+        return dropout_keep_plain(seed, B, H, S, p, device, S_k=S_k)
     if device.type != "cuda":
         raise RuntimeError(f"dropout_keep: no kernel for device {device}")
-    out = torch.empty((B, H, S, S), dtype=torch.bool, device=device)
+    out = torch.empty((B, H, S, S_k), dtype=torch.bool, device=device)
     key, step = _seed_args("dropout_keep", seed, out.device)
     fn = build.bind("flash_attention", "ptt_flash_dropout_mask",
                     (ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_void_p,
                      ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_void_p))
-    err = fn(out.data_ptr(), key, step, p, B * H, S, build.stream_of(out))
+                     ctypes.c_int, ctypes.c_void_p))
+    err = fn(out.data_ptr(), key, step, p, B * H, S, S_k,
+             build.stream_of(out))
     build.check(err, "dropout_keep")
     return out
 
@@ -550,22 +588,23 @@ def _seed_for(dropout_p):
 
 def attention(q, k, v, causal=False, sm_scale=None, mask=None,
               dropout_p=0.0):
-    """The reference's public ``flash_attention`` (:412): q, k, v
-    [B, S, H, D] -> [B, S, H, D]; ``mask`` is bool (True = attend) or
-    additive, broadcastable to [B, H, S, S], composable with ``causal``;
-    ``dropout_p`` > 0 drops the weights (the reference's composite form,
-    :mod:`ops.fused`), with a mask of its own for each call, also under
-    ``torch.no_grad()``.  Differentiable in q, k and v.  Cross-attention
-    (S_q != S_k) and grouped heads are not ported."""
-    B, S, H, _ = q.shape
-    if k.shape[1] != S or v.shape[1] != S:
-        raise NotImplementedError(
-            f"flash_attention: cross-attention (S_q {S} != S_k "
-            f"{k.shape[1]}) is not ported yet")
+    """The reference's public ``flash_attention`` (:412): q [B, S_q, H, D]
+    over k, v [B, S_k, H, D] -> [B, S_q, H, D], S_q == S_k or not (the
+    cross-attention of an encoder-decoder, a cached decode step);
+    ``mask`` is bool (True = attend) or additive, broadcastable to
+    [B, H, S_q, S_k], composable with ``causal`` (top-left aligned: query
+    i sees key j <= i); ``dropout_p`` > 0 drops the weights (the
+    reference's composite form, :mod:`ops.fused`), with a mask of its own
+    for each call, also under ``torch.no_grad()``.  Differentiable in q,
+    k and v.  Grouped heads (k with fewer heads than q) are not ported."""
+    B, S_q, H, _ = q.shape
     if k.shape[2] != H:
         raise NotImplementedError("flash_attention: GQA head mismatch")
-    bias = None if mask is None else fold_mask(mask.to(q.device), B, H, S,
-                                               S)
+    if v.shape != k.shape:
+        raise ValueError(f"flash_attention: v {tuple(v.shape)} does not "
+                         f"match k {tuple(k.shape)}")
+    bias = None if mask is None else fold_mask(mask.to(q.device), B, H, S_q,
+                                               k.shape[1])
     seed = _seed_for(dropout_p)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -620,5 +659,13 @@ def dropout_launches():
                        flash_attention_dkv)}
 
 
+def cross_launches():
+    """{entry: launches of the cross form, S_q != S_k} of the three
+    attention wrappers (each also counted in its ``launches``)."""
+    return {fn.__name__: fn.cross_launches
+            for fn in (flash_attention, flash_attention_dq,
+                       flash_attention_dkv)}
+
+
 for _fn in (flash_attention, flash_attention_dq, flash_attention_dkv):
-    _fn.launches = _fn.dropout_launches = 0
+    _fn.launches = _fn.dropout_launches = _fn.cross_launches = 0

@@ -1805,3 +1805,154 @@ def test_fit_syncs_only_to_drain(dev, metric):
     assert model._engine.captures == 1 and model._engine.replays == 6
     assert syncs == ["engine.py"] * (6 if metric else 3)
     assert len(hist["step_loss"]) == 6 and all(np.isfinite(hist["loss"]))
+
+
+# -- the cross form (S_q != S_k): the encoder-decoder's cross-attention and
+# a cached decode step
+CROSS_VARIANTS = [(torch.bfloat16, 0, "mma"), (torch.bfloat16, 1, "simt"),
+                  (torch.float32, 0, "simt")]
+
+
+def _cross_views(g, dev, dtype, B, S, H, D, offset, n):
+    return [torch.randn(B * S * H * D + 8, generator=g, device=dev).to(
+        dtype)[offset:offset + B * S * H * D].view(B, S, H, D)
+        for _ in range(n)]
+
+
+@pytest.mark.parametrize("dtype,offset,variant", CROSS_VARIANTS)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kind", ["bool", "additive"])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("S_q", [1, 9, 64, 100])
+@pytest.mark.parametrize("S_k", [5, 72, 128, 200])
+def test_flash_attention_cross_kernels(dev, dtype, offset, variant, causal,
+                                       kind, p, S_q, S_k):
+    """Forward (O and LSE), dq and dk/dv with S_q queries over S_k keys
+    against the plain versions, causal top-left or not, with a bool
+    [B, 1, 1, S_k] padding mask (key 0 always visible) or a full additive
+    [B, H, S_q, S_k] one, p = 0 and 0.1; each launch takes its kernel.
+    (B, H) = (12, 12) at S_q >= 64 gives the tensor-core kernels their
+    64- and 128-row query tiles and 64-key dk/dv tiles, (2, 3) their
+    16-row ones; causal with S_q < S_k leaves keys no query sees, whose dk
+    and dv must be written as zeros."""
+    B, H, D = (12, 12, 64) if S_q >= 64 else (2, 3, 64)
+    g = torch.Generator(device=dev).manual_seed(S_q * 1000 + S_k)
+    q, do = _cross_views(g, dev, dtype, B, S_q, H, D, offset, 2)
+    k, v = _cross_views(g, dev, dtype, B, S_k, H, D, offset, 2)
+    if kind == "bool":
+        lens = torch.randint(1, S_k + 1, (B,), generator=g, device=dev)
+        m = (torch.arange(S_k, device=dev)[None, :] < lens[:, None])
+        m = m[:, None, None, :]
+    else:
+        m = torch.randn(B, H, S_q, S_k, generator=g, device=dev)
+    bias = flash_attention.fold_mask(m, B, H, S_q, S_k)
+    form = dict(causal=causal, bias=bias, dropout_p=p, seed=S_q + 7 * S_k)
+    before = flash_attention.variant_launches()
+    out, lse = flash_attention.flash_attention(q, k, v, **form)
+    ref, ref_lse = flash_attention.flash_attention_plain(q, k, v, **form)
+    assert out.shape == (B, S_q, H, D) and lse.shape == (B * H, S_q)
+    _check(out, ref, dtype)
+    _check(lse, ref_lse, torch.float32 if dtype == torch.float32 else dtype)
+    delta = flash_attention.flash_attention_delta(out, do)
+    dk_out = [torch.full_like(k, float("nan")) for _ in range(2)]
+    dq = flash_attention.flash_attention_dq(q, k, v, do, lse, delta, **form)
+    dk, dv = flash_attention.flash_attention_dkv(q, k, v, do, lse, delta,
+                                                 out=dk_out, **form)
+    _check(dq, flash_attention.flash_attention_dq_plain(
+        q, k, v, do, lse, delta, **form), dtype)
+    ref_k, ref_v = flash_attention.flash_attention_dkv_plain(
+        q, k, v, do, lse, delta, **form)
+    _check(dk, ref_k, dtype)
+    _check(dv, ref_v, dtype)
+    if causal and S_q < S_k:
+        assert torch.all(dk[:, S_q:] == 0) and torch.all(dv[:, S_q:] == 0)
+    took = _variant_delta(before)
+    assert all(took[name][variant] == 1 for name in took), took
+
+
+@pytest.mark.parametrize("S_q,S_k", [(64, 72), (1, 72), (100, 5),
+                                     (9, 200)])
+def test_dropout_mask_entry_matches_plain_cross(dev, S_q, S_k):
+    """The keep mask over [B, H, S_q, S_k] written by the kernels' own
+    device function is bitwise the plain version's, and the top-left
+    corner of the square mask (no draw depends on either length)."""
+    seed, B, H, p = 0xFACE + S_k, 3, 8, 0.1
+    got = flash_attention.dropout_keep(seed, B, H, S_q, p, dev, S_k=S_k)
+    assert got.shape == (B, H, S_q, S_k)
+    assert torch.equal(got, flash_attention.dropout_keep_plain(
+        seed, B, H, S_q, p, dev, S_k=S_k))
+    n = max(S_q, S_k)
+    square = flash_attention.dropout_keep(seed, B, H, n, p, dev)
+    assert torch.equal(got, square[:, :, :S_q, :S_k])
+
+
+def _seq2seq(dev, dtype):
+    """A small seq2seq model of the [seq2seq] phase's class (chip_smoke.py
+    ``seq2seq_model``): vocab 96, d_model 64, 4 heads, 2 + 2 layers, FFN
+    128, dropout 0.1, batches of 72 source and 64 target positions."""
+    import chip_smoke
+
+    ptt.seed(5)
+    return chip_smoke, chip_smoke.seq2seq_model(
+        torch, dev, dtype, vocab=96, d_model=64, nhead=4, layers=2, ffn=128)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_seq2seq_fit_graph_is_bitwise_the_eager_step(dev, dtype):
+    """Model.fit of a small encoder-decoder Transformer (source ids and
+    target input ids in, target ids as the label, dropout 0.1, Adam with
+    NoamDecay) through the captured step and through ``_step_eager`` from
+    one seed: losses and parameters bitwise equal over 6 steps; one
+    capture holding every attention kernel in its cross form once a
+    decoder layer, both cross-entropy kernels and one optimizer launch."""
+    from paddle_tpu_torch.hapi.engine import TrainEngine
+    from paddle_tpu_torch.ops import kernels
+
+    runs = {}
+    for form in ("graph", "eager"):
+        cs, net = _seq2seq(dev, dtype)
+        data = cs.s2s_batches(torch, np.random.RandomState(8), 24, vocab=96)
+        sched = ptt.optimizer.lr.NoamDecay(d_model=64, warmup_steps=10)
+        opt = ptt.optimizer.Adam(learning_rate=sched, beta2=0.98,
+                                 epsilon=1e-9, parameters=net.parameters())
+        model = ptt.Model(net, inputs=["src", "tgt_in"], labels=["tgt_out"])
+        model.prepare(opt, cs.s2s_loss)
+        engine = model._engine = TrainEngine(model)
+        if form == "eager":
+            engine.step = engine._step_eager
+        kernels.reset_launch_counts()
+        hist = model.fit(ptt.io.TensorDataset(data), batch_size=4,
+                         shuffle=False, verbose=0, log_freq=2)
+        runs[form] = (hist["step_loss"], _params(net))
+        if form == "graph":
+            assert engine.captures == 1 and engine.replays == 5
+            (launches,) = engine.graph_launches.values()
+            assert launches["multi_tensor_step"] == 1
+            assert launches["softmax_xent"] == launches[
+                "softmax_xent_bwd"] == 1
+            for name in ("flash_attention", "flash_attention_dq",
+                         "flash_attention_dkv"):
+                assert launches[name] == 6, (name, launches)
+            # the first step and the capture: 2 cross-form launches each
+            assert flash_attention.cross_launches() == dict.fromkeys(
+                ("flash_attention", "flash_attention_dq",
+                 "flash_attention_dkv"), 4)
+    losses, params = runs["graph"]
+    assert len(losses) == 6 and all(np.isfinite(losses))
+    assert losses == runs["eager"][0]
+    assert all(torch.equal(a, b) for a, b in zip(params, runs["eager"][1]))
+
+
+def test_seq2seq_cached_decoding_matches_recompute(dev):
+    """Greedy decoding in float32 with the caches (one decoder step a
+    token: S_q = 1 over the tokens so far and over the memory) gives the
+    tokens of recomputing the whole prefix each step."""
+    cs, net = _seq2seq(dev, torch.float32)
+    net.eval()
+    src = cs.s2s_batches(torch, np.random.RandomState(9), 3,
+                         vocab=96)[0].to(dev)
+    cached, logits, _ = cs.s2s_decode(torch, net, src, 12)
+    again, ref, _ = cs.s2s_decode(torch, net, src, 12, cache=False)
+    assert torch.equal(cached, again)
+    for a, b in zip(logits, ref):
+        _check(a, b, torch.float32)

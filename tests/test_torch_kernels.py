@@ -121,9 +121,10 @@ def test_flash_attention_plain_vs_composite_short_sequence():
 
 
 def test_fused_attention_refuses_unported_forms():
-    """Cross-attention (S_q != S_k) waits for the decoder slice.  Dropout
-    in training, once refused, now runs inside the attention kernels: a
-    finite result of the right shape that differs from p = 0."""
+    """Grouped heads (k with fewer heads than q) are not ported and raise.
+    Dropout in training, once refused, now runs inside the attention
+    kernels: a finite result of the right shape that differs from p = 0.
+    Cross-attention (S_q != S_k), once refused, now runs: q's shape out."""
     x = torch.from_numpy(np.random.RandomState(12).randn(
         1, 4, 2, 16).astype(np.float32))
     for causal in (False, True):
@@ -134,8 +135,11 @@ def test_fused_attention_refuses_unported_forms():
         assert not torch.equal(out, fused.scaled_dot_product_attention(
             x, x, x, is_causal=causal, training=True))
     with pytest.raises(NotImplementedError):
-        fused.scaled_dot_product_attention(x, torch.zeros(1, 6, 2, 16),
-                                           torch.zeros(1, 6, 2, 16))
+        fused.scaled_dot_product_attention(x, torch.zeros(1, 4, 1, 16),
+                                           torch.zeros(1, 4, 1, 16))
+    kv = torch.zeros(1, 6, 2, 16)
+    out = fused.scaled_dot_product_attention(x, kv, kv + 1.0)
+    assert out.shape == x.shape and torch.equal(out, torch.ones_like(x))
 
 
 @pytest.mark.parametrize("causal", [False, True])
