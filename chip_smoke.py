@@ -120,6 +120,29 @@ passed over):
                   within BF16_TOL of the recompute's up to the first step
                   whose tokens differ.  Step p50, tokens/s (real tokens;
                   positions/s beside it), MFU, eval and decode ms.
+16. amp-kernels / amp-unscale — each float16 and mixed form (bf16 or
+                  float16 x beside a float32 weight or bias) of the eight
+                  training kernels at the AMP paths' shapes against its
+                  plain version (F16_TOL for float16), beside the bf16
+                  kernel at the same shape and the float16 library call;
+                  the float16 and bf16 dropout masks equal; the unscale
+                  kernel over GPT-2-small's 148 float16 gradients bitwise
+                  its plain version, clean and with an inf and a NaN.
+17. ernie-o2    — ERNIE pretraining (BertConfig(vocab_size=18000,
+                  type_vocab_size=4), full width and depth, dropout 0.1)
+                  in AMP-O2 float16: decorate, auto_cast, GradScaler(2**15),
+                  AdamW, B = 32, S = 128 padded, 30 steps twice from one
+                  seed: losses finite, falling over the applied steps and
+                  bitwise equal in both runs, the scale by the reference's
+                  rule, every kernel in its float16 form (the trace), the
+                  first batch's loss within AMP_LOSS_RTOL of the port's CPU
+                  run; step p50, samples/s, MFU.
+18. fit-amp     — BERT-base (float32 parameters) through Model.fit under
+                  auto_cast(level="O1", dtype="bfloat16"): graph and
+                  eager bitwise equal, the mixed LayerNorm and bias-GeLU
+                  forms, float32 MLM and bf16 NSP cross-entropy in the
+                  trace, and a plain fit of the same model capturing a
+                  graph of its own.
 
 The AccumulateGrad stream warning (a backward accumulating into a node of
 another stream: the training engine's warm-up meeting a dygraph graph
@@ -174,6 +197,7 @@ import numpy as np
 START = time.perf_counter()   # the run's start (phases log their start)
 F32_TOL = 2e-5       # x max(1, max|ref|): float32 summation-order noise
 BF16_TOL = 2 ** -6   # x max(1, max|ref|): two bf16 ulps at the top binade
+F16_TOL = 2 ** -8    # x max(1, max|ref|): four float16 ulps at the top binade
 LOGITS_REL_TOL = 1e-3  # max|dlogits| / max|ref| over 12 layers, float32
 GRAD_REL_TOL = 1e-3    # max|dgrad| / max|ref| per parameter, float32
 HBM_BYTES_PER_S = 3.35e12
@@ -208,6 +232,10 @@ REPLACES = {
     # pallas_call
     "multi_tensor_step": ("paddle_tpu_torch/csrc/multi_tensor_optim.cu",
                           "paddle_tpu/optimizer/__init__.py:155"),
+    # GradScaler.unscale_ and the functional check_finite_and_unscale:
+    # XLA-fused in the reference, not a pallas_call
+    "check_finite_and_unscale": ("paddle_tpu_torch/csrc/amp.cu",
+                                 "paddle_tpu/amp/__init__.py:127"),
 }
 SERVING_KERNELS = ("layer_norm", "bias_gelu", "flash_attention",
                    "paged_decode_attention")
@@ -253,7 +281,8 @@ TRACE_KERNELS = {
                       "vec": "bias_gelu_bwd_vec_kernel"},
     "softmax_xent": {"kernel": "xent_fwd_kernel"},
     "softmax_xent_bwd": {"kernel": "xent_bwd_kernel"},
-    "multi_tensor_step": {"kernel": "multi_tensor_kernel"}}
+    "multi_tensor_step": {"kernel": "multi_tensor_kernel"},
+    "check_finite_and_unscale": {"kernel": "unscale_kernel"}}
 # the kernels with a variant that each path launches
 SERVING_FAST = ("flash_attention", "layer_norm", "paged_decode_attention",
                 "bias_gelu")
@@ -381,7 +410,8 @@ def compare(torch, name, kernel_fn, plain_fn, library_fn, dtype, n_bytes,
     err = max((o.float() - r.float()).abs().max().item()
               for o, r in zip(outs, refs))
     scale = max(1.0, max(r.float().abs().max().item() for r in refs))
-    tol = (F32_TOL if dtype == torch.float32 else BF16_TOL) * scale
+    tol = {torch.float32: F32_TOL, torch.float16: F16_TOL}.get(
+        dtype, BF16_TOL) * scale
     if not math.isfinite(err) or err > tol:
         fail(f"{name}: max|kernel - plain| {err:.3e} > tol {tol:.3e}")
     rec = {"max_abs_err": err, "tol": tol}
@@ -3541,6 +3571,651 @@ def bert_train_phase(torch, K, card):
     return counts, (p50, flops, tokens)
 
 
+# ---------------------------------------------------------------------------
+# mixed precision (PR 13): the float16 and mixed forms of the training
+# kernels, the unscale kernel, ERNIE in AMP-O2 float16 (path A) and BERT
+# Model.fit under auto_cast O1 bf16 (path B)
+# ---------------------------------------------------------------------------
+ERNIE = dict(vocab_size=18000, type_vocab_size=4)   # ErnieModel's defaults
+AMP_STEPS = 30             # path A's dygraph steps a run
+AMP_LOSS_RTOL = 5e-3       # float16 first loss on the card, float32 CPU
+AMP_FIT_STEPS = 10         # path B's Model.fit steps a run
+
+
+# the instantiations each AMP path must launch, by (kernel, its leading
+# template arguments) as a trace names them: path A all float16, path B
+# the mixed forms (bf16 x, float32 weight or bias), bf16 attention and
+# NSP logits, float32 MLM logits and parameters
+ERNIE_FORMS = {
+    "layer_norm f16": ("layer_norm_warp_kernel", "__half", "__half"),
+    "bias_gelu f16": ("bias_gelu_fwd_vec_kernel", "__half", "__half"),
+    "bias_gelu_bwd f16": ("bias_gelu_bwd_vec_kernel", "__half", "__half"),
+    "flash_attention f16": ("flash_fwd_mma_kernel", "__half"),
+    "flash_attention_dq f16": ("flash_dq_mma_kernel", "__half"),
+    "flash_attention_dkv f16": ("flash_dkv_mma_kernel", "__half"),
+    "softmax_xent f16": ("xent_fwd_kernel", "__half"),
+    "softmax_xent_bwd f16": ("xent_bwd_kernel", "__half"),
+    "multi_tensor_step f16": ("multi_tensor_kernel", "__half"),
+    "check_finite_and_unscale f16": ("unscale_kernel", "__half")}
+FIT_AMP_FORMS = {
+    "layer_norm mixed": ("layer_norm_warp_kernel", "__nv_bfloat16", "float"),
+    "layer_norm f32": ("layer_norm_warp_kernel", "float", "float"),
+    "bias_gelu mixed": ("bias_gelu_fwd_vec_kernel", "__nv_bfloat16",
+                        "float"),
+    "bias_gelu_bwd mixed": ("bias_gelu_bwd_vec_kernel", "__nv_bfloat16",
+                            "float"),
+    "flash_attention bf16": ("flash_fwd_mma_kernel", "__nv_bfloat16"),
+    "flash_attention_dq bf16": ("flash_dq_mma_kernel", "__nv_bfloat16"),
+    "flash_attention_dkv bf16": ("flash_dkv_mma_kernel", "__nv_bfloat16"),
+    "softmax_xent bf16 (NSP)": ("xent_fwd_kernel", "__nv_bfloat16"),
+    "softmax_xent f32 (MLM)": ("xent_fwd_kernel", "float"),
+    "softmax_xent_bwd bf16 (NSP)": ("xent_bwd_kernel", "__nv_bfloat16"),
+    "softmax_xent_bwd f32 (MLM)": ("xent_bwd_kernel", "float"),
+    "multi_tensor_step f32": ("multi_tensor_kernel", "float")}
+
+
+def require_instances(kernels, want, what):
+    """{label: launches} in a trace (``kernels``, as trace_window returns
+    them) of each instantiation of ``want``; fails if one never
+    launched."""
+    out = {}
+    for label, (kernel, *args) in want.items():
+        pat = re.compile(rf"(?<!\w){kernel}<\s*" + r"\s*,\s*".join(
+            map(re.escape, args)) + r"\s*[,>]")
+        out[label] = sum(c for _, key, c in kernels if pat.search(key))
+        if out[label] <= 0:
+            fail(f"{what}: the trace holds no launch of {kernel}<"
+                 f"{', '.join(args)}, ...>: {label} did not run")
+    return out
+
+
+def library_or_none(torch, name, fn):
+    """A library yardstick that this PyTorch may not offer for a mixed
+    dtype pair: ``fn`` if one call runs, else None (logged).  Only the
+    yardstick is skipped, never a kernel."""
+    try:
+        fn()
+        torch.cuda.synchronize()
+        return fn
+    except (RuntimeError, TypeError) as e:
+        log(f"[amp-kernels] {name}: no library call for this dtype pair "
+            f"({str(e).splitlines()[0][:120]})")
+        return None
+
+
+def amp_kernel_phase(torch, K):
+    """Each float16 and mixed form of rows 1-8 at the AMP paths' shapes
+    against its plain version: LayerNorm R = 4096, N = 768 (float16; bf16
+    x with float32 weights, the MLM head under O1), bias-GeLU forward and
+    backward R = 4096, F = 3072 (float16; bf16 x with a float32 bias),
+    softmax cross-entropy forward and backward on float16 logits (ERNIE's
+    MLM head N = 4096, V = 18,000, 15 % labelled; its NSP head N = 32,
+    V = 2), and the three attention kernels at B = 32, H = 12, S = 128,
+    D = 64 with the padding mask and dropout 0.1 in float16, each beside
+    the same kernel in bf16 at the same shape and the library call in
+    float16.  The float16 and bf16 forwards drop the same pairs for one
+    seed.  Returns {kernel: {"float16": rec, "mixed": rec}}."""
+    F = torch.nn.functional
+    KF = K.flash_attention
+    g = torch.Generator(device="cuda").manual_seed(31)
+    f16, bf16, f32 = torch.float16, torch.bfloat16, torch.float32
+    recs = {}
+
+    def rnd(*shape, dtype, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale
+                + shift).to(dtype)
+
+    def keep(name, form, rec, bf16_rec=None):
+        if bf16_rec is not None:
+            rec["bf16_ms"] = bf16_rec["ms"]
+        recs.setdefault(name, {})[form] = rec
+        log(f"[amp-kernels] {name} {form}: device ms {rec['ms']} "
+            f"(bf16 {rec.get('bf16_ms')}), bound {rec['bound_ms']} "
+            f"({rec['bound_by']}), plain {rec['plain_ms']}, library "
+            f"{rec['library_ms']}")
+
+    # row 1: LayerNorm
+    R, N = 4096, 768
+    by_form = {}
+    for form, xd, wd in (("bf16", bf16, bf16), ("float16", f16, f16),
+                         ("mixed", bf16, f32)):
+        x = rnd(R, N, dtype=xd, scale=3.0, shift=1.0)
+        w = rnd(N, dtype=wd, scale=0.1, shift=1.0)
+        b = rnd(N, dtype=wd, scale=0.1)
+        lib = library_or_none(torch, f"layer_norm {form}",
+                              lambda: F.layer_norm(x, (N,), w, b, 1e-12))
+        by_form[form] = compare(
+            torch, f"layer_norm {form} R={R} N={N} x {xd} w {wd}",
+            lambda: K.layer_norm.layer_norm(x, w, b, 1e-12),
+            lambda: K.layer_norm.layer_norm_plain(x, w, b, 1e-12), lib, xd,
+            2 * R * N * x.element_size() + 2 * N * w.element_size(),
+            8 * R * N, PEAK_F32, variant=("layer_norm", "warp"))
+    keep("layer_norm", "float16", by_form["float16"], by_form["bf16"])
+    keep("layer_norm", "mixed", by_form["mixed"], by_form["bf16"])
+    # rows 2-3: bias-GeLU forward and backward
+    R, Fd = 4096, 3072
+    fwd, bwd = {}, {}
+    for form, xd, bd in (("bf16", bf16, bf16), ("float16", f16, f16),
+                         ("mixed", bf16, f32)):
+        x, dy = rnd(R, Fd, dtype=xd, scale=2.0), rnd(R, Fd, dtype=xd)
+        b = rnd(Fd, dtype=bd, scale=0.5)
+        isz, bsz = x.element_size(), b.element_size()
+        desc = f"R={R} F={Fd} x {xd} b {bd}"
+        fwd[form] = compare(
+            torch, f"bias_gelu {form} {desc}",
+            lambda: K.bias_gelu.bias_gelu(x, b),
+            lambda: K.bias_gelu.bias_gelu_plain(x, b),
+            lambda: F.gelu(x + b), xd, 2 * R * Fd * isz + Fd * bsz,
+            5 * R * Fd, PEAK_F32, variant=("bias_gelu", "vec"))
+        lib = library_or_none(
+            torch, f"bias_gelu_bwd {form}",
+            lambda: torch.ops.aten.gelu_backward(dy, x + b))
+        bwd[form] = compare(
+            torch, f"bias_gelu_bwd {form} {desc}",
+            lambda: K.bias_gelu.bias_gelu_bwd(x, b, dy),
+            lambda: K.bias_gelu.bias_gelu_bwd_plain(x, b, dy), lib, xd,
+            3 * R * Fd * isz + Fd * bsz, 12 * R * Fd, PEAK_F32,
+            variant=("bias_gelu_bwd", "vec"))
+        del x, dy, b
+    for form in ("float16", "mixed"):
+        keep("bias_gelu", form, fwd[form], fwd["bf16"])
+        keep("bias_gelu_bwd", form, bwd[form], bwd["bf16"])
+    # rows 4-5: softmax cross-entropy on float16 logits
+    SX = K.softmax_xent
+    for head, (n, V), frac in (("mlm", (4096, ERNIE["vocab_size"]), 0.15),
+                               ("nsp", (32, 2), 1.0)):
+        pair = {}
+        for form, dtype in (("bf16", bf16), ("float16", f16)):
+            z = rnd(n, V, dtype=dtype, scale=2.0)
+            lab = torch.where(
+                torch.rand(n, generator=g, device="cuda") < frac,
+                torch.randint(0, V, (n,), generator=g, device="cuda"), -100)
+            n_valid = int((lab != -100).sum())
+            gr = torch.randn(n, generator=g, device="cuda")
+            loss, lse = SX.softmax_xent_fwd(z, lab)
+            dz = SX.softmax_xent_bwd(z, lab, lse, gr)
+            torch.cuda.synchronize()
+            if not torch.all(dz[lab == -100] == 0):
+                fail(f"softmax_xent_bwd {form} {head}: an ignored row's "
+                     "gradient is not exactly 0")
+            logp = torch.log_softmax(z, -1)
+            zero = torch.zeros((), dtype=dtype, device="cuda")
+            gd = gr.to(dtype)
+            desc = f"{form} {head} N={n} V={V}"
+            isz = z.element_size()
+            rf = compare(
+                torch, f"softmax_xent {desc}",
+                lambda: SX.softmax_xent_fwd(z, lab),
+                lambda: SX.softmax_xent_plain(z, lab),
+                lambda: F.cross_entropy(z, lab, reduction="none"), dtype,
+                n * V * isz + 16 * n, 4 * n * V, PEAK_F32)
+            rb = compare(
+                torch, f"softmax_xent_bwd {desc}",
+                lambda: SX.softmax_xent_bwd(z, lab, lse, gr),
+                lambda: SX.softmax_xent_bwd_plain(z, lab, lse, gr),
+                lambda: torch.ops.aten._log_softmax_backward_data(
+                    torch.ops.aten.nll_loss_backward(
+                        gd, logp, lab, None, 0, -100, zero), logp, 1,
+                    dtype), dtype,
+                (n_valid + n) * V * isz + 16 * n, 4 * n_valid * V, PEAK_F32)
+            pair[form] = (rf, rb)
+            del z, dz, logp
+        if head == "mlm":
+            keep("softmax_xent", "float16", pair["float16"][0],
+                 pair["bf16"][0])
+            keep("softmax_xent_bwd", "float16", pair["float16"][1],
+                 pair["bf16"][1])
+        else:
+            for name, rec in zip(("softmax_xent", "softmax_xent_bwd"),
+                                 pair["float16"]):
+                recs[name]["float16"]["nsp"] = {
+                    k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms",
+                                        "max_abs_err")}
+    # rows 6-8: attention, BERT's padded shape with dropout 0.1
+    B, S, H, D, p = 32, 128, 12, 64, DROPOUT_P
+    lens = torch.randint(64, S + 1, (B,), generator=g, device="cuda")
+    bias = KF.fold_mask((torch.arange(S, device="cuda")[None, :]
+                         < lens[:, None])[:, None, None, :], B, H, S, S)
+    pairs = H * S * int(lens.sum())
+    att = {}
+    for form, dtype in (("bf16", bf16), ("float16", f16)):
+        q, k, v = rnd(B, S, 3, H, D, dtype=dtype).unbind(2)
+        do = rnd(B, S, H, D, dtype=dtype)
+        kw = dict(causal=False, bias=bias, dropout_p=p, seed=DROPOUT_SEED)
+        o, lse = KF.flash_attention(q, k, v, **kw)
+        delta = KF.flash_attention_delta(o, do)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_mask = bias.to(dtype)
+        lib_bwd = sdpa_masked_backward(torch, q, k, v, do, bias, p)
+        one, stats = B * S * H * D * 2, 2 * B * H * S * 4
+        desc = f"{form} padding dropout p={p} B={B} S={S} H={H} D={D}"
+        att[form] = {
+            "flash_attention": compare(
+                torch, f"flash_attention {desc}",
+                lambda: KF.flash_attention(q, k, v, **kw)[0],
+                lambda: KF.flash_attention_plain(q, k, v, **kw)[0],
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=lib_mask, dropout_p=p), dtype,
+                4 * one + B * H * S * 4 + B * S * 4, 4 * D * pairs,
+                PEAK_BF16_TENSOR, variant=("flash_attention", "mma")),
+            "flash_attention_dq": compare(
+                torch, f"flash_attention_dq {desc}",
+                lambda: KF.flash_attention_dq(q, k, v, do, lse, delta, **kw),
+                lambda: KF.flash_attention_dq_plain(q, k, v, do, lse, delta,
+                                                    **kw),
+                lib_bwd, dtype, 5 * one + stats + B * S * 4, 6 * D * pairs,
+                PEAK_BF16_TENSOR, variant=("flash_attention_dq", "mma")),
+            "flash_attention_dkv": compare(
+                torch, f"flash_attention_dkv {desc}",
+                lambda: KF.flash_attention_dkv(q, k, v, do, lse, delta,
+                                               **kw),
+                lambda: KF.flash_attention_dkv_plain(q, k, v, do, lse,
+                                                     delta, **kw),
+                lib_bwd, dtype, 6 * one + stats + B * S * 4, 8 * D * pairs,
+                PEAK_BF16_TENSOR, variant=("flash_attention_dkv", "mma"))}
+        del q, k, v, do, o, lse, delta
+    for name in ATTENTION_KERNELS:
+        keep(name, "float16", att["float16"][name], att["bf16"][name])
+    # the dropout mask: q = 0 gives every weight 1 / S, and V = I puts
+    # weight (i, j) in O[i, j]: the kept pairs of each dtype
+    S2 = D2 = 128
+    q0 = torch.zeros(2, S2, 2, D2, device="cuda")
+    eye = torch.eye(S2, D2, device="cuda")[None, :, None].expand(
+        2, S2, 2, D2).contiguous()
+    kept = [KF.flash_attention(q0.to(dt), q0.to(dt), eye.to(dt),
+                               causal=False, dropout_p=p,
+                               seed=DROPOUT_SEED)[0] != 0
+            for dt in (f16, bf16)]
+    want = KF.dropout_keep_plain(DROPOUT_SEED, 2, 2, S2, p, "cuda")
+    if not (torch.equal(kept[0], kept[1])
+            and torch.equal(kept[0], want.permute(0, 2, 1, 3))):
+        fail("amp-kernels: the float16 and bf16 forwards dropped different "
+             "pairs for one seed")
+    log(f"[amp-kernels] dropout p={p}: the float16 and bf16 forwards keep "
+        f"the same {int(kept[0].sum())} of {kept[0].numel()} pairs, the "
+        "plain version's mask")
+    torch.cuda.synchronize()
+    return recs
+
+
+def amp_unscale_phase(torch, K):
+    """check_finite_and_unscale_ over GPT-2-small's 148 gradients (float16,
+    the parameters' shapes) against its plain version, bitwise: clean,
+    then with an inf planted in one gradient and a NaN in another (the
+    flag set, inf and NaN where the plain version has them); one launch.
+    Timed at inv_scale 1 against its bound (each element read and written
+    once), the plain version and torch's
+    _amp_foreach_non_finite_check_and_unscale_.  Returns the record."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    KA = K.amp
+    shapes = [tuple(p.shape) for p in GPTForCausalLM(
+        GPTConfig(), device="cpu").parameters()]
+    g = torch.Generator(device="cuda").manual_seed(17)
+    inv = torch.full((1,), 2.0 ** -15, device="cuda")
+    base = [(torch.randn(s, generator=g, device="cuda") * 2048).half()
+            for s in shapes]
+    numel = sum(t.numel() for t in base)
+    for plant in ("clean", "inf+nan"):
+        grads = [t.clone() for t in base]
+        if plant != "clean":
+            grads[0].view(-1)[12345] = float("inf")
+            grads[-1].view(-1)[7] = float("nan")
+        ref = [t.clone() for t in grads]
+        found = torch.zeros(1, dtype=torch.int32, device="cuda")
+        ref_found = torch.zeros(1, dtype=torch.int32, device="cuda")
+        before = KA.check_finite_and_unscale_.launches
+        KA.check_finite_and_unscale_(grads, inv, found)
+        launches = KA.check_finite_and_unscale_.launches - before
+        KA.check_finite_and_unscale_plain(ref, inv, ref_found)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a.isnan(), b.isnan())
+                   and torch.equal(a.nan_to_num(), b.nan_to_num())
+                   for a, b in zip(grads, ref))
+        if not same or launches != 1 or found.item() != ref_found.item() \
+                or found.item() != (plant != "clean"):
+            fail(f"amp-unscale {plant}: bitwise {same}, {launches} launches, "
+                 f"flag {found.item()} (plain {ref_found.item()})")
+        log(f"[amp-unscale] {plant}: {len(grads)} float16 gradients, "
+            f"{numel} elements, inv_scale 2**-15: bitwise the plain "
+            f"version, flag {found.item()}, 1 launch")
+    one = torch.ones(1, device="cuda")
+    found = torch.zeros(1, dtype=torch.int32, device="cuda")
+    found_f = torch.zeros(1, device="cuda")
+    grads = [t.clone() for t in base]
+    rec = {"max_abs_err": 0.0, "tol": 0.0, "variant": None}
+    for key, fn in (
+            ("ms", lambda: KA.check_finite_and_unscale_(grads, one, found)),
+            ("plain_ms", lambda: KA.check_finite_and_unscale_plain(
+                grads, one, found)),
+            ("library_ms", lambda: torch._amp_foreach_non_finite_check_and_unscale_(
+                grads, found_f, one))):
+        rec[key] = time_ms(torch, fn)[0]
+    rec["bound_ms"], rec["bound_by"] = bound_ms(4 * numel, numel, PEAK_F32)
+    rec["tensors"], rec["elements"] = len(grads), numel
+    log(f"[amp-unscale] device ms: kernel {rec['ms']}, plain {rec['plain_ms']}"
+        f", library (torch._amp_foreach_non_finite_check_and_unscale_) "
+        f"{rec['library_ms']}, bound {rec['bound_ms']} ({rec['bound_by']}: "
+        f"{4 * numel} bytes)")
+    del base, grads
+    return rec
+
+
+def scale_rule(skipped, init, incr_every=1000, decr_every=2):
+    """The reference's dynamic loss scale after each step, from which
+    steps found an inf or a NaN (GradScaler.update)."""
+    scale, good, bad, out = init, 0, 0, []
+    for s in skipped:
+        if s:
+            good, bad = 0, bad + 1
+            if bad >= decr_every:
+                scale, bad = max(scale * 0.5, 1.0), 0
+        else:
+            good, bad = good + 1, 0
+            if good >= incr_every:
+                scale, good = scale * 2.0, 0
+        out.append(scale)
+    return out
+
+
+def ernie_batches(torch, n):
+    """``n`` seeded ERNIE pretraining batches of B = 32, S = 128 on the
+    card: ids over the 18,000-token vocabulary, four segment types, ~15 %
+    MLM labels, NSP labels and a [B, 1, 1, S] bool padding mask (lengths
+    64-128)."""
+    from paddle_tpu_torch.models import BertConfig
+
+    cfg = BertConfig(**ERNIE)
+    rs = np.random.RandomState(23)
+    out = []
+    for _ in range(n):
+        ids, _, mlm, nsp = bert_batch(torch, rs, cfg, 32, 128)
+        tt = torch.from_numpy(rs.randint(0, 4, (32, 128)))
+        mask = padding_mask(torch, rs, 32, 128)[0]
+        out.append([t.cuda() for t in (ids, tt, mask, mlm, nsp)])
+    return out
+
+
+def ernie_o2_run(torch, K, batches, profile=False):
+    """One run of path A from seed 0: BertForPretraining(BertConfig(
+    vocab_size=18000, type_vocab_size=4)) (ErnieModel's defaults, dropout
+    0.1), AdamW(1e-4, wd 0.01), ``amp.decorate(model, opt, level="O2",
+    dtype="float16")``, GradScaler(2**15); AMP_STEPS steps of the
+    reference's idiom, each under ``auto_cast(level="O2",
+    dtype="float16")``.  Returns a dict of what the phase checks."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+
+    seed(0)
+    model = BertForPretraining(BertConfig(**ERNIE), device="cuda").train()
+    opt = ptt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                              parameters=model.parameters())
+    model, opt = amp.decorate(model, opt, level="O2", dtype="float16")
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    out = {"n_params": sum(p.numel() for p in model.parameters())}
+    if profile:         # the first batch's loss in eval mode, for the CPU
+        with torch.no_grad(), amp.auto_cast(level="O2", dtype="float16"):
+            model.eval()
+            out["eval_loss"] = bert_fit_loss(
+                *model(*batches[0][:3]), *batches[0][3:]).item()
+            model.train()
+        out["state"] = {k: v.detach().cpu()
+                        for k, v in model.state_dict().items()}
+
+    def step(i):
+        ids, tt, mask, mlm, nsp = batches[i % len(batches)]
+        with amp.auto_cast(level="O2", dtype="float16"):
+            loss = bert_fit_loss(*model(ids, tt, mask), mlm, nsp)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        opt.clear_grad()
+        return loss.detach()
+
+    K.reset_launch_counts()
+    ptt.optimizer.Optimizer.plain_cuda_updates = 0
+    variants = K.variant_launches()
+    losses, times, skipped, scales = [], [], [], []
+    for i in range(AMP_STEPS):
+        t0 = time.perf_counter()
+        applied = opt._step_count
+        losses.append(step(i))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        skipped.append(opt._step_count == applied)
+        scales.append(scaler.get_loss_scaling())
+    out["counts"] = K.launch_counts()
+    out["fast"] = require_fast_variants(K, variants, "ernie-o2",
+                                        TRAINING_FAST)
+    out["losses"] = torch.stack(losses).float().cpu().tolist()
+    out.update(times=times, skipped=skipped, scales=scales,
+               dtypes={str(p.dtype) for p in model.parameters()})
+    if profile:
+        _, wall_ms, kernels = trace_window(
+            torch, lambda: [step(AMP_STEPS + j) for j in range(2)])
+        out["traced"], _ = require_traced(
+            kernels, "ernie-o2", BERT_KERNELS + ("check_finite_and_unscale",),
+            dropout=True)
+        out["forms"] = require_instances(kernels, ERNIE_FORMS, "ernie-o2")
+        out["busy"] = (sum(t for t, _, _ in kernels), wall_ms)
+    del model, opt
+    return out
+
+
+def ernie_cpu_loss(torch, state, batch):
+    """The port's own CPU run (plain versions) of the first batch's loss
+    in eval mode, from the card run's float16 weights held exactly in
+    float32: a host CPU without float16 arithmetic units takes minutes
+    for this forward in float16, seconds in float32.  AMP_LOSS_RTOL
+    covers the card's float16 rounding."""
+    from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
+                                         load_numpy_state)
+
+    model = BertForPretraining(BertConfig(**ERNIE), device="cpu")
+    load_numpy_state(model, {k: v.float().numpy() for k, v in state.items()})
+    model.eval()
+    with torch.no_grad():
+        cpu = [t.cpu() for t in batch]
+        return bert_fit_loss(*model(*cpu[:3]), *cpu[3:]).item()
+
+
+def ernie_o2_phase(torch, K, card):
+    """Path A, run twice from one seed: ERNIE pretraining (full width, 12
+    layers) in AMP-O2 float16 with dynamic loss scaling, B = 32, S = 128,
+    padded batches.  Fails unless the losses over the applied steps are
+    finite, bitwise equal in both runs and falling, the scale follows the
+    reference's rule from the skipped steps, every training kernel
+    launched in float16 (the unscale kernel once a step) and the first
+    batch's loss matches the port's CPU run within AMP_LOSS_RTOL.  Step
+    p50, samples/s, MFU.  Returns (launch counts of the first run, its
+    traced launches a step, a summary)."""
+    batches = ernie_batches(torch, 4)
+    runs = [ernie_o2_run(torch, K, batches, profile=i == 0)
+            for i in range(2)]
+    a, b = runs
+    if a["losses"] != b["losses"] or a["skipped"] != b["skipped"]:
+        fail(f"ernie-o2: two runs from one seed differ: {a['losses']} / "
+             f"{b['losses']}")
+    applied = [x for x, s in zip(a["losses"], a["skipped"]) if not s]
+    if not applied or not all(math.isfinite(x) for x in applied) \
+            or np.mean(applied[-5:]) >= np.mean(applied[:5]):
+        fail(f"ernie-o2: the applied steps' losses {applied} are not finite "
+             "and falling")
+    want = scale_rule(a["skipped"], 2.0 ** 15)
+    if a["scales"] != want:
+        fail(f"ernie-o2: scales {a['scales']} do not follow the rule "
+             f"{want}")
+    if a["dtypes"] != {"torch.float16"}:
+        fail(f"ernie-o2: parameters {a['dtypes']} after the steps")
+    counts = a["counts"]
+    unscale = counts["check_finite_and_unscale"]
+    n_applied = len(applied)
+    for name in BERT_KERNELS:
+        if counts[name] <= 0:
+            fail(f"ernie-o2: kernel {name} was not launched")
+    if unscale != AMP_STEPS or counts["multi_tensor_step"] != n_applied:
+        fail(f"ernie-o2: {unscale} unscale and "
+             f"{counts['multi_tensor_step']} optimizer launches in "
+             f"{AMP_STEPS} steps, {n_applied} applied")
+    t0 = time.perf_counter()
+    cpu = ernie_cpu_loss(torch, a["state"], batches[0])
+    cpu_s = time.perf_counter() - t0
+    rel = abs(a["eval_loss"] - cpu) / abs(cpu)
+    if not rel <= AMP_LOSS_RTOL:
+        fail(f"ernie-o2: first batch's eval loss {a['eval_loss']} on the "
+             f"card, {cpu} on the CPU (rel {rel:.3e} > {AMP_LOSS_RTOL})")
+    times = a["times"][2:] + b["times"][2:]
+    p50 = float(np.median(times))
+    B, S = 32, 128
+    flops = 6.0 * a["n_params"] * B * S + 12 * 12 * S * S * 768 * B
+    busy, wall = a["busy"]
+    per_step = {n: c / 2 for n, c in a["traced"].items() if c}
+    log(f"[ernie-o2] ERNIE (BertConfig(vocab_size=18000, type_vocab_size=4), "
+        f"{a['n_params']} parameters, dropout 0.1) AMP-O2 float16, "
+        f"GradScaler(2**15), AdamW(1e-4, wd 0.01), B={B} S={S} padded, "
+        f"{AMP_STEPS} steps x 2 runs on {card}: losses {a['losses']} "
+        f"bitwise equal in both runs; skipped steps "
+        f"{[i for i, s in enumerate(a['skipped']) if s]}; scales "
+        f"{a['scales']} (the reference's rule); first batch eval loss "
+        f"card {a['eval_loss']:.6f} cpu {cpu:.6f} (rel {rel:.3e}, tol "
+        f"{AMP_LOSS_RTOL}; cpu {cpu_s:.1f}s); step p50 {p50 * 1e3:.3f} ms "
+        f"(steps 3-{AMP_STEPS} of both runs); {B / p50:.1f} samples/s; "
+        f"{B * S / p50:.1f} tokens/s; {mfu_text(flops, p50)}; launches in "
+        f"{AMP_STEPS} steps {counts}; tensor-core and vector launches "
+        f"{a['fast']}; traced launches a step (2 profiled steps) "
+        f"{per_step}; instantiations in them {a['forms']}; busy "
+        f"{busy:.3f} of {wall:.3f} ms ({100 * busy / wall:.2f}%)")
+    return counts, per_step, {
+        "p50_ms": p50 * 1e3, "samples_s": B / p50,
+        "mfu": flops / p50 / PEAK_BF16_TENSOR,
+        "forms_a_step": {k: v / 2 for k, v in a["forms"].items()}}
+
+
+def fit_amp_run(torch, K, form, data, B):
+    """One Model.fit run of path B from seed 0: BertConfig() in float32,
+    AdamW(1e-4, wd 0.01), AMP_FIT_STEPS steps under ``auto_cast(
+    level="O1", dtype="bfloat16")``, through the captured step ("graph")
+    or ``_step_eager``; then (graph) two more under the profiler and a
+    plain fit of the same model outside auto_cast."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.hapi.engine import TrainEngine
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+
+    seed(0)
+    model = BertForPretraining(BertConfig(), device="cuda")
+    opt = ptt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                              parameters=model.parameters())
+    api = ptt.Model(model, labels=["mlm_labels", "nsp_labels"]).prepare(
+        opt, bert_fit_loss)
+    engine = api._engine = TrainEngine(api)
+    if form == "eager":
+        engine.step = engine._step_eager
+    stamps, drain = [], engine.drain
+
+    def stamped():
+        out = drain()
+        stamps.append(time.perf_counter())
+        return out
+
+    engine.drain = stamped
+
+    def fit(lo, hi, log_freq=1):
+        return api.fit(ptt.io.TensorDataset([t[lo * B:hi * B] for t in data]),
+                       batch_size=B, shuffle=False, verbose=0,
+                       log_freq=log_freq)["step_loss"]
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        losses = fit(0, AMP_FIT_STEPS)
+    out = {"losses": losses, "counts": K.launch_counts(),
+           "times": np.diff([t0] + stamps[:AMP_FIT_STEPS]) * 1e3,
+           "params": [p.detach().clone() for p in model.parameters()],
+           "dtypes": {str(p.dtype) for p in model.parameters()}}
+    if form == "graph":
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            _, wall_ms, kernels = trace_window(
+                torch, lambda: fit(AMP_FIT_STEPS, AMP_FIT_STEPS + 2))
+        out["traced"], _ = require_traced(kernels, "fit-amp", BERT_KERNELS,
+                                          dropout=True)
+        out["forms"] = require_instances(kernels, FIT_AMP_FORMS, "fit-amp")
+        out["busy"] = (sum(t for t, _, _ in kernels), wall_ms)
+        out["captures_amp"] = engine.captures
+        out["sigs"] = [s[-1] for s in engine.graph_launches]
+        plain = fit(AMP_FIT_STEPS + 2, AMP_FIT_STEPS + 4)
+        out["captures_plain"] = engine.captures
+        out["sigs_after"] = [s[-1] for s in engine.graph_launches]
+        out["plain_losses"] = plain
+        out["replays"] = engine.replays
+    del api, engine, model, opt
+    return out
+
+
+def fit_amp_phase(torch, K, card):
+    """Path B: BERT-base (BertConfig(), float32 parameters) through
+    Model.fit under auto_cast(level="O1", dtype="bfloat16"), B = 32,
+    S = 128, padded batches: the captured step against _step_eager
+    (losses and parameters bitwise equal), the mixed bias-GeLU and
+    LayerNorm forms, the bf16 attention and NSP cross-entropy and the
+    float32 MLM cross-entropy in the trace; a plain fit of the same model
+    afterwards captures its own graph.  Returns (the graph run's counts,
+    its traced launches a step, a summary)."""
+    from paddle_tpu_torch.models import BertConfig
+
+    B, S = 32, 128
+    cfg = BertConfig()
+    rs = np.random.RandomState(29)
+    n = AMP_FIT_STEPS + 4
+    ids, tt, mlm, nsp = bert_batch(torch, rs, cfg, n * B, S)
+    data = [ids, tt, padding_mask(torch, rs, n * B, S)[0], mlm, nsp]
+    graph = fit_amp_run(torch, K, "graph", data, B)
+    eager = fit_amp_run(torch, K, "eager", data, B)
+    if graph["losses"] != eager["losses"] or not all(
+            torch.equal(x, y) for x, y in zip(graph["params"],
+                                              eager["params"])):
+        fail(f"fit-amp: graph losses {graph['losses']} against eager "
+             f"{eager['losses']} (or the parameters) differ")
+    if not all(math.isfinite(x) for x in graph["losses"] +
+               graph["plain_losses"]):
+        fail(f"fit-amp: losses {graph['losses']} (plain fit "
+             f"{graph['plain_losses']}) not all finite")
+    key = (True, torch.bfloat16, "O1")
+    if graph["captures_amp"] != 1 or graph["sigs"] != [key] \
+            or graph["captures_plain"] != 2 \
+            or sorted(map(str, graph["sigs_after"])) != sorted(
+                map(str, [key, (False,)])):
+        fail(f"fit-amp: captures {graph['captures_amp']} then "
+             f"{graph['captures_plain']}, signatures {graph['sigs_after']}")
+    if graph["dtypes"] != {"torch.float32"}:
+        fail(f"fit-amp: parameters {graph['dtypes']} under O1")
+    traced = {k: v / 2 for k, v in graph["traced"].items() if v}
+    p50 = float(np.median(graph["times"][1:]))
+    p50_e = float(np.median(eager["times"][1:]))
+    n_params = sum(x.numel() for x in graph["params"])
+    flops = 6.0 * n_params * B * S + 12 * 12 * S * S * 768 * B
+    busy, wall = graph["busy"]
+    log(f"[fit-amp] BertConfig() float32 parameters, Model.fit under "
+        f"auto_cast(level='O1', dtype='bfloat16'), AdamW(1e-4, wd 0.01), "
+        f"B={B} S={S} padded on {card}: graph losses {graph['losses']} "
+        f"bitwise the eager step's, parameters too; captures: 1 under "
+        f"auto_cast, then a plain fit's own ({graph['sigs_after']}), "
+        f"{graph['replays']} replays; plain fit losses "
+        f"{graph['plain_losses']}; step p50 graph {p50:.3f} ms / eager "
+        f"{p50_e:.3f} ms (steps 2-{AMP_FIT_STEPS}); {B / p50 * 1e3:.1f} "
+        f"samples/s; {mfu_text(flops, p50 / 1e3)}; launches at the "
+        f"warm-up and the capture {graph['counts']}; traced launches a "
+        f"replay {traced}; instantiations in 2 replays {graph['forms']}; "
+        f"busy {busy:.3f} of {wall:.3f} ms ({100 * busy / wall:.2f}%)")
+    return graph["counts"], traced, {
+        "p50_ms": p50, "eager_p50_ms": p50_e, "samples_s": B / p50 * 1e3,
+        "mfu": flops / (p50 / 1e3) / PEAK_BF16_TENSOR,
+        "forms_a_step": {k: v / 2 for k, v in graph["forms"].items()}}
+
+
 def peak_text(torch, start):
     """The peak memory since the last reset, and its part above the
     ``start`` the phase found allocated."""
@@ -3689,6 +4364,19 @@ def main():
     s2s_cross, s2s_rows, s2s_cross_steps, s2s_counts, s2s_traced = \
         seq2seq_phase(torch, K, card)
     torch.cuda.synchronize()
+    release(torch, "amp-kernels")
+    mark("amp-kernels")
+    amp_recs = amp_kernel_phase(torch, K)
+    unscale_rec = amp_unscale_phase(torch, K)
+    release(torch, "ernie-o2")
+    mark("ernie-o2")
+    ernie_counts, ernie_traced, ernie_step = ernie_o2_phase(torch, K, card)
+    torch.cuda.synchronize()
+    release(torch, "fit-amp")
+    mark("fit-amp")
+    fit_amp_counts, fit_amp_traced, fit_amp_step = fit_amp_phase(torch, K,
+                                                                 card)
+    torch.cuda.synchronize()
 
     kernels = []
     for name, rec in main_cases.items():
@@ -3734,6 +4422,26 @@ def main():
             if name == "layer_norm":
                 entry["seq2seq_shape"]["decoder_rows"] = {
                     k: s2s_rows["layer_norm_decoder"][k] for k in keys}
+        for form, (counts_of, traced_of, step_of, tag, path) in (
+                ("float16", (ernie_counts, ernie_traced, ernie_step, "f16",
+                             "ernie-o2")),
+                ("mixed", (fit_amp_counts, fit_amp_traced, fit_amp_step,
+                           "mixed", "fit-amp"))):
+            if form in amp_recs.get(name, {}):
+                # the AMP paths' forms at their shapes, beside the bf16
+                # kernel at the same shape: the wrapper's launches on the
+                # path (path A's steps; path B's warm-up and capture, every
+                # form), a step of its trace, and of this form in the trace
+                r = amp_recs[name][form]
+                entry[form] = {
+                    "path": path, "launches": counts_of[name],
+                    "traced_launches_a_step": traced_of.get(name, 0),
+                    "form_launches_a_step": step_of["forms_a_step"].get(
+                        f"{name} {tag}"),
+                    **{k: r[k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms", "bf16_ms") if k in r},
+                    **({"nsp": r["nsp"]} if "nsp" in r else {})}
         if name in FAST_VARIANT:
             entry["variant"] = rec["variant"]
         if name in MMA_KERNELS:
@@ -3772,6 +4480,19 @@ def main():
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "max_abs_err")}}
         kernels.append(entry)
+    # the loss scaler's unscale (beyond the pallas_call set): path A's
+    # launches, once a step
+    source, replaces = REPLACES["check_finite_and_unscale"]
+    kernels.append({
+        "name": "check_finite_and_unscale", "route": "cuda",
+        "source": source, "replaces": replaces,
+        "launches": ernie_counts["check_finite_and_unscale"],
+        **{k: unscale_rec[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "tensors", "elements")},
+        "traced_launches_a_step": ernie_traced.get(
+            "check_finite_and_unscale", 0),
+        "paths": {"ernie-o2": ernie_step, "fit-amp": fit_amp_step}})
     log(f"[time] the run took {time.perf_counter() - START:.1f}s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,7 +11,7 @@ Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 ``RuntimeError`` where CUDA is absent.  Pass ``device="cpu"`` to run the
 kernels' plain PyTorch versions instead (the tests do).
 """
-from . import io, metric, optimizer  # noqa: F401
+from . import amp, io, metric, optimizer, tensor_ops  # noqa: F401
 from .framework.io_state import load, save  # noqa: F401
 from .framework.place import default_device  # noqa: F401
 from .framework.random import seed  # noqa: F401

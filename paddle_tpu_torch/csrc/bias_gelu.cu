@@ -10,6 +10,12 @@
 // row-sum of dx, is left to the caller, as `_bg_bwd` leaves it to XLA.  Any
 // row count: the Pallas `rows % 8` refusal was a TPU tiling artefact.
 //
+// x, y, dy and dx are float32, bfloat16 or float16; b is x's type, or
+// float32 beside 16-bit x (AMP-O1: the FFN's 16-bit matmul output meets
+// its float32 bias; the Pallas kernel adds them in float32,
+// bias_gelu.py:42).  B, the bias's type, is a template parameter of every
+// kernel; the outputs are in x's type.
+//
 // Forward and backward each have two kernels; each C entry picks one from
 // the width and the pointers' alignment alone, and counts the choice:
 //
@@ -39,9 +45,9 @@
 
 namespace {
 
-template <typename T>
+template <typename T, typename B>
 __global__ void bias_gelu_fwd_kernel(const T* __restrict__ x,
-                                     const T* __restrict__ b,
+                                     const B* __restrict__ b,
                                      T* __restrict__ y, long long total,
                                      int n) {
   const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
@@ -53,9 +59,9 @@ __global__ void bias_gelu_fwd_kernel(const T* __restrict__ x,
   }
 }
 
-template <typename T>
+template <typename T, typename B>
 __global__ void bias_gelu_bwd_kernel(const T* __restrict__ x,
-                                     const T* __restrict__ b,
+                                     const B* __restrict__ b,
                                      const T* __restrict__ dy,
                                      T* __restrict__ dx, long long total,
                                      int n) {
@@ -78,10 +84,10 @@ long long grid_for(long long total, int threads) {
 constexpr int kVecThreads = 128;  // column vectors a block
 constexpr int kRows = 8;          // rows a thread walks, loads in flight
 
-template <typename T>
+template <typename T, typename B>
 __global__ void __launch_bounds__(kVecThreads, 4)
     bias_gelu_bwd_vec_kernel(const T* __restrict__ x,
-                             const T* __restrict__ b,
+                             const B* __restrict__ b,
                              const T* __restrict__ dy, T* __restrict__ dx,
                              long long rows, int nv) {
   using V = ptt::Vec16<T>;
@@ -89,7 +95,9 @@ __global__ void __launch_bounds__(kVecThreads, 4)
   const int c = blockIdx.x * kVecThreads + threadIdx.x;  // column vector
   if (c >= nv) return;
   float bf[kN];
-  V::unpack(__ldg(reinterpret_cast<const uint4*>(b) + c), bf);
+  ptt::VecN<B, kN> bv;
+  bv.load(b + c * kN);
+  bv.unpack(bf);
   const uint4* xv = reinterpret_cast<const uint4*>(x);
   const uint4* dyv = reinterpret_cast<const uint4*>(dy);
   uint4* dxv = reinterpret_cast<uint4*>(dx);
@@ -122,17 +130,19 @@ __global__ void __launch_bounds__(kVecThreads, 4)
   }
 }
 
-template <typename T, int kRowsT>
+template <typename T, typename B, int kRowsT>
 __global__ void __launch_bounds__(kVecThreads, 4)
     bias_gelu_fwd_vec_kernel(const T* __restrict__ x,
-                             const T* __restrict__ b, T* __restrict__ y,
+                             const B* __restrict__ b, T* __restrict__ y,
                              long long rows, int nv) {
   using V = ptt::Vec16<T>;
   constexpr int kN = V::kN;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;  // column vector
   if (c >= nv) return;
   float bf[kN];
-  V::unpack(__ldg(reinterpret_cast<const uint4*>(b) + c), bf);
+  ptt::VecN<B, kN> bv;
+  bv.load(b + c * kN);
+  bv.unpack(bf);
   const uint4* xv = reinterpret_cast<const uint4*>(x);
   uint4* yv = reinterpret_cast<uint4*>(y);
   for (long long r0 = static_cast<long long>(blockIdx.y) * kRowsT; r0 < rows;
@@ -161,21 +171,21 @@ __global__ void __launch_bounds__(kVecThreads, 4)
 // [scalar, vec]
 std::atomic<long long> fwd_variant_launches[2];
 
-template <typename T, int kRowsT>
-void launch_fwd_vec(const T* x, const T* b, T* y, long long rows, int nv,
+template <typename T, typename B, int kRowsT>
+void launch_fwd_vec(const T* x, const B* b, T* y, long long rows, int nv,
                     int width, cudaStream_t st) {
   const long long bands = (rows + kRowsT - 1) / kRowsT;
   const dim3 grid((nv + width - 1) / width,
                   static_cast<unsigned>(bands < 65535 ? bands : 65535));
-  bias_gelu_fwd_vec_kernel<T, kRowsT><<<grid, width, 0, st>>>(x, b, y, rows,
-                                                              nv);
+  bias_gelu_fwd_vec_kernel<T, B, kRowsT><<<grid, width, 0, st>>>(x, b, y,
+                                                                 rows, nv);
 }
 
-template <typename T>
+template <typename T, typename B>
 int launch_fwd(const void* x, const void* b, void* y, long long total, int n,
                cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
-  const T* bt = static_cast<const T*>(b);
+  const B* bt = static_cast<const B*>(b);
   T* yt = static_cast<T*>(y);
   constexpr int kN = ptt::Vec16<T>::kN;
   const bool vec = n % kN == 0 && ptt::aligned_16(x) && ptt::aligned_16(b) &&
@@ -183,7 +193,7 @@ int launch_fwd(const void* x, const void* b, void* y, long long total, int n,
   ++fwd_variant_launches[vec];
   if (!vec) {
     const int threads = 256;
-    bias_gelu_fwd_kernel<T><<<grid_for(total, threads), threads, 0, st>>>(
+    bias_gelu_fwd_kernel<T, B><<<grid_for(total, threads), threads, 0, st>>>(
         xt, bt, yt, total, n);
     return static_cast<int>(cudaGetLastError());
   }
@@ -192,9 +202,9 @@ int launch_fwd(const void* x, const void* b, void* y, long long total, int n,
   // kRows rows a thread where that still leaves two blocks a SM, else one
   const long long cols = (nv + kVecThreads - 1) / kVecThreads;
   if (cols * ((rows + kRows - 1) / kRows) >= 2LL * ptt::sm_count()) {
-    launch_fwd_vec<T, kRows>(xt, bt, yt, rows, nv, kVecThreads, st);
+    launch_fwd_vec<T, B, kRows>(xt, bt, yt, rows, nv, kVecThreads, st);
   } else {
-    launch_fwd_vec<T, 1>(xt, bt, yt, rows, nv, kVecThreads / 2, st);
+    launch_fwd_vec<T, B, 1>(xt, bt, yt, rows, nv, kVecThreads / 2, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -203,11 +213,11 @@ int launch_fwd(const void* x, const void* b, void* y, long long total, int n,
 // [scalar, vec]
 std::atomic<long long> bwd_variant_launches[2];
 
-template <typename T>
+template <typename T, typename B>
 int launch_bwd(const void* x, const void* b, const void* dy, void* dx,
                long long total, int n, cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
-  const T* bt = static_cast<const T*>(b);
+  const B* bt = static_cast<const B*>(b);
   const T* dyt = static_cast<const T*>(dy);
   T* dxt = static_cast<T*>(dx);
   constexpr int kN = ptt::Vec16<T>::kN;
@@ -220,11 +230,11 @@ int launch_bwd(const void* x, const void* b, const void* dy, void* dx,
     const long long bands = (rows + kRows - 1) / kRows;
     const dim3 grid((nv + kVecThreads - 1) / kVecThreads,
                     static_cast<unsigned>(bands < 65535 ? bands : 65535));
-    bias_gelu_bwd_vec_kernel<T><<<grid, kVecThreads, 0, st>>>(
+    bias_gelu_bwd_vec_kernel<T, B><<<grid, kVecThreads, 0, st>>>(
         xt, bt, dyt, dxt, rows, nv);
   } else {
     const int threads = 256;
-    bias_gelu_bwd_kernel<T><<<grid_for(total, threads), threads, 0, st>>>(
+    bias_gelu_bwd_kernel<T, B><<<grid_for(total, threads), threads, 0, st>>>(
         xt, bt, dyt, dxt, total, n);
   }
   return static_cast<int>(cudaGetLastError());
@@ -232,28 +242,61 @@ int launch_bwd(const void* x, const void* b, const void* dy, void* dx,
 
 }  // namespace
 
-// x, y: [total / n, n] contiguous; b: [n] in x's dtype.
-extern "C" int ptt_bias_gelu_fwd(const void* x, const void* b, void* y,
-                                 long long total, int n, int dtype,
-                                 void* stream) {
-  if (total <= 0 || n <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::kF32) return launch_fwd<float>(x, b, y, total, n, st);
+namespace {
+
+// x's type T and the bias's type B of a (dtype, bdtype) pair: B is T, or
+// float32 beside a 16-bit T; anything else is refused.
+template <template <typename, typename> class F, typename... Args>
+int dispatch(int dtype, int bdtype, Args... args) {
+  const bool mixed = dtype != ptt::kF32 && bdtype == ptt::kF32;
+  if (bdtype != dtype && !mixed)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == ptt::kF32) return F<float, float>::run(args...);
   if (dtype == ptt::kBF16)
-    return launch_fwd<__nv_bfloat16>(x, b, y, total, n, st);
+    return mixed ? F<__nv_bfloat16, float>::run(args...)
+                 : F<__nv_bfloat16, __nv_bfloat16>::run(args...);
+  if (dtype == ptt::kF16)
+    return mixed ? F<__half, float>::run(args...)
+                 : F<__half, __half>::run(args...);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// x, dy, dx: [total / n, n] contiguous; b: [n]; all in one dtype.
+template <typename T, typename B>
+struct Fwd {
+  static int run(const void* x, const void* b, void* y, long long total,
+                 int n, cudaStream_t st) {
+    return launch_fwd<T, B>(x, b, y, total, n, st);
+  }
+};
+
+template <typename T, typename B>
+struct Bwd {
+  static int run(const void* x, const void* b, const void* dy, void* dx,
+                 long long total, int n, cudaStream_t st) {
+    return launch_bwd<T, B>(x, b, dy, dx, total, n, st);
+  }
+};
+
+}  // namespace
+
+// x, y: [total / n, n] contiguous in `dtype`; b: [n] in `bdtype`, which is
+// `dtype` or float32 beside a 16-bit `dtype`.
+extern "C" int ptt_bias_gelu_fwd(const void* x, const void* b, void* y,
+                                 long long total, int n, int dtype,
+                                 int bdtype, void* stream) {
+  if (total <= 0 || n <= 0) return 0;
+  return dispatch<Fwd>(dtype, bdtype, x, b, y, total, n,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// x, dy, dx: [total / n, n] contiguous in `dtype`; b: [n] in `bdtype`, as
+// above.
 extern "C" int ptt_bias_gelu_bwd(const void* x, const void* b, const void* dy,
                                  void* dx, long long total, int n, int dtype,
-                                 void* stream) {
+                                 int bdtype, void* stream) {
   if (total <= 0 || n <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == ptt::kF32) return launch_bwd<float>(x, b, dy, dx, total, n, st);
-  if (dtype == ptt::kBF16)
-    return launch_bwd<__nv_bfloat16>(x, b, dy, dx, total, n, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<Bwd>(dtype, bdtype, x, b, dy, dx, total, n,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // How many backward launches took the scalar kernel (variant 0) or the

@@ -1,23 +1,25 @@
 // Shared helpers of the port's CUDA kernels (sm_90a).
 //
-// Every kernel reads float32 or bfloat16 and does its arithmetic in
-// float32, as the Pallas kernels it replaces do.  Each C entry point takes
+// Every kernel reads float32, bfloat16 or float16 and does its arithmetic
+// in float32, as the Pallas kernels it replaces do.  Each C entry point takes
 // the CUDA stream as a void*, launches on it, never synchronises and
 // returns cudaGetLastError() so the Python wrapper can raise at once.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace ptt {
 
-enum DType { kF32 = 0, kBF16 = 1 };
+enum DType { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -26,6 +28,10 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, as torch casts
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);  // round to nearest even, as torch casts
 }
 
 // 16 bytes of T as float32 and back.
@@ -66,6 +72,57 @@ struct Vec16<__nv_bfloat16> {
       u[i] = *reinterpret_cast<const uint32_t*>(&h);
     }
     return make_uint4(u[0], u[1], u[2], u[3]);
+  }
+};
+
+template <>
+struct Vec16<__half> {
+  static constexpr int kN = 8;
+  __device__ static void unpack(const uint4& r, float (&f)[kN]) {
+    const uint32_t u[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 v =
+          __half22float2(*reinterpret_cast<const __half2*>(&u[i]));
+      f[2 * i] = v.x;
+      f[2 * i + 1] = v.y;
+    }
+  }
+  __device__ static uint4 pack(const float (&f)[kN]) {
+    uint32_t u[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __half2 h = __floats2half2_rn(f[2 * i], f[2 * i + 1]);
+      u[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    return make_uint4(u[0], u[1], u[2], u[3]);
+  }
+};
+
+// kN consecutive elements of W, read as whole 16-byte vectors (one for
+// kN elements of a 16-bit W beside kN of the same type; two when W is
+// float32 beside kN = 8 of a 16-bit type: a float32 weight or bias beside
+// 16-bit activations), and unpacked to float32.
+template <typename W, int kN>
+struct VecN {
+  static constexpr int kPer = Vec16<W>::kN;
+  static constexpr int kU = kN / kPer;
+  static_assert(kN % kPer == 0, "whole 16-byte vectors");
+  uint4 u[kU];
+  // through the read-only cache: p on a 16-byte boundary
+  __device__ void load(const W* p) {
+#pragma unroll
+    for (int i = 0; i < kU; ++i)
+      u[i] = __ldg(reinterpret_cast<const uint4*>(p) + i);
+  }
+  __device__ void unpack(float (&f)[kN]) const {
+#pragma unroll
+    for (int i = 0; i < kU; ++i) {
+      float g[kPer];
+      Vec16<W>::unpack(u[i], g);
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) f[i * kPer + e] = g[e];
+    }
   }
 };
 

@@ -14,25 +14,26 @@
 // Two hand-written kernels; the C entry picks one from the dtype and the
 // operands' alignment alone:
 //
-// `flash_fwd_mma_kernel` (bf16 whose base pointers and (b, s, h) strides
-// are 16-byte multiples: every path of the models) does both products on
-// the tensor cores, `mma.sync.m16n8k16` with bf16 operands and float32
-// accumulators.  A block owns a tile of 16 to 128 query rows of one
-// (batch, head); each warp owns 16 of them and keeps the score tile
+// `flash_fwd_mma_kernel` (bf16 or float16 whose base pointers and
+// (b, s, h) strides are 16-byte multiples: every path of the models, AMP's
+// float16 included) does both products on the tensor cores,
+// `mma.sync.m16n8k16` with 16-bit operands (the element type T, a template
+// parameter: one fragment layout for both) and float32 accumulators.  A
+// block owns a tile of 16 to 128 query rows of one (batch, head); each warp owns 16 of them and keeps the score tile
 // S = Q K^T, the running max and sum and the output accumulator in
 // registers for the whole key loop; the block's Q tile stays in shared
 // memory beside the streamed tiles.  K and V tiles of 64 keys (32 at
-// D = 128) stay bf16 in shared memory, filled by 16-byte `cp.async` copies
+// D = 128) stay 16-bit in shared memory, filled by 16-byte `cp.async` copies
 // in two stages, so the next tile is in flight while this one is
 // multiplied; rows are padded by 16 bytes, which spreads the eight rows of
 // an `ldmatrix` over all 32 banks.  K fragments come from `ldmatrix`, V's
 // from `ldmatrix.trans` (its contracted dimension is the row).  The softmax
 // runs in float32 on the accumulators, in the reference's order (scale, add
 // the bias, causal replace), the row max over the four lanes of a quad; P
-// is rounded to bf16 in registers, as the reference rounds it to V's type,
+// is rounded to T in registers, as the reference rounds it to V's type,
 // and is the A operand of P V as it stands.  The bias is read from device
 // memory (L2) at each accumulator entry through its four strides and is
-// never folded into a bf16 operand: a row masked by -1e30 everywhere
+// never folded into a 16-bit operand: a row masked by -1e30 everywhere
 // absorbs the dot in float32 and stays a uniform average.  Without a bias
 // the scale is folded into the exponent (one FFMA and one ex2 an entry).
 // Causal (top-left aligned, as the reference's `_causal_mask`: query i sees
@@ -44,7 +45,7 @@
 // leaves through the block's Q tile in shared memory as 16-byte stores.
 //
 // `flash_fwd_kernel` (float32, where TF32 would not hold the parity limits,
-// and bf16 operands that are not 16-byte aligned) runs on the CUDA cores:
+// and 16-bit operands that are not 16-byte aligned) runs on the CUDA cores:
 // one block per (batch*head, 64-row query tile), 256 threads, four threads
 // per query row, each owning D/4 interleaved dims of q and of the output
 // accumulator.  K and V tiles of 32 keys are staged in shared memory as
@@ -221,12 +222,13 @@ int launch(const void* q, const void* k, const void* v, long long qb,
 template <int D>
 constexpr int kKeys = D == 128 ? 32 : 64;
 
+template <typename T>
 struct MmaArgs {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
+  const T* q;
+  const T* k;
+  const T* v;
   long long qb, qs, qh, kb, ks, kh, vb, vs, vh;
-  __nv_bfloat16* o;
+  T* o;
   float* lse;
   ptt::Bias bias;
   int H, S_q, S_k;  // heads; queries and keys of a plane
@@ -237,7 +239,7 @@ struct MmaArgs {
 
 // One 16-row tile's online-softmax step over a staged tile's scores, on the
 // accumulators.  In: s = Q K^T (raw dots).  Out: s = p (float32), pf = p
-// rounded to bf16 as the A operand of P V; m, l and o brought up to date.
+// rounded to T as the A operand of P V; m, l and o brought up to date.
 // Lane (g, t) holds rows g (entries 0, 1) and g + 8 (entries 2, 3).
 //
 // kFast (no bias, scale > 0): the max is taken over the raw dots and
@@ -247,10 +249,10 @@ struct MmaArgs {
 // row masked everywhere by -1e30 gives exactly 2^0 whatever the rounding.
 // kDropout: m, l (and so the LSE) are of the weights before dropout; only
 // pf takes p * z / (1 - p), z the keep bit of `keep`.
-template <int D, bool kFast, bool kDropout>
+template <typename T, int D, bool kFast, bool kDropout>
 __device__ __forceinline__ void softmax_tile(
     float (&s)[kKeys<D> / 8][4], uint32_t (&pf)[kKeys<D> / 16][4],
-    float (&o)[D / 8][4], float (&m)[2], float (&l)[2], const MmaArgs& a,
+    float (&o)[D / 8][4], float (&m)[2], float (&l)[2], const MmaArgs<T>& a,
     long long bias_base, int r0, int k0, int t, bool edge,
     const uint32_t (&keep)[2][2]) {
   constexpr int kTileN = kKeys<D>;
@@ -330,26 +332,26 @@ __device__ __forceinline__ void softmax_tile(
   // two score tiles side by side are one A operand
 #pragma unroll
   for (int kk = 0; kk < kTileN / 16; ++kk) {
-    pf[kk][0] = ptt::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-    pf[kk][1] = ptt::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-    pf[kk][2] = ptt::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    pf[kk][3] = ptt::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    pf[kk][0] = ptt::pack16<T>(s[2 * kk][0], s[2 * kk][1]);
+    pf[kk][1] = ptt::pack16<T>(s[2 * kk][2], s[2 * kk][3]);
+    pf[kk][2] = ptt::pack16<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    pf[kk][3] = ptt::pack16<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
   }
 }
 
 // kWarps warps, each owning 16 of the block's kWarps * 16 query rows.
-template <int D, int kWarps, bool kDropout>
+template <typename T, int D, int kWarps, bool kDropout>
 __global__ void __launch_bounds__(kWarps * 32)
-    flash_fwd_mma_kernel(MmaArgs a) {
+    flash_fwd_mma_kernel(MmaArgs<T> a) {
   constexpr int kThreads = kWarps * 32;
   constexpr int kTileM = kWarps * 16;
   constexpr int kTileN = kKeys<D>;
   constexpr int kLd = D + 8;  // padded row, in elements
   constexpr int kKs = D / 16;  // k-steps of Q K^T; pairs of D tiles of P V
   extern __shared__ __align__(16) unsigned char ptt_smem[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(ptt_smem);
-  __nv_bfloat16* k_s = q_s + kTileM * kLd;      // [2][kTileN][kLd]
-  __nv_bfloat16* v_s = k_s + 2 * kTileN * kLd;  // [2][kTileN][kLd]
+  T* q_s = reinterpret_cast<T*>(ptt_smem);
+  T* k_s = q_s + kTileM * kLd;      // [2][kTileN][kLd]
+  T* v_s = k_s + 2 * kTileN * kLd;  // [2][kTileN][kLd]
 
   const int S_q = a.S_q, S_k = a.S_k;
   const int bh = blockIdx.x;
@@ -363,9 +365,9 @@ __global__ void __launch_bounds__(kWarps * 32)
   const bool fast = a.bias.p == nullptr && a.scale > 0.f;
   const long long bias_base = b * a.bias.b + h * a.bias.h;
 
-  const __nv_bfloat16* q_src = a.q + b * a.qb + h * a.qh;
-  const __nv_bfloat16* k_src = a.k + b * a.kb + h * a.kh;
-  const __nv_bfloat16* v_src = a.v + b * a.vb + h * a.vh;
+  const T* q_src = a.q + b * a.qb + h * a.qh;
+  const T* k_src = a.k + b * a.kb + h * a.kh;
+  const T* v_src = a.v + b * a.vb + h * a.vh;
   // causal: keys up to the tile's diagonal; otherwise every key
   const int k_end = a.causal ? min(S_k, q0 + kTileM) : S_k;
   const int n_tiles = (k_end + kTileN - 1) / kTileN;
@@ -377,7 +379,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 
   // the warp's rows of Q: the A operand, read again for every key tile (128
   // registers at D = 64 leave room for four blocks on an SM)
-  __nv_bfloat16* q_w = q_s + warp * 16 * kLd;
+  T* q_w = q_s + warp * 16 * kLd;
   float o[D / 8][4];
   float m[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
   float l[2] = {0.f, 0.f};              // this lane's part of the row sums
@@ -398,8 +400,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     __syncthreads();
     // causal: a key tile wholly above the warp's rows changes nothing
     if (!a.causal || k0 <= row0 + 15) {
-      const __nv_bfloat16* kt = k_s + stage * kTileN * kLd;
-      const __nv_bfloat16* vt = v_s + stage * kTileN * kLd;
+      const T* kt = k_s + stage * kTileN * kLd;
+      const T* vt = v_s + stage * kTileN * kLd;
       float s[kTileN / 8][4];
 #pragma unroll
       for (int j = 0; j < kTileN / 8; ++j)
@@ -416,8 +418,8 @@ __global__ void __launch_bounds__(kWarps * 32)
           ptt::ldmatrix_x4(kf, kt + (jp * 16 + (lane >> 4) * 8 + (lane & 7)) *
                                         kLd +
                                    kk * 16 + ((lane >> 3) & 1) * 8);
-          ptt::mma_bf16(s[2 * jp], qf, kf[0], kf[1]);
-          ptt::mma_bf16(s[2 * jp + 1], qf, kf[2], kf[3]);
+          ptt::mma16<T>(s[2 * jp], qf, kf[0], kf[1]);
+          ptt::mma16<T>(s[2 * jp + 1], qf, kf[2], kf[3]);
         }
       }
       uint32_t pf[kTileN / 16][4];
@@ -427,11 +429,11 @@ __global__ void __launch_bounds__(kWarps * 32)
       const bool edge =
           k0 + kTileN > S_k || (a.causal && k0 + kTileN - 1 > row0);
       if (fast)
-        softmax_tile<D, true, kDropout>(s, pf, o, m, l, a, bias_base, row0 + g,
-                                        k0, t, edge, keep);
+        softmax_tile<T, D, true, kDropout>(s, pf, o, m, l, a, bias_base,
+                                           row0 + g, k0, t, edge, keep);
       else
-        softmax_tile<D, false, kDropout>(s, pf, o, m, l, a, bias_base,
-                                         row0 + g, k0, t, edge, keep);
+        softmax_tile<T, D, false, kDropout>(s, pf, o, m, l, a, bias_base,
+                                            row0 + g, k0, t, edge, keep);
       // O += P V: B[key][d] contracts V's rows, hence the transposed load
 #pragma unroll
       for (int kk = 0; kk < kTileN / 16; ++kk) {
@@ -441,8 +443,8 @@ __global__ void __launch_bounds__(kWarps * 32)
           ptt::ldmatrix_x4_trans(
               vf, vt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * kLd +
                       dp * 16 + (lane >> 4) * 8);
-          ptt::mma_bf16(o[2 * dp], pf[kk], vf[0], vf[1]);
-          ptt::mma_bf16(o[2 * dp + 1], pf[kk], vf[2], vf[3]);
+          ptt::mma16<T>(o[2 * dp], pf[kk], vf[0], vf[1]);
+          ptt::mma16<T>(o[2 * dp + 1], pf[kk], vf[2], vf[3]);
         }
       }
     }
@@ -465,9 +467,9 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     *reinterpret_cast<uint32_t*>(q_w + g * kLd + j * 8 + 2 * t) =
-        ptt::pack_bf16(o[j][0] * inv_l[0], o[j][1] * inv_l[0]);
+        ptt::pack16<T>(o[j][0] * inv_l[0], o[j][1] * inv_l[0]);
     *reinterpret_cast<uint32_t*>(q_w + (g + 8) * kLd + j * 8 + 2 * t) =
-        ptt::pack_bf16(o[j][2] * inv_l[1], o[j][3] * inv_l[1]);
+        ptt::pack16<T>(o[j][2] * inv_l[1], o[j][3] * inv_l[1]);
   }
   __syncwarp();
   ptt::store_rows_16<D, kLd>(
@@ -482,20 +484,20 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <int D, int kWarps, bool kDropout>
-int launch_mma_tile(const MmaArgs& a, int B, cudaStream_t st) {
+template <typename T, int D, int kWarps, bool kDropout>
+int launch_mma_tile(const MmaArgs<T>& a, int B, cudaStream_t st) {
   constexpr int kTileM = kWarps * 16;
   constexpr int kSmem = (kTileM + 4 * kKeys<D>) * (D + 8) * 2;
   static bool configured = false;  // more than 48 KB needs asking for, once
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_mma_kernel<D, kWarps, kDropout>,
+        flash_fwd_mma_kernel<T, D, kWarps, kDropout>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid(B * a.H, (a.S_q + kTileM - 1) / kTileM);
-  flash_fwd_mma_kernel<D, kWarps, kDropout>
+  flash_fwd_mma_kernel<T, D, kWarps, kDropout>
       <<<grid, kWarps * 32, kSmem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -506,32 +508,32 @@ int launch_mma_tile(const MmaArgs& a, int B, cudaStream_t st) {
 // which left one block (8 warps) an SM to hide the mask's integer work,
 // against three 4-warp blocks (0.124 against 0.095 ms at the GPT causal
 // shape on the H100).
-template <int D, bool kDropout>
-int launch_mma_dim(const MmaArgs& a, int B, cudaStream_t st) {
+template <typename T, int D, bool kDropout>
+int launch_mma_dim(const MmaArgs<T>& a, int B, cudaStream_t st) {
   const long long bh = static_cast<long long>(B) * a.H;
   const int sms = ptt::sm_count();
   auto fills = [&](int tile) {
     return a.S_q > tile / 2 && bh * ((a.S_q + tile - 1) / tile) >= sms;
   };
   if constexpr (!kDropout) {
-    if (fills(128)) return launch_mma_tile<D, 8, false>(a, B, st);
+    if (fills(128)) return launch_mma_tile<T, D, 8, false>(a, B, st);
   }
-  if (fills(64)) return launch_mma_tile<D, 4, kDropout>(a, B, st);
-  if (fills(32)) return launch_mma_tile<D, 2, kDropout>(a, B, st);
-  return launch_mma_tile<D, 1, kDropout>(a, B, st);
+  if (fills(64)) return launch_mma_tile<T, D, 4, kDropout>(a, B, st);
+  if (fills(32)) return launch_mma_tile<T, D, 2, kDropout>(a, B, st);
+  return launch_mma_tile<T, D, 1, kDropout>(a, B, st);
 }
 
-template <bool kDropout>
-int launch_mma(const MmaArgs& a, int B, int D, cudaStream_t st) {
+template <typename T, bool kDropout>
+int launch_mma(const MmaArgs<T>& a, int B, int D, cudaStream_t st) {
   switch (D) {
     case 16:
-      return launch_mma_dim<16, kDropout>(a, B, st);
+      return launch_mma_dim<T, 16, kDropout>(a, B, st);
     case 32:
-      return launch_mma_dim<32, kDropout>(a, B, st);
+      return launch_mma_dim<T, 32, kDropout>(a, B, st);
     case 64:
-      return launch_mma_dim<64, kDropout>(a, B, st);
+      return launch_mma_dim<T, 64, kDropout>(a, B, st);
     case 128:
-      return launch_mma_dim<128, kDropout>(a, B, st);
+      return launch_mma_dim<T, 128, kDropout>(a, B, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -539,6 +541,21 @@ int launch_mma(const MmaArgs& a, int B, int D, cudaStream_t st) {
 
 // launches of each variant since the library was loaded: [simt, mma]
 std::atomic<long long> variant_launches[2];
+
+template <typename T>
+int dispatch_mma(const void* q, const void* k, const void* v, long long qb,
+                 long long qs, long long qh, long long kb, long long ks,
+                 long long kh, long long vb, long long vs, long long vh,
+                 void* o, void* lse, const ptt::Bias& bias, int B, int S_q,
+                 int S_k, int H, int D, float sm_scale, bool causal,
+                 const ptt::Dropout& drop, bool dropout, cudaStream_t st) {
+  const MmaArgs<T> a{static_cast<const T*>(q), static_cast<const T*>(k),
+                     static_cast<const T*>(v), qb, qs, qh, kb, ks, kh, vb,
+                     vs, vh, static_cast<T*>(o), static_cast<float*>(lse),
+                     bias, H, S_q, S_k, sm_scale, causal, drop};
+  return dropout ? launch_mma<T, true>(a, B, D, st)
+                 : launch_mma<T, false>(a, B, D, st);
+}
 
 }  // namespace
 
@@ -562,33 +579,32 @@ extern "C" int ptt_flash_attention_fwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ptt::Bias bs{static_cast<const float*>(bias), bias_b, bias_h, bias_q,
                      bias_k};
-  if ((dtype != ptt::kF32 && dtype != ptt::kBF16) || !(dropout_p >= 0.f) ||
-      dropout_p > 1.f)
+  if ((dtype != ptt::kF32 && dtype != ptt::kBF16 && dtype != ptt::kF16) ||
+      !(dropout_p >= 0.f) || dropout_p > 1.f)
     return static_cast<int>(cudaErrorInvalidValue);
   const ptt::Dropout drop = ptt::Dropout::make(seed, dropout_p, step);
   const bool dropout = dropout_p > 0.f;
-  const bool mma = dtype == ptt::kBF16 && ptt::aligned_16(q, qb, qs, qh) &&
+  const bool mma = dtype != ptt::kF32 && ptt::aligned_16(q, qb, qs, qh) &&
                    ptt::aligned_16(k, kb, ks, kh) &&
                    ptt::aligned_16(v, vb, vs, vh) &&
                    ptt::aligned_16(o, 0, 0, 0);
   ++variant_launches[mma];
-  if (mma) {
-    using bf16 = __nv_bfloat16;
-    const MmaArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                    static_cast<const bf16*>(v), qb, qs, qh, kb, ks, kh, vb,
-                    vs, vh, static_cast<bf16*>(o), static_cast<float*>(lse),
-                    bs, H, S_q, S_k, sm_scale, causal != 0, drop};
-    return dropout ? launch_mma<true>(a, B, D, st)
-                   : launch_mma<false>(a, B, D, st);
-  }
-#define PTT_FLASH_SIMT(T, DROP)                                               \
-  launch<T, DROP>(q, k, v, qb, qs, qh, kb, ks, kh, vb, vs, vh, o, lse, bs, B, \
-                  S_q, S_k, H, D, sm_scale, causal != 0, drop, st)
+#define PTT_FLASH_ARGS                                                     \
+  q, k, v, qb, qs, qh, kb, ks, kh, vb, vs, vh, o, lse, bs, B, S_q, S_k, H, \
+      D, sm_scale, causal != 0, drop
+  if (mma)
+    return dtype == ptt::kF16
+               ? dispatch_mma<__half>(PTT_FLASH_ARGS, dropout, st)
+               : dispatch_mma<__nv_bfloat16>(PTT_FLASH_ARGS, dropout, st);
   if (dtype == ptt::kF32)
-    return dropout ? PTT_FLASH_SIMT(float, true) : PTT_FLASH_SIMT(float, false);
-  return dropout ? PTT_FLASH_SIMT(__nv_bfloat16, true)
-                 : PTT_FLASH_SIMT(__nv_bfloat16, false);
-#undef PTT_FLASH_SIMT
+    return dropout ? launch<float, true>(PTT_FLASH_ARGS, st)
+                   : launch<float, false>(PTT_FLASH_ARGS, st);
+  if (dtype == ptt::kF16)
+    return dropout ? launch<__half, true>(PTT_FLASH_ARGS, st)
+                   : launch<__half, false>(PTT_FLASH_ARGS, st);
+  return dropout ? launch<__nv_bfloat16, true>(PTT_FLASH_ARGS, st)
+                 : launch<__nv_bfloat16, false>(PTT_FLASH_ARGS, st);
+#undef PTT_FLASH_ARGS
 }
 
 namespace {

@@ -32,11 +32,12 @@
 // dq and dk/dv each have two hand-written kernels; the C entry picks one
 // from the dtype and the operands' alignment alone, and counts the choice:
 //
-// `flash_dq_mma_kernel` (bf16 whose base pointers and (b, s, h) strides are
-// 16-byte multiples: every path of the models) does its three products on
-// the tensor cores, `mma.sync.m16n8k16` with bf16 operands and float32
-// accumulators.  A block owns 16 to 128 queries of one (batch, head), 16 a
-// warp; their Q and dO tiles are staged once in shared memory (and, for
+// `flash_dq_mma_kernel` (bf16 or float16 whose base pointers and (b, s, h)
+// strides are 16-byte multiples: every path of the models, AMP's float16
+// included) does its three products on the tensor cores,
+// `mma.sync.m16n8k16` with 16-bit operands (the element type T, a template
+// parameter) and float32 accumulators.  A block owns 16 to 128 queries of
+// one (batch, head), 16 a warp; their Q and dO tiles are staged once in shared memory (and, for
 // D <= 64, kept as A fragments in registers), with the rows' LSE and delta
 // in registers, and the dq accumulator stays in registers for the whole
 // key loop.  K and V tiles of 32 keys stream through
@@ -45,12 +46,11 @@
 // and V as they lie as the B operands (`ldmatrix`); the float32 softmax
 // runs on the accumulators (without a bias, the scale and log2(e) folded
 // into one FFMA before `ex2`; with one, the difference s - lse formed first
-// in natural units); dS = P * (dP - delta) is rounded to bf16 in registers
+// in natural units); dS = P * (dP - delta) * scale is rounded to T in
+// registers, scaled before it is rounded as the reference's
+// `ds.astype(k.dtype)` is (float16 overflows 1 / scale sooner without it),
 // and is the A operand of dq += dS K, with K through `ldmatrix.trans`
-// (its contracted dimension is the row).  dS is formed without the scale,
-// which dq takes once at the end, as dk does (the reference scales before
-// it rounds dS to bf16; for D = 16 and 64 the scale is a power of two
-// and the two agree exactly).
+// (its contracted dimension is the row).
 // Causal: the key loop ends at the block's diagonal, a warp skips key
 // tiles wholly above its rows, only a tile that straddles the diagonal or
 // S_k is masked entry by entry, and the last query tile, which walks the
@@ -58,21 +58,21 @@
 // until the grid has a block for every SM.  dq leaves through the warp's
 // own rows of the Q tile as 16-byte stores.
 //
-// `flash_dkv_mma_kernel` (bf16 on 16-byte boundaries, as above) does its
-// four products on the tensor cores, with the same primitives.  A block
-// owns 16 to 64 keys of one (batch, head), 16 a
+// `flash_dkv_mma_kernel` (bf16 or float16 on 16-byte boundaries, as
+// above) does its four products on the tensor cores, with the same
+// primitives.  A block owns 16 to 64 keys of one (batch, head), 16 a
 // warp; their K and V stay in shared memory (and, for D <= 64, as A
 // fragments in registers) and the dk, dv accumulators in registers for the
 // whole query loop.  Q and dO tiles of 32 queries, their LSE and delta,
-// stay bf16 / float32 in shared memory, filled by `cp.async` in two stages,
-// so the next tile is in flight while this one is multiplied; rows are
+// stay 16-bit / float32 in shared memory, filled by `cp.async` in two
+// stages, so the next tile is in flight while this one is multiplied; rows are
 // padded by 16 bytes, which keeps `ldmatrix` free of bank conflicts.  The
 // warp computes the score tile transposed, S^T = K Q^T, and dP^T = V dO^T,
-// so that P^T and dS^T, rounded to bf16 in registers as the reference
+// so that P^T and dS^T, rounded to T in registers as the reference
 // rounds them, are the A operands of dv += P^T dO and dk += dS^T Q as they
 // stand; Q and dO are the B operands of all four, through `ldmatrix` where
-// d is contracted and `ldmatrix.trans` where the query is.  dS^T is formed
-// without the scale, which dk takes once at the end; without a bias the
+// d is contracted and `ldmatrix.trans` where the query is.  dS^T takes
+// the scale before it is rounded, as dq's dS does; without a bias the
 // scale of the scores is folded into the exponent.  Causal: the query loop
 // starts at the key tile's diagonal, a warp skips query tiles wholly before
 // its keys, and key tile 0, which walks the most queries, is scheduled
@@ -81,7 +81,7 @@
 // stores.
 //
 // `flash_dq_kernel` and `flash_dkv_kernel` (float32, where TF32 would not
-// hold the parity limits, and bf16 operands that are not 16-byte aligned)
+// hold the parity limits, and 16-bit operands that are not 16-byte aligned)
 // run on the CUDA cores:
 // - dq: one block per (batch*head, 64-query tile).  The block walks the
 //   key tiles from 0 up to the diagonal (causal) or to S_k, staging 32 keys
@@ -107,6 +107,7 @@
 #include <math.h>
 
 #include <atomic>
+#include <type_traits>
 
 #include "common.cuh"
 #include "dropout.cuh"
@@ -147,12 +148,14 @@ struct Args {
 // Blocks an SM for __launch_bounds__ (0: ptxas's own choice).  At D = 16
 // with dropout ptxas fitted the kernel to 48 registers (five blocks an SM)
 // and spilled once the Philox counter's fourth word became a loaded value;
-// three blocks give it 80 registers and no spill.
-template <int D, bool kDropout>
-constexpr int kDqMinBlocks = D == 16 && kDropout ? 3 : 0;
+// three blocks give it 80 registers and no spill, but float16's converts
+// still spilled 4 bytes at 80 (H100 build): two blocks for float16.
+template <typename T, int D, bool kDropout>
+constexpr int kDqMinBlocks =
+    D == 16 && kDropout ? (std::is_same<T, __half>::value ? 2 : 3) : 0;
 
 template <typename T, int D, bool kDropout>
-__global__ void __launch_bounds__(kThreads, (kDqMinBlocks<D, kDropout>))
+__global__ void __launch_bounds__(kThreads, (kDqMinBlocks<T, D, kDropout>))
     flash_dq_kernel(Args a) {
   constexpr int kPer = D / 4;
   __shared__ float k_tile[kTile][D];
@@ -345,10 +348,9 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(Args a) {
 // the tensor-core dk/dv kernel
 // ---------------------------------------------------------------------------
 // The A operand of k-step kk: 16 rows of a row-major shared tile.
-template <int kLd>
-__device__ __forceinline__ void load_a(uint32_t (&frag)[4],
-                                       const __nv_bfloat16* rows, int kk,
-                                       int lane) {
+template <int kLd, typename T>
+__device__ __forceinline__ void load_a(uint32_t (&frag)[4], const T* rows,
+                                       int kk, int lane) {
   ptt::ldmatrix_x4(frag, rows + (lane & 15) * kLd + kk * 16 + (lane >> 4) * 8);
 }
 
@@ -356,10 +358,10 @@ __device__ __forceinline__ void load_a(uint32_t (&frag)[4],
 // S = Q K^T and dP = dO V^T (dq): A is the warp's 16 rows of one operand
 // (`af` when kRegA, else read from `a_rows`), and B[d][n] is the other's
 // row-major tile as it lies.
-template <int D, int kLd, int kNt, bool kRegA>
+template <typename T, int D, int kLd, int kNt, bool kRegA>
 __device__ __forceinline__ void times_transposed(
     float (&acc)[kNt][4], const uint32_t (&af)[kRegA ? D / 16 : 1][4],
-    const __nv_bfloat16* a_rows, const __nv_bfloat16* b_tile, int lane) {
+    const T* a_rows, const T* b_tile, int lane) {
 #pragma unroll
   for (int j = 0; j < kNt; ++j)
     acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
@@ -378,36 +380,35 @@ __device__ __forceinline__ void times_transposed(
       ptt::ldmatrix_x4(bf, b_tile +
                                (jp * 16 + (lane >> 4) * 8 + (lane & 7)) * kLd +
                                kk * 16 + ((lane >> 3) & 1) * 8);
-      ptt::mma_bf16(acc[2 * jp], a, bf[0], bf[1]);
-      ptt::mma_bf16(acc[2 * jp + 1], a, bf[2], bf[3]);
+      ptt::mma16<T>(acc[2 * jp], a, bf[0], bf[1]);
+      ptt::mma16<T>(acc[2 * jp + 1], a, bf[2], bf[3]);
     }
   }
 }
 
 // acc += X B over the tile's rows, for dv += P^T dO and dk += dS^T Q (rows:
 // queries) or dq += dS K (rows: keys): X (float32 accumulators) is rounded
-// to bf16 in registers, and B[row][d] contracts the tile's rows, hence the
+// to T in registers, and B[row][d] contracts the tile's rows, hence the
 // transposed load.
-template <int D, int kLd, int kNt>
+template <typename T, int D, int kLd, int kNt>
 __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
                                            const float (&x)[kNt][4],
-                                           const __nv_bfloat16* b_tile,
-                                           int lane) {
+                                           const T* b_tile, int lane) {
 #pragma unroll
   for (int kk = 0; kk < kNt / 2; ++kk) {
     const uint32_t a[4] = {
-        ptt::pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-        ptt::pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-        ptt::pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-        ptt::pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+        ptt::pack16<T>(x[2 * kk][0], x[2 * kk][1]),
+        ptt::pack16<T>(x[2 * kk][2], x[2 * kk][3]),
+        ptt::pack16<T>(x[2 * kk + 1][0], x[2 * kk + 1][1]),
+        ptt::pack16<T>(x[2 * kk + 1][2], x[2 * kk + 1][3])};
 #pragma unroll
     for (int dp = 0; dp < D / 16; ++dp) {
       uint32_t bf[4];
       ptt::ldmatrix_x4_trans(
           bf, b_tile + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * kLd +
                   dp * 16 + (lane >> 4) * 8);
-      ptt::mma_bf16(acc[2 * dp], a, bf[0], bf[1]);
-      ptt::mma_bf16(acc[2 * dp + 1], a, bf[2], bf[3]);
+      ptt::mma16<T>(acc[2 * dp], a, bf[0], bf[1]);
+      ptt::mma16<T>(acc[2 * dp + 1], a, bf[2], bf[3]);
     }
   }
 }
@@ -417,9 +418,8 @@ __device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
 constexpr int kTileM = 32;
 
 // kWarps warps of 16 keys each; query tiles of kTileM rows.
-template <int D, int kWarps, bool kDropout>
+template <typename T, int D, int kWarps, bool kDropout>
 __global__ void __launch_bounds__(kWarps * 32) flash_dkv_mma_kernel(Args a) {
-  using bf16 = __nv_bfloat16;
   constexpr bool kRegA = D <= 64;  // K, V fragments stay in registers
   constexpr int kThreads = kWarps * 32;
   constexpr int kTileN = kWarps * 16;        // keys a block owns
@@ -427,10 +427,10 @@ __global__ void __launch_bounds__(kWarps * 32) flash_dkv_mma_kernel(Args a) {
   constexpr int kKs = D / 16;
   constexpr int kNt = kTileM / 8;     // 8-query tiles of S^T and dP^T
   extern __shared__ __align__(16) unsigned char ptt_smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(ptt_smem);  // [kTileN][kLd]
-  bf16* v_s = k_s + kTileN * kLd;                 // [kTileN][kLd]
-  bf16* q_s = v_s + kTileN * kLd;                 // [2][kTileM][kLd]
-  bf16* do_s = q_s + 2 * kTileM * kLd;            // [2][kTileM][kLd]
+  T* k_s = reinterpret_cast<T*>(ptt_smem);  // [kTileN][kLd]
+  T* v_s = k_s + kTileN * kLd;                 // [kTileN][kLd]
+  T* q_s = v_s + kTileN * kLd;                 // [2][kTileM][kLd]
+  T* do_s = q_s + 2 * kTileM * kLd;            // [2][kTileM][kLd]
   float* lse_s = reinterpret_cast<float*>(do_s + 2 * kTileM * kLd);
   float* delta_s = lse_s + 2 * kTileM;            // both [2][kTileM]
 
@@ -445,11 +445,11 @@ __global__ void __launch_bounds__(kWarps * 32) flash_dkv_mma_kernel(Args a) {
   const long long bias_base = b * a.bias.b + h * a.bias.h;
   const float scale_log2 = a.scale * ptt::kLog2e;
 
-  const bf16* q_src = static_cast<const bf16*>(a.q) + offset(a.sq, b, 0, h);
-  const bf16* k_src = static_cast<const bf16*>(a.k) + offset(a.sk, b, 0, h);
-  const bf16* v_src = static_cast<const bf16*>(a.v) + offset(a.sv, b, 0, h);
-  const bf16* do_src =
-      static_cast<const bf16*>(a.dout) + offset(a.sdo, b, 0, h);
+  const T* q_src = static_cast<const T*>(a.q) + offset(a.sq, b, 0, h);
+  const T* k_src = static_cast<const T*>(a.k) + offset(a.sk, b, 0, h);
+  const T* v_src = static_cast<const T*>(a.v) + offset(a.sv, b, 0, h);
+  const T* do_src =
+      static_cast<const T*>(a.dout) + offset(a.sdo, b, 0, h);
   const float* lse_src = a.lse + static_cast<long long>(bh) * S_q;
   const float* delta_src = a.delta + static_cast<long long>(bh) * S_q;
   // causal: only queries at or after this tile's first key see it; a tile
@@ -477,8 +477,8 @@ __global__ void __launch_bounds__(kWarps * 32) flash_dkv_mma_kernel(Args a) {
   ptt::cp_async_commit();
 
   // the A operands: this warp's 16 rows of K and of V
-  bf16* k_w = k_s + warp * 16 * kLd;
-  bf16* v_w = v_s + warp * 16 * kLd;
+  T* k_w = k_s + warp * 16 * kLd;
+  T* v_w = v_s + warp * 16 * kLd;
   uint32_t kf[kRegA ? kKs : 1][4], vf[kRegA ? kKs : 1][4];
   float dk[D / 8][4], dv[D / 8][4];
 #pragma unroll
@@ -502,15 +502,15 @@ __global__ void __launch_bounds__(kWarps * 32) flash_dkv_mma_kernel(Args a) {
     }
     // causal: a query tile wholly before the warp's keys sees none of them
     if (!a.causal || q0 + kTileM - 1 >= key_w) {
-      const bf16* qt = q_s + stage * kTileM * kLd;
-      const bf16* dot = do_s + stage * kTileM * kLd;
+      const T* qt = q_s + stage * kTileM * kLd;
+      const T* dot = do_s + stage * kTileM * kLd;
       // each lane's query columns 2t, 2t + 1 of every 8-query tile
       const float2* lse_t =
           reinterpret_cast<const float2*>(lse_s + stage * kTileM) + t;
       const float2* delta_t =
           reinterpret_cast<const float2*>(delta_s + stage * kTileM) + t;
       float p[kNt][4];  // rows: keys g, g + 8; columns: queries
-      times_transposed<D, kLd, kNt, kRegA>(p, kf, k_w, qt, lane);
+      times_transposed<T, D, kLd, kNt, kRegA>(p, kf, k_w, qt, lane);
       if (has_bias) {
         // natural units, the difference formed first: a row masked
         // everywhere by -1e30 gives exactly exp(0)
@@ -554,18 +554,18 @@ __global__ void __launch_bounds__(kWarps * 32) flash_dkv_mma_kernel(Args a) {
         }
       }
       if constexpr (!kDropout) {
-        accumulate<D, kLd, kNt>(dv, p, dot, lane);
-        float ds[kNt][4];  // without the scale, which dk takes at the end
-        times_transposed<D, kLd, kNt, kRegA>(ds, vf, v_w, dot, lane);
+        accumulate<T, D, kLd, kNt>(dv, p, dot, lane);
+        float ds[kNt][4];  // dS^T = P^T (dP^T - delta) * scale
+        times_transposed<T, D, kLd, kNt, kRegA>(ds, vf, v_w, dot, lane);
 #pragma unroll
         for (int j = 0; j < kNt; ++j) {
           const float2 delta = delta_t[j * 4];
-          ds[j][0] = p[j][0] * (ds[j][0] - delta.x);
-          ds[j][1] = p[j][1] * (ds[j][1] - delta.y);
-          ds[j][2] = p[j][2] * (ds[j][2] - delta.x);
-          ds[j][3] = p[j][3] * (ds[j][3] - delta.y);
+          ds[j][0] = p[j][0] * (ds[j][0] - delta.x) * a.scale;
+          ds[j][1] = p[j][1] * (ds[j][1] - delta.y) * a.scale;
+          ds[j][2] = p[j][2] * (ds[j][2] - delta.x) * a.scale;
+          ds[j][3] = p[j][3] * (ds[j][3] - delta.y) * a.scale;
         }
-        accumulate<D, kLd, kNt>(dk, ds, qt, lane);
+        accumulate<T, D, kLd, kNt>(dk, ds, qt, lane);
       } else {
         // keep[n] bit 8j + i (after the shift by 2t) keeps the lane's key
         // key_w + g + 8n against query q0 + 8j + 2t + i
@@ -573,8 +573,8 @@ __global__ void __launch_bounds__(kWarps * 32) flash_dkv_mma_kernel(Args a) {
         ptt::column_keep_bits<2>(keep, a.drop, bh, q0, key_w, g);
         keep[0] >>= 2 * t;
         keep[1] >>= 2 * t;
-        float ds[kNt][4];  // dS^T = P^T (dP^T Z / (1 - p) - delta)
-        times_transposed<D, kLd, kNt, kRegA>(ds, vf, v_w, dot, lane);
+        float ds[kNt][4];  // dS^T = P^T (dP^T Z / (1 - p) - delta) * scale
+        times_transposed<T, D, kLd, kNt, kRegA>(ds, vf, v_w, dot, lane);
 #pragma unroll
         for (int j = 0; j < kNt; ++j) {
           const float2 delta = delta_t[j * 4];
@@ -582,12 +582,13 @@ __global__ void __launch_bounds__(kWarps * 32) flash_dkv_mma_kernel(Args a) {
           for (int e = 0; e < 4; ++e) {
             const bool z = (keep[e >> 1] >> (8 * j + (e & 1))) & 1u;
             const float dp = z ? ds[j][e] * a.drop.scale : 0.f;
-            ds[j][e] = p[j][e] * (dp - (e & 1 ? delta.y : delta.x));
+            ds[j][e] =
+                p[j][e] * (dp - (e & 1 ? delta.y : delta.x)) * a.scale;
             p[j][e] = z ? p[j][e] * a.drop.scale : 0.f;  // dv's weights
           }
         }
-        accumulate<D, kLd, kNt>(dv, p, dot, lane);
-        accumulate<D, kLd, kNt>(dk, ds, qt, lane);
+        accumulate<T, D, kLd, kNt>(dv, p, dot, lane);
+        accumulate<T, D, kLd, kNt>(dk, ds, qt, lane);
       }
     }
     __syncthreads();  // the stage is free for the copy after next
@@ -599,24 +600,24 @@ __global__ void __launch_bounds__(kWarps * 32) flash_dkv_mma_kernel(Args a) {
   for (int j = 0; j < D / 8; ++j) {
     const int c = j * 8 + 2 * t;
     *reinterpret_cast<uint32_t*>(k_w + g * kLd + c) =
-        ptt::pack_bf16(dk[j][0] * a.scale, dk[j][1] * a.scale);
+        ptt::pack16<T>(dk[j][0], dk[j][1]);
     *reinterpret_cast<uint32_t*>(k_w + (g + 8) * kLd + c) =
-        ptt::pack_bf16(dk[j][2] * a.scale, dk[j][3] * a.scale);
+        ptt::pack16<T>(dk[j][2], dk[j][3]);
     *reinterpret_cast<uint32_t*>(v_w + g * kLd + c) =
-        ptt::pack_bf16(dv[j][0], dv[j][1]);
+        ptt::pack16<T>(dv[j][0], dv[j][1]);
     *reinterpret_cast<uint32_t*>(v_w + (g + 8) * kLd + c) =
-        ptt::pack_bf16(dv[j][2], dv[j][3]);
+        ptt::pack16<T>(dv[j][2], dv[j][3]);
   }
   __syncwarp();
   ptt::store_rows_16<D, kLd>(k_w,
-                             static_cast<bf16*>(a.d0) + offset(a.sd0, b, 0, h),
+                             static_cast<T*>(a.d0) + offset(a.sd0, b, 0, h),
                              a.sd0.s, key_w, S_k);
   ptt::store_rows_16<D, kLd>(v_w,
-                             static_cast<bf16*>(a.d1) + offset(a.sd1, b, 0, h),
+                             static_cast<T*>(a.d1) + offset(a.sd1, b, 0, h),
                              a.sd1.s, key_w, S_k);
 }
 
-template <int D, int kWarps, bool kDropout>
+template <typename T, int D, int kWarps, bool kDropout>
 int launch_dkv_mma_tile(const Args& a, int B, cudaStream_t st) {
   constexpr int kTileN = kWarps * 16;
   constexpr int kSmem =
@@ -624,29 +625,29 @@ int launch_dkv_mma_tile(const Args& a, int B, cudaStream_t st) {
   static bool configured = false;  // more than 48 KB needs asking for, once
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_dkv_mma_kernel<D, kWarps, kDropout>,
+        flash_dkv_mma_kernel<T, D, kWarps, kDropout>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid(B * a.H, (a.S_k + kTileN - 1) / kTileN);
-  flash_dkv_mma_kernel<D, kWarps, kDropout>
+  flash_dkv_mma_kernel<T, D, kWarps, kDropout>
       <<<grid, kWarps * 32, kSmem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The largest key tile that still gives every SM a block (and is not
 // mostly padding); 16 keys when no tile does.
-template <int D, bool kDropout>
+template <typename T, int D, bool kDropout>
 int launch_dkv_mma_dim(const Args& a, int B, cudaStream_t st) {
   const long long bh = static_cast<long long>(B) * a.H;
   const int sms = ptt::sm_count();
   auto fills = [&](int tile) {
     return a.S_k > tile / 2 && bh * ((a.S_k + tile - 1) / tile) >= sms;
   };
-  if (fills(64)) return launch_dkv_mma_tile<D, 4, kDropout>(a, B, st);
-  if (fills(32)) return launch_dkv_mma_tile<D, 2, kDropout>(a, B, st);
-  return launch_dkv_mma_tile<D, 1, kDropout>(a, B, st);
+  if (fills(64)) return launch_dkv_mma_tile<T, D, 4, kDropout>(a, B, st);
+  if (fills(32)) return launch_dkv_mma_tile<T, D, 2, kDropout>(a, B, st);
+  return launch_dkv_mma_tile<T, D, 1, kDropout>(a, B, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -659,9 +660,8 @@ constexpr int kDqKeys = 32;
 // minimum of one block an SM in the launch bounds lets ptxas give each
 // thread the registers it needs: without it, ptxas capped D = 64 at 4
 // warps below them and spilled.
-template <int D, int kWarps, bool kDropout>
+template <typename T, int D, int kWarps, bool kDropout>
 __global__ void __launch_bounds__(kWarps * 32, 1) flash_dq_mma_kernel(Args a) {
-  using bf16 = __nv_bfloat16;
   constexpr bool kRegA = D <= 64;  // Q, dO fragments stay in registers
   constexpr int kThreads = kWarps * 32;
   constexpr int kTileM = kWarps * 16;  // queries a block owns
@@ -670,10 +670,10 @@ __global__ void __launch_bounds__(kWarps * 32, 1) flash_dq_mma_kernel(Args a) {
   constexpr int kKs = D / 16;
   constexpr int kNt = kTileN / 8;  // 8-key tiles of S and dP
   extern __shared__ __align__(16) unsigned char ptt_smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(ptt_smem);  // [kTileM][kLd]
-  bf16* do_s = q_s + kTileM * kLd;                // [kTileM][kLd]
-  bf16* k_s = do_s + kTileM * kLd;                // [2][kTileN][kLd]
-  bf16* v_s = k_s + 2 * kTileN * kLd;             // [2][kTileN][kLd]
+  T* q_s = reinterpret_cast<T*>(ptt_smem);  // [kTileM][kLd]
+  T* do_s = q_s + kTileM * kLd;                // [kTileM][kLd]
+  T* k_s = do_s + kTileM * kLd;                // [2][kTileN][kLd]
+  T* v_s = k_s + 2 * kTileN * kLd;             // [2][kTileN][kLd]
 
   const int S_q = a.S_q, S_k = a.S_k;
   const int bh = blockIdx.x;
@@ -688,11 +688,11 @@ __global__ void __launch_bounds__(kWarps * 32, 1) flash_dq_mma_kernel(Args a) {
   const long long bias_base = b * a.bias.b + h * a.bias.h;
   const float scale_log2 = a.scale * ptt::kLog2e;
 
-  const bf16* q_src = static_cast<const bf16*>(a.q) + offset(a.sq, b, 0, h);
-  const bf16* k_src = static_cast<const bf16*>(a.k) + offset(a.sk, b, 0, h);
-  const bf16* v_src = static_cast<const bf16*>(a.v) + offset(a.sv, b, 0, h);
-  const bf16* do_src =
-      static_cast<const bf16*>(a.dout) + offset(a.sdo, b, 0, h);
+  const T* q_src = static_cast<const T*>(a.q) + offset(a.sq, b, 0, h);
+  const T* k_src = static_cast<const T*>(a.k) + offset(a.sk, b, 0, h);
+  const T* v_src = static_cast<const T*>(a.v) + offset(a.sv, b, 0, h);
+  const T* do_src =
+      static_cast<const T*>(a.dout) + offset(a.sdo, b, 0, h);
   // causal: keys up to the tile's diagonal; otherwise every key
   const int k_end = a.causal ? min(S_k, q0 + kTileM) : S_k;
   const int n_tiles = (k_end + kTileN - 1) / kTileN;
@@ -716,8 +716,8 @@ __global__ void __launch_bounds__(kWarps * 32, 1) flash_dq_mma_kernel(Args a) {
   }
 
   // the A operands: this warp's 16 rows of Q and of dO
-  const bf16* q_w = q_s + warp * 16 * kLd;
-  const bf16* do_w = do_s + warp * 16 * kLd;
+  const T* q_w = q_s + warp * 16 * kLd;
+  const T* do_w = do_s + warp * 16 * kLd;
   uint32_t qf[kRegA ? kKs : 1][4], dof[kRegA ? kKs : 1][4];
   float dq[D / 8][4];
 #pragma unroll
@@ -746,10 +746,10 @@ __global__ void __launch_bounds__(kWarps * 32, 1) flash_dq_mma_kernel(Args a) {
     // rows past S_q do no work; causal: a key tile wholly above the
     // warp's rows changes nothing
     if (row0 < S_q && (!a.causal || k0 <= row0 + 15)) {
-      const bf16* kt = k_s + stage * kTileN * kLd;
-      const bf16* vt = v_s + stage * kTileN * kLd;
+      const T* kt = k_s + stage * kTileN * kLd;
+      const T* vt = v_s + stage * kTileN * kLd;
       float p[kNt][4];  // rows: queries g, g + 8; columns: keys
-      times_transposed<D, kLd, kNt, kRegA>(p, qf, q_w, kt, lane);
+      times_transposed<T, D, kLd, kNt, kRegA>(p, qf, q_w, kt, lane);
       if (has_bias) {
         // natural units, the difference formed first: a row masked
         // everywhere by -1e30 gives exactly exp(0)
@@ -786,8 +786,8 @@ __global__ void __launch_bounds__(kWarps * 32, 1) flash_dq_mma_kernel(Args a) {
           }
         }
       }
-      float ds[kNt][4];  // without the scale, which dq takes at the end
-      times_transposed<D, kLd, kNt, kRegA>(ds, dof, do_w, vt, lane);
+      float ds[kNt][4];  // dS = P (dP - delta) * scale
+      times_transposed<T, D, kLd, kNt, kRegA>(ds, dof, do_w, vt, lane);
       if constexpr (kDropout) {
         // dP of the dropped weights, masked and rescaled likewise
         uint32_t keep[2][2];
@@ -805,69 +805,69 @@ __global__ void __launch_bounds__(kWarps * 32, 1) flash_dq_mma_kernel(Args a) {
       for (int j = 0; j < kNt; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          ds[j][e] = p[j][e] * (ds[j][e] - delta[e >> 1]);
+          ds[j][e] = p[j][e] * (ds[j][e] - delta[e >> 1]) * a.scale;
       }
-      accumulate<D, kLd, kNt>(dq, ds, kt, lane);
+      accumulate<T, D, kLd, kNt>(dq, ds, kt, lane);
     }
     __syncthreads();  // the stage is free for the copy after next
   }
 
   // dq through the warp's own rows of the Q tile, then 16-byte stores
-  bf16* out_w = q_s + warp * 16 * kLd;
+  T* out_w = q_s + warp * 16 * kLd;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int c = j * 8 + 2 * t;
     *reinterpret_cast<uint32_t*>(out_w + g * kLd + c) =
-        ptt::pack_bf16(dq[j][0] * a.scale, dq[j][1] * a.scale);
+        ptt::pack16<T>(dq[j][0], dq[j][1]);
     *reinterpret_cast<uint32_t*>(out_w + (g + 8) * kLd + c) =
-        ptt::pack_bf16(dq[j][2] * a.scale, dq[j][3] * a.scale);
+        ptt::pack16<T>(dq[j][2], dq[j][3]);
   }
   __syncwarp();
   ptt::store_rows_16<D, kLd>(out_w,
-                             static_cast<bf16*>(a.d0) + offset(a.sd0, b, 0, h),
+                             static_cast<T*>(a.d0) + offset(a.sd0, b, 0, h),
                              a.sd0.s, row0, S_q);
 }
 
-template <int D, int kWarps, bool kDropout>
+template <typename T, int D, int kWarps, bool kDropout>
 int launch_dq_mma_tile(const Args& a, int B, cudaStream_t st) {
   constexpr int kTileM = kWarps * 16;
   constexpr int kSmem = (2 * kTileM + 4 * kDqKeys) * (D + 8) * 2;
   static bool configured = false;  // more than 48 KB needs asking for, once
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_dq_mma_kernel<D, kWarps, kDropout>,
+        flash_dq_mma_kernel<T, D, kWarps, kDropout>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
   const dim3 grid(B * a.H, (a.S_q + kTileM - 1) / kTileM);
-  flash_dq_mma_kernel<D, kWarps, kDropout>
+  flash_dq_mma_kernel<T, D, kWarps, kDropout>
       <<<grid, kWarps * 32, kSmem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The largest query tile that still gives every SM a block (and is not
 // mostly padding); 16 queries when no tile does.
-template <int D, bool kDropout>
+template <typename T, int D, bool kDropout>
 int launch_dq_mma_dim(const Args& a, int B, cudaStream_t st) {
   const long long bh = static_cast<long long>(B) * a.H;
   const int sms = ptt::sm_count();
   auto fills = [&](int tile) {
     return a.S_q > tile / 2 && bh * ((a.S_q + tile - 1) / tile) >= sms;
   };
-  if (fills(64)) return launch_dq_mma_tile<D, 4, kDropout>(a, B, st);
-  if (fills(32)) return launch_dq_mma_tile<D, 2, kDropout>(a, B, st);
-  return launch_dq_mma_tile<D, 1, kDropout>(a, B, st);
+  if (fills(64)) return launch_dq_mma_tile<T, D, 4, kDropout>(a, B, st);
+  if (fills(32)) return launch_dq_mma_tile<T, D, 2, kDropout>(a, B, st);
+  return launch_dq_mma_tile<T, D, 1, kDropout>(a, B, st);
 }
 
-template <bool kDq, bool kDropout>
+template <typename T, bool kDq, bool kDropout>
 int launch_mma(const Args& a, int B, int D, cudaStream_t st) {
-#define PTT_FLASH_BWD_MMA_CASE(DIM)                        \
-  case DIM:                                                \
-    if constexpr (kDq)                                     \
-      return launch_dq_mma_dim<DIM, kDropout>(a, B, st);   \
-    else                                                   \
-      return launch_dkv_mma_dim<DIM, kDropout>(a, B, st);
+#define PTT_FLASH_BWD_MMA_CASE(DIM)                           \
+  case DIM:                                                   \
+    if constexpr (kDq)                                        \
+      return launch_dq_mma_dim<T, DIM, kDropout>(a, B, st);   \
+    else                                                      \
+      return launch_dkv_mma_dim<T, DIM, kDropout>(a, B, st);
   switch (D) {
     PTT_FLASH_BWD_MMA_CASE(16)
     PTT_FLASH_BWD_MMA_CASE(32)
@@ -918,8 +918,12 @@ Strides strides_at(const long long* s, int i) {
 template <bool kDq, bool kDropout>
 int dispatch_as(const Args& a, bool mma, int B, int D, int dtype,
                 cudaStream_t st) {
-  if (mma) return launch_mma<kDq, kDropout>(a, B, D, st);
+  if (mma)
+    return dtype == ptt::kF16
+               ? launch_mma<__half, kDq, kDropout>(a, B, D, st)
+               : launch_mma<__nv_bfloat16, kDq, kDropout>(a, B, D, st);
   if (dtype == ptt::kF32) return launch<float, kDq, kDropout>(a, B, D, st);
+  if (dtype == ptt::kF16) return launch<__half, kDq, kDropout>(a, B, D, st);
   return launch<__nv_bfloat16, kDq, kDropout>(a, B, D, st);
 }
 
@@ -928,11 +932,11 @@ int dispatch(Args a, int B, int D, int dtype, unsigned long long seed,
              const void* step, float dropout_p, void* stream) {
   if (B <= 0 || a.S_q <= 0 || a.S_k <= 0 || a.H <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if ((dtype != ptt::kF32 && dtype != ptt::kBF16) || !(dropout_p >= 0.f) ||
-      dropout_p > 1.f)
+  if ((dtype != ptt::kF32 && dtype != ptt::kBF16 && dtype != ptt::kF16) ||
+      !(dropout_p >= 0.f) || dropout_p > 1.f)
     return static_cast<int>(cudaErrorInvalidValue);
   a.drop = ptt::Dropout::make(seed, dropout_p, step);
-  const bool mma = dtype == ptt::kBF16 && aligned_16(a.q, a.sq) &&
+  const bool mma = dtype != ptt::kF32 && aligned_16(a.q, a.sq) &&
                    aligned_16(a.k, a.sk) && aligned_16(a.v, a.sv) &&
                    aligned_16(a.dout, a.sdo) && aligned_16(a.d0, a.sd0) &&
                    (kDq || aligned_16(a.d1, a.sd1));

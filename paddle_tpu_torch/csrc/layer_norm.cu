@@ -17,7 +17,16 @@
 // i, i + 32, ...: three a lane at N = 768 bf16), into registers, where it
 // stays packed; both passes of the statistics run on those registers and
 // finish with warp shuffles, with no shared memory and no block barrier;
-// y leaves as 16-byte vectors.  w and b are loaded as vectors beside x.
+// y leaves as 16-byte vectors.  w and b are loaded as vectors beside x
+// (a float32 w and b beside 16-bit x, two 16-byte vectors each for a
+// vector of x, are read in the last pass instead).
+//
+// x and y are float32, bfloat16 or float16; w and b are x's type, or
+// float32 beside 16-bit x (AMP-O1: a float32 LayerNorm weight meets a
+// 16-bit activation, as BERT's MLM head does under `auto_cast`).  The
+// Pallas kernel reads both as float32 (layer_norm.py:27), and so does each
+// kernel here: W, the weight's type, is a template parameter, and y is
+// written in x's type.
 //
 // `layer_norm_fwd_kernel` (every other width or alignment) gives each row a
 // block of 256 threads (512 from N = 4096) with scalar loads; the row is
@@ -31,10 +40,10 @@
 
 namespace {
 
-template <typename T>
+template <typename T, typename W>
 __global__ void layer_norm_fwd_kernel(const T* __restrict__ x,
-                                      const T* __restrict__ w,
-                                      const T* __restrict__ b,
+                                      const W* __restrict__ w,
+                                      const W* __restrict__ b,
                                       T* __restrict__ y,
                                       float* __restrict__ mean_out,
                                       float* __restrict__ rstd_out, int n,
@@ -69,10 +78,10 @@ constexpr int kRowsPerBlock = 8;  // one warp a row
 constexpr int kMaxVecs = 8;       // 16-byte vectors a lane, at most
 
 // kVecs: 16-byte vectors a lane holds, ceil(n / kN / 32).
-template <typename T, int kVecs>
+template <typename T, typename W, int kVecs>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
-    layer_norm_warp_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                           const T* __restrict__ b, T* __restrict__ y,
+    layer_norm_warp_kernel(const T* __restrict__ x, const W* __restrict__ w,
+                           const W* __restrict__ b, T* __restrict__ y,
                            float* __restrict__ mean_out,
                            float* __restrict__ rstd_out, long long rows,
                            int n, float eps) {
@@ -84,19 +93,23 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
   const int lane = threadIdx.x & 31;
   const int nv = n / kN;  // vectors in a row
   const uint4* xr = reinterpret_cast<const uint4*>(x + row * n);
-  const uint4* wr = reinterpret_cast<const uint4*>(w);
-  const uint4* br = reinterpret_cast<const uint4*>(b);
 
   // the row stays as the 16-byte vectors it was read in, unpacked again in
   // each pass: half the registers of float copies
-  uint4 xv[kVecs], wv[kVecs], bv[kVecs];
+  // w and b of x's type are held beside x from the start; float32 ones
+  // (twice the registers) are read in the last pass, from L1
+  constexpr bool kHold = sizeof(W) == sizeof(T);
+  uint4 xv[kVecs];
+  ptt::VecN<W, kN> wv[kHold ? kVecs : 1], bv[kHold ? kVecs : 1];
 #pragma unroll
   for (int i = 0; i < kVecs; ++i) {
     const int c = i * 32 + lane;
     if (kVecs * 32 <= nv || c < nv) {
       xv[i] = xr[c];
-      wv[i] = __ldg(wr + c);
-      bv[i] = __ldg(br + c);
+      if constexpr (kHold) {
+        wv[i].load(w + c * kN);
+        bv[i].load(b + c * kN);
+      }
     }
   }
   float f[kN];
@@ -131,8 +144,15 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
     if (kVecs * 32 <= nv || c < nv) {
       float wf[kN], bf[kN];
       V::unpack(xv[i], f);
-      V::unpack(wv[i], wf);
-      V::unpack(bv[i], bf);
+      if constexpr (kHold) {
+        wv[i].unpack(wf);
+        bv[i].unpack(bf);
+      } else {
+        wv[0].load(w + c * kN);
+        wv[0].unpack(wf);
+        bv[0].load(b + c * kN);
+        bv[0].unpack(bf);
+      }
 #pragma unroll
       for (int e = 0; e < kN; ++e) f[e] = (f[e] - mean) * rstd * wf[e] + bf[e];
       yr[c] = V::pack(f);
@@ -144,8 +164,8 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
   }
 }
 
-template <typename T>
-int launch_warp(const T* x, const T* w, const T* b, T* y, float* mean,
+template <typename T, typename W>
+int launch_warp(const T* x, const W* w, const W* b, T* y, float* mean,
                 float* rstd, long long rows, int n, float eps,
                 cudaStream_t st) {
   const int vecs = (n / ptt::Vec16<T>::kN + 31) / 32;
@@ -153,7 +173,7 @@ int launch_warp(const T* x, const T* w, const T* b, T* y, float* mean,
   switch (vecs) {
 #define PTT_LN_CASE(K)                                                      \
   case K:                                                                   \
-    layer_norm_warp_kernel<T, K><<<blocks, kRowsPerBlock * 32, 0, st>>>(    \
+    layer_norm_warp_kernel<T, W, K><<<blocks, kRowsPerBlock * 32, 0, st>>>( \
         x, w, b, y, mean, rstd, rows, n, eps);                              \
     break;
     PTT_LN_CASE(1)
@@ -171,20 +191,21 @@ int launch_warp(const T* x, const T* w, const T* b, T* y, float* mean,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, typename W>
 int launch(const void* x, const void* w, const void* b, void* y, void* mean,
            void* rstd, long long rows, int n, float eps, bool warp,
            cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
-  const T* wt = static_cast<const T*>(w);
-  const T* bt = static_cast<const T*>(b);
+  const W* wt = static_cast<const W*>(w);
+  const W* bt = static_cast<const W*>(b);
   T* yt = static_cast<T*>(y);
   float* mt = static_cast<float*>(mean);
   float* rt = static_cast<float*>(rstd);
-  if (warp) return launch_warp<T>(xt, wt, bt, yt, mt, rt, rows, n, eps, st);
+  if (warp)
+    return launch_warp<T, W>(xt, wt, bt, yt, mt, rt, rows, n, eps, st);
   const int threads = n >= 4096 ? 512 : 256;
-  layer_norm_fwd_kernel<T><<<rows, threads, 0, st>>>(xt, wt, bt, yt, mt, rt,
-                                                      n, eps);
+  layer_norm_fwd_kernel<T, W><<<rows, threads, 0, st>>>(xt, wt, bt, yt, mt,
+                                                         rt, n, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -193,14 +214,17 @@ std::atomic<long long> variant_launches[2];
 
 }  // namespace
 
-// x, y: [rows, n] contiguous; w, b: [n] in x's dtype; mean/rstd: [rows]
-// float32 or null.
+// x, y: [rows, n] contiguous in `dtype`; w, b: [n] contiguous in
+// `wdtype`, which is `dtype` or float32 beside a 16-bit `dtype`;
+// mean/rstd: [rows] float32 or null.
 extern "C" int ptt_layer_norm_fwd(const void* x, const void* w, const void* b,
                                   void* y, void* mean, void* rstd,
                                   long long rows, int n, float eps, int dtype,
-                                  void* stream) {
+                                  int wdtype, void* stream) {
   if (rows <= 0 || n <= 0) return 0;
-  if (dtype != ptt::kF32 && dtype != ptt::kBF16)
+  const bool mixed = dtype != ptt::kF32 && wdtype == ptt::kF32;
+  if ((dtype != ptt::kF32 && dtype != ptt::kBF16 && dtype != ptt::kF16) ||
+      (wdtype != dtype && !mixed))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int per_vec = dtype == ptt::kF32 ? 4 : 8;  // elements in 16 bytes
@@ -208,10 +232,14 @@ extern "C" int ptt_layer_norm_fwd(const void* x, const void* w, const void* b,
                     ptt::aligned_16(x) && ptt::aligned_16(w) &&
                     ptt::aligned_16(b) && ptt::aligned_16(y);
   ++variant_launches[warp];
-  if (dtype == ptt::kF32)
-    return launch<float>(x, w, b, y, mean, rstd, rows, n, eps, warp, st);
-  return launch<__nv_bfloat16>(x, w, b, y, mean, rstd, rows, n, eps, warp,
-                               st);
+#define PTT_LN_ARGS x, w, b, y, mean, rstd, rows, n, eps, warp, st
+  if (dtype == ptt::kF32) return launch<float, float>(PTT_LN_ARGS);
+  if (dtype == ptt::kBF16)
+    return mixed ? launch<__nv_bfloat16, float>(PTT_LN_ARGS)
+                 : launch<__nv_bfloat16, __nv_bfloat16>(PTT_LN_ARGS);
+  return mixed ? launch<__half, float>(PTT_LN_ARGS)
+               : launch<__half, __half>(PTT_LN_ARGS);
+#undef PTT_LN_ARGS
 }
 
 // How many launches took the block-per-row kernel (variant 0) or the

@@ -1,21 +1,27 @@
-// Tensor-core and asynchronous-copy primitives of the bf16 attention
+// Tensor-core and asynchronous-copy primitives of the 16-bit attention
 // kernels (sm_80 and later; built here for sm_90a): `cp.async` copies of 4
-// and 16 bytes with zero fill, `ldmatrix` loads of four 8 x 8 bf16 matrices
-// (plain and transposed) and the warp-wide
-// `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32`.
+// and 16 bytes with zero fill, `ldmatrix` loads of four 8 x 8 matrices of
+// 16-bit elements (plain and transposed) and the warp-wide
+// `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32` and
+// `mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32`, which share one
+// fragment layout: the kernels are templates over the element type T
+// (`__nv_bfloat16` or `__half`), through `mma16<T>` and `pack16<T>`.
 //
 // Fragment layout of m16n8k16, with g = lane >> 2 and t = lane & 3:
 //   A (16 x 16, row major)  a0: (g, 2t..2t+1)      a1: (g + 8, 2t..2t+1)
 //                           a2: (g, 2t+8..2t+9)    a3: (g + 8, 2t+8..2t+9)
 //   B (16 x 8, k by n)      b0: (k = 2t..2t+1, n = g)   b1: (k = 2t+8.., g)
 //   C (16 x 8)              c0, c1: (g, 2t..2t+1)  c2, c3: (g + 8, 2t..2t+1)
-// so two neighbouring C tiles, rounded to bf16, are the A operand of the
+// so two neighbouring C tiles, rounded to T, are the A operand of the
 // next product without leaving the registers.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace ptt {
 
@@ -54,9 +60,9 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// Four 8 x 8 bf16 matrices: lane i gives the address of row i % 8 of matrix
-// i / 8 (16 bytes, 16-byte aligned); register j receives matrix j, each
-// lane the pair (row g, columns 2t..2t+1).
+// Four 8 x 8 matrices of 16-bit elements: lane i gives the address of row
+// i % 8 of matrix i / 8 (16 bytes, 16-byte aligned); register j receives
+// matrix j, each lane the pair (row g, columns 2t..2t+1).
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
                                             const void* row) {
   asm volatile(
@@ -87,10 +93,50 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c += a . b, float16 operands, float32 accumulators (the fragment layout
+// of mma_bf16).
+__device__ __forceinline__ void mma_f16(float (&c)[4],
+                                        const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Two float32 rounded to bf16 (nearest even), `lo` in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two float32 rounded to float16 (nearest even; beyond 65504 to inf),
+// `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The product and the packing of element type T: bf16 or float16.
+template <typename T>
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4],
+                                      uint32_t b0, uint32_t b1) {
+  static_assert(std::is_same<T, __nv_bfloat16>::value ||
+                    std::is_same<T, __half>::value,
+                "a 16-bit element type");
+  if constexpr (std::is_same<T, __half>::value)
+    mma_f16(c, a, b0, b1);
+  else
+    mma_bf16(c, a, b0, b1);
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack16(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value)
+    return pack_f16(lo, hi);
+  else
+    return pack_bf16(lo, hi);
 }
 
 // 2^x by the special-function unit (2 ulp; -inf gives 0).
@@ -102,22 +148,22 @@ __device__ __forceinline__ float fast_exp2(float x) {
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Copy kRows rows of D bf16 from device memory (tile row i from
+// Copy kRows rows of D 16-bit elements from device memory (tile row i from
 // src + (r0 + i) * row_stride elements) into a shared tile whose rows are
 // kLd elements apart, 16 bytes a copy, by a block of kThreads threads; rows
 // at or beyond `n_rows` are filled with zeros.  A thread keeps one 16-byte
 // column of the tile, so its addresses differ by constants.
-template <int D, int kLd, int kRows, int kThreads>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* tile,
-                                           const __nv_bfloat16* src,
+template <int D, int kLd, int kRows, int kThreads, typename T>
+__device__ __forceinline__ void stage_rows(T* tile, const T* src,
                                            long long row_stride, int r0,
                                            int n_rows) {
   constexpr int kChunks = D / 8;              // 16-byte pieces of a row
   constexpr int kStep = kThreads / kChunks;   // rows between two copies
   static_assert(kThreads % kChunks == 0, "a thread keeps one column");
   const int piece = threadIdx.x % kChunks, first = threadIdx.x / kChunks;
-  const __nv_bfloat16* column = src + piece * 8;
-  __nv_bfloat16* dst = tile + first * kLd + piece * 8;
+  static_assert(sizeof(T) == 2, "16-bit elements: 8 a 16-byte copy");
+  const T* column = src + piece * 8;
+  T* dst = tile + first * kLd + piece * 8;
 #pragma unroll
   for (int r = 0; r < kRows; r += kStep) {
     if (kRows % kStep != 0 && first + r >= kRows) break;
@@ -127,12 +173,11 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* tile,
   }
 }
 
-// Write a warp's 16-row tile of D bf16 from shared memory to device memory
-// (row i at dst + (r0 + i) * row_stride), 16 bytes a lane; rows at or
-// beyond `n_rows` are dropped.
-template <int D, int kLd>
-__device__ __forceinline__ void store_rows_16(const __nv_bfloat16* tile,
-                                              __nv_bfloat16* dst,
+// Write a warp's 16-row tile of D 16-bit elements from shared memory to
+// device memory (row i at dst + (r0 + i) * row_stride), 16 bytes a lane;
+// rows at or beyond `n_rows` are dropped.
+template <int D, int kLd, typename T>
+__device__ __forceinline__ void store_rows_16(const T* tile, T* dst,
                                               long long row_stride, int r0,
                                               int n_rows) {
   constexpr int kChunks = D / 8;
@@ -146,7 +191,7 @@ __device__ __forceinline__ void store_rows_16(const __nv_bfloat16* tile,
 }
 
 // True when a base pointer and its (b, s, h) element strides let every row
-// of bf16 be moved in 16-byte pieces.
+// of 16-bit elements be moved in 16-byte pieces.
 inline bool aligned_16(const void* p, long long sb, long long ss,
                        long long sh) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && sb % 8 == 0 &&

@@ -35,7 +35,10 @@
 // float32, or to bf16 where its result is a bf16 tensor, and this kernel
 // copies that op for op with `__fmul_rn`, `__fadd_rn`, `__fsub_rn`,
 // `__fdiv_rn` and `__fsqrt_rn` (no FMA contraction), rounding through
-// bf16 where the eager op's result is bf16.  The scalars arrive as the
+// bf16 or float16 where the eager op's result is a tensor of that type
+// (float16 parameters: AMP-O2 after `amp.decorate`, whose AdamW keeps
+// float32 moments and float16 parameters, as the reference's dygraph
+// loop does).  The scalars arrive as the
 // float32 values the eager ops use: each Python scalar cast to float32
 // (`lr`, `beta1`, `1 - beta1`, `eps`, `lr * wd` formed in double first), and
 // `m / bias_correction` as the eager CUDA division by a host scalar does
@@ -123,7 +126,7 @@ __device__ __forceinline__ void update(float& p, float g, float& s0,
 }
 
 // Four consecutive elements as float32 and back (16 bytes of float32, 8
-// of bf16).
+// of bf16 or float16).
 __device__ __forceinline__ void load4(const float* q, float (&f)[4]) {
   const float4 v = *reinterpret_cast<const float4*>(q);
   f[0] = v.x, f[1] = v.y, f[2] = v.z, f[3] = v.w;
@@ -135,12 +138,25 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* q, float (&f)[4]) {
   f[2] = __uint_as_float(v.y << 16);
   f[3] = __uint_as_float(v.y & 0xffff0000u);
 }
+__device__ __forceinline__ void load4(const __half* q, float (&f)[4]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(q);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&v.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&v.y));
+  f[0] = a.x, f[1] = a.y, f[2] = b.x, f[3] = b.y;
+}
 __device__ __forceinline__ void store4(float* q, const float (&f)[4]) {
   *reinterpret_cast<float4*>(q) = make_float4(f[0], f[1], f[2], f[3]);
 }
 __device__ __forceinline__ void store4(__nv_bfloat16* q, const float (&f)[4]) {
   const __nv_bfloat162 a = __floats2bfloat162_rn(f[0], f[1]);
   const __nv_bfloat162 b = __floats2bfloat162_rn(f[2], f[3]);
+  *reinterpret_cast<uint2*>(q) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&a),
+                 *reinterpret_cast<const uint32_t*>(&b));
+}
+__device__ __forceinline__ void store4(__half* q, const float (&f)[4]) {
+  const __half2 a = __floats2half2_rn(f[0], f[1]);
+  const __half2 b = __floats2half2_rn(f[2], f[3]);
   *reinterpret_cast<uint2*>(q) =
       make_uint2(*reinterpret_cast<const uint32_t*>(&a),
                  *reinterpret_cast<const uint32_t*>(&b));
@@ -270,5 +286,6 @@ extern "C" int ptt_multi_tensor_step(int kind, int dtype, int count,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::kF32) return launch<float>(kind, tab, h, st);
   if (dtype == ptt::kBF16) return launch<__nv_bfloat16>(kind, tab, h, st);
+  if (dtype == ptt::kF16) return launch<__half>(kind, tab, h, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -23,7 +23,10 @@
 // The logits' rows are addressed through two strides (row r starts at
 // (r / inner) * so + (r % inner) * si), so the strided view logits[:, :-1]
 // of the GPT loss is read in place; the vocab axis has unit stride.  Any N
-// and any V: the TPU's lane and row padding were tiling artefacts.
+// and any V: the TPU's lane and row padding were tiling artefacts.  The
+// logits are float32, bfloat16 or float16 (AMP); loss and lse stay
+// float32 (the wrapper casts the loss to the logits' dtype, as
+// softmax_xent.py:205 does).
 #include <math.h>
 #include <stdint.h>
 
@@ -223,6 +226,8 @@ extern "C" int ptt_softmax_xent_fwd(const void* z, long long so, long long si,
   if (dtype == ptt::kBF16)
     return launch_fwd<__nv_bfloat16>(z, rows, n, V, labels, ignore, loss, lse,
                                      st);
+  if (dtype == ptt::kF16)
+    return launch_fwd<__half>(z, rows, n, V, labels, ignore, loss, lse, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -241,5 +246,7 @@ extern "C" int ptt_softmax_xent_bwd(const void* z, long long so, long long si,
   if (dtype == ptt::kBF16)
     return launch_bwd<__nv_bfloat16>(z, rows, n, V, labels, ignore, lse, g,
                                      dz, st);
+  if (dtype == ptt::kF16)
+    return launch_bwd<__half>(z, rows, n, V, labels, ignore, lse, g, dz, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -65,6 +65,7 @@ import contextlib
 
 import torch
 
+from ..amp import amp_key
 from ..framework.place import copy_to_device
 from ..framework.random import StepKeys
 from ..ops import kernels
@@ -216,9 +217,12 @@ def build_eval_step(network, loss_layer):
 
 def _signature(inputs, labels):
     """A batch's input signature, the key of the graph cache: the shape
-    and dtype of every input and label."""
+    and dtype of every input and label, and the AMP policy the step runs
+    under (``amp.amp_key()``: enabled, dtype, level), so a graph captured
+    outside ``auto_cast`` is never replayed inside it, nor the other way
+    round (the reference's jit traces the policy into its step)."""
     return tuple((tuple(t.shape), t.dtype) for t in inputs), \
-        tuple((tuple(t.shape), t.dtype) for t in labels)
+        tuple((tuple(t.shape), t.dtype) for t in labels), amp_key()
 
 
 class _StepGraph:

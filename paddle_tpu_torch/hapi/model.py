@@ -75,8 +75,11 @@ class Model:
     # -- setup -------------------------------------------------------------
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None):
-        if amp_configs:
-            raise NotImplementedError("amp_configs are not ported yet")
+        """Set the optimizer, the loss and the metrics.  ``amp_configs`` is
+        accepted and unused, as in the reference: mixed precision in
+        ``fit`` comes from an enclosing ``amp.auto_cast`` (and
+        ``amp.decorate`` for O2), whose policy the captured step is keyed
+        on."""
         if optimizer is not None and optimizer._parameter_list is None:
             # the reference feeds the network's parameters to the
             # optimizer through its state pytrees; here it updates them

@@ -25,6 +25,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import tensor_ops as T
 from ..framework.place import resolve_device
 from ..nn import functional as F
 from ..nn import initializer as I
@@ -122,7 +123,8 @@ class BertForPretraining(Layer):
         seq, pooled = self.bert(input_ids, token_type_ids, attention_mask)
         h = self.mlm_norm(F.gelu(self.mlm_transform(seq)))
         # the decoder is tied to the word embedding (BERT weight tying)
-        logits = torch.matmul(h, self.bert.embeddings.word.weight.t())
+        logits = T.matmul(h, self.bert.embeddings.word.weight,
+                          transpose_y=True)
         return logits + self.mlm_bias, self.nsp(pooled)
 
     def loss(self, input_ids, mlm_labels, nsp_labels, token_type_ids=None,

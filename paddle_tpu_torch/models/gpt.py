@@ -28,6 +28,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import tensor_ops as T
 from ..framework.place import resolve_device
 from ..nn import initializer as I
 from ..nn.layer.common import Dropout, Embedding, Linear
@@ -299,7 +300,7 @@ class GPTForCausalLM(Layer):
 
     def _head(self, hidden):
         if self.cfg.tie_word_embeddings:
-            return torch.matmul(hidden, self.gpt.wte.weight.t())
+            return T.matmul(hidden, self.gpt.wte.weight, transpose_y=True)
         return self.lm_head(hidden)
 
     def _check_eval(self):

@@ -16,12 +16,16 @@ import torch
 
 
 def linear(x, weight, bias=None):
-    """paddle convention: weight shape [in_features, out_features]."""
+    """paddle convention: weight shape [in_features, out_features].  A
+    matmul of the AMP white list: under ``amp.auto_cast`` x and the
+    weight are cast to the AMP dtype, and the bias to the product's."""
+    from ...amp import white_cast
+
     if x.shape[-1] != weight.shape[0]:
         raise ValueError(
             f"linear: input last dim vs weight in_features: got "
             f"{x.shape[-1]}, expected {weight.shape[0]}")
-    y = torch.matmul(x, weight)
+    y = torch.matmul(*white_cast(x, weight))
     return y if bias is None else y + bias.to(y.dtype)
 
 
@@ -70,10 +74,44 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     return out
 
 
+class _Embedding(torch.autograd.Function):
+    """The lookup with a weight gradient summed in one fixed order.
+    PyTorch's CUDA embedding backward sums the colliding rows of a
+    float32 table in an order that varies from call to call when the table
+    has few rows (BERT's 2 and ERNIE's 4 segment types over a 4096-token
+    batch: the gradient moved by ~1e-7 between two calls, measured on an
+    H100), and a float16 table's the same way (two AMP-O2 ERNIE runs from
+    one seed drifted apart after 25 steps), so two runs, or a captured
+    step and its eager twin, are not bitwise equal.  Here the gradient is
+    ``index_put_`` with ``accumulate=True``, which sorts the ids and sums
+    each id's rows in order, in float32, then takes the table's dtype.
+    bf16 tables keep PyTorch's backward, which gave the same bits in every
+    call measured (it also accumulates in float32)."""
+
+    @staticmethod
+    def forward(ctx, ids, weight):
+        ctx.save_for_backward(ids)
+        ctx.rows = weight.shape[0]
+        return torch.nn.functional.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        d = grad.shape[-1]
+        gw = torch.zeros(ctx.rows, d, dtype=torch.float32,
+                         device=grad.device).index_put_(
+            (ids.reshape(-1),), grad.reshape(-1, d).float(),
+            accumulate=True)
+        return None, gw.to(grad.dtype)
+
+
 def embedding(x, weight):
     if x.is_floating_point():
         raise TypeError(
             f"embedding: ids must be an integer tensor, got dtype {x.dtype}")
+    if weight.dtype != torch.bfloat16 and torch.is_grad_enabled() \
+            and weight.requires_grad:
+        return _Embedding.apply(x.long(), weight)
     return torch.nn.functional.embedding(x.long(), weight)
 
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..framework.dtype import convert_dtype
 from ..framework.io_state import as_array
 from . import initializer as I
 
@@ -95,3 +96,36 @@ class Layer(torch.nn.Module):
 
     load_dict = set_state_dict
     set_dict = set_state_dict
+
+    # -- dtype / device conversion -------------------------------------------
+    def to(self, *args, **kwargs):
+        """``torch.nn.Module.to``, with ``dtype=`` also a Paddle name
+        (``"float16"``) and the reference's ``blocking=`` accepted and
+        unused; a dtype also becomes every sublayer's ``_dtype``.  Each
+        floating parameter and buffer is cast in place: a parameter keeps
+        its object (so an optimizer built earlier still holds it)."""
+        kwargs.pop("blocking", None)
+        dtype = convert_dtype(kwargs.pop("dtype", None))
+        if dtype is not None:
+            kwargs["dtype"] = dtype
+        super().to(*args, **kwargs)
+        if dtype is not None:
+            for layer in self.modules():
+                if isinstance(layer, Layer):
+                    layer._dtype = dtype
+        return self
+
+    def astype(self, dtype):
+        """Cast every floating parameter and buffer to ``dtype`` (a Paddle
+        name or a torch dtype) in place, and set every sublayer's
+        ``_dtype`` (the reference's ``astype``)."""
+        return self.to(dtype=dtype)
+
+    def float(self):
+        return self.astype("float32")
+
+    def half(self):
+        return self.astype("float16")
+
+    def bfloat16(self):
+        return self.astype("bfloat16")

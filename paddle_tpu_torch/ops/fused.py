@@ -8,7 +8,8 @@ reference's ``paddle_pallas_fallbacks_total`` counter becomes a per-kernel
 launch count on each wrapper (ops/kernels).  Each op is differentiable:
 the kernel modules join forward and backward kernels in autograd
 Functions, as the reference's custom_vjps do.  The matmuls around the
-kernels stay ``torch.matmul``, as the reference leaves them to XLA.
+kernels stay ``torch.matmul``, as the reference leaves them to XLA (the
+FFN's through AMP's ``white_cast``, as the reference's).
 """
 from __future__ import annotations
 
@@ -39,8 +40,14 @@ def bias_gelu(x, bias, dropout_p=0.0, training=True):
 def linear_bias_gelu(x, weight, bias, dropout_p=0.0, training=True):
     """gelu(x @ weight + bias): the FFN expansion with its fused
     epilogue.  ``bias`` may be None: then the plain erf GeLU of the
-    matmul (the reference computes it in XLA, outside any kernel)."""
-    y = torch.matmul(x, weight)
+    matmul (the reference computes it in XLA, outside any kernel).  The
+    matmul goes through the same AMP white_cast as
+    ``nn.functional.linear``; the bias keeps its dtype (a float32 bias
+    beside a 16-bit product under ``auto_cast`` O1 is the kernel's mixed
+    form)."""
+    from ..amp import white_cast
+
+    y = torch.matmul(*white_cast(x, weight))
     if bias is None:
         return _dropout(torch.nn.functional.gelu(y), dropout_p, training)
     return bias_gelu(y, bias, dropout_p=dropout_p, training=training)

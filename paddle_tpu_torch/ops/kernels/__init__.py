@@ -8,9 +8,10 @@ the card), a note naming the Pallas kernel it replaces, and, where the
 reference has a custom_vjp, the ``torch.autograd.Function`` that joins a
 forward kernel to its backward.  ``optimizer`` is the one kernel beyond the
 ``pallas_call`` set: the whole-tree optimizer update the reference gets
-from XLA inside its jitted step.
+from XLA inside its jitted step; ``amp`` is the other, the loss scaler's
+check_finite_and_unscale over every gradient.
 """
-from . import (bias_gelu, flash_attention, layer_norm, optimizer,
+from . import (amp, bias_gelu, flash_attention, layer_norm, optimizer,
                paged_attention, softmax_xent)
 
 # one entry per CUDA kernel: the wrapper that launches it and counts
@@ -25,6 +26,7 @@ WRAPPERS = {
     "softmax_xent": softmax_xent.softmax_xent_fwd,
     "softmax_xent_bwd": softmax_xent.softmax_xent_bwd,
     "multi_tensor_step": optimizer.multi_tensor_step,
+    "check_finite_and_unscale": amp.check_finite_and_unscale_,
 }
 
 

@@ -21,6 +21,12 @@ float32 copy of dx, as the reference leaves it to XLA
 (``jnp.sum(dx.astype(jnp.float32), axis=0)``, where the convert fuses into
 the reduction).
 
+x and dy are float32, bfloat16 or float16; the bias is x's dtype, or
+float32 beside 16-bit x (AMP-O1: the FFN's 16-bit matmul output beside its
+float32 bias, added in float32 as bias_gelu.py:42 adds it); y and dx are
+x's dtype, db the bias's (``sum(dx.astype(f32)).astype(b.dtype)``,
+:87).
+
 A CPU tensor takes the plain versions; a CUDA tensor launches the kernels
 or raises.  :func:`bias_gelu` builds the autograd graph only when grad
 mode is on and an input requires grad; serving under ``torch.no_grad()``
@@ -34,14 +40,16 @@ import math
 import torch
 
 from . import build
+from .layer_norm import weight_dtype_ok
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 _FWD_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_void_p)
+                 ctypes.c_int, ctypes.c_void_p)
 _BWD_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_longlong, ctypes.c_int,
-                                          ctypes.c_int, ctypes.c_void_p)
+                                          ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_void_p)
 
 
 def bias_gelu_plain(x, bias):
@@ -60,11 +68,12 @@ def bias_gelu_bwd_plain(x, bias, dy):
 
 def _check(name, x, bias, *others):
     n = x.shape[-1]
-    if bias.shape != (n,) or bias.dtype != x.dtype \
+    if bias.shape != (n,) or not weight_dtype_ok(x, bias) \
             or bias.device != x.device or not bias.is_contiguous():
-        raise ValueError(f"{name}: bias must be a contiguous [{n}] "
-                         f"{x.dtype} tensor on {x.device}, got "
-                         f"{tuple(bias.shape)} {bias.dtype} on {bias.device}")
+        raise ValueError(f"{name}: bias must be a contiguous [{n}] tensor "
+                         f"on {x.device} of x's dtype {x.dtype} (or float32 "
+                         f"beside 16-bit x), got {tuple(bias.shape)} "
+                         f"{bias.dtype} on {bias.device}")
     for t in (x, *others):
         if t.shape != x.shape or t.dtype != x.dtype \
                 or t.device != x.device or not t.is_contiguous():
@@ -83,7 +92,8 @@ def _forward(x, bias):
     y = torch.empty_like(x)
     fn = build.bind("bias_gelu", "ptt_bias_gelu_fwd", _FWD_ARGTYPES)
     err = fn(x.data_ptr(), bias.data_ptr(), y.data_ptr(), x.numel(),
-             x.shape[-1], build.dtype_code(x), build.stream_of(x))
+             x.shape[-1], build.dtype_code(x), build.dtype_code(bias),
+             build.stream_of(x))
     build.check(err, "bias_gelu")
     bias_gelu.launches += 1
     return y
@@ -100,7 +110,7 @@ def bias_gelu_bwd(x, bias, dy):
     fn = build.bind("bias_gelu", "ptt_bias_gelu_bwd", _BWD_ARGTYPES)
     err = fn(x.data_ptr(), bias.data_ptr(), dy.data_ptr(), dx.data_ptr(),
              x.numel(), x.shape[-1], build.dtype_code(x),
-             build.stream_of(x))
+             build.dtype_code(bias), build.stream_of(x))
     build.check(err, "bias_gelu_bwd")
     bias_gelu_bwd.launches += 1
     return dx

@@ -28,12 +28,16 @@ from pathlib import Path
 
 SOURCES = ("layer_norm", "bias_gelu", "flash_attention",
            "flash_attention_bwd", "paged_attention", "softmax_xent",
-           "multi_tensor_optim")
+           "multi_tensor_optim", "amp")
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "paddle_tpu_torch"
+# --split-compile=0: the optimizer passes of one source run on every
+# core, so the two attention sources (a hundred template instantiations
+# each, bf16 and float16) do not serialise the build
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -152,11 +156,13 @@ def strides(*tensors):
 
 
 def dtype_code(t) -> int:
-    """0 float32, 1 bfloat16 (the kernels' two input types)."""
+    """0 float32, 1 bfloat16, 2 float16 (the kernels' input types:
+    ``ptt::DType`` of csrc/common.cuh)."""
     import torch
 
-    if t.dtype == torch.float32:
-        return 0
-    if t.dtype == torch.bfloat16:
-        return 1
-    raise TypeError(f"CUDA kernels take float32 or bfloat16, got {t.dtype}")
+    code = {torch.float32: 0, torch.bfloat16: 1,
+            torch.float16: 2}.get(t.dtype)
+    if code is None:
+        raise TypeError("CUDA kernels take float32, bfloat16 or float16, "
+                        f"got {t.dtype}")
+    return code

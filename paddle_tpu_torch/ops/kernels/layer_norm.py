@@ -15,6 +15,10 @@ as ``_ln_fwd`` saves them.  The backward (``_ln_bwd``) is closed-form XLA
 math in the reference, with no Pallas kernel; here it is the same math in
 PyTorch (:func:`layer_norm_bwd_plain`) on both devices.
 
+x is float32, bfloat16 or float16; weight and bias are x's dtype, or
+float32 beside 16-bit x (the MLM head's LayerNorm under ``auto_cast``
+O1), and y is x's dtype (:func:`weight_dtype_ok`).
+
 A CPU tensor takes the plain forward; a CUDA tensor launches the kernel
 or raises — there is no fallback between the two.  :func:`layer_norm`
 builds the autograd graph only when grad mode is on and an input requires
@@ -31,7 +35,17 @@ from . import build
 
 _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_longlong, ctypes.c_int,
                                       ctypes.c_float, ctypes.c_int,
-                                      ctypes.c_void_p)
+                                      ctypes.c_int, ctypes.c_void_p)
+_16BIT = (torch.bfloat16, torch.float16)
+
+
+def weight_dtype_ok(x, w):
+    """Whether the kernels take a weight (or bias) of ``w``'s dtype beside
+    x: x's own dtype, or float32 beside 16-bit x (AMP-O1: a float32
+    parameter meets a 16-bit activation; the Pallas kernels read it as
+    float32 and write x's dtype)."""
+    return w.dtype == x.dtype or (w.dtype == torch.float32
+                                  and x.dtype in _16BIT)
 
 
 def _plain_with_stats(x, weight, bias, epsilon):
@@ -50,7 +64,8 @@ def layer_norm_plain(x, weight, bias, epsilon=1e-5):
 
 def layer_norm_bwd_plain(x, weight, mean, rstd, dy):
     """The reference's ``_ln_bwd`` over x, dy [..., N], weight [N] and the
-    forward's float32 row statistics [rows].  Returns (dx, dw, db)."""
+    forward's float32 row statistics [rows].  Returns (dx, dw, db): dx in
+    x's dtype, dw and db in the weight's (layer_norm.py:92)."""
     n = x.shape[-1]
     xf = x.reshape(-1, n).float()
     dyf = dy.reshape(-1, n).float()
@@ -75,11 +90,14 @@ def _forward(x, weight, bias, epsilon, stats):
     if x.device.type != "cuda":
         raise RuntimeError(f"layer_norm: no kernel for device {x.device}")
     for name, t in (("weight", weight), ("bias", bias)):
-        if t.shape != (n,) or t.dtype != x.dtype or t.device != x.device \
+        if t.shape != (n,) or not weight_dtype_ok(x, t) \
+                or t.dtype != weight.dtype or t.device != x.device \
                 or not t.is_contiguous():
             raise ValueError(f"layer_norm: {name} must be a contiguous [{n}] "
-                             f"{x.dtype} tensor on {x.device}, got "
-                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+                             f"tensor on {x.device} of x's dtype {x.dtype} "
+                             "(or float32 beside 16-bit x), as the other "
+                             f"one, got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
     if not x.is_contiguous():
         raise ValueError("layer_norm: x must be contiguous")
     rows = x.numel() // max(n, 1)
@@ -92,7 +110,8 @@ def _forward(x, weight, bias, epsilon, stats):
     err = fn(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
              mean.data_ptr() if stats else None,
              rstd.data_ptr() if stats else None, rows, n, float(epsilon),
-             build.dtype_code(x), build.stream_of(x))
+             build.dtype_code(x), build.dtype_code(weight),
+             build.stream_of(x))
     build.check(err, "layer_norm")
     layer_norm.launches += 1
     return (y, mean, rstd) if stats else y

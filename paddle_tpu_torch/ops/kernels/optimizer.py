@@ -11,7 +11,8 @@ and ``AdamW``; :func:`update_plain` is their arithmetic, in eager ops in
 the reference's order, and the optimizers' ``_update`` call it.
 
 The kernel (csrc/multi_tensor_optim.cu) is bound by bytes (bf16 AdamW: 22
-bytes an element).  The host builds a table of per-tensor pointers and
+bytes an element), for float32, bfloat16 and float16 parameters (float16:
+AMP-O2 after ``amp.decorate``; Adam-family moments stay float32).  The host builds a table of per-tensor pointers and
 counts and passes it as the launch's parameter: no host sync.  The nine
 scalars (:func:`hyper_floats`) are a float32 [9] device tensor that the
 kernel reads when it runs, written from the host by :func:`write_scalars`
@@ -149,9 +150,9 @@ def _check(kind, params, grads, slots):
     if kind not in KINDS:
         raise ValueError(f"multi_tensor_step: no rule {kind!r}")
     p0 = params[0]
-    if p0.dtype not in (torch.float32, torch.bfloat16):
+    if p0.dtype not in (torch.float32, torch.bfloat16, torch.float16):
         raise TypeError(f"multi_tensor_step: no kernel for {p0.dtype} "
-                        "parameters (float32 and bfloat16 only)")
+                        "parameters (float32, bfloat16 and float16 only)")
     slot_dtype = torch.float32 if SLOTS[kind] == 2 else p0.dtype
     for p, g, s in zip(params, grads, slots):
         if p.dtype != p0.dtype or p.device != p0.device \

@@ -117,9 +117,9 @@ def _device(name, z):
 
 
 def softmax_xent_fwd(z, labels, ignore_index=-100):
-    """The forward kernel: z [..., V] float32 or bfloat16 (leading dims of
-    any strides), labels int64 [N] contiguous.  Returns (loss, lse),
-    float32 [N].  No graph: see :func:`softmax_xent`."""
+    """The forward kernel: z [..., V] float32, bfloat16 or float16
+    (leading dims of any strides), labels int64 [N] contiguous.  Returns
+    (loss, lse), float32 [N].  No graph: see :func:`softmax_xent`."""
     if _device("softmax_xent", z) == "cpu":
         return softmax_xent_plain(z, labels, ignore_index)
     _check("softmax_xent", z, labels)

@@ -945,10 +945,18 @@ def test_multi_tensor_state_dict_is_a_snapshot_on_the_card(dev):
 
 
 def test_multi_tensor_step_refuses_float16(dev):
-    p = torch.nn.Parameter(torch.zeros(8, device=dev, dtype=torch.float16))
+    """float64 has no kernel and is refused before any launch; float16,
+    refused until the AMP slice, now launches (bitwise the loop:
+    test_multi_tensor_step_float16_is_the_loop)."""
+    p = torch.nn.Parameter(torch.zeros(8, device=dev, dtype=torch.float64))
     p.grad = torch.ones_like(p)
-    with pytest.raises(TypeError, match="float16"):
+    with pytest.raises(TypeError, match="float64"):
         ptt.optimizer.SGD(learning_rate=0.1, parameters=[p]).step()
+    h = torch.nn.Parameter(torch.zeros(8, device=dev, dtype=torch.float16))
+    h.grad = torch.ones_like(h)
+    before = multi_tensor.multi_tensor_step.launches
+    ptt.optimizer.SGD(learning_rate=0.1, parameters=[h]).step()
+    assert multi_tensor.multi_tensor_step.launches == before + 1
 
 
 def test_multi_tensor_step_refuses_shared_memory(dev):
@@ -1956,3 +1964,331 @@ def test_seq2seq_cached_decoding_matches_recompute(dev):
     assert torch.equal(cached, again)
     for a, b in zip(logits, ref):
         _check(a, b, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# mixed precision: the float16 and mixed-dtype forms of the training
+# kernels, the unscale kernel, float16 parameters in the optimizer kernel
+# and Model.fit under auto_cast
+# ---------------------------------------------------------------------------
+# float16: eight half-ulps at the top binade (twice bf16's margin in ulps;
+# the tensor-core attention kernels round p and ds to float16 before the
+# second product, as the reference does)
+F16_TOL = 2 ** -8
+AMP_FORMS = [(torch.float16, torch.float16), (torch.float16, torch.float32),
+             (torch.bfloat16, torch.float32)]   # (x's dtype, weight's)
+
+
+def _amp_check(out, ref):
+    torch.cuda.synchronize()
+    scale = max(1.0, ref.float().abs().max().item())
+    tol = (F16_TOL if out.dtype == torch.float16 else 2 ** -6) * scale
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("dtype,wdtype", AMP_FORMS)
+@pytest.mark.parametrize("rows,n", [(3, 768), (1000, 768), (5, 100),
+                                    (2, 2048)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_amp_layer_norm_kernel(dev, dtype, wdtype, rows, n, offset):
+    """LayerNorm in float16, and with a float32 weight and bias beside
+    16-bit x (y in x's dtype): y, mean and rstd against the plain
+    version, on both kernels (vector and block per row); the backward's
+    dw and db in the weight's dtype."""
+    g = torch.Generator(device=dev).manual_seed(rows + n + offset)
+    buf = (torch.randn(rows * n + 8, generator=g, device=dev) * 3 + 1).to(
+        dtype)
+    x = buf[offset:offset + rows * n].view(rows, n)
+    w = (1 + 0.1 * torch.randn(n, generator=g, device=dev)).to(wdtype)
+    b = (0.1 * torch.randn(n, generator=g, device=dev)).to(wdtype)
+    variants = layer_norm.variant_launches()["layer_norm"]
+    y, mean, rstd = layer_norm._forward(x, w, b, 1e-5, stats=True)
+    ref_y, ref_mean, ref_rstd = layer_norm._plain_with_stats(x, w, b, 1e-5)
+    assert y.dtype == dtype
+    _amp_check(y, ref_y)
+    _check(mean, ref_mean, torch.float32)
+    _check(rstd, ref_rstd, torch.float32)
+    per = 16 // x.element_size()
+    taken = "warp" if offset == 0 and n % per == 0 and n <= 256 * per \
+        else "block"
+    assert layer_norm.variant_launches()["layer_norm"][taken] \
+        == variants[taken] + 1
+    xg, wg, bg = (t.detach().clone().requires_grad_() for t in (x, w, b))
+    layer_norm.layer_norm(xg, wg, bg).float().square().sum().backward()
+    assert xg.grad.dtype == dtype and wg.grad.dtype == bg.grad.dtype \
+        == wdtype
+
+
+@pytest.mark.parametrize("dtype,bdtype", AMP_FORMS)
+@pytest.mark.parametrize("rows,n", [(1, 5), (3, 3072), (257, 3072)])
+def test_amp_bias_gelu_kernels(dev, dtype, bdtype, rows, n):
+    """The bias-GeLU forward and backward in float16, and with a float32
+    bias beside 16-bit x, against the plain versions; db is the float32
+    row sum of dx in the bias's dtype."""
+    g = torch.Generator(device=dev).manual_seed(rows + n)
+    x = (2 * torch.randn(rows, n, generator=g, device=dev)).to(dtype)
+    b = (0.5 * torch.randn(n, generator=g, device=dev)).to(bdtype)
+    dy = torch.randn(rows, n, generator=g, device=dev).to(dtype)
+    y = bias_gelu.bias_gelu(x, b)
+    assert y.dtype == dtype
+    _amp_check(y, bias_gelu.bias_gelu_plain(x, b))
+    dx = bias_gelu.bias_gelu_bwd(x, b, dy)
+    _amp_check(dx, bias_gelu.bias_gelu_bwd_plain(x, b, dy))
+    xg, bg = x.clone().requires_grad_(), b.clone().requires_grad_()
+    bias_gelu.bias_gelu(xg, bg).backward(dy)
+    assert bg.grad.dtype == bdtype
+    ref_db = bias_gelu.bias_gelu_bwd_plain(x, b, dy).float().sum(0)
+    # dx rounds to x's dtype before the sum: its tolerance
+    _check(bg.grad.float(), ref_db, torch.bfloat16)
+
+
+@pytest.mark.parametrize("n,V", [(37, 2), (64, 30522), (5, 18000)])
+def test_amp_softmax_xent_kernels(dev, n, V):
+    """softmax cross entropy on float16 logits (the NSP head's V = 2 and
+    ERNIE's 18,000-token vocabulary), forward and backward, against the
+    plain versions; ignored rows' dz exactly 0."""
+    from paddle_tpu_torch.ops.kernels import softmax_xent
+
+    g = torch.Generator(device=dev).manual_seed(n + V)
+    z = (3 * torch.randn(n, V, generator=g, device=dev)).half()
+    labels = torch.randint(0, V, (n,), generator=g, device=dev)
+    labels[::3] = -100
+    loss, lse = softmax_xent.softmax_xent_fwd(z, labels)
+    ref_loss, ref_lse = softmax_xent.softmax_xent_plain(z, labels)
+    _check(loss, ref_loss, torch.float32)
+    _check(lse, ref_lse, torch.float32)
+    gr = torch.rand(n, generator=g, device=dev)
+    dz = softmax_xent.softmax_xent_bwd(z, labels, lse, gr)
+    assert dz.dtype == torch.float16
+    _amp_check(dz, softmax_xent.softmax_xent_bwd_plain(z, labels, lse, gr))
+    assert not dz[::3].any()
+
+
+AMP_ATTENTION = [("causal", 2, 77, 77), ("mask", 3, 128, 128),
+                 ("dropout", 2, 64, 64), ("cross", 3, 64, 72),
+                 ("causal-cross", 2, 20, 48)]
+
+
+@pytest.mark.parametrize("form,B,S_q,S_k", AMP_ATTENTION)
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_amp_flash_attention_float16(dev, form, B, S_q, S_k, D, offset):
+    """The three attention kernels in float16, on the tensor cores
+    (aligned) and on the CUDA cores (q, k, v one element off a 16-byte
+    boundary): causal, a padding mask, dropout, and S_q != S_k, against
+    the plain versions; the dropout mask is the bf16 kernels' (a pure
+    function of seed and position)."""
+    H = 3
+    g = torch.Generator(device=dev).manual_seed(S_q * D + S_k + offset)
+
+    def rnd(S):
+        buf = torch.randn(B * S * H * D + 8, generator=g, device=dev).half()
+        return buf[offset:offset + B * S * H * D].view(B, S, H, D)
+
+    q, k, v, do = rnd(S_q), rnd(S_k), rnd(S_k), rnd(S_q)
+    causal = form.startswith("causal")
+    bias, p, seed = None, 0.0, 0
+    if form == "mask":
+        lens = torch.randint(S_k // 2, S_k + 1, (B,), generator=g,
+                             device=dev)
+        mask = torch.arange(S_k, device=dev)[None] < lens[:, None]
+        bias = flash_attention.fold_mask(mask[:, None, None, :], B, H, S_q,
+                                         S_k)
+    if form == "dropout":
+        p, seed = 0.1, 0xA11CE
+    form_kw = dict(causal=causal, bias=bias, dropout_p=p, seed=seed)
+    before = flash_attention.variant_launches()
+    out, lse = flash_attention.flash_attention(q, k, v, **form_kw)
+    ref, ref_lse = flash_attention.flash_attention_plain(q, k, v, **form_kw)
+    assert out.dtype == torch.float16
+    _amp_check(out, ref)
+    _check(lse, ref_lse, torch.bfloat16)
+    delta = flash_attention.flash_attention_delta(out, do)
+    dq = flash_attention.flash_attention_dq(q, k, v, do, lse, delta,
+                                            **form_kw)
+    dk, dv = flash_attention.flash_attention_dkv(q, k, v, do, lse, delta,
+                                                 **form_kw)
+    _amp_check(dq, flash_attention.flash_attention_dq_plain(
+        q, k, v, do, lse, delta, **form_kw))
+    rk, rv = flash_attention.flash_attention_dkv_plain(
+        q, k, v, do, lse, delta, **form_kw)
+    _amp_check(dk, rk)
+    _amp_check(dv, rv)
+    taken = "mma" if offset == 0 else "simt"
+    after = flash_attention.variant_launches()
+    for name in ("flash_attention", "flash_attention_dq",
+                 "flash_attention_dkv"):
+        assert after[name][taken] == before[name][taken] + 1, name
+
+
+def test_amp_dropout_mask_is_the_same_in_float16_and_bf16(dev):
+    """q = 0 makes every weight 1 / S, and V = I puts weight (i, j) in
+    O[i, j]: the float16 and the bf16 forward keep the same (query, key)
+    pairs for one seed, the plain version's mask."""
+    B, S, H, D, p, seed = 2, 64, 2, 64, 0.25, 0xD7
+    q = torch.zeros(B, S, H, D, device=dev)
+    v = torch.eye(S, D, device=dev)[None, :, None].expand(B, S, H, D)
+    kept = []
+    for dtype in (torch.float16, torch.bfloat16):
+        out, _ = flash_attention.flash_attention(
+            q.to(dtype), q.to(dtype), v.contiguous().to(dtype),
+            causal=False, dropout_p=p, seed=seed)
+        kept.append(out.float() != 0)
+    assert torch.equal(kept[0], kept[1])
+    keep = flash_attention.dropout_keep_plain(seed, B, H, S, p, dev)
+    assert torch.equal(kept[0], keep.permute(0, 2, 1, 3))
+
+
+def _amp_grads(dev, dtype, unaligned=False):
+    g = torch.Generator(device=dev).manual_seed(31)
+    grads = [torch.randn(*s, generator=g, device=dev).mul(1024).to(dtype)
+             for s in OPT_SHAPES]
+    if unaligned:
+        buf = torch.randn(1001, generator=g, device=dev).to(dtype)
+        grads.append(buf[1:])
+    return grads
+
+
+@pytest.mark.parametrize("dtype", DTYPES + [torch.float16])
+@pytest.mark.parametrize("plant", ["clean", "inf", "nan"])
+def test_amp_unscale_kernel_is_bitwise_the_plain_version(dev, dtype, plant):
+    """check_finite_and_unscale_ over gradients of every shape of the
+    optimizer tests (one unaligned), in one launch: bitwise the plain
+    version, the flag set exactly when an inf or a NaN was planted."""
+    from paddle_tpu_torch.ops.kernels import amp as amp_kernel
+
+    grads = _amp_grads(dev, dtype, unaligned=True)
+    if plant != "clean":
+        grads[1].view(-1)[77] = float(plant)
+    ref = [t.clone() for t in grads]
+    inv = torch.full((1,), 2.0 ** -15, device=dev)
+    found = torch.zeros(1, dtype=torch.int32, device=dev)
+    ref_found = torch.zeros(1, dtype=torch.int32, device=dev)
+    before = amp_kernel.check_finite_and_unscale_.launches
+    amp_kernel.check_finite_and_unscale_(grads, inv, found)
+    assert amp_kernel.check_finite_and_unscale_.launches == before + 1
+    amp_kernel.check_finite_and_unscale_plain(ref, inv, ref_found)
+    torch.cuda.synchronize()
+    for a, b in zip(grads, ref):
+        assert torch.equal(a.isnan(), b.isnan())
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
+    assert found.item() == ref_found.item() == (plant != "clean")
+
+
+def test_amp_grad_scaler_skips_and_halves(dev):
+    """GradScaler on float16 parameters: a step with an inf in a
+    gradient is skipped (parameters unchanged), the scale halves every
+    second bad step; a clean step updates through one optimizer launch
+    and one unscale launch."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops.kernels import amp as amp_kernel
+
+    params = [torch.nn.Parameter(t) for t in _amp_grads(dev,
+                                                        torch.float16)]
+    opt = ptt.optimizer.AdamW(learning_rate=1e-3, parameters=params)
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    scales = []
+    for step in range(5):
+        for p in params:
+            p.grad = torch.ones_like(p) * 8
+        if step in (1, 2):
+            params[0].grad.view(-1)[3] = float("inf")
+        before = [p.detach().clone() for p in params]
+        launches = (multi_tensor.multi_tensor_step.launches,
+                    amp_kernel.check_finite_and_unscale_.launches)
+        scaler.step(opt)
+        opt.clear_grad()
+        skipped = step in (1, 2)
+        assert all(torch.equal(a, b) for a, b in zip(params, before)) \
+            == skipped
+        assert multi_tensor.multi_tensor_step.launches - launches[0] \
+            == (0 if skipped else 1)
+        assert amp_kernel.check_finite_and_unscale_.launches \
+            - launches[1] == 1
+        scales.append(scaler.get_loss_scaling())
+    assert scales == [2.0 ** 15, 2.0 ** 15, 2.0 ** 14, 2.0 ** 14, 2.0 ** 14]
+
+
+@pytest.mark.parametrize("kind", sorted(OPTIMIZERS))
+@pytest.mark.parametrize("case", ["plain", "unaligned", "resume"])
+def test_multi_tensor_step_float16_is_the_loop(dev, kind, case):
+    """float16 parameters (AMP-O2), float32 moments: after 3 steps the
+    kernel's parameters and slots equal the per-parameter loop's bit for
+    bit; one launch a step."""
+    kw = dict(unaligned=case == "unaligned",
+              resume_at=1 if case == "resume" else None)
+    before = multi_tensor.multi_tensor_step.launches
+    got, got_slots = _opt_run(dev, kind, torch.float16, plain=False, **kw)
+    assert multi_tensor.multi_tensor_step.launches == before + 3
+    want, want_slots = _opt_run(dev, kind, torch.float16, plain=True, **kw)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == torch.float16
+        assert torch.equal(a, b), (i, (a.float() - b.float()).abs().max())
+    for a, b in zip(got_slots, want_slots):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_fit_amp_graph_is_bitwise_the_eager_step(dev, dtype):
+    """Model.fit of a small float32 BERT under auto_cast(level="O1") in
+    bf16 and float16 through the captured step and through
+    ``_step_eager``: losses and parameters bitwise equal; the graph holds
+    the mixed bias-GeLU and LayerNorm forms; a plain fit of the same model
+    afterwards captures a graph of its own (the AMP policy is part of the
+    signature)."""
+    from paddle_tpu_torch import amp
+
+    data = _bert_data(n=16)
+    runs = {}
+    for form in ("graph", "eager"):
+        net = _tiny_bert(dev, torch.float32)
+        model, engine = _train_api(net, form, loss=_bert_loss,
+                                   labels=["mlm", "nsp"])
+        with amp.auto_cast(level="O1", dtype=dtype):
+            hist = model.fit(ptt.io.TensorDataset(data), batch_size=4,
+                             shuffle=False, verbose=0, log_freq=2)
+        runs[form] = (hist["step_loss"], _params(net))
+        if form == "graph":
+            assert engine.captures == 1 and engine.replays == 3
+            (sig,) = engine.graph_launches
+            assert sig[-1] == (True, dtype, "O1")
+            model.fit(ptt.io.TensorDataset(data), batch_size=4,
+                      shuffle=False, verbose=0)
+            assert engine.captures == 2 and engine.replays == 6
+            assert (False,) in {s[-1] for s in engine.graph_launches}
+    losses, params = runs["graph"]
+    assert len(losses) == 4 and all(np.isfinite(losses))
+    assert losses == runs["eager"][0]
+    assert all(torch.equal(a, b) for a, b in zip(params, runs["eager"][1]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_embedding_gradient_is_deterministic(dev, dtype):
+    """A float32 or float16 table of 2, 4 and 512 rows over a 4096-token
+    batch: the gradient of ``nn.functional.embedding`` is bitwise the same
+    in 10 calls (PyTorch's CUDA embedding backward varied from call to
+    call for float32 segment tables) and is the float32 sum of each id's
+    rows, rounded once; a bf16 table takes PyTorch's backward."""
+    from paddle_tpu_torch.nn import functional as F
+
+    g = torch.Generator(device=dev).manual_seed(41)
+    for rows in (2, 4, 512):
+        ids = torch.randint(0, rows, (32, 128), generator=g, device=dev)
+        dy = torch.randn(32, 128, 768, generator=g, device=dev).to(dtype)
+        w = torch.randn(rows, 768, generator=g, device=dev).to(
+            dtype).requires_grad_()
+        grads = []
+        for _ in range(10):
+            w.grad = None
+            F.embedding(ids, w).backward(dy)
+            grads.append(w.grad.clone())
+        assert all(torch.equal(grads[0], x) for x in grads[1:]), rows
+        assert grads[0].dtype == dtype
+        ref = torch.zeros(rows, 768, device=dev, dtype=torch.float64)
+        ref.index_add_(0, ids.reshape(-1), dy.reshape(-1, 768).double())
+        _check(grads[0].float(), ref, torch.float32 if dtype ==
+               torch.float32 else dtype)
+    wb = torch.randn(4, 768, device=dev).bfloat16().requires_grad_()
+    F.embedding(ids.clamp(max=3), wb).backward(dy.bfloat16())
+    assert wb.grad.dtype == torch.bfloat16

@@ -130,6 +130,9 @@ def _kernel_args(device):
                                 torch.ones(3, 8, device=device)]], 1e-3, 2,
                               {"beta1": 0.9, "beta2": 0.999,
                                "epsilon": 1e-8, "weight_decay": 0.01}),
+        "check_finite_and_unscale": (
+            [x.clone()], torch.full((1,), 0.5, device=device),
+            torch.zeros(1, dtype=torch.int32, device=device)),
     }
 
 

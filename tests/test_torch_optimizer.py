@@ -254,15 +254,18 @@ def test_kernel_scalars_are_the_eager_float32_values():
 
 def test_no_kernel_no_fallback():
     """A parameter on a device without a kernel raises in step(), as the
-    wrapper does; float16 (no kernel) is refused before any launch."""
+    wrapper does; float64 (no kernel; float16 has one since AMP) is
+    refused before any launch."""
     p = torch.nn.Parameter(torch.zeros(4, 3, device="meta"))
     p.grad = torch.zeros(4, 3, device="meta")
     opt = ptt.optimizer.AdamW(learning_rate=0.1, parameters=[p])
     with pytest.raises(RuntimeError, match="no kernel"):
         opt.step()
-    h = torch.zeros(3, dtype=torch.float16)
-    with pytest.raises(TypeError, match="float16"):
+    h = torch.zeros(3, dtype=torch.float64)
+    with pytest.raises(TypeError, match="float64"):
         K._check("adam", [h], [h], [[h.float(), h.float()]])
+    h = torch.zeros(3, dtype=torch.float16)
+    K._check("adam", [h], [h], [[h.float(), h.float()]])
     x = torch.zeros(3)
     with pytest.raises(ValueError, match="slots"):
         K._check("adam", [x], [x], [[x.double(), x]])
