@@ -143,6 +143,32 @@ passed over):
                   forms, float32 MLM and bf16 NSP cross-entropy in the
                   trace, and a plain fit of the same model capturing a
                   graph of its own.
+19. paged-f16   — float16 paged decode (split and lane kernels, its own
+                  __half instantiation) against its plain version at the
+                  serving table's shape and a wave's, timed beside the
+                  bf16 kernel at the same shape; the softmax cross-entropy
+                  kernels at the vision paths' shapes (ResNet-50: N = 128,
+                  V = 1000, bf16; LeNet: V = 10, float32) against their
+                  plain versions and F.cross_entropy.
+20. fp16-serve  — GPT-2-small cast to float16 behind GenerationEngine at
+                  the reference's defaults: a float16 KV pool, 16 greedy
+                  requests and 4 on a shared prefix through the decode
+                  graph, tokens identical to the eager decode step's and
+                  to an amp.decorate(O2, float16) model's, the float16
+                  instantiations in the trace.
+21. lenet       — BASELINE.md config 1: LeNet (float32) on synthetic MNIST
+                  through Model.fit's captured step until evaluate's
+                  accuracy reaches 0.97 (at most 10 epochs); graph and
+                  eager step p50; 3 steps graph bitwise eager under
+                  cudnn.deterministic.
+22. resnet50    — BASELINE.md config 2 on one card: resnet50 in bf16,
+                  Momentum, B = 128 x 3 x 224 x 224: 20 dygraph steps
+                  (falling loss), Model.fit graph and eager (step p50,
+                  samples/s, MFU, one-drain throughput, busy share and
+                  device ms by kernel family of 2 profiled replays,
+                  launches a step, peak memory, the host's collation and
+                  pinned copy of a batch), and 3 steps graph bitwise eager
+                  under cudnn.deterministic, running statistics included.
 
 The AccumulateGrad stream warning (a backward accumulating into a node of
 another stream: the training engine's warm-up meeting a dygraph graph
@@ -537,7 +563,7 @@ def paged_case(torch, K, g, dtype, case, lane_pos, ps, hd, nh=12,
         n = slots * nh * hd
         q = torch.randn(n + 8, generator=g, device=dev).to(dtype)[
             q_offset:q_offset + n].view(slots, nh, hd)
-    tag = "f32" if dtype == torch.float32 else "bf16"
+    tag = {torch.float32: "f32", torch.float16: "f16"}.get(dtype, "bf16")
     return compare(
         torch, f"paged_decode_attention {tag} {case} slots={slots} nh={nh} "
         f"hd={hd} page={ps} pps={pps} pos={list(lane_pos)}",
@@ -657,6 +683,11 @@ OPT_RULES = {   # the optimizers the multi-tensor kernel computes
 }
 
 
+# the float32 operations an element of each rule's update
+OPT_OPS_AN_ELEMENT = {"sgd": 2, "momentum": 4, "nesterov": 6, "adam": 15,
+                      "adamw": 15}
+
+
 def optimizer_run(torch, kind, dtype, plain, steps=3):
     """``steps`` updates of a GPT-like spread of tensors (an embedding,
     matrices, biases, one element, one view off a 16-byte boundary) by
@@ -699,7 +730,7 @@ def optimizer_tree_check(torch, model, steps=3, make=None):
     on every parameter of ``model``: ``steps`` updates by step() (the
     kernel) on the model's parameters and by step_plain() (the
     per-parameter loop) on copies of them, from the same seeded
-    gradients.  Fails unless every parameter and moment is bitwise equal;
+    gradients.  Fails unless every parameter and slot is bitwise equal;
     returns the kernel's optimizer and the largest |difference| (0.0)."""
     import paddle_tpu_torch as ptt
 
@@ -721,7 +752,7 @@ def optimizer_tree_check(torch, model, steps=3, make=None):
     pairs = list(zip(params, twins))
     for p, q in zip(params, twins):
         pairs += [(opt._slots[id(p)][n], twin_opt._slots[id(q)][n])
-                  for n in ("moment1", "moment2")]
+                  for n in opt._slot_names()]
     err = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
     if not all(torch.equal(a, b) for a, b in pairs):
         fail(f"optimizer: kernel and loop differ after {steps} "
@@ -815,15 +846,15 @@ def optimizer_phase(torch, K, cfg):
 
 
 def tree_step_record(torch, K, opt, params, lr):
-    """One update of the bf16 tree ``params`` (float32 moments) in the
-    rule of ``opt`` (Adam or AdamW, slots and gradients in place from
-    ``optimizer_tree_check``): the kernel's device ms against the loop's
-    (both from a replayed CUDA graph) and its bound, 22 bytes an
-    element."""
+    """One update of the tree ``params`` in the rule of ``opt`` (slots and
+    gradients in place from ``optimizer_tree_check``): the kernel's device
+    ms against the loop's (both from a replayed CUDA graph) and its bound:
+    each parameter and slot read and written once, each gradient read
+    once (22 bytes an element for bf16 parameters and float32 moments)."""
     kind, hyper = opt._kernel_spec()
     n = sum(p.numel() for p in params)
     grads = [p.grad for p in params]
-    slots = [[opt._slots[id(p)][s] for s in ("moment1", "moment2")]
+    slots = [[opt._slots[id(p)][s] for s in opt._slot_names()]
              for p in params]
     KO = K.optimizer
     # the scalars are written before the timing's capture, as the training
@@ -835,8 +866,10 @@ def tree_step_record(torch, K, opt, params, lr):
         kind, params, grads, slots, lr, 2, hyper)
     ms, eager_ms = time_ms(torch, kernel, iters=5, reps=3)
     plain_ms, plain_eager = time_ms(torch, plain, iters=1, reps=3)
-    n_bytes = 22 * n            # p 2 + 2, g 2, moments 4 + 4 each way
-    bound, by = bound_ms(n_bytes, 15 * n, PEAK_F32)
+    n_bytes = sum(3 * p.numel() * p.element_size()
+                  + sum(2 * t.numel() * t.element_size() for t in s)
+                  for p, s in zip(params, slots))
+    bound, by = bound_ms(n_bytes, OPT_OPS_AN_ELEMENT[kind] * n, PEAK_F32)
     return {"kind": kind, "elements": n, "tensors": len(params), "ms": ms,
             "eager_ms": eager_ms, "plain_ms": plain_ms,
             "plain_eager_ms": plain_eager, "bound_ms": bound,
@@ -4216,6 +4249,639 @@ def fit_amp_phase(torch, K, card):
         "forms_a_step": {k: v / 2 for k, v in graph["forms"].items()}}
 
 
+# -- float16 paged decode, float16 serving, LeNet, ResNet-50 ---------------
+# the float16 instantiations the float16 serving wave must launch, as the
+# trace names them (prefill: the flash forward; decode: paged decode in
+# the graph; LayerNorm and the bias-GeLU forward in both)
+FP16_SERVE_FORMS = {
+    "paged_decode_attention f16": ("paged_decode_split_kernel", "__half"),
+    "flash_attention f16": ("flash_fwd_mma_kernel", "__half"),
+    "layer_norm f16": ("layer_norm_warp_kernel", "__half", "__half"),
+    "bias_gelu f16": ("bias_gelu_fwd_vec_kernel", "__half", "__half")}
+FP16_NEW = 32              # new tokens a request of the float16 wave
+LENET_TARGET = 0.97        # BASELINE.md config 1's eval accuracy bar
+LENET_MAX_EPOCHS = 10
+R50_B = 128                # BASELINE.md config 2's batch on one card
+R50_FLOPS_IMAGE = 3 * 4.1e9  # train flops an image: 3 x the 4.1 GFLOP fwd
+R50_STEPS = 20             # dygraph steps on one batch (the loss falls)
+R50_FIT_STEPS = 12         # Model.fit steps a timed run
+# device kernels of the ResNet-50 step by family, matched in this order
+# against the trace's kernel names (cuDNN's, ATen's and the port's)
+R50_FAMILIES = (
+    ("softmax cross-entropy", r"xent_(fwd|bwd)_kernel"),
+    ("optimizer", r"multi_tensor_kernel"),
+    ("batch norm", r"batch_norm|bn_fw|bn_bw|bn_fwd|bn_bwd|welford"),
+    ("pooling", r"pool"),
+    ("conv backward (dgrad, wgrad)", r"dgrad|wgrad|convolve_dgrad|"
+     r"wgrad_alg|conv2d_grouped_direct_filter|backward_data|"
+     r"backward_filter"),
+    ("conv forward", r"fprop|conv|implicit|xmma|cudnn|cutlass|sm90|sm80"),
+    ("conv as GEMM (cuDNN's nvjet kernels: 1x1 convs, their backward, "
+     "the fc)", r"nvjet"),
+    ("layout transform", r"nchwToNhwc|nhwcToNchw|transpose"),
+    ("GEMM (fc)", r"gemm|Gemm"),
+    ("memcpy / memset", r"^Memcpy|^Memset"),
+    ("elementwise and reductions", r"elementwise|reduce|fill|copy|"
+     r"index|scatter|gather|threshold|where|add|mul"))
+
+
+def paged_f16_phase(torch, K):
+    """[kernels] paged_decode float16: the split kernel on a float16 pool
+    against its plain version at the serving table's shape and a serving
+    wave's, each timed beside the same kernel on bf16 inputs of that
+    shape in this run, and the lane kernel on an unaligned float16 q.
+    Returns the table case's record (``bf16_ms`` beside ``ms``)."""
+    g = torch.Generator(device="cuda").manual_seed(41)
+    recs = {}
+    for case, lane_pos in (
+            ("table", (511, 15, 16, 100, 255, 37, 480, -1)),
+            ("wave", (20, 176, 57, 131, 88, 160, 35, 113))):
+        rec = paged_case(torch, K, g, torch.float16, case, lane_pos, ps=16,
+                         hd=64)
+        rec["bf16_ms"] = paged_case(torch, K, g, torch.bfloat16, case,
+                                    lane_pos, ps=16, hd=64)["ms"]
+        log(f"[kernels] paged_decode float16 {case}: {rec['ms']} ms "
+            f"against bf16's {rec['bf16_ms']} ms at the same shape "
+            f"(bound {rec['bound_ms']} ms by {rec['bound_by']})")
+        recs[case] = rec
+    paged_case(torch, K, g, torch.float16, "unaligned",
+               (511, 15, 16, 100, 255, 37, 480, -1), ps=16, hd=64,
+               variant="lane", q_offset=1)
+    return recs["table"]
+
+
+def fp16_serve_phase(torch, K, card):
+    """GPT-2-small (GPTConfig(), dropout 0) cast to float16 with
+    ``astype`` behind GenerationEngine at the reference's defaults
+    (prefix cache on, its decode step captured at start()): 16 greedy
+    requests (prompts 20-128) and 4 that share a 64-token prefix, under
+    the profiler; the same traffic through a second engine whose step is
+    ``_step_eager``: tokens identical.  Fails unless the pool is float16,
+    the decode graph replayed, the trace's paged decode launches are the
+    eager ones plus the graph's x its replays, every FP16_SERVE_FORMS
+    instantiation launched, the shared prompts hit the prefix cache, and
+    a model made float16 by ``amp.decorate(level="O2")`` serves the same
+    tokens.  Returns {launches (the eager ones and the graph's x its
+    replays), traced_launches, replays, ...}."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    cfg = GPTConfig(dropout=0.0, attn_dropout=0.0)
+    seed(0)
+    model = GPTForCausalLM(cfg, device="cuda")
+    model.astype("float16")
+    model.eval()
+    rng = np.random.RandomState(43)
+    prefix = rng.randint(0, cfg.vocab_size, 64).tolist()
+    shared = [prefix + rng.randint(0, cfg.vocab_size, k).tolist()
+              for k in (8, 20, 33, 47)]
+    prompts = wave_prompts(cfg.vocab_size, 44)
+
+    def traffic(eng):
+        outs, wall = serve_wave(eng, prompts, FP16_NEW, sampled=False)
+        # one request of the prefix first (a miss), then the others (hits)
+        outs += [eng.generate(shared[0], FP16_NEW, timeout=600)]
+        more, _ = serve_wave(eng, shared[1:], FP16_NEW, sampled=False)
+        wait_idle(eng)
+        return outs + more, wall
+
+    engines = {}
+    try:
+        for form in ("graph", "eager"):
+            eng = GenerationEngine(model, device=model.device,
+                                   **SERVING_ENGINE).start()
+            if form == "eager":
+                eng.step = eng._step_eager
+            engines[form] = eng
+        g = engines["graph"]
+        if g._state["kp"].dtype != torch.float16:
+            fail(f"fp16-serve: the KV pool is {g._state['kp'].dtype}")
+        fast = graph_check(g, "fp16-serve")
+        K.reset_launch_counts()
+        replays0 = g.replays
+        (outs, wall), _, kernels = trace_window(torch, lambda: traffic(g))
+        replays = g.replays - replays0
+        eager = K.launch_counts()
+        forms = require_instances(kernels, FP16_SERVE_FORMS, "fp16-serve")
+        traced = traced_launches(kernels)
+        paged = sum(traced["paged_decode_attention"].values())
+        per = g.graph_launches.get("paged_decode_attention", 0)
+        want = eager["paged_decode_attention"] + per * replays
+        # the trace may miss at most a few whole replays at the window's
+        # edge (1392 of 1488 in one run), never a part of one
+        if replays <= 0 or per <= 0 or not 0 <= want - paged <= 8 * per \
+                or (want - paged) % per:
+            fail(f"fp16-serve: {paged} paged decode launches in the trace, "
+                 f"against {eager['paged_decode_attention']} eager + "
+                 f"{per} x {replays} replays")
+        hits = g.metrics.snapshot()["prefix_cache_hits"]
+        if hits < len(shared) - 1:
+            fail(f"fp16-serve: {hits} prefix-cache hits for the "
+                 f"{len(shared) - 1} prompts of a shared prefix")
+        mark("fp16-serve: the traced wave")
+        eager_outs, _ = traffic(engines["eager"])
+        diff = [i for i, (a, b) in enumerate(zip(outs, eager_outs))
+                if a != b]
+        if diff or len(outs) != len(eager_outs):
+            fail(f"fp16-serve: requests {diff} differ between the decode "
+                 "graph and the eager decode step")
+        for i, o in enumerate(outs):
+            if len(o) != FP16_NEW or min(o) < 0 or max(o) >= cfg.vocab_size:
+                fail(f"fp16-serve: request {i} gave {len(o)} tokens in "
+                     f"[{min(o)}, {max(o)}]")
+        pages = pages_accounted(g, "fp16-serve")
+        mark("fp16-serve: the eager wave")
+    finally:
+        for eng in engines.values():
+            eng.stop()
+    seed(0)
+    twin = amp.decorate(GPTForCausalLM(cfg, device="cuda"), level="O2",
+                        dtype="float16").eval()
+    t_eng = GenerationEngine(twin, device=twin.device,
+                             **SERVING_ENGINE).start()
+    try:
+        twin_outs = [t_eng.generate(p, FP16_NEW, timeout=600)
+                     for p in prompts[:4]]
+    finally:
+        t_eng.stop()
+    if twin_outs != outs[:4]:
+        fail("fp16-serve: the amp.decorate(O2, float16) model served other "
+             "tokens than the astype('float16') one")
+    total = sum(len(o) for o in outs[:len(prompts)])
+    log(f"[fp16-serve] GPT-2-small in float16 (astype; a float16 KV pool) "
+        f"on {card}: 16 greedy requests (prompts 20-128, {FP16_NEW} new "
+        f"tokens) under the profiler, {total} tokens in {wall:.3f}s = "
+        f"{total / wall:.1f} tokens/s, then 4 on a shared 64-token prefix "
+        f"({hits} hits); decode graph captured {g.capture_count}x, "
+        f"{replays} replays of {g.graph_launches} (fast launches {fast}); "
+        f"paged decode launches in the trace {paged} of "
+        f"{eager['paged_decode_attention']} eager + {per} x {replays} "
+        f"replays = {want}; "
+        f"float16 instantiations in the "
+        f"trace {forms}; tokens identical to the eager decode step's and "
+        f"to an amp.decorate(O2, float16) model's; {pages}")
+    return {"launches": want, "traced_launches": paged, "replays": replays,
+            "graph_launches_a_replay": per, "forms": forms}
+
+
+def vision_xent_phase(torch, K):
+    """softmax_xent forward and backward at the vision paths' shapes:
+    ResNet-50's logits (N = 128, V = 1000, bf16) and LeNet's (N = 128,
+    V = 10, float32), every row labelled, against the plain versions and
+    F.cross_entropy / its backward.  Returns {"resnet50": (fwd, bwd),
+    "lenet": (fwd, bwd)} records."""
+    F = torch.nn.functional
+    SX = K.softmax_xent
+    g = torch.Generator(device="cuda").manual_seed(47)
+    out = {}
+    for path, V, dtype in (("resnet50", 1000, torch.bfloat16),
+                           ("lenet", 10, torch.float32)):
+        n = 128
+        isz = torch.empty((), dtype=dtype).element_size()
+        z = (4 * torch.randn(n, V, generator=g, device="cuda")).to(dtype)
+        lab = torch.randint(0, V, (n,), generator=g, device="cuda")
+        gr = torch.full((n,), 1.0 / n, device="cuda")
+        loss, lse = SX.softmax_xent_fwd(z, lab)
+        logp = torch.log_softmax(z, -1)
+        zero = torch.zeros((), dtype=dtype, device="cuda")
+        gd = gr.to(dtype)
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        desc = f"{tag} {path} N={n} V={V}"
+        rec_f = compare(
+            torch, f"softmax_xent {desc}",
+            lambda: SX.softmax_xent_fwd(z, lab),
+            lambda: SX.softmax_xent_plain(z, lab),
+            lambda: F.cross_entropy(z, lab, reduction="none"), dtype,
+            n * V * isz + 16 * n, 4 * n * V, PEAK_F32)
+        rec_b = compare(
+            torch, f"softmax_xent_bwd {desc}",
+            lambda: SX.softmax_xent_bwd(z, lab, lse, gr),
+            lambda: SX.softmax_xent_bwd_plain(z, lab, lse, gr),
+            lambda: torch.ops.aten._log_softmax_backward_data(
+                torch.ops.aten.nll_loss_backward(
+                    gd, logp, lab, None, 0, -100, zero), logp, 1, dtype),
+            dtype, 2 * n * V * isz + 16 * n, 4 * n * V, PEAK_F32)
+        out[path] = (rec_f, rec_b)
+    torch.cuda.synchronize()
+    return out
+
+
+def drain_stamps(engine):
+    """Host times at the end of each of ``engine``'s fetches that brought
+    a step's loss (the fetch waits for the step): its drain() and, where a
+    metric makes fit() fetch every step, its ring's drain_with().  fit()'s
+    begin() makes the ring anew, so the wrapper goes on each one."""
+    stamps, begin = [], engine._begin
+
+    def begun():
+        out = begin()
+        fetch = engine.ring.drain_with
+
+        def stamped(extra):
+            losses, host = fetch(extra)
+            if losses:
+                stamps.append(time.perf_counter())
+            return losses, host
+
+        engine.ring.drain_with = stamped
+        return out
+
+    engine._begin = begun
+    return stamps
+
+
+def first_samples(torch, data, n):
+    """The first ``n`` samples of ``data`` collated once, as a
+    TensorDataset (a synthetic dataset draws its noise at each
+    __getitem__)."""
+    import paddle_tpu_torch as ptt
+
+    return ptt.io.TensorDataset(
+        [torch.stack([torch.from_numpy(data[i][0]) for i in range(n)]),
+         torch.from_numpy(np.stack([data[i][1] for i in range(n)]))])
+
+
+def lenet_model(torch, K, form="graph"):
+    """LeNet() from seed 0 on the card behind Model with Adam(1e-3),
+    CrossEntropyLoss and Accuracy, as bench.py's body_mnist, with its
+    train engine (the eager step for ``form`` "eager"): (net, model,
+    the engine's drain stamps)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.hapi.engine import TrainEngine
+    from paddle_tpu_torch.vision.models import LeNet
+
+    seed(0)
+    net = LeNet()
+    model = ptt.Model(net)
+    model.prepare(ptt.optimizer.Adam(learning_rate=1e-3,
+                                     parameters=net.parameters()),
+                  ptt.nn.CrossEntropyLoss(), ptt.metric.Accuracy())
+    engine = model._engine = TrainEngine(model)
+    if form == "eager":
+        engine.step = engine._step_eager
+    return net, model, drain_stamps(engine)
+
+
+def lenet_phase(torch, K, card):
+    """BASELINE.md config 1: LeNet on synthetic MNIST (2048 training, 512
+    test samples) through Model.fit's captured step, fit(batch_size=128,
+    epochs=1) until evaluate(batch_size=256) reaches LENET_TARGET, at most
+    LENET_MAX_EPOCHS; then an epoch through ``_step_eager`` from the same
+    seed (step p50 beside the graph's); then, under
+    cudnn.deterministic, 3 steps graph against eager from one seed on the
+    same batches: losses and parameters bitwise equal; then Adam(1e-3)'s
+    multi_tensor_step over LeNet's float32 tree bitwise against the
+    per-parameter loop, and its device ms.  Float32 with TF32 off.  Fails
+    unless the target is reached, the cross-entropy kernels launched (the
+    wrappers' counts at the warm-up and the capture, and the trace of 2
+    replayed steps).  Returns (counts, record)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.vision.datasets import MNIST
+
+    train, test = MNIST(mode="train"), MNIST(mode="test")
+    if not (train.synthetic and len(train) == 2048 and len(test) == 512):
+        fail(f"lenet: MNIST is not the 2048 / 512 synthetic split "
+             f"({len(train)}, {len(test)})")
+    net, model, stamps = lenet_model(torch, K)
+    K.reset_launch_counts()
+    graph_ms, accs = [], []
+    for epoch in range(LENET_MAX_EPOCHS):
+        k = len(stamps)
+        model.fit(train, batch_size=128, epochs=1, verbose=0)
+        graph_ms.extend(np.diff(stamps[k:]) * 1e3)
+        res = model.evaluate(test, batch_size=256, verbose=0)
+        accs.append(float(res["acc"]))
+        if accs[-1] >= LENET_TARGET:
+            break
+    counts = K.launch_counts()
+    if accs[-1] < LENET_TARGET:
+        fail(f"lenet: eval accuracy {accs} after {len(accs)} epochs, not "
+             f"{LENET_TARGET}")
+    for name in XENT_KERNELS:
+        if counts[name] <= 0:
+            fail(f"lenet: {name} was not launched ({counts})")
+    engine = model._engine
+    _, wall_ms, kernels = trace_window(
+        torch, lambda: model.fit(first_samples(torch, train, 256),
+                                 batch_size=128, shuffle=False, verbose=0))
+    traced, _ = require_traced(kernels, "lenet", XENT_KERNELS)
+    if engine.captures != 1:
+        fail(f"lenet: {engine.captures} captures for one batch signature")
+    # the step without the synthetic dataset's per-sample noise draws:
+    # the epoch's batches collated once, graph then eager
+    whole = first_samples(torch, train, len(train))
+    k = len(stamps)
+    model.fit(whole, batch_size=128, shuffle=False, verbose=0)
+    pre_ms = np.diff(stamps[k:]) * 1e3
+    # the eager step from the same seed, one epoch
+    net_e, model_e, stamps_e = lenet_model(torch, K, "eager")
+    model_e.fit(train, batch_size=128, epochs=1, verbose=0)
+    eager_ms = np.diff(stamps_e) * 1e3
+    k = len(stamps_e)
+    model_e.fit(whole, batch_size=128, shuffle=False, verbose=0)
+    pre_e_ms = np.diff(stamps_e[k:]) * 1e3
+    # bitwise: 3 steps graph against eager on the same batches
+    first = first_samples(torch, train, 384)
+    runs = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for form in ("graph", "eager"):
+            n_, m_, _ = lenet_model(torch, K, form)
+            hist = m_.fit(first, batch_size=128, shuffle=False, verbose=0,
+                          log_freq=1)
+            runs.append((hist["step_loss"],
+                         [p.detach().clone() for p in n_.parameters()]))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (lg, pg), (le, pe) = runs
+    if len(lg) != 3 or lg != le or not all(torch.equal(a, b)
+                                           for a, b in zip(pg, pe)):
+        fail(f"lenet: graph losses {lg} against eager {le} (or the "
+             "parameters) differ")
+    # the path's optimizer kernel at its own tree: Adam(1e-3), float32
+    net_o, _, _ = lenet_model(torch, K)
+    opt, opt_err = optimizer_tree_check(
+        torch, net_o, make=lambda ps: ptt.optimizer.Adam(
+            learning_rate=1e-3, parameters=ps))
+    opt_rec = tree_step_record(torch, K, opt, list(net_o.parameters()),
+                               1e-3)
+    opt_rec["max_abs_err"] = opt_err
+    del net_o, opt
+    p50, p50_e = float(np.median(graph_ms)), float(np.median(eager_ms))
+    pre, pre_e = float(np.median(pre_ms)), float(np.median(pre_e_ms))
+    log(f"[lenet] LeNet float32 (TF32 off), Adam(1e-3), CrossEntropyLoss, "
+        f"Accuracy, synthetic MNIST 2048 / 512, fit(batch_size=128) on "
+        f"{card}: eval accuracy {accs} -> {accs[-1]:.4f} >= {LENET_TARGET} "
+        f"after {len(accs)} epoch(s); step p50 graph {p50:.3f} ms / eager "
+        f"{p50_e:.3f} ms (each step to its loss and accuracy fetch; cuDNN "
+        f"deterministic off; the synthetic samples' noise drawn on the "
+        f"host each step); on the epoch collated once, graph {pre:.3f} ms "
+        f"/ eager {pre_e:.3f} ms ({128 / pre * 1e3:.1f} samples/s); "
+        f"captures "
+        f"{engine.captures}, replays {engine.replays}; wrapper launches "
+        f"(warm-up and captures, eval included) {counts}; traced launches "
+        f"in 2 replayed steps {traced}; 3 steps under cudnn.deterministic "
+        f"graph bitwise eager (losses {lg}, every parameter) | "
+        f"multi_tensor_step Adam(1e-3): 3 steps bitwise the per-parameter "
+        f"loop over LeNet's {opt_rec['tensors']} float32 tensors (max |d| "
+        f"{opt_err}); one update of {opt_rec['elements']} elements: device "
+        f"ms kernel={opt_rec['ms']} plain loop={opt_rec['plain_ms']} "
+        f"bound={opt_rec['bound_ms']} ({opt_rec['bound_by']}, "
+        f"{opt_rec['bytes']} bytes)")
+    return counts, {"epochs": len(accs), "acc": accs[-1], "p50_ms": p50,
+                    "eager_p50_ms": p50_e, "collated_p50_ms": pre,
+                    "collated_eager_p50_ms": pre_e,
+                    "traced_a_step": {k: traced[k] / 2 for k in
+                                      XENT_KERNELS + ("multi_tensor_step",)},
+                    "optimizer": opt_rec}
+
+
+class _RepeatBatch:
+    """One batch's samples, served ``steps`` times over (a Dataset)."""
+
+    def __init__(self, x, y, steps):
+        self.x, self.y, self.n = x, y, x.shape[0] * steps
+
+    def __getitem__(self, i):
+        i %= self.x.shape[0]
+        return self.x[i], self.y[i]
+
+    def __len__(self):
+        return self.n
+
+
+def r50_model(torch, lr=0.1):
+    """resnet50(num_classes=1000) from seed 0 in bf16 with
+    Momentum(lr, 0.9), as bench.py's body_resnet50."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.vision.models import resnet50
+
+    seed(0)
+    model = resnet50(num_classes=1000)
+    model.astype("bfloat16")
+    opt = ptt.optimizer.Momentum(learning_rate=lr, momentum=0.9,
+                                 parameters=model.parameters())
+    return model, opt
+
+
+def r50_fit(torch, form, x, y, steps, log_freq=1):
+    """A fresh ResNet-50 behind Model.fit for ``steps`` steps of the batch
+    (x, y) on the host (its collation and pinned copy in every step):
+    (model, api, engine, losses, step ms to each drain)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.hapi.engine import TrainEngine
+
+    model, opt = r50_model(torch)
+    api = ptt.Model(model).prepare(opt, ptt.nn.CrossEntropyLoss())
+    engine = api._engine = TrainEngine(api)
+    if form == "eager":
+        engine.step = engine._step_eager
+    stamps = drain_stamps(engine)
+    t0 = time.perf_counter()
+    losses = api.fit(_RepeatBatch(x, y, steps), batch_size=x.shape[0],
+                     shuffle=False, verbose=0,
+                     log_freq=log_freq)["step_loss"]
+    return model, api, engine, losses, np.diff([t0] + stamps[:steps]) * 1e3
+
+
+def r50_families(kernels):
+    """{family: (device ms, launches)} of a trace's device events by
+    R50_FAMILIES, and the names that fell to "other"."""
+    fam, other = {}, []
+    for t, key, c in kernels:
+        for name, pat in R50_FAMILIES:
+            if re.search(pat, key):
+                break
+        else:
+            name = "other"
+            other.append((t, key[:70], c))
+        ms, n = fam.get(name, (0.0, 0))
+        fam[name] = (ms + t, n + c)
+    return fam, sorted(other, reverse=True)[:6]
+
+
+def resnet50_phase(torch, K, card):
+    """BASELINE.md config 2 on one card: resnet50(num_classes=1000) in
+    bf16, Momentum(0.1, 0.9), B = 128 images of 3 x 224 x 224 from
+    RandomState(0) (bf16 on the host), labels in [0, 1000).  A dygraph
+    loop of R50_STEPS steps on the batch (the loss must fall; the
+    wrappers' launches counted over it), then Model.fit through the
+    captured step and through ``_step_eager`` (R50_FIT_STEPS each, graph
+    then eager), 2 replayed steps under the profiler (busy share, device
+    ms by family, launches a step), the host ms of one batch's collation
+    and pinned copy, and the peak memory; then, under
+    cudnn.deterministic, 3 fit steps graph against eager from one seed:
+    losses, parameters and running statistics bitwise equal; then
+    Momentum(0.1, 0.9)'s multi_tensor_step over ResNet-50's bf16 tree
+    bitwise against the per-parameter loop, and its device ms.  Returns
+    (the dygraph loop's counts, record)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework.place import copy_to_device
+    from paddle_tpu_torch.io import default_collate_fn
+
+    if torch.backends.cudnn.benchmark:
+        fail("resnet50: cudnn.benchmark is on: cuDNN would autotune "
+             "inside the capture")
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(R50_B, 3, 224, 224).astype(
+        np.float32)).to(torch.bfloat16)
+    y = torch.from_numpy(rs.randint(0, 1000, (R50_B,)).astype(np.int64))
+    xd, yd = x.cuda(), y.cuda()
+    model, opt = r50_model(torch)
+    n_params = sum(p.numel() for p in model.parameters())
+    loss_fn = ptt.nn.CrossEntropyLoss()
+    model.train()
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    losses, times = [], []
+    for _ in range(R50_STEPS):
+        t0 = time.perf_counter()
+        loss = loss_fn(model(xd), yd)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = K.launch_counts()
+    peak_dygraph = peak_text(torch, base)
+    for name in XENT_KERNELS + ("multi_tensor_step",):
+        if counts[name] <= 0:
+            fail(f"resnet50: {name} was not launched in the dygraph loop")
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0]:
+        fail(f"resnet50: dygraph losses {losses} do not fall")
+    dy_p50 = float(np.median(times[1:]))
+    del model, opt, loss
+    release(torch, "resnet50 fit")
+    mark("resnet50: the dygraph loop")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model, api, engine, g_losses, g_ms = r50_fit(torch, "graph", x, y,
+                                                 R50_FIT_STEPS)
+    peak_fit = peak_text(torch, base)
+    # the same graph with one drain at the epoch's end: the host collates
+    # the next batch while the card runs the step before
+    t0 = time.perf_counter()
+    api.fit(_RepeatBatch(x, y, R50_FIT_STEPS), batch_size=R50_B,
+            shuffle=False, verbose=0, log_freq=0)
+    piped_ms = (time.perf_counter() - t0) * 1e3 / R50_FIT_STEPS
+    _, wall_ms, kernels = trace_window(
+        torch, lambda: api.fit(_RepeatBatch(x, y, 2), batch_size=R50_B,
+                               shuffle=False, verbose=0))
+    traced, _ = require_traced(kernels, "resnet50 fit",
+                               XENT_KERNELS + ("multi_tensor_step",))
+    if engine.captures != 1 or engine.replays != 2 * R50_FIT_STEPS + 1:
+        fail(f"resnet50: {engine.captures} captures, {engine.replays} "
+             f"replays in {2 * R50_FIT_STEPS + 2} steps of one signature")
+    busy = sum(t for t, _, _ in kernels)
+    launches = sum(c for _, _, c in kernels) / 2
+    fam, other = r50_families(kernels)
+    # the host's copy of one batch: collation of 128 samples, then the
+    # pinned staging and the copy to the card
+    samples = [(x[i], y[i]) for i in range(R50_B)]
+    t0 = time.perf_counter()
+    xb, yb = default_collate_fn(samples)
+    t1 = time.perf_counter()
+    dst = torch.empty(xb.shape, dtype=xb.dtype, device="cuda")
+    copy_to_device(dst, xb)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    collate_ms, copy_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3
+    del model, api, engine, dst
+    release(torch, "resnet50 eager fit")
+    _, _, engine_e, e_losses, e_ms = r50_fit(torch, "eager", x, y,
+                                             R50_FIT_STEPS)
+    del engine_e
+    release(torch, "resnet50 bitwise")
+    mark("resnet50: the graph and eager fits")
+    runs = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for form in ("graph", "eager"):
+            m_, _, e_, l_, _ = r50_fit(torch, form, x, y, 3)
+            runs.append((l_, [t.detach().clone() for t in
+                              (*m_.parameters(), *m_.buffers())]))
+            del m_, e_
+            release(torch, f"resnet50 bitwise {form}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (lg, tg), (le, te) = runs
+    if lg != le or len(tg) != len(te) or not all(
+            torch.equal(a, b) for a, b in zip(tg, te)):
+        fail(f"resnet50: under cudnn.deterministic the graph's losses {lg} "
+             f"against the eager step's {le} (or the parameters, or the "
+             "running statistics) differ")
+    del runs, tg, te
+    # the path's optimizer kernel at its own tree: Momentum(0.1, 0.9) over
+    # the bf16 parameters (velocities in bf16)
+    model, _ = r50_model(torch)
+    opt, opt_err = optimizer_tree_check(
+        torch, model, make=lambda ps: ptt.optimizer.Momentum(
+            learning_rate=0.1, momentum=0.9, parameters=ps))
+    opt_rec = tree_step_record(torch, K, opt, list(model.parameters()), 0.1)
+    if opt_rec["kind"] != "momentum":
+        fail(f"resnet50 optimizer: Momentum took the {opt_rec['kind']} "
+             "rule")
+    opt_rec["max_abs_err"] = opt_err
+    del model, opt
+    p50 = float(np.median(g_ms[1:]))
+    p50_e = float(np.median(e_ms[1:]))
+    flops = R50_FLOPS_IMAGE * R50_B
+    device_ms = busy / 2
+
+    def mfu(ms):
+        return flops / (ms / 1e3) / PEAK_BF16_TENSOR
+    fams = "; ".join(f"{k} {v[0] / 2:.3f} ms x{v[1] / 2:g}"
+                     for k, v in sorted(fam.items(), key=lambda kv: -kv[1][0]))
+    per_step = {k: v / 2 for k, v in traced.items() if v}
+    log(f"[resnet50] resnet50(num_classes=1000) bf16, Momentum(0.1, 0.9), "
+        f"B={R50_B} x 3 x 224 x 224 (RandomState(0)), {n_params} "
+        f"parameters, NCHW at the interface and channels-last inside, "
+        f"on {card}: dygraph {R50_STEPS} steps, losses "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f} (falling), step p50 "
+        f"{dy_p50:.3f} ms, peak {peak_dygraph}; Model.fit step p50 graph "
+        f"{p50:.3f} ms / eager {p50_e:.3f} ms (steps 2-{R50_FIT_STEPS}, "
+        f"each to its loss's drain, the batch's collation and pinned copy "
+        f"included; cudnn.deterministic off, benchmark off), "
+        f"{R50_B / p50 * 1e3:.1f} samples/s; with one drain an epoch "
+        f"{piped_ms:.3f} ms a step, {R50_B / piped_ms * 1e3:.1f} "
+        f"samples/s; device ms a step (the profiled replays' busy time) "
+        f"{device_ms:.3f}, {R50_B / device_ms * 1e3:.1f} samples/s; MFU "
+        f"{mfu(p50):.4f} at the drain-a-step p50, {mfu(piped_ms):.4f} at "
+        f"one drain an epoch, {mfu(device_ms):.4f} at the device ms (3 x "
+        f"4.1e9 x {R50_B} images / step ms / 9.89e14 FLOP/s: 4.1e9 counts "
+        f"the forward's multiply-adds, so at 2 flops a multiply-add each "
+        f"MFU doubles), peak {peak_fit}; "
+        f"2 profiled replays: busy {busy:.3f} of {wall_ms:.3f} ms "
+        f"({100 * busy / wall_ms:.2f}%), {launches:g} launches a step, "
+        f"device ms a step by family: {fams}; other kernels {other}; "
+        f"traced launches a step {per_step}; "
+        f"host ms of one batch: collation {collate_ms:.3f}, pinned copy "
+        f"{copy_ms:.3f}; graph losses {g_losses[:3]}...; 3 steps under "
+        f"cudnn.deterministic: graph bitwise eager (losses {lg}, every "
+        f"parameter and running statistic) | multi_tensor_step Momentum("
+        f"0.1, 0.9): 3 steps bitwise the per-parameter loop over "
+        f"ResNet-50's {opt_rec['tensors']} bf16 tensors, bf16 velocities "
+        f"(max |d| {opt_err}); one update of {opt_rec['elements']} "
+        f"elements: device ms kernel={opt_rec['ms']} plain loop="
+        f"{opt_rec['plain_ms']} bound={opt_rec['bound_ms']} "
+        f"({opt_rec['bound_by']}, {opt_rec['bytes']} bytes) | eager ms "
+        f"kernel={opt_rec['eager_ms']} plain={opt_rec['plain_eager_ms']}")
+    return counts, {"p50_ms": p50, "eager_p50_ms": p50_e,
+                    "dygraph_p50_ms": dy_p50, "one_drain_ms": piped_ms,
+                    "device_ms": device_ms,
+                    "samples_s": R50_B / p50 * 1e3, "mfu": mfu(p50),
+                    "collate_ms": collate_ms, "copy_ms": copy_ms,
+                    "traced_a_step": {k: traced[k] / 2 for k in
+                                      XENT_KERNELS + ("multi_tensor_step",)},
+                    "launches_a_step": launches, "optimizer": opt_rec}
+
+
 def peak_text(torch, start):
     """The peak memory since the last reset, and its part above the
     ``start`` the phase found allocated."""
@@ -4377,6 +5043,20 @@ def main():
     fit_amp_counts, fit_amp_traced, fit_amp_step = fit_amp_phase(torch, K,
                                                                  card)
     torch.cuda.synchronize()
+    release(torch, "paged-f16")
+    mark("paged-f16")
+    paged_f16 = paged_f16_phase(torch, K)
+    vision_xent = vision_xent_phase(torch, K)
+    release(torch, "fp16-serve")
+    mark("fp16-serve")
+    fp16_serve = fp16_serve_phase(torch, K, card)
+    release(torch, "lenet")
+    mark("lenet")
+    lenet_counts, lenet_rec = lenet_phase(torch, K, card)
+    release(torch, "resnet50")
+    mark("resnet50")
+    r50_counts, r50_rec = resnet50_phase(torch, K, card)
+    torch.cuda.synchronize()
 
     kernels = []
     for name, rec in main_cases.items():
@@ -4442,6 +5122,53 @@ def main():
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms", "bf16_ms") if k in r},
                     **({"nsp": r["nsp"]} if "nsp" in r else {})}
+        if name == "paged_decode_attention":
+            # the float16 form at the serving table's shape,
+            # beside the bf16 kernel there, with its launches in the
+            # float16 serving wave (its trace)
+            # launches: the wrapper's eager count plus a replay's
+            # launches times the replays; traced_launches: the trace's
+            entry["float16"] = {
+                "path": "fp16-serve", "launches": fp16_serve["launches"],
+                "traced_launches": fp16_serve["traced_launches"],
+                "graph_launches_a_replay":
+                    fp16_serve["graph_launches_a_replay"],
+                **{k: paged_f16[k] for k in (
+                    "max_abs_err", "ms", "bf16_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms")}}
+        if name in XENT_KERNELS:
+            # the vision paths' shapes: the wrappers' launches
+            # on each path (ResNet-50's dygraph loop; LeNet's fit, at its
+            # warm-ups and captures) and a replayed step's in the trace
+            at = XENT_KERNELS.index(name)
+            for path, path_counts, path_rec in (
+                    ("resnet50", r50_counts, r50_rec),
+                    ("lenet", lenet_counts, lenet_rec)):
+                r = vision_xent[path][at]
+                entry[path] = {
+                    "launches": path_counts[name],
+                    "traced_launches_a_step":
+                        path_rec["traced_a_step"][name],
+                    **{k: r[k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms")}}
+        if name == "multi_tensor_step":
+            # the vision paths' rules at their own trees (ResNet-50's
+            # Momentum over bf16, LeNet's Adam over float32): launches as
+            # for the cross-entropy kernels
+            for path, path_counts, path_rec in (
+                    ("resnet50", r50_counts, r50_rec),
+                    ("lenet", lenet_counts, lenet_rec)):
+                r = path_rec["optimizer"]
+                entry[path] = {
+                    "launches": path_counts[name],
+                    "traced_launches_a_step":
+                        path_rec["traced_a_step"][name],
+                    "rule": r["kind"], "tensors": r["tensors"],
+                    "elements": r["elements"],
+                    **{k: r[k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms")}}
         if name in FAST_VARIANT:
             entry["variant"] = rec["variant"]
         if name in MMA_KERNELS:

@@ -11,7 +11,8 @@ Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 ``RuntimeError`` where CUDA is absent.  Pass ``device="cpu"`` to run the
 kernels' plain PyTorch versions instead (the tests do).
 """
-from . import amp, io, metric, optimizer, tensor_ops  # noqa: F401
+from . import (amp, io, metric, nn, optimizer, tensor_ops,  # noqa: F401
+               vision)
 from .framework.io_state import load, save  # noqa: F401
 from .framework.place import default_device  # noqa: F401
 from .framework.random import seed  # noqa: F401

@@ -13,8 +13,11 @@
 // `page_size < 8` refusal was a TPU tiling artefact.  The pool is only
 // read; the current token's K/V was scattered before the call.
 //
-// The C entry picks one of two kernels from the head dim and the
-// operands' alignment alone, and counts the choice:
+// float32, bf16 and float16 (each type its own instantiation of both
+// kernels, chosen by the dtype code; scores, softmax and P.V accumulate in
+// float32 and the output takes q's type, as the Pallas kernel's
+// `o_ref.dtype`).  The C entry picks one of two kernels from the head dim
+// and the operands' alignment alone, and counts the choice:
 //
 // `paged_decode_split_kernel` (flash-decoding; q rows, the pools and out
 // on 16-byte boundaries and hd a multiple of one 16-byte vector: every
@@ -402,6 +405,21 @@ int launch_split(const void* q, long long q_lane_stride,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_lane(const void* q, long long q_lane_stride,
+                long long q_head_stride, const void* k_pages,
+                const void* v_pages, const int* rows, const int* pos,
+                void* out, int slots, int num_pages, int page_size, int nh,
+                int hd, int pages_per_slot, int pages_walked, float sm_scale,
+                cudaStream_t st) {
+  paged_decode_kernel<T><<<dim3(nh, slots), kWarps * 32, 0, st>>>(
+      static_cast<const T*>(q), q_lane_stride, q_head_stride,
+      static_cast<const T*>(k_pages), static_cast<const T*>(v_pages), rows,
+      pos, static_cast<T*>(out), num_pages, page_size, nh, hd,
+      pages_per_slot, pages_walked, sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Floats of scratch the split kernel needs for these shapes (its partials,
@@ -431,7 +449,8 @@ extern "C" int ptt_paged_decode_attention(
     int page_size, int nh, int hd, int pages_per_slot, int pages_walked,
     float sm_scale, int dtype, void* stream) {
   if (slots <= 0 || nh <= 0) return 0;
-  if (hd > kMaxPerThread * 32 || (dtype != ptt::kF32 && dtype != ptt::kBF16))
+  if (hd > kMaxPerThread * 32 ||
+      (dtype != ptt::kF32 && dtype != ptt::kBF16 && dtype != ptt::kF16))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* r = static_cast<const int*>(rows);
@@ -453,33 +472,47 @@ extern "C" int ptt_paged_decode_attention(
     const float scale_log2 = sm_scale * 1.4426950408889634f;
     float* pt = static_cast<float*>(part);
     int* at = static_cast<int*>(arrivals);
-    if (dtype == ptt::kF32)
-      return launch_split<float>(q, q_lane_stride, q_head_stride, k_pages,
-                                 v_pages, r, p, out, pt, at, slots,
-                                 num_pages, page_size, nh, hd,
-                                 pages_per_slot, walked_tokens, scale_log2,
-                                 tpr, st);
-    return launch_split<__nv_bfloat16>(
-        q, q_lane_stride, q_head_stride, k_pages, v_pages, r, p, out, pt, at,
-        slots, num_pages, page_size, nh, hd, pages_per_slot, walked_tokens,
-        scale_log2, tpr, st);
+    switch (dtype) {
+      case ptt::kF32:
+        return launch_split<float>(q, q_lane_stride, q_head_stride, k_pages,
+                                   v_pages, r, p, out, pt, at, slots,
+                                   num_pages, page_size, nh, hd,
+                                   pages_per_slot, walked_tokens, scale_log2,
+                                   tpr, st);
+      case ptt::kBF16:
+        return launch_split<__nv_bfloat16>(
+            q, q_lane_stride, q_head_stride, k_pages, v_pages, r, p, out, pt,
+            at, slots, num_pages, page_size, nh, hd, pages_per_slot,
+            walked_tokens, scale_log2, tpr, st);
+      case ptt::kF16:
+        return launch_split<__half>(
+            q, q_lane_stride, q_head_stride, k_pages, v_pages, r, p, out, pt,
+            at, slots, num_pages, page_size, nh, hd, pages_per_slot,
+            walked_tokens, scale_log2, tpr, st);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
-  const dim3 grid(nh, slots);
-  if (dtype == ptt::kF32) {
-    paged_decode_kernel<float><<<grid, kWarps * 32, 0, st>>>(
-        static_cast<const float*>(q), q_lane_stride, q_head_stride,
-        static_cast<const float*>(k_pages), static_cast<const float*>(v_pages),
-        r, p, static_cast<float*>(out), num_pages, page_size, nh, hd,
-        pages_per_slot, pages_walked, sm_scale);
-  } else {
-    paged_decode_kernel<__nv_bfloat16><<<grid, kWarps * 32, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(q), q_lane_stride, q_head_stride,
-        static_cast<const __nv_bfloat16*>(k_pages),
-        static_cast<const __nv_bfloat16*>(v_pages), r, p,
-        static_cast<__nv_bfloat16*>(out), num_pages, page_size, nh, hd,
-        pages_per_slot, pages_walked, sm_scale);
+  switch (dtype) {
+    case ptt::kF32:
+      return launch_lane<float>(q, q_lane_stride, q_head_stride, k_pages,
+                                v_pages, r, p, out, slots, num_pages,
+                                page_size, nh, hd, pages_per_slot,
+                                pages_walked, sm_scale, st);
+    case ptt::kBF16:
+      return launch_lane<__nv_bfloat16>(q, q_lane_stride, q_head_stride,
+                                        k_pages, v_pages, r, p, out, slots,
+                                        num_pages, page_size, nh, hd,
+                                        pages_per_slot, pages_walked,
+                                        sm_scale, st);
+    case ptt::kF16:
+      return launch_lane<__half>(q, q_lane_stride, q_head_stride, k_pages,
+                                 v_pages, r, p, out, slots, num_pages,
+                                 page_size, nh, hd, pages_per_slot,
+                                 pages_walked, sm_scale, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // How many launches took the block-per-(head, lane) kernel (variant 0) or

@@ -1,7 +1,9 @@
-"""Functional ops the GPT and BERT paths use (port of the subset of
-paddle_tpu/nn/functional/__init__.py: linear, the activations relu, tanh,
-gelu, softmax and log_softmax, layer_norm, embedding, dropout,
-cross_entropy and scaled_dot_product_attention).
+"""nn.functional (port of paddle_tpu/nn/functional/__init__.py): here
+linear, relu, tanh, gelu, softmax and log_softmax, layer_norm, embedding,
+dropout, cross_entropy and scaled_dot_product_attention; convolution
+(``conv``), pooling (``pooling``), batch/instance/group norm and the
+others (``norm``), the other activations (``activation``) and losses
+(``loss``) in the modules of this package, all exported here.
 
 ``layer_norm`` routes a 1-D scale+shift through ops/fused.py, which
 launches the CUDA kernel for a CUDA tensor, as the reference routes it to
@@ -13,6 +15,27 @@ to the flash-attention kernels (:1098).
 from __future__ import annotations
 
 import torch
+
+from ._util import reduce_loss as _reduce_loss
+from .activation import (celu, elu, glu, gumbel_softmax,  # noqa: F401
+                         hardshrink, hardsigmoid, hardswish, hardtanh,
+                         label_smooth, leaky_relu, log_sigmoid, maxout, mish,
+                         one_hot, prelu, relu6, relu_, selu, sigmoid, silu,
+                         softplus, softshrink, softsign, swish, tanhshrink,
+                         thresholded_relu)
+from .conv import (conv1d, conv1d_transpose, conv2d,  # noqa: F401
+                   conv2d_transpose, conv3d, conv3d_transpose)
+from .loss import (binary_cross_entropy,  # noqa: F401
+                   binary_cross_entropy_with_logits, cosine_embedding_loss,
+                   cosine_similarity, ctc_loss, hinge_embedding_loss, kl_div,
+                   l1_loss, margin_ranking_loss, mse_loss, nll_loss,
+                   sigmoid_focal_loss, smooth_l1_loss,
+                   softmax_with_cross_entropy, square_error_cost)
+from .norm import (batch_norm, group_norm, instance_norm,  # noqa: F401
+                   local_response_norm, normalize)
+from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,  # noqa: F401
+                      adaptive_max_pool2d, avg_pool1d, avg_pool2d,
+                      avg_pool3d, max_pool1d, max_pool2d, max_pool3d)
 
 
 def linear(x, weight, bias=None):
@@ -43,7 +66,8 @@ def softmax(x, axis=-1, dtype=None):
     return torch.softmax(x, axis)
 
 
-def log_softmax(x, axis=-1):
+def log_softmax(x, axis=-1, dtype=None):
+    """``dtype`` is accepted and unused, as in the reference."""
     return torch.log_softmax(x, axis)
 
 
@@ -119,14 +143,6 @@ def dropout(x, p=0.5, training=True):
     if not training or p == 0.0:
         return x
     return torch.nn.functional.dropout(x, p, training=True)
-
-
-def _reduce_loss(loss, reduction):
-    if reduction == "mean":
-        return loss.mean()
-    if reduction == "sum":
-        return loss.sum()
-    return loss
 
 
 def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002

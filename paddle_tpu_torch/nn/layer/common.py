@@ -1,8 +1,18 @@
-"""Linear / Embedding / Dropout (port of paddle_tpu/nn/layer/common.py)."""
+"""Identity / Linear / Embedding / Dropout / Flatten (port of
+paddle_tpu/nn/layer/common.py)."""
 from __future__ import annotations
 
+from ... import tensor_ops as T
 from .. import functional as F
 from ..layer_base import Layer
+
+
+class Identity(Layer):
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+
+    def forward(self, x):
+        return x
 
 
 class Linear(Layer):
@@ -37,3 +47,13 @@ class Dropout(Layer):
 
     def forward(self, x):
         return F.dropout(x, self.p, training=self.training)
+
+
+class Flatten(Layer):
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        return T.flatten(x, self.start_axis, self.stop_axis)

@@ -14,7 +14,9 @@ multiple of one 16-byte vector (every path of the models); and the
 tokens with an online softmax) for any other operand.  Both load their
 own page-table row and ``pos``, skip unmapped (-1), out-of-pool and
 past-``pos`` pages, and write 0 (never NaN) for a lane with no live
-token.  Any page size; head dim up to 128.  They only read the pool.
+token.  Any page size; head dim up to 128; float32, bf16 and float16,
+each type its own instantiation (float32 arithmetic, q's dtype out, as
+the Pallas kernel's ``o_ref.dtype``).  They only read the pool.
 There is no backward: on a CUDA tensor the wrapper raises when asked for
 a gradient rather than hand out a tensor with no graph.
 

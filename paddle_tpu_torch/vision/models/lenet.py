@@ -1,0 +1,35 @@
+"""LeNet (port of paddle_tpu/vision/models/lenet.py), the model of
+BASELINE.md config 1 (MNIST): two conv + ReLU + 2x2 max-pool stages and
+three Linear layers."""
+from __future__ import annotations
+
+from ... import nn
+from ... import tensor_ops as T
+from ...framework.place import resolve_device
+
+
+class LeNet(nn.Layer):
+    def __init__(self, num_classes=10, device=None):
+        super().__init__()
+        self.num_classes = num_classes
+        self.features = nn.Sequential(
+            nn.Conv2D(1, 6, 3, stride=1, padding=1),
+            nn.ReLU(),
+            nn.MaxPool2D(2, 2),
+            nn.Conv2D(6, 16, 5, stride=1, padding=0),
+            nn.ReLU(),
+            nn.MaxPool2D(2, 2),
+        )
+        if num_classes > 0:
+            self.fc = nn.Sequential(
+                nn.Linear(400, 120),
+                nn.Linear(120, 84),
+                nn.Linear(84, num_classes),
+            )
+        self.to(device=resolve_device(device))
+
+    def forward(self, inputs):
+        x = self.features(inputs)
+        if self.num_classes > 0:
+            x = self.fc(T.flatten(x, 1))
+        return x

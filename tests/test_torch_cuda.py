@@ -2292,3 +2292,192 @@ def test_embedding_gradient_is_deterministic(dev, dtype):
     wb = torch.randn(4, 768, device=dev).bfloat16().requires_grad_()
     F.embedding(ids.clamp(max=3), wb).backward(dy.bfloat16())
     assert wb.grad.dtype == torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# float16 paged decode; the vision paths' batch norm in the
+# captured train and eval steps
+# ---------------------------------------------------------------------------
+F16_TOL = 2 ** -8     # x max(1, max|ref|): four float16 ulps at the top
+
+
+def _check_f16(out, ref):
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float16
+    tol = F16_TOL * max(1.0, ref.float().abs().max().item())
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("ps,hd", [(1, 64), (8, 32), (16, 64), (32, 128),
+                                   (5, 12)])
+@pytest.mark.parametrize("variant", ["split", "lane"])
+def test_paged_decode_float16_kernels(dev, ps, hd, variant):
+    """The float16 instantiation of both kernels against the plain
+    version (float32 arithmetic, float16 out), over lanes of very
+    different lengths, an inactive lane and a page boundary; the split
+    kernel on aligned operands (hd 12 is not a multiple of a 16-byte
+    vector: the lane kernel), the lane kernel on a q one element off a
+    16-byte boundary."""
+    pps = -(-256 // ps)
+    inputs = _paged_inputs(dev, torch.float16, (255, 3, -1, 63, 127, 0, 200),
+                           ps, hd, nh=3, pps=pps,
+                           offset=0 if variant == "split" else 1,
+                           seed=ps * hd + 1)
+    before = paged_attention.variant_launches()["paged_decode_attention"]
+    out = paged_attention.paged_decode_attention(*inputs, pps * ps)
+    ref = paged_attention.paged_decode_attention_plain(*inputs, pps * ps)
+    _check_f16(out, ref)
+    after = paged_attention.variant_launches()["paged_decode_attention"]
+    took = variant if hd % 8 == 0 else "lane"
+    assert after[took] == before[took] + 1
+    assert torch.all(out[2] == 0)
+    assert not paged_attention._arrivals[dev.index or 0].any()
+
+
+@pytest.mark.parametrize("lane_pos", [
+    (511, 15, 16, 100, 255, 37, 480, -1),       # the serving table's shape
+    (20, 176, 57, 131, 88, 160, 35, 113),       # a serving wave's
+])
+def test_paged_decode_float16_serving_shapes_and_reproducibility(dev,
+                                                                 lane_pos):
+    """Serving's shape (8 slots, 12 x 64, page 16, 32 pages a slot) in
+    float16: against the plain version, bitwise the same in two calls and
+    for each lane alone, and each lane's output within F16_TOL of the bf16
+    kernel's on the same values rounded to bf16 (a float16 value is not a
+    bf16 one: held only loosely, at bf16's 2**-6)."""
+    q, kp, vp, rows, pos = _paged_inputs(dev, torch.float16, lane_pos, 16,
+                                         64, nh=12, pps=32, seed=11)
+    out = paged_attention.paged_decode_attention(q, kp, vp, rows, pos, 512)
+    _check_f16(out, paged_attention.paged_decode_attention_plain(
+        q, kp, vp, rows, pos, 512))
+    assert torch.equal(out, paged_attention.paged_decode_attention(
+        q, kp, vp, rows, pos, 512))
+    for lane in range(q.shape[0]):
+        alone = paged_attention.paged_decode_attention(
+            q[lane:lane + 1], kp, vp, rows[lane:lane + 1],
+            pos[lane:lane + 1], 512)
+        assert torch.equal(alone[0], out[lane]), lane
+    bf = paged_attention.paged_decode_attention(
+        q.bfloat16(), kp.bfloat16(), vp.bfloat16(), rows, pos, 512)
+    _check(out, bf, torch.bfloat16)
+
+
+def test_engine_serves_a_float16_model_through_its_graph(dev):
+    """A float16 GPT behind the engine: the pool is float16, the decode
+    graph holds paged decode, and its greedy and sampled tokens are
+    bitwise the eager step's."""
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    model = _serving_model(dev, torch.float32)
+    model.astype("float16")
+    outs = {}
+    for form in ("graph", "eager"):
+        with GenerationEngine(model, device=dev, **SERVE_ENGINE) as eng:
+            assert eng._state["kp"].dtype == torch.float16
+            if form == "eager":
+                eng.step = eng._step_eager
+            outs[form] = _mixed_wave(eng)
+            _idle(eng)
+            assert eng.capture_count == 1
+            assert (eng.replays > 0) == (form == "graph")
+            assert eng.graph_launches["paged_decode_attention"] == 2
+    assert outs["graph"] == outs["eager"]
+
+
+def _bn_net(dev, dtype):
+    """A small BN network of the ResNet family on the card."""
+    from paddle_tpu_torch.vision.models import resnet18
+
+    ptt.seed(5)
+    net = resnet18(num_classes=10, device=dev)
+    net.astype(dtype)
+    return net
+
+
+def _bn_data(dtype, n=20):
+    rs = np.random.RandomState(12)
+    x = torch.from_numpy(rs.randn(n, 3, 32, 32).astype(np.float32)).to(dtype)
+    return [x, torch.from_numpy(rs.randint(0, 10, n).astype(np.int64))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_fit_graph_is_bitwise_the_eager_step(dev, dtype):
+    """Model.fit on resnet18 (batch norm in every block) through the
+    captured step against ``_step_eager``, under cudnn.deterministic: 20
+    samples in batches of 6 (three, then a short one of 2: two
+    signatures, each a warm-up step, a capture and its replays), every
+    loss, parameter and running statistic bitwise equal: the statistics
+    moved once a step (the warm-up is a real step, the capture runs
+    nothing)."""
+    from paddle_tpu_torch.hapi.engine import TrainEngine
+
+    data = _bn_data(dtype)
+    runs = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for form in ("graph", "eager"):
+            net = _bn_net(dev, dtype)
+            model = ptt.Model(net).prepare(
+                ptt.optimizer.Momentum(learning_rate=0.05, momentum=0.9,
+                                       parameters=net.parameters()),
+                tnn.CrossEntropyLoss())
+            engine = model._engine = TrainEngine(model)
+            if form == "eager":
+                engine.step = engine._step_eager
+            hist = model.fit(ptt.io.TensorDataset(data), batch_size=6,
+                             shuffle=False, verbose=0, log_freq=1)
+            if form == "graph":
+                assert engine.captures == 2      # batches of 6 and of 2
+                assert engine.replays == 2
+            runs.append((hist["step_loss"],
+                         {k: v.clone() for k, v in
+                          net.state_dict().items()}))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (lg, sg), (le, se) = runs
+    assert len(lg) == 4 and lg == le
+    assert np.isfinite(lg).all()
+    assert sorted(sg) == sorted(se)
+    for k in sg:
+        assert torch.equal(sg[k], se[k]), k
+    assert not torch.equal(sg["bn1._mean"], torch.zeros_like(sg["bn1._mean"]))
+
+
+def test_model_load_reaches_a_captured_eval_graph(dev):
+    """evaluate captures its eval graph on the first weights; Model.load
+    of another checkpoint writes the parameters and the running
+    statistics in place, so the next evaluate replays the same graph (no
+    new capture) and gives bitwise the eager ``_eval`` of the loaded
+    network."""
+    import tempfile
+
+    data = _bn_data(torch.float32, n=16)
+    ds = ptt.io.TensorDataset(data)
+    src = _bn_net(dev, torch.float32)
+    trainer = ptt.Model(src).prepare(
+        ptt.optimizer.Momentum(learning_rate=0.05, momentum=0.9,
+                               parameters=src.parameters()),
+        tnn.CrossEntropyLoss(), metrics=[ptt.metric.Accuracy()])
+    trainer.fit(ds, batch_size=8, shuffle=False, verbose=0)
+    net = _bn_net(dev, torch.float32)
+    model = ptt.Model(net).prepare(
+        ptt.optimizer.Momentum(learning_rate=0.05, momentum=0.9,
+                               parameters=net.parameters()),
+        tnn.CrossEntropyLoss(), metrics=[ptt.metric.Accuracy()])
+    before = model.evaluate(ds, batch_size=8, verbose=0)
+    engine = model._eval_engine
+    assert engine.captures == 1
+    with tempfile.TemporaryDirectory() as d:
+        trainer.save(d + "/ckpt")
+        model.load(d + "/ckpt")
+    after = model.evaluate(ds, batch_size=8, verbose=0)
+    assert model._eval_engine is engine and engine.captures == 1
+    assert engine.replays >= 2
+    assert after["loss"] != before["loss"]
+    for k, v in src.state_dict().items():
+        assert torch.equal(net.state_dict()[k], v), k
+    eager = ptt.Model(net).prepare(loss=tnn.CrossEntropyLoss(),
+                                   metrics=[ptt.metric.Accuracy()])
+    eager._eval_begin()._replaying = False
+    assert eager.evaluate(ds, batch_size=8, verbose=0) == after
