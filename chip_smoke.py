@@ -169,6 +169,34 @@ passed over):
                   launches a step, peak memory, the host's collation and
                   pinned copy of a batch), and 3 steps graph bitwise eager
                   under cudnn.deterministic, running statistics included.
+23. optimizers  — each rule the optimizer kernels gained (Adagrad,
+                  Adamax, Adadelta, RMSProp plain and centered, Ftrl, an
+                  L1Decay SGD; Lamb, LarsMomentum and Dpsgd through the
+                  two-launch norm kernels) over BERT-base's bf16 tree and
+                  LeNet's float32 tree, 3 steps against the per-parameter
+                  loop (the elementwise rules bitwise, the norm rules
+                  within NORM_RTOL / NORM_BF16_RTOL, their steps too,
+                  and a planted 25 % larger step refused), timed over the BERT
+                  tree against the loop and its bound; Dpsgd's noise
+                  statistics over 2**20 elements, its repeatability and
+                  sigma = 0 as SGD.
+24. wrappers    — EMA and ModelAverage over BERT-base's bf16 tree in
+                  dygraph against their CPU plain versions (update, apply,
+                  restore); Lookahead's sync every k steps; Model.fit
+                  refusing a wrapper, as the reference's does.
+25. bert-lamb-accum — BertConfig() bf16 through Model.fit with Lamb and
+                  accumulate_grad_batches=4 over global batches of 128:
+                  one capture, one replay a step (4 microbatches of the
+                  B = 32 step's kernels, the norm kernels twice), losses
+                  falling and bitwise the eager step's, the drains the
+                  only syncs; step p50, samples/s, MFU, busy share, peak
+                  memory beside accum 1 fits at B = 32 and B = 128.
+26. resnet50-lars — ResNet-50 bf16, B = 128, Model.fit with
+                  LarsMomentum at the reference's defaults: the loss
+                  falls, the norm kernels twice a replay, device ms a
+                  step and samples/s, 3 steps graph bitwise eager under
+                  cudnn.deterministic; LarsMomentum's kernel against the
+                  per-parameter loop over ResNet-50's own tree, timed.
 
 The AccumulateGrad stream warning (a backward accumulating into a node of
 another stream: the training engine's warm-up meeting a dygraph graph
@@ -258,6 +286,9 @@ REPLACES = {
     # pallas_call
     "multi_tensor_step": ("paddle_tpu_torch/csrc/multi_tensor_optim.cu",
                           "paddle_tpu/optimizer/__init__.py:155"),
+    # the norm rules (Lamb, LarsMomentum, Dpsgd) of the same apply_pytree
+    "multi_tensor_norm_step": ("paddle_tpu_torch/csrc/multi_tensor_optim.cu",
+                               "paddle_tpu/optimizer/__init__.py:155"),
     # GradScaler.unscale_ and the functional check_finite_and_unscale:
     # XLA-fused in the reference, not a pallas_call
     "check_finite_and_unscale": ("paddle_tpu_torch/csrc/amp.cu",
@@ -308,6 +339,8 @@ TRACE_KERNELS = {
     "softmax_xent": {"kernel": "xent_fwd_kernel"},
     "softmax_xent_bwd": {"kernel": "xent_bwd_kernel"},
     "multi_tensor_step": {"kernel": "multi_tensor_kernel"},
+    "multi_tensor_norm_step": {"partials": "norm_partials_kernel",
+                               "update": "norm_update_kernel"},
     "check_finite_and_unscale": {"kernel": "unscale_kernel"}}
 # the kernels with a variant that each path launches
 SERVING_FAST = ("flash_attention", "layer_norm", "paged_decode_attention",
@@ -685,7 +718,9 @@ OPT_RULES = {   # the optimizers the multi-tensor kernel computes
 
 # the float32 operations an element of each rule's update
 OPT_OPS_AN_ELEMENT = {"sgd": 2, "momentum": 4, "nesterov": 6, "adam": 15,
-                      "adamw": 15}
+                      "adamw": 15, "adagrad": 7, "adamax": 9, "adadelta": 15,
+                      "rmsprop": 10, "rmsprop_centered": 15, "ftrl": 18,
+                      "lamb": 22, "lars": 10, "dpsgd": 60}
 
 
 def optimizer_run(torch, kind, dtype, plain, steps=3):
@@ -725,14 +760,43 @@ def optimizer_run(torch, kind, dtype, plain, steps=3):
     return params, [list(opt._slots.get(id(p), {}).values()) for p in params]
 
 
+# the planted fault of the norm rules' check: the loop again at this many
+# times the learning rate, i.e. with a trust ratio (Lamb), a local lr
+# (LARS) or a step (Dpsgd) 25 % too large, which the check must refuse on
+# every tensor; else the steps are too small for it to see an update
+NORM_PLANTED = 1.25
+
+
+def step_rel_errs(torch, got, want, start):
+    """For each tensor, ||got - want|| / ||want - start|| in float32: how
+    far one run's step lies from another's, relative to that step (inf
+    where ``want`` did not move the tensor from ``start``)."""
+    out = []
+    for a, b, s in zip(got, want, start):
+        step = (b.float() - s.float()).norm().item()
+        diff = (a.float() - b.float()).norm().item()
+        out.append(diff / step if step > 0 else math.inf)
+    return out
+
+
 def optimizer_tree_check(torch, model, steps=3, make=None):
     """``make(parameters)``'s optimizer (by default AdamW(2e-4, wd 0.01))
     on every parameter of ``model``: ``steps`` updates by step() (the
     kernel) on the model's parameters and by step_plain() (the
     per-parameter loop) on copies of them, from the same seeded
-    gradients.  Fails unless every parameter and slot is bitwise equal;
-    returns the kernel's optimizer and the largest |difference| (0.0)."""
+    gradients (Dpsgd's loop takes the kernel's noise seed).  Fails unless
+    every parameter and slot is bitwise equal, or, for a rule that needs
+    per-tensor norms, within the kernel's NORM_RTOL (float32) or
+    NORM_BF16_RTOL (16-bit) of the tensor's largest |value| and, for each
+    parameter, the kernel's step (p - p0) within the same tolerance of the
+    loop's, relative to the loop's step (``step_rel_errs``), while the
+    loop at NORM_PLANTED times the lr lies outside it on every parameter
+    (so each step is large enough for the check to see it).  Returns the
+    kernel's optimizer, the largest |difference| and, for a norm rule,
+    {"step_rel_err": the largest, "planted_rel_err": the planted fault's
+    smallest} (else None)."""
     import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops.kernels import optimizer as KO
 
     if make is None:
         def make(ps):
@@ -741,26 +805,71 @@ def optimizer_tree_check(torch, model, steps=3, make=None):
     params = list(model.parameters())
     twins = [torch.nn.Parameter(p.detach().clone()) for p in params]
     opt, twin_opt = make(params), make(twins)
+    loops = [(twins, twin_opt)]
+    norm_rule = opt._kernel_spec()[0] in KO.NORM_KINDS
+    if norm_rule:
+        start = [p.detach().clone() for p in params]
+        planted = [torch.nn.Parameter(p.detach().clone()) for p in params]
+        planted_opt = make(planted)
+        planted_opt.set_lr(planted_opt.get_lr() * NORM_PLANTED)
+        loops.append((planted, planted_opt))
     g = torch.Generator(device="cuda").manual_seed(32)
     for _ in range(steps):
-        for p, q in zip(params, twins):
+        for p, *qs in zip(params, *(ps for ps, _ in loops)):
             p.grad = (1e-3 * torch.randn(*p.shape, generator=g,
                                          device="cuda")).to(p.dtype)
-            q.grad = p.grad.clone()
+            for q in qs:
+                q.grad = p.grad.clone()
         opt.step()
-        twin_opt.step_plain()
+        for _, loop in loops:
+            if isinstance(opt, ptt.optimizer.Dpsgd):
+                loop._seed = opt._seed
+                ptt.optimizer.Optimizer.step_plain(loop)
+            else:
+                loop.step_plain()
     pairs = list(zip(params, twins))
     for p, q in zip(params, twins):
         pairs += [(opt._slots[id(p)][n], twin_opt._slots[id(q)][n])
                   for n in opt._slot_names()]
+    name = f"{type(opt).__name__} steps of {type(model).__name__}'s " \
+        f"{len(params)} tensors"
+    bad = [i for i, (a, b) in enumerate(pairs)
+           if not (torch.isfinite(a).all() and torch.isfinite(b).all())]
+    if bad:
+        fail(f"optimizer: {type(opt).__name__} left non-finite values in "
+             f"{len(bad)} parameters or slots of {type(model).__name__}")
     err = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
-    if not all(torch.equal(a, b) for a, b in pairs):
-        fail(f"optimizer: kernel and loop differ after {steps} "
-             f"{type(opt).__name__} steps of {type(model).__name__}'s "
-             f"{len(params)} tensors (max |d| {err:.3e})")
+    rel_steps = None
+    if norm_rule:
+        tol = KO.NORM_RTOL if params[0].dtype == torch.float32 \
+            else KO.NORM_BF16_RTOL
+        rel = max(((a.float() - b.float()).abs().max()
+                   / b.float().abs().max().clamp_min(1e-30)).item()
+                  for a, b in pairs)
+        if not rel <= tol:
+            fail(f"optimizer: kernel and loop differ by {rel:.3e} of the "
+                 f"largest |value| (tol {tol:.3e}) after {steps} {name}")
+        got = step_rel_errs(torch, params, twins, start)
+        plant = step_rel_errs(torch, planted, twins, start)
+        worst = max(range(len(got)), key=got.__getitem__)
+        if not got[worst] <= tol:
+            fail(f"optimizer: the kernel's step of tensor {worst} differs "
+                 f"from the loop's by {got[worst]:.3e} of the loop's step "
+                 f"(tol {tol:.3e}; inf: the loop did not move it) after "
+                 f"{steps} {name}")
+        least = min(range(len(plant)), key=plant.__getitem__)
+        if not plant[least] > tol:
+            fail(f"optimizer: the loop at {NORM_PLANTED} x the lr differs "
+                 f"from the loop's step of tensor {least} by only "
+                 f"{plant[least]:.3e} (tol {tol:.3e}) after {steps} "
+                 f"{name}: the steps are too small for the check to see "
+                 "a wrong update")
+        rel_steps = {"step_rel_err": got[worst],
+                     "planted_rel_err": plant[least]}
+        del planted, planted_opt, start
     ptt.optimizer.Optimizer.plain_cuda_updates = 0
-    del twins, twin_opt
-    return opt, err
+    del twins, twin_opt, loops
+    return opt, err, rel_steps
 
 
 def optimizer_phase(torch, K, cfg):
@@ -804,10 +913,10 @@ def optimizer_phase(torch, K, cfg):
     bert = BertForPretraining(BertConfig(dropout=0.0), device="cuda",
                               dtype=torch.bfloat16)
     bert_n = len(list(bert.parameters()))
-    _, bert_err = optimizer_tree_check(torch, bert)
+    _, bert_err, _ = optimizer_tree_check(torch, bert)
     del bert
     model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16)
-    opt, gpt_err = optimizer_tree_check(torch, model)
+    opt, gpt_err, _ = optimizer_tree_check(torch, model)
     params = list(model.parameters())
     rec = tree_step_record(torch, K, opt, params, 2e-4)
     n, ms, eager_ms = rec["elements"], rec["ms"], rec["eager_ms"]
@@ -845,27 +954,38 @@ def optimizer_phase(torch, K, cfg):
     return rec
 
 
-def tree_step_record(torch, K, opt, params, lr):
+def tree_step_record(torch, K, opt, params, lr, library=None):
     """One update of the tree ``params`` in the rule of ``opt`` (slots and
     gradients in place from ``optimizer_tree_check``): the kernel's device
     ms against the loop's (both from a replayed CUDA graph) and its bound:
     each parameter and slot read and written once, each gradient read
-    once (22 bytes an element for bf16 parameters and float32 moments)."""
+    once (22 bytes an element for bf16 parameters and float32 moments).
+    ``library(params, grads, slots, lr)``: one PyTorch call that computes
+    the same function (``torch._fused_sgd_``, ``torch._fused_adam_``), timed
+    on the same tensors, or None."""
     kind, hyper = opt._kernel_spec()
+    hyper = opt._kernel_hyper(hyper)
     n = sum(p.numel() for p in params)
     grads = [p.grad for p in params]
     slots = [[opt._slots[id(p)][s] for s in opt._slot_names()]
              for p in params]
     KO = K.optimizer
+    step = KO.multi_tensor_norm_step if kind in KO.NORM_KINDS \
+        else KO.multi_tensor_step
     # the scalars are written before the timing's capture, as the training
     # engine's prologue writes them before a replay
     scalars = KO.write_scalars(KO.make_scalars("cuda"), kind, lr, 2, hyper)
-    kernel = lambda: KO.multi_tensor_step(     # noqa: E731
+    kernel = lambda: step(     # noqa: E731
         kind, params, grads, slots, lr, 2, hyper, scalars)
     plain = lambda: KO.multi_tensor_step_plain(   # noqa: E731
         kind, params, grads, slots, lr, 2, hyper)
     ms, eager_ms = time_ms(torch, kernel, iters=5, reps=3)
     plain_ms, plain_eager = time_ms(torch, plain, iters=1, reps=3)
+    lib = None if library is None else library_or_none(
+        torch, f"{kind} library call",
+        lambda: library(params, grads, slots, lr), tag="[optimizer]")
+    library_ms = None if lib is None else time_ms(torch, lib, iters=5,
+                                                  reps=3)[0]
     n_bytes = sum(3 * p.numel() * p.element_size()
                   + sum(2 * t.numel() * t.element_size() for t in s)
                   for p, s in zip(params, slots))
@@ -873,7 +993,34 @@ def tree_step_record(torch, K, opt, params, lr):
     return {"kind": kind, "elements": n, "tensors": len(params), "ms": ms,
             "eager_ms": eager_ms, "plain_ms": plain_ms,
             "plain_eager_ms": plain_eager, "bound_ms": bound,
-            "bound_by": by, "bytes": n_bytes, "library_ms": None}
+            "bound_by": by, "bytes": n_bytes, "library_ms": library_ms}
+
+
+def fused_sgd(torch, momentum):
+    """``torch._fused_sgd_`` as a yardstick of Momentum: v = mu v + g, p -=
+    lr v, the velocity in the parameter's dtype (dampening 0)."""
+    def call(params, grads, slots, lr):
+        torch._fused_sgd_(params, grads, [s[0] for s in slots],
+                          weight_decay=0.0, momentum=momentum, lr=lr,
+                          dampening=0.0, nesterov=False, maximize=False,
+                          is_first_step=False)
+    return call
+
+
+def fused_adam(torch, beta1=0.9, beta2=0.999, eps=1e-8):
+    """``torch._fused_adam_`` as a yardstick of Adam over float32 moments
+    (its bias corrections from a device step count)."""
+    steps = {}
+
+    def call(params, grads, slots, lr):
+        if "t" not in steps:
+            steps["t"] = [torch.full((), 2.0, device=p.device)
+                          for p in params]
+        torch._fused_adam_(params, grads, [s[0] for s in slots],
+                           [s[1] for s in slots], [], steps["t"], lr=lr,
+                           beta1=beta1, beta2=beta2, weight_decay=0.0,
+                           eps=eps, amsgrad=False, maximize=False)
+    return call
 
 
 def sdpa_backward(torch, q, k, v, do, dropout_p=0.0):
@@ -3008,7 +3155,7 @@ def seq2seq_row_kernels(torch, K):
         return ptt.optimizer.Adam(learning_rate=sched, beta1=0.9,
                                   beta2=0.98, epsilon=1e-9, parameters=ps)
 
-    opt, err = optimizer_tree_check(torch, net, make=make)
+    opt, err, _ = optimizer_tree_check(torch, net, make=make)
     params = list(net.parameters())
     lr = opt.get_lr()
     rec = tree_step_record(torch, K, opt, params, lr)
@@ -3121,9 +3268,10 @@ def s2s_decode(torch, model, src, n, cache=True):
 
 def seq2seq_fit_run(torch, K, form, data, evals):
     """One run of Model.fit on Transformer-base (bf16, dropout 0.1) from
-    seed 0: Adam(0.9, 0.98, 1e-9) with NoamDecay(512, 4000) stepped a
-    batch, ``S2S_EPOCHS`` epochs over ``S2S_BATCHES`` batches (log every
-    step, so each step's time ends at its drain) through the captured
+    seed 0: Adam(0.9, 0.98, 1e-9) with NoamDecay(512, 4000) from its peak
+    (step 4000) stepped a batch, ``S2S_EPOCHS`` epochs over
+    ``S2S_BATCHES`` batches (log every step, so each step's time ends at
+    its drain) through the captured
     step ("graph") or ``_step_eager`` ("eager"), then 2 more steps under
     the profiler.  The graph run also evaluates ``evals`` through the
     eval graph and the eager ``_eval``.  Returns what the phase checks
@@ -3134,8 +3282,12 @@ def seq2seq_fit_run(torch, K, form, data, evals):
 
     seed(0)
     net = seq2seq_model(torch, "cuda", torch.bfloat16)
+    # from the schedule's peak (the end of warm-up), as the row-kernel
+    # check takes it: the lrs of the first steps (1.7e-7 a step) move no
+    # bf16 parameter, so a loss that fell there fell by dropout's draws
     sched = ptt.optimizer.lr.NoamDecay(d_model=S2S["d_model"],
                                        warmup_steps=4000)
+    sched.step(4000)
     opt = ptt.optimizer.Adam(learning_rate=sched, beta1=0.9, beta2=0.98,
                              epsilon=1e-9, parameters=net.parameters())
     api = ptt.Model(net, inputs=["src", "tgt_in"], labels=["tgt_out"])
@@ -3296,7 +3448,8 @@ def seq2seq_phase(torch, K, card):
     log(f"[seq2seq] Model.fit Transformer-base bf16 (d_model 512, 8 heads, "
         f"6 + 6 layers, FFN 2048, dropout 0.1, vocab {S2S['vocab']}) "
         f"B={S2S_B} source {S2S_SRC} target {S2S_TGT}, Adam(0.9, 0.98, "
-        f"1e-9) + NoamDecay(512, 4000) on {card}: losses bitwise equal in "
+        f"1e-9) + NoamDecay(512, 4000) from step 4000 on {card}: losses "
+        f"bitwise equal in "
         f"the 4 runs (graph, eager, eager, graph): {first}; lr after "
         f"{steps + 2} steps {g['lr']:.6e}; captures {g['captures']}, "
         f"replays {g['replays']}, graph launches {g['graph_launches']}; "
@@ -3576,7 +3729,7 @@ def bert_train_phase(torch, K, card):
         f"{peak_text(torch, start)}; launches "
         f"per step {per_step}; tensor-core and vector-kernel launches "
         f"{fast}; {opt_text}; losses "
-        f"{losses_vs(losses, '11.18664', '6.58306')}")
+        f"{losses_vs(losses, '11.17882', '10.07555')}")
     profile_steps(torch, "bert-profile", step)
 
     data = bert_batch(torch, rs, cfg, 3 * B, S)
@@ -3662,16 +3815,16 @@ def require_instances(kernels, want, what):
     return out
 
 
-def library_or_none(torch, name, fn):
-    """A library yardstick that this PyTorch may not offer for a mixed
-    dtype pair: ``fn`` if one call runs, else None (logged).  Only the
+def library_or_none(torch, name, fn, tag="[amp-kernels]"):
+    """A library yardstick that this PyTorch may not offer for a dtype or
+    a device: ``fn`` if one call runs, else None (logged).  Only the
     yardstick is skipped, never a kernel."""
     try:
         fn()
         torch.cuda.synchronize()
         return fn
-    except (RuntimeError, TypeError) as e:
-        log(f"[amp-kernels] {name}: no library call for this dtype pair "
+    except (AttributeError, RuntimeError, TypeError) as e:
+        log(f"{tag} {name}: no library call for these tensors "
             f"({str(e).splitlines()[0][:120]})")
         return None
 
@@ -4269,7 +4422,8 @@ R50_FIT_STEPS = 12         # Model.fit steps a timed run
 # against the trace's kernel names (cuDNN's, ATen's and the port's)
 R50_FAMILIES = (
     ("softmax cross-entropy", r"xent_(fwd|bwd)_kernel"),
-    ("optimizer", r"multi_tensor_kernel"),
+    ("optimizer", r"multi_tensor_kernel|norm_partials_kernel|"
+     r"norm_update_kernel"),
     ("batch norm", r"batch_norm|bn_fw|bn_bw|bn_fwd|bn_bwd|welford"),
     ("pooling", r"pool"),
     ("conv backward (dgrad, wgrad)", r"dgrad|wgrad|convolve_dgrad|"
@@ -4603,11 +4757,11 @@ def lenet_phase(torch, K, card):
              "parameters) differ")
     # the path's optimizer kernel at its own tree: Adam(1e-3), float32
     net_o, _, _ = lenet_model(torch, K)
-    opt, opt_err = optimizer_tree_check(
+    opt, opt_err, _ = optimizer_tree_check(
         torch, net_o, make=lambda ps: ptt.optimizer.Adam(
             learning_rate=1e-3, parameters=ps))
     opt_rec = tree_step_record(torch, K, opt, list(net_o.parameters()),
-                               1e-3)
+                               1e-3, library=fused_adam(torch))
     opt_rec["max_abs_err"] = opt_err
     del net_o, opt
     p50, p50_e = float(np.median(graph_ms)), float(np.median(eager_ms))
@@ -4630,7 +4784,8 @@ def lenet_phase(torch, K, card):
         f"{opt_err}); one update of {opt_rec['elements']} elements: device "
         f"ms kernel={opt_rec['ms']} plain loop={opt_rec['plain_ms']} "
         f"bound={opt_rec['bound_ms']} ({opt_rec['bound_by']}, "
-        f"{opt_rec['bytes']} bytes)")
+        f"{opt_rec['bytes']} bytes) library (torch._fused_adam_)="
+        f"{opt_rec['library_ms']}")
     return counts, {"epochs": len(accs), "acc": accs[-1], "p50_ms": p50,
                     "eager_p50_ms": p50_e, "collated_p50_ms": pre,
                     "collated_eager_p50_ms": pre_e,
@@ -4820,10 +4975,11 @@ def resnet50_phase(torch, K, card):
     # the path's optimizer kernel at its own tree: Momentum(0.1, 0.9) over
     # the bf16 parameters (velocities in bf16)
     model, _ = r50_model(torch)
-    opt, opt_err = optimizer_tree_check(
+    opt, opt_err, _ = optimizer_tree_check(
         torch, model, make=lambda ps: ptt.optimizer.Momentum(
             learning_rate=0.1, momentum=0.9, parameters=ps))
-    opt_rec = tree_step_record(torch, K, opt, list(model.parameters()), 0.1)
+    opt_rec = tree_step_record(torch, K, opt, list(model.parameters()), 0.1,
+                               library=fused_sgd(torch, 0.9))
     if opt_rec["kind"] != "momentum":
         fail(f"resnet50 optimizer: Momentum took the {opt_rec['kind']} "
              "rule")
@@ -4870,7 +5026,8 @@ def resnet50_phase(torch, K, card):
         f"(max |d| {opt_err}); one update of {opt_rec['elements']} "
         f"elements: device ms kernel={opt_rec['ms']} plain loop="
         f"{opt_rec['plain_ms']} bound={opt_rec['bound_ms']} "
-        f"({opt_rec['bound_by']}, {opt_rec['bytes']} bytes) | eager ms "
+        f"({opt_rec['bound_by']}, {opt_rec['bytes']} bytes) library "
+        f"(torch._fused_sgd_)={opt_rec['library_ms']} | eager ms "
         f"kernel={opt_rec['eager_ms']} plain={opt_rec['plain_eager_ms']}")
     return counts, {"p50_ms": p50, "eager_p50_ms": p50_e,
                     "dygraph_p50_ms": dy_p50, "one_drain_ms": piped_ms,
@@ -4880,6 +5037,573 @@ def resnet50_phase(torch, K, card):
                     "traced_a_step": {k: traced[k] / 2 for k in
                                       XENT_KERNELS + ("multi_tensor_step",)},
                     "launches_a_step": launches, "optimizer": opt_rec}
+
+
+# ---------------------------------------------------------------------------
+# the rest of the single-card training step: the remaining
+# optimizers' rules over the BERT-base and LeNet trees, the wrappers in
+# dygraph, BERT-base through Model.fit with Lamb and gradient accumulation,
+# ResNet-50 through Model.fit with LarsMomentum
+# ---------------------------------------------------------------------------
+NEW_RULES = {   # each rule the kernels gained, as a user builds it
+    "adagrad": lambda O, R, ps: O.Adagrad(
+        0.01, initial_accumulator_value=0.1, parameters=ps),
+    "adamax": lambda O, R, ps: O.Adamax(1e-3, parameters=ps),
+    "adadelta": lambda O, R, ps: O.Adadelta(1.0, parameters=ps),
+    "rmsprop": lambda O, R, ps: O.RMSProp(1e-3, parameters=ps),
+    "rmsprop_centered": lambda O, R, ps: O.RMSProp(
+        1e-3, momentum=0.9, centered=True, parameters=ps),
+    "ftrl": lambda O, R, ps: O.Ftrl(0.1, l1=1e-4, l2=1e-4, parameters=ps),
+    "sgd_l1": lambda O, R, ps: O.SGD(0.01, weight_decay=R.L1Decay(1e-4),
+                                     parameters=ps),
+    # the norm rules at learning rates whose 3 steps move a bf16 element
+    # several ulps (Lamb about 5 % of each tensor's norm a step, LARS about
+    # 1 %, Dpsgd's noise about 0.03), so that the check of the kernel's
+    # step against the loop's sees the update
+    "lamb": lambda O, R, ps: O.Lamb(0.05, lamb_weight_decay=0.01,
+                                    parameters=ps),
+    "lars": lambda O, R, ps: O.LarsMomentum(10.0, parameters=ps),
+    "dpsgd": lambda O, R, ps: O.Dpsgd(1.0, clip=1.0, batch_size=32,
+                                      sigma=1.0, parameters=ps),
+}
+NORM_RULES = ("lamb", "lars", "dpsgd")
+# why a rule has no library yardstick: torch.optim's foreach forms issue
+# several calls, and no one call computes these functions
+NO_LIBRARY = "none (no single PyTorch call computes this rule)"
+# [bert-lamb-accum]: Lamb's learning rate, one at which the seeded loss
+# falls within the phase (from 5e-3 up, its first steps overshoot further)
+LAMB_LR = 2e-3
+ACCUM = 4                # microbatches a step
+ACC_B, ACC_S = 128, 128  # the global batch (32 a microbatch) and length
+ACC_STEPS = 6            # timed steps a run
+# [resnet50-lars]: LarsMomentum's learning rate (its local rate scales each
+# tensor's step to lars_coeff * ||w|| / ||g||, so a base rate of a few
+# units moves ResNet-50; at 20 the seeded loss rises)
+LARS_LR = 5.0
+
+
+def fused_adagrad(torch):
+    """``torch._fused_adagrad_`` as a yardstick of Adagrad (m += g^2; p -=
+    lr g / (sqrt(m) + eps)): where this PyTorch has no kernel of it on the
+    card, ``library_or_none`` logs so and the row says none."""
+    steps = {}
+
+    def call(params, grads, slots, lr):
+        if "t" not in steps:
+            steps["t"] = [torch.full((), 2.0, device=p.device)
+                          for p in params]
+        torch._fused_adagrad_(params, grads, [s[0] for s in slots],
+                              steps["t"], lr=lr, lr_decay=0.0,
+                              weight_decay=0.0, eps=1e-6, maximize=False)
+    return call
+
+
+def optimizers_phase(torch, K, card):
+    """[optimizers]: each rule the kernels gained (NEW_RULES) over
+    BERT-base's bf16 tree (206 tensors) and LeNet's float32 tree: 3 steps
+    of step() against step_plain() (the per-parameter loop) from the same
+    gradients, the elementwise rules bitwise, the norm rules within
+    NORM_RTOL / NORM_BF16_RTOL; the kernel's launches (one a step and
+    tree, two for the norm rules); one update of the BERT tree timed from
+    a replayed graph against the loop, its bound (bytes at 3.35 TB/s,
+    counting the rule's slots) and, for Adagrad, torch._fused_adagrad_.
+    Then Dpsgd's noise over 2**20 elements: mean and standard deviation
+    within 5 standard errors of N(0, 1), bitwise again from the same seed,
+    and sigma = 0 with gradients under the clip bitwise SGD.  Returns
+    {rule: record}."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    from paddle_tpu_torch.vision.models import LeNet
+
+    O, R, KO = ptt.optimizer, ptt.regularizer, K.optimizer
+    seed(0)
+    bert = BertForPretraining(BertConfig(dropout=0.0), device="cuda",
+                              dtype=torch.bfloat16)
+    seed(0)
+    lenet = LeNet()
+    # each rule starts from the same trees: the timing repeats one update
+    # many times over the same gradients, which drives a rule's slots
+    # where no training would take them
+    start = {m: [p.detach().clone() for p in m.parameters()]
+             for m in (bert, lenet)}
+    recs = {}
+    for rule, make in NEW_RULES.items():
+        kernel = KO.multi_tensor_norm_step if rule in NORM_RULES \
+            else KO.multi_tensor_step
+        before = kernel.launches
+        errs, steps = {}, {}
+        for tree, model in (("lenet", lenet), ("bert", bert)):
+            with torch.no_grad():
+                for p, v in zip(model.parameters(), start[model]):
+                    p.copy_(v)
+            opt, errs[tree], steps[tree] = optimizer_tree_check(
+                torch, model, make=lambda ps: make(O, R, ps))
+        launches = kernel.launches - before
+        want = 2 * 3 * (2 if rule in NORM_RULES else 1)
+        if launches != want or ptt.optimizer.Optimizer.plain_cuda_updates:
+            fail(f"optimizers {rule}: {launches} kernel launches for 3 "
+                 f"steps over two trees, not {want}")
+        library = fused_adagrad(torch) if rule == "adagrad" else None
+        rec = tree_step_record(torch, K, opt, list(bert.parameters()),
+                               opt.get_lr(), library=library)
+        rec.update(max_abs_err=max(errs.values()), launches=launches,
+                   lenet_max_abs_err=errs["lenet"])
+        how = "bitwise"
+        if rule in NORM_RULES:
+            rec["steps_vs_loop"] = steps
+            how = (f"within its tolerance (steps: kernel vs loop "
+                   f"{steps['bert']['step_rel_err']:.3e} bf16, "
+                   f"{steps['lenet']['step_rel_err']:.3e} float32 of the "
+                   f"loop's step; the loop at {NORM_PLANTED} x lr "
+                   f"{steps['bert']['planted_rel_err']:.3e} and "
+                   f"{steps['lenet']['planted_rel_err']:.3e}, refused) of")
+        recs[rule] = rec
+        lib = rec["library_ms"] if rec["library_ms"] is not None \
+            else NO_LIBRARY
+        log(f"[optimizers] {rule} ({rec['kind']}, {type(opt).__name__}) on "
+            f"{card}: 3 steps {how} the per-parameter loop over BERT-base's "
+            f"{rec['tensors']} bf16 tensors (max |d| {errs['bert']}) and "
+            f"LeNet's float32 tree (max |d| {errs['lenet']}); kernel "
+            f"launches {launches}; one update of {rec['elements']} elements: "
+            f"device ms kernel={rec['ms']} plain loop={rec['plain_ms']} "
+            f"bound={rec['bound_ms']} ({rec['bound_by']}, {rec['bytes']} "
+            f"bytes) library={lib} | eager ms kernel={rec['eager_ms']} "
+            f"plain={rec['plain_eager_ms']}")
+        del opt
+    del bert, lenet, start
+    # Dpsgd's noise: lr -1 and zero gradients leave p = the noise
+    n = 1 << 20
+    p = torch.nn.Parameter(torch.zeros(n, device="cuda"))
+    p.grad = torch.zeros(n, device="cuda")
+    hyper = {"clip": 1.0, "sigma": 1.0, "batch_size": 1}
+    scalars = KO.write_scalars(KO.make_scalars("cuda"), "dpsgd", -1.0, 1,
+                               hyper)
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            p.zero_()
+        KO.multi_tensor_norm_step("dpsgd", [p], [p.grad], [[]], -1.0, 1,
+                                  hyper, scalars, 0x5EED)
+        runs.append(p.detach().clone())
+    torch.cuda.synchronize()
+    z = runs[0]
+    mean, std = z.mean().item(), z.std().item()
+    se = 1 / math.sqrt(n)
+    plain_err = (z - KO.dpsgd_noise_plain(0x5EED, 0, n, "cuda")).abs() \
+        .max().item()
+    if not torch.equal(runs[0], runs[1]) or abs(mean) > 5 * se \
+            or abs(std - 1) > 5 * se / math.sqrt(2) or plain_err > 1e-5:
+        fail(f"optimizers dpsgd: noise mean {mean}, std {std} over {n} "
+             f"(5 standard errors: {5 * se:.3e}, {5 * se / math.sqrt(2):.3e})"
+             f", repeat bitwise {torch.equal(runs[0], runs[1])}, max |kernel"
+             f" - plain| {plain_err:.3e}")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    ps = [torch.nn.Parameter(torch.randn(4097, generator=g, device="cuda"))
+          for _ in range(2)]
+    twins = [torch.nn.Parameter(q.detach().clone()) for q in ps]
+    for q, t in zip(ps, twins):
+        q.grad = 1e-4 * torch.randn(4097, generator=g, device="cuda")
+        t.grad = q.grad.clone()
+    O.Dpsgd(0.1, clip=1.0, sigma=0.0, parameters=ps).step()
+    O.SGD(0.1, parameters=twins).step()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(ps, twins)):
+        fail("optimizers dpsgd: sigma = 0 under the clip is not SGD")
+    recs["dpsgd"]["noise"] = {"elements": n, "mean": mean, "std": std,
+                              "max_abs_vs_plain": plain_err}
+    log(f"[optimizers] dpsgd noise over {n} elements: mean {mean:.3e}, std "
+        f"{std:.6f} (within 5 standard errors of N(0, 1)), the same seed "
+        f"bitwise, max |kernel - plain version| {plain_err:.3e}; sigma = 0 "
+        f"with gradients under the clip bitwise SGD")
+    return recs
+
+
+def wrappers_phase(torch, K, card):
+    """[wrappers]: EMA (thres_steps) and ModelAverage over BERT-base's bf16
+    tree in dygraph on the card, each beside the same wrapper over a CPU
+    copy of the tree (its plain version: the same ops on the host): 4
+    updates after the same seeded moves of the parameters, then apply()
+    (averaged values within BF16_TOL of the CPU's) and restore() (the
+    parameters bitwise what they were); update ms.  Lookahead(AdamW, k=2)
+    for 4 dygraph steps of BERT-base at B = 8: the fast weights equal the
+    slow ones right after each sync.  Model.fit refuses a wrapper, as the
+    reference's does (AttributeError)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+
+    O = ptt.optimizer
+    cfg = BertConfig(dropout=0.0)
+    seed(0)
+    bert = BertForPretraining(cfg, device="cuda", dtype=torch.bfloat16)
+    host = BertForPretraining(cfg, device="cpu", dtype=torch.bfloat16)
+    host.set_state_dict(bert.state_dict())
+    out = {}
+    for name, make in (
+            ("EMA", lambda ps: O.EMA(0.999, thres_steps=True,
+                                     parameters=ps)),
+            ("ModelAverage", lambda ps: O.ModelAverage(
+                0.15, parameters=ps, min_average_window=2,
+                max_average_window=3))):
+        dev_ps, host_ps = list(bert.parameters()), list(host.parameters())
+        w_dev, w_host = make(dev_ps), make(host_ps)
+        g = torch.Generator(device="cuda").manual_seed(17)
+        ms = []
+        for _ in range(4):
+            with torch.no_grad():
+                for p, q in zip(dev_ps, host_ps):
+                    d = (1e-3 * torch.randn(*p.shape, generator=g,
+                                            device="cuda")).to(p.dtype)
+                    p.add_(d)
+                    q.add_(d.cpu())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            w_dev.update()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            w_host.update()
+        before = [p.detach().clone() for p in dev_ps]
+        with w_dev.apply():
+            avg = [p.detach().clone() for p in dev_ps]
+        with w_host.apply():
+            avg_host = [p.detach().clone() for p in host_ps]
+        err, worst = 0.0, 0.0
+        for a, b in zip(avg, avg_host):
+            d = (a.float().cpu() - b.float()).abs().max().item()
+            err = max(err, d)
+            worst = max(worst, d / (BF16_TOL * max(
+                1.0, b.float().abs().max().item())))
+        restored = all(torch.equal(a, b) for a, b in zip(dev_ps, before))
+        if worst > 1.0 or not restored:
+            fail(f"wrappers {name}: averaged values off the CPU's by "
+                 f"{err:.3e} ({worst:.2f} of BF16_TOL), restored {restored}")
+        out[name] = {"update_ms": float(np.median(ms)), "max_abs_err": err}
+        log(f"[wrappers] {name} over BERT-base's {len(dev_ps)} bf16 tensors "
+            f"on {card}: 4 updates, apply() within BF16_TOL of the CPU "
+            f"version's (max |d| {err:.3e}), restore() bitwise; update ms "
+            f"{[round(t, 3) for t in ms]}")
+        del w_dev, w_host
+    del host
+    rs = np.random.RandomState(13)
+    ids, tt, mlm, nsp = (t.cuda() for t in bert_batch(torch, rs, cfg, 8, 128))
+    la = O.LookaheadOptimizer(O.AdamW(1e-4, parameters=bert.parameters()),
+                              alpha=0.5, k=2)
+    losses, synced = [], []
+    for step in range(4):
+        loss = bert.loss(ids, mlm, nsp, tt)
+        loss.backward()
+        la.step()
+        la.clear_grad()
+        losses.append(float(loss.detach()))
+        synced.append(all(torch.equal(p, s) for p, s in
+                          zip(bert.parameters(), la._slow)))
+    if synced != [False, True, False, True]:
+        fail(f"wrappers Lookahead: fast weights equal to the slow ones "
+             f"after steps {synced}, not [False, True, False, True]")
+    api = ptt.Model(bert, labels=["mlm_labels", "nsp_labels"]).prepare(
+        la, bert_fit_loss)
+    try:
+        api.fit(ptt.io.TensorDataset([ids.cpu(), tt.cpu(), mlm.cpu(),
+                                      nsp.cpu()]), batch_size=8, verbose=0)
+        fail("wrappers: Model.fit took a LookaheadOptimizer, which the "
+             "reference's fit refuses")
+    except AttributeError:
+        pass
+    log(f"[wrappers] Lookahead(AdamW(1e-4), alpha 0.5, k 2) over "
+        f"BERT-base bf16 at B=8: losses {losses}; the fast weights equal "
+        f"the slow ones after the syncs (steps 2 and 4) only; Model.fit "
+        f"refuses it (AttributeError), as the reference's fit does")
+    del bert, la, api
+    return out
+
+
+def lamb_accum_model(torch, form):
+    """BertForPretraining(BertConfig()) (dropout 0.1) in bf16 from seed 0
+    behind Model with Lamb(LAMB_LR, lamb_weight_decay 0.01) and
+    bert_fit_loss, with its train engine (``_step_eager`` for "eager"):
+    (model, api, engine)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.hapi.engine import TrainEngine
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+
+    seed(0)
+    model = BertForPretraining(BertConfig(), device="cuda",
+                               dtype=torch.bfloat16)
+    api = ptt.Model(model, labels=["mlm_labels", "nsp_labels"]).prepare(
+        ptt.optimizer.Lamb(learning_rate=LAMB_LR, lamb_weight_decay=0.01,
+                           parameters=model.parameters()), bert_fit_loss)
+    engine = api._engine = TrainEngine(api)
+    if form == "eager":
+        engine.step = engine._step_eager
+    return model, api, engine
+
+
+def bert_lamb_accum_phase(torch, K, card):
+    """[bert-lamb-accum]: BERT-base pretraining (BertConfig(), dropout
+    0.1, bf16) through Model.fit with Lamb and accumulate_grad_batches=4
+    over a global batch of 128 (32 a microbatch, S = 128, ~15 % MLM labels,
+    padded, made as [bert-fit]'s) each step: ACC_STEPS steps through the
+    captured
+    step (one capture, then one replay a step; the wrappers' launches at
+    the warm-up and the capture: 4 microbatches of the B = 32 step's
+    kernels and Kernel B's 2), then 2 profiled replays (every kernel with
+    dropout, busy share, launches a step), 4 steps under
+    torch.cuda.set_sync_debug_mode (the drains the only syncs), the same
+    ACC_STEPS steps through ``_step_eager`` (losses bitwise equal), and
+    the peak memory of accum 1 fits at B = 32 and B = 128.  Returns (the
+    wrappers' counts over the graph fit, record)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models import BertConfig
+
+    cfg = BertConfig()
+    rs = np.random.RandomState(11)
+    ids, tt, mlm, nsp = bert_batch(torch, rs, cfg, ACC_B, ACC_S)
+    mask, lens = padding_mask(torch, rs, ACC_B, ACC_S)
+    # one global batch, every step (as [bert-train] repeats its batch): a
+    # few steps of random tokens show a falling loss only on one batch
+    data = [t.repeat((ACC_STEPS + 6,) + (1,) * (t.dim() - 1))
+            for t in (ids, tt, mask, mlm, nsp)]
+
+    def part(lo, hi, b=ACC_B):
+        return ptt.io.TensorDataset([d[lo * b:hi * b] for d in data])
+
+    def fit(api, lo, hi, b=ACC_B, accum=ACCUM, log_freq=1):
+        return api.fit(part(lo, hi, b), batch_size=b, shuffle=False,
+                       verbose=0, log_freq=log_freq,
+                       accumulate_grad_batches=accum)["step_loss"]
+
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model, api, engine = lamb_accum_model(torch, "graph")
+    n_params = sum(p.numel() for p in model.parameters())
+    stamps = drain_stamps(engine)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = fit(api, 0, ACC_STEPS)
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    step_ms = np.diff([t0] + stamps[:ACC_STEPS]) * 1e3
+    if engine.captures != 1 or engine.replays != ACC_STEPS - 1:
+        fail(f"bert-lamb-accum: {engine.captures} captures, "
+             f"{engine.replays} replays in {ACC_STEPS} steps")
+    (per_replay,) = engine.graph_launches.values()
+    want = {"flash_attention": 48, "flash_attention_dq": 48,
+            "flash_attention_dkv": 48, "layer_norm": 104, "bias_gelu": 48,
+            "bias_gelu_bwd": 48, "softmax_xent": 8, "softmax_xent_bwd": 8,
+            "multi_tensor_norm_step": 2}
+    got = {k: per_replay.get(k, 0) for k in want}
+    if got != want or per_replay.get("multi_tensor_step", 0):
+        fail(f"bert-lamb-accum: a replay's launches {per_replay}, not "
+             f"{want} (4 microbatches of the B = 32 step, Kernel B twice)")
+    for name in BERT_KERNELS + ("multi_tensor_norm_step",):
+        if counts[name] <= 0:
+            fail(f"bert-lamb-accum: {name} was not launched")
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        fail(f"bert-lamb-accum: losses {losses} do not fall")
+    _, wall_ms, kernels = trace_window(
+        torch, lambda: fit(api, ACC_STEPS, ACC_STEPS + 2))
+    traced, _ = require_traced(
+        kernels, "bert-lamb-accum",
+        BERT_KERNELS + ("multi_tensor_norm_step",), dropout=True)
+    busy = sum(t for t, _, _ in kernels)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fit(api, ACC_STEPS + 2, ACC_STEPS + 6, log_freq=4)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [os.path.basename(w.filename) for w in caught
+             if str(w.message).startswith(SYNC_WARNING)]
+    if syncs != ["engine.py"] * 2:
+        fail(f"bert-lamb-accum: 4 replayed steps with log_freq 4 made the "
+             f"syncs {syncs}, not the two drains")
+    del model, api, engine
+    release(torch, "bert-lamb-accum eager")
+    _, api_e, engine_e = lamb_accum_model(torch, "eager")
+    eager_losses = fit(api_e, 0, ACC_STEPS)
+    if eager_losses != losses:
+        fail(f"bert-lamb-accum: graph losses {losses} against the eager "
+             f"step's {eager_losses}")
+    del api_e, engine_e
+    peaks = {}
+    for b in (32, 128):
+        release(torch, f"bert-lamb-accum accum 1 B={b}")
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _, api_1, _ = lamb_accum_model(torch, "graph")
+        fit(api_1, 0, 3, b=b, accum=1)
+        peaks[b] = torch.cuda.max_memory_allocated() - base
+        del api_1
+    p50 = float(np.median(step_ms[1:]))
+    tokens = 32 * ACC_S
+    flops = ACCUM * (6.0 * n_params * tokens + cfg.num_layers * 12 * ACC_S
+                     * ACC_S * cfg.hidden_size * 32)
+    per_step = {k: v / 2 for k, v in traced.items() if v}
+    gib = 2 ** 30
+    log(f"[bert-lamb-accum] BertConfig() (dropout 0.1) bf16, {n_params} "
+        f"parameters, Lamb({LAMB_LR}, lamb_weight_decay 0.01), Model.fit("
+        f"accumulate_grad_batches={ACCUM}) over one global batch of {ACC_B} "
+        f"({ACC_B // ACCUM} a microbatch, S={ACC_S}, padded, lengths "
+        f"{int(lens.min())}-{int(lens.max())}) on {card}: losses {losses} "
+        f"(falling), the eager step's bitwise equal; step ms "
+        f"{[round(t, 3) for t in step_ms]}, p50 {p50:.3f} ms (steps 2-"
+        f"{ACC_STEPS}, each to its loss's drain); {ACC_B / p50 * 1e3:.1f} "
+        f"samples/s; {mfu_text(flops, p50 / 1e3)}; one capture, one replay "
+        f"a step, a replay's launches {got}; 2 profiled replays: busy "
+        f"{busy:.3f} of {wall_ms:.3f} ms ({100 * busy / wall_ms:.2f}%), "
+        f"traced launches a step {per_step}, every attention launch with "
+        f"dropout on the tensor cores; 4 replays under sync debug mode: "
+        f"the 2 drains only; peak memory above the phase's start: "
+        f"accum {ACCUM} at B={ACC_B} {peak / gib:.3f} GiB, accum 1 at B=32 "
+        f"{peaks[32] / gib:.3f} GiB, accum 1 at B=128 "
+        f"{peaks[128] / gib:.3f} GiB; wrapper launches (warm-up and "
+        f"capture) {counts}")
+    return counts, {"p50_ms": p50, "samples_s": ACC_B / p50 * 1e3,
+                    "mfu": flops / (p50 / 1e3) / PEAK_BF16_TENSOR,
+                    "busy_share": busy / wall_ms, "losses": losses,
+                    "peak_gib": {"accum4_b128": peak / gib,
+                                 "accum1_b32": peaks[32] / gib,
+                                 "accum1_b128": peaks[128] / gib},
+                    "launches_a_replay": got,
+                    "traced_a_step": per_step}
+
+
+def r50_lars_fit(torch, form, x, y, steps, log_freq=1):
+    """A fresh ResNet-50 (bf16, seed 0) behind Model.fit with
+    LarsMomentum(LARS_LR) at the reference's other defaults (momentum
+    0.9, lars_coeff 0.001, lars_weight_decay 0.0005): (model, api, engine,
+    losses, step ms to each drain)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.hapi.engine import TrainEngine
+    from paddle_tpu_torch.vision.models import resnet50
+
+    seed(0)
+    model = resnet50(num_classes=1000)
+    model.astype("bfloat16")
+    api = ptt.Model(model).prepare(
+        ptt.optimizer.LarsMomentum(learning_rate=LARS_LR,
+                                   parameters=model.parameters()),
+        ptt.nn.CrossEntropyLoss())
+    engine = api._engine = TrainEngine(api)
+    if form == "eager":
+        engine.step = engine._step_eager
+    stamps = drain_stamps(engine)
+    t0 = time.perf_counter()
+    losses = api.fit(_RepeatBatch(x, y, steps), batch_size=x.shape[0],
+                     shuffle=False, verbose=0,
+                     log_freq=log_freq)["step_loss"]
+    return model, api, engine, losses, np.diff([t0] + stamps[:steps]) * 1e3
+
+
+def resnet50_lars_phase(torch, K, card):
+    """[resnet50-lars]: ResNet-50 bf16, B = 128 (the [resnet50] batch),
+    Model.fit with LarsMomentum(LARS_LR) at the reference's momentum,
+    lars_coeff and lars_weight_decay defaults: R50_FIT_STEPS steps through
+    the captured step (the loss falls; one capture; Kernel B twice a
+    replay, as the wrappers counted at the capture), 2 profiled replays
+    (device ms a step, samples/s, launches), then 3 steps graph against
+    eager under cudnn.deterministic: losses, parameters and running
+    statistics bitwise; then the path's kernel at its own tree:
+    LarsMomentum(LARS_LR) over ResNet-50's bf16 parameters, 3 steps of
+    step() against the per-parameter loop (``optimizer_tree_check``) and
+    one update timed against the loop and its bound
+    (``tree_step_record``).  Returns (the wrappers' counts over the graph
+    fit, record)."""
+    import paddle_tpu_torch as ptt
+
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(R50_B, 3, 224, 224).astype(
+        np.float32)).to(torch.bfloat16)
+    y = torch.from_numpy(rs.randint(0, 1000, (R50_B,)).astype(np.int64))
+    K.reset_launch_counts()
+    model, api, engine, losses, step_ms = r50_lars_fit(
+        torch, "graph", x, y, R50_FIT_STEPS)
+    counts = K.launch_counts()
+    (per_replay,) = engine.graph_launches.values()
+    if engine.captures != 1 \
+            or per_replay.get("multi_tensor_norm_step") != 2 \
+            or per_replay.get("multi_tensor_step", 0):
+        fail(f"resnet50-lars: {engine.captures} captures, a replay's "
+             f"launches {per_replay} (Kernel B twice, the elementwise "
+             "kernel never)")
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0]:
+        fail(f"resnet50-lars: losses {losses} do not fall at lr {LARS_LR}")
+    _, wall_ms, kernels = trace_window(
+        torch, lambda: api.fit(_RepeatBatch(x, y, 2), batch_size=R50_B,
+                               shuffle=False, verbose=0))
+    traced, _ = require_traced(kernels, "resnet50-lars",
+                               XENT_KERNELS + ("multi_tensor_norm_step",))
+    busy = sum(t for t, _, _ in kernels)
+    fam, _ = r50_families(kernels)
+    del model, api, engine
+    release(torch, "resnet50-lars bitwise")
+    runs = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for form in ("graph", "eager"):
+            m_, _, e_, l_, _ = r50_lars_fit(torch, form, x, y, 3)
+            runs.append((l_, [t.detach().clone() for t in
+                              (*m_.parameters(), *m_.buffers())]))
+            del m_, e_
+            release(torch, f"resnet50-lars bitwise {form}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (lg, tg), (le, te) = runs
+    if lg != le or not all(torch.equal(a, b) for a, b in zip(tg, te)):
+        fail(f"resnet50-lars: under cudnn.deterministic the graph's losses "
+             f"{lg} against the eager step's {le} (or the parameters, or "
+             "the running statistics) differ")
+    del runs, tg, te
+    model, _ = r50_model(torch)
+    opt, opt_err, opt_steps = optimizer_tree_check(
+        torch, model, make=lambda ps: ptt.optimizer.LarsMomentum(
+            learning_rate=LARS_LR, parameters=ps))
+    params = list(model.parameters())
+    opt_rec = tree_step_record(torch, K, opt, params, LARS_LR)
+    if opt_rec["kind"] != "lars":
+        fail(f"resnet50-lars optimizer: LarsMomentum took the "
+             f"{opt_rec['kind']} rule")
+    opt_rec.update(max_abs_err=opt_err, **opt_steps)
+    del model, opt, params
+    device_ms = busy / 2
+    p50 = float(np.median(step_ms[1:]))
+    opt_ms = fam.get("optimizer", (0.0, 0))
+    per_step = {k: v / 2 for k, v in traced.items() if v}
+    log(f"[resnet50-lars] resnet50(num_classes=1000) bf16, B={R50_B}, "
+        f"LarsMomentum({LARS_LR}, momentum 0.9, lars_coeff 0.001, "
+        f"lars_weight_decay 0.0005) through Model.fit on {card}: losses "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f} over {R50_FIT_STEPS} steps "
+        f"(falling; {[round(v, 5) for v in losses]}); step p50 {p50:.3f} ms "
+        f"to each drain; device ms a step (2 profiled replays' busy) "
+        f"{device_ms:.3f}, {R50_B / device_ms * 1e3:.1f} samples/s, busy "
+        f"{busy:.3f} of {wall_ms:.3f} ms ({100 * busy / wall_ms:.2f}%); "
+        f"Kernel B a step: {opt_ms[0] / 2:.3f} ms over {opt_ms[1] / 2:g} "
+        f"launches; a replay's launches {per_replay}; traced launches a "
+        f"step {per_step}; 3 steps under cudnn.deterministic graph bitwise "
+        f"eager (losses {lg}, every parameter and running statistic) | "
+        f"LarsMomentum({LARS_LR}) over ResNet-50's {opt_rec['tensors']} bf16 "
+        f"tensors, 3 steps of the kernel against the per-parameter loop: "
+        f"max |d| {opt_err}, steps within {opt_steps['step_rel_err']:.3e} "
+        f"of the loop's (tol {K.optimizer.NORM_BF16_RTOL:.3e}; the loop at "
+        f"{NORM_PLANTED} x lr {opt_steps['planted_rel_err']:.3e}, refused); "
+        f"one update of {opt_rec['elements']} elements: device ms kernel="
+        f"{opt_rec['ms']} plain loop={opt_rec['plain_ms']} bound="
+        f"{opt_rec['bound_ms']} ({opt_rec['bound_by']}, {opt_rec['bytes']} "
+        f"bytes) library={NO_LIBRARY}")
+    return counts, {"p50_ms": p50, "device_ms": device_ms,
+                    "samples_s": R50_B / device_ms * 1e3,
+                    "losses": losses, "optimizer_ms": opt_ms[0] / 2,
+                    "launches_a_replay": per_replay,
+                    "traced_a_step": per_step,
+                    "tree_check": {k: opt_rec[k] for k in (
+                        "tensors", "elements", "max_abs_err", "step_rel_err",
+                        "planted_rel_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms")}}
 
 
 def peak_text(torch, start):
@@ -5057,6 +5781,19 @@ def main():
     mark("resnet50")
     r50_counts, r50_rec = resnet50_phase(torch, K, card)
     torch.cuda.synchronize()
+    release(torch, "optimizers")
+    mark("optimizers")
+    rule_recs = optimizers_phase(torch, K, card)
+    release(torch, "wrappers")
+    mark("wrappers")
+    wrapper_recs = wrappers_phase(torch, K, card)
+    release(torch, "bert-lamb-accum")
+    mark("bert-lamb-accum")
+    accum_counts, accum_rec = bert_lamb_accum_phase(torch, K, card)
+    release(torch, "resnet50-lars")
+    mark("resnet50-lars")
+    lars_counts, lars_rec = resnet50_lars_phase(torch, K, card)
+    torch.cuda.synchronize()
 
     kernels = []
     for name, rec in main_cases.items():
@@ -5169,6 +5906,14 @@ def main():
                     **{k: r[k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
                         "bound_by", "library_ms")}}
+        if name == "multi_tensor_step":
+            # the elementwise rules this kernel gained last, each over
+            # BERT-base's bf16 tree: bitwise the loop, timed
+            entry["rules"] = {
+                rule: {k: r[k] for k in (
+                    "kind", "launches", "max_abs_err", "ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms")}
+                for rule, r in rule_recs.items() if rule not in NORM_RULES}
         if name in FAST_VARIANT:
             entry["variant"] = rec["variant"]
         if name in MMA_KERNELS:
@@ -5220,6 +5965,42 @@ def main():
         "traced_launches_a_step": ernie_traced.get(
             "check_finite_and_unscale", 0),
         "paths": {"ernie-o2": ernie_step, "fit-amp": fit_amp_step}})
+    # Kernel B, the norm rules: its main numbers are Lamb's over
+    # BERT-base's bf16 tree; launches are [bert-lamb-accum]'s (the
+    # wrappers count its warm-up and capture; a replay's in the trace)
+    source, replaces = REPLACES["multi_tensor_norm_step"]
+    lamb = rule_recs["lamb"]
+    kernels.append({
+        "name": "multi_tensor_norm_step", "route": "cuda",
+        "source": source, "replaces": replaces,
+        "launches": accum_counts["multi_tensor_norm_step"],
+        **{k: lamb[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")},
+        "rule": "lamb", "tensors": lamb["tensors"],
+        "elements": lamb["elements"],
+        "rules": {rule: {k: rule_recs[rule][k] for k in (
+            "kind", "launches", "max_abs_err", "steps_vs_loop", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for rule in NORM_RULES},
+        "dpsgd_noise": rule_recs["dpsgd"]["noise"],
+        "paths": {
+            "bert-lamb-accum": {
+                "launches_a_replay": accum_rec["launches_a_replay"][
+                    "multi_tensor_norm_step"],
+                "traced_launches_a_step": accum_rec["traced_a_step"].get(
+                    "multi_tensor_norm_step", 0),
+                **{k: accum_rec[k] for k in ("p50_ms", "samples_s", "mfu",
+                                             "busy_share", "peak_gib")}},
+            "resnet50-lars": {
+                "launches": lars_counts["multi_tensor_norm_step"],
+                "launches_a_replay": lars_rec["launches_a_replay"][
+                    "multi_tensor_norm_step"],
+                "traced_launches_a_step": lars_rec["traced_a_step"].get(
+                    "multi_tensor_norm_step", 0),
+                **{k: lars_rec[k] for k in ("p50_ms", "device_ms",
+                                            "samples_s", "optimizer_ms",
+                                            "tree_check")}}},
+        "wrappers": wrapper_recs})
     log(f"[time] the run took {time.perf_counter() - START:.1f}s")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

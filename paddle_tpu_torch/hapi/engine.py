@@ -55,9 +55,10 @@ fresh node (:func:`_fresh_grad_accumulators`).
 (``Model._build_eval_step``): the forward and the loss under
 ``torch.no_grad()`` in eval mode, captured once per batch signature in a
 memory pool of its own and replayed; ``Model.evaluate``, ``eval_batch``,
-``predict`` and ``predict_batch`` go through it.  Not ported yet
-(ROADMAP.md): meshes and layouts, recompute, gradient accumulation, the
-pod hooks, checkpoint state and the op report.
+``predict`` and ``predict_batch`` go through it.  ``fit(accum_steps=k)``
+accumulates gradients over k microbatches inside the one captured step
+(:func:`build_train_step`).  Not ported yet (ROADMAP.md): meshes and
+layouts, recompute, the pod hooks, checkpoint state and the op report.
 """
 from __future__ import annotations
 
@@ -69,9 +70,10 @@ from ..amp import amp_key
 from ..framework.place import copy_to_device
 from ..framework.random import StepKeys
 from ..ops import kernels
+from ..optimizer import Optimizer
 
 __all__ = ["EvalEngine", "TrainEngine", "build_eval_step",
-           "build_train_step", "fetch", "to_device"]
+           "build_train_step", "fetch", "microbatch_split", "to_device"]
 
 
 def _to_list(x):
@@ -145,23 +147,103 @@ class _LossRing:
         return losses, host[n:]
 
 
-def build_train_step(network, loss_layer, opt):
+def microbatch_split(tensors, k_steps):
+    """Each tensor [k*mb, ...] as k contiguous views [mb, ...] (a 0-d
+    tensor as it is, k times), the reference's ``microbatch_split``
+    (paddle_tpu/distributed/layout.py:92): a batch dim that ``k_steps`` does
+    not divide raises ``ValueError``.  Returns a list of k lists."""
+    def leaf(x):
+        if x.dim() == 0:
+            return [x] * k_steps
+        if x.shape[0] % k_steps:
+            raise ValueError(
+                f"global batch dim {x.shape[0]} not divisible by "
+                f"accum_steps={k_steps}")
+        return list(x.split(x.shape[0] // k_steps))
+
+    per = [leaf(x) for x in tensors]
+    return [[views[j] for views in per] for j in range(k_steps)]
+
+
+def _merge_into(merged, out, j, k):
+    """Write microbatch ``j``'s outputs ``out`` (detached) into ``merged``,
+    the outputs in global batch order, made at microbatch 0: the reference
+    re-merges its [k, mb, ...] outputs to [k*mb, ...], and keeps a 0-d
+    output stacked as [k].  Returns ``merged``."""
+    if isinstance(out, torch.Tensor):
+        if merged is None:
+            shape = (k * out.shape[0],) + tuple(out.shape[1:]) \
+                if out.dim() else (k,)
+            merged = out.new_empty(shape)
+        if out.dim():
+            n = out.shape[0]
+            merged[j * n:(j + 1) * n].copy_(out)
+        else:
+            merged[j].copy_(out)
+        return merged
+    if isinstance(out, (list, tuple)):
+        merged = merged or [None] * len(out)
+        return type(out)(_merge_into(m, o, j, k)
+                         for m, o in zip(merged, out))
+    return out
+
+
+def build_train_step(network, loss_layer, opt, accum_steps=1,
+                     outputs=True):
     """THE train-step math: ``step(inputs, labels) -> (loss, outs)`` runs
     the network in train mode, the loss (its mean), the backward, the
-    optimizer's device half (``opt.apply_step``: the caller runs
-    ``opt.begin_step()`` first, once per executed step) and clears the
-    gradients.  The loss is returned on the device, detached."""
+    optimizer's device half in the reference's ``apply_pytree`` form
+    (``opt.apply_step(pytree=True)``: the caller runs
+    ``opt.begin_step(pytree=True)`` first, once per executed step) and
+    clears the gradients.  The loss is returned on the device, detached.
+
+    With ``accum_steps`` k > 1, the reference's ``microbatch_scan``
+    (paddle_tpu/distributed/layout.py:107) inside the one step: the batch
+    in k equal contiguous microbatches, each one's mean loss backpropagated
+    unscaled, the gradients summed in the parameter's dtype from zero
+    (autograd accumulates into the zeroed ``.grad``), then multiplied by
+    1/k in place; buffers (batch norm's running statistics) move through
+    the microbatches in order; the loss is the float32 sum of the
+    microbatch losses times 1/k and the outputs are re-merged to global
+    order (with ``outputs`` False, as ``fit`` asks where no metric reads
+    them, the step returns None for them and keeps no copy: a microbatch's
+    outputs, the MLM logits of a BERT microbatch, are freed with its
+    graph).  The gradients stay allocated and are zeroed in place at the
+    step's end, so their addresses stay fixed across steps."""
 
     def step(inputs, labels):
         if not callable(loss_layer):
             raise RuntimeError("prepare() a loss before fit()")
         network.train()
-        outs = network(*inputs)
-        loss = loss_layer(*(_to_list(outs) + list(labels))).mean()
-        loss.backward()
-        opt.apply_step()
-        opt.clear_grad()
-        return loss.detach(), outs
+        if accum_steps == 1:
+            outs = network(*inputs)
+            loss = loss_layer(*(_to_list(outs) + list(labels))).mean()
+            loss.backward()
+            opt.apply_step(pytree=True)
+            opt.clear_grad()
+            return loss.detach(), outs
+        n_in = len(inputs)
+        total = torch.zeros((), dtype=torch.float32,
+                            device=inputs[0].device)
+        outs = None
+        micros = microbatch_split(list(inputs) + list(labels), accum_steps)
+        for j, micro in enumerate(micros):
+            out = network(*micro[:n_in])
+            loss = loss_layer(*(_to_list(out) + micro[n_in:])).mean()
+            loss.backward()
+            total = total + loss.detach().float()
+            if outputs:
+                with torch.no_grad():
+                    outs = _merge_into(outs, out, j, accum_steps)
+            del out, loss
+        inv = 1.0 / accum_steps
+        with torch.no_grad():
+            for p in opt._parameter_list or []:
+                if p.grad is not None:
+                    p.grad.mul_(inv)
+        opt.apply_step(pytree=True)
+        opt.clear_grad(set_to_zero=True)
+        return total * inv, outs
 
     return step
 
@@ -215,14 +297,17 @@ def build_eval_step(network, loss_layer):
     return step
 
 
-def _signature(inputs, labels):
+def _signature(inputs, labels, accum_steps=1, outputs=True):
     """A batch's input signature, the key of the graph cache: the shape
-    and dtype of every input and label, and the AMP policy the step runs
-    under (``amp.amp_key()``: enabled, dtype, level), so a graph captured
+    and dtype of every input and label, the microbatches a step
+    (``fit(accum_steps=)``) and whether the step keeps their merged
+    outputs, and, last, the AMP policy the step runs under
+    (``amp.amp_key()``: enabled, dtype, level), so a graph captured
     outside ``auto_cast`` is never replayed inside it, nor the other way
     round (the reference's jit traces the policy into its step)."""
     return tuple((tuple(t.shape), t.dtype) for t in inputs), \
-        tuple((tuple(t.shape), t.dtype) for t in labels), amp_key()
+        tuple((tuple(t.shape), t.dtype) for t in labels), \
+        (accum_steps, outputs), amp_key()
 
 
 class _StepGraph:
@@ -272,6 +357,8 @@ class _GraphEngine:
         self._state = None         # _state_key() of the graphs' state
         self._held = ()            # the network's tensors, from begin()
         self._replaying = model.device.type == "cuda"
+        self._accum = 1            # microbatches a step (TrainEngine)
+        self._outputs = True       # whether it merges their outputs
         self.captures = 0
         self.replays = 0
 
@@ -311,7 +398,7 @@ class _GraphEngine:
             return self._step_eager(inputs, labels)
         inputs = [torch.as_tensor(x) for x in inputs]
         labels = [torch.as_tensor(x) for x in labels]
-        sig = _signature(inputs, labels)
+        sig = _signature(inputs, labels, self._accum, self._outputs)
         g = self._graphs.get(sig)
         if g is None:
             return self._first_step(sig, inputs, labels)
@@ -410,13 +497,29 @@ class TrainEngine(_GraphEngine):
         super().__init__(model)
         self._keys = None          # StepKeys of the graph path
 
-    def begin(self):
+    def begin(self, accum_steps=1, outputs=True):
+        """Start a ``fit``: ``accum_steps`` microbatches a step, whose
+        outputs are merged for the caller only with ``outputs``.  The
+        optimizer runs in the reference's ``apply_pytree`` form (no
+        per-parameter learning rates, AdamW decays every parameter)."""
         m = self.model
         opt = m._optimizer
         if opt is None or m._loss is None:
             raise RuntimeError("prepare() an optimizer and a loss before "
                                "fit()")
-        self._body = build_train_step(m.network, m._loss, opt)
+        if not isinstance(opt, Optimizer):
+            # the reference's engine reads the optimizer's _step_count and
+            # calls its init_pytree, which a wrapper lacks
+            raise AttributeError(
+                f"{type(opt).__name__!r} object has no attribute "
+                "'_step_count': Model.fit takes an Optimizer, not a wrapper "
+                "(as the reference's fit)")
+        if accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+        self._accum = int(accum_steps)
+        self._outputs = bool(outputs)
+        self._body = build_train_step(m.network, m._loss, opt, self._accum,
+                                      self._outputs)
         self._begin()
         if self._replaying and self._keys is None:
             if opt._kernel_spec() is None:
@@ -438,7 +541,7 @@ class TrainEngine(_GraphEngine):
         """The host prologue, once per executed step: the optimizer's step
         count, lr and kernel scalars, and the dropout step counter, each
         written to the device without a sync."""
-        self.model._optimizer.begin_step()
+        self.model._optimizer.begin_step(pytree=True)
         if self._keys is not None:
             self._keys.advance()
 

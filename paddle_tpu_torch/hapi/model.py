@@ -18,10 +18,13 @@ metric's ``compute`` returns, in one copy a step (the reference syncs every
 step then too); without them a step stays sync-free.  The callback hooks
 run in the reference's order.  ``save``/``load`` write and read the
 reference's ``.pdparams``/``.pdopt`` files, in place.
-Not ported yet (ROADMAP.md): gradient accumulation
-(``accumulate_grad_batches`` other than 1), DataLoader worker processes,
-fault tolerance and resume, meshes and layouts, recompute, AMP, telemetry
-and tracing, and ``serve``.
+``fit(accum_steps=k)`` (alias ``accumulate_grad_batches``) accumulates
+gradients over k microbatches inside the one step, ``batch_size`` staying
+the global batch.  ``fit`` and ``train_batch`` run the optimizer in the
+reference's ``apply_pytree`` form (no per-parameter learning rates, AdamW
+decaying every parameter; optimizer/__init__.py).  Not ported yet
+(ROADMAP.md): DataLoader worker processes, fault tolerance and resume,
+meshes and layouts, recompute, telemetry and tracing, and ``serve``.
 """
 from __future__ import annotations
 
@@ -80,7 +83,8 @@ class Model:
         ``fit`` comes from an enclosing ``amp.auto_cast`` (and
         ``amp.decorate`` for O2), whose policy the captured step is keyed
         on."""
-        if optimizer is not None and optimizer._parameter_list is None:
+        if optimizer is not None and getattr(
+                optimizer, "_parameter_list", ()) is None:
             # the reference feeds the network's parameters to the
             # optimizer through its state pytrees; here it updates them
             optimizer._parameter_list = [
@@ -126,7 +130,7 @@ class Model:
             self._train_step_fn = build_train_step(
                 self.network, self._loss, self._optimizer)
         labels = to_device(_to_list(labels), self.device)
-        self._optimizer.begin_step()
+        self._optimizer.begin_step(pytree=True)
         loss, outs = self._train_step_fn(
             to_device(_to_list(inputs), self.device), labels)
         per_metric = self._metric_outputs(outs, labels)
@@ -175,21 +179,24 @@ class Model:
     def fit(self, train_data=None, eval_data=None, batch_size=1, epochs=1,
             eval_freq=1, log_freq=10, save_dir=None, save_freq=1, verbose=2,
             drop_last=False, shuffle=True, num_workers=0, callbacks=None,
-            accumulate_grad_batches=1, num_iters=None):
+            accumulate_grad_batches=1, num_iters=None, accum_steps=1):
         """Train for ``epochs`` over ``train_data`` (a Dataset or a
         DataLoader), with the reference's options and callback order:
         ``eval_data`` is evaluated every ``eval_freq`` epochs, a
         ``ModelCheckpoint`` saves to ``save_dir`` every ``save_freq``
         epochs and at the end, ``num_iters`` ends training after that many
         steps, a callback may set ``stop_training``.  ``drop_last`` drops
-        an epoch's last, short batch (a Dataset only).  Returns the
-        history: ``loss`` (each epoch's mean loss), ``eval_loss`` (with
-        ``eval_data``) and ``step_loss`` (every step's loss)."""
+        an epoch's last, short batch (a Dataset only).  ``accum_steps=k``
+        (alias: Paddle's ``accumulate_grad_batches``) splits each batch
+        into k equal microbatches whose gradients are accumulated inside
+        the one step (engine.py ``build_train_step``); a batch that k does
+        not divide raises ``ValueError``.  Returns the history: ``loss``
+        (each epoch's mean loss), ``eval_loss`` (with ``eval_data``) and
+        ``step_loss`` (every step's loss)."""
         _no_workers(num_workers)
-        if accumulate_grad_batches != 1:
-            raise NotImplementedError(
-                "gradient accumulation (accumulate_grad_batches != 1) is "
-                "not ported yet")
+        if accumulate_grad_batches != 1 and accum_steps == 1:
+            # Paddle's fleet name for the same knob, as the reference reads it
+            accum_steps = accumulate_grad_batches
         loader = self._loader(train_data, batch_size, shuffle, drop_last)
         self._save_dir = save_dir
         self.stop_training = False
@@ -205,7 +212,8 @@ class Model:
         eager_sync = user_cbs or bool(self._metrics)
         if self._engine is None:
             self._engine = TrainEngine(self)
-        engine = self._engine.begin()
+        # the microbatches' merged outputs are kept only for the metrics
+        engine = self._engine.begin(accum_steps, bool(self._metrics))
         history = {"loss": [], "step_loss": []}
         it_count = 0
         try:

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from ... import tensor_ops as T
 from .. import functional as F
+from .. import initializer as I
 from ..layer_base import Layer
 
 
@@ -33,8 +34,9 @@ class Linear(Layer):
 class Embedding(Layer):
     def __init__(self, num_embeddings, embedding_dim, weight_attr=None):
         super().__init__()
-        self.weight = self.create_parameter([num_embeddings, embedding_dim],
-                                            attr=weight_attr)
+        self.weight = self.create_parameter(
+            [num_embeddings, embedding_dim], attr=weight_attr,
+            default_initializer=I.Normal(0.0, 1.0))
 
     def forward(self, x):
         return F.embedding(x, self.weight)

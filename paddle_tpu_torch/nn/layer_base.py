@@ -12,6 +12,8 @@ valid.
 """
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
@@ -50,12 +52,21 @@ def set_state_dict(module: torch.nn.Module, state_dict: dict):
 
 
 class ParamAttr:
-    """Reference parity: paddle ParamAttr (the initializer is the only
-    field the port reads)."""
+    """Reference parity: paddle ParamAttr (python/paddle/fluid/param_attr.py):
+    :meth:`Layer.create_parameter` puts ``name``, ``learning_rate`` (as
+    ``p.optimize_attr``), ``regularizer`` and ``need_clip`` on the
+    parameter.  ``do_model_average`` is accepted and unused, as in the
+    reference."""
 
-    def __init__(self, initializer=None, trainable=True):
+    def __init__(self, name=None, initializer=None, learning_rate=1.0,
+                 regularizer=None, trainable=True, do_model_average=True,
+                 need_clip=True):
+        self.name = name
         self.initializer = initializer
+        self.learning_rate = learning_rate
+        self.regularizer = regularizer
         self.trainable = trainable
+        self.need_clip = need_clip
 
     @staticmethod
     def _to_attr(attr):
@@ -63,9 +74,46 @@ class ParamAttr:
             return ParamAttr()
         if isinstance(attr, ParamAttr) or attr is False:
             return attr
+        if isinstance(attr, str):
+            return ParamAttr(name=attr)
         if isinstance(attr, I.Initializer):
             return ParamAttr(initializer=attr)
         raise TypeError(f"Cannot make ParamAttr from {attr!r}")
+
+
+class Parameter(torch.nn.Parameter):
+    """``torch.nn.Parameter`` with the reference's parameter attributes:
+    a writable ``name`` (torch's own ``Tensor.name`` cannot be set),
+    ``optimize_attr``, ``regularizer`` and ``need_clip``, which
+    :meth:`Layer.create_parameter` sets.  A cast (``Layer.to``, ``astype``)
+    keeps the object and so its attributes; a deep copy copies them."""
+
+    @property
+    def name(self):
+        return self.__dict__.get("_param_name")
+
+    @name.setter
+    def name(self, value):
+        self.__dict__["_param_name"] = value
+
+    def __repr__(self):
+        return "Parameter containing:\n" + repr(self.data)
+
+    def __deepcopy__(self, memo):
+        out = super().__deepcopy__(memo)
+        out.__dict__.update(copy.deepcopy(self.__dict__, memo))
+        return out
+
+
+# the reference's unique-name scheme (paddle_tpu/nn/layer_base.py
+# ``_unique_name``): a counter a prefix, ``param_0``, ``param_1``, ...
+_name_counters: dict[str, int] = {}
+
+
+def _unique_name(prefix: str) -> str:
+    n = _name_counters.get(prefix, 0)
+    _name_counters[prefix] = n + 1
+    return f"{prefix}_{n}"
 
 
 class Layer(torch.nn.Module):
@@ -75,15 +123,24 @@ class Layer(torch.nn.Module):
 
     def create_parameter(self, shape, attr=None, dtype=None, is_bias=False,
                          default_initializer=None):
-        """A Parameter initialised on the CPU (see nn/initializer.py);
-        ``attr=False`` means no parameter (returns None)."""
+        """A Parameter initialised on the CPU (see nn/initializer.py), by
+        default XavierUniform for a weight and zeros for a bias, as in the
+        reference; ``attr=False`` means no parameter (returns None).  The
+        parameter carries the reference's attributes: ``name`` (the
+        attribute's, else ``param_<n>``), ``optimize_attr``
+        (``{"learning_rate": ...}``), ``regularizer`` and ``need_clip``."""
         attr = ParamAttr._to_attr(attr)
         if attr is False:
             return None
         init = attr.initializer or default_initializer or \
-            (I.Constant(0.0) if is_bias else I.Normal(0.0, 0.02))
+            (I.Constant(0.0) if is_bias else I.XavierUniform())
         value = init(shape, dtype or self._dtype)
-        return torch.nn.Parameter(value, requires_grad=attr.trainable)
+        p = Parameter(value, requires_grad=attr.trainable)
+        p.name = attr.name or _unique_name("param")
+        p.optimize_attr = {"learning_rate": attr.learning_rate}
+        p.regularizer = attr.regularizer
+        p.need_clip = attr.need_clip
+        return p
 
     def add_sublayer(self, name, sublayer):
         self.add_module(str(name), sublayer)

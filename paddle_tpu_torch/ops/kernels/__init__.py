@@ -8,8 +8,10 @@ the card), a note naming the Pallas kernel it replaces, and, where the
 reference has a custom_vjp, the ``torch.autograd.Function`` that joins a
 forward kernel to its backward.  ``optimizer`` is the one kernel beyond the
 ``pallas_call`` set: the whole-tree optimizer update the reference gets
-from XLA inside its jitted step; ``amp`` is the other, the loss scaler's
-check_finite_and_unscale over every gradient.
+from XLA inside its jitted step (``multi_tensor_step``, and
+``multi_tensor_norm_step`` for the rules that need per-tensor norms);
+``amp`` is the other, the loss scaler's check_finite_and_unscale over
+every gradient.
 """
 from . import (amp, bias_gelu, flash_attention, layer_norm, optimizer,
                paged_attention, softmax_xent)
@@ -26,6 +28,7 @@ WRAPPERS = {
     "softmax_xent": softmax_xent.softmax_xent_fwd,
     "softmax_xent_bwd": softmax_xent.softmax_xent_bwd,
     "multi_tensor_step": optimizer.multi_tensor_step,
+    "multi_tensor_norm_step": optimizer.multi_tensor_norm_step,
     "check_finite_and_unscale": amp.check_finite_and_unscale_,
 }
 

@@ -2481,3 +2481,271 @@ def test_model_load_reaches_a_captured_eval_graph(dev):
                                    metrics=[ptt.metric.Accuracy()])
     eager._eval_begin()._replaying = False
     assert eager.evaluate(ds, batch_size=8, verbose=0) == after
+
+
+# ---------------------------------------------------------------------------
+# the rest of the optimizers: the elementwise kernel's new rules bitwise the
+# loop, the norm rules (Lamb, LarsMomentum, Dpsgd) within NORM_RTOL, and
+# Model.fit with gradient accumulation, graph against eager
+# ---------------------------------------------------------------------------
+O = ptt.optimizer
+NEW_RULES = {
+    "adagrad": lambda ps, lr, clip: O.Adagrad(
+        lr, parameters=ps, grad_clip=clip, initial_accumulator_value=0.1),
+    "adamax": lambda ps, lr, clip: O.Adamax(lr, parameters=ps,
+                                            grad_clip=clip),
+    "adadelta": lambda ps, lr, clip: O.Adadelta(
+        lr, parameters=ps, grad_clip=clip, weight_decay=0.01),
+    "rmsprop": lambda ps, lr, clip: O.RMSProp(lr, parameters=ps,
+                                              grad_clip=clip),
+    "rmsprop_centered": lambda ps, lr, clip: O.RMSProp(
+        lr, momentum=0.9, centered=True, parameters=ps, grad_clip=clip),
+    "ftrl": lambda ps, lr, clip: O.Ftrl(lr, l1=0.01, l2=0.02,
+                                        parameters=ps, grad_clip=clip),
+    "ftrl_square": lambda ps, lr, clip: O.Ftrl(
+        lr, l1=0.01, l2=0.02, lr_power=-2.0, parameters=ps, grad_clip=clip),
+    "sgd_l1": lambda ps, lr, clip: O.SGD(
+        lr, parameters=ps, grad_clip=clip,
+        weight_decay=ptt.regularizer.L1Decay(0.01)),
+    "momentum_l2": lambda ps, lr, clip: O.Momentum(
+        lr, parameters=ps, grad_clip=clip,
+        weight_decay=ptt.regularizer.L2Decay(0.02)),
+}
+NORM_RULES = {
+    "lamb": lambda ps, lr, clip: O.Lamb(lr, lamb_weight_decay=0.01,
+                                        parameters=ps, grad_clip=clip),
+    "lars": lambda ps, lr, clip: O.LarsMomentum(lr, parameters=ps,
+                                                grad_clip=clip),
+    "dpsgd": lambda ps, lr, clip: O.Dpsgd(lr, clip=1.0, batch_size=16,
+                                          sigma=1.0, parameters=ps),
+}
+
+
+def _rule_run(dev, make, dtype, plain, unaligned=False, steps=3, lr=0.01):
+    """``steps`` updates by step() or step_plain() of ``make``'s optimizer
+    from seeded values (as ``_opt_run``; the lr from ``lr``, times 0.8
+    each step), Dpsgd's seeds drawn from one framework seed on both
+    sides."""
+    ptt.seed(5)
+    params = _opt_params(dev, dtype, unaligned)
+    sched = ptt.optimizer.lr.StepDecay(lr, step_size=1, gamma=0.8)
+    opt = make(params, sched, tnn.ClipGradByGlobalNorm(5.0))
+    g = torch.Generator(device=dev).manual_seed(22)
+    for i in range(steps):
+        for j, p in enumerate(params):
+            p.grad = None if j == 3 else torch.randn(
+                *p.shape, generator=g, device=dev).to(dtype)
+        opt.step_plain() if plain else opt.step()
+        opt.clear_grad()
+        sched.step()
+    torch.cuda.synchronize()
+    slots = [[v.clone() for v in opt._slots.get(id(p), {}).values()]
+             for p in params]
+    return params, slots
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rule", sorted(NEW_RULES))
+@pytest.mark.parametrize("unaligned", [False, True])
+def test_new_rules_are_bitwise_the_loop(dev, rule, dtype, unaligned):
+    """Adagrad, Adamax, Adadelta (coupled decay), RMSProp (plain, centered
+    with momentum), Ftrl (sqrt and square powers), L1Decay and L2Decay
+    objects: after 3 steps the kernel's parameters and slots equal the
+    per-parameter loop's bit for bit; one launch a step."""
+    before = multi_tensor.multi_tensor_step.launches
+    got, got_slots = _rule_run(dev, NEW_RULES[rule], dtype, False,
+                               unaligned)
+    assert multi_tensor.multi_tensor_step.launches == before + 3
+    want, want_slots = _rule_run(dev, NEW_RULES[rule], dtype, True,
+                                 unaligned)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), (i, (a.float() - b.float()).abs().max())
+    for i, (a, b) in enumerate(zip(got_slots, want_slots)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            assert x.dtype == dtype and torch.equal(x, y), i
+
+
+def _rel_err(a, b):
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _step_rel_err(a, b, start):
+    """||a - b|| / ||b - start||: how far run a's step lies from run b's,
+    relative to b's step."""
+    return ((a.float() - b.float()).norm()
+            / (b.float() - start.float()).norm()).item()
+
+
+# the norm rules' learning rates in the test below: 3 steps move a bf16
+# element several ulps (Lamb about 5 % of each tensor's norm a step, LARS
+# about 1 %, Dpsgd's noise about 0.06), so the kernel's step is seen
+NORM_LR = {"lamb": 0.05, "lars": 10.0, "dpsgd": 1.0}
+NORM_PLANTED = 1.25     # the planted fault: a step 25 % too large
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rule", sorted(NORM_RULES))
+@pytest.mark.parametrize("unaligned", [False, True])
+def test_norm_rules_are_the_loop_within_tolerance(dev, rule, dtype,
+                                                  unaligned):
+    """Lamb, LarsMomentum and Dpsgd: two launches a step; after 3 steps
+    every parameter and slot within NORM_RTOL (float32) or NORM_BF16_RTOL
+    (bf16) of the loop's, relative to the tensor's largest |value| (the
+    norms sum in another order; docstring of ops/kernels/optimizer.py),
+    and each parameter's step (p - p0) within the same tolerance of the
+    loop's step, while the loop at NORM_PLANTED times the lr lies outside
+    it; a second run is bitwise the first (no atomics)."""
+    tol = multi_tensor.NORM_RTOL if dtype == torch.float32 \
+        else multi_tensor.NORM_BF16_RTOL
+    make, lr = NORM_RULES[rule], NORM_LR[rule]
+    before = multi_tensor.multi_tensor_norm_step.launches
+    got, got_slots = _rule_run(dev, make, dtype, False, unaligned, lr=lr)
+    assert multi_tensor.multi_tensor_norm_step.launches == before + 6
+    again, again_slots = _rule_run(dev, make, dtype, False, unaligned,
+                                   lr=lr)
+    want, want_slots = _rule_run(dev, make, dtype, True, unaligned, lr=lr)
+    planted, _ = _rule_run(dev, make, dtype, True, unaligned,
+                           lr=lr * NORM_PLANTED)
+    start = _opt_params(dev, dtype, unaligned)
+    for i, (a, b, c) in enumerate(zip(got, again, want)):
+        assert torch.equal(a, b), i
+        assert _rel_err(a, c) <= tol, (i, _rel_err(a, c))
+        if i == 3:      # no gradient: not moved
+            assert torch.equal(a, start[i]) and torch.equal(c, start[i])
+            continue
+        assert _step_rel_err(a, c, start[i]) <= tol, i
+        assert _step_rel_err(planted[i], c, start[i]) > tol, i
+    for a, b in zip(got_slots, want_slots):
+        for x, y in zip(a, b):
+            assert x.dtype == dtype and _rel_err(x, y) <= tol
+
+
+def test_dpsgd_noise_and_sigma_zero(dev):
+    """Dpsgd's kernel noise: the plain version's numbers (within 1e-5: the
+    card's log, cos and sin against the same functions in torch's kernels),
+    mean and standard deviation of 2**20 draws within 5 standard errors of
+    N(0, 1), the same seed the same bits; with sigma = 0 and gradients
+    under the clip, bitwise plain SGD."""
+    n = 1 << 20
+    p = torch.nn.Parameter(torch.zeros(n, device=dev))
+    p.grad = torch.zeros(n, device=dev)
+    hyper = {"clip": 1.0, "sigma": 1.0, "batch_size": 1}
+    scalars = multi_tensor.make_scalars(dev)
+    multi_tensor.write_scalars(scalars, "dpsgd", -1.0, 1, hyper)
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            p.zero_()
+        multi_tensor.multi_tensor_norm_step("dpsgd", [p], [p.grad], [[]],
+                                            -1.0, 1, hyper, scalars, 1234)
+        runs.append(p.detach().clone())
+    torch.cuda.synchronize()
+    z = runs[0]
+    assert torch.equal(runs[0], runs[1])
+    plain = multi_tensor.dpsgd_noise_plain(1234, 0, n, dev)
+    assert (z - plain).abs().max().item() <= 1e-5
+    se = 1 / n ** 0.5
+    assert abs(z.mean().item()) < 5 * se
+    assert abs(z.std().item() - 1.0) < 5 * se * 2 ** -0.5
+    g = torch.Generator(device=dev).manual_seed(3)
+    ps = [torch.nn.Parameter(torch.randn(4097, generator=g, device=dev))
+          for _ in range(2)]
+    twins = [torch.nn.Parameter(q.detach().clone()) for q in ps]
+    for q, t in zip(ps, twins):
+        q.grad = 1e-4 * torch.randn(4097, generator=g, device=dev)
+        t.grad = q.grad.clone()
+    O.Dpsgd(0.1, clip=1.0, sigma=0.0, parameters=ps).step()
+    O.SGD(0.1, parameters=twins).step()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(ps, twins))
+
+
+def test_dpsgd_groups_draw_distinct_noise_as_the_loop(dev):
+    """Parameters in three (dtype, learning-rate ratio) groups, one kernel
+    call each: every tensor draws the noise of its index across the whole
+    step, as the per-parameter loop numbers them (float32 within 1e-5,
+    bf16 within NORM_BF16_RTOL), and no two tensors draw the same."""
+    def run(plain):
+        ptt.seed(7)
+        ps = [torch.nn.Parameter(torch.zeros(4097, dtype=dt, device=dev))
+              for dt in (torch.float32, torch.float32, torch.bfloat16,
+                         torch.float32)]
+        ps[1].optimize_attr = {"learning_rate": 0.5}
+        opt = O.Dpsgd(1.0, clip=1.0, batch_size=1, sigma=1.0, parameters=ps)
+        for p in ps:
+            p.grad = torch.zeros_like(p)
+        opt.step_plain() if plain else opt.step()
+        torch.cuda.synchronize()
+        return [p.detach().clone() for p in ps]
+
+    before = multi_tensor.multi_tensor_norm_step.launches
+    got = run(False)
+    assert multi_tensor.multi_tensor_norm_step.launches == before + 6
+    want = run(True)
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.dtype == torch.float32:
+            assert (a - b).abs().max().item() <= 1e-5, i
+        else:
+            assert _rel_err(a, b) <= multi_tensor.NORM_BF16_RTOL, i
+    noise = [got[0], got[1] / 0.5, got[2].float(), got[3]]
+    for i in range(4):
+        for j in range(i + 1, 4):
+            assert not torch.allclose(noise[i], noise[j], atol=0.1), (i, j)
+
+
+def _accum_fit(dev, form, k, steps=3):
+    from paddle_tpu_torch.hapi.engine import TrainEngine
+
+    net = _tiny_bert(dev)
+    model = ptt.Model(net, labels=["mlm", "nsp"]).prepare(
+        O.Lamb(learning_rate=0.01, lamb_weight_decay=0.01,
+               parameters=net.parameters()), _bert_loss)
+    engine = model._engine = TrainEngine(model)
+    if form == "eager":
+        engine.step = engine._step_eager
+    data = _bert_data(n=8 * steps)
+    hist = model.fit(ptt.io.TensorDataset(data), batch_size=8,
+                     shuffle=False, verbose=0, accumulate_grad_batches=k)
+    return hist["step_loss"], _params(net), engine
+
+
+def test_accumulated_fit_graph_is_bitwise_the_eager_step(dev):
+    """Model.fit(accumulate_grad_batches=4) of a small bf16 BERT with Lamb:
+    one capture, replays after it, losses and parameters bitwise
+    ``_step_eager`` (dropout 0.1: every microbatch draws its own masks)."""
+    losses, params, engine = _accum_fit(dev, "graph", 4)
+    eager_losses, eager_params, _ = _accum_fit(dev, "eager", 4)
+    assert engine.captures == 1 and engine.replays == 2
+    assert len(losses) == 3 and all(np.isfinite(losses))
+    assert losses == eager_losses
+    assert all(torch.equal(a, b) for a, b in zip(params, eager_params))
+
+
+def test_accumulated_fit_syncs_only_to_drain(dev):
+    """Replayed accumulated steps under torch.cuda.set_sync_debug_mode:
+    only the drains sync."""
+    import os
+    import warnings
+
+    net = _tiny_bert(dev)
+    model = ptt.Model(net, labels=["mlm", "nsp"]).prepare(
+        O.Lamb(learning_rate=0.01, parameters=net.parameters()), _bert_loss)
+    data = _bert_data(n=56)
+    model.fit(ptt.io.TensorDataset([d[:8] for d in data]), batch_size=8,
+              verbose=0, accum_steps=4)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            model.fit(ptt.io.TensorDataset([d[8:] for d in data]),
+                      batch_size=8, shuffle=False, verbose=0, log_freq=4,
+                      accum_steps=4)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [os.path.basename(w.filename) for w in caught
+             if str(w.message).startswith(SYNC_WARNING)]
+    assert model._engine.captures == 1 and model._engine.replays == 6
+    assert syncs == ["engine.py"] * 3

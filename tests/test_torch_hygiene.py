@@ -62,7 +62,9 @@ def test_scan_covers_the_package():
             "paddle_tpu_torch/nn/layer/transformer.py",
             "paddle_tpu_torch/nn/layer/container.py",
             "paddle_tpu_torch/nn/functional/__init__.py",
-            "paddle_tpu_torch/serving/prefix_cache.py"} <= rel
+            "paddle_tpu_torch/serving/prefix_cache.py",
+            "paddle_tpu_torch/regularizer.py",
+            "paddle_tpu_torch/optimizer/wrappers.py"} <= rel
 
 
 def _no_cuda():
@@ -130,6 +132,12 @@ def _kernel_args(device):
                                 torch.ones(3, 8, device=device)]], 1e-3, 2,
                               {"beta1": 0.9, "beta2": 0.999,
                                "epsilon": 1e-8, "weight_decay": 0.01}),
+        "multi_tensor_norm_step": ("lamb", [x], [x.clone()],
+                                   [[torch.zeros(3, 8, device=device),
+                                     torch.ones(3, 8, device=device)]],
+                                   1e-3, 2, {"beta1": 0.9, "beta2": 0.999,
+                                             "epsilon": 1e-6,
+                                             "weight_decay": 0.01}),
         "check_finite_and_unscale": (
             [x.clone()], torch.full((1,), 0.5, device=device),
             torch.zeros(1, dtype=torch.int32, device=device)),
