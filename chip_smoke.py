@@ -197,6 +197,23 @@ passed over):
                   step and samples/s, 3 steps graph bitwise eager under
                   cudnn.deterministic; LarsMomentum's kernel against the
                   per-parameter loop over ResNet-50's own tree, timed.
+27. resume      — durable checkpoints and resume in Model.fit on
+                  BertConfig() (dropout 0.1), bf16, AdamW, B = 32, S = 128
+                  padded, shuffle off, the captured step: 8 steps
+                  unbroken; 8 with synchronous saves every 4 steps; a
+                  child process (`python3 chip_smoke.py --resume-child
+                  DIR`) with fault_tolerant=True, async saves every 2
+                  steps and SIGTERM after step 5, which must exit 75
+                  with its emergency generation; a new Model resuming
+                  from it to step 8 (an async save at the epoch's
+                  end).  Fails unless the resumed losses and
+                  every final parameter and slot are bitwise the unbroken
+                  run's, the generation passes verify_generation(deep),
+                  and the resumed run's async generation of step 8 is the
+                  sync run's, byte for byte.  Generation bytes, save ms (fsyncs
+                  included), the training thread's stall a save (sync
+                  and async), restore_latest ms, step p50 with and
+                  without interval saves.
 
 The AccumulateGrad stream warning (a backward accumulating into a node of
 another stream: the training engine's warm-up meeting a dygraph graph
@@ -241,8 +258,10 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -5606,6 +5625,279 @@ def resnet50_lars_phase(torch, K, card):
                         "bound_by", "library_ms")}}
 
 
+# ---------------------------------------------------------------------------
+# durable checkpoints and resume in Model.fit
+# ---------------------------------------------------------------------------
+RESUME_STEPS = 8        # the unbroken run's steps (one epoch)
+RESUME_KILL = 5         # the child is sent SIGTERM after this step
+RESUME_INTERVAL = 2     # checkpoint_interval of the child's run
+RESUME_SYNC_INTERVAL = 4  # and of the run with synchronous saves
+RESUME_B, RESUME_S = 32, 128
+
+
+def resume_fit(torch, rec, ckpt=None, sync=False, kill_at=None,
+               interval=RESUME_INTERVAL):
+    """One [resume] run from seed 0: BertForPretraining(BertConfig()) at
+    its dropout 0.1, bf16, AdamW(1e-4, wd 0.01), B = 32, S = 128 padded
+    batches with their mask, shuffle off, Model.fit's captured step over
+    RESUME_STEPS batches.  With ``ckpt``: ``resume=ckpt``,
+    ``checkpoint_interval=interval`` (None: a save at the epoch's end),
+    ``fault_tolerant=True``, synchronous saves with ``sync``; ``kill_at``: SIGTERM to this process
+    after that step.  Fills ``rec`` as it goes (so a run ended by its
+    SystemExit leaves it): the losses, a time stamp at each step's end
+    (after its loss's drain), the training thread's stall in each save,
+    (ms, "sync"/"async"), and the ms of each save's host snapshot (its
+    part of the stall).  Returns the Model."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework import flags
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+
+    B, S, n = RESUME_B, RESUME_S, RESUME_STEPS
+    seed(0)
+    cfg = BertConfig()
+    model = BertForPretraining(cfg, device="cuda", dtype=torch.bfloat16)
+    rs = np.random.RandomState(7)
+    ids, tt, mlm, nsp = bert_batch(torch, rs, cfg, n * B, S)
+    data = [ids, tt, padding_mask(torch, rs, n * B, S)[0], mlm, nsp]
+    opt = ptt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                              parameters=model.parameters())
+    api = ptt.Model(model, labels=["mlm_labels", "nsp_labels"]).prepare(
+        opt, bert_fit_loss)
+    rec.update(losses=[], stamps=[], stalls=[], snapshots=[])
+    save, snapshot = api._ft_save, api._ft_state
+
+    def timed_snapshot(it):
+        t = time.perf_counter()
+        out = snapshot(it)
+        rec["snapshots"].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    api._ft_state = timed_snapshot
+
+    def timed_save(mgr, saver, it, force=False, sync=False):
+        t = time.perf_counter()
+        save(mgr, saver, it, force=force, sync=sync)
+        rec["stalls"].append(((time.perf_counter() - t) * 1e3,
+                              "sync" if sync or saver is None else "async"))
+
+    api._ft_save = timed_save
+
+    class Record(Callback):
+        def on_train_batch_end(self, step, logs=None):
+            rec["losses"].append(logs["loss"])
+            rec["stamps"].append(time.perf_counter())
+            if len(rec["losses"]) == kill_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    kw = {} if ckpt is None else dict(
+        resume=ckpt, checkpoint_interval=interval, fault_tolerant=True)
+    flags.set_flags({"FLAGS_ckpt_async": not sync})
+    rec["t0"] = time.perf_counter()
+    try:
+        api.fit(ptt.io.TensorDataset(data), batch_size=B, epochs=1,
+                shuffle=False, verbose=0, callbacks=[Record()], **kw)
+    finally:
+        flags.set_flags({"FLAGS_ckpt_async": True})
+    return api
+
+
+def resume_child(ckpt):
+    """The child of [resume]: the saving run, killed by SIGTERM after step
+    RESUME_KILL (fit writes the emergency generation and exits 75).  Its
+    record goes to ``ckpt``/child.json, whatever the exit."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec = {}
+    try:
+        resume_fit(torch, rec, ckpt, kill_at=RESUME_KILL)
+    except SystemExit as e:
+        rec["exit"] = e.code
+        raise
+    finally:
+        with open(os.path.join(ckpt, "child.json"), "w") as f:
+            json.dump(rec, f)
+    return 0
+
+
+def step_ms(rec):
+    """Each step's time: the gaps between the step-end stamps (the first
+    from fit's start, the warm-up and the capture included)."""
+    stamps = [rec["t0"]] + rec["stamps"]
+    return [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+
+
+def state_equal(torch, a, b, what):
+    """Two ft_state trees bitwise equal, leaf by leaf."""
+    from paddle_tpu_torch.distributed.checkpoint import _flatten
+
+    la, lb = _flatten(a)[1], _flatten(b)[1]
+    if [k for k, _ in la] != [k for k, _ in lb]:
+        fail(f"[resume] {what}: the state trees' keys differ")
+    bad = [k for (k, x), (_, y) in zip(la, lb)
+           if x.dtype != y.dtype or not torch.equal(x, y)]
+    if bad:
+        fail(f"[resume] {what}: {len(bad)} of {len(la)} leaves differ, "
+             f"first {bad[:3]}")
+    return len(la)
+
+
+def same_leaves(gen_a, gen_b):
+    """The leaf files of two generations: (same bytes, leaves, bytes)."""
+    man_a = json.load(open(os.path.join(gen_a, "manifest.json")))
+    man_b = json.load(open(os.path.join(gen_b, "manifest.json")))
+    if [(e["key"], e["dtype"], e["shape"]) for e in man_a["leaves"]] != \
+            [(e["key"], e["dtype"], e["shape"]) for e in man_b["leaves"]]:
+        return False, len(man_a["leaves"]), 0
+    n = 0
+    for ea, eb in zip(man_a["leaves"], man_b["leaves"]):
+        with open(os.path.join(gen_a, ea["file"]), "rb") as fa, \
+                open(os.path.join(gen_b, eb["file"]), "rb") as fb:
+            if fa.read() != fb.read():
+                return False, len(man_a["leaves"]), n
+        n += ea["bytes"]
+    return True, len(man_a["leaves"]), n
+
+
+def hist_delta(h, before):
+    """(observations, sum ms) a registry histogram gained since
+    ``before`` = (total, sum)."""
+    return h.total - before[0], h.sum - before[1]
+
+
+def resume_phase(torch, K, card):
+    """[resume]: see the module docstring, phase 27.  Returns the launch
+    counts of the resumed run (counts set to 0 just before it)."""
+    from paddle_tpu_torch.distributed import checkpoint as ckpt_mod
+    from paddle_tpu_torch.distributed.resilience import PREEMPTED_EXIT_CODE
+    from paddle_tpu_torch.utils.metrics import default_registry
+
+    t_phase = time.perf_counter()
+    reg = default_registry()
+    save_h, restore_h = (reg.get("paddle_ckpt_save_ms"),
+                         reg.get("paddle_ckpt_restore_ms"))
+    n = RESUME_STEPS
+    with tempfile.TemporaryDirectory(prefix="resume-") as tmp:
+        # 1. unbroken
+        unbroken, synced, resumed = {}, {}, {}
+        api = resume_fit(torch, unbroken)
+        if api._engine.captures != 1:
+            fail(f"[resume] the unbroken run captured "
+                 f"{api._engine.captures} graphs, not 1")
+        want = api._engine.ft_state(n)
+        del api
+        release(torch, "resume: sync saves")
+        # 2. synchronous saves every RESUME_SYNC_INTERVAL steps
+        sync_dir = os.path.join(tmp, "sync")
+        before = (save_h.total, save_h.sum)
+        api = resume_fit(torch, synced, sync_dir, sync=True,
+                         interval=RESUME_SYNC_INTERVAL)
+        sync_saves, sync_save_ms = hist_delta(save_h, before)
+        state_equal(torch, api._engine.ft_state(n), want,
+                    "the run with synchronous saves against the unbroken")
+        if synced["losses"] != unbroken["losses"]:
+            fail(f"[resume] saving changed the losses: {synced['losses']} "
+                 f"vs {unbroken['losses']}")
+        del api
+        release(torch, "resume: child")
+        # 3. the child: async saves, SIGTERM after step RESUME_KILL
+        child_dir = os.path.join(tmp, "child")
+        os.makedirs(child_dir)
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--resume-child",
+             child_dir], capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        child_s = time.perf_counter() - t
+        if proc.returncode != PREEMPTED_EXIT_CODE:
+            log(proc.stderr[-4000:])
+            fail(f"[resume] the child exited {proc.returncode}, not "
+                 f"{PREEMPTED_EXIT_CODE}")
+        child = json.load(open(os.path.join(child_dir, "child.json")))
+        if child["losses"] != unbroken["losses"][:RESUME_KILL]:
+            fail(f"[resume] the child's losses {child['losses']} are not "
+                 f"the unbroken run's {unbroken['losses'][:RESUME_KILL]}")
+        gens = os.path.join(child_dir, "resilient")
+        mgr = ckpt_mod.CheckpointManager(gens, max_to_keep=2)
+        if mgr.all_steps() != [RESUME_KILL - 1, RESUME_KILL]:
+            fail(f"[resume] the child left generations {mgr.all_steps()}, "
+                 f"not [{RESUME_KILL - 1}, {RESUME_KILL}]")
+        gen = os.path.join(gens, str(RESUME_KILL))
+        t = time.perf_counter()
+        man, reason = ckpt_mod.verify_generation(gen, deep=True)
+        verify_ms = (time.perf_counter() - t) * 1e3
+        if man is None:
+            fail(f"[resume] the emergency generation fails "
+                 f"verify_generation(deep=True): {reason}")
+        gen_bytes = sum(e["bytes"] for e in man["leaves"])
+        # 4. a new Model resumes from the emergency generation
+        release(torch, "resume: resumed run")
+        before = (restore_h.total, restore_h.sum)
+        K.reset_launch_counts()
+        api = resume_fit(torch, resumed, child_dir, interval=None)
+        counts = K.launch_counts()
+        restores, restore_ms = hist_delta(restore_h, before)
+        if resumed["losses"] != unbroken["losses"][RESUME_KILL:]:
+            fail(f"[resume] resumed losses {resumed['losses']} are not the "
+                 f"unbroken run's {unbroken['losses'][RESUME_KILL:]}")
+        leaves = state_equal(torch, api._engine.ft_state(n), want,
+                             "the resumed run against the unbroken")
+        for name in BERT_KERNELS + ("multi_tensor_step",):
+            if counts[name] <= 0:
+                fail(f"[resume] kernel {name} was not launched on the "
+                     f"resumed run")
+        del api, want
+        # the resumed run's async generation of its epoch's end against
+        # the synchronous run's of the same step
+        same, n_leaves, compared = same_leaves(
+            os.path.join(gens, str(n)),
+            os.path.join(sync_dir, "resilient", str(n)))
+        if not same:
+            fail(f"[resume] the async and sync generations of step {n} "
+                 f"differ (after {compared} bytes)")
+    release(torch, "resume: done")
+    stall = {kind: [round(ms, 3) for ms, k in synced["stalls"] + [
+        tuple(x) for x in child["stalls"]] if k == kind]
+        for kind in ("sync", "async")}
+    p50_plain = float(np.median(step_ms(unbroken)[2:]))
+    p50_sync = float(np.median(step_ms(synced)[2:]))
+    p50_async = float(np.median(step_ms(child)[2:]))
+    log(f"[resume] BERT-base (BertConfig(), dropout 0.1) bf16 AdamW "
+        f"B={RESUME_B} S={RESUME_S} padded, Model.fit's captured step on "
+        f"{card}: {n} steps unbroken, losses {unbroken['losses']}; the "
+        f"child (async saves every {RESUME_INTERVAL}, SIGTERM after step "
+        f"{RESUME_KILL}) exited {proc.returncode} in {child_s:.1f}s with "
+        f"its emergency generation {RESUME_KILL}; a new Model resumed from "
+        f"it: losses {resumed['losses']} and all {leaves} parameters, "
+        f"buffers, slots and counters bitwise the unbroken run's")
+    log(f"[resume] generation: {len(man['leaves'])} leaves, {gen_bytes} "
+        f"bytes ({gen_bytes / 2 ** 30:.3f} GiB), verify_generation(deep) "
+        f"{verify_ms:.1f} ms; the resumed run's async generation of step "
+        f"{n} and the sync run's the same {compared} bytes ({n_leaves} "
+        f"leaves); "
+        f"save ms (fsyncs included, the sync run's {sync_saves} saves) "
+        f"{sync_save_ms / max(sync_saves, 1):.1f} a save; restore_latest "
+        f"{restore_ms:.1f} ms ({restores} restore); the training thread's "
+        f"stall a save: sync {stall['sync']} ms, async (host snapshot and "
+        f"submit) {stall['async']} ms; the host snapshot's part (into "
+        f"page-locked memory, fresh or reused from a written snapshot): "
+        f"sync run {[round(x, 3) for x in synced['snapshots']]} ms, child "
+        f"{[round(x, 3) for x in child['snapshots']]} ms; step p50 (steps "
+        f"3-{n}) {p50_plain:.3f} ms without saves, {p50_sync:.3f} ms with "
+        f"sync saves every {RESUME_SYNC_INTERVAL}, {p50_async:.3f} ms (steps "
+        f"3-{RESUME_KILL}, the child) with async saves every "
+        f"{RESUME_INTERVAL}; step ms unbroken "
+        f"{[round(x, 3) for x in step_ms(unbroken)]}, sync "
+        f"{[round(x, 3) for x in step_ms(synced)]}, async "
+        f"{[round(x, 3) for x in step_ms(child)]}; resumed-run launches "
+        f"{ {k: counts[k] for k in BERT_KERNELS + ('multi_tensor_step',)} }"
+        f"; the phase took {time.perf_counter() - t_phase:.1f}s on {card}")
+    return counts
+
+
 def peak_text(torch, start):
     """The peak memory since the last reset, and its part above the
     ``start`` the phase found allocated."""
@@ -5794,6 +6086,9 @@ def main():
     mark("resnet50-lars")
     lars_counts, lars_rec = resnet50_lars_phase(torch, K, card)
     torch.cuda.synchronize()
+    release(torch, "resume")
+    mark("resume")
+    resume_counts = resume_phase(torch, K, card)
 
     kernels = []
     for name, rec in main_cases.items():
@@ -5824,6 +6119,10 @@ def main():
             # capture), and a replay of its eval graph
             entry["fit_api_launches"] = fit_api_counts[name]
             entry["eval_graph_launches_a_batch"] = eval_launches.get(name, 0)
+        if name in BERT_KERNELS + ("multi_tensor_step",):
+            # the [resume] path: launches in the resumed run's fit (its
+            # first step and the capture)
+            entry["resume_launches"] = resume_counts[name]
         if name in S2S_KERNELS + ("multi_tensor_step",):
             # the seq2seq path (Transformer-base Model.fit): launches in
             # its first graph run's fit (the first step and the capture),
@@ -6011,4 +6310,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--resume-child"]:
+        sys.exit(resume_child(sys.argv[2]))
     sys.exit(main())

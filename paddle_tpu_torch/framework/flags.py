@@ -1,7 +1,9 @@
 """Runtime flag registry (port of paddle_tpu/framework/flags.py).
 
-Only the flags the ported generation engine reads are defined here; each
-is env-overridable under its own name, as in the reference.
+Only the flags the ported modules read are defined here (the generation
+engine's, and the durable checkpoints' of ``Model.fit``); each is
+env-overridable under its own name, as in the reference, and
+:func:`set_flags` changes them at run time.
 """
 from __future__ import annotations
 
@@ -27,6 +29,11 @@ def define_flag(name: str, default: Any, help_: str = ""):
 
 def flag(name: str, default: Any = None) -> Any:
     return _REGISTRY.get(name, default)
+
+
+def set_flags(flags: dict[str, Any]):
+    for k, v in flags.items():
+        _REGISTRY[k] = v
 
 
 # -- generation serving (paddle_tpu_torch.serving.generation) --------------
@@ -57,3 +64,13 @@ define_flag("FLAGS_genserve_prefill_chunk", 0,
             "<= largest prompt bucket); prompts whose un-shared suffix "
             "exceeds it prefill one chunk per decode iteration instead of "
             "stalling every lane; 0 disables chunking")
+
+# -- durable checkpointing (distributed/checkpoint.py) --------------------
+define_flag("FLAGS_ckpt_async", True,
+            "fit(resume=/fault_tolerant=) writes interval/epoch "
+            "checkpoints on a background thread (host snapshot on the "
+            "training thread, disk IO off it); False = synchronous saves")
+define_flag("FLAGS_ckpt_max_failures", 3,
+            "consecutive failed checkpoint generations tolerated before "
+            "fit aborts with resilience.DURABILITY_EXIT_CODE (degrade-"
+            "then-escalate: warn and keep training until then)")

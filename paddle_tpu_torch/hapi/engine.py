@@ -57,8 +57,12 @@ fresh node (:func:`_fresh_grad_accumulators`).
 memory pool of its own and replayed; ``Model.evaluate``, ``eval_batch``,
 ``predict`` and ``predict_batch`` go through it.  ``fit(accum_steps=k)``
 accumulates gradients over k microbatches inside the one captured step
-(:func:`build_train_step`).  Not ported yet (ROADMAP.md): meshes and
-layouts, recompute, the pod hooks, checkpoint state and the op report.
+(:func:`build_train_step`).  :meth:`TrainEngine.ft_state` and
+:meth:`TrainEngine.adopt_ft_state` are the checkpoint state of
+``fit(resume=)``: a host copy of the parameters, buffers, slots and
+counters, and its landing in place, in the tensors the graphs hold.  Not
+ported yet (ROADMAP.md): meshes and layouts, recompute, the pod hooks and
+the op report.
 """
 from __future__ import annotations
 
@@ -67,6 +71,7 @@ import contextlib
 import torch
 
 from ..amp import amp_key
+from ..framework import random as _random
 from ..framework.place import copy_to_device
 from ..framework.random import StepKeys
 from ..ops import kernels
@@ -572,6 +577,122 @@ class TrainEngine(_GraphEngine):
 
     def finish(self):
         self._body = None
+
+    # -- checkpoint state (fit(resume=)) -----------------------------------
+    def _trainable(self):
+        return {n: p for n, p in self.model.network.named_parameters()
+                if p.requires_grad}
+
+    def ft_state(self, it_count):
+        """The checkpointable state as one tree, copied to the host: the
+        trainable parameters, the buffers and the optimizer's slots by
+        structured name (``/params/<name>``, ``/buffers/<name>``,
+        ``/opt/<name>/<slot>``, the reference's keypaths) and the loop's
+        counters (``/meta/it``, ``/meta/opt_steps``).  The copy is a
+        blocking one on the current stream, after every step issued so
+        far: the next replay updates these tensors in place, so the
+        snapshot is complete before it is enqueued (it is the async
+        writer's double buffer)."""
+        from ..distributed.resilience import materialize
+
+        m = self.model
+        return materialize({
+            "params": self._trainable(),
+            "buffers": dict(m.network.named_buffers()),
+            "opt": m._opt_tree(),
+            "meta": {"it": torch.tensor(it_count, dtype=torch.int32),
+                     "opt_steps": torch.tensor(m._optimizer._step_count,
+                                               dtype=torch.int32)}})
+
+    def ft_template(self):
+        """The structure of :meth:`ft_state` with None leaves: a restore
+        matches leaves by keypath and takes dtypes and shapes from the
+        manifest."""
+        opt = self.model._optimizer
+        return {"params": dict.fromkeys(self._trainable()),
+                "buffers": dict.fromkeys(
+                    n for n, _ in self.model.network.named_buffers()),
+                "opt": {n: dict.fromkeys(opt._slot_names())
+                        for n in self._trainable()},
+                "meta": {"it": None, "opt_steps": None}}
+
+    def adopt_ft_state(self, snap):
+        """Write a restored snapshot into the live state IN PLACE: the
+        parameters, buffers and slots a captured graph reads keep their
+        addresses, so its next replay reads the restored values (a slot
+        the optimizer does not hold yet is made, and then the graphs are
+        dropped, as ``refresh`` does for a replaced tensor).  Sets the
+        optimizer's step count."""
+        m = self.model
+        opt = m._optimizer
+        params = self._trainable()
+        buffers = dict(m.network.named_buffers())
+        made = False
+        with torch.no_grad():
+            for k, v in snap["params"].items():
+                params[k].copy_(v)
+            for k, v in snap["buffers"].items():
+                buffers[k].copy_(v)
+            for k, slots in snap["opt"].items():
+                p = params[k]
+                own = opt._slots.get(id(p))
+                if own is None or set(own) != set(slots):
+                    opt._slots[id(p)] = {n: opt._slot_from(n, p, v)
+                                         for n, v in slots.items()}
+                    made = True
+                else:
+                    for n, v in slots.items():
+                        own[n].copy_(v)
+        opt._step_count = int(snap["meta"]["opt_steps"])
+        if made:
+            self._graphs, self._pool = {}, None
+
+    def rng_state(self):
+        """The random streams a step draws from, as JSON: torch's CPU
+        generator and that of the network's CUDA device (the hidden
+        dropout's; a replay advances it as the eager step does), the
+        initialisation generator (the attention calls' seeds) and the
+        graph path's :class:`StepKeys` (keys and step counter).  Restored
+        by :meth:`adopt_rng_state`, a resumed run draws what the unbroken
+        run drew."""
+        dev = self.model.device
+        state = {"cpu": torch.get_rng_state().numpy().tobytes().hex(),
+                 "init": _random.default_generator().get_state()
+                 .numpy().tobytes().hex()}
+        if dev.type == "cuda":
+            state["cuda"] = torch.cuda.get_rng_state(dev).numpy() \
+                .tobytes().hex()
+        if self._keys is not None:
+            state["step_keys"] = {"keys": list(self._keys.keys),
+                                  "step": self._keys.step}
+        return state
+
+    def adopt_rng_state(self, state, it_count):
+        """Restore :meth:`rng_state`'s streams (a graph captured with other
+        attention keys is dropped: it holds them by value).  A generation
+        without them (the reference's) only moves the step counter of the
+        attention keys to ``it_count``, so no mask of an earlier step is
+        drawn again."""
+        def tensor(hex_):
+            return torch.frombuffer(bytearray.fromhex(hex_),
+                                    dtype=torch.uint8)
+
+        if not state:
+            if self._keys is not None:
+                self._keys.step = int(it_count)
+            return
+        torch.set_rng_state(tensor(state["cpu"]))
+        _random.default_generator().set_state(tensor(state["init"]))
+        dev = self.model.device
+        if dev.type == "cuda" and "cuda" in state:
+            torch.cuda.set_rng_state(tensor(state["cuda"]), dev)
+        if self._keys is not None and "step_keys" in state:
+            keys = [int(k) for k in state["step_keys"]["keys"]]
+            if keys != self._keys.keys:
+                # a captured graph holds its calls' keys by value
+                self._graphs, self._pool = {}, None
+            self._keys.keys = keys
+            self._keys.step = int(state["step_keys"]["step"])
 
 
 class EvalEngine(_GraphEngine):

@@ -20,30 +20,41 @@ run in the reference's order.  ``save``/``load`` write and read the
 reference's ``.pdparams``/``.pdopt`` files, in place.
 ``fit(accum_steps=k)`` (alias ``accumulate_grad_batches``) accumulates
 gradients over k microbatches inside the one step, ``batch_size`` staying
-the global batch.  ``fit`` and ``train_batch`` run the optimizer in the
-reference's ``apply_pytree`` form (no per-parameter learning rates, AdamW
-decaying every parameter; optimizer/__init__.py).  Not ported yet
-(ROADMAP.md): DataLoader worker processes, fault tolerance and resume,
-meshes and layouts, recompute, telemetry and tracing, and ``serve``.
+the global batch.  ``fit(resume=, checkpoint_interval=, fault_tolerant=)``
+writes durable checkpoints (distributed/checkpoint.py, the reference's
+format) and resumes from the newest valid one, bit for bit.  ``fit`` and
+``train_batch`` run the optimizer in the reference's ``apply_pytree`` form
+(no per-parameter learning rates, AdamW decaying every parameter;
+optimizer/__init__.py).  Not ported yet
+(ROADMAP.md): DataLoader worker processes, meshes and layouts,
+recompute, telemetry and tracing, and ``serve``.
 """
 from __future__ import annotations
 
+import logging
 import os
 import warnings
 
 import numpy as np
 import torch
 
+from ..distributed.checkpoint import AsyncCheckpointer, CheckpointManager
+from ..distributed.resilience import (DURABILITY_EXIT_CODE,
+                                      PREEMPTED_EXIT_CODE, PreemptionGuard)
+from ..framework.flags import flag
 from ..framework.io_state import load as _load
 from ..framework.io_state import save as _save
 from ..io import DataLoader
 from ..metric import Metric, _host
 from ..models.convert import load_numpy_optimizer_state
 from ..nn.layer_base import set_state_dict
+from ..utils import chaos
 from .callbacks import (CallbackList, LRScheduler, ModelCheckpoint,
                         ProgBarLogger, config_callbacks)
 from .engine import (EvalEngine, TrainEngine, _map, _to_list,
                      build_eval_step, build_train_step, fetch, to_device)
+
+logger = logging.getLogger("paddle_tpu_torch.hapi")
 
 
 def _no_workers(num_workers):
@@ -73,7 +84,10 @@ class Model:
 
     @property
     def device(self) -> torch.device:
-        return next(self.network.parameters()).device
+        return next(iter(self.network.parameters())).device
+
+    def parameters(self, *args, **kwargs):
+        return self.network.parameters()
 
     # -- setup -------------------------------------------------------------
     def prepare(self, optimizer=None, loss=None, metrics=None,
@@ -163,6 +177,98 @@ class Model:
         """Copies of the outputs of one batch."""
         return _copies(self._eval_begin().step(_to_list(inputs), []))
 
+    # -- fault tolerance ---------------------------------------------------
+    def _ft_state(self, it_count):
+        """The checkpointable training state (TrainEngine.ft_state: a host
+        copy made on the training thread, the async writer's double
+        buffer), with the scheduler's epoch under ``/meta/lr_last_epoch``
+        when there is a scheduler."""
+        snap = self._engine.ft_state(it_count)
+        sched = self._optimizer._lr_scheduler
+        if sched is not None:
+            snap["meta"]["lr_last_epoch"] = torch.tensor(
+                int(sched.last_epoch), dtype=torch.int32)
+        return snap
+
+    def _ft_template(self):
+        """The structure of :meth:`_ft_state` with None leaves."""
+        snap = self._engine.ft_template()
+        if self._optimizer._lr_scheduler is not None:
+            snap["meta"]["lr_last_epoch"] = None
+        return snap
+
+    def _ft_save(self, mgr, saver, it_count, force=False, sync=False):
+        """One durable checkpoint of the training state.  With an
+        AsyncCheckpointer the host snapshot is taken here and written in
+        the background; emergency saves pass ``sync``.  The whole call is
+        the training thread's stall for the checkpoint.  The manifest's
+        JSON meta carries the mesh (one device), the scheduler's state and
+        the random streams (``torch_rng``: TrainEngine.rng_state)."""
+        meta = {"mesh": {"dp": 1, "devices": 1, "axes": {}},
+                "torch_rng": self._engine.rng_state()}
+        sched = self._optimizer._lr_scheduler
+        if sched is not None:
+            meta["lr_sched"] = sched.state_dict()
+        if saver is not None and not sync:
+            saver.submit(it_count, self._ft_state(it_count), force=force,
+                         meta=meta)
+            return
+        if saver is not None and not saver.flush(timeout=30.0):
+            # never race a background write; but a writer stalled on a
+            # dead mount must not eat the SIGTERM grace window
+            logger.error("emergency checkpoint skipped: background writer "
+                         "stalled >30s; resuming from the latest durable "
+                         "generation instead")
+            return
+        if sync and mgr.latest_step() == it_count:
+            return  # this step is already durably committed
+        try:
+            mgr.save(it_count, self._ft_state(it_count), force=force,
+                     meta=meta)
+            self._ft_sync_failures = 0
+        except OSError as e:
+            # degrade then escalate, as the async writer does: warn, keep
+            # training, and let fit exit with the durability code after K
+            # consecutive failures
+            if sync:
+                # on the way to a preempted exit the newest durable
+                # generation is the recovery point: never mask exit 75
+                logger.error("emergency checkpoint failed (%s: %s) — the "
+                             "latest durable generation stands as the "
+                             "recovery point", type(e).__name__, e)
+                return
+            self._ft_sync_failures += 1
+            logger.warning(
+                "checkpoint generation %s failed (%s: %s) — training "
+                "continues WITHOUT durability (%d/%d consecutive failures "
+                "before escalation)", it_count, type(e).__name__, e,
+                self._ft_sync_failures, self._ft_max_failures)
+
+    def _ft_restore(self, mgr):
+        """Resume from the newest valid generation (the corruption cascade
+        is CheckpointManager.restore_latest's): the state written in place
+        into the tensors the engine's graphs hold, the optimizer's step
+        count, the scheduler (its full state from the manifest, else
+        ``step(epoch=lr_last_epoch)``) and the random streams.  Returns the
+        iteration to fast-forward to (0 for a fresh start)."""
+        step0, back = mgr.restore_latest(template=self._ft_template())
+        if step0 is None:
+            return 0
+        engine = self._engine
+        engine.adopt_ft_state(back)
+        meta = (mgr.last_restore_manifest or {}).get("meta") or {}
+        sched = self._optimizer._lr_scheduler
+        if sched is not None and meta.get("lr_sched"):
+            sched.set_state_dict(meta["lr_sched"])
+        elif sched is not None and "lr_last_epoch" in back["meta"]:
+            sched.step(epoch=int(back["meta"]["lr_last_epoch"]))
+        it = int(back["meta"]["it"])
+        engine.adopt_rng_state(meta.get("torch_rng"), it)
+        logger.info("fit: resumed from checkpoint at iteration %d "
+                    "(restart #%s)", step0,
+                    os.environ.get("PADDLE_RESTART_COUNT", "0"))
+        return it
+
     # -- loops ---------------------------------------------------------------
     def _split_batch(self, batch):
         n_label = len(_to_list(self._labels)) or 1
@@ -179,7 +285,8 @@ class Model:
     def fit(self, train_data=None, eval_data=None, batch_size=1, epochs=1,
             eval_freq=1, log_freq=10, save_dir=None, save_freq=1, verbose=2,
             drop_last=False, shuffle=True, num_workers=0, callbacks=None,
-            accumulate_grad_batches=1, num_iters=None, accum_steps=1):
+            accumulate_grad_batches=1, num_iters=None, fault_tolerant=False,
+            resume=None, checkpoint_interval=None, accum_steps=1):
         """Train for ``epochs`` over ``train_data`` (a Dataset or a
         DataLoader), with the reference's options and callback order:
         ``eval_data`` is evaluated every ``eval_freq`` epochs, a
@@ -192,7 +299,22 @@ class Model:
         the one step (engine.py ``build_train_step``); a batch that k does
         not divide raises ``ValueError``.  Returns the history: ``loss``
         (each epoch's mean loss), ``eval_loss`` (with ``eval_data``) and
-        ``step_loss`` (every step's loss)."""
+        ``step_loss`` (every step's loss).
+
+        Fault tolerance, the reference's: ``resume=<dir>`` (or
+        ``resume=True`` with ``save_dir``) resumes from the newest valid
+        checkpoint under ``<dir>/resilient`` and checkpoints every
+        ``checkpoint_interval`` iterations (default: each epoch's end),
+        the newest two generations kept; the batches already trained are
+        skipped.  ``fault_tolerant=True`` also latches SIGTERM/SIGINT,
+        finishes the step in flight, writes an emergency checkpoint and
+        exits with ``distributed.PREEMPTED_EXIT_CODE`` (75).  Saves run on
+        a background writer (``FLAGS_ckpt_async``); after
+        ``FLAGS_ckpt_max_failures`` consecutive failed generations fit
+        exits with ``DURABILITY_EXIT_CODE`` (91).  The resume is bit for
+        bit the unbroken run when the data order is fixed
+        (``shuffle=False``) and the run seeded (``paddle_tpu_torch.seed``):
+        the checkpoint carries the random streams."""
         _no_workers(num_workers)
         if accumulate_grad_batches != 1 and accum_steps == 1:
             # Paddle's fleet name for the same knob, as the reference reads it
@@ -214,8 +336,34 @@ class Model:
             self._engine = TrainEngine(self)
         # the microbatches' merged outputs are kept only for the metrics
         engine = self._engine.begin(accum_steps, bool(self._metrics))
+        ft_mgr = ft_saver = guard = None
+        start_it = 0
+        if fault_tolerant or resume:   # resume=False/None/"" is off
+            ckpt_dir = resume if isinstance(resume, str) else save_dir
+            if not ckpt_dir:
+                raise ValueError("fault_tolerant/resume needs a checkpoint "
+                                 "directory: pass resume=<dir> or save_dir=")
+            ft_mgr = CheckpointManager(os.path.join(ckpt_dir, "resilient"),
+                                       max_to_keep=2)
+            self._ft_sync_failures = 0
+            self._ft_max_failures = int(flag("FLAGS_ckpt_max_failures"))
+            try:
+                # after begin(): the state lands in the tensors the graphs
+                # hold (or will hold)
+                start_it = self._ft_restore(ft_mgr)
+                if flag("FLAGS_ckpt_async"):
+                    ft_saver = AsyncCheckpointer(
+                        ft_mgr, max_failures=self._ft_max_failures)
+                if fault_tolerant:
+                    guard = PreemptionGuard().__enter__()
+            except BaseException:
+                if ft_saver is not None:
+                    ft_saver.close()
+                ft_mgr.close()
+                raise
         history = {"loss": [], "step_loss": []}
         it_count = 0
+        fit_ok = False
         try:
             cbks.on_train_begin({})
             for epoch in range(epochs):
@@ -225,7 +373,18 @@ class Model:
                 cbks.on_epoch_begin(epoch, {})
                 losses = []
                 for step_i, batch in enumerate(loader):
+                    if it_count < start_it:
+                        # a batch the checkpoint already trained; a SIGTERM
+                        # here exits at once (the restored generation is
+                        # still the newest)
+                        if guard is not None and guard.preempted:
+                            raise SystemExit(PREEMPTED_EXIT_CODE)
+                        it_count += 1
+                        continue
                     cbks.on_train_batch_begin(step_i, {})
+                    if ft_mgr is not None:
+                        # fault injection: crash, preempt, slow
+                        chaos.on_step(it_count + 1)
                     inputs, labels = self._split_batch(_to_list(batch))
                     if user_cbs:
                         # a callback may have replaced a parameter or a
@@ -251,10 +410,33 @@ class Model:
                             logs[m._name] = np.mean(
                                 _to_list(m.accumulate()))
                     cbks.on_train_batch_end(step_i, logs)
+                    if ft_mgr is not None:
+                        if (checkpoint_interval
+                                and it_count % checkpoint_interval == 0):
+                            self._ft_save(ft_mgr, ft_saver, it_count)
+                        if ((ft_saver is not None and ft_saver.fatal)
+                                or self._ft_sync_failures
+                                >= max(1, self._ft_max_failures)):
+                            # K consecutive failed generations: the job
+                            # trained without durability; exit with the
+                            # distinct code so the launcher alerts
+                            raise SystemExit(DURABILITY_EXIT_CODE)
+                        if guard is not None and guard.preempted:
+                            # step done: the emergency checkpoint
+                            # (synchronous, we are about to exit), then the
+                            # distinct "preempted" exit
+                            self._ft_save(ft_mgr, ft_saver, it_count,
+                                          force=True, sync=True)
+                            ft_mgr.wait()
+                            raise SystemExit(PREEMPTED_EXIT_CODE)
                     if num_iters is not None and it_count >= num_iters:
                         break
                 losses.extend(engine.drain())
+                if ft_mgr is not None and not checkpoint_interval \
+                        and it_count > start_it:
+                    self._ft_save(ft_mgr, ft_saver, it_count, force=True)
                 history["step_loss"].extend(losses)
+                # empty when the resume skipped the whole epoch
                 history["loss"].append(
                     float(np.mean(losses)) if losses else float("nan"))
                 epoch_logs = {"loss": history["loss"][-1]}
@@ -271,14 +453,52 @@ class Model:
                                        for k, v in eval_res.items()})
                     cbks.on_eval_end(eval_res)
                 cbks.on_epoch_end(epoch, epoch_logs)
+                # a SIGTERM during the epoch-end eval or callbacks is still
+                # a clean preempted exit; in the last epoch the run ends
+                if guard is not None and guard.preempted \
+                        and epoch + 1 < epochs:
+                    if it_count > start_it:
+                        self._ft_save(ft_mgr, ft_saver, it_count,
+                                      force=True, sync=True)
+                        ft_mgr.wait()
+                    raise SystemExit(PREEMPTED_EXIT_CODE)
                 if self.stop_training:
                     break
                 if num_iters is not None and it_count >= num_iters:
                     break
+            fit_ok = True
         finally:
             engine.finish()
             # a crash mid-fit must still flush and close callback resources
             cbks.on_train_end({})
+            if guard is not None:
+                guard.__exit__(None, None, None)
+            if ft_saver is not None:
+                # every submitted generation durably on disk before fit
+                # returns, with a budget matched to how fit exits: patient
+                # on success, none on a preempted exit (the SIGTERM grace
+                # window must reach the exit code), bounded on a crash
+                if fit_ok:
+                    drain_s = 300.0
+                elif guard is not None and guard.preempted:
+                    drain_s = 0.0
+                else:
+                    drain_s = 30.0
+                ft_saver.close(timeout=drain_s)
+                if ft_saver.fatal:
+                    logger.error(
+                        "fit: checkpoint durability was LOST during this "
+                        "run (%d consecutive failed generations; last: %s)",
+                        ft_saver.consecutive_failures, ft_saver.last_error)
+            if ft_mgr is not None:
+                ft_mgr.close()
+                # the K-th failure can land in the final drain or the
+                # epoch-end save, after the in-loop check; never mask an
+                # exception already unwinding
+                if fit_ok and ((ft_saver is not None and ft_saver.fatal)
+                               or self._ft_sync_failures
+                               >= max(1, self._ft_max_failures)):
+                    raise SystemExit(DURABILITY_EXIT_CODE)
         return history
 
     def evaluate(self, eval_data, batch_size=1, log_freq=10, verbose=2,
@@ -344,19 +564,20 @@ class Model:
         return outputs
 
     # -- persistence -------------------------------------------------------
-    def _opt_state(self):
+    def _opt_tree(self):
         """The optimizer's slots as the reference's state pytree, {param
         name: {slot: tensor}} over every trainable parameter (a parameter
-        the optimizer holds no slot for yet gets its initial slots), or
-        None before the optimizer's first slot."""
+        the optimizer holds no slot for yet gets its initial slots)."""
         opt = self._optimizer
-        if not opt._slots:
-            return None
         return {n: opt._slots.get(id(p)) or {
                     s: opt._init_slot(s, p.detach())
                     for s in opt._slot_names()}
                 for n, p in self.network.named_parameters()
                 if p.requires_grad}
+
+    def _opt_state(self):
+        """:meth:`_opt_tree`, or None before the optimizer's first slot."""
+        return self._opt_tree() if self._optimizer._slots else None
 
     def save(self, path, training=True):
         """``path.pdparams``: the network's state dict; with ``training``

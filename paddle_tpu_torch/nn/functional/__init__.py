@@ -139,10 +139,32 @@ def embedding(x, weight):
     return torch.nn.functional.embedding(x.long(), weight)
 
 
-def dropout(x, p=0.5, training=True):
-    if not training or p == 0.0:
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None):
+    """The reference's dropout (:767): each entry kept with probability
+    ``1 - p``; ``axis`` (an int or a sequence) draws one keep mask over
+    those dimensions only, shared along the others.  ``mode``
+    ``"upscale_in_train"`` scales the kept entries by ``1 / (1 - p)`` in
+    training and leaves eval alone; ``"downscale_in_infer"`` does not
+    scale in training and multiplies by ``1 - p`` in eval (Paddle's
+    definition).  The mask draws from torch's generator of ``x``'s
+    device; with no ``axis`` in ``upscale_in_train`` mode it is
+    ``torch.nn.functional.dropout``'s."""
+    if mode not in ("upscale_in_train", "downscale_in_infer"):
+        raise ValueError(f"dropout: unknown mode {mode!r}")
+    if not training:
+        return x * (1.0 - p) if mode == "downscale_in_infer" else x
+    if p == 0.0:
         return x
-    return torch.nn.functional.dropout(x, p, training=True)
+    if axis is None and mode == "upscale_in_train":
+        return torch.nn.functional.dropout(x, p, training=True)
+    axes = range(x.dim()) if axis is None else \
+        [a % x.dim() for a in ([axis] if isinstance(axis, int) else axis)]
+    shape = [s if i in axes else 1 for i, s in enumerate(x.shape)]
+    keep = torch.empty(shape, device=x.device).bernoulli_(1.0 - p).bool()
+    if mode == "upscale_in_train":
+        x = x / (1.0 - p)
+    return torch.where(keep, x, x.new_zeros(()))
 
 
 def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002

@@ -43,12 +43,19 @@ class Embedding(Layer):
 
 
 class Dropout(Layer):
-    def __init__(self, p=0.5):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train",
+                 name=None):
         super().__init__()
         self.p = p
+        self.axis = axis
+        self.mode = mode
 
     def forward(self, x):
-        return F.dropout(x, self.p, training=self.training)
+        return F.dropout(x, self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)
+
+    def extra_repr(self):
+        return f"p={self.p}"
 
 
 class Flatten(Layer):

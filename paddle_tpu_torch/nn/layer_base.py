@@ -9,15 +9,24 @@ eagerly on the module's own parameters.  ``set_state_dict`` (aliases
 ``load_dict``, ``set_dict``) writes a loaded value into the tensor the
 module holds, in place, so a captured CUDA graph that reads it stays
 valid.
+
+The reference's traversal surface holds too: ``parameters()`` and
+``buffers()`` return lists, ``include_sublayers`` chooses between the
+layer's own tensors and the whole tree, and ``register_buffer`` takes
+``persistable``; torch's own keywords (``recurse``, ``persistent``,
+``prefix``, ``keep_vars``, ``remove_duplicate``), which PyTorch's code
+passes, keep working.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+from collections import OrderedDict
 
 import numpy as np
 import torch
 
-from ..framework.dtype import convert_dtype
+from ..framework.dtype import convert_dtype, get_default_dtype
 from ..framework.io_state import as_array
 from . import initializer as I
 
@@ -116,10 +125,29 @@ def _unique_name(prefix: str) -> str:
     return f"{prefix}_{n}"
 
 
+def _walk(module, prefix, seen):
+    """(structured name, module) of ``module`` and its sublayers in the
+    reference's pre-order, each module once (``seen``: ids)."""
+    if id(module) in seen:
+        return
+    seen.add(id(module))
+    yield prefix, module
+    for name, sub in module._modules.items():
+        if sub is not None:
+            yield from _walk(sub, f"{prefix}.{name}" if prefix else name,
+                             seen)
+
+
 class Layer(torch.nn.Module):
-    def __init__(self, dtype=torch.float32):
+    def __init__(self, name_scope=None, dtype="float32"):
+        """``name_scope`` names the layer for :meth:`full_name` (the
+        reference's ``<scope>_<n>``, by default the class name in lower
+        case); ``dtype`` (a Paddle name or a torch dtype) is the dtype
+        :meth:`create_parameter` gives by default."""
         super().__init__()
-        self._dtype = dtype
+        self._dtype = convert_dtype(dtype) or get_default_dtype()
+        self._full_name = _unique_name(name_scope
+                                       or type(self).__name__.lower())
 
     def create_parameter(self, shape, attr=None, dtype=None, is_bias=False,
                          default_initializer=None):
@@ -134,13 +162,112 @@ class Layer(torch.nn.Module):
             return None
         init = attr.initializer or default_initializer or \
             (I.Constant(0.0) if is_bias else I.XavierUniform())
-        value = init(shape, dtype or self._dtype)
+        value = init(shape, convert_dtype(dtype) or self._dtype)
         p = Parameter(value, requires_grad=attr.trainable)
         p.name = attr.name or _unique_name("param")
         p.optimize_attr = {"learning_rate": attr.learning_rate}
         p.regularizer = attr.regularizer
         p.need_clip = attr.need_clip
         return p
+
+    def add_parameter(self, name, parameter):
+        self.register_parameter(name, parameter)
+        return parameter
+
+    def register_buffer(self, name, tensor, persistable=True, *,
+                        persistent=None):
+        """A buffer, in the state dict unless ``persistable`` is False
+        (torch's ``persistent=`` means the same); returns ``tensor``."""
+        if persistent is not None:
+            persistable = persistent
+        super().register_buffer(name, tensor, persistent=persistable)
+        return tensor
+
+    def create_tensor(self, name=None, persistable=False, dtype=None):
+        """A 0-d zero tensor of ``dtype`` (the layer's by default),
+        registered as buffer ``name`` when one is given."""
+        t = torch.zeros((), dtype=convert_dtype(dtype) or self._dtype)
+        if name:
+            self.register_buffer(name, t, persistable)
+        return t
+
+    # -- traversal ---------------------------------------------------------
+    def named_sublayers(self, prefix="", include_self=False,
+                        layers_set=None):
+        """(structured name, layer) of every sublayer in pre-order, each
+        once (``layers_set``: ids already seen), the layer itself first
+        with ``include_self``."""
+        walk = _walk(self, prefix, set() if layers_set is None
+                     else layers_set)
+        for i, (name, layer) in enumerate(walk):
+            if i or include_self:
+                yield name, layer
+
+    def sublayers(self, include_self=False):
+        return [l for _, l in self.named_sublayers(include_self=include_self)]
+
+    def named_parameters(self, prefix="", include_sublayers=True,
+                         remove_duplicate=True, *, recurse=None):
+        return super().named_parameters(
+            prefix, include_sublayers if recurse is None else recurse,
+            remove_duplicate)
+
+    def parameters(self, include_sublayers=True, *, recurse=None):
+        return [p for _, p in self.named_parameters(
+            include_sublayers=include_sublayers, recurse=recurse)]
+
+    def named_buffers(self, prefix="", include_sublayers=True,
+                      remove_duplicate=True, *, recurse=None):
+        return super().named_buffers(
+            prefix, include_sublayers if recurse is None else recurse,
+            remove_duplicate)
+
+    def buffers(self, include_sublayers=True, *, recurse=None):
+        return [b for _, b in self.named_buffers(
+            include_sublayers=include_sublayers, recurse=recurse)]
+
+    def state_dict(self, destination=None, include_sublayers=True,
+                   structured_name_prefix="", use_hook=True, *,
+                   prefix=None, keep_vars=False):
+        """Parameters, then persistable buffers, by structured name, the
+        reference's order (torch's detached tensors, sharing storage);
+        without ``include_sublayers`` the layer's own only.  ``use_hook``
+        is accepted and unused, as in the reference.
+        ``structured_name_prefix`` is joined to each name with a dot, as
+        the reference joins it; torch's ``prefix`` is prepended as it is."""
+        if prefix is None:
+            prefix = structured_name_prefix + "." \
+                if structured_name_prefix else ""
+        if not include_sublayers:
+            dest = OrderedDict() if destination is None else destination
+            self._save_to_state_dict(dest, prefix, keep_vars)
+            return dest
+        if destination is not None:   # torch's recursion into a sublayer
+            return super().state_dict(destination=destination,
+                                      prefix=prefix, keep_vars=keep_vars)
+        sd = super().state_dict(prefix=prefix, keep_vars=keep_vars)
+        params = {prefix + n for n, _ in self.named_parameters()}
+        out = OrderedDict((k, v) for k, v in sd.items() if k in params)
+        out.update((k, v) for k, v in sd.items() if k not in params)
+        out._metadata = sd._metadata
+        return out
+
+    def register_forward_post_hook(self, hook):
+        """``hook(layer, inputs, output)`` after every forward; a result
+        that is not None replaces the output.  Returns a handle whose
+        ``remove()`` unregisters it."""
+        return self.register_forward_hook(hook)
+
+    def full_name(self):
+        return self._full_name
+
+    def clear_gradients(self):
+        for p in self.parameters():
+            p.grad = None
+
+    @contextlib.contextmanager
+    def no_sync(self):
+        yield  # the data-parallel gradient sync's pause: nothing outside it
 
     def add_sublayer(self, name, sublayer):
         self.add_module(str(name), sublayer)

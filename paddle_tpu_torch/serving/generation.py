@@ -263,7 +263,7 @@ class GenerationEngine:
                     "decode path, e.g. models.GPTForCausalLM); got "
                     f"{type(model).__name__}")
         self.device = resolve_device(device)
-        param = next(model.parameters())
+        param = next(iter(model.parameters()))
         if param.device.type != self.device.type:
             raise ValueError(f"model parameters live on {param.device}, "
                              f"the engine runs on {self.device}")

@@ -13,7 +13,9 @@ parameters and moments and makes no host sync; the serving engine's
 decode step, captured once as a CUDA graph at ``start()``, gives the
 eager step's tokens bitwise through hits, chunks, both sampling modes, a
 mid-decode admission and a cancel, is never captured again, leaves the
-idle state as it was, and a replayed step syncs once.  Needs a CUDA
+idle state as it was, and a replayed step syncs once; ``Model.fit``'s
+resume from a checkpoint (after a SIGTERM, and into graphs already
+captured) is bitwise the unbroken run at dropout 0.1.  Needs a CUDA
 device (skips elsewhere); on the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -1565,7 +1567,7 @@ def test_train_graph_after_a_callback_replaced_the_state(dev, dtype):
             if step == 0:
                 self.saved = self.opt.state_dict()
             elif step == 2:
-                p = next(self.net.parameters())
+                p = self.net.parameters()[0]
                 p.data = p.data.clamp(-0.05, 0.05)
             elif step == 4:
                 self.opt.set_state_dict(self.saved)
@@ -2749,3 +2751,76 @@ def test_accumulated_fit_syncs_only_to_drain(dev):
              if str(w.message).startswith(SYNC_WARNING)]
     assert model._engine.captures == 1 and model._engine.replays == 6
     assert syncs == ["engine.py"] * 3
+
+
+def _resume_run(dev, tmp, n_rows=32, kill_at=None, model=None, **kw):
+    """A small bf16 BERT at dropout 0.1 through Model.fit's captured step
+    (batches of 4, shuffle off), with ``kw`` passed to fit; ``kill_at``:
+    SIGTERM to this process after that step.  Returns (model, engine,
+    losses)."""
+    import os
+    import signal
+
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    if model is None:
+        model, _ = _train_api(_tiny_bert(dev), "graph", loss=_bert_loss,
+                              labels=["mlm", "nsp"])
+    losses = []
+
+    class Keep(Callback):
+        def on_train_batch_end(self, step, logs=None):
+            losses.append(logs["loss"])
+            if len(losses) == kill_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    data = [d[:n_rows] for d in _bert_data(n=32)]
+    model.fit(ptt.io.TensorDataset(data), batch_size=4, shuffle=False,
+              verbose=0, callbacks=[Keep()], **kw)
+    return model, model._engine, losses
+
+
+def test_fit_resume_is_bitwise_through_the_captured_step(dev, tmp_path):
+    """8 steps unbroken; the same run with fault_tolerant=True, async saves
+    every 2 steps and SIGTERM after step 5 exits 75 with its emergency
+    generation; a new Model resumes from it: steps 6-8 (a warm-up, a
+    capture, replays) give the unbroken run's losses and parameters bit
+    for bit (hidden and attention dropout 0.1: the generation carries the
+    CUDA generator and the attention keys)."""
+    from paddle_tpu_torch.distributed.resilience import PREEMPTED_EXIT_CODE
+
+    base, _, unbroken = _resume_run(dev, tmp_path)
+    want = _params(base.network)
+    ckpt = str(tmp_path)
+    with pytest.raises(SystemExit) as ei:
+        _resume_run(dev, tmp_path, kill_at=5, resume=ckpt,
+                    checkpoint_interval=2, fault_tolerant=True)
+    assert ei.value.code == PREEMPTED_EXIT_CODE
+    model, engine, losses = _resume_run(dev, tmp_path, resume=ckpt,
+                                        checkpoint_interval=2)
+    assert engine.captures == 1
+    assert losses == unbroken[5:] and len(losses) == 3
+    assert all(torch.equal(a, b) for a, b in zip(_params(model.network),
+                                                 want))
+
+
+def test_fit_resume_lands_in_graphs_already_captured(dev, tmp_path):
+    """A model that already trained 3 steps (its step captured) resumes
+    from another run's generation of step 4: the restore writes into the
+    tensors its graph holds, so steps 5-8 are replays of that graph (no
+    new capture) and give the unbroken run's losses and parameters bit
+    for bit."""
+    base, _, unbroken = _resume_run(dev, tmp_path)
+    want = _params(base.network)
+    ckpt = str(tmp_path)
+    _resume_run(dev, tmp_path, n_rows=16, resume=ckpt, checkpoint_interval=2)
+    model, engine, _ = _resume_run(dev, tmp_path, n_rows=12)
+    assert engine.captures == 1 and engine.replays == 2
+    ptrs = [p.data_ptr() for p in model.network.parameters()]
+    model, engine, losses = _resume_run(dev, tmp_path, model=model,
+                                        resume=ckpt, checkpoint_interval=2)
+    assert engine.captures == 1 and engine.replays == 6
+    assert [p.data_ptr() for p in model.network.parameters()] == ptrs
+    assert losses == unbroken[4:]
+    assert all(torch.equal(a, b) for a, b in zip(_params(model.network),
+                                                 want))

@@ -1,8 +1,9 @@
 """Boundaries of the PyTorch/CUDA port.
 
-* No module of ``paddle_tpu_torch`` (nor ``chip_smoke.py``) imports JAX or
-  anything of the JAX package.  The scan is static (AST): the test process
-  has jax loaded already, so ``sys.modules`` would tell nothing.
+* No module of ``paddle_tpu_torch`` (nor ``chip_smoke.py``) imports JAX,
+  anything of the JAX package or ``ml_dtypes``.  The scan is static
+  (AST): the test process has jax loaded already, so ``sys.modules``
+  would tell nothing.
 * Entry points given ``device=None`` mean the CUDA card and raise
   ``RuntimeError`` on a host without one — never a silent CPU fallback.
 * Each kernel wrapper takes the plain version for a CPU tensor (no launch
@@ -25,7 +26,7 @@ from paddle_tpu_torch.serving import GenerationEngine
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "paddle_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "paddle_tpu", "ml_dtypes"}
 TINY = GPTConfig(vocab_size=17, hidden_size=8, num_layers=1, num_heads=2,
                  max_position_embeddings=16, dropout=0.0, attn_dropout=0.0)
 
@@ -64,7 +65,11 @@ def test_scan_covers_the_package():
             "paddle_tpu_torch/nn/functional/__init__.py",
             "paddle_tpu_torch/serving/prefix_cache.py",
             "paddle_tpu_torch/regularizer.py",
-            "paddle_tpu_torch/optimizer/wrappers.py"} <= rel
+            "paddle_tpu_torch/optimizer/wrappers.py",
+            "paddle_tpu_torch/distributed/checkpoint.py",
+            "paddle_tpu_torch/distributed/resilience.py",
+            "paddle_tpu_torch/utils/chaos.py",
+            "paddle_tpu_torch/utils/metrics.py"} <= rel
 
 
 def _no_cuda():

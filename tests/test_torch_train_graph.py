@@ -407,7 +407,7 @@ class _Replacer(Callback):
         if step == 0:
             self.saved = self.opt.state_dict()
         elif step == 1:
-            p = next(self.net.parameters())
+            p = self.net.parameters()[0]
             p.data = p.data.clamp(-0.05, 0.05)
         elif step == 3:
             self.opt.set_state_dict(self.saved)
