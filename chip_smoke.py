@@ -214,6 +214,23 @@ passed over):
                   included), the training thread's stall a save (sync
                   and async), restore_latest ms, step p50 with and
                   without interval saves.
+28. io         — the host data path: ResNet-50 bf16 (config 2) through
+                  Model.fit over a bank of 16 images (R50Bank, module
+                  scope: it pickles to forkserver workers), shuffle on,
+                  each batch pinned by fit's placement hook, a drain a
+                  step, cudnn.deterministic on; the collation on the
+                  training thread, on the buffered reader's thread and in
+                  4 worker processes: step p50, the training thread's
+                  host ms a step from the profile, device ms, the loader
+                  alone, worker start-up; losses bitwise equal across the
+                  three, and equal in a fit slowed on the card by
+                  torch.cuda._sleep (a pinned batch refilled while its
+                  copy is pending would change them); one drain an epoch
+                  with the reader on and off in turns.
+29. flops      — paddle_tpu_torch.flops of ResNet-50, BERT-base (B = 32,
+                  S = 128) and GPT-2-small (B = 8, S = 1024) on the card
+                  must equal the CPU's; a step's count beside the hand
+                  counts of the MFU lines.
 
 The AccumulateGrad stream warning (a backward accumulating into a node of
 another stream: the training engine's warm-up meeting a dygraph graph
@@ -262,6 +279,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -5938,6 +5956,353 @@ def sass_phase(paths):
             f"{ldgsts} LDGSTS (cp.async) opcodes")
 
 
+# ---------------------------------------------------------------------------
+# the host data path: DataLoader worker processes and the buffered reader
+# with pinned placement under Model.fit, then flops on the card
+# ---------------------------------------------------------------------------
+IO_BANK = 16            # distinct 224 x 224 images [io]'s dataset cycles
+IO_WORKERS = 4
+IO_STEPS = 12           # fit steps a timed run
+IO_PROFILED = 4         # fit steps under the profiler
+IO_SLOW_CYCLES = 100_000_000   # torch.cuda._sleep a step: ~50 ms at 2 GHz
+IO_TIMEOUT = 120        # seconds a worker batch may take
+
+
+class R50Bank:
+    """[io]'s dataset: ``n`` samples over a bank of IO_BANK distinct bf16
+    3 x 224 x 224 images; sample i is ``bank[i % IO_BANK]`` with label
+    ``i % 1000``, so collating a batch indexes and stacks 128 images, the
+    collation [resnet50] measures.  At module scope: it pickles to the
+    forkserver workers, which import this file (hence its ``__main__``
+    guard)."""
+
+    def __init__(self, bank, n):
+        self.bank, self.n = bank, n
+
+    def __getitem__(self, i):
+        return self.bank[i % len(self.bank)], i % 1000
+
+    def __len__(self):
+        return self.n
+
+
+def io_bank(torch):
+    rs = np.random.RandomState(1)
+    return torch.from_numpy(rs.randn(IO_BANK, 3, 224, 224).astype(
+        np.float32)).to(torch.bfloat16)
+
+
+def io_api(torch, slow=False):
+    """A fresh ResNet-50 from seed 0 (r50_model) behind Model with
+    CrossEntropyLoss and its train engine; ``slow`` puts a
+    ``torch.cuda._sleep`` of IO_SLOW_CYCLES before the network in every
+    step (captured with it)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.hapi.engine import TrainEngine
+
+    model, opt = r50_model(torch)
+    net = model
+    if slow:
+        class Slowed(ptt.nn.Layer):
+            def __init__(self, inner):
+                super().__init__()
+                self.inner = inner
+
+            def forward(self, x):
+                torch.cuda._sleep(IO_SLOW_CYCLES)
+                return self.inner(x)
+        net = Slowed(model)
+    api = ptt.Model(net).prepare(opt, ptt.nn.CrossEntropyLoss())
+    engine = api._engine = TrainEngine(api)
+    return api, engine, drain_stamps(engine)
+
+
+def io_loader(torch, bank, workers, steps, prefetch=2, buffered=True):
+    """The shuffled loader of ``steps`` batches of R50_B: its order is
+    drawn at construction from the framework generator (the same after
+    the same seed and model)."""
+    import paddle_tpu_torch as ptt
+
+    return ptt.io.DataLoader(R50Bank(bank, steps * R50_B),
+                             batch_size=R50_B, shuffle=True,
+                             num_workers=workers, prefetch_factor=prefetch,
+                             use_buffer_reader=buffered, timeout=IO_TIMEOUT)
+
+
+IO_CONFIGS = (   # name, num_workers, use_buffer_reader
+    ("unbuffered", 0, False),   # the collation on the training thread
+    ("buffered", 0, True),
+    ("workers", IO_WORKERS, True),
+)
+
+
+def _waits(e):
+    """Whether a host event waits for the card (a synchronize below it)."""
+    return "Synchronize" in e.name or any(_waits(c) for c in e.cpu_children)
+
+
+def thread_trace(torch, run, steps):
+    """``run()`` under torch.profiler, which records the thread that runs
+    it: (the training thread's host ms a step in its top-level events,
+    split into work and waits for the card (an event with a synchronize
+    below it: the drain), with its four costliest events; device busy ms
+    a step; the trace's device events as (ms, name, count))."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    work = wait = 0.0
+    names = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or e.cpu_parent is not None:
+            continue
+        ms = e.cpu_time_total / 1e3
+        if _waits(e):
+            wait += ms
+        else:
+            work += ms
+            names[e.name] = names.get(e.name, 0.0) + ms
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:4]
+    kernels = [(e.self_device_time_total / 1e3, e.key, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    host = {"work": work / steps, "wait": wait / steps,
+            "top": {k: round(v / steps, 3) for k, v in top}}
+    return host, sum(t for t, _, _ in kernels) / steps, kernels
+
+
+def io_loader_ms(torch, bank, workers, buffered):
+    """The loader alone: ms a pinned batch (io.pin_batch as its placement)
+    over IO_STEPS batches, the first (and the workers' start) left out."""
+    import paddle_tpu_torch as ptt
+
+    loader = io_loader(torch, bank, workers, IO_STEPS, buffered=buffered)
+    loader.placement = ptt.io.pin_batch
+    it = iter(loader)
+    next(it)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in it)
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def io_run(torch, bank, workers, buffered):
+    """ResNet-50 bf16 through Model.fit(num_workers=workers) from seed 0:
+    IO_STEPS steps with a drain a step (the step p50 to each drain, the
+    first step's capture left out), then IO_PROFILED more on the same
+    graph under the profiler.  Returns a record with the losses."""
+    import paddle_tpu_torch as ptt
+
+    api, engine, stamps = io_api(torch)
+    loader = io_loader(torch, bank, workers, IO_STEPS, buffered=buffered)
+    t0 = time.perf_counter()
+    losses = api.fit(loader, verbose=0, log_freq=1)["step_loss"]
+    step_ms = np.diff([t0] + stamps[:IO_STEPS]) * 1e3
+    if loader.placement is not None:
+        fail("[io] fit left its placement hook on the loader")
+    seen = []
+    loader_p = io_loader(torch, bank, workers, IO_PROFILED,
+                         buffered=buffered)
+    orig = ptt.io.pin_batch
+
+    def watched(batch):
+        out = orig(batch)
+        seen.append((threading.current_thread().name,
+                     all(t.is_pinned() for t in out)))
+        return out
+    # the hook fit installs, watched: it runs on the reader's thread when
+    # the reader is buffered, and hands over page-locked batches
+    import paddle_tpu_torch.hapi.model as hapi_model
+    hapi_model.pin_batch = watched
+    try:
+        host, device_ms, kernels = thread_trace(
+            torch, lambda: api.fit(loader_p, verbose=0, log_freq=1),
+            IO_PROFILED)
+    finally:
+        hapi_model.pin_batch = orig
+    want = "DataLoader reader" if buffered \
+        else threading.current_thread().name
+    if len(seen) != IO_PROFILED or any(
+            name != want or not pinned for name, pinned in seen):
+        fail(f"[io] the placement hook ran as {seen}: not on the "
+             f"{want!r} thread, or not pinning")
+    traced, _ = require_traced(kernels, f"io fit num_workers={workers}",
+                               XENT_KERNELS + ("multi_tensor_step",))
+    if engine.captures != 1 or engine.replays != IO_STEPS - 1 + IO_PROFILED:
+        fail(f"[io] num_workers={workers}: {engine.captures} captures, "
+             f"{engine.replays} replays")
+    del api, engine
+    return {"losses": losses, "p50_ms": float(np.median(step_ms[1:])),
+            "host_ms": host, "device_ms": device_ms,
+            "loader_ms": io_loader_ms(torch, bank, workers, buffered),
+            "traced_a_step": {k: v / IO_PROFILED for k, v in traced.items()}}
+
+
+def io_one_drain(torch, bank):
+    """ms a step of IO_STEPS fit steps with one drain an epoch (the host
+    runs ahead of the card, the collation beside the step), the buffered
+    reader on and off in turns on one captured graph: {"on": [..],
+    "off": [..]}."""
+    api, engine, _ = io_api(torch)
+    api.fit(io_loader(torch, bank, 0, 2), verbose=0, log_freq=0)
+    out = {"on": [], "off": []}
+    for buffered in (True, False, False, True):
+        loader = io_loader(torch, bank, 0, IO_STEPS, buffered=buffered)
+        t0 = time.perf_counter()
+        api.fit(loader, verbose=0, log_freq=0)
+        out["on" if buffered else "off"].append(
+            round((time.perf_counter() - t0) * 1e3 / IO_STEPS, 3))
+    del api, engine
+    return out
+
+
+def io_startup(torch, bank):
+    """Seconds from iter() to the first batch of a IO_WORKERS-worker
+    loader: the first (the forkserver starting, the workers' imports) and
+    a second, warm one."""
+    out = []
+    for _ in range(2):
+        it = iter(io_loader(torch, bank, IO_WORKERS, 2))
+        t0 = time.perf_counter()
+        next(it)
+        out.append(time.perf_counter() - t0)
+        it.close()
+    return out
+
+
+def io_phase(torch, K, card):
+    """[io]: ResNet-50 (BASELINE.md config 2: bf16, Momentum(0.1, 0.9), B
+    = 128, 224 x 224) through Model.fit's captured step over R50Bank,
+    shuffle on, each batch pinned by fit's placement hook, a drain a step,
+    from one seed in three configurations (IO_CONFIGS): the collation on
+    the training thread (no buffered reader), on the reader's thread, in
+    IO_WORKERS worker processes.  Losses bitwise equal; step p50; the
+    training thread's host ms a step from the profile's host events,
+    against the device ms of the profiled replays; the loader alone's ms
+    a batch; the workers' start-up.  Then the pinned-reuse check: a fit
+    whose every step sleeps IO_SLOW_CYCLES on the card first,
+    prefetch_factor 2 and no drain but the epoch's (the host and the
+    reader run ahead of the card), must give the unslowed fit's losses;
+    and one drain an epoch with the reader on and off in turns.  Returns (the launch counts of the workers' run, counts set to 0 just
+    before it; its record)."""
+    t_phase = time.perf_counter()
+    bank = io_bank(torch)
+    starts = io_startup(torch, bank)
+    recs = {}
+    # two runs of one captured step agree bit for bit only with cuDNN's
+    # deterministic algorithms (as [resnet50]'s graph-against-eager check)
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, workers, buffered in IO_CONFIGS:
+            release(torch, f"io {name}")
+            if workers:
+                K.reset_launch_counts()
+            recs[name] = io_run(torch, bank, workers, buffered)
+            if workers:
+                counts = K.launch_counts()
+        release(torch, "io pinned reuse")
+        api, engine, _ = io_api(torch, slow=True)
+        t0 = time.perf_counter()
+        slowed = api.fit(io_loader(torch, bank, 0, IO_STEPS, prefetch=2),
+                         verbose=0, log_freq=0)["step_loss"]
+        slow_ms = (time.perf_counter() - t0) * 1e3 / IO_STEPS
+        del api, engine
+        release(torch, "io one drain an epoch")
+        one_drain = io_one_drain(torch, bank)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for name in XENT_KERNELS + ("multi_tensor_step",):
+        if counts[name] <= 0:
+            fail(f"[io] {name} was not launched in the workers' fit")
+    want = recs["unbuffered"]["losses"]
+    if not all(math.isfinite(v) for v in want):
+        fail(f"[io] losses {want} are not finite")
+    for name, rec in recs.items():
+        if rec["losses"] != want:
+            fail(f"[io] the {name} fit's losses {rec['losses']} differ from "
+                 f"the unbuffered fit's {want}")
+    if slowed != want:
+        fail(f"[io] the slowed fit's losses {slowed} differ from the "
+             f"unslowed fit's {want}: a pinned batch was overwritten while "
+             "its copy to the card was pending")
+
+    def text(r):
+        h = r["host_ms"]
+        return (f"step p50 {r['p50_ms']:.3f} ms, "
+                f"{R50_B / r['p50_ms'] * 1e3:.1f} samples/s; device ms a "
+                f"step {r['device_ms']:.3f}; the training thread's host ms "
+                f"a step: work {h['work']:.3f} (top {h['top']}), waiting "
+                f"for the card {h['wait']:.3f}; the loader alone "
+                f"{r['loader_ms']:.3f} ms a pinned batch")
+    runs = " | ".join(f"{name} (num_workers={w}): {text(recs[name])}"
+                      for name, w, _ in IO_CONFIGS)
+    log(f"[io] ResNet-50 bf16 Momentum(0.1, 0.9) B={R50_B} x 3 x 224 x 224"
+        f" over a bank of {IO_BANK} images, Model.fit shuffle on, each "
+        f"batch pinned by fit's hook, a drain a step, cudnn.deterministic "
+        f"on, on {card}: {runs} | losses bitwise equal ({want[:3]}...) | "
+        f"worker start-up (iter() to the first batch) {starts[0]:.3f} s "
+        f"cold, {starts[1]:.3f} s warm | pinned reuse: {IO_STEPS} steps "
+        f"each slowed by torch.cuda._sleep({IO_SLOW_CYCLES}), "
+        f"prefetch_factor 2, one drain: losses bitwise the unslowed fit's "
+        f"({slow_ms:.3f} ms a step) | one drain an epoch, ms a step, the "
+        f"reader on / off in turns: {one_drain} | traced launches a step "
+        f"{recs['workers']['traced_a_step']} | "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    return counts, recs["workers"]
+
+
+FLOPS_CASES = (   # name, input size, input dtype, hand count of a step
+    ("resnet50", [1, 3, 224, 224], None, "3 x 4.1e9 x 128", 3 * 4.1e9 * 128,
+     128),
+    ("bert-base", [32, 128], "int64", "2.7640e12", 2.7640e12, 1),
+    ("gpt2-small", [8, 1024], "int64", "7.0460e12", 7.0460e12, 1),
+)
+
+
+def flops_model(torch, name, device):
+    from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
+                                         GPTConfig, GPTForCausalLM)
+    from paddle_tpu_torch.vision.models import resnet50
+
+    if name == "resnet50":
+        return resnet50(num_classes=1000, device=device)
+    if name == "bert-base":
+        return BertForPretraining(BertConfig(), device=device)
+    return GPTForCausalLM(GPTConfig(), device=device)
+
+
+def flops_phase(torch, card):
+    """[flops]: paddle_tpu_torch.flops of ResNet-50 at [1, 3, 224, 224],
+    BERT-base at B = 32, S = 128 and GPT-2-small at B = 8, S = 1024, float32,
+    on the card (the fused ops' kernels count themselves) and on the CPU
+    (their plain versions): the counts must be equal.  Each is printed as
+    a training step (the forward x 3, x 128 images for ResNet-50) beside
+    the hand count the MFU lines use."""
+    import paddle_tpu_torch as ptt
+
+    t_phase = time.perf_counter()
+    parts = []
+    for name, size, dtype, hand_text, hand, images in FLOPS_CASES:
+        counts = {}
+        for device in ("cuda", "cpu"):
+            net = flops_model(torch, name, device)
+            counts[device] = ptt.flops(net, size, dtypes=dtype)
+            del net
+            release(torch, f"flops {name} {device}")
+        if counts["cuda"] != counts["cpu"]:
+            fail(f"[flops] {name}: the card counts {counts['cuda']}, the "
+                 f"CPU {counts['cpu']}")
+        step = 3 * counts["cuda"] * images
+        parts.append(f"{name} {size}: forward {counts['cuda']} (card = CPU)"
+                     f", a step {step:.4e} against the hand count "
+                     f"{hand_text} = {hand:.4e} (x{step / hand:.3f})")
+    log(f"[flops] on {card}, float32: " + "; ".join(parts)
+        + f" | {time.perf_counter() - t_phase:.1f}s")
+
+
 def main():
     import torch
 
@@ -6089,6 +6454,13 @@ def main():
     release(torch, "resume")
     mark("resume")
     resume_counts = resume_phase(torch, K, card)
+    release(torch, "io")
+    mark("io")
+    io_counts, io_rec = io_phase(torch, K, card)
+    torch.cuda.synchronize()
+    release(torch, "flops")
+    mark("flops")
+    flops_phase(torch, card)
 
     kernels = []
     for name, rec in main_cases.items():
@@ -6123,6 +6495,12 @@ def main():
             # the [resume] path: launches in the resumed run's fit (its
             # first step and the capture)
             entry["resume_launches"] = resume_counts[name]
+        if name in XENT_KERNELS + ("multi_tensor_step",):
+            # the [io] path (ResNet-50 fit with worker processes): launches
+            # in its fit (the first step and the capture), and a step of
+            # its replays in the trace
+            entry["io_launches"] = io_counts[name]
+            entry["io_traced_launches_a_step"] = io_rec["traced_a_step"][name]
         if name in S2S_KERNELS + ("multi_tensor_step",):
             # the seq2seq path (Transformer-base Model.fit): launches in
             # its first graph run's fit (the first step and the capture),

@@ -16,7 +16,7 @@ from . import (amp, io, metric, nn, optimizer, regularizer,  # noqa: F401
 from .framework.io_state import load, save  # noqa: F401
 from .framework.place import default_device  # noqa: F401
 from .framework.random import seed  # noqa: F401
-from .hapi import Model, callbacks  # noqa: F401
+from .hapi import Model, callbacks, flops, summary  # noqa: F401
 from .nn.layer_base import ParamAttr  # noqa: F401
 
 __version__ = "0.1.0"

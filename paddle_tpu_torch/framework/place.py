@@ -36,8 +36,11 @@ def copy_to_device(dst, src):
     the current stream when the stream reaches it.  The staging buffer is
     PyTorch's caching host allocator's, which keeps it until the copy has
     run (one buffer refilled for every copy could be overwritten while an
-    earlier copy from it is still queued).  A CPU ``dst`` is filled at
-    once; a CUDA ``src`` is copied on the device.  Returns ``dst``."""
+    earlier copy from it is still queued).  A ``src`` already pinned (the
+    DataLoader's reader pins each batch of a fit on the card,
+    io.pin_batch) is copied from as it is: ``pin_memory()`` returns a
+    pinned tensor itself.  A CPU ``dst`` is filled at once; a CUDA ``src``
+    is copied on the device.  Returns ``dst``."""
     src = torch.as_tensor(src, dtype=dst.dtype)
     if dst.device.type == "cuda" and src.device.type == "cpu":
         return dst.copy_(src.pin_memory(), non_blocking=True)

@@ -25,9 +25,14 @@ writes durable checkpoints (distributed/checkpoint.py, the reference's
 format) and resumes from the newest valid one, bit for bit.  ``fit`` and
 ``train_batch`` run the optimizer in the reference's ``apply_pytree`` form
 (no per-parameter learning rates, AdamW decaying every parameter;
-optimizer/__init__.py).  Not ported yet
-(ROADMAP.md): DataLoader worker processes, meshes and layouts,
-recompute, telemetry and tracing, and ``serve``.
+optimizer/__init__.py).  ``fit``, ``evaluate`` and ``predict`` take
+``num_workers`` (io.DataLoader's worker processes); on a CUDA model they
+set the loader's placement hook to ``io.pin_batch`` for the call, so the
+reader's thread hands each batch over in page-locked memory, as the
+reference installs its mesh placement for a fit.  :func:`summary` and
+:func:`flops` are the reference's ``paddle.summary`` and ``paddle.flops``.
+Not ported yet (ROADMAP.md): meshes and layouts, recompute, telemetry and
+tracing, and ``serve``.
 """
 from __future__ import annotations
 
@@ -44,7 +49,7 @@ from ..distributed.resilience import (DURABILITY_EXIT_CODE,
 from ..framework.flags import flag
 from ..framework.io_state import load as _load
 from ..framework.io_state import save as _save
-from ..io import DataLoader
+from ..io import DataLoader, pin_batch
 from ..metric import Metric, _host
 from ..models.convert import load_numpy_optimizer_state
 from ..nn.layer_base import set_state_dict
@@ -55,13 +60,6 @@ from .engine import (EvalEngine, TrainEngine, _map, _to_list,
                      build_eval_step, build_train_step, fetch, to_device)
 
 logger = logging.getLogger("paddle_tpu_torch.hapi")
-
-
-def _no_workers(num_workers):
-    if num_workers:
-        raise NotImplementedError(
-            "DataLoader worker processes are not ported yet (num_workers "
-            "must be 0)")
 
 
 def _copies(outs):
@@ -88,6 +86,10 @@ class Model:
 
     def parameters(self, *args, **kwargs):
         return self.network.parameters()
+
+    def summary(self, input_size=None, dtype=None):
+        """Parameter summary (hapi ``Model.summary``)."""
+        return summary(self.network, input_size, dtype)
 
     # -- setup -------------------------------------------------------------
     def prepare(self, optimizer=None, loss=None, metrics=None,
@@ -276,11 +278,22 @@ class Model:
             return batch, []
         return batch[:-n_label], batch[-n_label:]
 
-    def _loader(self, data, batch_size, shuffle, drop_last=False):
+    def _loader(self, data, batch_size, shuffle, drop_last=False,
+                num_workers=0):
         if isinstance(data, DataLoader):
             return data
         return DataLoader(data, batch_size=batch_size, shuffle=shuffle,
-                          drop_last=drop_last)
+                          drop_last=drop_last, num_workers=num_workers)
+
+    def _pin(self, loader):
+        """On a CUDA model, set ``loader.placement`` to :func:`io.pin_batch`
+        (the reader's thread pins each batch); returns the former hook,
+        which the caller restores when it is done, as the reference
+        installs and restores its placement hook."""
+        prev = loader.placement
+        if self.device.type == "cuda":
+            loader.placement = pin_batch
+        return prev
 
     def fit(self, train_data=None, eval_data=None, batch_size=1, epochs=1,
             eval_freq=1, log_freq=10, save_dir=None, save_freq=1, verbose=2,
@@ -315,11 +328,11 @@ class Model:
         bit the unbroken run when the data order is fixed
         (``shuffle=False``) and the run seeded (``paddle_tpu_torch.seed``):
         the checkpoint carries the random streams."""
-        _no_workers(num_workers)
         if accumulate_grad_batches != 1 and accum_steps == 1:
             # Paddle's fleet name for the same knob, as the reference reads it
             accum_steps = accumulate_grad_batches
-        loader = self._loader(train_data, batch_size, shuffle, drop_last)
+        loader = self._loader(train_data, batch_size, shuffle, drop_last,
+                              num_workers)
         self._save_dir = save_dir
         self.stop_training = False
         cbks = config_callbacks(
@@ -364,6 +377,8 @@ class Model:
         history = {"loss": [], "step_loss": []}
         it_count = 0
         fit_ok = False
+        # the hook goes on last: what raises above leaves the loader as it was
+        prev_placement = self._pin(loader)
         try:
             cbks.on_train_begin({})
             for epoch in range(epochs):
@@ -468,6 +483,7 @@ class Model:
                     break
             fit_ok = True
         finally:
+            loader.placement = prev_placement
             engine.finish()
             # a crash mid-fit must still flush and close callback resources
             cbks.on_train_end({})
@@ -511,8 +527,8 @@ class Model:
         ``on_eval_end``; ``num_samples`` stops after the batch that reaches
         that many samples.  ``log_freq`` is accepted, as the reference
         does, and unused."""
-        _no_workers(num_workers)
-        loader = self._loader(eval_data, batch_size, shuffle=False)
+        loader = self._loader(eval_data, batch_size, shuffle=False,
+                              num_workers=num_workers)
         for m in self._metrics:
             m.reset()
         cbks = CallbackList(callbacks)
@@ -520,22 +536,26 @@ class Model:
         engine = self._eval_begin()
         cbks.on_eval_begin({})
         seen = 0
-        for step_i, batch in enumerate(loader):
-            if num_samples is not None and seen >= num_samples:
-                break
-            cbks.on_eval_batch_begin(step_i, {})
-            inputs, labels = self._split_batch(_to_list(batch))
-            outs = engine.step(inputs, labels)
-            n = len(inputs[0]) if inputs else 0
-            seen += n
-            logs = {"batch_size": n}
-            if self._metrics:
-                per_metric = self._metric_outputs(outs, labels)
-                self._update_metrics(per_metric,
-                                     fetch(self._flat(per_metric)))
-                for m in self._metrics:
-                    logs[m._name] = np.mean(_to_list(m.accumulate()))
-            cbks.on_eval_batch_end(step_i, logs)
+        prev_placement = self._pin(loader)
+        try:
+            for step_i, batch in enumerate(loader):
+                if num_samples is not None and seen >= num_samples:
+                    break
+                cbks.on_eval_batch_begin(step_i, {})
+                inputs, labels = self._split_batch(_to_list(batch))
+                outs = engine.step(inputs, labels)
+                n = len(inputs[0]) if inputs else 0
+                seen += n
+                logs = {"batch_size": n}
+                if self._metrics:
+                    per_metric = self._metric_outputs(outs, labels)
+                    self._update_metrics(per_metric,
+                                         fetch(self._flat(per_metric)))
+                    for m in self._metrics:
+                        logs[m._name] = np.mean(_to_list(m.accumulate()))
+                cbks.on_eval_batch_end(step_i, logs)
+        finally:
+            loader.placement = prev_placement
         losses = engine.drain()
         res = {"loss": float(np.mean(losses)) if losses else 0.0}
         for m in self._metrics:
@@ -551,13 +571,17 @@ class Model:
         ``stack_outputs`` a network of one output gives ``[all batches'
         outputs concatenated]``.  ``verbose`` and ``callbacks`` are
         accepted and unused, as in the reference."""
-        _no_workers(num_workers)
-        loader = self._loader(test_data, batch_size, shuffle=False)
+        loader = self._loader(test_data, batch_size, shuffle=False,
+                              num_workers=num_workers)
         engine = self._eval_begin()
         outputs = []
-        for batch in loader:
-            inputs, _ = self._split_batch(_to_list(batch))
-            outputs.append(_copies(engine.step(inputs, [])))
+        prev_placement = self._pin(loader)
+        try:
+            for batch in loader:
+                inputs, _ = self._split_batch(_to_list(batch))
+                outputs.append(_copies(engine.step(inputs, [])))
+        finally:
+            loader.placement = prev_placement
         if stack_outputs and outputs and isinstance(outputs[0],
                                                      torch.Tensor):
             return [torch.cat(outputs, 0)]
@@ -620,3 +644,61 @@ class Model:
                     self._optimizer, self.network, payload["opt_state"],
                     step)
         return self
+
+
+def summary(net, input_size=None, dtypes=None):
+    """Print one line a parameter, its name, shape (as the reference
+    prints it, ``[8, 4]``) and size, then ``Total params:``; returns
+    ``{"total_params": n}``.  ``input_size`` and ``dtypes`` are accepted
+    and unused, as in the reference."""
+    lines = []
+    total = 0
+    for name, p in net.named_parameters():
+        n = p.numel()
+        total += n
+        lines.append(f"{name:60s} {str(list(p.shape)):20s} {n}")
+    print("\n".join(lines) + f"\nTotal params: {total}")
+    return {"total_params": total}
+
+
+def flops(net, input_size, custom_ops=None, print_detail=False,
+          dtypes=None):
+    """Forward flops of ``net`` on zeros of ``input_size`` (one shape, or
+    a list of shapes for a network of several inputs), in eval mode and
+    without autograd, on the network's device; each sublayer's
+    ``training`` flag is restored after.  The reference reads XLA's
+    compiled ``cost_analysis``; here :class:`utils.flops.FlopCounter`
+    counts the ops the forward issues by XLA's convention, the fused ops
+    (hand-written kernels on the card) by their own analytic counts, so
+    the card and the CPU give one count.  ``dtypes``: the inputs' dtype
+    (one, or one an input; a string or a torch dtype), by default the
+    network's floating parameters' (float32 in the reference, whose
+    ``flops`` cannot feed an integer-id network).  ``custom_ops`` is
+    accepted and ignored, as in the reference."""
+    from ..framework.dtype import convert_dtype
+    from ..utils.flops import FlopCounter
+
+    sizes = input_size if isinstance(input_size[0], (list, tuple)) \
+        else [input_size]
+    params = list(net.parameters())
+    floating = [p.dtype for p in params if p.is_floating_point()]
+    device = params[0].device if params else torch.device("cpu")
+    if dtypes is None:
+        dtypes = floating[0] if floating else torch.float32
+    if not isinstance(dtypes, (list, tuple)):
+        dtypes = [dtypes] * len(sizes)
+    xs = [torch.zeros(tuple(s), dtype=convert_dtype(d), device=device)
+          for s, d in zip(sizes, dtypes)]
+    # per-sublayer modes: a blanket train() after would flip a frozen
+    # sublayer back to training
+    modes = [(m, m.training) for m in net.modules()]
+    net.eval()
+    try:
+        with torch.no_grad(), FlopCounter() as counter:
+            net(*xs)
+    finally:
+        for m, mode in modes:
+            m.training = mode
+    if print_detail:
+        print(f"forward flops for input {input_size}: {counter.total:,}")
+    return counter.total

@@ -39,6 +39,7 @@ import math
 
 import torch
 
+from ...utils import flops
 from . import build
 from .layer_norm import weight_dtype_ok
 
@@ -82,6 +83,13 @@ def _check(name, x, bias, *others):
                              f"{x.device}")
 
 
+def bias_gelu_flops(x, *_, **__):
+    """The plain version's flops: the bias add, the scaling of erf's
+    argument, 1 + erf, the halving and the product (erf: 0)."""
+    return 5 * x.numel()
+
+
+@flops.counted(bias_gelu_flops)
 def _forward(x, bias):
     """The forward kernel (CUDA) or plain version (CPU), no graph."""
     if x.device.type == "cpu":

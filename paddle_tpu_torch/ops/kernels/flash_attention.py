@@ -80,6 +80,7 @@ import math
 import torch
 
 from ...framework import random as _random
+from ...utils import flops
 from . import build
 
 HEAD_DIMS = (16, 32, 64, 128)
@@ -374,6 +375,19 @@ def _count(fn, q, k, dropout_p):
     fn.cross_launches += q.shape[1] != k.shape[1]
 
 
+def flash_attention_flops(q, k, v, causal=True, bias=None, *_, **__):
+    """The plain version's flops over P = B*H*S_q*S_k scores: the two
+    products (2 P D each), the scaling, the bias and the causal fill (P
+    each, when present), the softmax's max, subtraction, sum and divide
+    (P each), and 5 a row for the row guards and the LSE."""
+    B, S_q, H, D = q.shape
+    rows = B * H * S_q
+    P = rows * k.shape[1]
+    return 4 * P * D + (5 + (bias is not None) + bool(causal)) * P \
+        + 5 * rows
+
+
+@flops.counted(flash_attention_flops)
 def flash_attention(q, k, v, causal=True, bias=None, sm_scale=None,
                     dropout_p=0.0, seed=0):
     """The forward kernel: attention of q [B, S_q, H, D] over k, v

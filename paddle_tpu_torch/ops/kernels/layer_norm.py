@@ -31,6 +31,7 @@ import ctypes
 
 import torch
 
+from ...utils import flops
 from . import build
 
 _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_longlong, ctypes.c_int,
@@ -80,6 +81,12 @@ def layer_norm_bwd_plain(x, weight, mean, rstd, dy):
             db.to(weight.dtype))
 
 
+def _flops(x, *_, **__):
+    n = x.numel()
+    return flops.layer_norm_flops(n, n // max(x.shape[-1], 1))
+
+
+@flops.counted(_flops)
 def _forward(x, weight, bias, epsilon, stats):
     """The kernel (CUDA) or plain version (CPU), no graph.  Returns y, or
     (y, mean, rstd) when ``stats``."""

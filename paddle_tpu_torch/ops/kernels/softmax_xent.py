@@ -34,6 +34,7 @@ import ctypes
 
 import torch
 
+from ...utils import flops
 from . import build
 
 _FWD_ARGTYPES = (ctypes.c_void_p,) + (ctypes.c_longlong,) * 4 \
@@ -116,6 +117,14 @@ def _device(name, z):
     return z.device.type
 
 
+def softmax_xent_flops(z, labels, *_, **__):
+    """The plain version's flops: logsumexp (3 an element, 1 a row) and
+    8 a row for the label's range checks, pick and masking."""
+    n = labels.numel()
+    return 3 * n * z.shape[-1] + 9 * n
+
+
+@flops.counted(softmax_xent_flops)
 def softmax_xent_fwd(z, labels, ignore_index=-100):
     """The forward kernel: z [..., V] float32, bfloat16 or float16
     (leading dims of any strides), labels int64 [N] contiguous.  Returns

@@ -2824,3 +2824,89 @@ def test_fit_resume_lands_in_graphs_already_captured(dev, tmp_path):
     assert losses == unbroken[4:]
     assert all(torch.equal(a, b) for a, b in zip(_params(model.network),
                                                  want))
+
+
+# -- the data pipeline on the card ------------------------------------------
+class _CardCount(ptt.io.Dataset):
+    """Each sample: how many CUDA devices the reading process sees.  At
+    module scope: it pickles to forkserver workers."""
+
+    def __getitem__(self, i):
+        return torch.cuda.device_count()
+
+    def __len__(self):
+        return 4
+
+
+class _TouchesCuda(ptt.io.Dataset):
+    def __getitem__(self, i):
+        return torch.zeros(1, device="cuda")
+
+    def __len__(self):
+        return 4
+
+
+def test_a_worker_sees_no_card(dev):
+    """(a) with the parent's CUDA context up, a forkserver worker sees no
+    device (CUDA_VISIBLE_DEVICES is "" while workers start and in them)."""
+    torch.zeros(1, device=dev)
+    loader = ptt.io.DataLoader(_CardCount(), batch_size=2, num_workers=2,
+                               timeout=60)
+    assert [b.tolist() for b in loader] == [[0, 0], [0, 0]]
+    assert torch.cuda.device_count() >= 1
+
+
+@pytest.mark.parametrize("method", ["forkserver", "fork"])
+def test_a_worker_that_reaches_cuda_fails_loudly(dev, monkeypatch, method):
+    """(a) a worker's CUDA call raises in the parent, by forkserver (no
+    visible device) and by fork of a process that initialised CUDA
+    (torch refuses to re-initialise it), never a hang."""
+    torch.zeros(1, device=dev)
+    monkeypatch.setenv("PADDLE_TPU_MP_START", method)
+    loader = ptt.io.DataLoader(_TouchesCuda(), batch_size=2, num_workers=1,
+                               timeout=60)
+    with pytest.raises(RuntimeError, match="worker 0 failed"):
+        list(loader)
+
+
+class _SlowNet(tnn.Layer):
+    """``inner`` after a torch.cuda._sleep on the card (captured with the
+    step): the card runs behind the host."""
+
+    def __init__(self, inner, cycles):
+        super().__init__()
+        self.inner, self.cycles = inner, cycles
+
+    def forward(self, x):
+        if self.cycles:
+            torch.cuda._sleep(self.cycles)
+        return self.inner(x)
+
+
+def _slow_fit(dev, cycles, workers=0):
+    ptt.seed(3)
+    net = _SlowNet(tnn.Linear(256, 8).to(dev), cycles)
+    model = ptt.Model(net).prepare(
+        ptt.optimizer.SGD(0.1, parameters=net.parameters()),
+        tnn.CrossEntropyLoss())
+    rs = np.random.RandomState(5)
+    data = ptt.io.TensorDataset([
+        torch.from_numpy(rs.randn(96, 256).astype(np.float32)),
+        torch.from_numpy(rs.randint(0, 8, 96))])
+    loader = ptt.io.DataLoader(data, batch_size=8, shuffle=True,
+                               num_workers=workers, prefetch_factor=2,
+                               timeout=60)
+    return model.fit(loader, verbose=0, log_freq=0)["step_loss"], loader
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_pinned_batches_survive_a_slow_card(dev, workers):
+    """(c) each step sleeps ~10 ms on the card first and nothing drains
+    but the epoch's end, so the reader pins batches while copies out of
+    earlier pinned batches are still queued: a pinned buffer refilled
+    before its copy ran would change the losses.  They are the unslowed
+    fit's, bitwise; the hook is restored after."""
+    want, loader = _slow_fit(dev, 0)
+    got, loader = _slow_fit(dev, 20_000_000, workers)
+    assert len(got) == 12 and got == want
+    assert loader.placement is None

@@ -445,8 +445,8 @@ def test_fit_options(state0, tmp_path):
     """num_iters ends training after that many steps (across epochs);
     eval_freq evaluates every that many epochs; a callback's
     stop_training ends the epoch loop; accumulate_grad_batches that does
-    not divide the batch and worker processes raise; evaluate's
-    num_samples stops after the
+    not divide the batch raises; worker processes feed a fit that trains;
+    evaluate's num_samples stops after the
     batch that reaches it, and its callbacks get the eval hooks."""
     model = _port_model(_port_net(state0))
     hist = model.fit(_port_data(DATA[:6]), eval_data=_port_data(DATA[6:8]),
@@ -467,8 +467,11 @@ def test_fit_options(state0, tmp_path):
     # reference
     with pytest.raises(ValueError, match="not divisible"):
         model.fit(_port_data(DATA[:6]), accumulate_grad_batches=2)
-    with pytest.raises(NotImplementedError):
-        model.fit(_port_data(DATA[:6]), num_workers=2)
+    # worker processes feed fit: it trains, as without them
+    hist = model.fit(_port_data(DATA[:6]), batch_size=2, num_workers=2,
+                     shuffle=False, verbose=0)
+    assert len(hist["step_loss"]) == 3
+    assert all(np.isfinite(v) for v in hist["step_loss"])
     rec = _recorder(tcb.Callback)
     res = model.evaluate(_port_data(DATA[:6]), batch_size=2, verbose=0,
                          num_samples=3, callbacks=[rec])

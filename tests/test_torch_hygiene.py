@@ -69,7 +69,9 @@ def test_scan_covers_the_package():
             "paddle_tpu_torch/distributed/checkpoint.py",
             "paddle_tpu_torch/distributed/resilience.py",
             "paddle_tpu_torch/utils/chaos.py",
-            "paddle_tpu_torch/utils/metrics.py"} <= rel
+            "paddle_tpu_torch/utils/metrics.py",
+            "paddle_tpu_torch/utils/flops.py",
+            "paddle_tpu_torch/hapi/model_summary.py"} <= rel
 
 
 def _no_cuda():

@@ -532,8 +532,12 @@ def test_dataloader_batches_collate_and_drop_last():
                                       (np.zeros(2), 2, 1.5)])
     assert coll[0].shape == (2, 2) and coll[1].dtype == torch.int64
     assert coll[2].dtype == torch.float32
-    with pytest.raises(NotImplementedError):
-        ptt.io.DataLoader(ds, num_workers=2)
+    # worker processes give the in-process batches
+    with_workers = list(ptt.io.DataLoader(ds, batch_size=2, num_workers=2,
+                                          timeout=60))
+    assert len(with_workers) == len(batches)
+    for got, want in zip(with_workers, batches):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_random_sampler_follows_its_generator():
