@@ -231,6 +231,18 @@ passed over):
                   S = 128) and GPT-2-small (B = 8, S = 1024) on the card
                   must equal the CPU's; a step's count beside the hand
                   counts of the MFU lines.
+30. generate   — GPTForCausalLM.generate on GPT-2-small (GPTConfig(),
+                  dropout 0) over a dense KV cache, its decode step one
+                  CUDA graph a key: float32 greedy (B = 4, S = 64, 32 new)
+                  against the CPU's and GenerationEngine's tokens up to
+                  the first near tie; bf16 greedy (B = 8, S = 128, 128
+                  new), top-k sampling (seeds 7 and 8), beam search (4
+                  beams, B = 2, 64 new) and an eos run, each bitwise the
+                  eager step's, a later call under sync debug mode
+                  "error"; the trace of a replayed call (rows 1, 2 and 6
+                  fast, the launches a call implies); rows 1, 2 and 6
+                  against their plain versions at the path's shapes; the
+                  HF GPT-2 export loaded back on the card bitwise.
 
 The AccumulateGrad stream warning (a backward accumulating into a node of
 another stream: the training engine's warm-up meeting a dygraph graph
@@ -299,6 +311,7 @@ DROPOUT_SEED = 0x5EED0FD809
 SYNC_WARNING = "called a synchronizing CUDA operation"
 PEAK_BF16_TENSOR = 989e12   # dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12            # float32 CUDA-core FLOP/s
+TRACE_EDGE_S = 0.05         # idle seconds at each edge of a traced window
 
 REPLACES = {
     "layer_norm": ("paddle_tpu_torch/csrc/layer_norm.cu",
@@ -1223,19 +1236,31 @@ def logits_phase(torch, model_gpu, model_cpu):
         f"/{len(ref)} positions")
 
 
-def trace_window(torch, run, cpu=None):
+def trace_window(torch, run, cpu=None, replays=None):
     """run() under torch.profiler: (run's result, wall ms, the trace's
     device events as (ms, name, count)).  ``cpu``: a list that receives
-    the host events as (self ms, name, count)."""
+    the host events as (self ms, name, count).  ``replays``: a dict that
+    receives the port's launches by CUDA graph replay
+    (:func:`replay_launches`).  The card is idle for
+    TRACE_EDGE_S at both edges of the window (outside the wall ms): a
+    trace closed right after its last kernels can lack their records
+    (tools/trace_edge_probe.py: on an H100 80GB HBM3 at 700 W, the last
+    two replays of 1 of 14 plain windows of a generate call; none of 14
+    windows with idle edges)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_EDGE_S)
         t0 = time.perf_counter()
         out = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(TRACE_EDGE_S)
+    if replays is not None:
+        replays.update(replay_launches(prof.profiler.kineto_results.events()))
     events = prof.key_averages()
     if cpu is not None:
         cpu.extend((e.self_cpu_time_total / 1e3, e.key, e.count)
@@ -1244,6 +1269,34 @@ def trace_window(torch, run, cpu=None):
                           for e in events
                           if e.device_type == DeviceType.CUDA
                           and e.self_device_time_total > 0]
+
+
+def replay_launches(events):
+    """The launches of the port's entries (``TRACE_KERNELS``, any variant)
+    in a trace's kineto events, by the ``cudaGraphLaunch`` whose
+    correlation id a kernel carries: {"per_replay": {entry: [launches in
+    each replay, in launch order]}, "outside": {entry: launches outside
+    any replay}}."""
+    from torch.autograd import DeviceType
+
+    entry = {k: n for n, variants in TRACE_KERNELS.items()
+             for k in variants.values()}
+    pattern = re.compile(r"(?<!\w)(" + "|".join(entry) + r")(?:<|\()")
+    graphs = sorted((e.start_ns(), e.correlation_id()) for e in events
+                    if e.name() == "cudaGraphLaunch")
+    index = {c: i for i, (_, c) in enumerate(graphs)}
+    per = {n: [0] * len(graphs) for n in TRACE_KERNELS}
+    outside = dict.fromkeys(TRACE_KERNELS, 0)
+    for e in events:
+        m = e.device_type() == DeviceType.CUDA and pattern.search(e.name())
+        if m:
+            name = entry[m.group(1)]
+            i = index.get(e.correlation_id())
+            if i is None:
+                outside[name] += 1
+            else:
+                per[name][i] += 1
+    return {"per_replay": per, "outside": outside}
 
 
 def traced_launches(kernels, dropped=None):
@@ -6303,6 +6356,408 @@ def flops_phase(torch, card):
         + f" | {time.perf_counter() - t_phase:.1f}s")
 
 
+GEN_F32 = dict(B=4, S=64, new=32)      # float32 against the CPU and engine
+GEN_BF16 = dict(B=8, S=128, new=128)   # bf16 greedy, sampling and eos
+GEN_BEAM = dict(B=2, S=128, new=64, num_beams=4)
+GEN_SAMPLE = dict(do_sample=True, top_k=40, temperature=0.8)
+GEN_SEEDS = (7, 8)
+GEN_EOS_STEP = 10       # eos = greedy row 0's token at this new position
+GEN_KERNELS = ("layer_norm", "bias_gelu", "flash_attention")
+GEN_TRACE_WINDOWS = 3   # traced calls a run may take to hold every replay
+
+
+def gen_prompts(torch, cfg, seed, B, S, device):
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, S)).astype(
+        np.int32)).to(device)
+
+
+def margin_check(torch, got, ref, ref_logits, S, what):
+    """Each row of ``got`` [B, S + n] equals the CPU's ``ref`` up to the
+    first new position whose tokens differ; there the CPU's top-2 logit
+    margin (``ref_logits`` [B, S + n, V] of ref's sequence) must be within
+    LOGITS_REL_TOL x max|logits| and got's token one of the two: a near
+    tie that float32 summation order may break either way.  Returns the
+    (row, step) of each such tie."""
+    ties = []
+    for b in range(got.shape[0]):
+        diff = (got[b, S:] != ref[b, S:]).nonzero()
+        if not len(diff):
+            continue
+        t = int(diff[0])
+        lg = ref_logits[b, S + t - 1]
+        top = lg.topk(2)
+        margin = float(top.values[0] - top.values[1])
+        if margin > LOGITS_REL_TOL * float(lg.abs().max()) \
+                or int(got[b, S + t]) not in top.indices.tolist():
+            fail(f"{what}: row {b} differs from the CPU's at new token "
+                 f"{t} ({int(got[b, S + t])} vs {int(ref[b, S + t])}), "
+                 f"where the CPU's top-2 margin is {margin:.3e}")
+        ties.append((b, t))
+    return ties
+
+
+def gen_call(torch, model, ids, kw, sync_error=False):
+    """One generate call; with ``sync_error`` under
+    torch.cuda.set_sync_debug_mode("error"), so that any host sync
+    raises.  Returns (tokens, device ms of the call)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    if sync_error:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = model.generate(ids, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def gen_mode(torch, K, model, ids, kw, what, record=None, timed=True):
+    """A generate key on the card: the first call (the capture), a second
+    under sync debug mode "error", an eager call (the key's step swapped
+    for ``_step_eager``; ``record`` wraps its sampler), then with ``timed``
+    calls graph, eager, eager, graph.  Fails unless every call gives the
+    first call's tokens bitwise and the capture holds no slow variant.
+    Returns a record, with the launches the wrappers counted in the first
+    call (its eager prefill, the warm-up step and the capture: a replay
+    runs the kernels without passing through the wrappers)."""
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    first, _ = gen_call(torch, model, ids, kw)
+    first_wall = (time.perf_counter() - t0) * 1e3
+    first_launches = K.launch_counts()
+    # the key's run: its first call added it last to the cache
+    run = next(reversed(model._gen_cache.values()))
+    if run.graph is None:
+        fail(f"{what}: the decode step was not captured")
+    for name, counts in run.graph_variants.items():
+        slow = {v: n for v, n in counts.items()
+                if v != FAST_VARIANT[name] and n}
+        if slow:
+            fail(f"{what}: the decode graph took the slower kernel of "
+                 f"{name}: {counts}")
+    second, graph_ms = gen_call(torch, model, ids, kw, sync_error=True)
+    run.step = run._step_eager
+    if record is not None:
+        run.sample = record(run.sample)
+    try:
+        eager, eager_ms = gen_call(torch, model, ids, kw)
+    finally:
+        del run.step
+        run.__dict__.pop("sample", None)
+    for name, out in (("the second call", second), ("the eager step", eager)):
+        if not torch.equal(out, first):
+            fail(f"{what}: {name} gave other tokens than the graph's first "
+                 f"call")
+    times = {"graph": [graph_ms], "eager": [eager_ms]}
+    for form in ("graph", "eager", "eager", "graph") if timed else ():
+        if form == "eager":
+            run.step = run._step_eager
+        try:
+            out, ms = gen_call(torch, model, ids, kw)
+        finally:
+            run.__dict__.pop("step", None)
+        if not torch.equal(out, first):
+            fail(f"{what}: a timed {form} call gave other tokens")
+        times[form].append(ms)
+    # the eager prologue alone (the prefill and the first token)
+    B, new = ids.shape[0], kw["max_new_tokens"]
+    prologue = model._beam_prologue if run.beam \
+        else model._generate_prologue
+    if run.noise is not None:
+        run.generator = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        prefill_ms = min(_events_ms(torch, lambda: prologue(run, ids), 1)
+                         for _ in range(3))
+    rec = {"run": run, "first_call_ms": first_wall,
+           "capture_ms": run.capture_ms,
+           "prefill_ms": prefill_ms, "first_call_launches": first_launches,
+           "graph_launches": dict(run.graph_launches), "tokens": first}
+    for form, ms in times.items():
+        call = min(ms)
+        rec[form] = {"call_ms": call,
+                     "decode_ms_a_token": (call - prefill_ms) / (new - 1),
+                     "tokens_s": B * new / call * 1e3}
+    return rec
+
+
+def gen_kernel_shapes(torch, K):
+    """Rows 1, 2 and 6 against their plain versions at the generate path's
+    shapes: LayerNorm and bias-GeLU at a bf16 decode step's R = 8 rows,
+    flash attention at its prefill's B = 8, S = 128 (causal, the packed
+    qkv's slices).  Returns {kernel: record}."""
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(20)
+    dt, isz = torch.bfloat16, 2
+    R, N, Fd = GEN_BF16["B"], 768, 3072
+    B, S, H, D = GEN_BF16["B"], GEN_BF16["S"], 12, 64
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale
+                ).to(dt)
+
+    x, w, b = rnd(R, N), 1 + rnd(N, scale=0.1), rnd(N, scale=0.1)
+    recs = {"layer_norm": compare(
+        torch, f"[generate] layer_norm bf16 decode R={R} N={N}",
+        lambda: K.layer_norm.layer_norm(x, w, b, 1e-5),
+        lambda: K.layer_norm.layer_norm_plain(x, w, b, 1e-5),
+        lambda: F.layer_norm(x, (N,), w, b, 1e-5), dt,
+        (2 * R * N + 2 * N) * isz, 8 * R * N, PEAK_F32,
+        variant=("layer_norm", "warp"))}
+    xf, bf = rnd(R, Fd), rnd(Fd, scale=0.1)
+    recs["bias_gelu"] = compare(
+        torch, f"[generate] bias_gelu bf16 decode R={R} F={Fd}",
+        lambda: K.bias_gelu.bias_gelu(xf, bf),
+        lambda: K.bias_gelu.bias_gelu_plain(xf, bf),
+        lambda: F.gelu(xf + bf), dt, (2 * R * Fd + Fd) * isz, 5 * R * Fd,
+        PEAK_F32, variant=("bias_gelu", "vec"))
+    qkv = rnd(B, S, 3, H, D)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    pairs = B * H * S * (S + 1) // 2
+    recs["flash_attention"] = compare(
+        torch, f"[generate] flash_attention bf16 prefill B={B} S={S} "
+        f"H={H} D={D} causal",
+        lambda: K.flash_attention.flash_attention(q, k, v)[0],
+        lambda: K.flash_attention.flash_attention_plain(q, k, v)[0],
+        lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True), dt,
+        4 * B * S * H * D * isz + B * H * S * 4, 4 * D * pairs,
+        PEAK_BF16_TENSOR, variant=("flash_attention", "mma"))
+    return recs
+
+
+def generate_phase(torch, K, card):
+    """[generate]: GPTForCausalLM.generate on full-width GPT-2-small
+    (GPTConfig(), dropout 0), its decode step one CUDA graph a key.
+    float32, B = 4, S = 64, 32 new tokens: greedy tokens against the same
+    model's on the CPU and against GenerationEngine's, equal up to the
+    first near tie (margin_check).  bf16: greedy (B = 8, S = 128, 128
+    new), top-k sampling (top_k 40, temperature 0.8, seeds 7 and 8: seed 7
+    twice bitwise, seed 8 different, every token inside its step's
+    top-40), beam search (4 beams, B = 2, S = 128, 64 new) and an
+    eos_token_id run (a row that meets eos emits only eos; the other rows
+    as without it): in each mode the graph's tokens bitwise the eager
+    step's, a second call of the key under sync debug mode "error"; the
+    trace of a replayed greedy call holds rows 1, 2 and 6 on their fast
+    kernels, 25 LayerNorm and 12 bias-GeLU launches a new token and 12
+    flash launches a call; interop: to_hf_gpt2_state -> load_hf_gpt2 into
+    a fresh card model gives bitwise the parameters and the same tokens.
+    Returns ({kernel: launches the wrappers counted in the first greedy
+    call: the prefill, the warm-up step and the capture}, a record with
+    each kernel's traced launches a call and its shape record)."""
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                         load_numpy_state)
+    from paddle_tpu_torch.models.interop import (load_hf_gpt2,
+                                                 to_hf_gpt2_state)
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    t_phase = time.perf_counter()
+    cfg = GPTConfig(dropout=0.0, attn_dropout=0.0)
+    seed(0)
+    model = GPTForCausalLM(cfg, device="cuda").eval()
+
+    # float32: the card against the CPU's plain versions, and the engine
+    f = GEN_F32
+    ids = gen_prompts(torch, cfg, 50, f["B"], f["S"], "cuda")
+    got = model.generate(ids, max_new_tokens=f["new"]).cpu()
+    cpu = GPTForCausalLM(cfg, device="cpu")
+    load_numpy_state(cpu, {k: v.cpu().numpy()
+                           for k, v in model.state_dict().items()})
+    cpu.eval()
+    ref = cpu.generate(ids.cpu(), max_new_tokens=f["new"])
+    with torch.no_grad():
+        ref_logits = cpu(ref.long()).float()
+    del cpu
+    ties = margin_check(torch, got, ref, ref_logits, f["S"],
+                        "[generate] f32 generate")
+    eng = GenerationEngine(model, device=model.device, max_slots=f["B"],
+                           max_seq_len=f["S"] + f["new"] + 8,
+                           prompt_buckets=str(f["S"]),
+                           prefix_cache=False).start()
+    try:
+        handles = [eng.submit(p, f["new"]) for p in ids.cpu().tolist()]
+        eng_out = [h.result(600) for h in handles]
+    finally:
+        eng.stop()
+    if any(len(o) != f["new"] for o in eng_out):
+        fail(f"[generate] the engine gave {[len(o) for o in eng_out]} tokens")
+    eng_ids = torch.cat([ids.cpu(), torch.tensor(eng_out, dtype=torch.int32)],
+                        dim=1)
+    eng_ties = margin_check(torch, eng_ids, ref, ref_logits, f["S"],
+                            "[generate] f32 engine")
+    del ref_logits
+    log(f"[generate] float32 B={f['B']} S={f['S']} {f['new']} new tokens: "
+        f"the card's generate = the CPU's, up to near ties at (row, step) "
+        f"{ties}; GenerationEngine's greedy = the CPU's, up to near ties at "
+        f"{eng_ties}; margin tol {LOGITS_REL_TOL} x max|logits|")
+
+    # bf16: greedy, sampling, beam, eos
+    model.__dict__.pop("_gen_cache", None)
+    model.to(dtype=torch.bfloat16)
+    release(torch, "generate bf16")
+    g = GEN_BF16
+    ids = gen_prompts(torch, cfg, 51, g["B"], g["S"], "cuda")
+    greedy_kw = dict(max_new_tokens=g["new"])
+    greedy = gen_mode(torch, K, model, ids, greedy_kw, "[generate] greedy")
+    counts = {n: greedy["first_call_launches"][n] for n in GEN_KERNELS}
+    for name in GEN_KERNELS:
+        if counts[name] <= 0:
+            fail(f"[generate] {name} was not launched: {counts}")
+    mark("generate: greedy")
+
+    # the trace of a replayed call: rows 1, 2 and 6 on their fast kernels,
+    # and in each of its replays exactly the graph's launches (25 LayerNorm,
+    # 12 bias-GeLU).  The profiler can lack the records of a window's last
+    # replays (when it closes right after them) and, later in a process,
+    # of some eager launches (tools/trace_edge_probe.py): the prefill's
+    # launches are the wrappers' count, and a window lacking a replay's
+    # records is traced again; a launch too many in a replay, or on a slow
+    # kernel, fails at once
+    per_step = greedy["graph_launches"]
+    for window in range(1, GEN_TRACE_WINDOWS + 1):
+        by_replay = {}
+        out, wall_ms, kernels = trace_window(
+            torch, lambda: model.generate(ids, **greedy_kw),
+            replays=by_replay)
+        if not torch.equal(out, greedy["tokens"]):
+            fail("[generate] the traced call gave other tokens")
+        traced, fast = require_traced(kernels, "[generate] greedy trace",
+                                      GEN_KERNELS)
+        per = {n: by_replay["per_replay"][n] for n in per_step}
+        if any(c > per_step[n] for n, cs in per.items() for c in cs):
+            fail(f"[generate] a replay in the trace holds more launches "
+                 f"than the graph's {per_step}: {per}")
+        whole = sum(all(per[n][i] == per_step[n] for n in per_step)
+                    for i in range(len(per["layer_norm"])))
+        if whole == g["new"] - 1:
+            break
+        log(f"[generate] traced window {window} holds {whole} whole "
+            f"replays of {g['new'] - 1}: {per}")
+    else:
+        fail(f"[generate] {GEN_TRACE_WINDOWS} traced calls all lacked "
+             f"records of a replay")
+    busy_ms = sum(t for t, _, _ in kernels)
+    n_launches = sum(c for _, _, c in kernels)
+
+    recorded = []
+
+    def record(sample):
+        def wrapped(logits):
+            tok = sample(logits)
+            recorded.append((logits.float().clone(), tok.clone()))
+            return tok
+        return wrapped
+
+    s0, s1 = GEN_SEEDS
+    sampled = gen_mode(torch, K, model, ids,
+                       dict(max_new_tokens=g["new"], seed=s0, **GEN_SAMPLE),
+                       f"[generate] top-k seed {s0}", record=record)
+    a = sampled["tokens"]
+    if torch.equal(a, model.generate(ids, max_new_tokens=g["new"], seed=s1,
+                                     **GEN_SAMPLE)):
+        fail(f"[generate] seeds {s0} and {s1} sampled the same tokens")
+    if len(recorded) != g["new"]:
+        fail(f"[generate] {len(recorded)} sampler calls, not {g['new']}")
+    k = GEN_SAMPLE["top_k"]
+    for t, (lg, tok) in enumerate(recorded):
+        scaled = lg / GEN_SAMPLE["temperature"]
+        kth = scaled.topk(k, dim=-1).values[:, -1]
+        mine = scaled.gather(1, tok.long()[:, None])[:, 0]
+        if not bool((mine >= kth).all()) \
+                or not torch.equal(tok, a[:, g["S"] + t]):
+            fail(f"[generate] a sampled token at new position {t} lies "
+                 f"outside its step's top-{k}")
+    mark("generate: sampling")
+
+    b = GEN_BEAM
+    bids = gen_prompts(torch, cfg, 52, b["B"], b["S"], "cuda")
+    beam_kw = dict(max_new_tokens=b["new"], num_beams=b["num_beams"])
+    beam = gen_mode(torch, K, model, bids, beam_kw, "[generate] beam")
+    with torch.no_grad():
+        beam_select_ms = time_ms(
+            torch, lambda: model._beam_select(beam["run"]))[0]
+    mark("generate: beam")
+
+    eos = int(greedy["tokens"][0, g["S"] + GEN_EOS_STEP])
+    eos_rec = gen_mode(torch, K, model, ids,
+                       dict(max_new_tokens=g["new"], eos_token_id=eos),
+                       "[generate] eos", timed=False)
+    base_new = greedy["tokens"][:, g["S"]:].cpu()
+    eos_new = eos_rec["tokens"][:, g["S"]:].cpu()
+    for r in range(g["B"]):
+        hit = (base_new[r] == eos).nonzero()
+        if not len(hit):
+            if not torch.equal(eos_new[r], base_new[r]):
+                fail(f"[generate] eos run: row {r}, which never meets eos, "
+                     "changed")
+            continue
+        t = int(hit[0])
+        if not torch.equal(eos_new[r, :t + 1], base_new[r, :t + 1]) \
+                or not bool((eos_new[r, t:] == eos).all()):
+            fail(f"[generate] eos run: row {r} meets eos at {t} but does "
+                 "not emit only eos after it")
+
+    # interop on the card: export, load into a fresh card model
+    state = to_hf_gpt2_state(model)
+    seed(1)
+    fresh = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16).eval()
+    load_hf_gpt2(fresh, state)
+    for (n, p), (_, q) in zip(model.named_parameters(),
+                              fresh.named_parameters()):
+        if p.device != q.device or p.dtype != q.dtype \
+                or not torch.equal(p, q):
+            fail(f"[generate] interop: {n} differs after the round trip")
+    if not torch.equal(fresh.generate(ids, **greedy_kw), greedy["tokens"]):
+        fail("[generate] interop: the loaded model generated other tokens")
+    del fresh, state
+
+    shapes = gen_kernel_shapes(torch, K)
+    gr = greedy
+    log(f"[generate] bf16 greedy B={g['B']} S={g['S']} {g['new']} new on "
+        f"{card}: prefill {gr['prefill_ms']:.3f} ms; decode ms a token "
+        f"graph {gr['graph']['decode_ms_a_token']:.4f} / eager "
+        f"{gr['eager']['decode_ms_a_token']:.4f}; tokens/s graph "
+        f"{gr['graph']['tokens_s']:.1f} / eager {gr['eager']['tokens_s']:.1f}"
+        f" (call {gr['graph']['call_ms']:.3f} / {gr['eager']['call_ms']:.3f}"
+        f" ms); first call {gr['first_call_ms']:.1f} ms, capture "
+        f"{gr['capture_ms']:.1f} ms; launches a decode step by the wrappers "
+        f"{gr['graph_launches']}, in the first call {counts}; traced call "
+        f"(window {window}): {n_launches} device launches, busy "
+        f"{busy_ms:.3f} of {wall_ms:.3f} ms ({100 * busy_ms / wall_ms:.2f}%),"
+        f" rows 1, 2, 6 {traced['layer_norm']} / {traced['bias_gelu']} / "
+        f"{traced['flash_attention']} (fast {fast['layer_norm']} / "
+        f"{fast['bias_gelu']} / {fast['flash_attention']}; outside the "
+        f"replays {by_replay['outside']['layer_norm']} / "
+        f"{by_replay['outside']['bias_gelu']} / "
+        f"{by_replay['outside']['flash_attention']}), {whole} whole replays"
+        f" of {per_step}; graph = eager bitwise, second call under sync "
+        f"debug mode 'error'")
+    log(f"[generate] bf16 top-k {k} T={GEN_SAMPLE['temperature']} seeds "
+        f"{GEN_SEEDS}: seed {s0} twice bitwise, seed {s1} different, every "
+        f"token inside its step's top-{k}; decode ms a token graph "
+        f"{sampled['graph']['decode_ms_a_token']:.4f} / eager "
+        f"{sampled['eager']['decode_ms_a_token']:.4f}; graph = eager bitwise")
+    log(f"[generate] bf16 beam {b['num_beams']} B={b['B']} S={b['S']} "
+        f"{b['new']} new: prefill {beam['prefill_ms']:.3f} ms; decode ms a "
+        f"token graph {beam['graph']['decode_ms_a_token']:.4f} / eager "
+        f"{beam['eager']['decode_ms_a_token']:.4f}; the beam step "
+        f"(beam_search_step, parents, cache reorder) {beam_select_ms:.5f} ms"
+        f"; capture {beam['capture_ms']:.1f} ms; launches a decode step "
+        f"{beam['graph_launches']}; graph = eager bitwise")
+    log(f"[generate] bf16 eos {eos}: rows meeting it emit only eos, the "
+        f"others as without it; graph = eager bitwise.  Interop: "
+        f"to_hf_gpt2_state -> load_hf_gpt2 on the card bitwise, same tokens"
+        f" | {time.perf_counter() - t_phase:.1f}s")
+    return counts, {"traced_a_call": {n: traced[n] for n in GEN_KERNELS},
+                    "shapes": shapes}
+
+
 def main():
     import torch
 
@@ -6461,6 +6916,9 @@ def main():
     release(torch, "flops")
     mark("flops")
     flops_phase(torch, card)
+    release(torch, "generate")
+    mark("generate")
+    gen_counts, gen_rec = generate_phase(torch, K, card)
 
     kernels = []
     for name, rec in main_cases.items():
@@ -6591,6 +7049,19 @@ def main():
                     "kind", "launches", "max_abs_err", "ms", "plain_ms",
                     "bound_ms", "bound_by", "library_ms")}
                 for rule, r in rule_recs.items() if rule not in NORM_RULES}
+        if name in GEN_KERNELS:
+            # the generate path: launches the wrappers counted in its
+            # greedy key's first call (the prefill, the warm-up step and
+            # the capture), a replayed call's in the trace, and
+            # the kernel held against its plain version at the path's shape
+            # (LayerNorm and bias-GeLU at a decode step's rows, attention at
+            # the prefill's)
+            entry["generate_launches"] = gen_counts[name]
+            entry["generate_traced_launches_a_call"] = \
+                gen_rec["traced_a_call"][name]
+            entry["generate_shape"] = {k: gen_rec["shapes"][name][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err")}
         if name in FAST_VARIANT:
             entry["variant"] = rec["variant"]
         if name in MMA_KERNELS:

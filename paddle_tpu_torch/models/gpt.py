@@ -1,5 +1,5 @@
-"""GPT decoder-only language model: the serving and training subset of
-paddle_tpu/models/gpt.py.
+"""GPT decoder-only language model: the serving, training and solo
+decoding subset of paddle_tpu/models/gpt.py.
 
 Ported: ``GPTConfig``, ``GPTAttention.forward`` (prefill and training,
 through the causal flash-attention kernels, forward and backward) and
@@ -9,32 +9,46 @@ kernels), ``GPTBlock``, ``GPTModel`` and ``GPTForCausalLM`` with
 training ``loss`` (the chunked fused LM-head cross entropy), ``_head``,
 ``slot_prefill``, ``slot_prefill_prefix`` (a prefix-cache hit or a prefill
 chunk: the suffix attends over gathered prefix K/V) and
-``slot_decode_paged``.  Parameter names equal the
-reference's (``gpt.h_0.attn.qkv.weight`` ...), so weights carry over by
-name (models/convert.py).  In training, ``attn_dropout`` drops the
-attention weights inside the flash-attention kernels and ``dropout`` the
-hidden states, so ``GPTConfig()`` trains at its defaults.  Not ported yet
-(ROADMAP.md): tensor-parallel and sequence-parallel layouts, recompute,
-beam search and ``generate``.
+``slot_decode_paged``; the dense-cache decode layers (``decode_step``,
+``decode_slots``, ``GPTModel.prefill``, ``slot_decode``) and ``generate``
+(greedy, temperature / top-k sampling, beam search, ``eos_token_id``).
+Parameter names equal the reference's (``gpt.h_0.attn.qkv.weight`` ...),
+so weights carry over by name (models/convert.py).  In training,
+``attn_dropout`` drops the attention weights inside the flash-attention
+kernels and ``dropout`` the hidden states, so ``GPTConfig()`` trains at
+its defaults.  Not ported yet (ROADMAP.md): tensor-parallel and
+sequence-parallel layouts, recompute, ``verify_pages`` and
+``slot_verify_paged`` (speculative decode).
 
-The paged decode updates the KV pool IN PLACE: where the reference's
-jitted step donates the pool and returns a functionally updated copy, the
-port writes each lane's new token K/V into the pool tensor it was given
-(allocated once by the engine) and returns that same tensor.
+The decode paths update their caches IN PLACE: where the reference's
+jitted step donates the pool (or the dense cache) and returns a
+functionally updated copy, the port writes each token's K/V into the
+tensor it was given (the engine's pool, a ``generate`` key's caches) and
+returns that same tensor.  ``generate``'s prefill runs eagerly; its decode
+step (the reference's ``lax.scan`` body) is one CUDA graph per key,
+captured once and replayed for every later token (``_DecodeRun``).  Its
+sampling draws Gumbel noise from a ``torch.Generator`` seeded with
+``seed``: deterministic per seed, not JAX's stream.
 """
 from __future__ import annotations
 
+import gc
+import time
+import weakref
 from dataclasses import dataclass
 
 import torch
 
 from .. import tensor_ops as T
 from ..framework.place import resolve_device
+from ..framework.random import make_generator
 from ..nn import initializer as I
 from ..nn.layer.common import Dropout, Embedding, Linear
 from ..nn.layer.norm import LayerNorm
 from ..nn.layer_base import Layer, ParamAttr
-from ..ops import fused
+from ..ops import fused, kernels
+from ..serving.generation import sample_tokens
+from ..text import beam_search_decode, beam_search_step
 
 
 @dataclass
@@ -91,6 +105,22 @@ def _scatter_token(k_pages, v_pages, k, v, rows, pos, active):
         flat.index_copy_(0, tgt, torch.where(ok[:, None, None], new, fill))
 
 
+def _dense_attention(q, k_cache, v_cache, valid):
+    """A decode query's attention over a dense cache, the reference's math
+    (which runs outside any ``pallas_call``, so plain ops here): scores
+    times 1/sqrt(hd), positions where ``valid`` is False set to the
+    dtype's finfo.min, a max-subtracted softmax, then the context.
+    q [B, 1, nh, hd]; caches [B, S_max, nh, hd]; ``valid`` broadcastable
+    to the scores [B, nh, 1, S_max].  Returns [B, 1, nh, hd]."""
+    hd = q.shape[-1]
+    scores = torch.einsum("bqnd,bsnd->bnqs", q, k_cache) \
+        * (1.0 / float(hd) ** 0.5)
+    scores = torch.where(valid, scores, torch.finfo(scores.dtype).min)
+    probs = torch.exp(scores - scores.amax(-1, keepdim=True))
+    probs = probs / probs.sum(-1, keepdim=True)
+    return torch.einsum("bnqs,bsnd->bqnd", probs, v_cache)
+
+
 class GPTAttention(Layer):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
@@ -135,6 +165,49 @@ class GPTAttention(Layer):
                                            seq_cap)
         out = self.out(ctx.reshape(B, 1, cfg.hidden_size))
         return out, k_pages, v_pages
+
+    def decode_step(self, x, k_cache, v_cache, pos):
+        """One-token cached attention over a dense cache: x [B, 1, H];
+        caches [B, S_max, nh, hd], column ``pos`` (a 0-d int32 device
+        tensor, so that one captured step serves every position) written
+        in place.  Returns (out, k_cache, v_cache)."""
+        cfg = self.cfg
+        B = x.shape[0]
+        nh, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+        qkv = self.qkv(x).reshape(B, 1, 3, nh, hd)
+        col = pos.reshape(1).long()
+        k_cache.index_copy_(1, col, qkv[:, :, 1].to(k_cache.dtype))
+        v_cache.index_copy_(1, col, qkv[:, :, 2].to(v_cache.dtype))
+        valid = torch.arange(k_cache.shape[1], device=x.device) <= pos
+        ctx = _dense_attention(qkv[:, :, 0], k_cache, v_cache, valid)
+        out = self.out(ctx.reshape(B, 1, cfg.hidden_size))
+        return out, k_cache, v_cache
+
+    def decode_slots(self, x, k_cache, v_cache, pos, active):
+        """Continuous-batching decode over a dense cache: one token per
+        lane, lane b at its own ``pos[b]``.  x [slots, 1, H]; caches
+        [slots, S_max, nh, hd]; pos [slots] int32; active [slots] bool.
+        Each active lane's K/V is written at (b, pos[b]) in place; an
+        inactive lane rewrites that entry (pos clipped into the cache)
+        with its own value, so its rows stay as they were and no host
+        sync picks the lanes.  Per lane, the math of
+        :meth:`decode_step`.  Returns (out, k_cache, v_cache)."""
+        cfg = self.cfg
+        B = x.shape[0]
+        nh, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+        qkv = self.qkv(x).reshape(B, 1, 3, nh, hd)
+        lane = torch.arange(B, device=x.device)
+        col = pos.long().clamp(0, k_cache.shape[1] - 1)
+        keep = active[:, None, None]
+        for cache, new in ((k_cache, qkv[:, 0, 1]), (v_cache, qkv[:, 0, 2])):
+            cache[lane, col] = torch.where(keep, new.to(cache.dtype),
+                                           cache[lane, col])
+        valid = torch.arange(k_cache.shape[1], device=x.device)[None, :] \
+            <= pos[:, None]
+        ctx = _dense_attention(qkv[:, :, 0], k_cache, v_cache,
+                               valid[:, None, None, :])
+        out = self.out(ctx.reshape(B, 1, cfg.hidden_size))
+        return out, k_cache, v_cache
 
     def prefill_prefix(self, x, prefix_k, prefix_v, prefix_len, bias=None):
         """Suffix-only prefill attending over a cached prefix: queries
@@ -213,6 +286,20 @@ class GPTBlock(Layer):
         x = x + self.attn(self.ln_1(x))
         return x + self.mlp(self.ln_2(x))
 
+    def decode_step(self, x, k_cache, v_cache, pos):
+        a, k_cache, v_cache = self.attn.decode_step(self.ln_1(x), k_cache,
+                                                    v_cache, pos)
+        x = x + a
+        x = x + self.mlp(self.ln_2(x))
+        return x, k_cache, v_cache
+
+    def decode_slots(self, x, k_cache, v_cache, pos, active):
+        a, k_cache, v_cache = self.attn.decode_slots(
+            self.ln_1(x), k_cache, v_cache, pos, active)
+        x = x + a
+        x = x + self.mlp(self.ln_2(x))
+        return x, k_cache, v_cache
+
     def decode_pages(self, x, k_pages, v_pages, rows, pos, active, seq_cap):
         a, k_pages, v_pages = self.attn.decode_pages(
             self.ln_1(x), k_pages, v_pages, rows, pos, active, seq_cap)
@@ -249,6 +336,233 @@ class GPTModel(Layer):
         for blk in self.h:
             x = blk(x)
         return self.ln_f(x)
+
+    @torch.no_grad()
+    def prefill(self, input_ids, cache_len):
+        """Batched prompt pass seeding per-layer dense KV caches of
+        length ``cache_len`` (>= prompt + new tokens).  Returns (hidden
+        [B, S, H], caches: a tuple of (k, v) [B, cache_len, nh, hd], zero
+        past the prompt)."""
+        if self.training:
+            raise RuntimeError(
+                "prefill/decode_step are eval-only serving paths (the "
+                "decode half applies no dropout, so a training-mode "
+                "prefill would be statistically inconsistent with it); "
+                "call model.eval() first")
+        cfg = self.cfg
+        B = input_ids.shape[0]
+        shape = (B, int(cache_len), cfg.num_heads,
+                 cfg.hidden_size // cfg.num_heads)
+        like = self.wte.weight
+        caches = tuple((like.new_empty(shape), like.new_empty(shape))
+                       for _ in self.h)
+        return self._prefill_into(input_ids, caches), caches
+
+    def _prefill_into(self, input_ids, caches, beams=1):
+        """:meth:`prefill`'s pass, writing the prompt's K/V into the given
+        caches in place (zero past the prompt); with ``beams`` W, caches
+        of B·W rows, prompt b's K/V in rows b·W .. b·W + W - 1.  Returns
+        the hidden states [B, S, H]."""
+        B, S = input_ids.shape
+        pos = torch.arange(S, device=input_ids.device)
+        x = self.drop(self.wte(input_ids) + self.wpe(pos))
+        for blk, (kc, vc) in zip(self.h, caches):
+            x, k, v = blk(x, return_kv=True)
+            for cache, new in ((kc, k), (vc, v)):
+                c = cache.view(B, beams, *cache.shape[1:])
+                c[:, :, :S].copy_(new[:, None])
+                c[:, :, S:].zero_()
+        return self.ln_f(x)
+
+    @torch.no_grad()
+    def decode_step(self, token_ids, pos, caches):
+        """One decode step: token_ids [B, 1] at absolute position ``pos``
+        (a 0-d int32 tensor on the model's device); caches as
+        :meth:`prefill` returns them, column ``pos`` written in place.
+        Returns (hidden [B, 1, H], caches)."""
+        x = self.wte(token_ids) + self.wpe(pos.reshape(1))
+        for blk, (kc, vc) in zip(self.h, caches):
+            x, _, _ = blk.decode_step(x, kc, vc, pos)
+        return self.ln_f(x), caches
+
+    @torch.no_grad()
+    def decode_slots(self, token_ids, pos, caches, active):
+        """Continuous-batching decode step over dense caches: token_ids
+        [slots, 1], lane b at its own position ``pos[b]``; ``active``
+        [slots] bool masks lanes that hold no request (their cache rows
+        stay as they were).  Returns (hidden [slots, 1, H], caches)."""
+        x = self.wte(token_ids) + self.wpe(pos.reshape(-1, 1))
+        for blk, (kc, vc) in zip(self.h, caches):
+            x, _, _ = blk.decode_slots(x, kc, vc, pos, active)
+        return self.ln_f(x), caches
+
+
+class _DecodeRun:
+    """The device state of one ``generate`` key (batch, prompt length,
+    new tokens, mode) and its decode step.  Every tensor the step reads or
+    writes is allocated here once and only ever written in place, so on a
+    CUDA device the step is captured once as a CUDA graph (after a warm-up
+    step on a side stream) and replayed for every later decode step of
+    every call of the key; the per-call prologue (prefill, first token)
+    runs eagerly and re-initialises the state.  ``_step_eager`` issues the
+    same step op by op: the CPU's step, and the graph's reference.
+
+    State: the dense caches [R, S + new, nh, hd] a layer (R = B, or B·W
+    beams); ``pos`` (0-d int32, the column the next step writes); ``tok``
+    [R] int32; ``finished`` ([B] or [B, W] bool); greedy/sampling: ``out``
+    [B, new] int32 tokens; beam: ``toks``/``parents`` [new, B, W] int32,
+    ``lp`` [B, W, V] log-probabilities, ``scores`` [B, W] float32; sampling:
+    ``noise`` [B, V] float32, the step's Gumbel rows, drawn from the call's
+    generator into the buffer before each step (outside the graph).
+
+    The run holds its model weakly: the model holds the run (in
+    ``_gen_cache``), and a cycle would leave a dropped model's graphs to
+    the cyclic garbage collector, which may free them in the middle of
+    another capture (a ``cudaFree`` there invalidates it)."""
+
+    def __init__(self, model, B, S, new, do_sample, temperature, top_k,
+                 num_beams, eos, beam=None):
+        cfg, dev = model.cfg, model.device
+        self._model = weakref.ref(model)
+        self.B, self.S, self.new = B, S, new
+        self.W, self.eos = num_beams, eos
+        # beam search (generate routes a width-1 beam to greedy)
+        self.beam = num_beams > 1 if beam is None else beam
+        R, V = B * num_beams, cfg.vocab_size
+        nh, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+        like = model.gpt.wte.weight
+        self.caches = tuple(
+            (like.new_zeros(R, S + new, nh, hd),
+             like.new_zeros(R, S + new, nh, hd)) for _ in model.gpt.h)
+        i32 = dict(dtype=torch.int32, device=dev)
+        self.pos = torch.full((), S, **i32)
+        self.tok = torch.zeros(R, **i32)
+        if self.beam:
+            self.finished = torch.zeros(B, num_beams, dtype=torch.bool,
+                                        device=dev)
+            self.toks = torch.zeros(new, B, num_beams, **i32)
+            self.parents = torch.zeros(new, B, num_beams, **i32)
+            self.lp = torch.zeros(B, num_beams, V, dtype=like.dtype,
+                                  device=dev)
+            self.scores = torch.zeros(B, num_beams, dtype=torch.float32,
+                                      device=dev)
+            self.base = torch.arange(B, device=dev)[:, None] * num_beams
+            self.body = type(model)._beam_step
+        else:
+            self.finished = torch.zeros(B, dtype=torch.bool, device=dev)
+            self.out = torch.zeros(B, new, **i32)
+            self.body = type(model)._generate_step
+        # sample_tokens' per-lane arguments; greedy (no noise) reads none
+        self.noise = self.generator = None
+        self.sample_args = (None, None, None, 1)
+        if do_sample:
+            self.noise = torch.zeros(B, V, dtype=torch.float32, device=dev)
+            # fill kernels: a host-to-device copy would sync
+            self.sample_args = (
+                torch.full((B,), True, device=dev),
+                torch.full((B,), float(temperature), device=dev),
+                torch.full((B,), int(top_k), device=dev),
+                min(int(top_k), V) if top_k > 0 else 1)
+        self.graph = None
+        self.params = _param_ptrs(model)
+        self.capture_ms = None
+        self.graph_launches: dict[str, int] = {}
+        self.graph_variants: dict[str, dict] = {}
+        self.replays = 0
+
+    @property
+    def model(self):
+        return self._model()
+
+    def sample(self, logits):
+        """Tokens [B] int32 from logits [B, V] (serving/generation.py
+        ``sample_tokens``): the argmax, or the Gumbel-max draw over the
+        temperature-scaled, top-k-cut logits with ``noise``."""
+        do, temp, top_k, k_max = self.sample_args
+        return sample_tokens(logits, do, temp, top_k, self.noise,
+                             k_max).to(torch.int32)
+
+    def draw(self):
+        """The next step's Gumbel rows into ``noise`` (sampling only), from
+        the call's generator on the device: no host sync."""
+        if self.noise is not None:
+            tiny = torch.finfo(torch.float32).tiny
+            torch.rand(self.noise.shape, generator=self.generator,
+                       device=self.noise.device, out=self.noise)
+            self.noise.clamp_min_(tiny).log_().neg_().log_().neg_()
+
+    def step(self):
+        """One decode step: a replay of the captured graph on the card,
+        else :meth:`_step_eager`."""
+        if self.graph is None:
+            return self._step_eager()
+        self.draw()
+        self.graph.replay()
+        self.replays += 1
+
+    def _step_eager(self):
+        self.draw()
+        self.body(self.model, self)
+
+    def capture(self):
+        """Capture the decode step into one CUDA graph.  A warm-up step
+        runs first on a side stream, so that the kernel libraries load,
+        cuBLAS's workspace is allocated and every lazy choice is made
+        outside the capture; it leaves garbage in the state, which every
+        call's prologue re-initialises.  The cyclic garbage collector is
+        off during the capture: a dead object's CUDA memory freed there
+        would invalidate it.  A capture that fails raises."""
+        dev, model = self.pos.device, self.model
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.body(model, self)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        counts, variants = kernels.launch_counts(), kernels.variant_launches()
+        graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self.body(model, self)
+        finally:
+            if collecting:
+                gc.enable()
+        after = kernels.variant_launches()
+        self.graph_launches = {n: c - counts[n] for n, c in
+                               kernels.launch_counts().items()
+                               if c != counts[n]}
+        self.graph_variants = {
+            n: {v: c - variants[n][v] for v, c in vs.items()}
+            for n, vs in after.items() if vs != variants[n]}
+        self.graph = graph
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+
+    def __call__(self, ids, seed):
+        """Generate for prompts ``ids`` [B, S] int32 on the model's
+        device: the capture at a key's first call on the card (on the
+        fresh state), the eager prologue, then ``new - 1`` decode steps.
+        Returns [B, S + new] int32."""
+        if self.graph is None and self.new > 1 \
+                and self.pos.device.type == "cuda":
+            self.capture()
+        if self.noise is not None:
+            self.generator = make_generator(seed, self.pos.device)
+        model = self.model
+        if self.beam:
+            model._beam_prologue(self, ids)
+        else:
+            model._generate_prologue(self, ids)
+        for _ in range(self.new - 1):
+            self.step()
+        if self.beam:
+            return model._beam_result(self, ids)
+        return torch.cat([ids, self.out], dim=1)
+
+
+def _param_ptrs(model):
+    return tuple(t.data_ptr() for t in model.parameters())
 
 
 class GPTForCausalLM(Layer):
@@ -387,3 +701,149 @@ class GPTForCausalLM(Layer):
                                        active, seq_cap)
         logits = self._head(gpt.ln_f(x))             # [slots, 1, V]
         return logits[:, 0], k_pages, v_pages
+
+    @torch.no_grad()
+    def slot_decode(self, tokens, pos, active, k_cache, v_cache):
+        """One decode iteration over the slot-batched dense KV cache:
+        tokens [slots] int, pos [slots] int32 write positions, active
+        [slots] bool, caches [layers, slots, S_max, nh, hd] (written in
+        place).  Returns (logits [slots, V], k_cache, v_cache)."""
+        self._check_eval()
+        caches = tuple((k_cache[i], v_cache[i])
+                       for i in range(self.cfg.num_layers))
+        hidden, _ = self.gpt.decode_slots(tokens[:, None], pos.to(torch.int32),
+                                          caches, active)
+        return self._head(hidden)[:, 0], k_cache, v_cache
+
+    # -- generate: the eager prologue and the decode step of a _DecodeRun --
+    def _generate_prologue(self, run, ids):
+        """Greedy / sampling: the batched prefill into the run's caches and
+        the first new token from its last position's logits."""
+        hidden = self.gpt._prefill_into(ids, run.caches)
+        run.finished.zero_()
+        run.pos.fill_(run.S)
+        run.draw()
+        self._generate_emit(run, self._head(hidden[:, -1:])[:, -1])
+
+    def _generate_step(self, run):
+        """One decode step (the reference's ``_generate_traced`` scan
+        body): the pending token at ``pos``, then the next one."""
+        hidden, _ = self.gpt.decode_step(run.tok[:, None], run.pos,
+                                         run.caches)
+        run.pos += 1
+        self._generate_emit(run, self._head(hidden)[:, -1])
+
+    def _generate_emit(self, run, logits):
+        """Sample from logits [B, V]; a finished row emits eos; the token
+        goes to column ``pos - S`` of the output."""
+        nxt = torch.where(run.finished, run.eos, run.sample(logits))
+        run.finished |= nxt == run.eos
+        run.out.index_copy_(1, (run.pos - run.S).long().reshape(1),
+                            nxt[:, None])
+        run.tok.copy_(nxt)
+
+    def _beam_prologue(self, run, ids):
+        """Beam search: one prefill per prompt, its K/V repeated into the
+        W beams' rows (beams diverge only after the first expansion), the
+        first expansion from its last position's log-probabilities."""
+        B, W = run.B, run.W
+        hidden = self.gpt._prefill_into(ids, run.caches, beams=W)
+        lg0 = self._head(hidden[:, -1:])[:, -1]                  # [B, V]
+        run.lp.copy_(torch.log_softmax(lg0, -1)[:, None, :].expand_as(
+            run.lp))
+        run.scores.fill_(torch.finfo(torch.float32).min)
+        run.scores[:, 0] = 0.0
+        run.finished.zero_()
+        run.pos.fill_(run.S)
+        self._beam_select(run)
+
+    def _beam_step(self, run):
+        """One decode step of the beams (the reference's ``_beam_traced``
+        scan body): the beams' pending tokens at ``pos``, then the next
+        expansion."""
+        hidden, _ = self.gpt.decode_step(run.tok[:, None], run.pos,
+                                         run.caches)
+        run.pos += 1
+        lg = self._head(hidden)[:, -1]                            # [B*W, V]
+        run.lp.copy_(torch.log_softmax(lg, -1).reshape(run.lp.shape))
+        self._beam_select(run)
+
+    def _beam_select(self, run):
+        """Expand the W beams over the vocabulary (text.beam_search_step;
+        finished beams keep their score and propose only eos), record the
+        step's ids and parents at ``pos - S``, and reorder the caches and
+        the finished mask along the surviving parents, in place."""
+        tok, parents, scores = beam_search_step(
+            run.lp, run.scores, run.W, end_token=run.eos,
+            finished=run.finished)
+        run.finished.copy_(run.finished.gather(1, parents)
+                           | (tok == run.eos))
+        run.scores.copy_(scores)
+        t = (run.pos - run.S).long().reshape(1)
+        run.toks.index_copy_(0, t, tok[None].to(torch.int32))
+        run.parents.index_copy_(0, t, parents[None].to(torch.int32))
+        sel = (run.base + parents).reshape(-1)
+        for kc, vc in run.caches:
+            kc.copy_(kc.index_select(0, sel))
+            vc.copy_(vc.index_select(0, sel))
+        run.tok.copy_(tok.reshape(-1))
+
+    def _beam_result(self, run, ids):
+        """Backtrack the surviving paths (text.beam_search_decode) and
+        append each prompt's best beam: [B, S + new] int32."""
+        seqs, scores = beam_search_decode(run.toks, run.parents, run.scores)
+        best = scores.argmax(1)
+        seq = seqs[torch.arange(run.B, device=best.device), best]
+        return torch.cat([ids, seq.to(torch.int32)], dim=1)
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens=32, temperature=1.0,
+                 top_k=0, do_sample=False, seed=0, num_beams=1,
+                 eos_token_id=None):
+        """Autoregressive generation over a dense KV cache.
+
+        Greedy by default; ``do_sample=True`` samples (temperature, top-k,
+        Gumbel-max from a ``torch.Generator`` on the model's device seeded
+        with ``seed``: deterministic per seed, not JAX's stream);
+        ``num_beams > 1`` runs beam search (no length penalty; finished
+        beams propose only ``eos_token_id``).  A row that emits
+        ``eos_token_id`` emits only eos afterwards.  The prefill runs
+        eagerly; the decode step is one CUDA graph per (batch, prompt
+        length, max_new_tokens, mode) key, captured at the key's first
+        call on the card, kept in ``self._gen_cache`` and replayed
+        ``max_new_tokens - 1`` times a call; a later call of a key makes
+        no host sync.  Returns [B, prompt_len + max_new_tokens] int32 on
+        the model's device, prompt included."""
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if num_beams > 1 and do_sample:
+            raise ValueError("beam search and sampling are exclusive "
+                             "(num_beams > 1 with do_sample=True)")
+        ids = torch.as_tensor(input_ids).to(device=self.device,
+                                            dtype=torch.int32)
+        B, S = ids.shape
+        new = int(max_new_tokens)
+        if S + new > self.cfg.max_position_embeddings:
+            raise ValueError(
+                f"prompt {S} + max_new_tokens {max_new_tokens} exceeds "
+                f"max_position_embeddings "
+                f"{self.cfg.max_position_embeddings}")
+        was_training = self.training
+        self.eval()
+        try:
+            eos = None if eos_token_id is None else int(eos_token_id)
+            # sampling knobs only shape the step when do_sample is on
+            key = (B, S, new, bool(do_sample), int(num_beams), eos,
+                   (float(temperature), int(top_k)) if do_sample else None)
+            cache = self.__dict__.setdefault("_gen_cache", {})
+            run = cache.get(key)
+            if run is None or run.params != _param_ptrs(self):
+                # a new key, or parameters moved since its capture
+                run = cache[key] = _DecodeRun(
+                    self, B, S, new, bool(do_sample), temperature, top_k,
+                    int(num_beams),
+                    self.cfg.vocab_size if eos is None else eos)
+            return run(ids, seed)
+        finally:
+            if was_training:
+                self.train()

@@ -15,8 +15,12 @@ eager step's tokens bitwise through hits, chunks, both sampling modes, a
 mid-decode admission and a cancel, is never captured again, leaves the
 idle state as it was, and a replayed step syncs once; ``Model.fit``'s
 resume from a checkpoint (after a SIGTERM, and into graphs already
-captured) is bitwise the unbroken run at dropout 0.1.  Needs a CUDA
-device (skips elsewhere); on the card:
+captured) is bitwise the unbroken run at dropout 0.1; ``generate``'s
+decode step, captured once a key, gives the eager step's tokens bitwise
+(greedy, sampled, beam, eos), a later call of a key makes no host sync,
+the capture counts its kernels and a replayed call's trace shows their
+fast variants, and HF interop onto a card model keeps the parameters'
+device and dtype.  Needs a CUDA device (skips elsewhere); on the card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
@@ -2910,3 +2914,183 @@ def test_pinned_batches_survive_a_slow_card(dev, workers):
     got, loader = _slow_fit(dev, 20_000_000, workers)
     assert len(got) == 12 and got == want
     assert loader.placement is None
+
+
+GEN_CFG = dict(vocab_size=211, hidden_size=128, num_layers=2, num_heads=2,
+               max_position_embeddings=64, dropout=0.0, attn_dropout=0.0)
+GEN_MODES = {
+    "greedy": dict(max_new_tokens=12),
+    "sample": dict(max_new_tokens=12, do_sample=True, top_k=8,
+                   temperature=0.8, seed=3),
+    "beam": dict(max_new_tokens=10, num_beams=4),
+    "eos": dict(max_new_tokens=12, eos_token_id=None),
+}
+
+
+def _gen_model(dev, dtype):
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    seed(0)
+    return GPTForCausalLM(GPTConfig(**GEN_CFG), device=dev,
+                          dtype=dtype).eval()
+
+
+def _gen_prompt(dev, B=3, S=9):
+    g = torch.Generator().manual_seed(B * S)
+    return torch.randint(0, 211, (B, S), generator=g,
+                         dtype=torch.int32).to(dev)
+
+
+def _gen_kw(model, ids, mode):
+    kw = dict(GEN_MODES[mode])
+    if mode == "eos":
+        # row 0's third new token: that row finishes early
+        kw["eos_token_id"] = int(model.generate(ids, max_new_tokens=12)[
+            0, ids.shape[1] + 2])
+        model._gen_cache.clear()
+    return kw
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode", list(GEN_MODES))
+def test_generate_graph_is_bitwise_the_eager_step(dev, dtype, mode):
+    """generate's decode step, captured once a key and replayed, gives the
+    eager step's tokens bitwise (the key's step swapped for
+    ``_step_eager``), and a later call of the key the same again."""
+    model = _gen_model(dev, dtype)
+    ids = _gen_prompt(dev)
+    kw = _gen_kw(model, ids, mode)
+    graph = model.generate(ids, **kw)
+    (run,) = model._gen_cache.values()
+    assert run.graph is not None and run.replays == kw["max_new_tokens"] - 1
+    run.step = run._step_eager
+    try:
+        eager = model.generate(ids, **kw)
+    finally:
+        del run.step
+    assert torch.equal(graph, eager)
+    assert torch.equal(model.generate(ids, **kw), graph)
+    assert graph.shape == (3, 9 + kw["max_new_tokens"])
+    assert graph.dtype == torch.int32 and graph.device.type == "cuda"
+
+
+@pytest.mark.parametrize("mode", list(GEN_MODES))
+def test_generate_second_call_makes_no_sync(dev, mode):
+    """A later call of a key (the prefill, the first token, the replays,
+    the beams' backtrack) makes no host sync: under
+    torch.cuda.set_sync_debug_mode("error") any sync raises."""
+    model = _gen_model(dev, torch.bfloat16)
+    ids = _gen_prompt(dev)
+    kw = _gen_kw(model, ids, mode)
+    first = model.generate(ids, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        second = model.generate(ids, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(first, second)
+
+
+def test_generate_capture_counts_its_kernels_and_replays_the_fast_ones(dev):
+    """The wrappers count the kernels launched inside the capture (the
+    key's ``graph_launches``: 5 LayerNorm, 2 bias-GeLU a step for 2
+    layers), every one on its fast variant; in the trace of a replayed
+    call each replay (the kernels carrying its ``cudaGraphLaunch``
+    correlation id) holds exactly those fast kernels, LayerNorm's warp
+    kernel and the vector bias-GeLU, and the eager prefill the
+    tensor-core attention, no launch of a slower kernel anywhere."""
+    import collections
+    import re
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.ops import kernels
+
+    model = _gen_model(dev, torch.bfloat16)
+    ids = _gen_prompt(dev, B=2, S=16)
+    before = kernels.launch_counts()
+    model.generate(ids, max_new_tokens=6)
+    (run,) = model._gen_cache.values()
+    assert run.graph_launches == {"layer_norm": 5, "bias_gelu": 2}
+    assert run.graph_variants == {"layer_norm": {"block": 0, "warp": 5},
+                                  "bias_gelu": {"scalar": 0, "vec": 2}}
+    after = kernels.launch_counts()
+    # the prefill, the warm-up step and the capture
+    assert after["layer_norm"] - before["layer_norm"] == 15
+    assert after["flash_attention"] - before["flash_attention"] == 2
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # idle edges: a trace closed right after its last kernels can lack
+        # their records (chip_smoke.trace_window)
+        time.sleep(0.05)
+        model.generate(ids, max_new_tokens=6)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    events = prof.profiler.kineto_results.events()
+    replays = {e.correlation_id(): collections.Counter() for e in events
+               if e.name() == "cudaGraphLaunch"}
+    eager = collections.Counter()
+    pattern = re.compile(r"(?<!\w)(layer_norm_warp_kernel|layer_norm_fwd_"
+                         r"kernel|bias_gelu_fwd_vec_kernel|bias_gelu_fwd_"
+                         r"kernel|flash_fwd_mma_kernel|flash_fwd_kernel)"
+                         r"(?:<|\()")
+    for e in events:
+        m = pattern.search(e.name())
+        if e.device_type() == DeviceType.CUDA and m:
+            replays.get(e.correlation_id(), eager)[m.group(1)] += 1
+    assert len(replays) == 5
+    for held in replays.values():
+        assert held == {"layer_norm_warp_kernel": 5,
+                        "bias_gelu_fwd_vec_kernel": 2}, held
+    assert eager["flash_fwd_mma_kernel"] == 2
+    assert set(eager) <= {"layer_norm_warp_kernel",
+                          "bias_gelu_fwd_vec_kernel",
+                          "flash_fwd_mma_kernel"}, eager
+
+
+def test_generate_rebuilds_a_key_after_the_parameters_moved(dev):
+    """A cast replaces the parameters' storage, which a captured step
+    would still read: the next call of the key captures anew, in the new
+    dtype, and equals a fresh model's."""
+    model = _gen_model(dev, torch.float32)
+    ids = _gen_prompt(dev)
+    model.generate(ids, max_new_tokens=5)
+    model.to(dtype=torch.bfloat16)
+    out = model.generate(ids, max_new_tokens=5)
+    (run,) = model._gen_cache.values()
+    assert run.caches[0][0].dtype == torch.bfloat16
+    fresh = _gen_model(dev, torch.float32).to(dtype=torch.bfloat16)
+    assert torch.equal(out, fresh.generate(ids, max_new_tokens=5))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_hf_interop_onto_a_card_model_keeps_device_and_dtype(dev, dtype):
+    """load_hf_gpt2 copies a state dict (numpy, from to_hf_gpt2_state of a
+    CPU model) into a card model's parameters in place: same tensors, on
+    the card, in the model's dtype, equal to the source cast; the loaded
+    model generates the CPU model's greedy tokens in float32."""
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.models.interop import (load_hf_gpt2,
+                                                 to_hf_gpt2_state)
+
+    seed(5)
+    src = GPTForCausalLM(GPTConfig(**GEN_CFG), device="cpu").eval()
+    model = _gen_model(dev, dtype)
+    params = {n: p for n, p in model.named_parameters()}
+    ptrs = {n: p.data_ptr() for n, p in params.items()}
+    load_hf_gpt2(model, to_hf_gpt2_state(src))
+    for (n, p), (_, s) in zip(model.named_parameters(),
+                              src.named_parameters()):
+        assert p is params[n] and p.data_ptr() == ptrs[n]
+        assert p.device.type == "cuda" and p.dtype == dtype
+        assert torch.equal(p.cpu(), s.detach().to(dtype)), n
+    if dtype == torch.float32:
+        ids = _gen_prompt(dev)
+        got = model.generate(ids, max_new_tokens=4).cpu()
+        assert torch.equal(got, src.generate(ids.cpu(), max_new_tokens=4))

@@ -1,7 +1,8 @@
 """Boundaries of the PyTorch/CUDA port.
 
 * No module of ``paddle_tpu_torch`` (nor ``chip_smoke.py``) imports JAX,
-  anything of the JAX package or ``ml_dtypes``.  The scan is static
+  anything of the JAX package, ``ml_dtypes`` or ``transformers`` (the
+  card's machine need not have them).  The scan is static
   (AST): the test process has jax loaded already, so ``sys.modules``
   would tell nothing.
 * Entry points given ``device=None`` mean the CUDA card and raise
@@ -26,7 +27,7 @@ from paddle_tpu_torch.serving import GenerationEngine
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "paddle_tpu", "ml_dtypes"}
+FORBIDDEN = {"jax", "jaxlib", "paddle_tpu", "ml_dtypes", "transformers"}
 TINY = GPTConfig(vocab_size=17, hidden_size=8, num_layers=1, num_heads=2,
                  max_position_embeddings=16, dropout=0.0, attn_dropout=0.0)
 
@@ -71,7 +72,10 @@ def test_scan_covers_the_package():
             "paddle_tpu_torch/utils/chaos.py",
             "paddle_tpu_torch/utils/metrics.py",
             "paddle_tpu_torch/utils/flops.py",
-            "paddle_tpu_torch/hapi/model_summary.py"} <= rel
+            "paddle_tpu_torch/hapi/model_summary.py",
+            "paddle_tpu_torch/models/interop.py",
+            "paddle_tpu_torch/text/__init__.py",
+            "paddle_tpu_torch/nn/decode.py"} <= rel
 
 
 def _no_cuda():
