@@ -243,6 +243,17 @@ passed over):
                   fast, the launches a call implies); rows 1, 2 and 6
                   against their plain versions at the path's shapes; the
                   HF GPT-2 export loaded back on the card bitwise.
+31. spec       — speculative decode in GenerationEngine on GPT-2-small
+                  at the serving defaults, spec_tokens 4, the speculative
+                  step one CUDA graph: float32 waves through the plain
+                  engine, a 2-layer draft, a self-draft and a bad draft
+                  (tokens the plain engine's up to the first near tie,
+                  the self-draft's accept ratio >= 0.9, the bad draft's
+                  < 0.9); bf16 graph = eager bitwise, a sampled stream
+                  the plain engine's up to a near tie of its draw, one
+                  sync a step, a traced wave's replays at the graph's
+                  launches on fast kernels; rows 1, 2 and 9 at the
+                  path's shapes.
 
 The AccumulateGrad stream warning (a backward accumulating into a node of
 another stream: the training engine's warm-up meeting a dygraph graph
@@ -1173,11 +1184,13 @@ def db_timing(torch, K, x, b, dy):
         f"{(dx.numel() * 2 + F * 4) / HBM_BYTES_PER_S * 1e3}")
 
 
-def decode_run(torch, model, prompt, n_steps, feed=None):
+def decode_run(torch, model, prompt, n_steps, feed=None, verify=False):
     """slot_prefill of ``prompt`` then ``n_steps`` slot_decode_paged steps
-    of lane 0 (lane 1 inactive) on the model's device.  Tokens fed after
-    the prefill come from ``feed`` (teacher forcing) or greedy argmax.
-    Returns (list of logits [V] as float32 CPU tensors, fed tokens)."""
+    of lane 0 (lane 1 inactive) on the model's device (``verify``:
+    slot_verify_paged steps of one candidate, the speculative step's first
+    position).  Tokens fed after the prefill come from ``feed`` (teacher
+    forcing) or greedy argmax.  Returns (list of logits [V] as float32 CPU
+    tensors, fed tokens)."""
     from paddle_tpu_torch.serving import kv_cache as kc
 
     cfg, dev = model.cfg, model.device
@@ -1205,9 +1218,15 @@ def decode_run(torch, model, prompt, n_steps, feed=None):
         pages, fc = kc.take_pages(st["free_stack"], st["free_count"], need)
         st["ptab"][lane, pidx] = torch.where(need, pages, cur)
         st["free_count"].copy_(fc)
-        lg, _, _ = model.slot_decode_paged(st["tok"], st["pos"], st["active"],
-                                           st["kp"], st["vp"], st["ptab"],
-                                           geom.max_seq_len)
+        if verify:
+            lg, _, _ = model.slot_verify_paged(
+                st["tok"][:, None], st["pos"][:, None], st["active"],
+                st["kp"], st["vp"], st["ptab"], geom.max_seq_len)
+            lg = lg[:, 0]
+        else:
+            lg, _, _ = model.slot_decode_paged(
+                st["tok"], st["pos"], st["active"], st["kp"], st["vp"],
+                st["ptab"], geom.max_seq_len)
         out.append(lg[0].float().cpu())
     return out, toks
 
@@ -1276,7 +1295,8 @@ def replay_launches(events):
     in a trace's kineto events, by the ``cudaGraphLaunch`` whose
     correlation id a kernel carries: {"per_replay": {entry: [launches in
     each replay, in launch order]}, "outside": {entry: launches outside
-    any replay}}."""
+    any replay}, "device": [(device events, their summed device ms) of
+    each replay]}."""
     from torch.autograd import DeviceType
 
     entry = {k: n for n, variants in TRACE_KERNELS.items()
@@ -1287,7 +1307,13 @@ def replay_launches(events):
     index = {c: i for i, (_, c) in enumerate(graphs)}
     per = {n: [0] * len(graphs) for n in TRACE_KERNELS}
     outside = dict.fromkeys(TRACE_KERNELS, 0)
+    device = [[0, 0.0] for _ in graphs]
     for e in events:
+        if e.device_type() == DeviceType.CUDA \
+                and e.correlation_id() in index:
+            d = device[index[e.correlation_id()]]
+            d[0] += 1
+            d[1] += e.duration_ns() / 1e6
         m = e.device_type() == DeviceType.CUDA and pattern.search(e.name())
         if m:
             name = entry[m.group(1)]
@@ -1296,7 +1322,8 @@ def replay_launches(events):
                 outside[name] += 1
             else:
                 per[name][i] += 1
-    return {"per_replay": per, "outside": outside}
+    return {"per_replay": per, "outside": outside,
+            "device": [tuple(d) for d in device]}
 
 
 def traced_launches(kernels, dropped=None):
@@ -1390,16 +1417,17 @@ def profile_wave(torch, eng, prompts, tag="[profile]"):
     return wall_ms, busy_ms
 
 
-def sync_check(torch, eng, prompts):
-    """Every ``GenerationEngine.step()`` of a few requests (greedy and
-    sampled alternating) under ``torch.cuda.set_sync_debug_mode("warn")``:
-    a step (the noise draw, the graph's replay and the fetch) makes
-    exactly one synchronizing call, its copy of the tokens to the host in
+def sync_check(torch, eng, prompts, step_name="step"):
+    """Every ``GenerationEngine.step()`` (``step_name``: or its
+    ``step_spec()``) of a few requests (greedy and sampled alternating)
+    under ``torch.cuda.set_sync_debug_mode("warn")``: a step (the noise
+    draw, the graph's replay and the fetch) makes exactly one
+    synchronizing call, its copy of the tokens to the host in
     serving/generation.py; any other sync fails the run.  Returns the
     summary for the serving line."""
     import warnings
 
-    step, seen = eng.step, []
+    step, seen = getattr(eng, step_name), []
 
     def checked_step():                 # runs on the decode thread
         with warnings.catch_warnings(record=True) as caught:
@@ -1414,7 +1442,7 @@ def sync_check(torch, eng, prompts):
                      if str(w.message).startswith(SYNC_WARNING)])
         return out
 
-    eng.step = checked_step
+    setattr(eng, step_name, checked_step)
     try:
         handles = [eng.submit(p, 8, **(dict(do_sample=True, temperature=0.8,
                                             top_k=8, seed=i) if i % 2
@@ -1423,7 +1451,7 @@ def sync_check(torch, eng, prompts):
         for h in handles:
             h.result(600)
     finally:
-        del eng.step
+        delattr(eng, step_name)
     where = {loc for syncs in seen for loc in syncs}
     if not seen or any(len(syncs) != 1 for syncs in seen) \
             or {f for f, _ in where} != {"generation.py"}:
@@ -6758,6 +6786,360 @@ def generate_phase(torch, K, card):
                     "shapes": shapes}
 
 
+SPEC_K = 4              # draft proposals a speculative step
+SPEC_NEW = 48           # new tokens a request of the [spec] waves
+SPEC_SAMPLE = dict(do_sample=True, top_k=40, temperature=0.8, seed=7)
+SPEC_KERNELS = ("layer_norm", "bias_gelu", "paged_decode_attention")
+
+
+def spec_prompts(vocab, seed=40):
+    """16 prompts: 8 of a shared 64-token prefix and 20-64 tokens of their
+    own (prefix-cache hits after the first), 8 of 20-128 fresh tokens."""
+    rng = np.random.RandomState(seed)
+    shared = rng.randint(0, vocab, 64).tolist()
+    out = []
+    for _ in range(8):
+        out.append(shared + rng.randint(0, vocab,
+                                        rng.randint(20, 65)).tolist())
+        out.append(rng.randint(0, vocab, rng.randint(20, 129)).tolist())
+    return out
+
+
+def spec_draft(torch, model, layers=2, own_seed=None):
+    """A ``GPTConfig(num_layers=layers)`` draft on the card in the model's
+    dtype holding the target's embeddings, first ``layers`` blocks and
+    ln_f (layers 12: a self-draft); with ``own_seed``, initialised from
+    that seed instead (a bad draft)."""
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    seed(0 if own_seed is None else own_seed)
+    draft = GPTForCausalLM(
+        GPTConfig(num_layers=layers, dropout=0.0, attn_dropout=0.0),
+        device="cuda", dtype=model.dtype).eval()
+    if own_seed is None:
+        sd = model.state_dict()
+        draft.set_state_dict({k: sd[k] for k in draft.state_dict()})
+    return draft
+
+
+def spec_wave(eng, prompts, kws=None):
+    """Every prompt submitted at once (``kws``: each one's sampling
+    arguments), all waited for: (outputs, wall s, the wave's metrics)."""
+    from paddle_tpu_torch.serving.metrics import GenerationMetrics
+
+    eng.metrics = GenerationMetrics(max_slots=eng.max_slots,
+                                    num_pages=eng.geometry.num_pages)
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, SPEC_NEW, **(kws[i] if kws else {}))
+               for i, p in enumerate(prompts)]
+    outs = [h.result(600) for h in handles]
+    wall = time.perf_counter() - t0
+    if any(len(o) != SPEC_NEW for o in outs):
+        fail(f"[spec] a request gave {[len(o) for o in outs]} tokens")
+    pages_accounted(eng, "[spec] wave")
+    return outs, wall, eng.metrics.snapshot()
+
+
+def spec_tie_check(torch, model, prompts, ref, got, what, skip=()):
+    """Each request's greedy tokens ``got`` (but those of ``skip``) equal
+    ``ref`` (the plain engine's) up to the first that differs; there the
+    model's float32 forward logits of ref's sequence must hold a near tie
+    (top-2 margin within LOGITS_REL_TOL x max|logits|, got's token one of
+    the two).  Returns the (request, new token) of each tie."""
+    ties = []
+    for i, (p, a, b) in enumerate(zip(prompts, ref, got)):
+        if a == b or i in skip:
+            continue
+        t = next(j for j in range(len(a)) if a[j] != b[j])
+        with torch.no_grad():
+            lg = model(torch.tensor([p + a], device=model.device))[
+                0, len(p) + t - 1].float()
+        top = lg.topk(2)
+        margin = float(top.values[0] - top.values[1])
+        if margin > LOGITS_REL_TOL * float(lg.abs().max()) \
+                or b[t] not in top.indices.tolist():
+            fail(f"{what}: request {i} differs from the plain engine's at "
+                 f"new token {t} ({b[t]} vs {a[t]}), where the top-2 margin "
+                 f"is {margin:.3e}")
+        ties.append((i, t))
+    return ties
+
+
+def spec_sampled_check(torch, model, prompt, ref, got, kw, what):
+    """A sampled stream ``got`` equals ``ref`` (the plain engine's, same
+    seed) up to the first token t that differs; there the draw must be a
+    near tie.  Both steps are taken again, teacher-forced on ref's tokens:
+    the plain step's logits (slot_decode_paged, row 9) and the
+    speculative step's (slot_verify_paged), each over a cache it wrote
+    itself; d = max|their difference| at t.  With the step's Gumbel row
+    (drawn again from the request's seed, one row a token as the engines
+    draw them), z = (the plain logits / T, top-k cut) + noise must have a
+    top-2 margin within max(2 d, the dtype's floor) / T (floor:
+    LOGITS_REL_TOL x max|logits| in float32, BF16_TOL x max(1, max|logits|)
+    in bf16), and got's token must be one of the two.  Returns (t, margin,
+    tolerance), or None when the streams are equal."""
+    from paddle_tpu_torch.framework.random import make_generator
+
+    if got == ref:
+        return None
+    t = next(j for j in range(len(ref)) if ref[j] != got[j])
+    with torch.no_grad():
+        dec, _ = decode_run(torch, model, prompt, t, feed=ref[:t])
+        ver, _ = decode_run(torch, model, prompt, t, feed=ref[:t],
+                            verify=True)
+    lg = dec[t]
+    d = float((lg - ver[t]).abs().max())
+    top_abs = float(lg.abs().max())
+    floor = LOGITS_REL_TOL * top_abs if model.dtype == torch.float32 \
+        else BF16_TOL * max(1.0, top_abs)
+    V = model.cfg.vocab_size
+    gen = make_generator(kw["seed"], model.device)
+    for _ in range(t + 1):
+        u = torch.rand(V, generator=gen, device=model.device)
+    noise = -torch.log(-torch.log(u.clamp_min(torch.finfo(
+        torch.float32).tiny))).cpu()
+    lg2 = lg / kw["temperature"]
+    kth = lg2.topk(kw["top_k"]).values[-1]
+    z = torch.where(lg2 < kth, torch.finfo(torch.float32).min, lg2) + noise
+    top = z.topk(2)
+    margin = float(top.values[0] - top.values[1])
+    tol = max(2 * d, floor) / kw["temperature"]
+    if margin > tol or got[t] not in top.indices.tolist():
+        fail(f"{what}: the sampled stream differs from the plain engine's "
+             f"at new token {t} ({got[t]} vs {ref[t]}) with a draw margin "
+             f"{margin:.3e} > {tol:.3e} (the two steps' logits differ by "
+             f"{d:.3e} there)")
+    return t, margin, tol
+
+
+def spec_kernel_shapes(torch, K):
+    """Rows 1, 2 and 9 against their plain versions at the speculative
+    step's shapes, bf16: LayerNorm and bias-GeLU at the verify's R = 8
+    slots x (K + 1) = 40 rows, paged decode at the draft pool's geometry
+    (8 slots, 12 heads x 64, page 16, 32 pages a slot) with a wave's lane
+    extents.  Returns {kernel: record}."""
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(21)
+    dt, isz = torch.bfloat16, 2
+    R, N, Fd = SERVING_ENGINE["max_slots"] * (SPEC_K + 1), 768, 3072
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale
+                ).to(dt)
+
+    x, w, b = rnd(R, N), 1 + rnd(N, scale=0.1), rnd(N, scale=0.1)
+    recs = {"layer_norm": compare(
+        torch, f"[spec] layer_norm bf16 verify R={R} N={N}",
+        lambda: K.layer_norm.layer_norm(x, w, b, 1e-5),
+        lambda: K.layer_norm.layer_norm_plain(x, w, b, 1e-5),
+        lambda: F.layer_norm(x, (N,), w, b, 1e-5), dt,
+        (2 * R * N + 2 * N) * isz, 8 * R * N, PEAK_F32,
+        variant=("layer_norm", "warp"))}
+    xf, bf = rnd(R, Fd), rnd(Fd, scale=0.1)
+    recs["bias_gelu"] = compare(
+        torch, f"[spec] bias_gelu bf16 verify R={R} F={Fd}",
+        lambda: K.bias_gelu.bias_gelu(xf, bf),
+        lambda: K.bias_gelu.bias_gelu_plain(xf, bf),
+        lambda: F.gelu(xf + bf), dt, (2 * R * Fd + Fd) * isz, 5 * R * Fd,
+        PEAK_F32, variant=("bias_gelu", "vec"))
+    recs["paged_decode_attention"] = paged_case(
+        torch, K, g, dt, "[spec] draft pool",
+        (84, 150, 101, 176, 97, 133, 120, 160), ps=16, hd=64)
+    return recs
+
+
+def spec_trace(torch, eng, prompts, what):
+    """A wave of greedy requests through ``eng``'s captured step under
+    the profiler, traced again (up to GEN_TRACE_WINDOWS times) until
+    every replay in the trace holds exactly the graph's launches of rows
+    1, 2 and 9; no traced launch of theirs on a slower kernel.  Returns
+    (wall ms, busy ms, replays traced, per replay (device events, device
+    ms) in the trace)."""
+    per_step = {n: eng.graph_launches[n] for n in SPEC_KERNELS}
+    for window in range(1, GEN_TRACE_WINDOWS + 1):
+        by_replay = {}
+        _, wall_ms, kernels = trace_window(
+            torch, lambda: [h.result(600) for h in
+                            [eng.submit(p, SPEC_NEW) for p in prompts]],
+            replays=by_replay)
+        require_traced(kernels, what, SPEC_KERNELS)
+        per = {n: by_replay["per_replay"][n] for n in per_step}
+        if any(c > per_step[n] for n, cs in per.items() for c in cs):
+            fail(f"{what}: a replay in the trace holds more launches than "
+                 f"the graph's {per_step}: {per}")
+        n = len(per["layer_norm"])
+        whole = sum(all(per[k][i] == per_step[k] for k in per_step)
+                    for i in range(n))
+        if n and whole == n:
+            return (wall_ms, sum(t for t, _, _ in kernels), n,
+                    by_replay["device"])
+        log(f"{what}: traced window {window} holds {whole} whole replays "
+            f"of {n}")
+    fail(f"{what}: {GEN_TRACE_WINDOWS} traced waves all lacked records of "
+         "a replay")
+
+
+def spec_phase(torch, K, card):
+    """[spec]: speculative decode in GenerationEngine on full-width
+    GPT-2-small (GPTConfig(), dropout 0) at the serving engine's defaults
+    (8 slots x 512, page 16, prefix cache on), spec_tokens 4, the
+    speculative step (the draft's 5 chained paged decode calls and the
+    target's verify) one CUDA graph.  float32: 16 requests (8 on a
+    shared 64-token prefix; request 1 sampled, seed 7, top-k 40, T 0.8)
+    through the plain engine, a 2-layer draft (the target's embeddings,
+    first two blocks and ln_f), a self-draft (12 layers, the target's
+    weights) and a bad draft (2 layers seeded on their own): greedy tokens
+    equal to the plain engine's up to the first near tie, the sampled
+    stream up to the first near tie of its draw, the self-draft's accept
+    ratio >= 0.9, the bad draft's < 0.9.  bf16, the 2-layer draft: the
+    same wave through the graph and through ``_step_spec_eager`` bitwise
+    equal; the sampled stream the plain engine's up to the first near tie
+    of its draw; a second wave's steps make one sync each, the fetch; a
+    traced wave's replays hold rows 1, 2 and 9 on their fast kernels at
+    the graph's counts; device ms, launches and tokens a step, accept
+    ratio, tokens/s and TTFT beside the plain graph engine's, busy share.
+    Returns ({kernel: launches on the path}, {kernel: shape record})."""
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    t_phase = time.perf_counter()
+    cfg = GPTConfig(dropout=0.0, attn_dropout=0.0)
+    seed(0)
+    model = GPTForCausalLM(cfg, device="cuda").eval()
+    prompts = spec_prompts(cfg.vocab_size)
+
+    def engine(draft):
+        return GenerationEngine(model, device=model.device,
+                                draft_model=draft, spec_tokens=SPEC_K,
+                                **SERVING_ENGINE).start()
+
+    # request 1 samples (seed 7, top-k 40, T 0.8), the others are greedy
+    kws = [SPEC_SAMPLE if i == 1 else {} for i in range(len(prompts))]
+
+    # float32
+    f32 = {}
+    for name, layers, own in (("plain", 0, None), ("draft-2", 2, None),
+                              ("self-draft", 12, None),
+                              ("bad-draft", 2, 99)):
+        draft = spec_draft(torch, model, layers, own) if layers else None
+        eng = engine(draft)
+        try:
+            if eng.capture_count != 1:
+                fail(f"[spec] f32 {name}: captured {eng.capture_count}x")
+            outs, wall, snap = spec_wave(eng, prompts, kws)
+        finally:
+            eng.stop()
+        del draft
+        f32[name] = {"outs": outs, "ratio": snap["spec_accept_ratio"],
+                     "hits": snap["prefix_cache_hits"],
+                     "tokens_s": len(prompts) * SPEC_NEW / wall}
+        if name != "plain":
+            plain = f32["plain"]["outs"]
+            f32[name]["ties"] = spec_tie_check(
+                torch, model, prompts, plain, outs, f"[spec] f32 {name}",
+                skip=(1,))
+            f32[name]["sampled_tie"] = spec_sampled_check(
+                torch, model, prompts[1], plain[1], outs[1], SPEC_SAMPLE,
+                f"[spec] f32 {name} sampled")
+    if f32["self-draft"]["ratio"] < 0.9:
+        fail(f"[spec] the self-draft accepted {f32['self-draft']['ratio']}"
+             " of its proposals, below 0.9")
+    if not 0.0 <= f32["bad-draft"]["ratio"] < 0.9:
+        fail(f"[spec] the bad draft accepted {f32['bad-draft']['ratio']}")
+    log(f"[spec] float32 GPT-2-small on {card}, 16 requests x {SPEC_NEW} "
+        f"new (request 1 sampled: seed 7, top-k 40, T 0.8), spec_tokens "
+        f"{SPEC_K}: " + "; ".join(
+            f"{n} accept ratio {r['ratio']:.4f}, {r['tokens_s']:.1f} "
+            f"tokens/s, prefix hits {r['hits']}"
+            + (f", greedy tokens = plain's up to near ties at {r['ties']}, "
+               f"the sampled request's up to {r['sampled_tie']}"
+               if "ties" in r else "") for n, r in f32.items())
+        + " (a tie: (request, new token); the sampled one: (new token, "
+          "draw margin, tolerance), None when equal throughout)")
+    mark("spec: float32")
+
+    # bf16, the 2-layer draft
+    model.to(dtype=torch.bfloat16)
+    release(torch, "spec bf16")
+    draft = spec_draft(torch, model)
+    bf = {}
+    for form in ("plain", "graph", "eager"):
+        eng = engine(None if form == "plain" else draft)
+        try:
+            if form == "eager":
+                eng.step_spec = eng._step_spec_eager
+            K.reset_launch_counts()
+            outs, wall, snap = spec_wave(eng, prompts, kws)
+            bf[form] = {"outs": outs, "snap": snap, "replays": eng.replays,
+                        "tokens_s": len(prompts) * SPEC_NEW / wall,
+                        "wall": wall}
+            if form == "graph":
+                graph_fast = graph_check(eng, "[spec] bf16 graph")
+                launches = dict(eng.graph_launches)
+                # the wrappers count the eager prefills (and the warm-up
+                # and capture); a replay counts nothing
+                spec_counts = {n: K.launch_counts()[n]
+                               + launches.get(n, 0) * eng.replays
+                               for n in SPEC_KERNELS}
+                fresh = spec_prompts(cfg.vocab_size, seed=41)
+                syncs = sync_check(torch, eng, fresh[:4], "step_spec")
+                traced = spec_trace(torch, eng, spec_prompts(
+                    cfg.vocab_size, seed=42)[:8], "[spec] bf16 trace")
+            elif form == "plain":
+                plain_traced = spec_trace(torch, eng, spec_prompts(
+                    cfg.vocab_size, seed=42)[:8], "[spec] bf16 plain trace")
+        finally:
+            eng.stop()
+    diff = [i for i in range(len(prompts))
+            if bf["graph"]["outs"][i] != bf["eager"]["outs"][i]]
+    if diff:
+        fail(f"[spec] bf16: requests {diff} differ between the graph and "
+             "the eager step")
+    tie = spec_sampled_check(torch, model, prompts[1],
+                             bf["plain"]["outs"][1], bf["graph"]["outs"][1],
+                             SPEC_SAMPLE, "[spec] bf16 sampled")
+    same = sum(bf["plain"]["outs"][i] == bf["graph"]["outs"][i]
+               for i in range(len(prompts)) if i != 1)
+    for name in SPEC_KERNELS:
+        if spec_counts[name] <= 0 or launches.get(name, 0) <= 0:
+            fail(f"[spec] {name} was not launched on the path: "
+                 f"{spec_counts}, a replay {launches}")
+    shapes = spec_kernel_shapes(torch, K)
+    g, p = bf["graph"], bf["plain"]
+    wall_ms, busy_ms, n_rep, dev = traced
+    step_ms = float(np.median([d for _, d in dev]))
+    step_launches = float(np.median([n for n, _ in dev]))
+    plain_ms = float(np.median([d for _, d in plain_traced[3]]))
+    plain_launches = float(np.median([n for n, _ in plain_traced[3]]))
+    tokens_a_step = (len(prompts) * (SPEC_NEW - 1)) / g["replays"]
+    log(f"[spec] bf16 GPT-2-small + 2-layer draft on {card}, 16 requests x "
+        f"{SPEC_NEW} new (request 1 sampled: seed 7, top-k 40, T 0.8), "
+        f"spec_tokens {SPEC_K}: graph = eager bitwise ({g['replays']} "
+        f"replays); sampled stream = the plain engine's"
+        + (f" up to a near tie of its draw (new token, margin, "
+           f"tolerance) {tie}" if tie is not None else "")
+        + f"; greedy requests equal to the plain engine's {same}/15; "
+        f"accept ratio {g['snap']['spec_accept_ratio']:.4f} "
+        f"({g['snap']['spec_proposed']} proposed); tokens/s "
+        f"{g['tokens_s']:.1f} vs plain graph {p['tokens_s']:.1f}; TTFT p50 "
+        f"{g['snap']['ttft_p50_ms']:.3f} vs {p['snap']['ttft_p50_ms']:.3f} "
+        f"ms; inter-token p50 {g['snap']['inter_token_p50_ms']:.3f} vs "
+        f"{p['snap']['inter_token_p50_ms']:.3f} ms; a spec step "
+        f"{step_ms:.4f} device ms, {step_launches:.1f} device launches, "
+        f"{tokens_a_step:.3f} tokens (armed lanes x emitted) against a plain "
+        f"decode step's {plain_ms:.4f} ms, {plain_launches:.1f} launches "
+        f"(median per replay of traced waves of 8 greedy requests); traced "
+        f"spec wave: {n_rep} whole replays of {launches}, busy "
+        f"{busy_ms:.3f} of {wall_ms:.3f} ms ({100 * busy_ms / wall_ms:.2f}%)"
+        f"; fast launches a replay {graph_fast}; path launches "
+        f"{spec_counts}; {syncs} | {time.perf_counter() - t_phase:.1f}s")
+    return spec_counts, shapes
+
+
+def main():
+    import torch
 def main():
     import torch
 
@@ -6919,6 +7301,9 @@ def main():
     release(torch, "generate")
     mark("generate")
     gen_counts, gen_rec = generate_phase(torch, K, card)
+    release(torch, "spec")
+    mark("spec")
+    spec_counts, spec_shapes = spec_phase(torch, K, card)
 
     kernels = []
     for name, rec in main_cases.items():
@@ -7060,6 +7445,16 @@ def main():
             entry["generate_traced_launches_a_call"] = \
                 gen_rec["traced_a_call"][name]
             entry["generate_shape"] = {k: gen_rec["shapes"][name][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err")}
+        if name in SPEC_KERNELS:
+            # the speculative path: the wrappers' eager launches on its
+            # bf16 graph wave plus a replay's launches times its replays,
+            # and the kernel held against its plain version at the path's
+            # shape (LayerNorm and bias-GeLU at the verify's rows, paged
+            # decode at the draft pool's geometry)
+            entry["spec_launches"] = spec_counts[name]
+            entry["spec_shape"] = {k: spec_shapes[name][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "max_abs_err")}
         if name in FAST_VARIANT:

@@ -59,6 +59,10 @@ define_flag("FLAGS_genserve_prefix_cache", 1,
             "1 shares identical tokenized prompt prefixes as refcounted "
             "read-only KV pages (hits skip prefill for shared pages); "
             "0 disables sharing")
+define_flag("FLAGS_genserve_spec_tokens", 4,
+            "speculative-decode draft proposals per iteration (k); only "
+            "read when a draft model is attached — each iteration drafts "
+            "k tokens and the target verifies all k+1 in one step")
 define_flag("FLAGS_genserve_prefill_chunk", 0,
             "chunked-prefill slice length in tokens (page_size multiple, "
             "<= largest prompt bucket); prompts whose un-shared suffix "

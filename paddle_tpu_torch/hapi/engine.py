@@ -74,7 +74,7 @@ from ..amp import amp_key
 from ..framework import random as _random
 from ..framework.place import copy_to_device
 from ..framework.random import StepKeys
-from ..ops import kernels
+from ..ops.capture import capture
 from ..optimizer import Optimizer
 
 __all__ = ["EvalEngine", "TrainEngine", "build_eval_step",
@@ -449,33 +449,31 @@ class _GraphEngine:
                   for t in inputs + labels]
         s_in, s_lab = static[:len(inputs)], static[len(inputs):]
         outs = self._warm_up(s_in, s_lab)
-        counts = kernels.launch_counts()
-        g = self._graphs[sig] = self._capture(sig, s_in, s_lab)
-        g.launches = {n: c - counts[n]
-                      for n, c in kernels.launch_counts().items()
-                      if c != counts[n]}
+        self._graphs[sig] = self._capture(sig, s_in, s_lab)
         self._state = self._state_key()
         self.captures += 1
         return outs
 
     def _capture(self, sig, s_in, s_lab):
         """Capture the step over the static batch into one CUDA graph in
-        the engine's memory pool; raises if the capture fails."""
-        graph = torch.cuda.CUDAGraph()
+        the engine's memory pool (ops/capture.py); raises if the capture
+        fails."""
+        def body():
+            with self._scope():
+                return self._body(s_in, s_lab)
+
         try:
-            with torch.cuda.graph(graph, pool=self._pool,
-                                  capture_error_mode="thread_local"):
-                with self._scope():
-                    loss, outs = self._body(s_in, s_lab)
+            cap = capture(body, pool=self._pool)
         except RuntimeError as e:
             raise RuntimeError(
                 f"the {self._what} step could not be captured as a CUDA "
                 "graph (a host sync, or host-dependent control flow, in the "
                 f"network or the loss?) for inputs/labels {sig}: {e}") from e
         if self._pool is None:
-            self._pool = graph.pool()
-        return _StepGraph(graph.replay, s_in, s_lab, loss,
-                          _map(torch.Tensor.detach, outs), {})
+            self._pool = cap.graph.pool()
+        loss, outs = cap.out
+        return _StepGraph(cap.graph.replay, s_in, s_lab, loss,
+                          _map(torch.Tensor.detach, outs), cap.launches)
 
     def drain(self):
         """Batched fetch of every pending loss (the sanctioned sync)."""

@@ -179,6 +179,12 @@ class Model:
         """Copies of the outputs of one batch."""
         return _copies(self._eval_begin().step(_to_list(inputs), []))
 
+    def eval_batch_no_loss(self, inputs):
+        """(copies of the outputs of one batch, a 0-d float32 zero): the
+        reference's eval step without labels, whose loss is zero."""
+        return self.predict_batch(inputs), torch.zeros((),
+                                                       device=self.device)
+
     # -- fault tolerance ---------------------------------------------------
     def _ft_state(self, it_count):
         """The checkpointable training state (TrainEngine.ft_state: a host

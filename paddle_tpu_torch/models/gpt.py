@@ -9,16 +9,17 @@ kernels), ``GPTBlock``, ``GPTModel`` and ``GPTForCausalLM`` with
 training ``loss`` (the chunked fused LM-head cross entropy), ``_head``,
 ``slot_prefill``, ``slot_prefill_prefix`` (a prefix-cache hit or a prefill
 chunk: the suffix attends over gathered prefix K/V) and
-``slot_decode_paged``; the dense-cache decode layers (``decode_step``,
-``decode_slots``, ``GPTModel.prefill``, ``slot_decode``) and ``generate``
-(greedy, temperature / top-k sampling, beam search, ``eos_token_id``).
+``slot_decode_paged``, ``verify_pages`` and ``slot_verify_paged`` (the
+target's batched verify of speculative decode); the dense-cache decode
+layers (``decode_step``, ``decode_slots``, ``GPTModel.prefill``,
+``slot_decode``) and ``generate`` (greedy, temperature / top-k sampling,
+beam search, ``eos_token_id``).
 Parameter names equal the reference's (``gpt.h_0.attn.qkv.weight`` ...),
 so weights carry over by name (models/convert.py).  In training,
 ``attn_dropout`` drops the attention weights inside the flash-attention
 kernels and ``dropout`` the hidden states, so ``GPTConfig()`` trains at
 its defaults.  Not ported yet (ROADMAP.md): tensor-parallel and
-sequence-parallel layouts, recompute, ``verify_pages`` and
-``slot_verify_paged`` (speculative decode).
+sequence-parallel layouts, recompute.
 
 The decode paths update their caches IN PLACE: where the reference's
 jitted step donates the pool (or the dense cache) and returns a
@@ -32,7 +33,6 @@ sampling draws Gumbel noise from a ``torch.Generator`` seeded with
 """
 from __future__ import annotations
 
-import gc
 import time
 import weakref
 from dataclasses import dataclass
@@ -46,7 +46,8 @@ from ..nn import initializer as I
 from ..nn.layer.common import Dropout, Embedding, Linear
 from ..nn.layer.norm import LayerNorm
 from ..nn.layer_base import Layer, ParamAttr
-from ..ops import fused, kernels
+from ..ops import fused
+from ..ops.capture import capture, side_stream
 from ..serving.generation import sample_tokens
 from ..text import beam_search_decode, beam_search_step
 
@@ -164,6 +165,56 @@ class GPTAttention(Layer):
         ctx = fused.paged_decode_attention(q, k_pages, v_pages, rows, pos,
                                            seq_cap)
         out = self.out(ctx.reshape(B, 1, cfg.hidden_size))
+        return out, k_pages, v_pages
+
+    def verify_pages(self, x, k_pages, v_pages, rows, positions, active,
+                     seq_cap):
+        """Speculative-decode verification attention: like
+        :meth:`decode_pages`, but each lane carries a chunk of C candidate
+        tokens at consecutive positions, so the target scores every draft
+        proposal in one step.
+
+        x: [slots, C, H]; k_pages/v_pages: [num_pages, page_size, nh, hd]
+        (this layer's pool plane, written in place); rows: [slots,
+        pages_per_slot] int32; positions: [slots, C] int32 absolute write
+        index of each candidate (consecutive, clamped by the engine at the
+        end of the lane's budget); active: [slots] bool; seq_cap: static
+        attention extent.  Each candidate of an active lane writes its K/V
+        at its position, in place; an inactive lane writes nothing.  A
+        candidate clamped onto the position of the one before it writes
+        nothing either (the reference lets either write win: it is garbage
+        that no emitted query reads), so every position holds its own
+        token's K/V.  Candidate i attends to the keys at positions <=
+        positions[b, i]: the committed history and candidates 0..i.  The
+        reference computes this with an explicit softmax over a dense
+        gather of the lane's pages (no ``pallas_call``); so does the port,
+        in float32 whatever the model's dtype.  Returns (out, k_pages,
+        v_pages)."""
+        cfg = self.cfg
+        B, C = x.shape[0], x.shape[1]
+        nh, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+        qkv = self.qkv(x).reshape(B, C, 3, nh, hd)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        first = torch.ones_like(positions[:, :1], dtype=torch.bool)
+        fresh = torch.cat([first, positions[:, 1:] != positions[:, :-1]], 1)
+        _scatter_token(k_pages, v_pages, k.reshape(B * C, nh, hd),
+                       v.reshape(B * C, nh, hd),
+                       rows.repeat_interleave(C, dim=0), positions.reshape(-1),
+                       (active[:, None] & fresh).reshape(-1))
+        num_pages, ps = k_pages.shape[0], k_pages.shape[1]
+        gidx = rows.long().clamp(0, num_pages - 1)
+        kg = k_pages[gidx].reshape(B, -1, nh, hd)[:, :seq_cap].float()
+        vg = v_pages[gidx].reshape(B, -1, nh, hd)[:, :seq_cap].float()
+        scores = torch.einsum("bqnd,bsnd->bnqs", q.float(), kg) \
+            * (1.0 / float(hd) ** 0.5)
+        valid = torch.arange(kg.shape[1], device=x.device)[None, None, :] \
+            <= positions[:, :, None]
+        scores = torch.where(valid[:, None], scores,
+                             torch.finfo(torch.float32).min)
+        probs = torch.exp(scores - scores.amax(-1, keepdim=True))
+        probs = probs / probs.sum(-1, keepdim=True)
+        ctx = torch.einsum("bnqs,bsnd->bqnd", probs, vg)
+        out = self.out(ctx.reshape(B, C, cfg.hidden_size).to(x.dtype))
         return out, k_pages, v_pages
 
     def decode_step(self, x, k_cache, v_cache, pos):
@@ -307,6 +358,14 @@ class GPTBlock(Layer):
         x = x + self.mlp(self.ln_2(x))
         return x, k_pages, v_pages
 
+    def verify_pages(self, x, k_pages, v_pages, rows, positions, active,
+                     seq_cap):
+        a, k_pages, v_pages = self.attn.verify_pages(
+            self.ln_1(x), k_pages, v_pages, rows, positions, active, seq_cap)
+        x = x + a
+        x = x + self.mlp(self.ln_2(x))
+        return x, k_pages, v_pages
+
     def prefill_prefix(self, x, prefix_k, prefix_v, prefix_len, bias=None):
         a, k, v = self.attn.prefill_prefix(self.ln_1(x), prefix_k, prefix_v,
                                            prefix_len, bias)
@@ -417,8 +476,7 @@ class _DecodeRun:
 
     The run holds its model weakly: the model holds the run (in
     ``_gen_cache``), and a cycle would leave a dropped model's graphs to
-    the cyclic garbage collector, which may free them in the middle of
-    another capture (a ``cudaFree`` there invalidates it)."""
+    the cyclic garbage collector (ops/capture.py)."""
 
     def __init__(self, model, B, S, new, do_sample, temperature, top_k,
                  num_beams, eos, beam=None):
@@ -505,38 +563,19 @@ class _DecodeRun:
         self.body(self.model, self)
 
     def capture(self):
-        """Capture the decode step into one CUDA graph.  A warm-up step
-        runs first on a side stream, so that the kernel libraries load,
-        cuBLAS's workspace is allocated and every lazy choice is made
-        outside the capture; it leaves garbage in the state, which every
-        call's prologue re-initialises.  The cyclic garbage collector is
-        off during the capture: a dead object's CUDA memory freed there
-        would invalidate it.  A capture that fails raises."""
-        dev, model = self.pos.device, self.model
+        """Capture the decode step into one CUDA graph
+        (ops/capture.py).  A warm-up step runs first on a side stream, so
+        that the kernel libraries load, cuBLAS's workspace is allocated
+        and every lazy choice is made outside the capture; it leaves
+        garbage in the state, which every call's prologue re-initialises.
+        A capture that fails raises."""
+        model = self.model
         t0 = time.perf_counter()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self.body(model, self)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        counts, variants = kernels.launch_counts(), kernels.variant_launches()
-        graph = torch.cuda.CUDAGraph()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self.body(model, self)
-        finally:
-            if collecting:
-                gc.enable()
-        after = kernels.variant_launches()
-        self.graph_launches = {n: c - counts[n] for n, c in
-                               kernels.launch_counts().items()
-                               if c != counts[n]}
-        self.graph_variants = {
-            n: {v: c - variants[n][v] for v, c in vs.items()}
-            for n, vs in after.items() if vs != variants[n]}
-        self.graph = graph
+        cap = capture(lambda: self.body(model, self),
+                      warm_up=lambda: side_stream(
+                          lambda: self.body(model, self), self.pos.device))
+        self.graph_launches, self.graph_variants = cap.launches, cap.variants
+        self.graph = cap.graph
         self.capture_ms = (time.perf_counter() - t0) * 1e3
 
     def __call__(self, ids, seed):
@@ -701,6 +740,32 @@ class GPTForCausalLM(Layer):
                                        active, seq_cap)
         logits = self._head(gpt.ln_f(x))             # [slots, 1, V]
         return logits[:, 0], k_pages, v_pages
+
+    @torch.no_grad()
+    def slot_verify_paged(self, tokens, positions, active, k_pages, v_pages,
+                          rows, seq_cap):
+        """Speculative-decode verification over the paged KV cache: score a
+        chunk of C candidates a lane in ONE model step.  tokens [slots, C]
+        int (the committed token, then the draft's proposals), positions
+        [slots, C] int32 absolute write indices (consecutive a lane),
+        active [slots] bool, pools [layers, num_pages, page_size, nh, hd]
+        (written in place), rows [slots, pages_per_slot] int32, seq_cap
+        the static attention extent.  Returns (logits [slots, C, V],
+        k_pages, v_pages): the engine compares argmax(logits[:, i]) with
+        proposal i + 1 to accept or cut the run.  LayerNorm and the MLP
+        run their kernels at R = slots x C rows."""
+        self._check_eval()
+        gpt = self.gpt
+        positions = positions.to(torch.int32)
+        rows = rows.to(torch.int32).contiguous()
+        # clamped tail positions may sit at the extent's edge: clip into
+        # the table (rows no emitted token is computed from)
+        x = gpt.wte(tokens) + gpt.wpe(
+            positions.clamp(0, self.cfg.max_position_embeddings - 1))
+        for i, blk in enumerate(gpt.h):
+            x, _, _ = blk.verify_pages(x, k_pages[i], v_pages[i], rows,
+                                       positions, active, seq_cap)
+        return self._head(gpt.ln_f(x)), k_pages, v_pages
 
     @torch.no_grad()
     def slot_decode(self, tokens, pos, active, k_cache, v_cache):

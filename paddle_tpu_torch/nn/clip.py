@@ -62,8 +62,12 @@ def _global_scale(grads, clip_norm):
 
 
 class ClipGradByGlobalNorm(ClipGradBase):
-    def __init__(self, clip_norm):
+    """``group_name`` is accepted and kept, as in the reference, which
+    clips every gradient in one group whatever its name."""
+
+    def __init__(self, clip_norm, group_name="default_group"):
         self.clip_norm = float(clip_norm)
+        self.group_name = group_name
 
     def _dygraph_clip(self, params_grads):
         gs = [g for p, g in params_grads if _clipped(p, g)]

@@ -38,7 +38,7 @@ from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,  # noqa: F401
                       avg_pool3d, max_pool1d, max_pool2d, max_pool3d)
 
 
-def linear(x, weight, bias=None):
+def linear(x, weight, bias=None, name=None):
     """paddle convention: weight shape [in_features, out_features].  A
     matmul of the AMP white list: under ``amp.auto_cast`` x and the
     weight are cast to the AMP dtype, and the bias to the product's."""
@@ -52,32 +52,33 @@ def linear(x, weight, bias=None):
     return y if bias is None else y + bias.to(y.dtype)
 
 
-def relu(x):
+def relu(x, name=None):
     return torch.relu(x)
 
 
-def tanh(x):
+def tanh(x, name=None):
     return torch.tanh(x)
 
 
-def softmax(x, axis=-1, dtype=None):
+def softmax(x, axis=-1, dtype=None, name=None):
     if dtype is not None:
         x = x.to(dtype)
     return torch.softmax(x, axis)
 
 
-def log_softmax(x, axis=-1, dtype=None):
+def log_softmax(x, axis=-1, dtype=None, name=None):
     """``dtype`` is accepted and unused, as in the reference."""
     return torch.log_softmax(x, axis)
 
 
-def gelu(x, approximate=False):
+def gelu(x, approximate=False, name=None):
     """Exact erf GeLU by default (paddle's default)."""
     return torch.nn.functional.gelu(
         x, approximate="tanh" if approximate else "none")
 
 
-def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+               name=None):
     ns = (normalized_shape,) if isinstance(normalized_shape, int) \
         else tuple(normalized_shape)
     if tuple(x.shape[len(x.shape) - len(ns):]) != tuple(ns):
@@ -129,14 +130,21 @@ class _Embedding(torch.autograd.Function):
         return None, gw.to(grad.dtype)
 
 
-def embedding(x, weight):
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """Rows of ``weight`` at the ids ``x``; the rows of ids equal to
+    ``padding_idx`` are zeros (so they take no gradient), as in the
+    reference (:225).  ``sparse`` is accepted and unused, as there."""
     if x.is_floating_point():
         raise TypeError(
             f"embedding: ids must be an integer tensor, got dtype {x.dtype}")
     if weight.dtype != torch.bfloat16 and torch.is_grad_enabled() \
             and weight.requires_grad:
-        return _Embedding.apply(x.long(), weight)
-    return torch.nn.functional.embedding(x.long(), weight)
+        out = _Embedding.apply(x.long(), weight)
+    else:
+        out = torch.nn.functional.embedding(x.long(), weight)
+    if padding_idx is not None:
+        out = torch.where((x == padding_idx)[..., None], 0.0, out)
+    return out
 
 
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
@@ -169,7 +177,7 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
 
 def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
                   reduction="mean", soft_label=False, axis=-1,
-                  use_softmax=True):
+                  use_softmax=True, name=None):
     """Softmax cross entropy (reference :823).  Hard labels with no
     weight, softmax on and the last axis go through
     ops/fused.softmax_cross_entropy (the kernels) and reduce as the
@@ -220,7 +228,7 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True):
+                                 training=True, name=None):
     """query [B, S_q, H, D] over key and value [B, S_k, H, D] (paddle
     layout; S_q == S_k or not), ``attn_mask`` broadcastable to
     [B, H, S_q, S_k], through the flash-attention kernels

@@ -2,6 +2,8 @@
 paddle_tpu/nn/layer/common.py)."""
 from __future__ import annotations
 
+import torch
+
 from ... import tensor_ops as T
 from .. import functional as F
 from .. import initializer as I
@@ -20,7 +22,7 @@ class Linear(Layer):
     """weight shape [in_features, out_features] (paddle convention)."""
 
     def __init__(self, in_features, out_features, weight_attr=None,
-                 bias_attr=None):
+                 bias_attr=None, name=None):
         super().__init__()
         self.weight = self.create_parameter([in_features, out_features],
                                             attr=weight_attr)
@@ -32,14 +34,26 @@ class Linear(Layer):
 
 
 class Embedding(Layer):
-    def __init__(self, num_embeddings, embedding_dim, weight_attr=None):
+    """The reference's arguments in its order.  A negative
+    ``padding_idx`` counts from the end; its row of the weight starts at
+    zero and its lookups give zeros.  ``sparse`` is accepted and unused,
+    as in the reference."""
+
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None):
         super().__init__()
+        self._padding_idx = None if padding_idx is None else (
+            padding_idx if padding_idx >= 0
+            else num_embeddings + padding_idx)
         self.weight = self.create_parameter(
             [num_embeddings, embedding_dim], attr=weight_attr,
             default_initializer=I.Normal(0.0, 1.0))
+        if self._padding_idx is not None:
+            with torch.no_grad():
+                self.weight[self._padding_idx] = 0.0
 
     def forward(self, x):
-        return F.embedding(x, self.weight)
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx)
 
 
 class Dropout(Layer):

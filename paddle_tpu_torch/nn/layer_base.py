@@ -138,6 +138,14 @@ def _walk(module, prefix, seen):
                              seen)
 
 
+def _names_a_device(name: str) -> bool:
+    try:
+        torch.device(name)
+    except RuntimeError:
+        return False
+    return True
+
+
 class Layer(torch.nn.Module):
     def __init__(self, name_scope=None, dtype="float32"):
         """``name_scope`` names the layer for :meth:`full_name` (the
@@ -282,17 +290,24 @@ class Layer(torch.nn.Module):
     set_dict = set_state_dict
 
     # -- dtype / device conversion -------------------------------------------
-    def to(self, *args, **kwargs):
-        """``torch.nn.Module.to``, with ``dtype=`` also a Paddle name
-        (``"float16"``) and the reference's ``blocking=`` accepted and
-        unused; a dtype also becomes every sublayer's ``_dtype``.  Each
+    def to(self, device=None, dtype=None, blocking=None, **kwargs):
+        """The reference's ``to(device=None, dtype=None, blocking=None)``
+        beside ``torch.nn.Module.to``'s forms: ``device`` a device, a
+        tensor (its device and dtype, as torch's ``to(tensor)``) or a
+        dtype (torch's ``to(dtype)``; a Paddle name such as ``"float32"``
+        names no device, so it is taken as the dtype); ``dtype`` a torch
+        dtype or a Paddle name; ``blocking`` accepted and unused, as in
+        the reference; ``non_blocking=`` and ``memory_format=`` go to
+        torch.  A dtype also becomes every sublayer's ``_dtype``.  Each
         floating parameter and buffer is cast in place: a parameter keeps
         its object (so an optimizer built earlier still holds it)."""
-        kwargs.pop("blocking", None)
-        dtype = convert_dtype(kwargs.pop("dtype", None))
-        if dtype is not None:
-            kwargs["dtype"] = dtype
-        super().to(*args, **kwargs)
+        if isinstance(device, torch.Tensor):
+            device, dtype = device.device, dtype or device.dtype
+        elif isinstance(device, torch.dtype) or (
+                isinstance(device, str) and not _names_a_device(device)):
+            device, dtype = None, dtype or device
+        dtype = convert_dtype(dtype)
+        super().to(device=device, dtype=dtype, **kwargs)
         if dtype is not None:
             for layer in self.modules():
                 if isinstance(layer, Layer):

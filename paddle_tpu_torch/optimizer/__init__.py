@@ -51,7 +51,12 @@ from ..framework import random as _random
 from ..ops.kernels import optimizer as _kernel
 from ..regularizer import L1Decay, L2Decay
 from . import lr  # noqa: F401
-from .lr import LRScheduler
+# every scheduler, as the reference re-exports them (optimizer.StepDecay)
+from .lr import (CosineAnnealingDecay, CyclicLR,  # noqa: F401
+                 ExponentialDecay, InverseTimeDecay, LambdaDecay,
+                 LinearWarmup, LRScheduler, MultiStepDecay, NaturalExpDecay,
+                 NoamDecay, OneCycleLR, PiecewiseDecay, PolynomialDecay,
+                 ReduceOnPlateau, StepDecay)
 
 
 class Optimizer:
@@ -303,6 +308,19 @@ class Optimizer:
             else:
                 p.grad = None
 
+    clear_gradients = clear_grad
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """The reference's dygraph form: ``loss.backward()`` then
+        :meth:`step`.  Returns ``(None, [(p, p.grad), ...])`` over the
+        optimizer's parameters.  The static-graph form (a ``Variable``
+        loss, ``startup_program``) has no counterpart: the port runs no
+        static graph."""
+        loss.backward()
+        self.step()
+        return None, [(p, p.grad) for p in (self._parameter_list or [])]
+
     # -- checkpointing ----------------------------------------------------
     # slots are keyed f"{name}__{slot}" by the parameter's name
     # (``ParamAttr``'s, or create_parameter's param_<n>), by its index in
@@ -334,6 +352,8 @@ class Optimizer:
                 self._slots[id(p)] = slots
         if "LR_Scheduler" in state_dict and self._lr_scheduler is not None:
             self._lr_scheduler.set_state_dict(state_dict["LR_Scheduler"])
+
+    set_dict = set_state_dict
 
     def _slot_from(self, name, p, value):
         """A fresh contiguous copy of ``value`` as slot ``name`` of ``p``:

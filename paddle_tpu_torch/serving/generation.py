@@ -32,9 +32,18 @@ cache (port of paddle_tpu/serving/generation.py).
   release and reclaim transitions between them, on the same stream.  A
   failed capture raises at ``start()``; there is no eager fallback on the
   card.  The CPU runs the same step eagerly (``_step_eager``).
-* **one copy per step** — each ``step()`` ends in ONE device-to-host copy
-  of the sampled tokens and the finished mask together; admission fetches
-  the first token (with the page-table row when the prefix cache is on).
+* **speculative decode** (``draft_model=``, ``spec_tokens=``) — a draft
+  model proposes ``spec_tokens`` tokens a lane per iteration (K + 1
+  chained greedy ``slot_decode_paged`` calls over its own pool, which the
+  same page table addresses) and the target scores the committed token
+  and the K proposals in ONE batched ``slot_verify_paged``; a greedy lane
+  emits the longest agreeing run plus the target's next token, a sampling
+  lane exactly one token from the verify's first position.  On the card
+  this whole step is the one captured graph, in place of the decode step.
+* **one copy per step** — each ``step()`` (``step_spec()``) ends in ONE
+  device-to-host copy of the sampled tokens and the finished mask
+  together (with the emitted mask); admission fetches the first token
+  (with the page-table row when the prefix cache is on).
 
 Sampling is greedy (argmax of the raw logits) or temperature / top-k
 categorical.  JAX's per-slot threefry chain cannot be reproduced in
@@ -47,8 +56,8 @@ which some lane samples; greedy lanes take the argmax through the same
 ``where``, so their tokens do not depend on the noise.  Top-k keeps the
 reference's ``lg2 < kth`` rule, so ties at the k-th value survive.
 
-Not ported yet (ROADMAP.md): speculative decode, tensor-parallel serving,
-tracing spans, ``op_report`` and ``resume_pos`` failover.
+Not ported yet (ROADMAP.md): tensor-parallel serving, tracing spans,
+``op_report`` and ``resume_pos`` failover.
 """
 from __future__ import annotations
 
@@ -64,7 +73,7 @@ import torch
 from ..framework import flags as _flags
 from ..framework.place import resolve_device
 from ..framework.random import make_generator
-from ..ops import kernels
+from ..ops.capture import capture, side_stream
 from .engine import DeadlineExceededError, EngineStoppedError, QueueFullError
 from .kv_cache import (CacheGeometry, admit_slot, make_state, reclaim_pages,
                        release_slots, take_pages, write_prompt)
@@ -94,6 +103,7 @@ class GenerationHandle:
         self._error: BaseException | None = None
         self._req = None                  # backref set by the engine
         self.t_submit = time.monotonic()
+        self.t_first_token = None         # set when the first token lands
 
     def next_token(self, timeout=None):
         """Next generated token id, or None when the stream has ended
@@ -144,7 +154,16 @@ class GenerationHandle:
     def error(self):
         return self._error
 
+    @property
+    def ttft_ms(self):
+        """Milliseconds from submit to the first token (None before it)."""
+        if self.t_first_token is None:
+            return None
+        return (self.t_first_token - self.t_submit) * 1e3
+
     def _push(self, tok: int):
+        if self.t_first_token is None:
+            self.t_first_token = time.monotonic()
         self.tokens.append(tok)
         self._q.put(tok)
 
@@ -225,6 +244,12 @@ class GenerationEngine:
         0 prefills whole prompts).
       device: where the engine runs; None means the CUDA card (raises
         where there is none).  The model's parameters must live there.
+      draft_model: a smaller causal LM of the same vocabulary (with
+        ``slot_prefill``, ``slot_decode_paged``, ``slot_prefill_prefix``
+        and ``cfg``; a ``hapi.Model`` is unwrapped to its network), on the
+        same device in the same dtype: speculative decode.
+      spec_tokens: draft proposals an iteration (K >= 1;
+        ``FLAGS_genserve_spec_tokens``, default 4); 0 without a draft.
 
     Lifecycle: ``start()`` allocates the decode state, captures the
     decode step on a CUDA device and starts the decode thread,
@@ -235,7 +260,8 @@ class GenerationEngine:
     where they were.
 
     Capture bookkeeping: ``capture_count`` (captures made, 1 after
-    ``start()`` on a CUDA device), ``replays`` (decode steps replayed),
+    ``start()`` on a CUDA device: the decode step, or with a draft the
+    speculative step), ``replays`` (steps replayed),
     ``graph_launches`` (kernel wrapper name -> launches in one replay, as
     the wrappers counted them while the step was captured: a replay runs
     the kernels again without passing through the wrappers) and
@@ -245,7 +271,14 @@ class GenerationEngine:
     def __init__(self, model, *, max_slots=None, max_seq_len=None,
                  prompt_buckets=None, queue_depth=None, max_top_k=64,
                  page_size=None, num_pages=None, prefix_cache=None,
-                 prefill_chunk=None, device=None):
+                 prefill_chunk=None, device=None, draft_model=None,
+                 spec_tokens=None):
+        from ..hapi.model import Model as _HapiModel
+
+        if isinstance(model, _HapiModel):
+            model = model.network
+        if isinstance(draft_model, _HapiModel):
+            draft_model = draft_model.network
         if prefix_cache is None:
             prefix_cache = bool(int(
                 _flags.flag("FLAGS_genserve_prefix_cache", 1)))
@@ -277,6 +310,46 @@ class GenerationEngine:
             raise ValueError(
                 f"max_seq_len {self.max_seq_len} exceeds the model's "
                 f"max_position_embeddings {cfg.max_position_embeddings}")
+        # speculative decode: a draft model proposes spec_tokens a step,
+        # the target verifies them in one batched step
+        draft_kw = {}
+        if draft_model is not None:
+            for req_attr in ("slot_prefill", "slot_decode_paged",
+                             "slot_prefill_prefix", "cfg"):
+                if not hasattr(draft_model, req_attr):
+                    raise TypeError(
+                        f"draft_model needs `{req_attr}`; got "
+                        f"{type(draft_model).__name__}")
+            dcfg = draft_model.cfg
+            if dcfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {dcfg.vocab_size} != target vocab "
+                    f"{cfg.vocab_size}")
+            if self.max_seq_len > dcfg.max_position_embeddings:
+                raise ValueError(
+                    f"max_seq_len {self.max_seq_len} exceeds the draft "
+                    "model's max_position_embeddings "
+                    f"{dcfg.max_position_embeddings}")
+            dparam = next(iter(draft_model.parameters()))
+            if (dparam.device.type, dparam.dtype) != (param.device.type,
+                                                      param.dtype):
+                raise ValueError(
+                    f"the draft model's parameters ({dparam.dtype} on "
+                    f"{dparam.device}) must share the target's dtype and "
+                    f"device ({param.dtype} on {param.device}): one page "
+                    "pool dtype serves both")
+            draft_kw = dict(draft_layers=dcfg.num_layers,
+                            draft_num_heads=dcfg.num_heads,
+                            draft_head_dim=dcfg.hidden_size // dcfg.num_heads)
+        self.draft_model = draft_model
+        if spec_tokens is None:
+            spec_tokens = int(_flags.flag("FLAGS_genserve_spec_tokens", 4))
+        self.spec_tokens = int(spec_tokens) if draft_model is not None \
+            else 0
+        if draft_model is not None and self.spec_tokens < 1:
+            raise ValueError(
+                f"spec_tokens must be >= 1 with a draft model, got "
+                f"{self.spec_tokens}")
         if prompt_buckets is None:
             prompt_buckets = _flags.flag("FLAGS_genserve_prompt_buckets",
                                          "16,32,64")
@@ -313,7 +386,7 @@ class GenerationEngine:
             max_seq_len=self.max_seq_len, num_heads=cfg.num_heads,
             head_dim=cfg.hidden_size // cfg.num_heads,
             vocab_size=cfg.vocab_size, page_size=page_size,
-            num_pages=int(num_pages), dtype=param.dtype)
+            num_pages=int(num_pages), dtype=param.dtype, **draft_kw)
         self.metrics = GenerationMetrics(
             max_slots=self.max_slots, num_pages=self.geometry.num_pages)
         self._prefix = PrefixCache(page_size) if prefix_cache else None
@@ -331,7 +404,10 @@ class GenerationEngine:
         self._state = None
         self._lane = None
         self._noise = None       # [max_slots, V] Gumbel rows the graph reads
-        self._out = None         # [2, max_slots] int32: tokens, finished
+        # the graph's static output, int32: [2, max_slots] (tokens,
+        # finished); speculative: [max_slots, 2 (K + 1) + 1] (outs,
+        # emitted, finished)
+        self._out = None
         self._graph = None
         self.capture_count = 0
         self.replays = 0
@@ -343,24 +419,28 @@ class GenerationEngine:
         if self._started:
             return self
         self.model.eval()
+        if self.draft_model is not None:
+            self.draft_model.eval()
         geom = self.geometry
         dev = self.device
         self._state = make_state(geom, dev)
         self._lane = torch.arange(self.max_slots, device=dev)
         self._noise = torch.zeros((self.max_slots, geom.vocab_size),
                                   dtype=torch.float32, device=dev)
-        self._out = torch.zeros((2, self.max_slots), dtype=torch.int32,
-                                device=dev)
+        self._out = torch.zeros(
+            (self.max_slots, 2 * self.spec_tokens + 3)
+            if self.draft_model is not None else (2, self.max_slots),
+            dtype=torch.int32, device=dev)
         if dev.type == "cuda":
             with torch.no_grad():
                 self._capture()
         logger.info(
             "generation engine on %s: slots=%d S_max=%d prompt buckets=%s "
             "pages=%dx%d cache=%.1f MB prefix cache=%s prefill chunk=%d "
-            "decode graph launches=%s", dev, self.max_slots,
+            "spec tokens=%d graph launches=%s", dev, self.max_slots,
             self.max_seq_len, self.prompt_buckets, geom.num_pages,
             geom.page_size, geom.kv_bytes() / 1048576,
-            self._prefix is not None, self.prefill_chunk,
+            self._prefix is not None, self.prefill_chunk, self.spec_tokens,
             self.graph_launches)
         self._started = True
         self._thread = threading.Thread(target=self._run, daemon=True,
@@ -369,36 +449,25 @@ class GenerationEngine:
         return self
 
     def _capture(self):
-        """Capture the decode step into one CUDA graph.  A warm-up step
-        runs first on a side stream, so that the kernel libraries load,
-        the paged decode kernel's arrival counters and cuBLAS's workspace
-        are allocated and every lazy choice is made outside the capture.
-        Both run on the all-inactive state, which a step leaves as it
-        was; any change to the state raises, as does a capture that
-        fails (an op that syncs or allocates on the host)."""
-        st, dev = self._state, self.device
+        """Capture the step into one CUDA graph (ops/capture.py): the
+        decode step, or with a draft model the speculative step.  A
+        warm-up step runs first on a side stream, so that the kernel
+        libraries load, the paged decode kernel's arrival counters and
+        cuBLAS's workspace are allocated and every lazy choice is made
+        outside the capture.  Both run on the all-inactive state, which a
+        step leaves as it was; any change to the state raises, as does a
+        capture that fails (an op that syncs or allocates on the host)."""
+        st = self._state
         before = {k: t.clone() for k, t in st.items()}
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self._graph_step()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        counts, variants = kernels.launch_counts(), kernels.variant_launches()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self._graph_step()
-        after = kernels.variant_launches()
-        self.graph_launches = {n: c - counts[n] for n, c in
-                               kernels.launch_counts().items()
-                               if c != counts[n]}
-        self.graph_variants = {
-            n: {v: c - variants[n][v] for v, c in vs.items()}
-            for n, vs in after.items() if vs != variants[n]}
+        body = self._graph_spec_step if self.draft_model is not None \
+            else self._graph_step
+        cap = capture(body, warm_up=lambda: side_stream(body, self.device))
+        self.graph_launches, self.graph_variants = cap.launches, cap.variants
         changed = [k for k, t in st.items() if not torch.equal(t, before[k])]
         if changed:
-            raise RuntimeError(f"the decode step's warm-up and capture "
-                               f"changed the idle state: {changed}")
-        self._graph = graph
+            raise RuntimeError(f"the step's warm-up and capture changed the "
+                               f"idle state: {changed}")
+        self._graph = cap.graph
         self.capture_count += 1
 
     @property
@@ -521,8 +590,11 @@ class GenerationEngine:
                 # without stalling the streams in flight
                 self._advance_chunk()
                 if len(self._sched.occupied) > self._sched.prefilling():
-                    toks, fin = self.step()
-                    self._distribute(toks, fin)
+                    if self.draft_model is not None:
+                        self._distribute_spec(*self.step_spec())
+                    else:
+                        toks, fin = self.step()
+                        self._distribute(toks, fin)
                 continue
             if self._queue.empty() and not self._backlog:
                 self._idle.set()
@@ -669,18 +741,28 @@ class GenerationEngine:
         """Prefill ``tokens`` (the prompt from page ``shared_n`` on, up to
         ``length``) over the ``shared_n`` resident pages of
         ``shared_row``: the prefix K/V is gathered from the pool and only
-        the suffix runs through the model.  Returns (k, v, logits)."""
-        geom = self.geometry
-        ps = geom.page_size
+        the suffix runs through the model (and through the draft model
+        over its own pool).  Returns (k, v, logits, the draft's (k, v) or
+        ())."""
+        ps = self.geometry.page_size
         ids = np.zeros((1, self._bucket_for(len(tokens))), np.int64)
         ids[0, :len(tokens)] = tokens
+        ids = self._upload(ids)
         idx = shared_row[:shared_n].long()
-        shape = (geom.num_layers, shared_n * ps, geom.num_heads,
-                 geom.head_dim)
-        pk = self._state["kp"][:, idx].reshape(shape)
-        pv = self._state["vp"][:, idx].reshape(shape)
-        return self.model.slot_prefill_prefix(self._upload(ids), pk, pv,
-                                              shared_n * ps, length)
+
+        def over(model, kp, vp):
+            L, _, _, nh, hd = kp.shape
+            shape = (L, shared_n * ps, nh, hd)
+            return model.slot_prefill_prefix(
+                ids, kp[:, idx].reshape(shape), vp[:, idx].reshape(shape),
+                shared_n * ps, length)
+
+        st = self._state
+        k, v, logits = over(self.model, st["kp"], st["vp"])
+        if self.draft_model is None:
+            return k, v, logits, ()
+        dk, dv, _ = over(self.draft_model, st["dkp"], st["dvp"])
+        return k, v, logits, (dk, dv)
 
     def _admit(self, req: _GenRequest, slot: int, j_hit: int, shared):
         """Prefill + insert: map the slot's pages (the cached prefix
@@ -695,16 +777,22 @@ class GenerationEngine:
         st["pinned"][slot] = j_hit
         if j_hit > 0:
             shared_row = self._shared_row(shared, j_hit)
-            k_new, v_new, logits = self._suffix_prefill(
+            k_new, v_new, logits, draft_kv = self._suffix_prefill(
                 req.prompt[j_hit * self.geometry.page_size:], shared_row,
                 j_hit, L)
-            row = write_prompt(st, slot, k_new, v_new, L, shared_row, j_hit)
+            row = write_prompt(st, slot, k_new, v_new, L, shared_row, j_hit,
+                               *draft_kv)
         else:
             ids = np.zeros((1, req.bucket), np.int64)
             ids[0, :L] = req.prompt
-            k_new, v_new, logits = self.model.slot_prefill(
-                self._upload(ids), L)
-            row = write_prompt(st, slot, k_new, v_new, L)
+            ids = self._upload(ids)
+            k_new, v_new, logits = self.model.slot_prefill(ids, L)
+            # the draft's K/V must cover the prompt for its chain to
+            # attend it
+            draft_kv = () if self.draft_model is None \
+                else self.draft_model.slot_prefill(ids, L)[:2]
+            row = write_prompt(st, slot, k_new, v_new, L, None, 0,
+                               *draft_kv)
         tok1 = self._first_token(req, logits)
         pinned = max(j_hit, j_reg)
         admit_slot(st, slot, tok1, L, req.do_sample, req.temperature,
@@ -789,10 +877,10 @@ class GenerationEngine:
         cur = req.prefill_cursor
         end = min(cur + self.prefill_chunk, L)
         shared_n = cur // self.geometry.page_size
-        k_new, v_new, logits = self._suffix_prefill(
+        k_new, v_new, logits, draft_kv = self._suffix_prefill(
             req.prompt[cur:end], req.chunk_row, shared_n, end)
         req.chunk_row = write_prompt(st, slot, k_new, v_new, end,
-                                     req.chunk_row, shared_n)
+                                     req.chunk_row, shared_n, *draft_kv)
         req.prefill_cursor = end
         self.metrics.count_chunk()
         if end < L:
@@ -923,6 +1011,156 @@ class GenerationEngine:
             "cpu", copy=True).numpy()
         return host[0], host[1].astype(bool)
 
+    def _spec(self, noise):
+        """The device work of ONE speculative iteration, with no host sync
+        (the reference's ``spec_step``, in its order): (1) map every page
+        that covers [pos, min(pos + K, stop_pos - 1)] in one take; (2) the
+        draft's K + 1 chained ``slot_decode_paged`` calls over its pool,
+        with greedy proposals (call i writes chain token c_i's draft K/V
+        at pos + i; the last only closes the draft cache for a run
+        accepted whole); (3) the target's one ``slot_verify_paged`` over
+        c_0..c_K; (4) accept and emit: outs[:, i] is the target's token
+        after c_0..c_i, position 0 through ``sample_tokens`` with the
+        lane's Gumbel row (``noise`` None: no lane samples), so a
+        sampling lane emits exactly one token an iteration, drawn as in
+        the plain step, and a greedy lane the longest run its proposals
+        agree with plus the target's next token; (5) retire finished
+        lanes and free their private pages, as :meth:`_decode` does.
+        Rejected proposals need no rollback: their K/V sit inside the
+        lane's reservation, past its position, where the next iteration
+        overwrites them before any emitted query reads them.  Returns
+        (outs int32 [slots, K + 1], emitted bool [slots, K + 1],
+        finished bool [slots])."""
+        st, geom = self._state, self.geometry
+        K, dev = self.spec_tokens, self.device
+        ps, pps = geom.page_size, geom.pages_per_slot
+        pos, active, stop = st["pos"], st["active"], st["stop_pos"]
+        ptab = st["ptab"]
+        # (1) every page of the window, mapped off the free stack at once
+        hi = torch.minimum(pos + K, stop - 1)
+        col = torch.arange(pps, device=dev)[None, :]
+        need = active[:, None] & (ptab < 0) & (col >= (pos // ps)[:, None]) \
+            & (col <= (hi // ps)[:, None])
+        pages, free_count = take_pages(st["free_stack"], st["free_count"],
+                                       need.reshape(-1))
+        ptab.copy_(torch.where(need, pages.reshape(ptab.shape), ptab))
+        st["free_count"].copy_(free_count)
+        # (2) the draft's chain (positions clamped at the budget's end, and
+        # at 0 for an inactive lane, whose stop_pos is 0)
+        t = st["tok"]
+        chain = [t]
+        for i in range(K + 1):
+            p_i = torch.minimum(pos + i, stop - 1).clamp_min(0)
+            dlg, _, _ = self.draft_model.slot_decode_paged(
+                t, p_i, active, st["dkp"], st["dvp"], ptab, self.max_seq_len)
+            if i < K:
+                t = dlg.argmax(-1).to(torch.int32)
+                chain.append(t)
+        tokens = torch.stack(chain, dim=1)                      # [slots, K+1]
+        # (3) the target scores all K + 1 candidates in one step
+        positions = torch.minimum(
+            pos[:, None] + torch.arange(K + 1, device=dev)[None, :],
+            (stop - 1)[:, None]).clamp_min(0)
+        logits, _, _ = self.model.slot_verify_paged(
+            tokens, positions, active, st["kp"], st["vp"], ptab,
+            self.max_seq_len)
+        # (4) accept and emit
+        outs = logits.argmax(-1).to(torch.int32)
+        outs[:, 0] = sample_tokens(logits[:, 0], st["do_sample"], st["temp"],
+                                   st["top_k"], noise,
+                                   min(self.max_top_k, geom.vocab_size))
+        greedy = ~st["do_sample"]
+        em, emitted, fins = active, [], []
+        for i in range(K + 1):
+            if i > 0:
+                em = em & ~fins[i - 1] & greedy \
+                    & (tokens[:, i] == outs[:, i - 1])
+            emitted.append(em)
+            fins.append((outs[:, i] == st["eos"]) | (pos + i + 2 >= stop))
+        emitted = torch.stack(emitted, dim=1)
+        n_emit = emitted.sum(1)
+        new_tok = outs.gather(1, (n_emit - 1).clamp_min(0)[:, None])[:, 0]
+        finished = active & (emitted & torch.stack(fins, dim=1)).any(1)
+        st["tok"].copy_(torch.where(active, new_tok, st["tok"]))
+        st["pos"].copy_(torch.where(active, pos + n_emit, pos))
+        # (5) retire in the step
+        release_slots(st, finished)
+        return outs, emitted, finished
+
+    def _pack_spec(self, outs, emitted, finished):
+        """The speculative step's output as one int32 [slots, 2 (K + 1) +
+        1] tensor (outs, emitted, finished), fetched in one copy."""
+        return torch.cat([outs, emitted.to(torch.int32),
+                          finished.to(torch.int32)[:, None]], dim=1)
+
+    def _split_spec(self, host):
+        K1 = self.spec_tokens + 1
+        return (host[:, :K1], host[:, K1:2 * K1].astype(bool),
+                host[:, 2 * K1].astype(bool))
+
+    def _graph_spec_step(self):
+        """What the speculative graph holds: the step in its sampling form
+        over the static noise buffer, its output written into the static
+        one."""
+        self._out.copy_(self._pack_spec(*self._spec(self._noise)))
+
+    def step_spec(self):
+        """ONE speculative iteration: every armed lane advances 1..K + 1
+        tokens.  On a CUDA device: fill the noise rows of the sampling
+        lanes (when there are any), replay the captured step, and copy its
+        output to the host in one transfer.  On the CPU:
+        :meth:`_step_spec_eager`.  Returns (outs [slots, K + 1], emitted
+        [slots, K + 1] prefix mask, finished [slots])."""
+        if self._graph is None:
+            return self._step_spec_eager()
+        reqs = self._sampling_lanes()
+        if reqs is not None:
+            self._noise.copy_(self._gumbel(reqs))
+        self._graph.replay()
+        self.replays += 1
+        return self._split_spec(self._out.to("cpu", copy=True).numpy())
+
+    def _step_spec_eager(self):
+        """The same iteration issued op by op (the CPU's step, and the
+        card tests' reference for the graph)."""
+        reqs = self._sampling_lanes()
+        packed = self._pack_spec(*self._spec(
+            None if reqs is None else self._gumbel(reqs)))
+        # the step's one device-to-host copy
+        return self._split_spec(packed.to("cpu", copy=True).numpy())
+
+    def _distribute_spec(self, outs_np, emitted_np, fin_np):
+        """Push each armed lane's emitted run, spreading the step's gap over
+        its n tokens; the acceptance counters count greedy lanes only (n
+        - 1 of a run came from accepted proposals; the last token is the
+        target's own, free either way)."""
+        now = time.monotonic()
+        emitted_total = accepted = proposed = 0
+        for slot, req in list(self._sched.occupied.items()):
+            if req.prefilling:
+                continue
+            n = int(emitted_np[slot].sum())
+            if n <= 0:
+                continue
+            emitted_total += n
+            if not req.do_sample:
+                accepted += n - 1
+                proposed += self.spec_tokens
+            gap = ((now - req.t_last_token) / n
+                   if req.t_last_token is not None else None)
+            for i in range(n):
+                if gap is not None:
+                    self.metrics.observe_inter_token(gap)
+                req.handle._push(int(outs_np[slot, i]))
+            req.t_last_token = now
+            if fin_np[slot]:
+                self._host_retire(slot)
+                self.metrics.count("retired")
+                req.handle._finish()
+        self.metrics.observe_tokens(emitted_total)
+        if proposed:
+            self.metrics.observe_spec(accepted, proposed)
+
     def _distribute(self, toks_np, fin_np):
         now = time.monotonic()
         occupied = [(s, r) for s, r in self._sched.occupied.items()
@@ -995,6 +1233,10 @@ class GenerationEngine:
             if not thread.is_alive():
                 self._thread = None
         self._fail_everything(EngineStoppedError("engine stopped"))
+
+    @property
+    def draining(self) -> bool:
+        return self._draining
 
     def __enter__(self):
         return self.start()

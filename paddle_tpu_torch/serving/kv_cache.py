@@ -1,11 +1,13 @@
 """Device-resident PAGED KV cache for continuous-batching decode (port of
-paddle_tpu/serving/kv_cache.py, without the speculative draft pool).
+paddle_tpu/serving/kv_cache.py).
 
 The engine's mutable decode state is one dict of fixed-shape tensors on
 its device: a page pool ``[layers, num_pages, page_size, nh, hd]`` for K
 and one for V, an int32 page table ``[max_slots, pages_per_slot]`` (-1 =
 unmapped), a free-list register (``free_stack`` + 0-d ``free_count``) and
-the per-slot lane registers.  Where the reference donates the state to
+the per-slot lane registers; with a speculative draft model, a second
+pair of pools ``dkp``/``dvp`` for the draft's K/V, addressed through the
+same page table.  Where the reference donates the state to
 each jitted transition and gets a functionally updated copy back, the
 port allocates these tensors ONCE (``make_state`` at the engine's
 ``start()``) and every transition below updates them IN PLACE — an
@@ -45,6 +47,12 @@ class CacheGeometry:
     page_size: int = 16
     num_pages: int = 0
     dtype: torch.dtype = torch.float32
+    # speculative decode: the draft model's KV lives in a parallel pool
+    # addressed through the SAME page table (one allocation decision
+    # covers both models); 0 layers = no draft pool in the state
+    draft_layers: int = 0
+    draft_num_heads: int = 0
+    draft_head_dim: int = 0
 
     def __post_init__(self):
         if self.page_size < 1:
@@ -65,11 +73,19 @@ class CacheGeometry:
         return (self.num_layers, self.num_pages, self.page_size,
                 self.num_heads, self.head_dim)
 
+    @property
+    def draft_pool_shape(self):
+        return (self.draft_layers, self.num_pages, self.page_size,
+                self.draft_num_heads, self.draft_head_dim)
+
     def page_bytes(self) -> int:
-        """Bytes one page costs across K+V and all layers."""
+        """Bytes one page costs across K+V and all layers, the draft
+        pool's included."""
         itemsize = torch.empty((), dtype=self.dtype).element_size()
-        return (2 * self.page_size * self.num_layers * self.num_heads
-                * self.head_dim * itemsize)
+        per_tok = (self.num_layers * self.num_heads * self.head_dim
+                   + self.draft_layers * self.draft_num_heads
+                   * self.draft_head_dim)
+        return 2 * self.page_size * per_tok * itemsize
 
     def kv_bytes(self) -> int:
         return self.num_pages * self.page_bytes()
@@ -90,11 +106,13 @@ def make_state(geom: CacheGeometry, device) -> dict:
     pages the device must not free) and the sampling registers
     ``do_sample``/``temp``/``top_k``/``eos``/``stop_pos`` (a lane retires
     when its next write position would reach ``stop_pos``, or on eos).
-    Per-slot random generators live with the engine, on the host side of
-    the device."""
+    With ``draft_layers``, ``dkp``/``dvp`` the draft model's pools, at the
+    same page ids as ``kp``/``vp``: one page-table row addresses both
+    models' cache for a lane.  Per-slot random generators live with the
+    engine, on the host side of the device."""
     S, dev = geom.max_slots, torch.device(device)
     i32 = dict(dtype=torch.int32, device=dev)
-    return {
+    state = {
         "kp": torch.zeros(geom.pool_shape, dtype=geom.dtype, device=dev),
         "vp": torch.zeros(geom.pool_shape, dtype=geom.dtype, device=dev),
         "ptab": torch.full((S, geom.pages_per_slot), -1, **i32),
@@ -110,6 +128,11 @@ def make_state(geom: CacheGeometry, device) -> dict:
         "eos": torch.full((S,), geom.vocab_size, **i32),   # V = never
         "stop_pos": torch.zeros((S,), **i32),
     }
+    if geom.draft_layers:
+        for key in ("dkp", "dvp"):
+            state[key] = torch.zeros(geom.draft_pool_shape, dtype=geom.dtype,
+                                     device=dev)
+    return state
 
 
 # -- free-list register ops (no host sync) ------------------------------------
@@ -144,7 +167,8 @@ def push_pages(free_stack, free_count, pages):
 # -- transitions (in place) ---------------------------------------------------
 
 def write_prompt(state, slot: int, k_new, v_new, length: int,
-                 shared_ids=None, shared_n: int = 0):
+                 shared_ids=None, shared_n: int = 0, dk_new=None,
+                 dv_new=None):
     """Map and fill one admitted request's pages.
 
     ``k_new``/``v_new`` ``[layers, Sb, nh, hd]`` hold the prefill K/V of
@@ -156,7 +180,10 @@ def write_prompt(state, slot: int, k_new, v_new, length: int,
     written); columns ``[shared_n, ceil(length / page_size))`` are popped
     off the free stack and written page by page.  ``slot``, ``length``
     and ``shared_n`` are host ints, so the number of pages written is
-    known without a device sync.  Returns the row (a device tensor)."""
+    known without a device sync.  ``dk_new``/``dv_new`` (speculative
+    engines): the draft model's K/V of the same positions, written into
+    ``dkp``/``dvp`` at the same page ids.  Returns the row (a device
+    tensor)."""
     kp, vp, ptab = state["kp"], state["vp"], state["ptab"]
     ps = kp.shape[2]
     pps = ptab.shape[1]
@@ -175,7 +202,10 @@ def write_prompt(state, slot: int, k_new, v_new, length: int,
                                                   pages)
     n_priv = n_total - shared_n
     idx = row[shared_n:n_total].long()
-    for pool, new in ((kp, k_new), (vp, v_new)):
+    pairs = [(kp, k_new), (vp, v_new)]
+    if dk_new is not None:
+        pairs += [(state["dkp"], dk_new), (state["dvp"], dv_new)]
+    for pool, new in pairs:
         pad = new.new_zeros((new.shape[0], n_priv * ps) + new.shape[2:])
         m = min(Sb, n_priv * ps)
         pad[:, :m] = new[:, :m]

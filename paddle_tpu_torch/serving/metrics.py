@@ -1,7 +1,8 @@
 """Decode-path observability for the continuous-batching generation
 engine (port of ``GenerationMetrics`` in paddle_tpu/serving/metrics.py:
 tokens/s, TTFT and inter-token reservoirs, occupancy, request counters,
-prefix-cache hits and misses, prefill chunks).
+prefix-cache hits and misses, prefill chunks, speculative proposals and
+their acceptance).
 
 Every number here is taken on the host clock around work the engine has
 already synchronised (each decode step ends in a device-to-host copy), so
@@ -20,7 +21,8 @@ class GenerationMetrics:
     _p99_ms, _inter_token_p50_ms / _p99_ms, _slot_occupancy,
     _page_occupancy, _tokens_total, _requests_total{result},
     _prefix_cache_hits_total / _misses_total, _prefix_cache_hit_ratio,
-    _prefill_chunks_total."""
+    _prefill_chunks_total, _spec_accepted_total / _spec_proposed_total,
+    _spec_accept_ratio."""
 
     WINDOW_S = 60.0
     RESERVOIR = 4096
@@ -57,6 +59,10 @@ class GenerationMetrics:
         reg.gauge("paddle_genserve_prefix_cache_hit_ratio",
                   "prefix-cache hits / (hits + misses) since start",
                   fn=self._prefix_ratio_locked)
+        reg.gauge("paddle_genserve_spec_accept_ratio",
+                  "accepted / proposed speculative draft tokens since "
+                  "start (greedy lanes only; 0 when not speculating)",
+                  fn=self._spec_ratio_locked)
         self._requests = reg.counter(
             "paddle_genserve_requests_total",
             "generation request outcomes by result", label="result",
@@ -76,6 +82,12 @@ class GenerationMetrics:
         self._chunks = reg.counter(
             "paddle_genserve_prefill_chunks_total",
             "prefill chunks streamed into slot pages")
+        self._spec_accepted = reg.counter(
+            "paddle_genserve_spec_accepted_total",
+            "draft proposals the target verification accepted")
+        self._spec_proposed = reg.counter(
+            "paddle_genserve_spec_proposed_total",
+            "draft proposals offered to target verification")
         self._ttft = collections.deque(maxlen=self.RESERVOIR)
         self._gaps = collections.deque(maxlen=self.RESERVOIR)
         self._token_stamps = collections.deque()   # (monotonic, count)
@@ -121,11 +133,19 @@ class GenerationMetrics:
     def count_chunk(self, n: int = 1):
         self._chunks.inc(n)
 
+    def observe_spec(self, accepted: int, proposed: int):
+        self._spec_accepted.inc(accepted)
+        self._spec_proposed.inc(proposed)
+
     # -- derived values ----------------------------------------------------
     def _prefix_ratio_locked(self):
         hits = self._prefix_hits.value
         total = hits + self._prefix_misses.value
         return hits / total if total else 0.0
+
+    def _spec_ratio_locked(self):
+        proposed = self._spec_proposed.value
+        return self._spec_accepted.value / proposed if proposed else 0.0
 
     def _quantile_locked(self, deque_, q: float):
         if not deque_:
@@ -156,6 +176,8 @@ class GenerationMetrics:
                 "prefix_cache_hits": self._prefix_hits.value,
                 "prefix_cache_misses": self._prefix_misses.value,
                 "prefix_cache_hit_ratio": self._prefix_ratio_locked(),
+                "spec_accept_ratio": self._spec_ratio_locked(),
+                "spec_proposed": self._spec_proposed.value,
                 "prefill_chunks": self._chunks.value,
                 **dict(sorted(self.counters.items())),
             }

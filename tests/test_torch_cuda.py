@@ -20,7 +20,12 @@ decode step, captured once a key, gives the eager step's tokens bitwise
 (greedy, sampled, beam, eos), a later call of a key makes no host sync,
 the capture counts its kernels and a replayed call's trace shows their
 fast variants, and HF interop onto a card model keeps the parameters'
-device and dtype.  Needs a CUDA device (skips elsewhere); on the card:
+device and dtype; a capture survives dead graphs held in reference
+cycles with the collector run inside it (ops/capture.py); the serving
+engine's speculative step, one graph, gives the eager step's tokens
+bitwise, a replayed step syncs once, and ``slot_verify_paged`` on the
+card matches its CPU run.  Needs a CUDA device (skips elsewhere); on the
+card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
@@ -3094,3 +3099,205 @@ def test_hf_interop_onto_a_card_model_keeps_device_and_dtype(dev, dtype):
         ids = _gen_prompt(dev)
         got = model.generate(ids, max_new_tokens=4).cpu()
         assert torch.equal(got, src.generate(ids.cpu(), max_new_tokens=4))
+
+
+# ---------------------------------------------------------------------------
+# graph captures and the cyclic garbage collector (ops/capture.py), and the
+# speculative step as one CUDA graph
+# ---------------------------------------------------------------------------
+class _CollectingGraph(torch.cuda.graph):
+    """``torch.cuda.graph`` that runs the cyclic garbage collector as soon
+    as its capture has begun: where the collector would fire on its own
+    if an allocation count crossed its threshold there."""
+
+    def __enter__(self):
+        out = super().__enter__()
+        import gc
+
+        gc.collect()
+        return out
+
+
+def _greedy_tokens(eng, prompts, n=8):
+    return [h.result(120) for h in [eng.submit(p, n) for p in prompts]]
+
+
+def test_a_capture_survives_dead_graphs_in_reference_cycles(dev,
+                                                            monkeypatch):
+    """A GenerationEngine and a Model.fit engine, each holding a captured
+    graph inside a reference cycle (engine -> handle -> request ->
+    engine; model <-> engine), are dropped without collecting; then
+    another engine's step is captured while the collector runs inside
+    the capture.  The capture must succeed (the helper collects before
+    its warm-up, so no dead graph is left to free there) and its replay
+    be bitwise its eager step."""
+    import gc
+
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    prompts = [np.random.RandomState(i).randint(0, 211, n).tolist()
+               for i, n in enumerate((5, 9, 14))]
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        eng = GenerationEngine(_serving_model(dev), device=dev,
+                               **SERVE_ENGINE).start()
+        eng._kept = eng.submit(prompts[0], 4)        # engine -> handle
+        assert eng._kept.result(120) and eng.capture_count == 1
+        eng.stop()
+        net = _train_gpt(dev, torch.float32, 0.0)
+        model = ptt.Model(net).prepare(ptt.optimizer.AdamW(
+            learning_rate=0.01, parameters=net.parameters()), _lm_loss)
+        data = torch.from_numpy(np.random.RandomState(3).randint(
+            0, 96, (8, 16)))
+        model.fit(ptt.io.TensorDataset([data, data]), batch_size=4,
+                  shuffle=False, verbose=0, log_freq=0)
+        assert model._engine.captures == 1
+        del eng, net, model, data                    # cycles, uncollected
+        monkeypatch.setattr(torch.cuda, "graph", _CollectingGraph)
+        fresh = GenerationEngine(_serving_model(dev), device=dev,
+                                 **SERVE_ENGINE).start()
+        monkeypatch.undo()
+    finally:
+        if collecting:
+            gc.enable()
+    try:
+        assert fresh.capture_count == 1
+        graph = _greedy_tokens(fresh, prompts)
+        assert fresh.replays > 0
+        fresh.step = fresh._step_eager
+        assert _greedy_tokens(fresh, prompts) == graph
+    finally:
+        fresh.stop()
+
+
+def _draft_of(model, dev, dtype, layers=1, seed=None):
+    """A ``layers``-deep draft holding the target's embeddings, first
+    blocks and final norm (``seed``: independently initialised instead)."""
+    from paddle_tpu_torch.framework.random import seed as set_seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    set_seed(0 if seed is None else seed)
+    draft = GPTForCausalLM(GPTConfig(**dict(SERVE_CFG, num_layers=layers)),
+                           device=dev, dtype=dtype).eval()
+    if seed is None:
+        sd = model.state_dict()
+        draft.set_state_dict({k: sd[k] for k in draft.state_dict()})
+    return draft
+
+
+SPEC_K = 3
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_spec_graph_is_bitwise_the_eager_spec_step(dev, dtype):
+    """The speculative step, captured once at start() as ONE graph (the
+    draft's K + 1 paged decode calls and the target's verify), against
+    ``_step_spec_eager`` swapped in: tokens bitwise equal through hits,
+    chunks, both sampling modes, a mid-decode admission and a cancel; the
+    graph holds the draft's paged decode K + 1 times a layer and the
+    verify's LayerNorm and bias-GeLU on their fast kernels."""
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    model = _serving_model(dev, dtype)
+    draft = _draft_of(model, dev, dtype)
+    outs = {}
+    for form in ("graph", "eager"):
+        with GenerationEngine(model, device=dev, draft_model=draft,
+                              spec_tokens=SPEC_K, **SERVE_ENGINE) as eng:
+            assert eng.capture_count == 1
+            if form == "eager":
+                eng.step_spec = eng._step_spec_eager
+            outs[form] = _mixed_wave(eng)
+            _idle(eng)
+            snap = eng.metrics.snapshot()
+            assert snap["spec_proposed"] > 0
+            assert snap["prefix_cache_hits"] >= 2
+            assert eng.free_count + eng.resident_pages \
+                == eng.geometry.num_pages
+            assert (eng.replays > 0) == (form == "graph")
+            # the draft: 1 layer x (K + 1) calls; the verify: none
+            assert eng.graph_launches["paged_decode_attention"] == SPEC_K + 1
+            # draft 3 a call (2 a block + ln_f), verify 5 (2 layers)
+            assert eng.graph_launches["layer_norm"] == 3 * (SPEC_K + 1) + 5
+            assert eng.graph_launches["bias_gelu"] == (SPEC_K + 1) + 2
+            assert "flash_attention" not in eng.graph_launches
+            for name, counts in eng.graph_variants.items():
+                fast = {"layer_norm": "warp", "bias_gelu": "vec",
+                        "paged_decode_attention": "split"}[name]
+                assert set(v for v, n in counts.items() if n) == {fast}
+    assert outs["graph"] == outs["eager"]
+
+
+def test_spec_step_syncs_only_to_fetch(dev):
+    """Every replayed ``step_spec()`` of a second wave (greedy and
+    sampled) under set_sync_debug_mode("warn") makes one synchronizing
+    call: its copy of outs, emitted and finished to the host."""
+    import warnings
+
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    model = _serving_model(dev, torch.bfloat16)
+    draft = _draft_of(model, dev, torch.bfloat16)
+    seen = []
+    with GenerationEngine(model, device=dev, draft_model=draft,
+                          spec_tokens=SPEC_K, **SERVE_ENGINE) as eng:
+        _greedy_tokens(eng, [[3, 4, 5], list(range(20))])   # the first wave
+        step = eng.step_spec
+
+        def checked():
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = step()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            seen.append([w.filename for w in caught
+                         if str(w.message).startswith(SYNC_WARNING)])
+            return out
+
+        eng.step_spec = checked
+        hs = [eng.submit([3, 4, 5], 10),
+              eng.submit(list(range(9)), 10, do_sample=True,
+                         temperature=0.8, top_k=5, seed=1)]
+        for h in hs:
+            assert len(h.result(120)) == 10
+        assert eng.capture_count == 1
+    assert seen
+    for files in seen:
+        assert len(files) == 1 and files[0].endswith("generation.py"), seen
+
+
+def test_slot_verify_paged_on_the_card_matches_the_cpu(dev):
+    """The target's verify on the card (LayerNorm and bias-GeLU kernels at
+    R = slots x C rows) against the same float32 model's plain run on the
+    CPU: logits and both pools, one lane at a page boundary, one
+    inactive."""
+    dtype = torch.float32
+    model = _serving_model(dev, dtype)
+    cpu = _serving_model("cpu", dtype)
+    rs = np.random.RandomState(21)
+    L, pages, ps, nh, hd = 2, 24, 8, 4, 16
+    kp = torch.from_numpy(rs.randn(L, pages, ps, nh, hd).astype(
+        np.float32)).to(dtype)
+    vp = torch.from_numpy(rs.randn(L, pages, ps, nh, hd).astype(
+        np.float32)).to(dtype)
+    rows = torch.full((3, 12), -1, dtype=torch.int32)
+    perm = torch.from_numpy(rs.permutation(pages).astype(np.int32))
+    rows[0, :3], rows[1, :5] = perm[:3], perm[3:8]
+    C = SPEC_K + 1
+    positions = torch.tensor([[9 + i for i in range(C)],
+                              [30 + i for i in range(C)], [0] * C],
+                             dtype=torch.int32)
+    tokens = torch.from_numpy(rs.randint(0, 211, (3, C)).astype(np.int32))
+    active = torch.tensor([True, True, False])
+    res = {}
+    for m, where in ((model, dev), (cpu, "cpu")):
+        k, v = kp.clone().to(where), vp.clone().to(where)
+        lg, _, _ = m.slot_verify_paged(
+            tokens.to(where), positions.to(where), active.to(where), k, v,
+            rows.to(where), 96)
+        res[str(where)] = (lg.float().cpu(), k.float().cpu(), v.float().cpu())
+    for got, ref in zip(res[str(dev)], res["cpu"]):
+        _check(got, ref, dtype)
