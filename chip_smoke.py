@@ -254,6 +254,27 @@ passed over):
                   sync a step, a traced wave's replays at the graph's
                   launches on fast kernels; rows 1, 2 and 9 at the
                   path's shapes.
+32. predict-serve — Model(BertModel(BertConfig())).serve on full-width
+                  BERT-base in float32: 12 bucket graphs (1,2,4,8 x
+                  32,64,128) captured by serve(), 4 ServingClient threads
+                  x 8 requests of 8-128 ids; every response bitwise its
+                  row of a direct Predictor.run of its padded batch at its
+                  bucket, every 8th within 1e-4 of the CPU port, no capture
+                  after warm-up; rows 1, 2 and 6 against their plain
+                  versions at the 1 x 32 and 8 x 128 buckets, launches of a
+                  replay from the capture; request p50/p99, mean batch,
+                  padding waste, an 8 x 128 replay's device ms, the host's
+                  JSON encode of a response.
+33. http-generate — Model(GPT-2-small).serve_generate in bf16 at the
+                  serving defaults: the serving wave over HTTP (8 SSE, 2
+                  sampled) against the same engine in process (tokens
+                  equal up to near ties; tokens/s, TTFT, inter-token),
+                  /predict probes to phase 32's server beside it (bitwise),
+                  streams cut after 16 tokens resumed over HTTP with
+                  resume_pos 16 (plain and speculative engines), then
+                  shutdown() with 4 SSE streams open: each ends with its
+                  done event and the drain is clean.  Run alone after the
+                  build with `python3 chip_smoke.py --serving-front-end`.
 
 The AccumulateGrad stream warning (a backward accumulating into a node of
 another stream: the training engine's warm-up meeting a dygraph graph
@@ -7138,30 +7159,597 @@ def spec_phase(torch, K, card):
     return spec_counts, shapes
 
 
-def main():
-    import torch
-def main():
-    import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
+PREDICT_BUCKETS = "1,2,4,8x32,64,128"   # 4 batch x 3 seq = 12 bucket graphs
+PREDICT_CLIENTS = 4      # ServingClient threads of [predict-serve]
+PREDICT_PER_CLIENT = 8   # requests a thread, 8-128 ids each
+PREDICT_CPU_EVERY = 8    # every 8th response also against the CPU port
+PREDICT_CPU_TOL = 1e-4   # x max(1, max|ref|): float32 card vs CPU, 12 layers
+PREDICT_KERNELS = ("layer_norm", "bias_gelu", "flash_attention")
+# launches a replay of a BERT-base bucket: LayerNorm 1 + 2 a layer,
+# bias-GeLU and non-causal flash forward one a layer
+PREDICT_WANT = {"layer_norm": 25, "bias_gelu": 12, "flash_attention": 12}
+HTTP_NEW = 48            # new tokens a request of [http-generate]
+HTTP_CUT = 16            # the resume check cuts a stream after this many
+HTTP_KERNELS = ("layer_norm", "bias_gelu", "flash_attention",
+                "paged_decode_attention")
+
+
+def predict_kernel_shapes(torch, K):
+    """Rows 1, 2 and 6 against their plain versions at /predict's smallest
+    and largest buckets, float32 (BERT-base served in float32): LayerNorm
+    and bias-GeLU at R = B x S rows (32 and 1024), the non-causal flash
+    forward at B = 1, S = 32 and B = 8, S = 128 (H = 12, D = 64).
+    Returns {kernel: {"1x32": record, "8x128": record}}."""
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(22)
+    dt, isz = torch.float32, 4
+    recs = {n: {} for n in PREDICT_KERNELS}
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale
+                ).to(dt)
+
+    for B, S in ((1, 32), (8, 128)):
+        R, N, Fd, H, D = B * S, 768, 3072, 12, 64
+        tag = f"{B}x{S}"
+        x, w, b = rnd(R, N), 1 + rnd(N, scale=0.1), rnd(N, scale=0.1)
+        recs["layer_norm"][tag] = compare(
+            torch, f"[predict-serve] layer_norm f32 R={R} N={N}",
+            lambda: K.layer_norm.layer_norm(x, w, b, 1e-12),
+            lambda: K.layer_norm.layer_norm_plain(x, w, b, 1e-12),
+            lambda: F.layer_norm(x, (N,), w, b, 1e-12), dt,
+            (2 * R * N + 2 * N) * isz, 8 * R * N, PEAK_F32,
+            variant=("layer_norm", "warp"))
+        xf, bf = rnd(R, Fd), rnd(Fd, scale=0.1)
+        recs["bias_gelu"][tag] = compare(
+            torch, f"[predict-serve] bias_gelu f32 R={R} F={Fd}",
+            lambda: K.bias_gelu.bias_gelu(xf, bf),
+            lambda: K.bias_gelu.bias_gelu_plain(xf, bf),
+            lambda: F.gelu(xf + bf), dt, (2 * R * Fd + Fd) * isz,
+            5 * R * Fd, PEAK_F32, variant=("bias_gelu", "vec"))
+        qkv = rnd(B, S, 3, H, D)              # the fused projection
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        recs["flash_attention"][tag] = compare(
+            torch, f"[predict-serve] flash_attention f32 non-causal B={B} "
+            f"S={S} H={H} D={D}",
+            lambda: K.flash_attention.flash_attention(
+                q, k, v, causal=False)[0],
+            lambda: K.flash_attention.flash_attention_plain(
+                q, k, v, causal=False)[0],
+            lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
+            dt, 4 * B * S * H * D * isz + B * H * S * 4,
+            4 * D * B * H * S * S, PEAK_F32,
+            variant=("flash_attention", "simt"))
+    return recs
+
+
+class BatchRecorder:
+    """Stands in for a ServingEngine's predictor: runs it and keeps each
+    batch's host inputs and fetched outputs."""
+
+    def __init__(self, pred):
+        self.pred, self.batches = pred, []
+
+    def __getattr__(self, name):
+        return getattr(self.pred, name)
+
+    def run(self, arrays):
+        outs = self.pred.run(arrays)
+        self.batches.append(([a.copy() for a in arrays], outs))
+        return outs
+
+
+def pct(xs, q):
+    return float(np.percentile(xs, q)) if len(xs) else None
+
+
+def predict_serve_phase(torch, K, card):
+    """[predict-serve]: Model(BertModel(BertConfig())).serve on the card:
+    BERT-base at full width (hidden 768, 12 layers, vocab 30522), seeded
+    weights, float32, eval; buckets 1,2,4,8 x 32,64,128 (12 bucket graphs
+    captured by serve() before the port opens), batch_timeout_ms 2, int64
+    ids.  4 ServingClient threads x 8 requests of 8-128 ids (seeded).
+    Fails unless every response is bitwise its row of a direct
+    Predictor.run of the padded batch it was served in (same bucket),
+    every 8th is within PREDICT_CPU_TOL of the CPU port's float32 forward
+    of the same padded row, no bucket is captured after warm-up, and each
+    of rows 1, 2 and 6 launched on the path.  Rows 1, 2 and 6 against
+    their plain versions at the 1 x 32 and 8 x 128 buckets' shapes; capture
+    ms, request p50/p99, mean batch, padding waste, the 8 x 128 replay's
+    device ms and launches, the host's JSON encode of the largest
+    response.  Returns (record, the running server, probes: (ids, the
+    direct run's outputs at their batch-1 bucket)) — the server serves on
+    through [http-generate]."""
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.models import (BertConfig, BertModel,
+                                         load_numpy_state)
+    from paddle_tpu_torch.serving import ServingClient
+
+    t_phase = time.perf_counter()
+    shapes = predict_kernel_shapes(torch, K)
+    cfg = BertConfig()
+    seed(0)
+    bert = BertModel(cfg, device="cuda").eval()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    srv = Model(bert).serve(
+        port=0, blocking=False, install_signal_handlers=False,
+        buckets=PREDICT_BUCKETS, batch_timeout_ms=2,
+        input_spec=[((-1, -1), "int64")])
+    start_ms = (time.perf_counter() - t0) * 1e3
+    eng = srv.engine
+    pred = eng._predictor
+    if pred.compile_count != 12:
+        fail(f"[predict-serve] serve() captured {pred.compile_count} bucket "
+             "graphs, not 12")
+    rec = BatchRecorder(pred)
+    eng._predictor = rec
+    rs = np.random.RandomState(52)
+    reqs = [[rs.randint(0, cfg.vocab_size, rs.randint(8, 129)).astype(
+        np.int64) for _ in range(PREDICT_PER_CLIENT)]
+        for _ in range(PREDICT_CLIENTS)]
+    results, lat, errors = {}, [], []
+
+    def client(c):
+        cl = ServingClient(srv.url, timeout=300)
+        try:
+            for i, ids in enumerate(reqs[c]):
+                t = time.perf_counter()
+                results[(c, i)] = cl.predict([ids])
+                lat.append((time.perf_counter() - t) * 1e3)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"client {c}: {type(e).__name__}: {e}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(PREDICT_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        fail(f"[predict-serve] {errors}")
+    counts = K.launch_counts()
+    replays = dict(pred.replays)
+    snap = eng.metrics.snapshot()
+    eng._predictor = pred
+    if pred.compile_count != 12 or snap["compile_count"] != 12:
+        fail(f"[predict-serve] {pred.compile_count} bucket graphs after "
+             "the traffic: a bucket was captured after warm-up")
+    key8 = (((8, 128), "int64"),)
+    per_replay = pred.graph_launches[key8]
+    path = {n: counts[n] + sum(pred.graph_launches[k].get(n, 0) * r
+                               for k, r in replays.items())
+            for n in PREDICT_KERNELS}
+    for n in PREDICT_KERNELS:
+        if path[n] <= 0 or per_replay.get(n, 0) <= 0:
+            fail(f"[predict-serve] {n} was not launched on the path: "
+                 f"{path}, an 8 x 128 replay {per_replay}")
+    # every response is bitwise its row of the direct run of its batch
+    flat = [(c, i, ids) for c in range(PREDICT_CLIENTS)
+            for i, ids in enumerate(reqs[c])]
+    matched = {}
+    for arrays, outs in rec.batches:
+        direct = pred.run(arrays)
+        for o, d in zip(outs, direct):
+            if not np.array_equal(o, d):
+                fail("[predict-serve] a served batch differs from its "
+                     f"direct run at bucket {arrays[0].shape}")
+        for j, row in enumerate(arrays[0]):
+            for c, i, ids in flat:
+                if np.array_equal(row[:len(ids)], ids) \
+                        and not row[len(ids):].any():
+                    got = results[(c, i)]
+                    if not (np.array_equal(got[0], outs[0][j, :len(ids)])
+                            and np.array_equal(got[1], outs[1][j])):
+                        fail(f"[predict-serve] response ({c}, {i}) is not "
+                             "bitwise its row of the served batch")
+                    matched[(c, i)] = (arrays[0].shape, row)
+    if len(matched) != len(flat):
+        fail(f"[predict-serve] matched {len(matched)} of {len(flat)} "
+             "responses to a row of a served batch")
+    batch_shapes = sorted({tuple(a[0].shape) for a, _ in rec.batches})
+    # every 8th against the CPU port's float32 forward of the padded row
+    cpu = BertModel(cfg, device="cpu").eval()
+    load_numpy_state(cpu, {k: v.cpu().numpy()
+                           for k, v in bert.state_dict().items()})
+    cpu_err = []
+    for c, i, ids in flat[::PREDICT_CPU_EVERY]:
+        _, row = matched[(c, i)]
+        with torch.no_grad():
+            seq, pooled = cpu(torch.from_numpy(row[None]))
+        for got, want in ((results[(c, i)][0], seq[0, :len(ids)].numpy()),
+                          (results[(c, i)][1], pooled[0].numpy())):
+            err = float(np.abs(got - want).max())
+            tol = PREDICT_CPU_TOL * max(1.0, float(np.abs(want).max()))
+            if not err <= tol:
+                fail(f"[predict-serve] response ({c}, {i}) differs from "
+                     f"the CPU port's by {err:.3e} > {tol:.3e}")
+            cpu_err.append(err)
+    del cpu
+    # the 8 x 128 replay's device time, the largest response's JSON encode
+    b8 = pred._buckets[key8]
+    b8.graph.replay()
+    replay_ms = _events_ms(
+        torch, lambda: [b8.graph.replay() for _ in range(20)], 20)
+    big = max(results.values(), key=lambda o: o[0].size)
+    enc = []
+    for _ in range(5):
+        t = time.perf_counter()
+        body = json.dumps({"outputs": [np.asarray(o).tolist() for o in big],
+                           "dtypes": [str(o.dtype) for o in big],
+                           "latency_ms": 0.0}).encode()
+        enc.append((time.perf_counter() - t) * 1e3)
+    # probes for [http-generate]: batch-1 requests with their direct runs
+    probes = []
+    for S in (40, 77, 128):
+        ids = rs.randint(0, cfg.vocab_size, S).astype(np.int64)
+        padded = np.zeros((1, eng.buckets.seq_for(S)), np.int64)
+        padded[0, :S] = ids
+        d = pred.run([padded])
+        probes.append((ids, [d[0][0, :S].copy(), d[1][0].copy()]))
+    cap = sorted(pred.capture_ms.values())
+    record = {
+        "counts": path, "launches_a_replay_8x128": dict(per_replay),
+        "shapes": shapes, "captures": pred.compile_count,
+        "capture_ms_total": sum(cap), "replay_8x128_ms": replay_ms,
+        "p50_ms": snap["p50_ms"], "p99_ms": snap["p99_ms"],
+        "mean_batch": snap["mean_batch_size"],
+        "padding_waste_ratio": snap["padding_waste_ratio"]}
+    log(f"[predict-serve] BERT-base float32 on {card}: serve() took "
+        f"{start_ms:.1f} ms, {pred.compile_count} bucket captures "
+        f"{sum(cap):.1f} ms in all (each {cap[0]:.1f}-{cap[-1]:.1f} ms), 0 "
+        f"after warm-up; {len(flat)} requests from {PREDICT_CLIENTS} "
+        f"ServingClient threads in {wall:.3f} s ({len(flat) / wall:.2f} "
+        f"requests/s): server p50 {snap['p50_ms']} ms, p99 "
+        f"{snap['p99_ms']} ms; client p50 {pct(lat, 50):.3f} ms, p99 "
+        f"{pct(lat, 99):.3f} ms; {snap['batches']} batches, mean batch "
+        f"{snap['mean_batch_size']}, padding_waste_ratio "
+        f"{snap['padding_waste_ratio']}; batch shapes {batch_shapes}; every "
+        f"response bitwise its row of the direct run at its bucket; every "
+        f"{PREDICT_CPU_EVERY}th within the CPU port's by max "
+        f"{max(cpu_err):.3e}; an 8 x 128 replay {replay_ms:.4f} device ms, "
+        f"launches {per_replay} (expected {PREDICT_WANT}); the largest "
+        f"response ({big[0].shape[0]} x {big[0].shape[1]} + pooled) JSON "
+        f"encode {pct(enc, 50):.3f} ms for {len(body)} bytes; path "
+        f"launches {path} | {time.perf_counter() - t_phase:.1f}s")
+    return record, srv, probes
+
+
+def bf16_tie(torch, model, prompt, ref, got, kw, what, cut=None,
+             verify=False):
+    """``got`` equals ``ref`` (two runs of one request on the bf16 model,
+    same seed) up to the first new token t that differs; there the choice
+    must be a near tie.  The logits at t: the model's forward of prompt +
+    ref[:t] (the flash prefill path); with ``cut`` (got resumed after
+    ``cut`` tokens), the uninterrupted path's (slot_prefill of the prompt,
+    then slot_decode_paged steps fed ref[:t]) and d = max|their difference
+    from the resumed path's| (slot_prefill of prompt + ref[:cut], then
+    steps fed ref[cut:t]; ``verify``: slot_verify_paged steps, the
+    speculative step's first position).  Greedy: a top-2 margin within max(2 d,
+    BF16_TOL x max(1, max|logits|)) with got's token one of the two;
+    sampled, on z = logits / T + the request's Gumbel row t (drawn again
+    from its seed, one row a token) and the tolerance over T: got's token
+    in the top-k cut or within the tolerance of it (the cut is a
+    threshold: a token that close is in one path's cut and may be out of
+    the other's), and its z at most the tolerance below every other
+    token's that is surely in the cut.  Returns (t, margin, tolerance[,
+    the tokens at the cut]), or None when equal."""
+    from paddle_tpu_torch.framework.random import make_generator
+
+    if got == ref:
+        return None
+    t = next(j for j in range(min(len(ref), len(got))) if ref[j] != got[j])
+    d = 0.0
+    with torch.no_grad():
+        if cut is None:
+            lg = model(torch.tensor([prompt + ref[:t]], device=model.device))[
+                0, -1].float().cpu()
+        else:
+            a, _ = decode_run(torch, model, prompt, t, feed=ref[:t],
+                              verify=verify)
+            b, _ = decode_run(torch, model, prompt + ref[:cut], t - cut,
+                              feed=ref[cut:t], verify=verify)
+            lg = a[t]
+            d = float((a[t] - b[t - cut]).abs().max())
+    tol = max(2 * d, BF16_TOL * max(1.0, float(lg.abs().max())))
+    g = got[t]
+    if not kw.get("do_sample"):
+        top = lg.topk(2)
+        margin = float(top.values[0] - top.values[1])
+        if margin > tol or g not in top.indices.tolist():
+            fail(f"{what}: differs at new token {t} ({g} vs {ref[t]}) with "
+                 f"a top-2 margin {margin:.3e} > {tol:.3e} (the paths' "
+                 f"logits differ by {d:.3e} there)")
+        return t, margin, tol
+    gen = make_generator(kw["seed"], model.device)
+    for _ in range(t + 1):
+        u = torch.rand(model.cfg.vocab_size, generator=gen,
+                       device=model.device)
+    noise = -torch.log(-torch.log(u.clamp_min(torch.finfo(
+        torch.float32).tiny))).cpu()
+    tol /= kw["temperature"]
+    lg2 = lg / kw["temperature"]
+    kth = float(lg2.topk(kw["top_k"]).values[-1])
+    # top-k's cut is a threshold: a token within the tolerance of the
+    # k-th value may be in one path's cut and out of the other's
+    sure = lg2 > kth + tol
+    edge = (lg2 - kth).abs() <= tol
+    z = lg2 + noise
+    rivals = z.masked_fill(~sure, float("-inf"))
+    rivals[g] = float("-inf")
+    margin = float(rivals.max() - z[g])      # how far got's draw lost
+    if not (bool(sure[g] or edge[g]) and margin <= tol):
+        fail(f"{what}: differs at new token {t} ({g} vs {ref[t]}): got's "
+             f"draw loses by {margin:.3e} > {tol:.3e} to a token surely in "
+             f"the top-k cut, or lies out of it (the paths' logits differ "
+             f"by {d:.3e} there; {int(edge.sum())} tokens within the "
+             "tolerance of the cut)")
+    return t, margin, tol, f"{int(edge.sum())} at the top-k cut"
+
+
+def http_wave(url, prompts, kws, streamed, probe=None):
+    """Every prompt sent at once over HTTP, one ServingClient thread a
+    request (``streamed[i]``: SSE, else one JSON body); ``probe`` runs on
+    one more thread meanwhile.  Returns (tokens, wall s, client TTFT ms of
+    the streams, their inter-token gaps ms)."""
+    from paddle_tpu_torch.serving import ServingClient
+
+    outs, ttft, gaps, errors = {}, [], [], []
+
+    def one(i):
+        cl = ServingClient(url, timeout=300)
+        try:
+            if not streamed[i]:
+                outs[i] = cl.generate(prompts[i], HTTP_NEW, **kws[i])[
+                    "tokens"]
+                return
+            t0 = last = time.perf_counter()
+            toks = []
+            for evt in cl.generate_stream(prompts[i], HTTP_NEW, **kws[i]):
+                now = time.perf_counter()
+                if "token" in evt:
+                    (ttft.append((now - t0) * 1e3) if not toks
+                     else gaps.append((now - last) * 1e3))
+                    toks.append(evt["token"])
+                    last = now
+                elif evt.get("error"):
+                    errors.append(f"request {i}: {evt['error']}")
+            outs[i] = toks
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    if probe is not None:
+        threads.append(threading.Thread(target=probe))
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        fail(f"[http-generate] {errors}")
+    return [outs[i] for i in range(len(prompts))], wall, ttft, gaps
+
+
+def inproc_wave(eng, prompts, kws):
+    """The same requests submitted in process, all at once: (tokens, wall
+    s, the engine's metrics of the wave)."""
+    from paddle_tpu_torch.serving.metrics import GenerationMetrics
+
+    eng.metrics = GenerationMetrics(max_slots=eng.max_slots,
+                                    num_pages=eng.geometry.num_pages)
+    t0 = time.perf_counter()
+    hs = [eng.submit(p, HTTP_NEW, **kws[i]) for i, p in enumerate(prompts)]
+    outs = [h.result(600) for h in hs]
+    return outs, time.perf_counter() - t0, eng.metrics.snapshot()
+
+
+def http_generate_phase(torch, K, card, predict_srv, probes):
+    """[http-generate]: Model(GPTForCausalLM(GPTConfig())).serve_generate
+    on the card: GPT-2-small, seeded weights, bf16, dropout 0, the serving
+    cell's engine (8 slots x 512, page 16, prefix cache on, its decode
+    step one CUDA graph).  16 requests of 20-128 prompt tokens (8 on a
+    shared 64-token prefix), 48 new tokens each, 8 streamed as SSE, 2
+    sampling with top-k 40: a cold in-process wave fills the prefix cache,
+    then the HTTP wave (with 3 /predict probes to [predict-serve]'s server
+    on another thread) and the same wave in process, each request's
+    tokens equal up to a near tie (bf16_tie).  The probes must be bitwise
+    their direct runs (the BERT bucket graphs survive the decode graph's
+    replays beside them).  Resume: 2 greedy and 1 sampled request of the
+    wave, and 1 sampled through a speculative engine (the 2-layer draft
+    of [spec]) behind a ServingServer of its own, cut after 16 tokens and
+    resubmitted over HTTP with them appended and resume_pos 16: the rest
+    must equal the uninterrupted stream up to a near tie (bf16_tie with
+    the two paths' logit difference: the resumed prompt's K/V come from a
+    prefill, the uninterrupted stream's from decode steps).  Then
+    shutdown() with 4 SSE streams open: each ends with its done event,
+    the drain clean.  Returns a record with every kernel's launches on
+    the path."""
+    from paddle_tpu_torch import Model
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.serving import (GenerationEngine, ServingClient,
+                                          ServingServer)
+
+    t_phase = time.perf_counter()
+    cfg = GPTConfig(dropout=0.0, attn_dropout=0.0)
+    seed(0)
+    model = GPTForCausalLM(cfg, device="cuda").eval()
+    model.to(dtype=torch.bfloat16)
+    engine_kw = dict(max_slots=SERVING_ENGINE["max_slots"],
+                     max_seq_len=SERVING_ENGINE["max_seq_len"],
+                     prompt_buckets=SERVING_ENGINE["prompt_buckets"],
+                     page_size=SERVING_ENGINE["page_size"],
+                     prefix_cache=True)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    srv = Model(model).serve_generate(port=0, blocking=False,
+                                      install_signal_handlers=False,
+                                      **engine_kw)
+    start_ms = (time.perf_counter() - t0) * 1e3
+    eng = srv.gen_engine
+    if eng.capture_count != 1:
+        fail(f"[http-generate] captured {eng.capture_count}x")
+    prompts = spec_prompts(cfg.vocab_size, seed=43)
+    # the resumed prompts (with HTTP_CUT tokens appended) must fit the
+    # largest prompt bucket: 2 of those sample, 2 others are greedy
+    fits = [i for i, p in enumerate(prompts)
+            if len(p) + HTTP_CUT <= int(engine_kw["prompt_buckets"].split(
+                ",")[-1])]
+    sampled = fits[:2]
+    kws = [dict(GEN_SAMPLE, seed=70 + i) if i in sampled else {}
+           for i in range(len(prompts))]
+    streamed = [i % 2 == 0 for i in range(len(prompts))]
+    inproc_wave(eng, prompts, kws)                # fills the prefix cache
+    probe_out, probe_err = [], []
+
+    def probe():
+        cl = ServingClient(predict_srv.url, timeout=300)
+        try:
+            for ids, _ in probes:
+                probe_out.append(cl.predict([ids]))
+        except Exception as e:  # noqa: BLE001 - reported below
+            probe_err.append(f"{type(e).__name__}: {e}")
+
+    replays0 = eng.replays
+    http_outs, http_wall, ttft, gaps = http_wave(srv.url, prompts, kws,
+                                                 streamed, probe)
+    http_replays = eng.replays - replays0
+    http_snap = eng.metrics.snapshot()
+    in_outs, in_wall, in_snap = inproc_wave(eng, prompts, kws)
+    if probe_err:
+        fail(f"[http-generate] /predict probes: {probe_err}")
+    for (ids, want), got in zip(probes, probe_out):
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            fail("[http-generate] a /predict probe served beside the decode "
+                 "graph is not bitwise its direct run")
+    ties = {}
+    for i, p in enumerate(prompts):
+        if len(http_outs[i]) != HTTP_NEW:
+            fail(f"[http-generate] request {i} gave {len(http_outs[i])} "
+                 "tokens over HTTP")
+        tie = bf16_tie(torch, model, p, in_outs[i], http_outs[i], kws[i],
+                       f"[http-generate] request {i} (HTTP vs in-process)")
+        if tie is not None:
+            ties[i] = tie
+    # resume: cut after HTTP_CUT tokens, resubmit over HTTP
+    cl = ServingClient(srv.url, timeout=300)
+    greedy = [i for i in fits if i not in sampled]
+    resumed = {}
+    for i in greedy[:2] + [sampled[0]]:
+        ref = in_outs[i]
+        rest = cl.generate(prompts[i] + ref[:HTTP_CUT], HTTP_NEW - HTTP_CUT,
+                           resume_pos=HTTP_CUT, **kws[i])["tokens"]
+        resumed[i] = bf16_tie(torch, model, prompts[i], ref,
+                              ref[:HTTP_CUT] + rest, kws[i],
+                              f"[http-generate] resumed request {i}",
+                              cut=HTTP_CUT)
+    counts = K.launch_counts()
+    path = {n: counts[n] + eng.graph_launches.get(n, 0) * eng.replays
+            for n in HTTP_KERNELS}
+    for n in HTTP_KERNELS:
+        if path[n] <= 0:
+            fail(f"[http-generate] {n} was not launched on the path: {path}")
+    # the speculative engine's sampled stream, resumed over HTTP
+    draft = spec_draft(torch, model)
+    spec_eng = GenerationEngine(model, device=model.device,
+                                draft_model=draft, spec_tokens=SPEC_K,
+                                **engine_kw)
+    spec_srv = ServingServer(None, gen_engine=spec_eng, port=0,
+                             install_signal_handlers=False).start()
     try:
-        import paddle_tpu_torch.ops.kernels as K
-        from paddle_tpu_torch.framework.random import seed
-        from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
-                                             load_numpy_state)
-        from paddle_tpu_torch.ops.kernels import build
-    except ImportError as e:
-        print(f"chip_smoke: the paddle_tpu_torch package is missing: {e}",
-              file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # the training engine's warm-up must never meet AccumulateGrad nodes
-    # of another stream (a dygraph loss kept alive before Model.fit)
-    warnings.filterwarnings("error", message=ACCUMULATE_WARNING)
+        j = sampled[1]
+        ref = spec_eng.generate(prompts[j], HTTP_NEW, timeout=600, **kws[j])
+        rest = ServingClient(spec_srv.url, timeout=300).generate(
+            prompts[j] + ref[:HTTP_CUT], HTTP_NEW - HTTP_CUT,
+            resume_pos=HTTP_CUT, **kws[j])["tokens"]
+        resumed[f"spec {j}"] = bf16_tie(
+            torch, model, prompts[j], ref, ref[:HTTP_CUT] + rest, kws[j],
+            f"[http-generate] resumed request {j} (spec engine)",
+            cut=HTTP_CUT, verify=True)
+    finally:
+        spec_clean = spec_srv.shutdown()
+    del draft, spec_eng, spec_srv
+    # shutdown with 4 SSE streams open
+    events = {i: [] for i in range(4)}
+    drain_prompts = spec_prompts(cfg.vocab_size, seed=44)[:4]
 
+    def stream(i):
+        c = ServingClient(srv.url, timeout=300)
+        try:
+            for evt in c.generate_stream(drain_prompts[i], HTTP_NEW):
+                events[i].append(evt)
+        except Exception as e:  # noqa: BLE001 - reported below
+            events[i].append({"client_error": f"{type(e).__name__}: {e}"})
+
+    threads = [threading.Thread(target=stream, args=(i,)) for i in events]
+    for t in threads:
+        t.start()
+    deadline = time.perf_counter() + 120
+    while not all(any("token" in e for e in ev) for ev in events.values()):
+        if time.perf_counter() > deadline:
+            fail("[http-generate] the drain's streams gave no token")
+        time.sleep(0.002)
+    open_at = [sum("token" in e for e in ev) for ev in events.values()]
+    t0 = time.perf_counter()
+    clean = srv.shutdown()
+    drain_ms = (time.perf_counter() - t0) * 1e3
+    for t in threads:
+        t.join(120)
+    code = srv.wait(5)
+    for i, ev in events.items():
+        last = ev[-1] if ev else {}
+        if not (last.get("done") and "error" not in last
+                and last.get("tokens") == HTTP_NEW
+                and sum("token" in e for e in ev) == HTTP_NEW):
+            fail(f"[http-generate] drained stream {i} ended with {last}")
+    if not (clean and spec_clean and code == 0):
+        fail(f"[http-generate] the drain was not clean: {clean}, spec "
+             f"{spec_clean}, wait() {code}")
+    n_tok = len(prompts) * HTTP_NEW
+    record = {
+        "counts": path, "graph_launches_a_replay": dict(eng.graph_launches),
+        "http_tokens_s": n_tok / http_wall, "inproc_tokens_s": n_tok / in_wall,
+        "http_ttft_p50_ms": http_snap["ttft_p50_ms"],
+        "inproc_ttft_p50_ms": in_snap["ttft_p50_ms"],
+        "http_inter_token_p50_ms": http_snap["inter_token_p50_ms"],
+        "inproc_inter_token_p50_ms": in_snap["inter_token_p50_ms"],
+        "client_ttft_p50_ms": pct(ttft, 50),
+        "client_inter_token_p50_ms": pct(gaps, 50),
+        "ties": ties, "resumed": resumed, "drain_ms": drain_ms}
+    log(f"[http-generate] GPT-2-small bf16 on {card}: serve_generate() took "
+        f"{start_ms:.1f} ms (1 decode graph); 16 requests x {HTTP_NEW} new "
+        f"(8 SSE, requests {sampled} sampled top-k 40): HTTP "
+        f"{n_tok / http_wall:.1f} tokens/s ({http_replays} replays), "
+        f"engine TTFT p50 {http_snap['ttft_p50_ms']:.3f} ms, inter-token "
+        f"p50 {http_snap['inter_token_p50_ms']:.3f} ms, at the client "
+        f"TTFT p50 {pct(ttft, 50):.3f} ms, inter-token p50 "
+        f"{pct(gaps, 50):.3f} ms (the 8 streams); in process "
+        f"{n_tok / in_wall:.1f} tokens/s, TTFT p50 "
+        f"{in_snap['ttft_p50_ms']:.3f} ms, inter-token p50 "
+        f"{in_snap['inter_token_p50_ms']:.3f} ms; tokens HTTP = in-process "
+        f"{16 - len(ties)}/16 (near ties (new token, margin, tolerance) "
+        f"{ties}); {len(probes)} /predict probes bitwise beside the decode "
+        f"graph; resumed at {HTTP_CUT} over HTTP (None = equal to the "
+        f"uninterrupted stream) {resumed}; shutdown() with 4 SSE streams "
+        f"open at {open_at} tokens: clean in {drain_ms:.1f} ms, every "
+        f"stream done at {HTTP_NEW} tokens; a decode replay's launches "
+        f"{eng.graph_launches}; path launches {path} | "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    return record
+
+
+def device_and_build(torch, build):
+    """The card's name and power limit (returned as nvidia-smi prints
+    them), then every kernel library built from the checkout's sources,
+    its ptxas report (a spill fails the run) and its SASS checked."""
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
@@ -7194,6 +7782,69 @@ def main():
     if spills:
         fail(f"ptxas reports register spills: {spills}")
     sass_phase(paths)
+    return card
+
+def front_end_phases(torch, K, card):
+    """[predict-serve], then [http-generate] with the predict server still
+    serving, then that server's drain.  Returns their records."""
+    release(torch, "predict-serve")
+    mark("predict-serve")
+    predict, predict_srv, probes = predict_serve_phase(torch, K, card)
+    release(torch, "http-generate")
+    mark("http-generate")
+    try:
+        generate = http_generate_phase(torch, K, card, predict_srv, probes)
+    finally:
+        clean = predict_srv.shutdown()
+    if not clean:
+        fail("[predict-serve] the server's drain was not clean")
+    mark("serving front end done")
+    return {"predict": predict, "generate": generate}
+
+
+def front_end_main():
+    """``python3 chip_smoke.py --serving-front-end``: the build and the two
+    HTTP serving phases alone (a quick check of that path; the full run
+    is the script without arguments)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    import paddle_tpu_torch.ops.kernels as K
+    from paddle_tpu_torch.ops.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = device_and_build(torch, build)
+    front_end_phases(torch, K, card)
+    log(f"[time] the run took {time.perf_counter() - START:.1f}s")
+    return 0
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    try:
+        import paddle_tpu_torch.ops.kernels as K
+        from paddle_tpu_torch.framework.random import seed
+        from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                             load_numpy_state)
+        from paddle_tpu_torch.ops.kernels import build
+    except ImportError as e:
+        print(f"chip_smoke: the paddle_tpu_torch package is missing: {e}",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the training engine's warm-up must never meet AccumulateGrad nodes
+    # of another stream (a dygraph loss kept alive before Model.fit)
+    warnings.filterwarnings("error", message=ACCUMULATE_WARNING)
+
+    card = device_and_build(torch, build)
 
     main_cases = kernel_phase(torch, K)
     main_cases.update(backward_kernel_phase(torch, K))
@@ -7304,6 +7955,7 @@ def main():
     release(torch, "spec")
     mark("spec")
     spec_counts, spec_shapes = spec_phase(torch, K, card)
+    serving = front_end_phases(torch, K, card)
 
     kernels = []
     for name, rec in main_cases.items():
@@ -7457,6 +8109,26 @@ def main():
             entry["spec_shape"] = {k: spec_shapes[name][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "max_abs_err")}
+        if name in PREDICT_KERNELS:
+            # the /predict path (BERT-base float32 through Model.serve):
+            # the wrappers' launches in serve()'s warm-up and captures plus
+            # each bucket's launches a replay times its replays, a replay
+            # of the 8 x 128 bucket, and the kernel held against its plain
+            # version at the smallest and largest buckets' shapes
+            ps = serving["predict"]
+            entry["predict_serve"] = {
+                "launches": ps["counts"][name],
+                "launches_a_replay_8x128":
+                    ps["launches_a_replay_8x128"].get(name, 0),
+                "shapes": {tag: {k: r[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "max_abs_err")} for tag, r in ps["shapes"][name].items()}}
+        if name in HTTP_KERNELS:
+            # the /generate path (GPT-2-small bf16 through serve_generate):
+            # eager prefills and the capture plus the decode graph's
+            # launches times its replays
+            entry["http_generate_launches"] = \
+                serving["generate"]["counts"][name]
         if name in FAST_VARIANT:
             entry["variant"] = rec["variant"]
         if name in MMA_KERNELS:
@@ -7556,4 +8228,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--resume-child"]:
         sys.exit(resume_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--serving-front-end"]:
+        sys.exit(front_end_main())
     sys.exit(main())

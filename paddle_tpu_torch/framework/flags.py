@@ -1,7 +1,8 @@
 """Runtime flag registry (port of paddle_tpu/framework/flags.py).
 
-Only the flags the ported modules read are defined here (the generation
-engine's, and the durable checkpoints' of ``Model.fit``); each is
+Only the flags the ported modules read are defined here (the adaptive
+batcher's and the generation engine's, the durable checkpoints' of
+``Model.fit``, and the request tracer's); each is
 env-overridable under its own name, as in the reference, and
 :func:`set_flags` changes them at run time.
 """
@@ -36,6 +37,19 @@ def set_flags(flags: dict[str, Any]):
         _REGISTRY[k] = v
 
 
+# -- serving (paddle_tpu_torch.serving adaptive batcher) ------------------
+define_flag("FLAGS_serving_max_batch", 8,
+            "largest batch the serving engine coalesces (upper bucket)")
+define_flag("FLAGS_serving_timeout_ms", 5.0,
+            "adaptive-batch flush deadline: a partial batch is dispatched "
+            "once its oldest request has waited this long")
+define_flag("FLAGS_serving_queue_depth", 256,
+            "bounded request queue; submit() raises QueueFullError beyond "
+            "this (backpressure, not unbounded buffering)")
+define_flag("FLAGS_serving_buckets", "",
+            "serving shape-bucket grid, 'B1,B2,...' or 'B1,B2xS1,S2,...' "
+            "(batch x sequence); '' = powers of two up to "
+            "FLAGS_serving_max_batch, no sequence bucketing")
 # -- generation serving (paddle_tpu_torch.serving.generation) --------------
 define_flag("FLAGS_genserve_max_slots", 4,
             "in-flight sequences per decode iteration (the continuous-"
@@ -78,3 +92,13 @@ define_flag("FLAGS_ckpt_max_failures", 3,
             "consecutive failed checkpoint generations tolerated before "
             "fit aborts with resilience.DURABILITY_EXIT_CODE (degrade-"
             "then-escalate: warn and keep training until then)")
+
+# -- request tracing (monitor/tracing.py) ---------------------------------
+define_flag("FLAGS_trace_sample_rate", 0.01,
+            "head-sampling probability for request-scoped spans "
+            "(monitor/tracing.py): the decision is derived from the "
+            "trace_id itself, so client and server independently agree; "
+            "0 disables the tracer, 1 traces every request")
+define_flag("FLAGS_trace_buffer_spans", 2048,
+            "bounded ring of finished spans the tracer retains "
+            "(oldest evicted first)")

@@ -31,8 +31,10 @@ set the loader's placement hook to ``io.pin_batch`` for the call, so the
 reader's thread hands each batch over in page-locked memory, as the
 reference installs its mesh placement for a fit.  :func:`summary` and
 :func:`flops` are the reference's ``paddle.summary`` and ``paddle.flops``.
-Not ported yet (ROADMAP.md): meshes and layouts, recompute, telemetry and
-tracing, and ``serve``.
+``serve`` and ``serve_generate`` put the network behind the HTTP front end
+(serving/server.py): the adaptive batcher over one CUDA graph a bucket, or
+the continuous-batching generation engine.
+Not ported yet (ROADMAP.md): meshes and layouts, recompute, and telemetry.
 """
 from __future__ import annotations
 
@@ -650,6 +652,82 @@ class Model:
                     self._optimizer, self.network, payload["opt_state"],
                     step)
         return self
+
+    def serve(self, host="127.0.0.1", port=8866, *, input_spec=None,
+              max_batch_size=None, batch_timeout_ms=None, buckets=None,
+              queue_depth=None, blocking=True,
+              install_signal_handlers=True):
+        """Serve this model over HTTP with adaptive batching
+        (paddle_tpu_torch.serving): concurrent /predict requests are
+        coalesced into padded shape-bucket batches, every bucket is
+        captured as one CUDA graph before the port opens (on a CPU model:
+        run eagerly), and SIGTERM drains gracefully.
+
+        ``input_spec`` (or the Model's constructor ``inputs``) gives the
+        per-input ``(shape, dtype)`` pairs used for warmup, batch dim
+        included — dims of -1/None are serving-variable (batch, and
+        sequence when ``buckets`` carries a seq grid).  With
+        ``blocking=False`` returns the started ``ServingServer`` (use
+        ``.url``, ``.shutdown()``); otherwise blocks until SIGTERM and
+        returns the drain exit code (0 = clean)."""
+        from ..serving import ServingEngine, ServingServer
+
+        self.network.eval()
+        spec = input_spec if input_spec is not None else self._inputs
+        engine = ServingEngine(
+            self.network, max_batch_size=max_batch_size,
+            batch_timeout_ms=batch_timeout_ms, buckets=buckets,
+            queue_depth=queue_depth,
+            input_specs=_to_list(spec) if spec is not None else None)
+        server = ServingServer(
+            engine, host=host, port=port,
+            install_signal_handlers=install_signal_handlers).start()
+        if blocking:
+            print(f"serving on {server.url} (SIGTERM drains gracefully)",
+                  flush=True)
+            return server.wait()
+        return server
+
+    def serve_generate(self, host="127.0.0.1", port=8866, *,
+                       max_slots=None, max_seq_len=None,
+                       prompt_buckets=None, queue_depth=None,
+                       page_size=None, num_pages=None, prefix_cache=None,
+                       mesh=None, layout=None, device=None,
+                       blocking=True, install_signal_handlers=True):
+        """Serve autoregressive generation over HTTP with continuous
+        batching (serving/generation.py): prefill fills a device-resident
+        paged KV cache, one captured decode step advances every in-flight
+        request a token per iteration, and POST /generate streams tokens
+        as they decode (SSE).  The network must expose the slot-batched
+        decode path (``slot_prefill`` / ``slot_decode_paged``, e.g.
+        models.GPTForCausalLM).  ``device`` is the engine's (None: the
+        CUDA card); ``mesh``/``layout`` (tensor-parallel serving) are not
+        ported yet.
+
+        With ``blocking=False`` returns the started ``ServingServer``;
+        otherwise blocks until SIGTERM and returns the drain exit code
+        (0 = clean)."""
+        from ..serving import GenerationEngine, ServingServer
+
+        if mesh is not None or layout is not None:
+            raise NotImplementedError(
+                "serve_generate(mesh=, layout=): tensor-parallel serving "
+                "comes with the port's distributed mesh (ROADMAP.md A9)")
+        self.network.eval()
+        engine = GenerationEngine(
+            self.network, max_slots=max_slots, max_seq_len=max_seq_len,
+            prompt_buckets=prompt_buckets, queue_depth=queue_depth,
+            page_size=page_size, num_pages=num_pages,
+            prefix_cache=prefix_cache, device=device)
+        server = ServingServer(
+            None, host=host, port=port,
+            install_signal_handlers=install_signal_handlers,
+            gen_engine=engine).start()
+        if blocking:
+            print(f"serving generation on {server.url} (SIGTERM drains "
+                  "gracefully)", flush=True)
+            return server.wait()
+        return server
 
 
 def summary(net, input_size=None, dtypes=None):

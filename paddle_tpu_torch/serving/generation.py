@@ -56,8 +56,22 @@ which some lane samples; greedy lanes take the argmax through the same
 ``where``, so their tokens do not depend on the noise.  Top-k keeps the
 reference's ``lg2 < kth`` rule, so ties at the k-th value survive.
 
-Not ported yet (ROADMAP.md): tensor-parallel serving, tracing spans,
-``op_report`` and ``resume_pos`` failover.
+* **resume_pos failover** — ``submit(prompt + emitted[:n],
+  resume_pos=n, seed=s)`` continues a stream cut after ``n`` tokens (the
+  router's re-admission of a request whose replica died): a sampling
+  lane's generator is advanced past the ``n`` Gumbel rows the
+  uninterrupted run drew (one ``[V]`` row a token, in the plain and the
+  speculative step alike) before its first token's draw, so the resumed
+  stream draws what the uninterrupted one would have.  A greedy lane
+  draws nothing.
+* **request tracing** (monitor/tracing.py) — ``submit(span=)`` hangs the
+  engine's ``gen.queued`` / ``gen.prefill`` / ``gen.decode`` children off
+  the caller's span (the HTTP server's ``server.generate``); without one
+  a sampled ``genserve.request`` root is started when the process tracer
+  is on.  Every span timestamp is taken on the host, around work the
+  engine has already synchronised: tracing adds no sync to a step.
+
+Not ported yet (ROADMAP.md): tensor-parallel serving and ``op_report``.
 """
 from __future__ import annotations
 
@@ -73,6 +87,7 @@ import torch
 from ..framework import flags as _flags
 from ..framework.place import resolve_device
 from ..framework.random import make_generator
+from ..monitor import tracing as _tracing
 from ..ops.capture import capture, side_stream
 from .engine import DeadlineExceededError, EngineStoppedError, QueueFullError
 from .kv_cache import (CacheGeometry, admit_slot, make_state, reclaim_pages,
@@ -177,13 +192,15 @@ class GenerationHandle:
 
 class _GenRequest:
     __slots__ = ("prompt", "bucket", "max_new_tokens", "do_sample",
-                 "temperature", "top_k", "seed", "eos", "deadline",
-                 "handle", "engine", "cancelled", "t_last_token",
-                 "generator", "prefilling", "prefill_cursor", "chunk_row",
-                 "j_hit", "pin_final")
+                 "temperature", "top_k", "seed", "resume_pos", "eos",
+                 "deadline", "handle", "engine", "cancelled",
+                 "t_last_token", "span", "own_span", "span_queue",
+                 "span_decode", "generator", "prefilling", "prefill_cursor",
+                 "chunk_row", "j_hit", "pin_final")
 
     def __init__(self, engine, prompt, bucket, max_new_tokens, do_sample,
-                 temperature, top_k, seed, eos, deadline):
+                 temperature, top_k, seed, eos, deadline, span=None,
+                 own_span=False, resume_pos=0):
         self.engine = engine
         self.prompt = prompt               # np.int32 [L]
         self.bucket = bucket               # padded prompt length Sp
@@ -192,10 +209,16 @@ class _GenRequest:
         self.temperature = temperature
         self.top_k = top_k
         self.seed = seed
+        self.resume_pos = resume_pos       # tokens a dead replica emitted
         self.eos = eos                     # int; vocab_size == never
         self.deadline = deadline           # absolute monotonic or None
         self.cancelled = False
         self.t_last_token = None
+        self.span = span                   # request span (sampled or None)
+        self.own_span = own_span           # engine owns span's end()
+        self.span_queue = None             # "gen.queued" child
+        self.span_decode = None            # "gen.decode" child (or the
+        #                                    chunked "gen.prefill")
         self.generator = None              # set when the lane is armed
         self.prefilling = False            # chunked prefill in flight
         self.prefill_cursor = 0            # tokens already prefilled
@@ -204,6 +227,20 @@ class _GenRequest:
         self.pin_final = 0                 # pinned count once armed
         self.handle = GenerationHandle(len(prompt), max_new_tokens)
         self.handle._req = self
+
+    def end_spans(self, status: str):
+        """Close any open child spans and settle the request span with a
+        terminal status; the parent is ended here only when the engine
+        owns it (direct submit — HTTP requests end theirs upstream)."""
+        for s in (self.span_queue, self.span_decode):
+            if s is not None:
+                s.end(status=status)
+        self.span_queue = self.span_decode = None
+        if self.span is not None:
+            self.span.set_attr("status", status)
+            if self.own_span:
+                self.span.end()
+            self.span = None
 
 
 def sample_tokens(logits, do_sample, temp, top_k, noise, k_max: int):
@@ -493,12 +530,21 @@ class GenerationEngine:
             f"{self.prompt_buckets[-1]}")
 
     def submit(self, prompt, max_new_tokens=32, *, do_sample=False,
-               temperature=1.0, top_k=0, seed=0, eos_token_id=None,
-               deadline_ms=None) -> GenerationHandle:
+               temperature=1.0, top_k=0, seed=0, resume_pos=0,
+               eos_token_id=None, deadline_ms=None,
+               span=None) -> GenerationHandle:
         """Enqueue one prompt (1-D int token ids).  Returns a streaming
         :class:`GenerationHandle`.  Raises QueueFullError under
         backpressure, EngineStoppedError once draining/stopped, and
-        ValueError for requests the cache geometry cannot hold."""
+        ValueError for requests the cache geometry cannot hold.
+
+        ``resume_pos``: the prompt ends with that many tokens an earlier
+        run of the same request (same seed) emitted; a sampling request
+        skips their draws, so it continues that run's stream.
+        ``span``: an open request span to hang the engine's gen.queued /
+        gen.prefill / gen.decode children from (the HTTP server passes
+        its adopted server.generate span); without one, a sampled root
+        span is started when the process tracer is enabled."""
         if self._draining or self._stopped:
             self.metrics.count("rejected_draining")
             raise EngineStoppedError("generation engine is draining — no "
@@ -532,17 +578,38 @@ class GenerationEngine:
         if top_k > self.max_top_k:
             raise ValueError(f"top_k {top_k} exceeds max_top_k "
                              f"{self.max_top_k}")
+        resume_pos = int(resume_pos)
+        if resume_pos < 0:
+            raise ValueError("resume_pos must be >= 0")
         eos = self.geometry.vocab_size if eos_token_id is None \
             else int(eos_token_id)
         deadline = (time.monotonic() + deadline_ms / 1e3
                     if deadline_ms is not None else None)
+        own_span = False
+        if span is not None and not span.sampled:
+            span = None
+        elif span is None:
+            tracer = _tracing.default_tracer()
+            if tracer.enabled:
+                root = tracer.start_span(
+                    "genserve.request",
+                    attrs={"prompt_len": L,
+                           "max_new_tokens": max_new_tokens})
+                if root.sampled:
+                    span, own_span = root, True
         req = _GenRequest(self, prompt, bucket, max_new_tokens,
                           bool(do_sample), float(temperature), top_k,
-                          int(seed), eos, deadline)
+                          int(seed), eos, deadline, span=span,
+                          own_span=own_span, resume_pos=resume_pos)
+        if span is not None:
+            # attached BEFORE enqueue: the decode thread may admit the
+            # request (and close this child) before put_nowait returns
+            req.span_queue = span.child("gen.queued", bucket=bucket)
         try:
             self._queue.put_nowait(req)
         except queue.Full:
             self.metrics.count("rejected_queue_full")
+            req.end_spans("rejected_queue_full")
             raise QueueFullError(
                 f"generation queue at capacity ({self.queue_depth}); "
                 "retry with backoff") from None
@@ -625,9 +692,11 @@ class GenerationEngine:
         for req in self._backlog:
             if req.cancelled:
                 self.metrics.count("cancelled")
+                req.end_spans("cancelled")
                 req.handle._finish()
             elif req.deadline is not None and now > req.deadline:
                 self.metrics.count("deadline_expired")
+                req.end_spans("deadline_expired")
                 req.handle._finish(DeadlineExceededError(
                     "request deadline passed while queued"))
             else:
@@ -685,6 +754,7 @@ class GenerationEngine:
                 self.metrics.count("errors")
                 self._release([slot])
                 self._host_retire(slot)
+                req.end_spans("error")
                 req.handle._finish(e)
 
     def _upload(self, a: np.ndarray):
@@ -725,9 +795,16 @@ class GenerationEngine:
 
     def _first_token(self, req, logits):
         """Arm the request's generator and sample its first token from
-        the prefill logits [V] (a 0-d device tensor)."""
+        the prefill logits [V] (a 0-d device tensor).  A sampling request
+        resumed at ``resume_pos`` first draws and discards the rows of
+        the ``resume_pos`` tokens already emitted (one [V] row a token, as
+        ``_gumbel`` draws them)."""
         dev = self.device
         req.generator = make_generator(req.seed, dev)
+        if req.do_sample:
+            for _ in range(req.resume_pos):
+                torch.rand(self.geometry.vocab_size, generator=req.generator,
+                           device=dev)
         noise = self._gumbel([req]) if req.do_sample else None
         # fill kernels, not host-to-device copies (each of which syncs)
         return sample_tokens(
@@ -771,8 +848,15 @@ class GenerationEngine:
         at this iteration boundary."""
         st = self._state
         L = len(req.prompt)
+        if req.span_queue is not None:
+            req.span_queue.end(status="ok")
+            req.span_queue = None
         j_reg = (self._prefix.shareable_pages(L)
                  if self._prefix is not None else 0)
+        sp_prefill = (req.span.child("gen.prefill", bucket=req.bucket,
+                                     prompt_len=L, slot=slot,
+                                     prefix_pages=j_hit)
+                      if req.span is not None else None)
         # a failure before the lane is armed releases its private pages
         st["pinned"][slot] = j_hit
         if j_hit > 0:
@@ -799,7 +883,7 @@ class GenerationEngine:
                    req.top_k, L + req.max_new_tokens, req.eos, pinned)
         self._deliver_first(req, slot,
                             self._fetch_first(req, slot, tok1, row, j_hit,
-                                              pinned))
+                                              pinned), sp_prefill)
 
     def _fetch_first(self, req, slot: int, tok1, row, j_hit: int,
                      pinned: int) -> int:
@@ -822,17 +906,27 @@ class GenerationEngine:
         self._sched.set_shared_resident(self._prefix.resident_pages)
         return int(host[0])
 
-    def _deliver_first(self, req, slot: int, t1: int):
+    def _deliver_first(self, req, slot: int, t1: int, sp_prefill=None):
+        """Hand the fetched first token to the request, ending its
+        ``gen.prefill`` span; the lane retires at once on eos or
+        max_new_tokens == 1, else its ``gen.decode`` span opens."""
+        if sp_prefill is not None:
+            sp_prefill.end(status="ok")
         now = time.monotonic()
         req.t_last_token = now
         req.handle._push(t1)
+        if req.span is not None:
+            req.span.event("first_token", slot=slot)
         self.metrics.observe_ttft(now - req.handle.t_submit)
         self.metrics.observe_tokens(1)
         if req.max_new_tokens == 1 or t1 == req.eos:
             self._release([slot])
             self._host_retire(slot)
             self.metrics.count("retired")
+            req.end_spans("ok")
             req.handle._finish()
+        elif req.span is not None:
+            req.span_decode = req.span.child("gen.decode", slot=slot)
 
     def _admit_chunked(self, req: _GenRequest, slot: int, j_hit: int,
                        shared):
@@ -843,6 +937,9 @@ class GenerationEngine:
         lane's ``pinned`` register stays at the cache-hit count, so a
         cancel or deadline mid-prefill frees every chunk page."""
         L = len(req.prompt)
+        if req.span_queue is not None:
+            req.span_queue.end(status="ok")
+            req.span_queue = None
         req.j_hit = j_hit
         req.pin_final = max(j_hit, self._prefix.shareable_pages(L)
                             if self._prefix is not None else 0)
@@ -857,6 +954,10 @@ class GenerationEngine:
             self._prefix.pin(pin_pages)
             self._slot_pins[slot] = pin_pages
             self._sched.set_shared_resident(self._prefix.resident_pages)
+        if req.span is not None:
+            req.span_decode = req.span.child(
+                "gen.prefill", bucket=req.bucket, prompt_len=L,
+                slot=slot, prefix_pages=j_hit, chunked=True)
 
     def _advance_chunk(self):
         """Advance ONE prefilling slot by one chunk: bounded work per
@@ -883,6 +984,8 @@ class GenerationEngine:
                                      req.chunk_row, shared_n, *draft_kv)
         req.prefill_cursor = end
         self.metrics.count_chunk()
+        if req.span_decode is not None:
+            req.span_decode.event("chunk", end=end)
         if end < L:
             return
         # the last chunk: sample the first token and arm the lane
@@ -891,8 +994,10 @@ class GenerationEngine:
         admit_slot(st, slot, tok1, L, req.do_sample, req.temperature,
                    req.top_k, L + req.max_new_tokens, req.eos,
                    req.pin_final)
-        self._deliver_first(req, slot, self._fetch_first(
-            req, slot, tok1, req.chunk_row, req.j_hit, req.pin_final))
+        t1 = self._fetch_first(req, slot, tok1, req.chunk_row, req.j_hit,
+                               req.pin_final)
+        sp_prefill, req.span_decode = req.span_decode, None
+        self._deliver_first(req, slot, t1, sp_prefill)
 
     def _release(self, slots):
         mask = np.zeros((self.max_slots,), np.bool_)
@@ -928,6 +1033,7 @@ class GenerationEngine:
             self._host_retire(slot)
             self.metrics.count(reason)
             self.metrics.count("preempted")
+            req.end_spans(reason)
             req.handle._finish(
                 None if reason == "cancelled" else DeadlineExceededError(
                     "request deadline passed mid-decode"))
@@ -1152,10 +1258,13 @@ class GenerationEngine:
                 if gap is not None:
                     self.metrics.observe_inter_token(gap)
                 req.handle._push(int(outs_np[slot, i]))
+                if req.span_decode is not None:
+                    req.span_decode.event("token", i=len(req.handle.tokens))
             req.t_last_token = now
             if fin_np[slot]:
                 self._host_retire(slot)
                 self.metrics.count("retired")
+                req.end_spans("ok")
                 req.handle._finish()
         self.metrics.observe_tokens(emitted_total)
         if proposed:
@@ -1171,25 +1280,34 @@ class GenerationEngine:
                 self.metrics.observe_inter_token(now - req.t_last_token)
             req.t_last_token = now
             req.handle._push(int(toks_np[slot]))
+            if req.span_decode is not None:
+                # host ints only — toks/fin were fetched in step()
+                req.span_decode.event("token", i=len(req.handle.tokens))
             if fin_np[slot]:
                 # the step already returned the lane's private pages on
                 # device; this drops the host bookkeeping
                 self._host_retire(slot)
                 self.metrics.count("retired")
+                req.end_spans("ok")
                 req.handle._finish()
 
     def _fail_everything(self, exc):
         while self._backlog:
-            self._backlog.popleft().handle._finish(exc)
+            req = self._backlog.popleft()
+            req.end_spans("error")
+            req.handle._finish(exc)
         while True:
             try:
                 req = self._queue.get_nowait()
             except queue.Empty:
                 break
             if req is not _WAKE:
+                req.end_spans("error")
                 req.handle._finish(exc)
         for slot in list(self._sched.occupied):
-            self._sched.retire(slot).handle._finish(exc)
+            req = self._sched.retire(slot)
+            req.end_spans("error")
+            req.handle._finish(exc)
 
     # -- shutdown ----------------------------------------------------------
     def drain(self, timeout=None) -> bool:
@@ -1218,6 +1336,7 @@ class GenerationEngine:
                 continue
             drained = False
             if not req.handle.done:
+                req.end_spans("rejected_draining")
                 req.handle._finish(EngineStoppedError(
                     "request arrived during drain"))
         return drained and not alive

@@ -3301,3 +3301,173 @@ def test_slot_verify_paged_on_the_card_matches_the_cpu(dev):
         res[str(where)] = (lg.float().cpu(), k.float().cpu(), v.float().cpu())
     for got, ref in zip(res[str(dev)], res["cpu"]):
         _check(got, ref, dtype)
+
+
+SERVE_BERT = dict(vocab_size=400, hidden_size=64, num_layers=2, num_heads=4,
+                  intermediate_size=128, max_position_embeddings=64,
+                  dropout=0.0)
+
+
+def _serving_bert(dev, dtype=torch.float32):
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.models import BertConfig, BertModel
+
+    seed(0)
+    return BertModel(BertConfig(**SERVE_BERT), device=dev,
+                     dtype=dtype).eval()
+
+
+def _ids(rs, b, s):
+    return rs.randint(0, SERVE_BERT["vocab_size"], (b, s)).astype(np.int64)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bucket_graph_replay_is_bitwise_its_eager_forward(dev, dtype):
+    """Each input signature of the Predictor is one CUDA graph: its replay
+    gives the eager forward's outputs bitwise on the same padded batch, a
+    second signature gets a graph of its own and a known one is never
+    captured again; the capture counts the bucket's kernel launches (2
+    layers: LayerNorm 5, bias-GeLU 2, flash forward 2)."""
+    from paddle_tpu_torch import inference
+
+    model = _serving_bert(dev, dtype)
+    pred = inference.Predictor.from_layer(model)
+    rs = np.random.RandomState(0)
+    for b, s in ((1, 16), (4, 32), (1, 16)):
+        ids = _ids(rs, b, s)
+        got = pred.run([ids])
+        with torch.no_grad():
+            want = model(torch.from_numpy(ids).to(dev))
+        for g, w in zip(got, want):
+            w = w.float().cpu().numpy()
+            assert g.shape == w.shape and g.dtype == np.float32
+            np.testing.assert_array_equal(g, w)
+    assert pred.compile_count == 2
+    launches = pred.graph_launches[(((4, 32), "int64"),)]
+    assert launches == {"layer_norm": 5, "bias_gelu": 2,
+                        "flash_attention": 2}, launches
+
+
+def test_served_rows_are_bitwise_the_direct_run_at_their_bucket(dev):
+    """The adaptive batcher over the card's Predictor: every row handed
+    to a future is bitwise the same row of a direct ``Predictor.run`` of
+    the padded batch it was served in, and no bucket is captured after
+    start()."""
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.serving import ServingEngine
+
+    class Recording:
+        def __init__(self, pred):
+            self.pred, self.batches = pred, []
+            self.compile_count = 0
+
+        def run(self, arrays):
+            outs = self.pred.run(arrays)
+            self.compile_count = self.pred.compile_count
+            self.batches.append(([a.copy() for a in arrays], outs))
+            return outs
+
+    rec = Recording(inference.Predictor.from_layer(_serving_bert(dev)))
+    eng = ServingEngine(rec, batch_timeout_ms=20, buckets="1,2,4x16,32",
+                        input_specs=[((-1, -1), "int64")]).start()
+    warmed = rec.compile_count
+    assert warmed == 6
+    rs = np.random.RandomState(1)
+    reqs = [rs.randint(0, 400, rs.randint(5, 33)) for _ in range(11)]
+    try:
+        outs = [f.result(120) for f in [eng.submit([r]) for r in reqs]]
+    finally:
+        eng.stop()
+    assert rec.compile_count == warmed
+    matched = 0
+    for arrays, batch in rec.batches[warmed:]:
+        direct = rec.pred.run(arrays)
+        for i, row in enumerate(arrays[0]):
+            for r, o in zip(reqs, outs):
+                if np.array_equal(row[:len(r)], r) \
+                        and not row[len(r):].any():
+                    np.testing.assert_array_equal(o[0],
+                                                  direct[0][i, :len(r)])
+                    np.testing.assert_array_equal(o[1], direct[1][i])
+                    matched += 1
+    assert matched == len(reqs)
+
+
+def test_a_capture_survives_while_the_other_engine_replays(dev):
+    """A ServingEngine captures its bucket graphs on this thread while a
+    GenerationEngine's decode thread replays its step: both captures
+    stand (the serving rows bitwise the eager forward, the generation
+    tokens those of a run with no capture beside it)."""
+    from paddle_tpu_torch.serving import GenerationEngine, ServingEngine
+
+    gpt = _serving_model(dev)
+    rs = np.random.RandomState(3)
+    prompts = [rs.randint(0, 211, rs.randint(4, 40)).tolist()
+               for _ in range(12)]
+    with GenerationEngine(gpt, device=dev, **SERVE_ENGINE) as eng:
+        alone = _greedy_tokens(eng, prompts, 24)
+        handles = [eng.submit(p, 24) for p in prompts]
+        assert handles[0].next_token(timeout=120) is not None
+        bert = _serving_bert(dev)
+        served = ServingEngine(bert, batch_timeout_ms=2,
+                               buckets="1,2,4x16,32",
+                               input_specs=[((-1, -1), "int64")]).start()
+        beside = [h.result(120) for h in handles]
+        assert eng.capture_count == 1
+        try:
+            ids = _ids(rs, 1, 32)[0]
+            row = served.predict([ids], timeout=120)
+        finally:
+            served.stop()
+    assert beside == alone
+    with torch.no_grad():
+        want = bert(torch.from_numpy(ids[None]).to(dev))
+    np.testing.assert_array_equal(row[0], want[0][0].cpu().numpy())
+    np.testing.assert_array_equal(row[1], want[1][0].cpu().numpy())
+
+
+@pytest.mark.parametrize("spec", [False, True], ids=["plain", "spec"])
+def test_resumed_sampled_stream_is_bitwise_on_the_card(dev, spec):
+    """submit(prompt + emitted[:n], resume_pos=n, seed=s) continues the
+    uninterrupted sampled stream bitwise through the captured step (float32),
+    at n = 1 and 16; a greedy one too."""
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    model = _serving_model(dev)
+    kw = dict(draft_model=_draft_of(model, dev, torch.float32),
+              spec_tokens=SPEC_K) if spec else {}
+    sample = dict(do_sample=True, temperature=0.8, top_k=5, seed=11)
+    prompt = list(range(3, 12))
+    with GenerationEngine(model, device=dev, **SERVE_ENGINE, **kw) as eng:
+        for s in (sample, {}):
+            full = eng.generate(prompt, 32, timeout=120, **s)
+            for n in (1, 16):
+                assert eng.generate(prompt + full[:n], 32 - n, timeout=120,
+                                    resume_pos=n, **s) == full[n:]
+        assert eng.capture_count == 1 and eng.replays > 0
+
+
+def test_a_failing_bucket_capture_raises(dev):
+    """A forward that syncs the host cannot be captured: the Predictor and
+    the serving engine's warm-up raise, no eager fallback."""
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.serving import ServingEngine
+
+    class Syncs(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.ones(4, device=dev))
+
+        def forward(self, x):
+            if float(x.sum()) > 0:           # a host sync
+                return x * self.w
+            return x
+
+    pred = inference.Predictor.from_layer(Syncs())
+    with pytest.raises(Exception):
+        pred.run([np.ones((2, 4), np.float32)])
+    assert pred.compile_count == 0
+    eng = ServingEngine(inference.Predictor.from_layer(Syncs()),
+                        buckets="1,2", input_specs=[((-1, 4), "float32")])
+    with pytest.raises(Exception):
+        eng.start()

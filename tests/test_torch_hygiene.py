@@ -65,6 +65,12 @@ def test_scan_covers_the_package():
             "paddle_tpu_torch/nn/layer/container.py",
             "paddle_tpu_torch/nn/functional/__init__.py",
             "paddle_tpu_torch/serving/prefix_cache.py",
+            "paddle_tpu_torch/serving/engine.py",
+            "paddle_tpu_torch/serving/server.py",
+            "paddle_tpu_torch/serving/client.py",
+            "paddle_tpu_torch/inference/__init__.py",
+            "paddle_tpu_torch/monitor/tracing.py",
+            "paddle_tpu_torch/monitor/server.py",
             "paddle_tpu_torch/regularizer.py",
             "paddle_tpu_torch/optimizer/wrappers.py",
             "paddle_tpu_torch/distributed/checkpoint.py",
