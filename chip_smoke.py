@@ -275,6 +275,29 @@ passed over):
                   shutdown() with 4 SSE streams open: each ends with its
                   done event and the drain is clean.  Run alone after the
                   build with `python3 chip_smoke.py --serving-front-end`.
+34. fleet       — two full-width float32 GPT-2-small replica processes
+                  (`python -m paddle_tpu_torch.serving.generation` at
+                  GPTConfig()'s widths, 8 slots, buckets 64,128, seed 0)
+                  under ReplicaSupervisor, behind a FleetRouter on its
+                  coordinator, the kernels built by this process first.
+                  An in-process twin (the same argv through
+                  build_replica): its decode replay's launches on their
+                  variants, rows 1, 2, 6 and 9 against their plain
+                  versions at the replica's shapes, 4 greedy probes whose
+                  first 8 tokens are the CPU port's up to a near tie; each
+                  replica's tokens for the probes bitwise the twin's;
+                  spawn-to-registration and capture times; an affinity
+                  burst (>= 7 of 8 prefix_hit on one replica, its prefix
+                  cache 7/8); a wave through the router, to one replica
+                  and in process (tokens/s, TTFT, inter-token); the
+                  SIGKILL drill (a stream cut after its 16th token
+                  resumes on the survivor: no error, 0 failed requests,
+                  tokens the undisturbed run's up to a near tie; the
+                  victim respawned and re-admitted, down_s > 0 in the
+                  replica_lost dump, device memory before and after,
+                  heartbeat gaps); both drains with 2 streams open.  Run
+                  alone after the build with `python3 chip_smoke.py
+                  --fleet`.
 
 The AccumulateGrad stream warning (a backward accumulating into a node of
 another stream: the training engine's warm-up meeting a dygraph graph
@@ -317,6 +340,7 @@ import gc
 import json
 import math
 import os
+import pathlib
 import re
 import shutil
 import signal
@@ -325,6 +349,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.request
 import warnings
 
 import numpy as np
@@ -7492,11 +7517,14 @@ def bf16_tie(torch, model, prompt, ref, got, kw, what, cut=None,
     return t, margin, tol, f"{int(edge.sum())} at the top-k cut"
 
 
-def http_wave(url, prompts, kws, streamed, probe=None):
+def http_wave(url, prompts, kws, streamed, probe=None, new=HTTP_NEW,
+              tag="[http-generate]", pace=None):
     """Every prompt sent at once over HTTP, one ServingClient thread a
-    request (``streamed[i]``: SSE, else one JSON body); ``probe`` runs on
-    one more thread meanwhile.  Returns (tokens, wall s, client TTFT ms of
-    the streams, their inter-token gaps ms)."""
+    request (``streamed[i]``: SSE, else one JSON body), ``new`` new tokens
+    each; ``probe`` runs on one more thread meanwhile.  ``pace``: requests
+    0 and 1 start one by one, each followed by ``pace(k)``, which returns
+    once k requests are in flight; then the rest start.  Returns (tokens,
+    wall s, client TTFT ms of the streams, their inter-token gaps ms)."""
     from paddle_tpu_torch.serving import ServingClient
 
     outs, ttft, gaps, errors = {}, [], [], []
@@ -7505,12 +7533,11 @@ def http_wave(url, prompts, kws, streamed, probe=None):
         cl = ServingClient(url, timeout=300)
         try:
             if not streamed[i]:
-                outs[i] = cl.generate(prompts[i], HTTP_NEW, **kws[i])[
-                    "tokens"]
+                outs[i] = cl.generate(prompts[i], new, **kws[i])["tokens"]
                 return
             t0 = last = time.perf_counter()
             toks = []
-            for evt in cl.generate_stream(prompts[i], HTTP_NEW, **kws[i]):
+            for evt in cl.generate_stream(prompts[i], new, **kws[i]):
                 now = time.perf_counter()
                 if "token" in evt:
                     (ttft.append((now - t0) * 1e3) if not toks
@@ -7528,13 +7555,17 @@ def http_wave(url, prompts, kws, streamed, probe=None):
     if probe is not None:
         threads.append(threading.Thread(target=probe))
     t0 = time.perf_counter()
+    for k in (range(2) if pace else ()):
+        threads[k].start()
+        pace(k + 1)
     for t in threads:
-        t.start()
+        if t.ident is None:
+            t.start()
     for t in threads:
         t.join()
     wall = time.perf_counter() - t0
-    if errors:
-        fail(f"[http-generate] {errors}")
+    if errors or len(outs) != len(prompts):
+        fail(f"{tag} {errors}")
     return [outs[i] for i in range(len(prompts))], wall, ttft, gaps
 
 
@@ -7746,6 +7777,507 @@ def http_generate_phase(torch, K, card, predict_srv, probes):
     return record
 
 
+FLEET_ARGV = ["--layers", "12", "--hidden", "768", "--heads", "12",
+              "--vocab", "50304", "--max-seq-len", "512", "--slots", "8",
+              "--prompt-buckets", "64,128", "--page-size", "16",
+              "--seed", "0"]     # the replica's argv at GPTConfig()'s widths
+FLEET_NEW = 48           # new tokens a request of [fleet]
+FLEET_KILL_AT = 16       # the drill kills its stream's replica after this
+FLEET_CPU_NEW = 8        # the twin's first tokens held against the CPU's
+FLEET_HEARTBEAT_S = 5.0  # the supervisor's heartbeat timeout (the
+#                          reference's drill's; its library default is 2.0)
+FLEET_WANT = {"layer_norm": 25, "bias_gelu": 12,
+              "paged_decode_attention": 12}   # launches in a decode replay
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def fleet_kernel_shapes(torch, K):
+    """Rows 1, 2, 6 and 9 against their plain versions at a full-width
+    float32 replica's shapes: LayerNorm and bias-GeLU at a decode step's
+    R = 8 rows and a prefill's R = 64 and 128, causal flash attention at a
+    prefill of S = 64 and S = 128 (B = 1, the packed qkv's slices: the
+    CUDA-core kernel, float32), paged decode over the 8-slot table (page
+    16, 32 pages a slot).  Returns {kernel: {shape: record}}."""
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(23)
+    dt, isz = torch.float32, 4
+    N, Fd, H, D = 768, 3072, 12, 64
+    recs = {n: {} for n in SERVING_KERNELS}
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    for R in (8, 64, 128):
+        tag = "decode R=8" if R == 8 else f"prefill R={R}"
+        x, w, b = rnd(R, N), 1 + rnd(N, scale=0.1), rnd(N, scale=0.1)
+        recs["layer_norm"][tag] = compare(
+            torch, f"[fleet] layer_norm f32 {tag} N={N}",
+            lambda: K.layer_norm.layer_norm(x, w, b, 1e-5),
+            lambda: K.layer_norm.layer_norm_plain(x, w, b, 1e-5),
+            lambda: F.layer_norm(x, (N,), w, b, 1e-5), dt,
+            (2 * R * N + 2 * N) * isz, 8 * R * N, PEAK_F32,
+            variant=("layer_norm", "warp"))
+        xf, bf = rnd(R, Fd), rnd(Fd, scale=0.1)
+        recs["bias_gelu"][tag] = compare(
+            torch, f"[fleet] bias_gelu f32 {tag} F={Fd}",
+            lambda: K.bias_gelu.bias_gelu(xf, bf),
+            lambda: K.bias_gelu.bias_gelu_plain(xf, bf),
+            lambda: F.gelu(xf + bf), dt, (2 * R * Fd + Fd) * isz,
+            5 * R * Fd, PEAK_F32, variant=("bias_gelu", "vec"))
+    for S in (64, 128):
+        qkv = rnd(1, S, 3, H, D)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        pairs = H * S * (S + 1) // 2
+        recs["flash_attention"][f"prefill S={S}"] = compare(
+            torch, f"[fleet] flash_attention f32 prefill B=1 S={S} H={H} "
+            f"D={D} causal",
+            lambda: K.flash_attention.flash_attention(q, k, v)[0],
+            lambda: K.flash_attention.flash_attention_plain(q, k, v)[0],
+            lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True), dt,
+            4 * S * H * D * isz + H * S * 4, 4 * D * pairs, PEAK_F32,
+            variant=("flash_attention", "simt"))
+    recs["paged_decode_attention"]["decode 8 slots"] = paged_case(
+        torch, K, g, dt, "[fleet] decode",
+        [79, 95, 111, 127, 143, 80, 64, 127], 16, D, nh=H, pps=32)
+    return recs
+
+
+def fleet_prompts(vocab, seed, groups=1, n=8):
+    """``groups`` x ``n`` prompts: each group a 64-token prefix of its own
+    and 1-16 tokens of each prompt's (65-80 tokens: the router's affinity
+    key is the page-aligned shareable prefix, the first 4 pages of 16
+    exactly), the groups interleaved."""
+    rng = np.random.RandomState(seed)
+    heads = [rng.randint(0, vocab, 64).tolist() for _ in range(groups)]
+    return [heads[j] + rng.randint(0, vocab, rng.randint(1, 17)).tolist()
+            for _ in range(n) for j in range(groups)]
+
+
+def fleet_wave(url, prompts, streamed, pace=None):
+    """:func:`http_wave` of greedy requests, FLEET_NEW new tokens each."""
+    return http_wave(url, prompts, [{}] * len(prompts), streamed,
+                     new=FLEET_NEW, tag="[fleet]", pace=pace)
+
+
+def inproc_fleet_wave(eng, prompts, streamed):
+    """The same requests submitted to the engine in process, all at once,
+    each read on a thread of its own as tokens arrive.  Returns as
+    :func:`http_wave` (TTFT and gaps of the ``streamed`` ones)."""
+    outs, ttft, gaps = {}, [], []
+
+    def one(i, h, t0):
+        toks, last = [], t0
+        for tok in h:
+            now = time.perf_counter()
+            if streamed[i]:
+                (ttft.append((now - t0) * 1e3) if not toks
+                 else gaps.append((now - last) * 1e3))
+            toks.append(tok)
+            last = now
+        outs[i] = toks
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(
+        i, eng.submit(p, FLEET_NEW), time.perf_counter()))
+        for i, p in enumerate(prompts)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if len(outs) != len(prompts):
+        fail("[fleet] the in-process wave did not finish")
+    return [outs[i] for i in range(len(prompts))], wall, ttft, gaps
+
+
+def wave_text(name, n_req, wall, ttft, gaps):
+    return (f"{name}: {n_req * FLEET_NEW / wall:.1f} tokens/s, client "
+            f"TTFT p50 {pct(ttft, 50):.3f} ms, inter-token p50 "
+            f"{pct(gaps, 50):.3f} ms")
+
+
+def prefix_counts(url):
+    """(hits, misses) of a replica's prefix cache, from its /metrics."""
+    with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+        text = r.read().decode()
+    got = {}
+    for line in text.splitlines():
+        for key in ("hits", "misses"):
+            if line.startswith(f"paddle_genserve_prefix_cache_{key}_total "):
+                got[key] = int(float(line.split()[1]))
+    return got["hits"], got["misses"]
+
+
+class HeartbeatGaps:
+    """Samples the coordinator's last-beat clock of every rank every 20
+    ms on a thread: the largest gap between two beats of one process of a
+    rank (from its first beat on), which the supervisor's heartbeat
+    timeout must stay above."""
+
+    def __init__(self, coord):
+        self._det = coord.detector
+        self._stop = threading.Event()
+        self.gaps: dict[int, float] = {}
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        last = {}
+        while not self._stop.wait(0.02):
+            for r, t in list(self._det._last_beat.items()):
+                if r not in self._det._beaten:   # not beaten since (re)start
+                    last.pop(r, None)
+                    continue
+                if r in last and t != last[r]:
+                    self.gaps[r] = max(self.gaps.get(r, 0.0), t - last[r])
+                last[r] = t
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(5)
+        return {r: round(g, 3) for r, g in sorted(self.gaps.items())}
+
+
+def capture_ms_of(log_path):
+    """The engine's capture time from a replica's log line."""
+    m = re.findall(r"capture ms=([0-9.]+)", log_path.read_text())
+    return float(m[-1]) if m else None
+
+
+def fleet_phase(torch, K, card):
+    """[fleet]: GPT-2-small replicas as processes, behind the router.
+
+    The replica's argv (``python -m paddle_tpu_torch.serving.generation``
+    at GPTConfig()'s widths: 12 layers, hidden 768, 12 heads, vocab 50304,
+    max_seq_len 512, 8 slots, prompt buckets 64 and 128, page 16, seed 0),
+    float32, TF32 off, on the card.  First the in-process twin: the same
+    argv through ``build_replica`` (the function main() builds with) and
+    ``start()``; its decode graph's launches and variants, rows 1, 2, 6
+    and 9 against their plain versions at its shapes, 4 greedy prompts
+    (the first 8 tokens held against the CPU port's, up to a near tie by
+    margin_check) and an in-process wave.  Then a ReplicaSupervisor of 2
+    replicas (their kernels already built by this process) and a
+    FleetRouter on its coordinator: start-up (spawn to registration) and
+    each replica's capture time from its log; each replica's tokens for
+    the 4 prompts bitwise the twin's; an affinity burst of 8 requests on
+    one 64-token prefix (>= 7 routed prefix_hit to one replica, whose
+    prefix cache hits >= 7 of the 8); the wave through the router (its two
+    prefix groups on different replicas) and straight to one replica; the
+    SIGKILL drill (a greedy SSE stream cut after its 16th token: no error,
+    0 failed requests, a mid-stream failover, the tokens the twin's up to
+    a near tie by margin_check against the CPU port's logits of them, the
+    victim respawned and re-admitted, a replica_lost dump with down_s >
+    0, device memory before and after); the drain of the router and the
+    supervisor with 2 streams open.  Every replica is killed in a finally.
+    Returns the record of rows 1, 2, 6 and 9 on this path."""
+    import contextlib
+    import io
+    import logging
+
+    from paddle_tpu_torch.monitor import flightrec
+    from paddle_tpu_torch.serving import ServingClient
+    from paddle_tpu_torch.serving.fleet import ReplicaSupervisor
+    from paddle_tpu_torch.serving.generation import (build_replica,
+                                                     replica_parser)
+    from paddle_tpu_torch.serving.router import FleetRouter
+    from paddle_tpu_torch.utils.metrics import MetricsRegistry
+
+    t_phase = time.perf_counter()
+    shapes = fleet_kernel_shapes(torch, K)
+    # -- the in-process twin -------------------------------------------
+    args = replica_parser().parse_args(FLEET_ARGV + ["--device", "cuda"])
+    K.reset_launch_counts()
+    variants0 = K.variant_launches()
+    t0 = time.perf_counter()
+    twin = build_replica(args).start()
+    twin_start_ms = (time.perf_counter() - t0) * 1e3
+    replay = graph_check(twin, "[fleet] twin")
+    if {n: twin.graph_launches.get(n, 0) for n in FLEET_WANT} != FLEET_WANT:
+        fail(f"[fleet] a decode replay's launches {twin.graph_launches}, "
+             f"not {FLEET_WANT}")
+    cfg = twin.model.cfg
+    rng = np.random.RandomState(50)
+    probes = [rng.randint(0, cfg.vocab_size, n).tolist()
+              for n in (20, 64, 97, 128)]
+    hs = [twin.submit(p, FLEET_NEW) for p in probes]
+    twin_toks = [h.result(600) for h in hs]
+    inproc = inproc_fleet_wave(
+        twin, fleet_prompts(cfg.vocab_size, 61, groups=2),
+        [i % 2 == 0 for i in range(16)])
+    drill_prompt = np.random.RandomState(70).randint(
+        0, cfg.vocab_size, 64).tolist()
+    oracle = twin.generate(drill_prompt, FLEET_NEW, timeout=600)
+    counts = K.launch_counts()
+    path = {n: counts[n] + twin.graph_launches.get(n, 0) * twin.replays
+            for n in SERVING_KERNELS}
+    took = {n: {v: c - variants0[n][v] for v, c in vs.items()}
+            for n, vs in K.variant_launches().items() if n in path}
+    if any(path[n] <= 0 for n in SERVING_KERNELS) \
+            or took["flash_attention"].get("mma") \
+            or not took["flash_attention"].get("simt"):
+        fail(f"[fleet] twin path launches {path}, variants {took}")
+    # the CPU port, same argv on the CPU: its greedy tokens for the
+    # probes, and its logits of the drill's oracle for its near-tie check
+    cpu = build_replica(replica_parser().parse_args(
+        FLEET_ARGV + ["--device", "cpu"])).model
+    cpu_ties = []
+    with torch.no_grad():
+        for i, p in enumerate(probes):
+            ref = cpu.generate(torch.tensor([p]),
+                               max_new_tokens=FLEET_CPU_NEW)
+            got = torch.tensor([p + twin_toks[i][:FLEET_CPU_NEW]])
+            cpu_ties += [(i, t) for _, t in margin_check(
+                torch, got, ref, cpu(ref.long()).float(), len(p),
+                f"[fleet] twin probe {i} (card vs CPU)")]
+        ref_seq = torch.tensor([drill_prompt + oracle])
+        oracle_logits = cpu(ref_seq).float()
+    del cpu
+    log(f"[fleet] twin on {card}: built and captured in {twin_start_ms:.1f}"
+        f" ms (capture {twin.capture_ms:.1f} ms); a decode replay "
+        f"{replay}; path launches {path}; variants {took}; 4 probes x "
+        f"{FLEET_NEW} greedy, first {FLEET_CPU_NEW} = the CPU port's up to "
+        f"near ties {cpu_ties}")
+    release(torch, "the fleet's replicas")
+    # -- the fleet --------------------------------------------------------
+    tmp = tempfile.mkdtemp(prefix="fleet-", dir=os.environ.get("TMPDIR"))
+    logs = pathlib.Path(tmp) / "logs"
+    router_log = []
+
+    class _Keep(logging.Handler):
+        def emit(self, record):
+            router_log.append(record.getMessage())
+
+    keep = _Keep(level=logging.INFO)
+    rlog = logging.getLogger("paddle_tpu_torch.serving.router")
+    rlog.addHandler(keep)
+    rlog.setLevel(logging.INFO)
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get(
+        "PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    reg = MetricsRegistry()
+    sup = ReplicaSupervisor(
+        [sys.executable, "-m", "paddle_tpu_torch.serving.generation",
+         "--device", "cuda", "--port", "0", *FLEET_ARGV], 2, env=env,
+        heartbeat_timeout_s=FLEET_HEARTBEAT_S, respawn_backoff_s=0.2,
+        telemetry_dir=os.path.join(tmp, "telemetry"), log_dir=str(logs),
+        registry=reg)
+    router = None
+    beats = None
+    try:
+        t_spawn = time.perf_counter()
+        sup.start()
+        up = {}
+        while len(up) < 2:
+            for r in range(2):
+                if r not in up and sup.replica_url(r):
+                    up[r] = time.perf_counter() - t_spawn
+            if time.perf_counter() - t_spawn > 300 or any(
+                    p.poll() is not None for p in sup.procs):
+                fail(f"[fleet] bring-up: registered {up}, exits "
+                     f"{[p.poll() for p in sup.procs]}; logs in {logs}")
+            time.sleep(0.01)
+        if not sup.wait_ready(60):
+            fail("[fleet] the supervisor did not see both replicas up")
+        beats = HeartbeatGaps(sup.coord)
+        captures = [capture_ms_of(logs / f"replica{r}.0.log")
+                    for r in range(2)]
+        router = FleetRouter([], coord=sup.coord.address, port=0,
+                             page_size=16, probe_interval_s=0.5,
+                             dead_after=3, membership_poll_s=0.05,
+                             install_signal_handlers=False).start()
+        urls = [sup.replica_url(r) for r in range(2)]
+        log(f"[fleet] 2 replicas up: spawn to registration "
+            f"{[round(up[r], 2) for r in range(2)]} s, capture "
+            f"{captures} ms; router {router.url} over {urls}")
+        # each replica's tokens for the probes, bitwise the twin's
+        for r, url in enumerate(urls):
+            got, _, _, _ = fleet_wave(url, probes, [True] * len(probes))
+            if got != twin_toks:
+                bad = [i for i in range(len(probes)) if got[i] != twin_toks[i]]
+                fail(f"[fleet] replica {r}'s tokens differ from the twin's "
+                     f"for probes {bad}")
+        # affinity: 8 requests on one 64-token prefix
+        burst = fleet_prompts(cfg.vocab_size, 80)
+        h0 = [prefix_counts(u) for u in urls]
+        fleet_wave(router.url, burst[:1], [False])
+        fleet_wave(router.url, burst[1:], [i % 2 == 0 for i in range(7)])
+        routed = router.metrics.snapshot()["routed"]
+        hits = {k: v for k, v in routed.items() if k.endswith("|prefix_hit")}
+        if sum(hits.values()) < 7 or len(hits) != 1:
+            fail(f"[fleet] affinity burst routed {routed}")
+        owner = int(next(iter(hits)).split("|")[0][1:])
+        h1 = prefix_counts(urls[owner])
+        d_hits, d_miss = (h1[0] - h0[owner][0], h1[1] - h0[owner][1])
+        if d_hits < 7 or d_hits + d_miss != 8:
+            fail(f"[fleet] the burst's replica r{owner} hit its prefix cache"
+                 f" {d_hits} times in 8 (misses {d_miss})")
+        log(f"[fleet] affinity: 8 requests on one 64-token prefix routed "
+            f"{routed}; r{owner}'s prefix cache hit {d_hits}/8")
+        # the wave: through the router, straight to one replica
+        streamed = [i % 2 == 0 for i in range(16)]
+        before = router.metrics.snapshot()["routed"]
+
+        def pace(k):     # group A's first request bound to r0, then B's
+            wait_for(lambda: sum(r.inflight for r in router.replicas) >= k,
+                      30, "[fleet] the wave's first requests")
+
+        w_router = fleet_wave(router.url, fleet_prompts(
+            cfg.vocab_size, 62, groups=2), streamed, pace=pace)
+        after = router.metrics.snapshot()["routed"]
+        delta = {k: v - before.get(k, 0) for k, v in after.items()
+                 if v != before.get(k, 0)}
+        if delta != {"r0|least_loaded": 1, "r0|prefix_hit": 7,
+                     "r1|least_loaded": 1, "r1|prefix_hit": 7}:
+            fail(f"[fleet] the wave's two prefix groups did not land on "
+                 f"one replica each: {delta}")
+        w_one = fleet_wave(urls[0], fleet_prompts(cfg.vocab_size, 63,
+                                                  groups=2), streamed)
+        log("[fleet] wave of 16 x " + str(FLEET_NEW) + " (8 SSE, 2 prefix "
+            "groups of 8) on " + card + ": "
+            + wave_text("router over 2 replicas", 16, *w_router[1:]) + "; "
+            + wave_text("one replica over HTTP", 16, *w_one[1:]) + "; "
+            + wave_text("the engine in process", 16, *inproc[1:])
+            + f"; routed {delta}")
+        # the drill
+        free0 = torch.cuda.mem_get_info()
+        toks, err, stamps, victim = [], None, [], None
+        c = ServingClient(router.url, timeout=300)
+        for evt in c.generate_stream(drill_prompt, FLEET_NEW):
+            if "token" in evt:
+                toks.append(evt["token"])
+                stamps.append(time.perf_counter())
+                if len(toks) == FLEET_KILL_AT:
+                    victim = max(router.replicas, key=lambda r: r.inflight)
+                    rank = int(victim.name[1:])
+                    old_url = victim.url
+                    t_kill = time.perf_counter()
+                    os.kill(sup.procs[rank].pid, signal.SIGKILL)
+            if evt.get("done"):
+                err = evt.get("error")
+        snap = router.metrics.snapshot()
+        if err is not None or len(toks) != FLEET_NEW \
+                or snap["requests_failed"] != 0 \
+                or snap["failovers"]["mid_stream"] < 1:
+            fail(f"[fleet] drill: error {err}, {len(toks)} tokens, {snap}")
+        ties = margin_check(torch, torch.tensor([drill_prompt + toks]),
+                            ref_seq, oracle_logits, len(drill_prompt),
+                            "[fleet] drill (resumed vs undisturbed)")
+        # the victim had relayed tokens beyond the 16th before it died: the
+        # router's failover line says how many; the stall is the gap from
+        # the last of them to the survivor's first
+        relayed = [int(m.group(1)) for m in map(re.compile(
+            r"stream failover: (\d+) tokens relayed").match, router_log) if m]
+        if not relayed or not FLEET_KILL_AT <= relayed[-1] < FLEET_NEW:
+            fail(f"[fleet] drill: the router's failover lines {relayed}")
+        cut = relayed[-1]
+        stall = (stamps[cut] - stamps[cut - 1]) * 1e3
+        deadline = time.perf_counter() + 300
+        while not (victim.alive and victim.url != old_url
+                   and sup.wait_ready(0.05)):
+            if time.perf_counter() > deadline:
+                fail(f"[fleet] the victim r{rank} was not re-admitted: "
+                     f"{victim.snapshot()}")
+            time.sleep(0.01)
+        readmit_s = time.perf_counter() - t_kill
+        free1 = torch.cuda.mem_get_info()
+        dumps = list((pathlib.Path(tmp) / "telemetry").glob("flightrec-*"))
+        doc = json.loads(dumps[0].read_text()) if dumps else {}
+        down_s = doc.get("accounting", {}).get("down_s", 0)
+        if doc.get("reason") != "replica_lost" or not down_s > 0:
+            fail(f"[fleet] the replica_lost dump: {doc.get('reason')} "
+                 f"down_s {down_s}")
+        respawn_capture = capture_ms_of(logs / f"replica{rank}.1.log")
+        again = ServingClient(victim.url, timeout=300).generate(
+            drill_prompt, FLEET_NEW)["tokens"]
+        if again != oracle:
+            fail(f"[fleet] the respawned r{rank}'s tokens differ from the "
+                 "twin's")
+        lost = reg.snapshot()["paddle_fleet_replica_lost_total"]
+        log(f"[fleet] drill on {card}: SIGKILL r{rank} after token "
+            f"{FLEET_KILL_AT} reached the client; the victim had relayed "
+            f"{cut}: stream done, {snap['requests_failed']} failed, "
+            f"failovers {snap['failovers']}, the client's stall (token {cut}"
+            f" to {cut + 1}) {stall:.1f} ms, recovery (the router's loss to "
+            f"resumed) {snap['failover_recovery_ms']} ms, tokens = the "
+            f"undisturbed run's up to near ties (row, new token) {ties}; "
+            f"death to re-admission "
+            f"{readmit_s:.2f} s (respawn capture {respawn_capture} ms), "
+            f"down_s {down_s}; device free/total before the kill "
+            f"{free0[0] / 2 ** 30:.2f}/{free0[1] / 2 ** 30:.2f} GiB, after "
+            f"the respawn {free1[0] / 2 ** 30:.2f} GiB; replicas lost "
+            f"{lost}")
+        # the drain with 2 streams open
+        events = {0: [], 1: []}
+        drain_prompts = fleet_prompts(cfg.vocab_size, 64, groups=2, n=1)
+
+        def stream(i):
+            try:
+                for evt in ServingClient(router.url, timeout=300)\
+                        .generate_stream(drain_prompts[i], FLEET_NEW):
+                    events[i].append(evt)
+            except Exception as e:  # noqa: BLE001 - reported below
+                events[i].append({"client_error": f"{type(e).__name__}: "
+                                                  f"{e}"})
+
+        threads = [threading.Thread(target=stream, args=(i,))
+                   for i in events]
+        for t in threads:
+            t.start()
+        wait_for(lambda: all(any("token" in e for e in ev)
+                              for ev in events.values()), 120,
+                  "[fleet] the drain's streams")
+        gaps = beats.stop()
+        beats = None
+        r_clean = router.shutdown()
+        for t in threads:
+            t.join(120)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            s_clean = sup.shutdown()
+        said = out.getvalue()
+        log(said.strip())
+        for i, ev in events.items():
+            last = ev[-1] if ev else {}
+            if not (last.get("done") and "error" not in last
+                    and last.get("tokens") == FLEET_NEW):
+                fail(f"[fleet] drained stream {i} ended with {last}")
+        if not (r_clean and "router drain clean" in router_log
+                and s_clean and "fleet drain clean" in said):
+            fail(f"[fleet] drains: router {r_clean} {router_log[-3:]}, "
+                 f"fleet {s_clean} {said!r}")
+        log(f"[fleet] drain with 2 streams open: router drain clean, fleet "
+            f"drain clean; heartbeat gaps (s) {gaps} against the timeout "
+            f"{FLEET_HEARTBEAT_S} (the library's default 2.0: "
+            f"{'exceeded' if any(g > 2.0 for g in gaps.values()) else 'held'})"
+            f" | {time.perf_counter() - t_phase:.1f}s")
+    finally:
+        if beats is not None:
+            beats.stop()
+        if router is not None:
+            router.shutdown()
+        with contextlib.redirect_stdout(io.StringIO()):
+            sup.shutdown(timeout_s=30)
+        for p in sup.procs:
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+        rlog.removeHandler(keep)
+        flightrec.reset()
+        twin.stop()
+    return {"counts": path, "launches_a_replay": replay, "shapes": shapes,
+            "capture_ms": twin.capture_ms}
+
+
+def wait_for(cond, timeout, what):
+    """Poll ``cond`` every 2 ms; fail after ``timeout`` seconds."""
+    deadline = time.perf_counter() + timeout
+    while not cond():
+        if time.perf_counter() > deadline:
+            fail(f"{what}: timed out")
+        time.sleep(0.002)
+
+
 def device_and_build(torch, build):
     """The card's name and power limit (returned as nvidia-smi prints
     them), then every kernel library built from the checkout's sources,
@@ -7818,6 +8350,30 @@ def front_end_main():
     torch.backends.cudnn.allow_tf32 = False
     card = device_and_build(torch, build)
     front_end_phases(torch, K, card)
+    log(f"[time] the run took {time.perf_counter() - START:.1f}s")
+    return 0
+
+
+def fleet_main():
+    """``python3 chip_smoke.py --fleet``: the build and the [fleet] phase
+    alone (the full run is the script without arguments)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    try:
+        import paddle_tpu_torch.ops.kernels as K
+        from paddle_tpu_torch.ops.kernels import build
+    except ImportError as e:
+        print(f"chip_smoke: the paddle_tpu_torch package is missing: {e}",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = device_and_build(torch, build)
+    mark("fleet")
+    fleet_phase(torch, K, card)
     log(f"[time] the run took {time.perf_counter() - START:.1f}s")
     return 0
 
@@ -7956,6 +8512,10 @@ def main():
     mark("spec")
     spec_counts, spec_shapes = spec_phase(torch, K, card)
     serving = front_end_phases(torch, K, card)
+    release(torch, "fleet")
+    mark("fleet")
+    fleet = fleet_phase(torch, K, card)
+    mark("fleet done")
 
     kernels = []
     for name, rec in main_cases.items():
@@ -8129,6 +8689,18 @@ def main():
             # launches times its replays
             entry["http_generate_launches"] = \
                 serving["generate"]["counts"][name]
+        if name in SERVING_KERNELS:
+            # the fleet path (float32 GPT-2-small replicas): the in-process
+            # twin's eager prefills and capture plus its decode graph's
+            # launches times its replays, a replay's launches, and the
+            # kernel held against its plain version at the replica's shapes
+            entry["fleet"] = {
+                "launches": fleet["counts"][name],
+                "launches_a_replay": fleet["launches_a_replay"].get(name, 0),
+                "shapes": {tag: {k: r[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "max_abs_err")}
+                    for tag, r in fleet["shapes"][name].items()}}
         if name in FAST_VARIANT:
             entry["variant"] = rec["variant"]
         if name in MMA_KERNELS:
@@ -8230,4 +8802,6 @@ if __name__ == "__main__":
         sys.exit(resume_child(sys.argv[2]))
     if sys.argv[1:2] == ["--serving-front-end"]:
         sys.exit(front_end_main())
+    if sys.argv[1:2] == ["--fleet"]:
+        sys.exit(fleet_main())
     sys.exit(main())

@@ -1,8 +1,9 @@
 """Runtime flag registry (port of paddle_tpu/framework/flags.py).
 
 Only the flags the ported modules read are defined here (the adaptive
-batcher's and the generation engine's, the durable checkpoints' of
-``Model.fit``, and the request tracer's); each is
+batcher's and the generation engine's, the fleet router's and its
+replica supervisor's, the durable checkpoints' of ``Model.fit``, the
+request tracer's and the flight recorder's); each is
 env-overridable under its own name, as in the reference, and
 :func:`set_flags` changes them at run time.
 """
@@ -82,6 +83,53 @@ define_flag("FLAGS_genserve_prefill_chunk", 0,
             "<= largest prompt bucket); prompts whose un-shared suffix "
             "exceeds it prefill one chunk per decode iteration instead of "
             "stalling every lane; 0 disables chunking")
+# -- fleet router (paddle_tpu_torch.serving.router) ------------------------
+define_flag("FLAGS_router_probe_interval_s", 0.5,
+            "seconds between router health probes of each replica's "
+            "/healthz")
+define_flag("FLAGS_router_dead_after", 3,
+            "consecutive failed health probes before a replica is routed "
+            "around (429 backpressure never counts as a failure)")
+define_flag("FLAGS_router_healthy_after", 2,
+            "consecutive successful probes before a dead replica is "
+            "marked healthy again (flap damping; a single lucky probe "
+            "must not re-admit a sick replica)")
+define_flag("FLAGS_router_retry_budget_ratio", 0.1,
+            "retry-budget deposit per successful request: retries are "
+            "capped at this fraction of recent successful traffic so a "
+            "sick fleet degrades to fast 503s instead of a retry storm")
+define_flag("FLAGS_router_retry_budget_min", 5.0,
+            "retry-budget floor (and initial balance): a cold or "
+            "low-traffic router can still retry this many times")
+define_flag("FLAGS_router_breaker_threshold", 3,
+            "consecutive request failures that trip a replica's circuit "
+            "breaker (dispatch stops before the health probe catches up)")
+define_flag("FLAGS_router_breaker_cooldown_s", 2.0,
+            "seconds a tripped circuit breaker holds before one trial "
+            "request may probe the replica again")
+define_flag("FLAGS_router_hedge_floor_ms", 0.0,
+            "hedged dispatch for non-streaming requests: when > 0, a "
+            "duplicate is sent to a second replica once the first has "
+            "been outstanding max(this floor, observed p99 latency); "
+            "first answer wins, the loser is discarded; 0 disables")
+define_flag("FLAGS_router_replica_slots", 4,
+            "per-replica concurrent-decode lanes the deadline-aware "
+            "admission estimator assumes when computing queue wait")
+define_flag("FLAGS_fleet_respawn_backoff_s", 0.5,
+            "base delay before the replica supervisor respawns a "
+            "crashed replica (jittered to 0.5-1.5x this)")
+define_flag("FLAGS_fleet_membership_poll_s", 0.1,
+            "router poll interval against the fleet coordinator's "
+            "membership epoch; an epoch delta evicts dead replicas "
+            "faster than the probe timeout")
+# -- runtime telemetry (monitor/flightrec.py) ------------------------------
+define_flag("FLAGS_telemetry_dir", "",
+            "directory the crash flight recorder writes "
+            "flightrec-<pid>.json into; '' = the working directory")
+define_flag("FLAGS_flightrec_records", 512,
+            "bounded ring of recent events the flight recorder "
+            "(monitor/flightrec.py) dumps to "
+            "FLAGS_telemetry_dir/flightrec-<pid>.json")
 
 # -- durable checkpointing (distributed/checkpoint.py) --------------------
 define_flag("FLAGS_ckpt_async", True,

@@ -48,7 +48,6 @@ from ..nn.layer.norm import LayerNorm
 from ..nn.layer_base import Layer, ParamAttr
 from ..ops import fused
 from ..ops.capture import capture, side_stream
-from ..serving.generation import sample_tokens
 from ..text import beam_search_decode, beam_search_step
 
 
@@ -536,6 +535,10 @@ class _DecodeRun:
         """Tokens [B] int32 from logits [B, V] (serving/generation.py
         ``sample_tokens``): the argmax, or the Gumbel-max draw over the
         temperature-scaled, top-k-cut logits with ``noise``."""
+        # imported here: serving.generation stays runnable with `python -m`
+        # (an import at the top would load it with the package)
+        from ..serving.generation import sample_tokens
+
         do, temp, top_k, k_max = self.sample_args
         return sample_tokens(logits, do, temp, top_k, self.noise,
                              k_max).to(torch.int32)

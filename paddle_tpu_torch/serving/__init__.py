@@ -1,6 +1,6 @@
-"""paddle_tpu_torch.serving — adaptive-batching serving on the card (port
-of paddle_tpu/serving; the router and fleet come in a later slice,
-ROADMAP.md A6(b)).
+"""paddle_tpu_torch.serving — adaptive-batching and generation serving on
+the card, and the fleet that runs several replicas behind one endpoint
+(port of paddle_tpu/serving).
 
 Concurrent requests are coalesced into padded fixed-shape batches drawn
 from a finite bucket grid, every bucket is captured as one CUDA graph at
@@ -24,26 +24,47 @@ as streaming POST /generate:
 
 or one-shot from the high-level API: ``paddle_tpu_torch.Model(net)
 .serve(...)`` / ``.serve_generate(...)``.
+
+Several replicas (each ``python -m paddle_tpu_torch.serving.generation``,
+one process with its own engine, page pool and prefix cache) run under a
+``ReplicaSupervisor`` (serving/fleet.py: spawn, heartbeats, respawn) behind
+a ``FleetRouter`` (serving/router.py: prefix affinity, health and epoch
+failover, journaled mid-stream resume, retry budget, circuit breaker,
+deadline admission, hedging):
+
+    python -m paddle_tpu_torch.serving.fleet --world 2 -- \\
+        python -m paddle_tpu_torch.serving.generation --port 0
+    python -m paddle_tpu_torch.serving.router --coord HOST:PORT
 """
 from .engine import (BucketSpec, DeadlineExceededError,  # noqa: F401
                      EngineStoppedError, QueueFullError, ServingEngine)
-from .generation import GenerationEngine, GenerationHandle  # noqa: F401
-from .metrics import GenerationMetrics, ServingMetrics  # noqa: F401
+from .metrics import (GenerationMetrics, RouterMetrics,  # noqa: F401
+                      ServingMetrics)
 
 __all__ = ["ServingEngine", "ServingServer", "ServingClient", "BucketSpec",
-           "ServingMetrics", "GenerationMetrics", "GenerationEngine",
-           "GenerationHandle", "CacheGeometry", "SlotScheduler",
-           "PrefixCache", "QueueFullError", "DeadlineExceededError",
+           "ServingMetrics", "GenerationMetrics", "RouterMetrics",
+           "GenerationEngine", "GenerationHandle", "CacheGeometry",
+           "SlotScheduler", "PrefixCache", "FleetRouter", "RetryBudget",
+           "ReplicaSupervisor", "QueueFullError", "DeadlineExceededError",
            "EngineStoppedError"]
 
 
 def __getattr__(name):  # lazy: keeps `python -m paddle_tpu_torch.serving
-    if name == "ServingServer":     # .server` / .client runnable without
-        from .server import ServingServer   # runpy's double-import warning
-        return ServingServer
-    if name == "ServingClient":
+    if name == "ServingServer":     # .server` / .client / .generation /
+        from .server import ServingServer   # .router / .fleet runnable
+        return ServingServer                # without runpy's double-
+    if name == "ServingClient":             # import warning
         from .client import ServingClient
         return ServingClient
+    if name in ("GenerationEngine", "GenerationHandle"):
+        from . import generation
+        return getattr(generation, name)
+    if name in ("FleetRouter", "RetryBudget"):
+        from . import router
+        return getattr(router, name)
+    if name == "ReplicaSupervisor":
+        from .fleet import ReplicaSupervisor
+        return ReplicaSupervisor
     if name == "CacheGeometry":
         from .kv_cache import CacheGeometry
         return CacheGeometry

@@ -71,6 +71,14 @@ reference's ``lg2 < kth`` rule, so ties at the k-th value survive.
   is on.  Every span timestamp is taken on the host, around work the
   engine has already synchronised: tracing adds no sync to a step.
 
+* **the replica process** — ``python -m paddle_tpu_torch.serving.generation``
+  serves a seeded random-weight GPT with this engine behind a
+  ``ServingServer`` (:func:`main`, the reference's argv plus ``--device``);
+  under a fleet supervisor (serving/fleet.py) it registers its URL with
+  the pod coordinator and heartbeats there.  Before every decode and
+  speculative step the engine calls ``chaos.on_step`` (utils/chaos.py) on
+  the host, the seam the fleet's replica drills fire from.
+
 Not ported yet (ROADMAP.md): tensor-parallel serving and ``op_report``.
 """
 from __future__ import annotations
@@ -89,6 +97,7 @@ from ..framework.place import resolve_device
 from ..framework.random import make_generator
 from ..monitor import tracing as _tracing
 from ..ops.capture import capture, side_stream
+from ..utils import chaos
 from .engine import DeadlineExceededError, EngineStoppedError, QueueFullError
 from .kv_cache import (CacheGeometry, admit_slot, make_state, reclaim_pages,
                        release_slots, take_pages, write_prompt)
@@ -98,7 +107,8 @@ from .scheduler import SlotScheduler
 
 logger = logging.getLogger("paddle_tpu_torch.serving")
 
-__all__ = ["GenerationEngine", "GenerationHandle", "sample_tokens"]
+__all__ = ["GenerationEngine", "GenerationHandle", "sample_tokens",
+           "replica_parser", "build_replica", "main"]
 
 _WAKE = object()   # queue sentinel: wakes an idle-blocked decode loop
 _END = object()    # handle sentinel: no more tokens
@@ -446,7 +456,9 @@ class GenerationEngine:
         # emitted, finished)
         self._out = None
         self._graph = None
+        self._iter = 0           # decode iterations, the chaos seam's step
         self.capture_count = 0
+        self.capture_ms = None
         self.replays = 0
         self.graph_launches: dict[str, int] = {}
         self.graph_variants: dict[str, dict] = {}
@@ -469,15 +481,18 @@ class GenerationEngine:
             if self.draft_model is not None else (2, self.max_slots),
             dtype=torch.int32, device=dev)
         if dev.type == "cuda":
+            t0 = time.perf_counter()
             with torch.no_grad():
                 self._capture()
+            self.capture_ms = (time.perf_counter() - t0) * 1e3
         logger.info(
             "generation engine on %s: slots=%d S_max=%d prompt buckets=%s "
             "pages=%dx%d cache=%.1f MB prefix cache=%s prefill chunk=%d "
-            "spec tokens=%d graph launches=%s", dev, self.max_slots,
-            self.max_seq_len, self.prompt_buckets, geom.num_pages,
-            geom.page_size, geom.kv_bytes() / 1048576,
+            "spec tokens=%d capture ms=%s graph launches=%s", dev,
+            self.max_slots, self.max_seq_len, self.prompt_buckets,
+            geom.num_pages, geom.page_size, geom.kv_bytes() / 1048576,
             self._prefix is not None, self.prefill_chunk, self.spec_tokens,
+            None if self.capture_ms is None else round(self.capture_ms, 1),
             self.graph_launches)
         self._started = True
         self._thread = threading.Thread(target=self._run, daemon=True,
@@ -1093,7 +1108,10 @@ class GenerationEngine:
         On a CUDA device: fill the noise rows of the sampling lanes (when
         there are any), replay the captured step, and copy its tokens and
         finished mask to the host in one transfer.  On the CPU:
-        :meth:`_step_eager`."""
+        :meth:`_step_eager`.  Either way the chaos seam
+        (``chaos.on_step``, utils/chaos.py) runs first, on the host."""
+        self._iter += 1
+        chaos.on_step(self._iter)   # fault-injection seam (utils/chaos)
         if self._graph is None:
             return self._step_eager()
         reqs = self._sampling_lanes()
@@ -1215,8 +1233,11 @@ class GenerationEngine:
         tokens.  On a CUDA device: fill the noise rows of the sampling
         lanes (when there are any), replay the captured step, and copy its
         output to the host in one transfer.  On the CPU:
-        :meth:`_step_spec_eager`.  Returns (outs [slots, K + 1], emitted
-        [slots, K + 1] prefix mask, finished [slots])."""
+        :meth:`_step_spec_eager`.  The chaos seam runs first, as in
+        :meth:`step`.  Returns (outs [slots, K + 1], emitted [slots, K + 1]
+        prefix mask, finished [slots])."""
+        self._iter += 1
+        chaos.on_step(self._iter)
         if self._graph is None:
             return self._step_spec_eager()
         reqs = self._sampling_lanes()
@@ -1365,3 +1386,133 @@ class GenerationEngine:
             self.drain(timeout=30.0)
         self.stop()
         return False
+
+
+def replica_parser():
+    """The replica's argv: the reference's flags and defaults, plus
+    ``--device`` (None: the CUDA card)."""
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        description="paddle_tpu_torch generation server (continuous-"
+                    "batching decode with a device-resident paged KV "
+                    "cache, its decode step one CUDA graph on the card)")
+    parser.add_argument("--layers", type=int, default=2)
+    parser.add_argument("--hidden", type=int, default=64)
+    parser.add_argument("--heads", type=int, default=4)
+    parser.add_argument("--vocab", type=int, default=211)
+    parser.add_argument("--max-seq-len", type=int, default=64)
+    parser.add_argument("--slots", type=int, default=4)
+    parser.add_argument("--prompt-buckets", default="8,16")
+    parser.add_argument("--page-size", type=int, default=16)
+    parser.add_argument("--num-pages", type=int, default=0,
+                        help="KV page pool size; 0 = dense-equivalent "
+                             "(slots * pages_per_slot)")
+    parser.add_argument("--prefix-cache", type=int, default=1,
+                        help="1 shares identical prompt prefixes as "
+                             "read-only pages; 0 disables")
+    parser.add_argument("--draft-layers", type=int, default=0,
+                        help="layers of the speculative draft model; "
+                             "0 disables speculative decode")
+    parser.add_argument("--spec-tokens", type=int, default=4,
+                        help="draft proposals per speculative iteration")
+    parser.add_argument("--prefill-chunk", type=int, default=0,
+                        help="tokens per prefill chunk (multiple of "
+                             "page-size); 0 prefills whole prompts")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=8867,
+                        help="0 picks a free port (printed on stdout)")
+    parser.add_argument("--device", default=None,
+                        help="where the replica runs: the CUDA card "
+                             "unless this names another device (cpu)")
+    return parser
+
+
+def build_replica(args) -> GenerationEngine:
+    """The replica's engine, not started: a GPT of the argv's widths with
+    dropout 0, initialised from ``--seed`` (the initialisers draw from the
+    CPU generator, so every process given one seed holds the same
+    weights, whatever its device), on ``--device``; with
+    ``--draft-layers`` a draft holding the target's embeddings and first
+    blocks."""
+    from ..framework.random import seed
+    from ..models.gpt import GPTConfig, GPTForCausalLM
+
+    device = resolve_device(args.device)
+    seed(args.seed)
+    cfg = GPTConfig(vocab_size=args.vocab, hidden_size=args.hidden,
+                    num_layers=args.layers, num_heads=args.heads,
+                    max_position_embeddings=args.max_seq_len,
+                    dropout=0.0, attn_dropout=0.0)
+    model = GPTForCausalLM(cfg, device=device).eval()
+    draft = None
+    if args.draft_layers > 0:
+        dcfg = GPTConfig(vocab_size=args.vocab, hidden_size=args.hidden,
+                         num_layers=args.draft_layers,
+                         num_heads=args.heads,
+                         max_position_embeddings=args.max_seq_len,
+                         dropout=0.0, attn_dropout=0.0)
+        draft = GPTForCausalLM(dcfg, device=device)
+        # seed the draft from the target's first layers + embeddings so
+        # the random-weight replica still accepts some proposals
+        tgt = dict(model.state_dict())
+        dsd = draft.state_dict()
+        for name in list(dsd):
+            if name in tgt and tuple(dsd[name].shape) \
+                    == tuple(tgt[name].shape):
+                dsd[name] = tgt[name]
+        draft.set_state_dict(dsd)
+        draft.eval()
+    return GenerationEngine(model, max_slots=args.slots,
+                            max_seq_len=args.max_seq_len,
+                            prompt_buckets=args.prompt_buckets,
+                            page_size=args.page_size,
+                            num_pages=args.num_pages,
+                            prefix_cache=bool(args.prefix_cache),
+                            draft_model=draft,
+                            spec_tokens=args.spec_tokens,
+                            prefill_chunk=args.prefill_chunk,
+                            device=device)
+
+
+def main(argv=None):
+    """Standalone generation server over a randomly initialised GPT: one
+    replica of a serving fleet (real deployments build a GenerationEngine
+    around trained weights, or call ``Model.serve_generate()``).  On the
+    card ``start()`` captures the decode step; a capture that fails
+    raises, and the process exits non-zero."""
+    args = replica_parser().parse_args(argv)
+
+    logging.basicConfig(level=logging.INFO)
+    from .server import ServingServer
+
+    engine = build_replica(args)
+    server = ServingServer(None, gen_engine=engine, host=args.host,
+                           port=args.port).start()
+    # parse-friendly readiness line
+    print(f"paddle_tpu_torch.serving listening on {server.url}", flush=True)
+
+    # elastic fleet membership: launched under a replica supervisor
+    # (serving/fleet.py exports PADDLE_POD_COORD + PADDLE_POD_RANK), the
+    # replica registers its URL in the coordinator KV and heartbeats, so
+    # the router evicts it on the epoch delta when it dies or partitions.
+    # A REPLICA_PARTITION chaos drill silences the heartbeats while the
+    # HTTP server keeps serving.
+    from ..distributed.podcoord import PodClient
+
+    pod = PodClient.from_env()
+    if pod is not None:
+        pod.kv_set(f"serving/replica/{pod.rank}/url",
+                   server.url.encode("utf-8"))
+        pod.start_heartbeats()
+        chaos.register_partition_hook(pod.stop_heartbeats)
+        logger.info("replica rank %d registered with fleet coordinator",
+                    pod.rank)
+    return server.wait()
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

@@ -1,15 +1,16 @@
-"""Serving observability (port of paddle_tpu/serving/metrics.py's
-``ServingMetrics`` and ``GenerationMetrics``; ``RouterMetrics`` comes with
-the router, ROADMAP.md A6(b)).
+"""Serving observability (port of paddle_tpu/serving/metrics.py, whole:
+``ServingMetrics``, ``GenerationMetrics`` and ``RouterMetrics``).
 
 ``ServingMetrics`` is the adaptive batcher's catalog (qps, latency
 quantiles, batch sizes, queue wait, padding waste, request outcomes and
 ``compile_count``, which counts the predictor's bucket captures on the
 card); ``GenerationMetrics`` the decode path's (tokens/s, TTFT and
 inter-token reservoirs, occupancy, request counters, prefix-cache hits and
-misses, prefill chunks, speculative proposals and their acceptance).  Each
-engine keeps a private ``MetricsRegistry`` so several coexist in one
-process.
+misses, prefill chunks, speculative proposals and their acceptance);
+``RouterMetrics`` the fleet router's (routing decisions by replica and
+reason, backpressure, failovers, the retry budget, deadline rejections,
+hedges, availability).  Each engine and router keeps a private
+``MetricsRegistry`` so several coexist in one process.
 
 Every number here is taken on the host clock around work the engine has
 already synchronised (each batch and each decode step ends in a
@@ -23,7 +24,8 @@ import time
 
 from ..utils.metrics import Histogram, MetricsRegistry
 
-__all__ = ["Histogram", "ServingMetrics", "GenerationMetrics"]
+__all__ = ["Histogram", "ServingMetrics", "GenerationMetrics",
+           "RouterMetrics"]
 
 
 class ServingMetrics:
@@ -334,6 +336,154 @@ class GenerationMetrics:
                 "spec_proposed": self._spec_proposed.value,
                 "prefill_chunks": self._chunks.value,
                 **dict(sorted(self.counters.items())),
+            }
+
+    def prometheus_text(self) -> str:
+        return self.registry.prometheus_text()
+
+
+class RouterMetrics:
+    """Fleet-router observability (`serving/router.py`): per-replica
+    routing decisions, backpressure, and replica health in one private
+    registry, exposed first in the router's /metrics.
+
+    Routing reasons (the `reason` label on requests_total):
+      prefix_hit       affinity table says this replica owns the
+                       prompt's page-aligned prefix
+      least_loaded     no affinity — picked the replica with the fewest
+                       inflight requests
+      health_failover  affinity replica was dead/draining, rerouted
+
+    A 429 from a replica is BACKPRESSURE, not death: it bumps
+    `paddle_router_backpressure_total{replica}` and the request retries
+    elsewhere, but the replica's health-probe failure count is untouched
+    (a loaded replica must not flap in and out of the fleet)."""
+
+    def __init__(self):
+        self.registry = MetricsRegistry()
+        self._lock = self.registry._lock
+        reg = self.registry
+        self._requests = reg.counter(
+            "paddle_router_requests_total",
+            "requests routed, by target replica and routing reason",
+            label=("replica", "reason"))
+        self._backpressure = reg.counter(
+            "paddle_router_backpressure_total",
+            "429s absorbed per replica (request retried elsewhere; "
+            "not a health-probe failure)", label="replica")
+        self._failovers = reg.counter(
+            "paddle_router_failovers_total",
+            "requests re-dispatched to a survivor, by trigger "
+            "(mid_stream = SSE resumed after a replica died under the "
+            "stream; dispatch = the initial proxy attempt failed; "
+            "hedge = a hedged duplicate was issued)",
+            label="reason",
+            preset=("mid_stream", "dispatch", "hedge"), fixed=True)
+        self._budget_exhausted = reg.counter(
+            "paddle_router_retry_budget_exhausted_total",
+            "retries suppressed because the retry budget was empty "
+            "(the request failed fast with 503 instead of storming a "
+            "sick fleet)")
+        self._deadline_rejected = reg.counter(
+            "paddle_router_deadline_rejected_total",
+            "requests rejected at admission because the estimated "
+            "queue wait already exceeded their deadline")
+        self._hedges = reg.counter(
+            "paddle_router_hedges_total",
+            "hedged non-streaming dispatches by outcome (won = the "
+            "hedge finished first, lost = the primary did)",
+            label="outcome", preset=("won", "lost"), fixed=True)
+        self._healthy = 0
+        self._inflight = 0
+        self._epoch = 0
+        self._ok = 0
+        self._failed = 0
+        self._recovery_ms = 0.0
+        reg.gauge("paddle_router_replicas_healthy",
+                  "replicas currently passing health probes",
+                  fn=lambda: self._healthy)
+        reg.gauge("paddle_router_inflight",
+                  "requests currently being proxied",
+                  fn=lambda: self._inflight)
+        reg.gauge("paddle_router_membership_epoch",
+                  "last fleet-coordinator membership epoch the router "
+                  "applied (0 when running from a static replica list)",
+                  fn=lambda: self._epoch)
+        reg.gauge("paddle_fleet_availability_ratio",
+                  "requests that returned a complete answer (failovers "
+                  "included) over all finished requests; 1.0 = zero "
+                  "client-visible failures",
+                  fn=lambda: (self._ok / (self._ok + self._failed)
+                              if (self._ok + self._failed) else 1.0))
+        reg.gauge("paddle_router_failover_recovery_ms",
+                  "last mid-stream failover's loss-to-resumed gap: "
+                  "replica death detected under the stream to the "
+                  "survivor's connection accepted, milliseconds",
+                  fn=lambda: self._recovery_ms)
+
+    def count_routed(self, replica: str, reason: str):
+        self._requests.inc((str(replica), str(reason)))
+
+    def count_backpressure(self, replica: str):
+        self._backpressure.inc(str(replica))
+
+    def count_failover(self, reason: str):
+        self._failovers.inc(str(reason))
+
+    def count_budget_exhausted(self):
+        self._budget_exhausted.inc()
+
+    def count_deadline_rejected(self):
+        self._deadline_rejected.inc()
+
+    def count_hedge(self, outcome: str):
+        self._hedges.inc(str(outcome))
+
+    def count_outcome(self, ok: bool):
+        """One finished client request — the availability denominator.
+        A failed-over request that eventually completed counts `ok`;
+        only client-visible failures (5xx, dead stream) count failed."""
+        with self._lock:
+            if ok:
+                self._ok += 1
+            else:
+                self._failed += 1
+
+    def set_healthy(self, n: int):
+        with self._lock:
+            self._healthy = int(n)
+
+    def set_epoch(self, n: int):
+        with self._lock:
+            self._epoch = int(n)
+
+    def set_recovery_ms(self, ms: float):
+        with self._lock:
+            self._recovery_ms = round(float(ms), 3)
+
+    def add_inflight(self, delta: int):
+        with self._lock:
+            self._inflight += int(delta)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            denom = self._ok + self._failed
+            return {
+                "replicas_healthy": self._healthy,
+                "inflight": self._inflight,
+                "membership_epoch": self._epoch,
+                "availability_ratio": (self._ok / denom) if denom else 1.0,
+                "requests_ok": self._ok,
+                "requests_failed": self._failed,
+                "routed": {"|".join(k): v
+                           for k, v in sorted(self._requests.values.items())},
+                "backpressure": dict(sorted(
+                    self._backpressure.values.items())),
+                "failovers": dict(sorted(self._failovers.values.items())),
+                "retry_budget_exhausted": self._budget_exhausted.value,
+                "deadline_rejected": self._deadline_rejected.value,
+                "hedges": dict(sorted(self._hedges.values.items())),
+                "failover_recovery_ms": self._recovery_ms,
             }
 
     def prometheus_text(self) -> str:

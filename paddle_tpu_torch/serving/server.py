@@ -36,8 +36,8 @@ Graceful shutdown reuses the resilience latch pattern
 new work is rejected (healthz flips to draining), every queued and
 in-flight request completes, then the listener closes and ``wait()``
 returns 0 — the serving analog of "finish the in-flight step, then exit
-clean".  The reference also leaves a flight-recorder record at drain;
-the port's recorder is not ported yet (ROADMAP.md A11).
+clean".  When a flight recorder is configured (monitor/flightrec.py) the
+drain also records ``drain`` and dumps it.
 
 A /generate stream blocks its handler thread on ``handle.next_token``; the
 decode loop never waits on an HTTP thread, and a client that goes away
@@ -55,6 +55,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from ..distributed.resilience import PreemptionGuard
+from ..monitor import flightrec as _flightrec
 from ..monitor import tracing as _tracing
 from ..monitor.server import runtime_health
 from .engine import (DeadlineExceededError, EngineStoppedError,
@@ -442,6 +443,11 @@ class ServingServer:
             self._drain_clean = clean
             self._done.set()
             logger.info("serving drain %s", "clean" if clean else "TIMED OUT")
+            # serving postmortem: when a flight recorder is configured
+            # (FLAGS_telemetry_dir), leave the last events + engine state
+            # for the goodput ledger / on-call (no-op otherwise)
+            _flightrec.record("drain", clean=clean)
+            _flightrec.dump("drain")
             return clean
 
     def wait(self, timeout=None) -> int:

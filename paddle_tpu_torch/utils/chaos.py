@@ -1,6 +1,6 @@
 """Deterministic fault injection for the fault-tolerant runtime (port of
 paddle_tpu/utils/chaos.py, the part the checkpoint and ``Model.fit``
-paths call).
+paths and the serving fleet's drills call).
 
 The recovery paths of ``Model.fit(fault_tolerant=True, resume=...)`` and
 ``distributed.checkpoint`` are tested through this layer rather than
@@ -26,11 +26,28 @@ Two drive modes, composable:
                                     OSError(ENOSPC)
       PADDLE_CHAOS_CKPT_SLOW_IO=S   every checkpoint IO call stalls S
                                     seconds while set
+      PADDLE_CHAOS_REPLICA_KILL=k@N serving drill: replica rank k
+                                    SIGKILLs itself at decode iteration N
+                                    (a mid-stream death the router must
+                                    fail over)
+      PADDLE_CHAOS_REPLICA_SLOW=k@N[:S]  replica rank k stalls EVERY
+                                    decode iteration from N onward for S
+                                    seconds (default 0.25): a sick but
+                                    live replica; persistent
+      PADDLE_CHAOS_REPLICA_PARTITION=k@N  replica rank k stops
+                                    heartbeating to the fleet coordinator
+                                    at iteration N while it goes on
+                                    serving
 * :func:`inject`, a context manager that pushes a config for the extent
   of a ``with`` block.
 
-Step injections are one-shot: once fired at step N they are consumed.
-Hook points: ``on_step(step)`` (may raise, sleep or signal the process)
+Step injections are one-shot: once fired at step N they are consumed
+(but ``replica_slow``: a sick replica stays sick).  The replica dials
+match their rank against this process's pod rank (``PADDLE_POD_RANK``,
+else ``PADDLE_TRAINER_ID``, else 0) when they fire, so one environment
+can be handed to every replica of a fleet.
+Hook points: ``on_step(step)`` (may raise, sleep or signal the process;
+the generation engine calls it before every decode and speculative step)
 and ``on_io(label, path=None)`` (may raise OSError or ChaosTorn, stall,
 or corrupt a committed generation under ``path`` and return normally).
 """
@@ -47,7 +64,8 @@ import time
 logger = logging.getLogger("paddle_tpu_torch.chaos")
 
 __all__ = ["ChaosCrash", "ChaosTorn", "ChaosConfig", "inject", "on_step",
-           "on_io", "active_config", "reset"]
+           "on_io", "active_config", "reset", "register_partition_hook",
+           "pod_rank"]
 
 
 class ChaosCrash(RuntimeError):
@@ -70,7 +88,9 @@ class ChaosConfig:
 
     def __init__(self, crash_at_step=None, slow_step=None, slow_seconds=30.0,
                  preempt_at_step=None, fail_io=0, io_error=None, ckpt_torn=0,
-                 ckpt_bitflip=0, ckpt_enospc=0, ckpt_slow_io=0.0):
+                 ckpt_bitflip=0, ckpt_enospc=0, ckpt_slow_io=0.0,
+                 replica_kill=None, replica_slow=None,
+                 replica_partition=None):
         self.crash_at_step = crash_at_step
         self.slow_step = slow_step
         self.slow_seconds = float(slow_seconds)
@@ -82,13 +102,21 @@ class ChaosConfig:
         self.ckpt_bitflip = int(ckpt_bitflip)
         self.ckpt_enospc = int(ckpt_enospc)
         self.ckpt_slow_io = float(ckpt_slow_io)
+        # serving-fleet drills: (rank, step[, seconds]) triggers matched
+        # against the pod rank at fire time; kill and partition are
+        # one-shot, replica_slow persists
+        self.replica_kill = replica_kill          # (rank, step)
+        self.replica_slow = replica_slow          # (rank, step, seconds)
+        self.replica_partition = replica_partition  # (rank, step)
         self.fired: list[str] = []  # audit trail for tests
 
     def is_noop(self):
         return (self.crash_at_step is None and self.slow_step is None
                 and self.preempt_at_step is None and self.fail_io <= 0
                 and self.ckpt_torn <= 0 and self.ckpt_bitflip <= 0
-                and self.ckpt_enospc <= 0 and self.ckpt_slow_io <= 0)
+                and self.ckpt_enospc <= 0 and self.ckpt_slow_io <= 0
+                and self.replica_kill is None and self.replica_slow is None
+                and self.replica_partition is None)
 
     @classmethod
     def from_env(cls, environ=None):
@@ -97,6 +125,20 @@ class ChaosConfig:
         def _int(key):
             v = env.get(key)
             return int(v) if v not in (None, "") else None
+
+        def _rank_at(key, with_seconds=False):
+            """'rank@step', with ``with_seconds`` optionally ':seconds'."""
+            v = env.get(key)
+            if not v:
+                return None
+            secs = None
+            if with_seconds and ":" in v:
+                v, secs = v.rsplit(":", 1)
+            rank, step = v.split("@", 1)
+            out = (int(rank), int(step))
+            if with_seconds:
+                out += (float(secs) if secs is not None else None,)
+            return out
 
         return cls(
             crash_at_step=_int("PADDLE_CHAOS_CRASH_STEP"),
@@ -108,6 +150,10 @@ class ChaosConfig:
             ckpt_bitflip=_int("PADDLE_CHAOS_CKPT_BITFLIP") or 0,
             ckpt_enospc=_int("PADDLE_CHAOS_CKPT_ENOSPC") or 0,
             ckpt_slow_io=float(env.get("PADDLE_CHAOS_CKPT_SLOW_IO", "0")),
+            replica_kill=_rank_at("PADDLE_CHAOS_REPLICA_KILL"),
+            replica_slow=_rank_at("PADDLE_CHAOS_REPLICA_SLOW",
+                                  with_seconds=True),
+            replica_partition=_rank_at("PADDLE_CHAOS_REPLICA_PARTITION"),
         )
 
 
@@ -131,9 +177,11 @@ def active_config() -> ChaosConfig:
 
 
 def reset():
-    """Drop all state; the environment is parsed again on next use."""
+    """Drop all state (the partition hooks too); the environment is
+    parsed again on next use."""
     with _lock:
         _stack.clear()
+        _partition_hooks.clear()
 
 
 @contextlib.contextmanager
@@ -155,9 +203,40 @@ def inject(**kwargs):
                 _stack.remove(cfg)
 
 
+def pod_rank() -> int:
+    """This process's pod rank for rank-targeted drills (the fleet's
+    PADDLE_POD_RANK first, PADDLE_TRAINER_ID second, 0 alone)."""
+    return int(os.environ.get("PADDLE_POD_RANK",
+                              os.environ.get("PADDLE_TRAINER_ID", "0")))
+
+
+# callbacks a pod runtime registers so a partition drill can silence its
+# heartbeats without this module importing the pod stack
+_partition_hooks: list = []
+
+
+def register_partition_hook(fn):
+    """Register fn() to run when a partition drill fires on this rank (a
+    replica registers its heartbeat thread's stop).  Cleared by
+    reset()."""
+    with _lock:
+        _partition_hooks.append(fn)
+
+
+def _fire_partition():
+    with _lock:
+        hooks = list(_partition_hooks)
+    for fn in hooks:
+        try:
+            fn()
+        except Exception:  # noqa: BLE001 - a drill must not crash the rank
+            logger.exception("chaos: partition hook failed")
+
+
 def on_step(step: int):
-    """Step-boundary hook: may raise ChaosCrash, SIGTERM the process or
-    sleep.  Every trigger is one-shot."""
+    """Step-boundary hook: may raise ChaosCrash, SIGTERM or SIGKILL the
+    process, silence its heartbeats, or sleep.  Every trigger is one-shot
+    but ``replica_slow``."""
     cfg = active_config()
     if cfg.is_noop():
         return
@@ -171,6 +250,32 @@ def on_step(step: int):
         cfg.fired.append(f"preempt@{step}")
         logger.warning("chaos: SIGTERM self at step %d", step)
         os.kill(os.getpid(), signal.SIGTERM)
+    if cfg.replica_kill is not None and step >= cfg.replica_kill[1] \
+            and pod_rank() == cfg.replica_kill[0]:
+        cfg.replica_kill = None
+        cfg.fired.append(f"replica_kill@{step}")
+        logger.warning("chaos: SIGKILL self (replica rank %d) at decode "
+                       "iteration %d", pod_rank(), step)
+        os.kill(os.getpid(), signal.SIGKILL)
+    if cfg.replica_partition is not None \
+            and step >= cfg.replica_partition[1] \
+            and pod_rank() == cfg.replica_partition[0]:
+        cfg.replica_partition = None
+        cfg.fired.append(f"replica_partition@{step}")
+        logger.warning("chaos: partitioning replica rank %d from decode "
+                       "iteration %d (coordinator heartbeats stop; the "
+                       "replica keeps serving)", pod_rank(), step)
+        _fire_partition()
+    if cfg.replica_slow is not None and step >= cfg.replica_slow[1] \
+            and pod_rank() == cfg.replica_slow[0]:
+        _, at, secs = cfg.replica_slow
+        secs = 0.25 if secs is None else secs
+        if not any(f.startswith("replica_slow@") for f in cfg.fired):
+            cfg.fired.append(f"replica_slow@{step}")
+            logger.warning("chaos: replica rank %d slow from iteration %d "
+                           "(%.2fs per decode iteration, persistent)",
+                           pod_rank(), at, secs)
+        time.sleep(secs)  # not consumed: a sick replica stays sick
     if cfg.slow_step is not None and step == cfg.slow_step:
         cfg.slow_step = None
         cfg.fired.append(f"slow@{step}")

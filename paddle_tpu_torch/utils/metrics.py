@@ -1,7 +1,8 @@
 """Metrics registry: counters, gauges, histograms, Prometheus text
-exposition (the subset of paddle_tpu/utils/metrics.py that GenerationMetrics
-and the durable checkpoints use), and the process-wide
-:func:`default_registry` the checkpoint counters live in.
+exposition (the subset of paddle_tpu/utils/metrics.py that GenerationMetrics,
+RouterMetrics, the fleet supervisor and the durable checkpoints use), the
+programmatic ``snapshot()`` the flight recorder dumps, and the process-wide
+:func:`default_registry` the checkpoint and fleet counters live in.
 
 Every metric of a registry shares one RLock, so recording threads and a
 scraper see a consistent snapshot without per-metric lock ordering.
@@ -22,9 +23,11 @@ def _fmt(v) -> str:
 
 
 class Counter:
-    """Monotonic counter, unlabeled or with one label key.  ``preset``
-    pre-creates series so zero values still render; ``fixed`` renders
-    exactly the preset series."""
+    """Monotonic counter, unlabeled or labeled: ``label`` is one key (a
+    str) or a tuple of keys, and then ``inc()`` takes a tuple of values and
+    a series renders as ``name{k1="v1",k2="v2"}``.  ``preset`` pre-creates
+    series so zero values still render; ``fixed`` renders exactly the
+    preset series."""
 
     kind = "counter"
 
@@ -44,7 +47,8 @@ class Counter:
             if self.label is None:
                 self.value += int(arg)
                 return
-            key = str(arg)
+            key = tuple(str(a) for a in arg) \
+                if isinstance(self.label, tuple) else str(arg)
             if key not in self.values:
                 self._order.append(key)
             self.values[key] += int(n)
@@ -59,8 +63,11 @@ class Counter:
         if self.label is None:
             return lines + [f"{self.name} {_fmt(self.value)}"]
         keys = self._order[:self._preset_len] if self.fixed else self._order
-        return lines + [f'{self.name}{{{self.label}="{k}"}} '
-                        f'{_fmt(self.values[k])}' for k in keys]
+        for key in keys:
+            lbl = ",".join(f'{k}="{v}"' for k, v in zip(self.label, key)) \
+                if isinstance(self.label, tuple) else f'{self.label}="{key}"'
+            lines.append(f'{self.name}{{{lbl}}} {_fmt(self.values[key])}')
+        return lines
 
 
 class Gauge:
@@ -165,12 +172,32 @@ class MetricsRegistry:
                 lines.extend(m.render())
             return "\n".join(lines) + "\n"
 
+    def snapshot(self) -> dict:
+        """{name: value | {label: value} | {count, sum, mean}}; the values
+        of a tuple-labeled series are joined with commas, so the snapshot
+        stays JSON-serialisable."""
+        with self._lock:
+            out = {}
+            for name, m in self._metrics.items():
+                if m.kind == "counter":
+                    out[name] = m.value if m.label is None else {
+                        (",".join(k) if isinstance(k, tuple) else k): v
+                        for k, v in m.values.items()}
+                elif m.kind == "gauge":
+                    out[name] = m.fn() if m.fn is not None else m.value
+                else:
+                    out[name] = {"count": m.total, "sum": m.sum,
+                                 "mean": (m.sum / m.total) if m.total
+                                 else 0.0}
+            return out
+
 
 _default_registry = MetricsRegistry()
 
 
 def default_registry() -> MetricsRegistry:
     """The process-wide registry the checkpoint durability counters
-    (distributed/checkpoint.py) record into; serving keeps a registry per
+    (distributed/checkpoint.py) and the fleet supervisor's counters
+    (serving/fleet.py) record into; serving keeps a registry per
     engine."""
     return _default_registry

@@ -24,7 +24,10 @@ device and dtype; a capture survives dead graphs held in reference
 cycles with the collector run inside it (ops/capture.py); the serving
 engine's speculative step, one graph, gives the eager step's tokens
 bitwise, a replayed step syncs once, and ``slot_verify_paged`` on the
-card matches its CPU run.  Needs a CUDA device (skips elsewhere); on the
+card matches its CPU run; a serving fleet of replica processes on the
+card survives a SIGKILL mid-stream, the engine's chaos seam adds no sync
+to a replayed step, and a replica whose capture fails exits non-zero.
+Needs a CUDA device (skips elsewhere); on the
 card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
@@ -35,6 +38,11 @@ float32 and round once at the end; the tensor-core attention kernels also
 round p and ds to bf16 before the second product, as the reference does,
 which stays well inside it).
 """
+import os
+import subprocess
+import sys
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -3471,3 +3479,153 @@ def test_a_failing_bucket_capture_raises(dev):
                         buckets="1,2", input_specs=[((-1, 4), "float32")])
     with pytest.raises(Exception):
         eng.start()
+
+
+# ---------------------------------------------------------------------------
+# the serving fleet: replica processes on the card
+# ---------------------------------------------------------------------------
+FLEET_REPLICA = ["--port", "0", "--slots", "2", "--page-size", "4",
+                 "--prompt-buckets", "8,16,32", "--max-seq-len", "64",
+                 "--seed", "0"]
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _fleet_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = _ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"
+    return env
+
+
+def test_fleet_drill_with_replicas_on_the_card(dev, tmp_path):
+    """The CPU drill of tests/test_torch_fleet.py with both replicas on
+    the card (their decode steps captured): a stream cut by a SIGKILL after
+    its 3rd token resumes on the survivor bitwise the undisturbed run, 0
+    failed requests, the victim respawned (capturing again) and
+    re-admitted, down_s > 0 in the replica_lost dump."""
+    import json as _json
+    import signal
+
+    from paddle_tpu_torch.monitor import flightrec
+    from paddle_tpu_torch.ops.kernels import build
+    from paddle_tpu_torch.serving.client import ServingClient
+    from paddle_tpu_torch.serving.fleet import ReplicaSupervisor
+    from paddle_tpu_torch.serving.router import FleetRouter
+    from paddle_tpu_torch.utils.metrics import MetricsRegistry
+
+    build.build_all()           # the replicas find the kernels built
+    prompt = list(range(3, 11))
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.serving.generation",
+           *FLEET_REPLICA]
+    sup = ReplicaSupervisor(
+        cmd, 2, env=_fleet_env(), heartbeat_timeout_s=5.0,
+        respawn_backoff_s=0.2, telemetry_dir=str(tmp_path / "telemetry"),
+        log_dir=str(tmp_path / "logs"), registry=MetricsRegistry()).start()
+    router = None
+    try:
+        assert sup.wait_ready(240), "fleet bring-up timed out"
+        router = FleetRouter([], coord=sup.coord.address, port=0,
+                             page_size=4, probe_interval_s=0.3, dead_after=3,
+                             membership_poll_s=0.05,
+                             install_signal_handlers=False).start()
+        c = ServingClient(router.url, timeout=120.0)
+        oracle = c.generate(prompt, 12)["tokens"]
+        toks, err = [], None
+        for evt in c.generate_stream(prompt, 12):
+            if "token" in evt:
+                toks.append(evt["token"])
+                if len(toks) == 3:
+                    victim = max(router.replicas, key=lambda r: r.inflight)
+                    os.kill(sup.procs[int(victim.name[1:])].pid,
+                            signal.SIGKILL)
+            if evt.get("done"):
+                err = evt.get("error")
+        assert err is None and toks == oracle
+        snap = router.metrics.snapshot()
+        assert snap["failovers"]["mid_stream"] >= 1
+        assert snap["requests_failed"] == 0
+        deadline = time.monotonic() + 240
+        while not (sup.respawn_count >= 1 and sup.wait_ready(0.1)
+                   and victim.alive):
+            assert time.monotonic() < deadline
+            time.sleep(0.2)
+        assert c.generate(prompt, 12)["tokens"] == oracle
+        (dump,) = os.listdir(tmp_path / "telemetry")
+        doc = _json.loads((tmp_path / "telemetry" / dump).read_text())
+        assert doc["reason"] == "replica_lost"
+        assert doc["accounting"]["down_s"] > 0
+    finally:
+        if router is not None:
+            router.shutdown()
+        assert sup.shutdown()
+        flightrec.reset()
+
+
+def test_engine_chaos_seam_adds_no_sync_to_the_captured_step(dev):
+    """With a replica dial armed for another rank, every replayed step
+    still makes exactly one synchronizing call (its token fetch), and the
+    tokens are those of a run with no dial."""
+    import warnings
+
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.serving import GenerationEngine
+    from paddle_tpu_torch.utils import chaos
+
+    cfg = GPTConfig(vocab_size=211, hidden_size=64, num_layers=2,
+                    num_heads=4, max_position_embeddings=64, dropout=0.0,
+                    attn_dropout=0.0)
+    seed(0)
+    model = GPTForCausalLM(cfg, device=dev).eval()
+    prompt = [3, 4, 5, 6, 7]
+    with GenerationEngine(model, max_slots=2, max_seq_len=40,
+                          prompt_buckets="8,16", device=dev) as eng:
+        plain = eng.generate(prompt, 10, timeout=120)
+        step, seen = eng.step, []
+
+        def checked_step():
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = step()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            seen.append(sum(str(w.message).startswith(SYNC_WARNING)
+                            for w in caught))
+            return out
+
+        eng.step = checked_step
+        with chaos.inject(replica_kill=(99, 1), replica_slow=(99, 1, 5.0),
+                          replica_partition=(99, 1)) as cfg_:
+            armed = eng.generate(prompt, 10, timeout=120)
+        assert not cfg_.fired and eng.capture_count == 1
+    assert armed == plain
+    assert seen and all(n == 1 for n in seen), seen
+    assert eng._iter == eng.replays
+
+
+_CAPTURE_FAILS = """
+import sys
+import paddle_tpu_torch.serving.generation as g
+step = g.GenerationEngine._graph_step
+def syncing(self):
+    step(self)
+    float(self._out.sum())      # a host sync: the step cannot be captured
+g.GenerationEngine._graph_step = syncing
+sys.exit(g.main(sys.argv[1:]))
+"""
+
+
+def test_a_replica_whose_capture_fails_exits_nonzero(dev):
+    """No eager fallback: a replica whose decode step cannot be captured
+    raises at start-up, never prints its readiness line, exits non-zero."""
+    from paddle_tpu_torch.ops.kernels import build
+
+    build.build_all()
+    r = subprocess.run([sys.executable, "-c", _CAPTURE_FAILS,
+                        *FLEET_REPLICA], env=_fleet_env(), cwd=_ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert "listening" not in r.stdout
+    assert "Traceback" in r.stderr
