@@ -314,16 +314,20 @@ shapes and GPT's) and the non-causal and masked forms of the attention
 kernels (BERT's shape and S = 77) against their plain versions, paged
 decode at the serving table's shape and a serving wave's, and times the
 bias-GeLU Function's db reduction against the one it replaced.  Seven C
-entries choose between two kernels (`VARIANTS`): the attention forward,
-dq and dk/dv a tensor-core kernel (bf16 on 16-byte boundaries) or a
-CUDA-core one (`mma` / `simt`); LayerNorm a warp-per-row vector kernel or
-a block per row (`warp` / `block`); paged decode the split
-(flash-decoding) kernel or a block per (head, lane) (`split` / `lane`);
-the bias-GeLU forward and backward a 16-byte vector kernel or a scalar
-loop (`vec` / `scalar`).  Every `[kernels]` line of theirs names the variant the launch
-took, both are held against the plain version (the slower ones on
-operands one element off a 16-byte boundary), and a phase of the serving
-or training paths fails if one of its launches took the slower kernel.
+entries choose between hand-written kernels (`VARIANTS`): the attention
+forward, dq and dk/dv a tensor-core kernel (16-bit operands on 16-byte
+boundaries) or a CUDA-core one (`mma` / `simt`), and the forward a third,
+the split-TF32 tensor-core kernel for float32 on 16-byte boundaries
+(`tf32x3`; float32 dq and dk/dv stay `simt`); LayerNorm a warp-per-row
+vector kernel or a block per row (`warp` / `block`); paged decode the
+split (flash-decoding) kernel or a block per (head, lane) (`split` /
+`lane`); the bias-GeLU forward and backward a 16-byte vector kernel or a
+scalar loop (`vec` / `scalar`).  Every `[kernels]` line of theirs names
+the variant the launch took, all are held against the plain version (the
+slower ones on operands one element off a 16-byte boundary), and a phase
+of the serving or training paths fails if one of its launches took a
+kernel other than its dtype's fast one.  Float32 attention lines print
+two bounds: the CUDA cores' 67 TFLOP/s and split-TF32's 495 / 3.
 
 Attention dropout (phase 3): the keep mask the kernels draw (Philox, one
 pure function of seed, plane, query and key) is held bitwise against the
@@ -368,6 +372,8 @@ DROPOUT_SEED = 0x5EED0FD809
 SYNC_WARNING = "called a synchronizing CUDA operation"
 PEAK_BF16_TENSOR = 989e12   # dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12            # float32 CUDA-core FLOP/s
+PEAK_TF32X3 = 495e12 / 3    # dense TF32 tensor-core FLOP/s over the three
+#                             products of a split-TF32 float32 product
 TRACE_EDGE_S = 0.05         # idle seconds at each edge of a traced window
 
 REPLACES = {
@@ -410,27 +416,31 @@ XENT_KERNELS = ("softmax_xent", "softmax_xent_bwd")
 BERT_KERNELS = TRAINING_KERNELS + XENT_KERNELS
 ATTENTION_KERNELS = ("flash_attention", "flash_attention_dq",
                      "flash_attention_dkv")
-# every C entry that chooses between two hand-written kernels: (the kernel
-# for any other operand, the kernel every launch of a path must take) —
-# the three attention kernels' tensor-core kernel for aligned bf16 beside
-# the CUDA-core one, and the 16-byte vector kernels of LayerNorm, paged
-# decode and the bias-GeLU forward and backward beside their scalar ones
+# every C entry that chooses between hand-written kernels: (the kernel for
+# any other operand, the kernel every launch of a 16-bit path must take,
+# the attention forward's float32 kernel) — the three attention kernels'
+# tensor-core kernel for aligned bf16 beside the CUDA-core one, the
+# forward's split-TF32 kernel for aligned float32, and the 16-byte vector
+# kernels of LayerNorm, paged decode and the bias-GeLU forward and backward
+# beside their scalar ones
 MMA_KERNELS = ("flash_attention", "flash_attention_dq", "flash_attention_dkv")
 VECTOR_KERNELS = ("layer_norm", "paged_decode_attention", "bias_gelu",
                   "bias_gelu_bwd")
 VARIANTS = {**{n: ("simt", "mma") for n in MMA_KERNELS},
+            "flash_attention": ("simt", "mma", "tf32x3"),
             "layer_norm": ("block", "warp"),
             "paged_decode_attention": ("lane", "split"),
             "bias_gelu": ("scalar", "vec"),
             "bias_gelu_bwd": ("scalar", "vec")}
-FAST_VARIANT = {n: fast for n, (_, fast) in VARIANTS.items()}
+FAST_VARIANT = {n: names[1] for n, names in VARIANTS.items()}
 # the CUDA kernel behind each variant of the port's entries, as a profiler
 # trace names it (an entry with one kernel: variant "kernel"): the launches
 # of a path that replays a CUDA graph (the serving wave, Model.fit) are read
 # from its trace, which shows a graph's replayed launches as well
 TRACE_KERNELS = {
     "flash_attention": {"simt": "flash_fwd_kernel",
-                        "mma": "flash_fwd_mma_kernel"},
+                        "mma": "flash_fwd_mma_kernel",
+                        "tf32x3": "flash_fwd_tf32x3_kernel"},
     "flash_attention_dq": {"simt": "flash_dq_kernel",
                            "mma": "flash_dq_mma_kernel"},
     "flash_attention_dkv": {"simt": "flash_dkv_kernel",
@@ -586,6 +596,18 @@ def compare(torch, name, kernel_fn, plain_fn, library_fn, dtype, n_bytes,
                     ("library_ms", library_fn)):
         rec[key], eager[key] = (time_ms(torch, fn) if fn is not None
                                 else (None, None))
+    # float32 attention: the bound on the cores the launch took (the TF32
+    # tensor cores at three products a float32 product, or the CUDA
+    # cores), and the other cores' bound beside it
+    other = ""
+    if dtype == torch.float32 and variant is not None \
+            and variant[0] in ATTENTION_KERNELS:
+        peak, key, other_peak = (
+            (PEAK_TF32X3, "bound_simt_ms", PEAK_F32)
+            if variant[1] == "tf32x3" else
+            (PEAK_F32, "bound_tf32x3_ms", PEAK_TF32X3))
+        rec[key], by = bound_ms(n_bytes, n_flops, other_peak)
+        other = f" {key}={rec[key]} ({by})"
     rec["bound_ms"], rec["bound_by"] = bound_ms(n_bytes, n_flops, peak)
     rec["tflops"] = n_flops / rec["ms"] / 1e9
     rec["variant"] = variant[1] if variant is not None else None
@@ -593,7 +615,7 @@ def compare(torch, name, kernel_fn, plain_fn, library_fn, dtype, n_bytes,
         f"ms: kernel={rec['ms']} ({rec['tflops']:.2f} TFLOP/s) "
         f"plain={rec['plain_ms']} "
         f"library={rec['library_ms']} bound={rec['bound_ms']} "
-        f"({rec['bound_by']}) | eager ms: kernel={eager['ms']} "
+        f"({rec['bound_by']}){other} | eager ms: kernel={eager['ms']} "
         f"plain={eager['plain_ms']} library={eager['library_ms']}")
     return rec
 
@@ -717,15 +739,22 @@ def paged_case(torch, K, g, dtype, case, lane_pos, ps, hd, nh=12,
         variant=("paged_decode_attention", variant))
 
 
-def variant_of(dtype):
-    """The attention kernel an aligned operand of ``dtype`` must take."""
-    return "simt" if dtype.itemsize == 4 else "mma"
+def variant_of(dtype, entry="flash_attention"):
+    """The kernel of attention entry ``entry`` that aligned operands of
+    ``dtype`` must take: the tensor-core kernel in 16 bits, the split-TF32
+    one for a float32 forward, the CUDA-core one for float32 dq and
+    dk/dv."""
+    if dtype.itemsize != 4:
+        return "mma"
+    return "tf32x3" if entry == "flash_attention" else "simt"
 
 
 def unaligned_phase(torch, K):
     """bf16 operands one element off a 16-byte boundary: attention (B = 1,
     S = 128, H = 12, D = 64, causal) must take the CUDA-core forward, dq
-    and dk/dv, LayerNorm (R = 8192, N = 768) its block-per-row kernel, the
+    and dk/dv (and so must a float32 forward one element off, BERT's
+    non-causal B = 8, S = 128: the split-TF32 kernel needs 16-byte rows),
+    LayerNorm (R = 8192, N = 768) its block-per-row kernel, the
     bias-GeLU forward and backward (R = 8192, F = 3072, and F = 3071
     aligned) their scalar kernels and paged decode (the table's shape) its
     block per (head, lane); all agree with the plain versions like any
@@ -761,6 +790,17 @@ def unaligned_phase(torch, K):
             None, torch.bfloat16, 6 * n * 2 + 2 * B * H * S * 4,
             8 * D * pairs, PEAK_BF16_TENSOR,
             variant=("flash_attention_dkv", "simt"))
+    B, S = 8, 128
+    n = B * S * H * D
+    q, k, v = (torch.randn(n + 8, generator=g, device="cuda")[1:n + 1].view(
+        B, S, H, D) for _ in range(3))
+    compare(torch, f"flash_attention f32 unaligned non-causal B={B} S={S} "
+            f"H={H} D={D}",
+            lambda: KF.flash_attention(q, k, v, causal=False)[0],
+            lambda: KF.flash_attention_plain(q, k, v, causal=False)[0],
+            None, torch.float32, 4 * n * 4 + B * H * S * 4,
+            4 * D * B * H * S * S, PEAK_F32,
+            variant=("flash_attention", "simt"))
     R, N = 8192, 768
     x = torch.randn(R * N + 8, generator=g, device="cuda").to(
         torch.bfloat16)[1:R * N + 1].view(R, N)
@@ -1183,7 +1223,8 @@ def backward_kernel_phase(torch, K):
             do = rnd(B, S, H, D)
             delta = KF.flash_attention_delta(o, do)
             lib = sdpa_backward(torch, q, k, v, do) \
-                if dtype == torch.bfloat16 else None
+                if dtype == torch.bfloat16 else \
+                sdpa_masked_backward(torch, q, k, v, do, None, causal=True)
             pairs = B * H * S * (S + 1) // 2
             one = B * S * H * D * isz                 # one [B, S, H, D]
             stats = 2 * B * H * S * 4                 # lse and delta
@@ -1193,14 +1234,16 @@ def backward_kernel_phase(torch, K):
                 lambda: KF.flash_attention_dq(q, k, v, do, lse, delta),
                 lambda: KF.flash_attention_dq_plain(q, k, v, do, lse, delta),
                 lib, dtype, 5 * one + stats, 6 * D * pairs, peak,
-                variant=("flash_attention_dq", variant_of(dtype)))
+                variant=("flash_attention_dq",
+                         variant_of(dtype, "flash_attention_dq")))
             rec_kv = compare(
                 torch, f"flash_attention_dkv {tag} {shape}",
                 lambda: KF.flash_attention_dkv(q, k, v, do, lse, delta),
                 lambda: KF.flash_attention_dkv_plain(q, k, v, do, lse,
                                                      delta),
                 lib, dtype, 6 * one + stats, 8 * D * pairs, peak,
-                variant=("flash_attention_dkv", variant_of(dtype)))
+                variant=("flash_attention_dkv",
+                         variant_of(dtype, "flash_attention_dkv")))
             if dtype == torch.bfloat16 and S == 1024:
                 main["flash_attention_dq"] = rec_q
                 main["flash_attention_dkv"] = rec_kv
@@ -2118,22 +2161,27 @@ def xent_kernel_phase(torch, K):
     return main
 
 
-def sdpa_masked_backward(torch, q, k, v, do, bias, dropout_p=0.0):
-    """The library yardstick for the masked attention backward: one call
-    of PyTorch's memory-efficient attention backward, on the same inputs
-    in its [B, H, S, D] layout, with the bias as it takes it (in q's
-    dtype, its key rows padded to a multiple of 16), from its own forward
-    (with ``dropout_p``, its own dropout)."""
+def sdpa_masked_backward(torch, q, k, v, do, bias, dropout_p=0.0,
+                         causal=False):
+    """The library yardstick for the masked attention backward (and, in
+    float32, for every form: the flash backward takes 16-bit operands
+    only): one call of PyTorch's memory-efficient attention backward, on
+    the same inputs in its [B, H, S, D] layout, with the bias as it takes
+    it (in q's dtype, its key rows padded to a multiple of 16; None: no
+    bias), ``causal`` its own causal form, from its own forward (with
+    ``dropout_p``, its own dropout)."""
     qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
     B, H, S_q, _ = qt.shape
     S_k = kt.shape[2]
-    sp = -(-S_k // 16) * 16
-    lib_bias = torch.zeros(B, H, S_q, sp, dtype=q.dtype,
-                           device=q.device)[..., :S_k]
-    lib_bias.copy_(bias)
+    lib_bias = None
+    if bias is not None:
+        sp = -(-S_k // 16) * 16
+        lib_bias = torch.zeros(B, H, S_q, sp, dtype=q.dtype,
+                               device=q.device)[..., :S_k]
+        lib_bias.copy_(bias)
     out, lse, seed_t, offset_t = \
         torch.ops.aten._scaled_dot_product_efficient_attention(
-            qt, kt, vt, lib_bias, True, dropout_p, False)
+            qt, kt, vt, lib_bias, True, dropout_p, causal)
     # with dropout, the backward reads the forward's Philox seed and offset
     # from host tensors when it runs eagerly and from device memory while a
     # CUDA graph captures it (time_ms does both)
@@ -2143,7 +2191,7 @@ def sdpa_masked_backward(torch, q, k, v, do, bias, dropout_p=0.0):
         torch.ops.aten._scaled_dot_product_efficient_attention_backward(
             dot, qt, kt, vt, lib_bias, out, lse,
             *rng[torch.cuda.is_current_stream_capturing()], dropout_p,
-            [True, True, True, False], False)
+            [True, True, True, False], causal)
 
 
 def masked_attention_phase(torch, K):
@@ -2153,7 +2201,7 @@ def masked_attention_phase(torch, K):
     bool padding mask (seeded lengths 64-128), and B = 4, S = 77 causal
     with an additive [B, 1, S, S] mask; float32 and bfloat16.  The library
     yardstick is scaled_dot_product_attention with the same mask,
-    forward, and its memory-efficient backward (bf16).  Returns the
+    forward, and its memory-efficient backward (both dtypes).  Returns the
     records of the bf16 padding-mask case."""
     F = torch.nn.functional
     KF = K.flash_attention
@@ -2194,11 +2242,7 @@ def masked_attention_phase(torch, K):
             o, lse = KF.flash_attention(q, k, v, causal, bias)
             delta = KF.flash_attention_delta(o, do)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            lib_bwd = None if dtype == torch.float32 else \
-                sdpa_masked_backward(
-                    torch, q, k, v, do,
-                    torch.zeros(B, H, S, S, device="cuda")
-                    if lib_mask is None else lib_mask)
+            lib_bwd = sdpa_masked_backward(torch, q, k, v, do, lib_mask)
             one = B * S * H * D * isz
             stats = 2 * B * H * S * 4
             desc = f"{tag} {form} B={B} S={S} H={H} D={D}"
@@ -2217,7 +2261,8 @@ def masked_attention_phase(torch, K):
                 lambda: KF.flash_attention_dq_plain(q, k, v, do, lse, delta,
                                                     **fkw),
                 lib_bwd, dtype, 5 * one + stats + bias_bytes, 6 * D * pairs,
-                peak, variant=("flash_attention_dq", variant_of(dtype)))
+                peak, variant=("flash_attention_dq",
+                               variant_of(dtype, "flash_attention_dq")))
             rec["flash_attention_dkv"] = compare(
                 torch, f"flash_attention_dkv {desc}",
                 lambda: KF.flash_attention_dkv(q, k, v, do, lse, delta,
@@ -2225,18 +2270,42 @@ def masked_attention_phase(torch, K):
                 lambda: KF.flash_attention_dkv_plain(q, k, v, do, lse,
                                                      delta, **fkw),
                 lib_bwd, dtype, 6 * one + stats + bias_bytes, 8 * D * pairs,
-                peak, variant=("flash_attention_dkv", variant_of(dtype)))
+                peak, variant=("flash_attention_dkv",
+                               variant_of(dtype, "flash_attention_dkv")))
             if dtype == torch.bfloat16 and form == "bool-padding":
                 main = rec
+            if dtype == torch.float32 and form == "non-causal":
+                names = sdpa_kernel_names(
+                    torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
+                log(f"[kernels] SDPA float32 {form} B={B} S={S}: {names}")
     torch.cuda.synchronize()
     return main
+
+
+def sdpa_kernel_names(torch, fn):
+    """The device kernels one call of ``fn`` launches (from a profile),
+    and the GEMM operator that the installed memory-efficient attention
+    header names for float on sm_80 and later."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    header = (pathlib.Path(torch.__file__).parent / "include/ATen/native/"
+              "transformers/cuda/mem_eff_attention/gemm_kernel_utils.h")
+    m = header.exists() and re.search(
+        r"struct DefaultGemmType<\s*ArchTag,\s*float,.*?"
+        r"using Operator = ([\w:]+);", header.read_text(), re.S)
+    return (f"kernels {names}; {header.name} DefaultGemmType<ArchTag, "
+            f"float> Operator = {m.group(1) if m else 'not found'}")
 
 
 def dropout_mask_phase(torch, K):
     """Attention dropout's keep mask: the kernels' own device function
     (through its test entry) bitwise against dropout_keep_plain at GPT's
     and BERT's training shapes, its keep rate within 4 sigma of 1 - p;
-    then the forward applies exactly that mask on both its kernels: with
+    then the forward applies exactly that mask on each of its kernels: with
     V's row t the one-hot e_t (S = D = 64), O's non-zero pattern is the
     set of kept (query, key) pairs."""
     KF = K.flash_attention
@@ -2267,7 +2336,8 @@ def dropout_mask_phase(torch, K):
     keep = KF.dropout_keep_plain(DROPOUT_SEED, B, H, S, p, "cuda")
     for dtype, offset, variant in ((torch.bfloat16, 0, "mma"),
                                    (torch.bfloat16, 1, "simt"),
-                                   (torch.float32, 0, "simt")):
+                                   (torch.float32, 0, "tf32x3"),
+                                   (torch.float32, 1, "simt")):
         q, k, v = ((0.3 * torch.randn(n + 8, generator=g, device="cuda")).to(
             dtype)[offset:offset + n].view(B, S, H, D) for _ in range(3))
         v.copy_(torch.eye(S, dtype=dtype, device="cuda")[None, :, None, :]
@@ -3141,10 +3211,10 @@ def seq2seq_kernel_phase(torch, K):
     shape bitwise ``dropout_keep_plain``'s; then the decode step's forward
     (S_q = 1 over S_k = 32 and 72, B = 8).  The library yardstick is
     scaled_dot_product_attention with the same mask (and dropout),
-    forward, and its memory-efficient backward (bf16).  Then the path's
-    other kernels at its shapes (``seq2seq_row_kernels``).  Returns (the
-    attention records of the training form, bf16 p = 0.1 non-causal, the
-    other kernels' records)."""
+    forward, and its memory-efficient backward (both dtypes).  Then the
+    path's other kernels at its shapes (``seq2seq_row_kernels``).  Returns
+    (the attention records of the training form, bf16 p = 0.1 non-causal,
+    the other kernels' records)."""
     F = torch.nn.functional
     KF = K.flash_attention
     g = torch.Generator(device="cuda").manual_seed(21)
@@ -3191,8 +3261,8 @@ def seq2seq_kernel_phase(torch, K):
                 lib_mask = bias.to(dtype)
                 if causal:
                     lib_mask = lib_mask.masked_fill(upper, float("-inf"))
-                lib_bwd = None if dtype == torch.float32 else \
-                    sdpa_masked_backward(torch, q, k, v, do, lib_mask, p)
+                lib_bwd = sdpa_masked_backward(torch, q, k, v, do, lib_mask,
+                                               p)
                 desc = (f"{tag} cross {'causal ' if causal else ''}padding "
                         f"p={p} B={B} H={H} S_q={S_q} S_k={S_k} D={D}")
                 rec = {"flash_attention": compare(
@@ -3212,7 +3282,8 @@ def seq2seq_kernel_phase(torch, K):
                                                         delta, **kw),
                     lib_bwd, dtype, 3 * nq + 2 * nk + stats + bias_bytes,
                     6 * D * pairs, peak,
-                    variant=("flash_attention_dq", variant_of(dtype)))
+                    variant=("flash_attention_dq",
+                             variant_of(dtype, "flash_attention_dq")))
                 rec["flash_attention_dkv"] = compare(
                     torch, f"flash_attention_dkv {desc}",
                     lambda: KF.flash_attention_dkv(q, k, v, do, lse, delta,
@@ -3221,7 +3292,8 @@ def seq2seq_kernel_phase(torch, K):
                                                          delta, **kw),
                     lib_bwd, dtype, 2 * nq + 4 * nk + stats + bias_bytes,
                     8 * D * pairs, peak,
-                    variant=("flash_attention_dkv", variant_of(dtype)))
+                    variant=("flash_attention_dkv",
+                             variant_of(dtype, "flash_attention_dkv")))
                 if dtype == torch.bfloat16 and p > 0 and not causal:
                     main = rec
         # the decode step: one query over the cache, under no_grad
@@ -7246,7 +7318,7 @@ def predict_kernel_shapes(torch, K):
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
             dt, 4 * B * S * H * D * isz + B * H * S * 4,
             4 * D * B * H * S * S, PEAK_F32,
-            variant=("flash_attention", "simt"))
+            variant=("flash_attention", "tf32x3"))
     return recs
 
 
@@ -7280,7 +7352,8 @@ def predict_serve_phase(torch, K, card):
     Predictor.run of the padded batch it was served in (same bucket),
     every 8th is within PREDICT_CPU_TOL of the CPU port's float32 forward
     of the same padded row, no bucket is captured after warm-up, and each
-    of rows 1, 2 and 6 launched on the path.  Rows 1, 2 and 6 against
+    of rows 1, 2 and 6 launched on the path (row 6 only on its float32
+    split-TF32 kernel).  Rows 1, 2 and 6 against
     their plain versions at the 1 x 32 and 8 x 128 buckets' shapes; capture
     ms, request p50/p99, mean batch, padding waste, the 8 x 128 replay's
     device ms and launches, the host's JSON encode of the largest
@@ -7299,6 +7372,7 @@ def predict_serve_phase(torch, K, card):
     seed(0)
     bert = BertModel(cfg, device="cuda").eval()
     K.reset_launch_counts()
+    variants0 = K.variant_launches()
     t0 = time.perf_counter()
     srv = Model(bert).serve(
         port=0, blocking=False, install_signal_handlers=False,
@@ -7339,6 +7413,14 @@ def predict_serve_phase(torch, K, card):
     if errors:
         fail(f"[predict-serve] {errors}")
     counts = K.launch_counts()
+    # the eager warm-ups and captures pass through the wrappers: every
+    # float32 attention launch of the bucket graphs took the split-TF32
+    # kernel
+    took = {v: c - variants0["flash_attention"][v]
+            for v, c in K.variant_launches()["flash_attention"].items()}
+    if took["simt"] or took["mma"] or not took["tf32x3"]:
+        fail(f"[predict-serve] the bucket graphs' attention launches took "
+             f"{took}")
     replays = dict(pred.replays)
     snap = eng.metrics.snapshot()
     eng._predictor = pred
@@ -7796,7 +7878,7 @@ def fleet_kernel_shapes(torch, K):
     float32 replica's shapes: LayerNorm and bias-GeLU at a decode step's
     R = 8 rows and a prefill's R = 64 and 128, causal flash attention at a
     prefill of S = 64 and S = 128 (B = 1, the packed qkv's slices: the
-    CUDA-core kernel, float32), paged decode over the 8-slot table (page
+    split-TF32 kernel, float32), paged decode over the 8-slot table (page
     16, 32 pages a slot).  Returns {kernel: {shape: record}}."""
     F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(23)
@@ -7837,7 +7919,7 @@ def fleet_kernel_shapes(torch, K):
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 is_causal=True), dt,
             4 * S * H * D * isz + H * S * 4, 4 * D * pairs, PEAK_F32,
-            variant=("flash_attention", "simt"))
+            variant=("flash_attention", "tf32x3"))
     recs["paged_decode_attention"]["decode 8 slots"] = paged_case(
         torch, K, g, dt, "[fleet] decode",
         [79, 95, 111, 127, 143, 80, 64, 127], 16, D, nh=H, pps=32)
@@ -7954,8 +8036,9 @@ def fleet_phase(torch, K, card):
     max_seq_len 512, 8 slots, prompt buckets 64 and 128, page 16, seed 0),
     float32, TF32 off, on the card.  First the in-process twin: the same
     argv through ``build_replica`` (the function main() builds with) and
-    ``start()``; its decode graph's launches and variants, rows 1, 2, 6
-    and 9 against their plain versions at its shapes, 4 greedy prompts
+    ``start()``; its decode graph's launches and variants (its prefills'
+    attention only on the split-TF32 kernel), rows 1, 2, 6 and 9 against
+    their plain versions at its shapes, 4 greedy prompts
     (the first 8 tokens held against the CPU port's, up to a near tie by
     margin_check) and an in-process wave.  Then a ReplicaSupervisor of 2
     replicas (their kernels already built by this process) and a
@@ -8014,9 +8097,11 @@ def fleet_phase(torch, K, card):
             for n in SERVING_KERNELS}
     took = {n: {v: c - variants0[n][v] for v, c in vs.items()}
             for n, vs in K.variant_launches().items() if n in path}
+    # float32 prefills: every attention launch on the split-TF32 kernel
     if any(path[n] <= 0 for n in SERVING_KERNELS) \
-            or took["flash_attention"].get("mma") \
-            or not took["flash_attention"].get("simt"):
+            or took["flash_attention"]["mma"] \
+            or took["flash_attention"]["simt"] \
+            or not took["flash_attention"]["tf32x3"]:
         fail(f"[fleet] twin path launches {path}, variants {took}")
     # the CPU port, same argv on the CPU: its greedy tokens for the
     # probes, and its logits of the drill's oracle for its near-tie check
@@ -8278,6 +8363,21 @@ def wait_for(cond, timeout, what):
         time.sleep(0.002)
 
 
+def kernel_entry(mangled):
+    """A kernel's name and template arguments in its mangled entry name:
+    each part of the name is its length in digits, then its characters
+    (an anonymous namespace first), and the kernel is the last part."""
+    pos, name = (3 if mangled.startswith("_ZN") else 2), None
+    while n := re.match(r"\d+", mangled[pos:]):
+        start = pos + n.end()
+        name, pos = mangled[start:start + int(n.group())], start + int(
+            n.group())
+    if name is None:
+        return mangled
+    args = re.match(r"(I\w*?E)?E?v", mangled[pos:])
+    return name + ((args.group(1) or "") if args else "")
+
+
 def device_and_build(torch, build):
     """The card's name and power limit (returned as nvidia-smi prints
     them), then every kernel library built from the checkout's sources,
@@ -8303,10 +8403,7 @@ def device_and_build(torch, build):
         for line in log_path.read_text().splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:       # a mangled name: keep the kernel and its parameters
-                k = re.search(r"\d([a-z][a-z_]*_kernel)(I\w*?E)?E?v",
-                              m.group(1))
-                entry = "".join(filter(None, k.groups())) if k \
-                    else m.group(1)
+                entry = kernel_entry(m.group(1))
             if "registers" in line or "spill" in line:
                 if "spill" in line and " 0 bytes spill stores" not in line:
                     spills.append(f"{entry}: {line.strip()}")
@@ -8682,7 +8779,8 @@ def main():
                     ps["launches_a_replay_8x128"].get(name, 0),
                 "shapes": {tag: {k: r[k] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                    "max_abs_err")} for tag, r in ps["shapes"][name].items()}}
+                    "max_abs_err", "bound_simt_ms") if k in r}
+                    for tag, r in ps["shapes"][name].items()}}
         if name in HTTP_KERNELS:
             # the /generate path (GPT-2-small bf16 through serve_generate):
             # eager prefills and the capture plus the decode graph's
@@ -8699,7 +8797,7 @@ def main():
                 "launches_a_replay": fleet["launches_a_replay"].get(name, 0),
                 "shapes": {tag: {k: r[k] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                    "max_abs_err")}
+                    "max_abs_err", "bound_simt_ms") if k in r}
                     for tag, r in fleet["shapes"][name].items()}}
         if name in FAST_VARIANT:
             entry["variant"] = rec["variant"]

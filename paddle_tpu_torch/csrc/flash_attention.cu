@@ -11,7 +11,7 @@
 // against one read of q, k and v.  A decode step (S_q = 1) is bound by the
 // bytes of K and V.
 //
-// Two hand-written kernels; the C entry picks one from the dtype and the
+// Three hand-written kernels; the C entry picks one from the dtype and the
 // operands' alignment alone:
 //
 // `flash_fwd_mma_kernel` (bf16 or float16 whose base pointers and
@@ -44,15 +44,25 @@
 // for every SM, so a one-sequence prefill still spreads over the card.  O
 // leaves through the block's Q tile in shared memory as 16-byte stores.
 //
-// `flash_fwd_kernel` (float32, where TF32 would not hold the parity limits,
-// and 16-bit operands that are not 16-byte aligned) runs on the CUDA cores:
+// `flash_fwd_tf32x3_kernel` (float32 whose base pointers and (b, s, h)
+// strides are 16-byte multiples: the fused qkv's slices of BERT's, GPT's and
+// the fleet's float32 paths) is the same design with both products on the
+// TF32 tensor cores.  One TF32 product keeps 11 bits of each operand and
+// misses the float32 parity limit (2e-5 of the largest output) by far; each
+// operand is split into two TF32 terms and three products are summed
+// (`mma_tf32x3`, mma.cuh), about 21 bits of each operand at a third of the
+// TF32 rate (495 / 3 = 165 TFLOP/s against the CUDA cores' 67).  Details
+// at the kernel.
+//
+// `flash_fwd_kernel` (float32 and 16-bit operands that are not 16-byte
+// aligned) runs on the CUDA cores:
 // one block per (batch*head, 64-row query tile), 256 threads, four threads
 // per query row, each owning D/4 interleaved dims of q and of the output
 // accumulator.  K and V tiles of 32 keys are staged in shared memory as
 // float32; scores stay in registers; the online softmax runs in float32.
 //
-// Both: scores follow the reference's `_scores`.  The bias is read through
-// four element strides (b, h, q, k), 0 where it is broadcast, so a
+// All three: scores follow the reference's `_scores`.  The bias is read
+// through four element strides (b, h, q, k), 0 where it is broadcast, so a
 // [B, 1, 1, S_k] padding mask is never materialised as [B*H, S_q, S_k] as
 // the reference's `_fold_mask` does.  A row with no visible key (an all -inf
 // bias) gives 0, as the reference's `l_safe` does.  q is read in paddle's
@@ -67,11 +77,11 @@
 //
 // Dropout (the reference's composite, paddle_tpu/ops/fused.py: keep =
 // bernoulli(1 - p), w = where(keep, w / (1 - p), 0) before w . V) is a
-// template flag of both kernels, so p = 0 launches the instantiations
+// template flag of every kernel, so p = 0 launches the instantiations
 // without it.  The keep mask comes from dropout.cuh, a pure function of
 // (seed, b * H + h, q, k): the running sum, and so the LSE, are of the
 // weights before dropout, and only the operand of P V takes p * z / (1 - p).
-// The tensor-core kernel draws a tile's mask once per warp, one Philox call
+// The tensor-core kernels draw a tile's mask once per warp, one Philox call
 // per 8 keys of a row, and hands each lane its fragment's bits by shuffles;
 // the CUDA-core kernel's four threads of a row draw one 8-key group each.
 #include <math.h>
@@ -329,13 +339,16 @@ __device__ __forceinline__ void softmax_tile(
             ptt::row_kept<kTileN>(keep, j, e) ? s[j][e] * a.drop.scale : 0.f;
     }
   }
-  // two score tiles side by side are one A operand
+  // two score tiles side by side are one A operand (16-bit T; the float32
+  // kernel reads p from s and leaves pf as it was)
+  if constexpr (!std::is_same<T, float>::value) {
 #pragma unroll
-  for (int kk = 0; kk < kTileN / 16; ++kk) {
-    pf[kk][0] = ptt::pack16<T>(s[2 * kk][0], s[2 * kk][1]);
-    pf[kk][1] = ptt::pack16<T>(s[2 * kk][2], s[2 * kk][3]);
-    pf[kk][2] = ptt::pack16<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    pf[kk][3] = ptt::pack16<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    for (int kk = 0; kk < kTileN / 16; ++kk) {
+      pf[kk][0] = ptt::pack16<T>(s[2 * kk][0], s[2 * kk][1]);
+      pf[kk][1] = ptt::pack16<T>(s[2 * kk][2], s[2 * kk][3]);
+      pf[kk][2] = ptt::pack16<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pf[kk][3] = ptt::pack16<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
   }
 }
 
@@ -539,8 +552,258 @@ int launch_mma(const MmaArgs<T>& a, int B, int D, cudaStream_t st) {
   }
 }
 
-// launches of each variant since the library was loaded: [simt, mma]
-std::atomic<long long> variant_launches[2];
+// ---------------------------------------------------------------------------
+// the split-TF32 tensor-core kernel (float32)
+// ---------------------------------------------------------------------------
+// kWarps warps, each owning 16 of the block's kWarps * 16 query rows, as in
+// flash_fwd_mma_kernel; both products are `mma_tf32x3` (mma.cuh): every
+// operand x is split into big = tf32(x) and small = tf32(x - big) in
+// registers, and a . b = al.bh + ah.bl + ah.bh on the TF32 tensor cores with
+// float32 accumulators.  P stays float32 and is split like any operand.
+//
+// The contraction index is permuted on both sides of each product (k-slot
+// t is index 2t, k-slot t + 4 is 2t + 1): a lane's Q fragment is one float2
+// of each of its rows, its K fragment one float2 of key g, and its P
+// fragment its own score accumulators (columns 2t and 2t + 1) as they
+// stand, against V's rows 2t and 2t + 1.  `ldmatrix` does not transpose
+// 32-bit elements, so fragments are plain shared-memory reads: K's rows are
+// padded by 8 floats (a half-warp's 16 float2 reads cover the 32 banks
+// once), V's by 4 (a warp's 32 reads of rows 2t, 2t + 1 and column g fall
+// in 32 distinct banks).
+//
+// The block's Q tile stays in shared memory beside the streamed tiles
+// (rows padded as K's), and a fragment is read and split at each use: Q
+// split once in the registers took 64 of them at D = 64 (and the compiler
+// hoists the split of a register copy out of the key loop), which spilled
+// beside P V's fresh accumulators.  K and V tiles of 64 keys (32 at
+// D = 128) are staged as float32 by cp.async in two stages, in dynamic
+// shared memory (88 KB at D = 64 with the 64-row Q tile), eight rows an
+// iteration (an unrolled loop holds an address a row, which spilled).  The
+// softmax is `softmax_tile`'s, on the accumulators, with p taken from s as
+// float32 (its copy rounded to 16 bits is compiled for 16-bit T alone);
+// the bias is added to the float32 scores there and never split.
+// O is stored from the registers, a float2 a lane a row.
+//
+// The tensor cores truncate (round toward zero) when they add to an
+// accumulator.  Chained over the key loop, that drifts O toward zero by up
+// to an ulp a k-step, and the backward's delta = rowsum(dO * O) turns the
+// drift into a systematic error: full-width BERT-base's float32 gradients
+// missed the CPU's by 2.2e-3 (a query bias; the limit is 1e-3).  So each
+// k-step of P V starts from a zero accumulator (`mma_tf32x3_zero`) and is
+// added to O on the CUDA cores, rounded to nearest; Q K^T keeps its D / 8
+// k-steps in one accumulator.
+template <int D>
+constexpr int kLdK = D + 8;
+template <int D>
+constexpr int kLdV = D + 4;
+
+template <int D, int kWarps, bool kDropout>
+__global__ void __launch_bounds__(kWarps * 32)
+    flash_fwd_tf32x3_kernel(MmaArgs<float> a) {
+  constexpr int kThreads = kWarps * 32;
+  constexpr int kTileM = kWarps * 16;
+  constexpr int kTileN = kKeys<D>;
+  constexpr int kLk = kLdK<D>, kLv = kLdV<D>;
+  constexpr int kKs = D / 8;            // k-steps of Q K^T; D tiles of P V
+  extern __shared__ __align__(16) unsigned char ptt_smem[];
+  float* k_s = reinterpret_cast<float*>(ptt_smem);  // [2][kTileN][kLk]
+  float* v_s = k_s + 2 * kTileN * kLk;              // [2][kTileN][kLv]
+  float* q_s = v_s + 2 * kTileN * kLv;              // [kTileM][kLk]
+
+  const int S_q = a.S_q, S_k = a.S_k;
+  const int bh = blockIdx.x;
+  const int b = bh / a.H, h = bh % a.H;
+  // causal: the last query tile walks the most keys, so it goes first
+  const int q_tile = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = q_tile * kTileM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16;  // the warp's first query
+  const bool fast = a.bias.p == nullptr && a.scale > 0.f;
+  const long long bias_base = b * a.bias.b + h * a.bias.h;
+
+  const float* q_src = a.q + b * a.qb + h * a.qh;
+  const float* k_src = a.k + b * a.kb + h * a.kh;
+  const float* v_src = a.v + b * a.vb + h * a.vh;
+  // causal: keys up to the tile's diagonal; otherwise every key
+  const int k_end = a.causal ? min(S_k, q0 + kTileM) : S_k;
+  const int n_tiles = (k_end + kTileN - 1) / kTileN;
+
+  ptt::stage_rows_f32<D, kLk, kTileM, kThreads>(q_s, q_src, a.qs, q0, S_q);
+  ptt::stage_rows_f32<D, kLk, kTileN, kThreads>(k_s, k_src, a.ks, 0, S_k);
+  ptt::stage_rows_f32<D, kLv, kTileN, kThreads>(v_s, v_src, a.vs, 0, S_k);
+  ptt::cp_async_commit();
+
+  // the lane's float2 of the warp's row g (r = 0) and g + 8 (r = 1) at dims
+  // 8kk + 2t, + 1: step kk's k-slots t and t + 4 of Q's A fragment
+  const float* q_w = q_s + (warp * 16 + g) * kLk + 2 * t;
+  float o[kKs][4];
+  float m[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
+  float l[2] = {0.f, 0.f};              // this lane's part of the row sums
+#pragma unroll
+  for (int j = 0; j < kKs; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int stage = i & 1, k0 = i * kTileN;
+    if (i + 1 < n_tiles) {
+      ptt::stage_rows_f32<D, kLk, kTileN, kThreads>(
+          k_s + (stage ^ 1) * kTileN * kLk, k_src, a.ks, k0 + kTileN, S_k);
+      ptt::stage_rows_f32<D, kLv, kTileN, kThreads>(
+          v_s + (stage ^ 1) * kTileN * kLv, v_src, a.vs, k0 + kTileN, S_k);
+    }
+    ptt::cp_async_commit();
+    ptt::cp_async_wait<1>();  // tile i has landed; tile i + 1 is in flight
+    __syncthreads();
+    // a warp wholly past S_q, or (causal) a key tile wholly above the
+    // warp's rows, changes nothing
+    if (row0 < S_q && (!a.causal || k0 <= row0 + 15)) {
+      const float* kt = k_s + stage * kTileN * kLk;
+      const float* vt = v_s + stage * kTileN * kLv;
+      float s[kTileN / 8][4];
+#pragma unroll
+      for (int j = 0; j < kTileN / 8; ++j)
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      // S = Q K^T: B[d][key] is key g's float2 at dims 8kk + 2t, + 1
+#pragma unroll
+      for (int kk = 0; kk < kKs; ++kk) {
+        uint32_t a_hi[4], a_lo[4];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float2 x =
+              *reinterpret_cast<const float2*>(q_w + r * 8 * kLk + kk * 8);
+          ptt::split_tf32(x.x, a_hi[r], a_lo[r]);
+          ptt::split_tf32(x.y, a_hi[r + 2], a_lo[r + 2]);
+        }
+#pragma unroll
+        for (int j = 0; j < kTileN / 8; ++j) {
+          const float2 x = *reinterpret_cast<const float2*>(
+              kt + (j * 8 + g) * kLk + kk * 8 + 2 * t);
+          uint32_t b_hi[2], b_lo[2];
+          ptt::split_tf32(x.x, b_hi[0], b_lo[0]);
+          ptt::split_tf32(x.y, b_hi[1], b_lo[1]);
+          ptt::mma_tf32x3(s[j], a_hi, a_lo, b_hi, b_lo);
+        }
+      }
+      uint32_t unused_pf[kTileN / 16][4];  // 16-bit P: not written here
+      uint32_t keep[2][2];
+      if constexpr (kDropout)
+        ptt::row_keep_bits<kTileN>(keep, a.drop, bh, row0, k0, lane);
+      const bool edge =
+          k0 + kTileN > S_k || (a.causal && k0 + kTileN - 1 > row0);
+      if (fast)
+        softmax_tile<float, D, true, kDropout>(s, unused_pf, o, m, l, a,
+                                               bias_base, row0 + g, k0, t,
+                                               edge, keep);
+      else
+        softmax_tile<float, D, false, kDropout>(s, unused_pf, o, m, l, a,
+                                                bias_base, row0 + g, k0, t,
+                                                edge, keep);
+      // O += P V: the lane's p (keys 8j + 2t, + 1 of rows g, g + 8) against
+      // V's rows 8j + 2t and 8j + 2t + 1 at column 8dp + g
+#pragma unroll
+      for (int j = 0; j < kTileN / 8; ++j) {
+        uint32_t a_hi[4], a_lo[4];
+        ptt::split_tf32(s[j][0], a_hi[0], a_lo[0]);
+        ptt::split_tf32(s[j][2], a_hi[1], a_lo[1]);
+        ptt::split_tf32(s[j][1], a_hi[2], a_lo[2]);
+        ptt::split_tf32(s[j][3], a_hi[3], a_lo[3]);
+        const float* v0 = vt + (j * 8 + 2 * t) * kLv + g;
+#pragma unroll
+        for (int dp = 0; dp < kKs; ++dp) {
+          uint32_t b_hi[2], b_lo[2];
+          ptt::split_tf32(v0[dp * 8], b_hi[0], b_lo[0]);
+          ptt::split_tf32(v0[kLv + dp * 8], b_hi[1], b_lo[1]);
+          float step[4];  // this k-step from zero, added to O rounded
+          ptt::mma_tf32x3_zero(step, a_hi, a_lo, b_hi, b_lo);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[dp][e] += step[e];
+        }
+      }
+    }
+    __syncthreads();  // the stage is free for the copy after next
+  }
+
+  // m is in raw units on the fast path
+  const float m_scale = fast ? a.scale : 1.f;
+  float inv_l[2], lse[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float sum = l[r];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float l_safe = sum == 0.f ? 1.f : sum;  // no visible key: O = 0
+    inv_l[r] = 1.f / l_safe;
+    lse[r] = (m[r] == -INFINITY ? 0.f : m[r] * m_scale) + logf(l_safe);
+  }
+  const long long o_row = static_cast<long long>(a.H) * D;
+  float* o_dst = a.o + (static_cast<long long>(b) * S_q * a.H + h) * D + 2 * t;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + g + 8 * r;
+    if (qi < S_q) {
+#pragma unroll
+      for (int j = 0; j < kKs; ++j)
+        *reinterpret_cast<float2*>(o_dst + qi * o_row + j * 8) = make_float2(
+            o[j][2 * r] * inv_l[r], o[j][2 * r + 1] * inv_l[r]);
+      if (t == 0) a.lse[static_cast<long long>(bh) * S_q + qi] = lse[r];
+    }
+  }
+}
+
+template <int D, int kWarps, bool kDropout>
+int launch_tf32x3_tile(const MmaArgs<float>& a, int B, cudaStream_t st) {
+  constexpr int kTileM = kWarps * 16;
+  constexpr int kSmem =
+      (2 * kKeys<D> * (kLdK<D> + kLdV<D>) + kTileM * kLdK<D>) * 4;
+  static bool configured = false;  // more than 48 KB needs asking for, once
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_tf32x3_kernel<D, kWarps, kDropout>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid(B * a.H, (a.S_q + kTileM - 1) / kTileM);
+  flash_fwd_tf32x3_kernel<D, kWarps, kDropout>
+      <<<grid, kWarps * 32, kSmem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The largest query tile of 64, 32 or 16 rows that still gives every SM a
+// block (and is not mostly padding), as launch_mma_dim picks; 16 rows when
+// no tile does.
+template <int D, bool kDropout>
+int launch_tf32x3_dim(const MmaArgs<float>& a, int B, cudaStream_t st) {
+  const long long bh = static_cast<long long>(B) * a.H;
+  const int sms = ptt::sm_count();
+  auto fills = [&](int tile) {
+    return a.S_q > tile / 2 && bh * ((a.S_q + tile - 1) / tile) >= sms;
+  };
+  if (fills(64)) return launch_tf32x3_tile<D, 4, kDropout>(a, B, st);
+  if (fills(32)) return launch_tf32x3_tile<D, 2, kDropout>(a, B, st);
+  return launch_tf32x3_tile<D, 1, kDropout>(a, B, st);
+}
+
+template <bool kDropout>
+int launch_tf32x3(const MmaArgs<float>& a, int B, int D, cudaStream_t st) {
+  switch (D) {
+    case 16:
+      return launch_tf32x3_dim<16, kDropout>(a, B, st);
+    case 32:
+      return launch_tf32x3_dim<32, kDropout>(a, B, st);
+    case 64:
+      return launch_tf32x3_dim<64, kDropout>(a, B, st);
+    case 128:
+      return launch_tf32x3_dim<128, kDropout>(a, B, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// launches of each variant since the library was loaded: [simt, mma,
+// tf32x3]
+enum Variant { kSimt = 0, kMma = 1, kTf32x3 = 2, kVariants = 3 };
+std::atomic<long long> variant_launches[kVariants];
 
 template <typename T>
 int dispatch_mma(const void* q, const void* k, const void* v, long long qb,
@@ -584,15 +847,29 @@ extern "C" int ptt_flash_attention_fwd(
     return static_cast<int>(cudaErrorInvalidValue);
   const ptt::Dropout drop = ptt::Dropout::make(seed, dropout_p, step);
   const bool dropout = dropout_p > 0.f;
-  const bool mma = dtype != ptt::kF32 && ptt::aligned_16(q, qb, qs, qh) &&
-                   ptt::aligned_16(k, kb, ks, kh) &&
-                   ptt::aligned_16(v, vb, vs, vh) &&
-                   ptt::aligned_16(o, 0, 0, 0);
-  ++variant_launches[mma];
+  const int esize = dtype == ptt::kF32 ? 4 : 2;
+  const bool aligned = ptt::aligned_16(q, qb, qs, qh, esize) &&
+                       ptt::aligned_16(k, kb, ks, kh, esize) &&
+                       ptt::aligned_16(v, vb, vs, vh, esize) &&
+                       ptt::aligned_16(o, 0, 0, 0);
+  const Variant variant = !aligned              ? kSimt
+                          : dtype == ptt::kF32 ? kTf32x3
+                                               : kMma;
+  ++variant_launches[variant];
+  if (variant == kTf32x3) {
+    const MmaArgs<float> a{static_cast<const float*>(q),
+                           static_cast<const float*>(k),
+                           static_cast<const float*>(v), qb, qs, qh, kb, ks,
+                           kh, vb, vs, vh, static_cast<float*>(o),
+                           static_cast<float*>(lse), bs, H, S_q, S_k,
+                           sm_scale, causal != 0, drop};
+    return dropout ? launch_tf32x3<true>(a, B, D, st)
+                   : launch_tf32x3<false>(a, B, D, st);
+  }
 #define PTT_FLASH_ARGS                                                     \
   q, k, v, qb, qs, qh, kb, ks, kh, vb, vs, vh, o, lse, bs, B, S_q, S_k, H, \
       D, sm_scale, causal != 0, drop
-  if (mma)
+  if (variant == kMma)
     return dtype == ptt::kF16
                ? dispatch_mma<__half>(PTT_FLASH_ARGS, dropout, st)
                : dispatch_mma<__nv_bfloat16>(PTT_FLASH_ARGS, dropout, st);
@@ -648,8 +925,11 @@ extern "C" int ptt_flash_dropout_mask(void* out, unsigned long long seed,
   return static_cast<int>(cudaGetLastError());
 }
 
-// How many launches took the CUDA-core kernel (variant 0) or the
-// tensor-core kernel (variant 1) since the library was loaded.
+// How many launches took the CUDA-core kernel (variant 0), the 16-bit
+// tensor-core kernel (variant 1) or the split-TF32 kernel (variant 2) since
+// the library was loaded.
 extern "C" long long ptt_flash_attention_fwd_variant_launches(int variant) {
-  return variant == 0 || variant == 1 ? variant_launches[variant].load() : -1;
+  return variant >= 0 && variant < kVariants
+             ? variant_launches[variant].load()
+             : -1;
 }

@@ -39,10 +39,11 @@ def launch_counts() -> dict:
 
 def variant_launches() -> dict:
     """{kernel: {variant: launches}} of every kernel whose C entry chooses
-    between two hand-written kernels (the attention kernels' ``simt`` /
-    ``mma``, LayerNorm's ``block`` / ``warp``, paged decode's ``lane`` /
-    ``split``, the bias-GeLU forward's and backward's ``scalar`` /
-    ``vec``), since the libraries were loaded."""
+    between hand-written kernels (the attention kernels' ``simt`` /
+    ``mma``, and the forward's float32 ``tf32x3``, LayerNorm's ``block`` /
+    ``warp``, paged decode's ``lane`` / ``split``, the bias-GeLU forward's
+    and backward's ``scalar`` / ``vec``), since the libraries were
+    loaded."""
     return {**flash_attention.variant_launches(),
             **layer_norm.variant_launches(),
             **paged_attention.variant_launches(),

@@ -162,11 +162,13 @@ bias_gelu_bwd.launches = 0
 
 # the C entries of the forward and the backward choose between the scalar
 # grid-stride kernel (index 0) and the 16-byte vector kernel (index 1):
-# name -> (library, counting symbol)
+# name -> (library, counting symbol, variants)
 VARIANTS = ("scalar", "vec")
 VARIANT_COUNTERS = {
-    "bias_gelu": ("bias_gelu", "ptt_bias_gelu_fwd_variant_launches"),
-    "bias_gelu_bwd": ("bias_gelu", "ptt_bias_gelu_bwd_variant_launches")}
+    "bias_gelu": ("bias_gelu", "ptt_bias_gelu_fwd_variant_launches",
+                  VARIANTS),
+    "bias_gelu_bwd": ("bias_gelu", "ptt_bias_gelu_bwd_variant_launches",
+                      VARIANTS)}
 
 
 def variant_launches():
@@ -174,4 +176,4 @@ def variant_launches():
     many forward and backward launches took each kernel since the library
     was loaded, as the C entries counted them (builds the library if it is
     not built yet)."""
-    return build.variant_counts(VARIANT_COUNTERS, VARIANTS)
+    return build.variant_counts(VARIANT_COUNTERS)

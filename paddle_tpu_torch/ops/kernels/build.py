@@ -122,13 +122,13 @@ def bind(name: str, symbol: str, argtypes, restype=ctypes.c_int):
     return fn
 
 
-def variant_counts(counters, variants):
+def variant_counts(counters):
     """{kernel: {variant: launches}} as the C entries that choose between
-    two kernels counted them since the libraries were loaded.
+    hand-written kernels counted them since the libraries were loaded.
     ``counters``: kernel name -> (library, counting symbol, which takes the
-    variant's index); ``variants``: the names of index 0 and 1."""
+    variant's index, the names of the entry's variants by index)."""
     out = {}
-    for name, (lib, symbol) in counters.items():
+    for name, (lib, symbol, variants) in counters.items():
         fn = getattr(library(lib), symbol)
         fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
         out[name] = {v: fn(i) for i, v in enumerate(variants)}

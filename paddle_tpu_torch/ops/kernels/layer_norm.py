@@ -151,17 +151,19 @@ def layer_norm(x, weight, bias, epsilon=1e-5):
 
 
 # the C entry chooses between the block-per-row kernel (index 0) and the
-# warp-per-row vector kernel (index 1): name -> (library, counting symbol)
+# warp-per-row vector kernel (index 1): name -> (library, counting symbol,
+# variants)
 VARIANTS = ("block", "warp")
 VARIANT_COUNTERS = {"layer_norm": ("layer_norm",
-                                   "ptt_layer_norm_variant_launches")}
+                                   "ptt_layer_norm_variant_launches",
+                                   VARIANTS)}
 
 
 def variant_launches():
     """{"layer_norm": {"block": n, "warp": n}}: how many launches took each
     kernel since the library was loaded, as the C entry counted them
     (builds the library if it is not built yet)."""
-    return build.variant_counts(VARIANT_COUNTERS, VARIANTS)
+    return build.variant_counts(VARIANT_COUNTERS)
 
 
 layer_norm.launches = 0

@@ -149,14 +149,15 @@ paged_decode_attention.launches = 0
 
 
 # the C entry chooses between the block-per-(head, lane) kernel (index 0)
-# and the split kernel (index 1): name -> (library, counting symbol)
+# and the split kernel (index 1): name -> (library, counting symbol,
+# variants)
 VARIANTS = ("lane", "split")
 VARIANT_COUNTERS = {"paged_decode_attention": (
-    "paged_attention", "ptt_paged_decode_variant_launches")}
+    "paged_attention", "ptt_paged_decode_variant_launches", VARIANTS)}
 
 
 def variant_launches():
     """{"paged_decode_attention": {"lane": n, "split": n}}: how many
     launches took each kernel since the library was loaded, as the C entry
     counted them (builds the library if it is not built yet)."""
-    return build.variant_counts(VARIANT_COUNTERS, VARIANTS)
+    return build.variant_counts(VARIANT_COUNTERS)

@@ -2,8 +2,8 @@
 paths do not reach: odd row counts and widths, S = 1, head dims 16-128,
 page sizes 1 and 5, unmapped and out-of-pool page ids, an inactive lane,
 odd vocab sizes, strided logits, every mask form of attention, causal or
-not.  Each kernel, forward and backward, and each of the two kernels an
-entry chooses between (by dtype and 16-byte alignment), is held against
+not.  Each kernel, forward and backward, and each kernel an entry
+chooses between (by dtype and 16-byte alignment), is held against
 its plain PyTorch version on the same inputs; paged decode's split kernel
 is bitwise reproducible and independent of its batch mates; a decode step
 of the engine syncs once, to fetch its tokens; a tiny GPT's and a tiny
@@ -32,7 +32,9 @@ card:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerance, relative to max(1, max|ref|): float32 2e-5 (summation order),
+Tolerance, relative to max(1, max|ref|): float32 2e-5 (summation order;
+the split-TF32 attention forward keeps about 21 bits of each operand, one
+TF32 product would not hold it: tests/test_torch_tf32x3_attention.py),
 bfloat16 2**-6 (two ulps at the top binade: both sides accumulate in
 float32 and round once at the end; the tensor-core attention kernels also
 round p and ds to bf16 before the second product, as the reference does,
@@ -612,7 +614,7 @@ def test_flash_attention_masked_kernels(dev, dtype, causal, kind, S, D):
     plain versions, reading the slices of one fused qkv: sequence lengths
     on both sides of every tile edge (16, 64, 128), every head dim.  The
     bf16 cases take the tensor-core kernels, the float32 ones the
-    CUDA-core kernels."""
+    split-TF32 forward and the CUDA-core dq and dk/dv."""
     g = torch.Generator(device=dev).manual_seed(S + D)
     B, H = 2, 3
     qkv = torch.randn(B, S, 3, H, D, generator=g, device=dev).to(dtype)
@@ -638,8 +640,17 @@ def test_flash_attention_masked_kernels(dev, dtype, causal, kind, S, D):
 
 def _variant_delta(before):
     after = flash_attention.variant_launches()
-    return {k: {v: after[k][v] - before[k][v] for v in ("simt", "mma")}
+    return {k: {v: n - before[k][v] for v, n in after[k].items()}
             for k in after}
+
+
+def _taken(dtype, offset, variant):
+    """{entry: the kernel its launches must take}: ``variant`` (the
+    16-bit forms' kernel, or the CUDA-core one for float32 dq and dk/dv),
+    but an aligned float32 forward takes the split-TF32 kernel."""
+    aligned_f32 = dtype == torch.float32 and offset == 0
+    return {"flash_attention": "tf32x3" if aligned_f32 else variant,
+            "flash_attention_dq": variant, "flash_attention_dkv": variant}
 
 
 @pytest.mark.parametrize("aligned", [True, False])
@@ -675,7 +686,7 @@ def test_flash_attention_bf16_variant_follows_alignment(dev, aligned,
     taken = "mma" if aligned else "simt"
     other = "simt" if aligned else "mma"
     got = _variant_delta(before)
-    assert got["flash_attention"] == {taken: 1, other: 0}
+    assert got["flash_attention"] == {taken: 1, other: 0, "tf32x3": 0}
     assert got["flash_attention_dq"] == {taken: 2, other: 0}
     assert got["flash_attention_dkv"] == {taken: 2, other: 0}
     ref, ref_lse = flash_attention.flash_attention_plain(q, k, v, **form)
@@ -690,6 +701,55 @@ def test_flash_attention_bf16_variant_follows_alignment(dev, aligned,
     assert torch.equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1], runs[1][1])
     assert torch.equal(dqs[0], dqs[1])
+
+
+F32_FORMS = ["causal", "non-causal", "bool", "additive", "dropout"]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("form", F32_FORMS)
+@pytest.mark.parametrize("S_q,S_k", [(1, 72), (77, 77), (64, 130),
+                                     (200, 200)])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_flash_attention_f32_variant_follows_alignment(dev, aligned, form,
+                                                       S_q, S_k, D):
+    """float32 operands on 16-byte boundaries take the split-TF32
+    tensor-core forward; the same values one element off them take the
+    CUDA-core one.  Causal, non-causal, a bool [B, 1, 1, S_k] padding
+    mask, an additive [B, 1, S_q, S_k] one and dropout p = 0.1 with a
+    StepSeed at counter 3, S_q = 1 and S_q != S_k, every head dim; O and
+    the LSE within 2e-5 x max(1, max|ref|) of the plain version and
+    bitwise equal over two runs."""
+    from paddle_tpu_torch.framework.random import StepSeed
+
+    g = torch.Generator(device=dev).manual_seed(S_q * 1000 + S_k + D)
+    B, H = 2, 3
+    off = 0 if aligned else 1
+    q, = _cross_views(g, dev, torch.float32, B, S_q, H, D, off, 1)
+    k, v = _cross_views(g, dev, torch.float32, B, S_k, H, D, off, 2)
+    assert (q.data_ptr() % 16 == 0) == aligned
+    bias, p, seed = None, 0.0, 0
+    if form == "bool":
+        lens = torch.randint(1, S_k + 1, (B,), generator=g, device=dev)
+        m = torch.arange(S_k, device=dev)[None, :] < lens[:, None]
+        bias = flash_attention.fold_mask(m[:, None, None, :], B, H, S_q, S_k)
+    elif form == "additive":
+        bias = flash_attention.fold_mask(torch.randn(
+            B, 1, S_q, S_k, generator=g, device=dev), B, H, S_q, S_k)
+    elif form == "dropout":
+        p, seed = 0.1, StepSeed(0x5EED0FD809, torch.full(
+            (1,), 3, dtype=torch.int32, device=dev))
+    kw = dict(causal=form == "causal", bias=bias, dropout_p=p, seed=seed)
+    before = flash_attention.variant_launches()
+    runs = [flash_attention.flash_attention(q, k, v, **kw) for _ in range(2)]
+    want = dict.fromkeys(("simt", "mma", "tf32x3"), 0)
+    want["tf32x3" if aligned else "simt"] = 2
+    assert _variant_delta(before)["flash_attention"] == want
+    ref, ref_lse = flash_attention.flash_attention_plain(q, k, v, **kw)
+    _check(runs[0][0], ref, torch.float32)
+    _check(runs[0][1], ref_lse, torch.float32)
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -724,8 +784,8 @@ def test_flash_attention_rows_masked_everywhere(dev, dtype, fill, S):
     """A query row whose every key is masked: by -1e30 it stays the uniform
     average of V (the dot is absorbed in float32), by -inf it gives 0 and
     lse 0, and a dq row of 0; neither puts a NaN into the output or the
-    gradients.  bf16 runs the tensor-core kernels, float32 the CUDA-core
-    ones."""
+    gradients.  bf16 runs the tensor-core kernels, float32 the split-TF32
+    forward and the CUDA-core dq and dk/dv."""
     g = torch.Generator(device=dev).manual_seed(S)
     B, H, D = 2, 3, 32
     qkv = torch.randn(B, S, 3, H, D, generator=g, device=dev).to(dtype)
@@ -1023,7 +1083,7 @@ def test_dropout_forward_applies_the_mask(dev, dtype, offset, variant,
                                           causal, D):
     """V's row t is the one-hot e_t (S = D), so O's non-zero pattern is the
     set of kept visible (query, key) pairs: it must equal the plain mask
-    exactly, on the tensor-core and the CUDA-core kernel."""
+    exactly, on the tensor-core, split-TF32 and CUDA-core kernels."""
     g = torch.Generator(device=dev).manual_seed(D + causal)
     B, S, H = 2, D, 3
     q, k, _, _ = _views(g, dev, dtype, (B, S, H, D), offset, scale=0.3)
@@ -1034,7 +1094,8 @@ def test_dropout_forward_applies_the_mask(dev, dtype, offset, variant,
     before = flash_attention.variant_launches()
     out, _ = flash_attention.flash_attention(q, k, v, causal, dropout_p=0.3,
                                              seed=99 + D)
-    assert _variant_delta(before)["flash_attention"][variant] == 1
+    fwd = _taken(dtype, offset, variant)["flash_attention"]
+    assert _variant_delta(before)["flash_attention"][fwd] == 1
     keep = flash_attention.dropout_keep_plain(99 + D, B, H, S, 0.3, dev)
     if causal:
         keep &= torch.ones(S, S, dtype=torch.bool, device=dev).tril()
@@ -1078,8 +1139,8 @@ def test_dropout_kernels_match_plain(dev, dtype, offset, variant, kind, B,
         q, k, v, do, lse, delta, **form)
     _check(dk, ref_k, dtype)
     _check(dv, ref_v, dtype)
-    took = _variant_delta(before)
-    assert all(took[name][variant] == 1 for name in took), took
+    took, want = _variant_delta(before), _taken(dtype, offset, variant)
+    assert all(took[name][want[name]] == 1 for name in took), took
 
 
 @pytest.mark.parametrize("dtype,offset,variant", DROPOUT_VARIANTS)
@@ -1282,7 +1343,9 @@ def test_dropout_kernels_take_the_step_from_the_card(dev, dtype, offset,
     counter.fill_(3)
     before = flash_attention.variant_launches()
     at3 = _dropout_calls(q, k, v, do, seed)
-    assert all(n[variant] == 1 for n in _variant_delta(before).values())
+    want = _taken(dtype, offset, variant)
+    assert all(n[want[name]] == 1
+               for name, n in _variant_delta(before).items())
     assert not torch.equal(at3[0], at0[0])
     form = dict(causal=True, dropout_p=0.1, seed=seed)
     ref, ref_lse = flash_attention.flash_attention_plain(q, k, v, **form)
@@ -1893,8 +1956,8 @@ def test_flash_attention_cross_kernels(dev, dtype, offset, variant, causal,
     _check(dv, ref_v, dtype)
     if causal and S_q < S_k:
         assert torch.all(dk[:, S_q:] == 0) and torch.all(dv[:, S_q:] == 0)
-    took = _variant_delta(before)
-    assert all(took[name][variant] == 1 for name in took), took
+    took, want = _variant_delta(before), _taken(dtype, offset, variant)
+    assert all(took[name][want[name]] == 1 for name in took), took
 
 
 @pytest.mark.parametrize("S_q,S_k", [(64, 72), (1, 72), (100, 5),

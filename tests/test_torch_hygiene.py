@@ -253,19 +253,23 @@ def test_every_variant_counter_is_read_and_held(monkeypatch):
     ``kernels.variant_launches()`` (through the attention, LayerNorm,
     paged decode and bias-GeLU modules' ``VARIANT_COUNTERS``) from its own
     library, and every kernel so counted is held by chip_smoke.py with the
-    same two variant names (``VARIANTS``: the slower kernel first, the one
-    its paths must take second; ``MMA_KERNELS`` take ``mma``), so a new
-    variant that no phase holds fails here.  Static: the libraries are not
-    built; the reader is given zero counts."""
+    same variant names (``VARIANTS``: the slower kernel first, the one
+    its 16-bit paths must take second; ``MMA_KERNELS`` take ``mma``; the
+    attention forward alone has a third, ``tf32x3``, which its float32
+    paths must take), each named in ``TRACE_KERNELS``, so a new variant
+    that no phase holds fails here.  Static: the libraries are not built;
+    the reader is given zero counts."""
     from paddle_tpu_torch.ops.kernels import build
 
     read = {}
 
-    def fake_counts(counters, variants):
-        assert len(variants) == 2
+    def fake_counts(counters):
+        for name, (_, _, variants) in counters.items():
+            assert len(variants) == (3 if name == "flash_attention" else 2)
         read.update({sym: (name, lib, variants)
-                     for name, (lib, sym) in counters.items()})
-        return {name: dict.fromkeys(variants, 0) for name in counters}
+                     for name, (lib, sym, variants) in counters.items()})
+        return {name: dict.fromkeys(variants, 0)
+                for name, (_, _, variants) in counters.items()}
 
     monkeypatch.setattr(build, "variant_counts", fake_counts)
     counts = kernels.variant_launches()
@@ -284,8 +288,13 @@ def test_every_variant_counter_is_read_and_held(monkeypatch):
     for name, _, variants in read.values():
         assert smoke.VARIANTS[name] == tuple(variants), name
         assert smoke.FAST_VARIANT[name] == variants[1]
+        assert set(smoke.TRACE_KERNELS[name]) == set(variants), name
         if name in smoke.MMA_KERNELS:
             assert variants[1] == "mma"
+            assert smoke.variant_of(torch.bfloat16, name) == "mma"
+            assert smoke.variant_of(torch.float32, name) == (
+                "tf32x3" if name == "flash_attention" else "simt")
+    assert smoke.VARIANTS["flash_attention"][2] == "tf32x3"
 
 
 def test_chip_smoke_fails_a_path_that_took_a_slow_kernel():
