@@ -45,7 +45,9 @@ passed over):
                   of hits and misses; a hit's bf16 first-token logits
                   within BF16_TOL of the miss's.
 6. train-parity — full-width float32, B = 2, S = 128: loss(ids) and every
-                  parameter's gradient on the card against the CPU's.
+                  parameter's gradient on the card against the CPU's,
+                  every attention launch on its split-TF32 kernel (as
+                  in 9 and 15's float32 parity).
 7. train        — full-width bfloat16, B = 8, S = 1024: 10 dygraph AdamW
                   steps on one batch (the loss must fall; step time,
                   tokens/s, MFU), a profiled window, then Model.fit steps;
@@ -88,6 +90,16 @@ passed over):
                   took its fast kernel (with dropout exactly when p > 0)
                   with one optimizer launch a step; step p50, tokens/s,
                   MFU, busy share, launches a step.
+   fit-f32      — GPTForCausalLM(GPTConfig()) in float32, its default
+                  dtype, full width and depth, dropout 0.1, B = 8,
+                  S = 1024, AdamW, 8 Model.fit steps through the captured
+                  step + 2 profiled, twice from one seed: losses finite,
+                  falling and bitwise equal, one capture, every attention
+                  forward, dq and dk/dv launch on its split-TF32 kernel
+                  with dropout (12 of each a captured step), one
+                  optimizer launch a step; step p50, tokens/s, busy
+                  share, the device ms a step of dq + dk/dv and their
+                  share, MFU against the CUDA cores' float32 peak.
 14. fit-api     — Model.fit's user surface on BertConfig() (bf16, B = 32,
                   S = 128, padded): a dygraph loss kept alive, then fit
                   with an NSP accuracy metric, eval data, checkpoints,
@@ -305,9 +317,10 @@ still alive) is an error for the whole run.
 
 Model.fit replays a captured step, whose launches the kernel wrappers do
 not count (they count the first, eager step and the capture): every
-Model.fit check (phases 7, 11, 12, 13) reads its launches from a profiler
-trace by CUDA kernel name (`TRACE_KERNELS`), with the same expected
-numbers as before (one optimizer launch a step for each dtype group).
+Model.fit check (phases 7, 11, 12, 13 and fit-f32) reads its launches from
+a profiler trace by CUDA kernel name (`TRACE_KERNELS`), with the same
+expected numbers as before (one optimizer launch a step for each dtype
+group).
 
 Phase 3 also holds the softmax cross-entropy kernels (BERT's MLM and NSP
 shapes and GPT's) and the non-causal and masked forms of the attention
@@ -316,9 +329,9 @@ decode at the serving table's shape and a serving wave's, and times the
 bias-GeLU Function's db reduction against the one it replaced.  Seven C
 entries choose between hand-written kernels (`VARIANTS`): the attention
 forward, dq and dk/dv a tensor-core kernel (16-bit operands on 16-byte
-boundaries) or a CUDA-core one (`mma` / `simt`), and the forward a third,
-the split-TF32 tensor-core kernel for float32 on 16-byte boundaries
-(`tf32x3`; float32 dq and dk/dv stay `simt`); LayerNorm a warp-per-row
+boundaries: `mma`), a split-TF32 tensor-core kernel (float32 on 16-byte
+boundaries: `tf32x3`) or a CUDA-core one (any other operand: `simt`);
+LayerNorm a warp-per-row
 vector kernel or a block per row (`warp` / `block`); paged decode the
 split (flash-decoding) kernel or a block per (head, lane) (`split` /
 `lane`); the bias-GeLU forward and backward a 16-byte vector kernel or a
@@ -418,21 +431,23 @@ ATTENTION_KERNELS = ("flash_attention", "flash_attention_dq",
                      "flash_attention_dkv")
 # every C entry that chooses between hand-written kernels: (the kernel for
 # any other operand, the kernel every launch of a 16-bit path must take,
-# the attention forward's float32 kernel) — the three attention kernels'
-# tensor-core kernel for aligned bf16 beside the CUDA-core one, the
-# forward's split-TF32 kernel for aligned float32, and the 16-byte vector
-# kernels of LayerNorm, paged decode and the bias-GeLU forward and backward
-# beside their scalar ones
+# the attention kernels' float32 kernel) — the three attention kernels'
+# tensor-core kernel for aligned bf16 beside the CUDA-core one and their
+# split-TF32 kernel for aligned float32, and the 16-byte vector kernels of
+# LayerNorm, paged decode and the bias-GeLU forward and backward beside
+# their scalar ones
 MMA_KERNELS = ("flash_attention", "flash_attention_dq", "flash_attention_dkv")
 VECTOR_KERNELS = ("layer_norm", "paged_decode_attention", "bias_gelu",
                   "bias_gelu_bwd")
-VARIANTS = {**{n: ("simt", "mma") for n in MMA_KERNELS},
-            "flash_attention": ("simt", "mma", "tf32x3"),
+VARIANTS = {**{n: ("simt", "mma", "tf32x3") for n in MMA_KERNELS},
             "layer_norm": ("block", "warp"),
             "paged_decode_attention": ("lane", "split"),
             "bias_gelu": ("scalar", "vec"),
             "bias_gelu_bwd": ("scalar", "vec")}
 FAST_VARIANT = {n: names[1] for n, names in VARIANTS.items()}
+# the kernels a float32 path must take: the attention kernels' split-TF32
+# ones, the others' fast kernels as in 16 bits
+F32_FAST = {**FAST_VARIANT, **dict.fromkeys(ATTENTION_KERNELS, "tf32x3")}
 # the CUDA kernel behind each variant of the port's entries, as a profiler
 # trace names it (an entry with one kernel: variant "kernel"): the launches
 # of a path that replays a CUDA graph (the serving wave, Model.fit) are read
@@ -442,9 +457,11 @@ TRACE_KERNELS = {
                         "mma": "flash_fwd_mma_kernel",
                         "tf32x3": "flash_fwd_tf32x3_kernel"},
     "flash_attention_dq": {"simt": "flash_dq_kernel",
-                           "mma": "flash_dq_mma_kernel"},
+                           "mma": "flash_dq_mma_kernel",
+                           "tf32x3": "flash_dq_tf32x3_kernel"},
     "flash_attention_dkv": {"simt": "flash_dkv_kernel",
-                            "mma": "flash_dkv_mma_kernel"},
+                            "mma": "flash_dkv_mma_kernel",
+                            "tf32x3": "flash_dkv_tf32x3_kernel"},
     "layer_norm": {"block": "layer_norm_fwd_kernel",
                    "warp": "layer_norm_warp_kernel"},
     "paged_decode_attention": {"lane": "paged_decode_kernel",
@@ -546,16 +563,18 @@ def variant_taken(before, after, name):
     return took[0] if len(took) == 1 else ("mixed" if took else "none")
 
 
-def require_fast_variants(K, before, what, kernels):
-    """Fail if a launch of a path since the reading ``before`` took the
-    slower kernel of its entry (an attention kernel on the CUDA cores in
-    bf16, LayerNorm's block per row, paged decode's block per (head,
-    lane), the scalar bias-GeLU backward), or if one of ``kernels`` took
-    no launch of its fast kernel at all.  Returns the fast launches."""
+def require_fast_variants(K, before, what, kernels,
+                          fast_variant=FAST_VARIANT):
+    """Fail if a launch of a path since the reading ``before`` took
+    another kernel of its entry than ``fast_variant``'s (by default the
+    16-bit paths': an attention kernel on the CUDA cores or in float32,
+    LayerNorm's block per row, paged decode's block per (head, lane), the
+    scalar bias-GeLU backward), or if one of ``kernels`` took no launch of
+    its fast kernel at all.  Returns the fast launches."""
     after = K.variant_launches()
     took = {}
     for name, counts in after.items():
-        fast = FAST_VARIANT[name]
+        fast = fast_variant[name]
         took[name] = counts[fast] - before[name][fast]
         slow = {v: n - before[name][v] for v, n in counts.items()
                 if v != fast}
@@ -739,21 +758,19 @@ def paged_case(torch, K, g, dtype, case, lane_pos, ps, hd, nh=12,
         variant=("paged_decode_attention", variant))
 
 
-def variant_of(dtype, entry="flash_attention"):
-    """The kernel of attention entry ``entry`` that aligned operands of
-    ``dtype`` must take: the tensor-core kernel in 16 bits, the split-TF32
-    one for a float32 forward, the CUDA-core one for float32 dq and
-    dk/dv."""
-    if dtype.itemsize != 4:
-        return "mma"
-    return "tf32x3" if entry == "flash_attention" else "simt"
+def variant_of(dtype):
+    """The kernel that an attention entry's (the forward's, dq's or
+    dk/dv's) aligned operands of ``dtype`` must take: the tensor-core
+    kernel in 16 bits, the split-TF32 one in float32."""
+    return "tf32x3" if dtype.itemsize == 4 else "mma"
+
 
 
 def unaligned_phase(torch, K):
     """bf16 operands one element off a 16-byte boundary: attention (B = 1,
     S = 128, H = 12, D = 64, causal) must take the CUDA-core forward, dq
-    and dk/dv (and so must a float32 forward one element off, BERT's
-    non-causal B = 8, S = 128: the split-TF32 kernel needs 16-byte rows),
+    and dk/dv (and so must float32 one element off, BERT's non-causal
+    B = 8, S = 128: the split-TF32 kernels need 16-byte rows),
     LayerNorm (R = 8192, N = 768) its block-per-row kernel, the
     bias-GeLU forward and backward (R = 8192, F = 3072, and F = 3071
     aligned) their scalar kernels and paged decode (the table's shape) its
@@ -792,15 +809,31 @@ def unaligned_phase(torch, K):
             variant=("flash_attention_dkv", "simt"))
     B, S = 8, 128
     n = B * S * H * D
-    q, k, v = (torch.randn(n + 8, generator=g, device="cuda")[1:n + 1].view(
-        B, S, H, D) for _ in range(3))
-    compare(torch, f"flash_attention f32 unaligned non-causal B={B} S={S} "
-            f"H={H} D={D}",
+    q, k, v, do = (torch.randn(n + 8, generator=g, device="cuda")[
+        1:n + 1].view(B, S, H, D) for _ in range(4))
+    shape = f"f32 unaligned non-causal B={B} S={S} H={H} D={D}"
+    pairs = B * H * S * S
+    compare(torch, f"flash_attention {shape}",
             lambda: KF.flash_attention(q, k, v, causal=False)[0],
             lambda: KF.flash_attention_plain(q, k, v, causal=False)[0],
-            None, torch.float32, 4 * n * 4 + B * H * S * 4,
-            4 * D * B * H * S * S, PEAK_F32,
-            variant=("flash_attention", "simt"))
+            None, torch.float32, 4 * n * 4 + B * H * S * 4, 4 * D * pairs,
+            PEAK_F32, variant=("flash_attention", "simt"))
+    o, lse = KF.flash_attention(q, k, v, causal=False)
+    delta = KF.flash_attention_delta(o, do)
+    compare(torch, f"flash_attention_dq {shape}",
+            lambda: KF.flash_attention_dq(q, k, v, do, lse, delta,
+                                          causal=False),
+            lambda: KF.flash_attention_dq_plain(q, k, v, do, lse, delta,
+                                                causal=False),
+            None, torch.float32, 5 * n * 4 + 2 * B * H * S * 4,
+            6 * D * pairs, PEAK_F32, variant=("flash_attention_dq", "simt"))
+    compare(torch, f"flash_attention_dkv {shape}",
+            lambda: KF.flash_attention_dkv(q, k, v, do, lse, delta,
+                                           causal=False),
+            lambda: KF.flash_attention_dkv_plain(q, k, v, do, lse, delta,
+                                                 causal=False),
+            None, torch.float32, 6 * n * 4 + 2 * B * H * S * 4,
+            8 * D * pairs, PEAK_F32, variant=("flash_attention_dkv", "simt"))
     R, N = 8192, 768
     x = torch.randn(R * N + 8, generator=g, device="cuda").to(
         torch.bfloat16)[1:R * N + 1].view(R, N)
@@ -1235,7 +1268,7 @@ def backward_kernel_phase(torch, K):
                 lambda: KF.flash_attention_dq_plain(q, k, v, do, lse, delta),
                 lib, dtype, 5 * one + stats, 6 * D * pairs, peak,
                 variant=("flash_attention_dq",
-                         variant_of(dtype, "flash_attention_dq")))
+                         variant_of(dtype)))
             rec_kv = compare(
                 torch, f"flash_attention_dkv {tag} {shape}",
                 lambda: KF.flash_attention_dkv(q, k, v, do, lse, delta),
@@ -1243,7 +1276,7 @@ def backward_kernel_phase(torch, K):
                                                      delta),
                 lib, dtype, 6 * one + stats, 8 * D * pairs, peak,
                 variant=("flash_attention_dkv",
-                         variant_of(dtype, "flash_attention_dkv")))
+                         variant_of(dtype)))
             if dtype == torch.bfloat16 and S == 1024:
                 main["flash_attention_dq"] = rec_q
                 main["flash_attention_dkv"] = rec_kv
@@ -1435,11 +1468,13 @@ def traced_launches(kernels, dropped=None):
     return out
 
 
-def require_traced(kernels, what, expected, dropout=None):
+def require_traced(kernels, what, expected, dropout=None,
+                   fast_variant=FAST_VARIANT):
     """A training window's launches read from its trace (``kernels``, as
     trace_window returns them): fails unless each entry of ``expected``
-    launched, no launch took an entry's slower kernel and, with
-    ``dropout`` True (False), every attention launch took the dropout
+    launched, no launch took another kernel of its entry than
+    ``fast_variant``'s (the 16-bit paths' fast kernels by default) and,
+    with ``dropout`` True (False), every attention launch took the dropout
     (the p = 0) instantiation.  Returns ({entry: launches}, {entry: fast
     launches})."""
     dropped = {}
@@ -1447,13 +1482,13 @@ def require_traced(kernels, what, expected, dropout=None):
     counts, fast = {}, {}
     for name, per in traced.items():
         counts[name] = sum(per.values())
-        if name in FAST_VARIANT:
+        if name in fast_variant:
             slow = {v: n for v, n in per.items()
-                    if v != FAST_VARIANT[name] and n}
+                    if v != fast_variant[name] and n}
             if slow:
-                fail(f"{what}: the trace shows {name} launches of its "
-                     f"slower kernel: {per}")
-            fast[name] = per[FAST_VARIANT[name]]
+                fail(f"{what}: the trace shows {name} launches of another "
+                     f"kernel than {fast_variant[name]}: {per}")
+            fast[name] = per[fast_variant[name]]
     for name in expected:
         if counts[name] <= 0:
             fail(f"{what}: the trace holds no launch of {name}")
@@ -1942,12 +1977,15 @@ def train_parity_phase(torch, K, cfg):
         seed(0)
         model = GPTForCausalLM(cfg, device=device).train()
         K.reset_launch_counts()
+        before = K.variant_launches() if device == "cuda" else None
         t0 = time.perf_counter()
         loss = model.loss(ids.to(device))
         loss.backward()
         if device == "cuda":
             torch.cuda.synchronize()
             counts = K.launch_counts()
+            f32 = require_fast_variants(K, before, "train-parity",
+                                        ATTENTION_KERNELS, F32_FAST)
         res[device] = (loss.item(), {n: p.grad for n, p in
                                      model.named_parameters()},
                        time.perf_counter() - t0)
@@ -1973,7 +2011,8 @@ def train_parity_phase(torch, K, cfg):
         f"{loss_c:.6f}, rel {loss_rel:.3e}); {len(grads_c)} parameters, "
         f"every gradient finite on the card; worst max|dgrad|/max|ref| "
         f"{worst:.3e} ({worst_name}; tol {GRAD_REL_TOL}); card "
-        f"{t_g:.2f}s, cpu {t_c:.2f}s; launches {counts}")
+        f"{t_g:.2f}s, cpu {t_c:.2f}s; launches {counts}; of them on the "
+        f"float32 kernels (attention tf32x3) {f32}")
 
 
 def require_optimizer_kernel(counts, opt, steps, what):
@@ -2262,7 +2301,7 @@ def masked_attention_phase(torch, K):
                                                     **fkw),
                 lib_bwd, dtype, 5 * one + stats + bias_bytes, 6 * D * pairs,
                 peak, variant=("flash_attention_dq",
-                               variant_of(dtype, "flash_attention_dq")))
+                               variant_of(dtype)))
             rec["flash_attention_dkv"] = compare(
                 torch, f"flash_attention_dkv {desc}",
                 lambda: KF.flash_attention_dkv(q, k, v, do, lse, delta,
@@ -2271,13 +2310,17 @@ def masked_attention_phase(torch, K):
                                                      delta, **fkw),
                 lib_bwd, dtype, 6 * one + stats + bias_bytes, 8 * D * pairs,
                 peak, variant=("flash_attention_dkv",
-                               variant_of(dtype, "flash_attention_dkv")))
+                               variant_of(dtype)))
             if dtype == torch.bfloat16 and form == "bool-padding":
                 main = rec
             if dtype == torch.float32 and form == "non-causal":
                 names = sdpa_kernel_names(
                     torch, lambda: F.scaled_dot_product_attention(qt, kt, vt))
                 log(f"[kernels] SDPA float32 {form} B={B} S={S}: {names}")
+                # the float32 backward's yardstick, by name
+                names = sdpa_kernel_names(torch, lib_bwd)
+                log(f"[kernels] memory-efficient attention backward float32 "
+                    f"{form} B={B} S={S}: {names}")
     torch.cuda.synchronize()
     return main
 
@@ -2730,6 +2773,156 @@ def train_graph_run(torch, name, dropout, form):
                n_params=n_params, B=B, S=S)
     del engine, api, opt, net, model, data
     return out
+
+
+FIT_F32_STEPS = 8       # unprofiled Model.fit steps a run of [fit-f32]
+
+
+def fit_f32_run(torch):
+    """One run of Model.fit's captured step on GPTForCausalLM(GPTConfig())
+    in float32, its default dtype, at full width and depth with the
+    published dropout 0.1 (hidden and attention), B = 8, S = 1024, AdamW,
+    from paddle_tpu_torch.seed(0): ``FIT_F32_STEPS`` steps with a drain
+    each (each step's time ends at its loss), then 2 under the profiler.
+    Returns what the phase checks and prints."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.framework.random import seed
+    from paddle_tpu_torch.hapi.engine import TrainEngine
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+
+    n = FIT_F32_STEPS + 2
+    seed(0)
+    cfg = GPTConfig()
+    B, S = 8, 1024
+    model = GPTForCausalLM(cfg, device="cuda")
+    if {p.dtype for p in model.parameters()} != {torch.float32}:
+        fail("fit-f32: GPTForCausalLM(GPTConfig()) is not float32")
+
+    class LMLoss(torch.nn.Module):      # the network computes its loss
+        def __init__(self):
+            super().__init__()
+            self.model = model
+
+        def forward(self, ids):
+            return self.model.loss(ids)
+
+    rs = np.random.RandomState(4)
+    data = torch.from_numpy(rs.randint(0, cfg.vocab_size, (n * B, S)))
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = ptt.optimizer.AdamW(learning_rate=2e-4, weight_decay=0.01,
+                              parameters=model.parameters())
+    api = ptt.Model(LMLoss()).prepare(opt, lambda x: x)
+    engine = api._engine = TrainEngine(api)
+    drain, stamps = engine.drain, []
+
+    def stamped():
+        out = drain()
+        stamps.append(time.perf_counter())
+        return out
+
+    engine.drain = stamped
+
+    def fit(lo, hi):
+        return api.fit(ptt.io.TensorDataset([data[lo * B:hi * B]]),
+                       batch_size=B, shuffle=False, verbose=0,
+                       log_freq=1)["step_loss"]
+
+    t0 = time.perf_counter()
+    losses = fit(0, FIT_F32_STEPS)
+    times = np.diff([t0] + stamps[:FIT_F32_STEPS]) * 1e3
+    losses2, wall_ms, kernels = trace_window(
+        torch, lambda: fit(FIT_F32_STEPS, n))
+    counts, _ = require_traced(kernels, "fit-f32", TRAINING_KERNELS,
+                               dropout=True, fast_variant=F32_FAST)
+    opt_text = require_optimizer_kernel(counts, opt, 2, "fit-f32")
+    # each attention kernel's device ms a step: its mean launch in the
+    # trace times its launches at the capture (the trace may drop a launch
+    # at the window's start, never a whole step's)
+    graph_launches = list(engine.graph_launches.values())
+    by_name = {}
+    for name in ATTENTION_KERNELS:
+        kernel = TRACE_KERNELS[name]["tf32x3"]
+        hits = [(ms, c) for ms, key, c in kernels
+                if re.search(rf"(?<!\w){kernel}(?:<|\()", key)]
+        ms, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
+        by_name[name] = ms / max(n, 1) * graph_launches[0].get(name, 0)
+    out = dict(losses=losses + losses2, times=times,
+               p50=float(np.median(times[1:])), wall=wall_ms,
+               busy=sum(ms for ms, _, _ in kernels),
+               traced={k: counts[k] for k in ATTENTION_KERNELS},
+               graph_launches=graph_launches,
+               captures=engine.captures, replays=engine.replays,
+               device_ms=by_name, opt_text=opt_text, n_params=n_params,
+               tokens=B * S, layers=cfg.num_layers,
+               flops=6.0 * n_params * B * S
+               + cfg.num_layers * 12 * S * S * cfg.hidden_size * B)
+    del engine, api, opt, model, data
+    return out
+
+
+def fit_f32_phase(torch, K, card):
+    """[fit-f32]: GPT-2-small trained in float32 (its default dtype)
+    through Model.fit's captured step at full width and depth with dropout
+    0.1, B = 8, S = 1024, twice from one seed (``fit_f32_run``).  Fails
+    unless the losses are finite, falling and bitwise equal in both runs,
+    each run captured its step once and replayed it, every attention
+    forward, dq and dk/dv launch in the trace took the split-TF32 kernel
+    with dropout, 12 of each a captured step (the trace of 2 replays holds
+    12 to 24: it may drop a launch at its start), and the optimizer
+    launched once a step.  Prints step p50, tokens/s, the busy share, the
+    device ms a step of dq + dk/dv (each kernel's mean launch in the trace
+    times its 12) and their share of the step, and MFU against the CUDA
+    cores' float32 peak (the step's GEMMs run there: TF32 is off)."""
+    runs = []
+    for i in range(2):
+        release(torch, f"fit-f32 run {i + 1}")
+        K.reset_launch_counts()
+        runs.append(fit_f32_run(torch))
+    r = runs[0]
+    if r["losses"] != runs[1]["losses"]:
+        fail(f"fit-f32: the second run's losses {runs[1]['losses']} differ "
+             f"from the first's {r['losses']}")
+    if not all(math.isfinite(x) for x in r["losses"]) \
+            or not r["losses"][-1] < r["losses"][0]:
+        fail(f"fit-f32: losses {r['losses']} are not finite and falling")
+    n = FIT_F32_STEPS + 2
+    for run in runs:
+        if run["captures"] != 1 or run["replays"] != n - 1:
+            fail(f"fit-f32: {run['captures']} captures and "
+                 f"{run['replays']} replays in {n} steps of one signature")
+        # the 2 profiled steps are replays: each kernel's launches in the
+        # trace are its launches at the capture x 2, less what the trace
+        # drops at the window's start (never a whole step's)
+        at_capture = run["graph_launches"][0]
+        for name in ATTENTION_KERNELS:
+            c = at_capture.get(name)
+            if c != r["layers"] or not c <= run["traced"][name] <= 2 * c:
+                fail(f"fit-f32: {name} launched {c} times in the captured "
+                     f"step (not {r['layers']}) or {run['traced'][name]} "
+                     f"in the trace of 2 replays")
+    p50 = r["p50"]
+    step_device = r["busy"] / 2
+    bwd = r["device_ms"]["flash_attention_dq"] \
+        + r["device_ms"]["flash_attention_dkv"]
+    log(f"[fit-f32] GPT-2-small float32 (GPTConfig(), dropout 0.1) B=8 "
+        f"S=1024, {r['n_params']} parameters, Model.fit's captured step on "
+        f"{card}: losses bitwise equal in 2 runs from seed 0, falling: "
+        f"{r['losses']}; captures 1, replays {r['replays']}; step ms "
+        f"{np.round(r['times'], 3).tolist()} p50 {p50:.3f} ms, "
+        f"{r['tokens'] / p50 * 1e3:.1f} tokens/s, MFU "
+        f"{r['flops'] / (p50 / 1e3) / PEAK_F32:.4f} against the CUDA cores' "
+        f"float32 peak ({r['flops']:.4e} flops/step / {p50:.3f} ms / "
+        f"{PEAK_F32:.3g} FLOP/s); 2 profiled steps: busy {r['busy']:.3f} of "
+        f"{r['wall']:.3f} ms ({100 * r['busy'] / r['wall']:.2f}%); device ms "
+        f"a step: {step_device:.3f}, of it dq "
+        f"{r['device_ms']['flash_attention_dq']:.3f} + dk/dv "
+        f"{r['device_ms']['flash_attention_dkv']:.3f} = {bwd:.3f} "
+        f"({100 * bwd / step_device:.2f}% of the device ms, "
+        f"{100 * bwd / p50:.2f}% of p50), forward "
+        f"{r['device_ms']['flash_attention']:.3f}; launches on tf32x3 with "
+        f"dropout: {r['layers']} of each a captured step, in the trace of "
+        f"2 replays {r['traced']}; {r['opt_text']}")
+    return r
 
 
 def train_graph_phase(torch, K, card):
@@ -3206,10 +3399,10 @@ def seq2seq_kernel_phase(torch, K):
     """The cross form of the three attention kernels against their plain
     versions at the path's cross-attention shape (B = 48, H = 8, S_q = 64
     queries over S_k = 72 keys, D = 64) with the source's padding mask
-    (seeded lengths 16-72): bf16 (tensor cores) and float32 (CUDA cores),
-    p = 0 and 0.1, causal off and on (top-left); the dropout mask at that
-    shape bitwise ``dropout_keep_plain``'s; then the decode step's forward
-    (S_q = 1 over S_k = 32 and 72, B = 8).  The library yardstick is
+    (seeded lengths 16-72): bf16 (tensor cores) and float32 (split-TF32
+    tensor cores), p = 0 and 0.1, causal off and on (top-left); the
+    dropout mask at that shape bitwise ``dropout_keep_plain``'s; then the
+    decode step's forward (S_q = 1 over S_k = 32 and 72, B = 8).  The library yardstick is
     scaled_dot_product_attention with the same mask (and dropout),
     forward, and its memory-efficient backward (both dtypes).  Then the
     path's other kernels at its shapes (``seq2seq_row_kernels``).  Returns
@@ -3283,7 +3476,7 @@ def seq2seq_kernel_phase(torch, K):
                     lib_bwd, dtype, 3 * nq + 2 * nk + stats + bias_bytes,
                     6 * D * pairs, peak,
                     variant=("flash_attention_dq",
-                             variant_of(dtype, "flash_attention_dq")))
+                             variant_of(dtype)))
                 rec["flash_attention_dkv"] = compare(
                     torch, f"flash_attention_dkv {desc}",
                     lambda: KF.flash_attention_dkv(q, k, v, do, lse, delta,
@@ -3293,7 +3486,7 @@ def seq2seq_kernel_phase(torch, K):
                     lib_bwd, dtype, 2 * nq + 4 * nk + stats + bias_bytes,
                     8 * D * pairs, peak,
                     variant=("flash_attention_dkv",
-                             variant_of(dtype, "flash_attention_dkv")))
+                             variant_of(dtype)))
                 if dtype == torch.bfloat16 and p > 0 and not causal:
                     main = rec
         # the decode step: one query over the cache, under no_grad
@@ -3424,12 +3617,15 @@ def seq2seq_parity(torch, K):
         seed(0)
         model = seq2seq_model(torch, device, dropout=0.0).train()
         K.reset_launch_counts()
+        before = K.variant_launches() if device == "cuda" else None
         src, tgt_in, labels = (t.to(device) for t in batch)
         loss = s2s_loss(model(src, tgt_in), labels)
         loss.backward()
         if device == "cuda":
             torch.cuda.synchronize()
             counts = K.launch_counts()
+            f32 = require_fast_variants(K, before, "seq2seq parity",
+                                        ATTENTION_KERNELS, F32_FAST)
             cross = K.flash_attention.cross_launches()
         res[device] = (loss.item(), {n: p.grad.cpu() for n, p in
                                      model.named_parameters()})
@@ -3466,7 +3662,8 @@ def seq2seq_parity(torch, K):
         f"rel {loss_rel:.3e}); {len(grads_c)} parameters, every gradient "
         f"finite; worst max|dgrad|/max|ref| {worst:.3e} ({worst_name}; tol "
         f"{GRAD_REL_TOL}; k_proj.bias against its attention's q_proj.bias "
-        f"scale); launches {counts}, of them cross-form {cross}")
+        f"scale); launches {counts}, of them cross-form {cross}, on the "
+        f"float32 kernels (attention tf32x3) {f32}")
 
 
 def s2s_decode(torch, model, src, n, cache=True):
@@ -3840,6 +4037,7 @@ def bert_parity_phase(torch, K):
         seed(0)
         model = BertForPretraining(cfg, device=device).train()
         K.reset_launch_counts()
+        before = K.variant_launches() if device == "cuda" else None
         t0 = time.perf_counter()
         loss = model.loss(ids.to(device), mlm.to(device), nsp.to(device),
                           tt.to(device))
@@ -3849,6 +4047,8 @@ def bert_parity_phase(torch, K):
         if device == "cuda":
             torch.cuda.synchronize()
             counts = K.launch_counts()
+            f32 = require_fast_variants(K, before, "bert-parity",
+                                        ATTENTION_KERNELS, F32_FAST)
         res[device] = (loss.item(), {n: p.grad for n, p in
                                      model.named_parameters()},
                        [x.float().cpu() for x in logits],
@@ -3888,7 +4088,8 @@ def bert_parity_phase(torch, K):
         f"{GRAD_REL_TOL}; k_proj.bias against its layer's q_proj.bias "
         f"scale); masked forward (lengths {lens.tolist()}) "
         f"max|dlogits|/max|ref| {logit_rel:.3e} (tol {LOGITS_REL_TOL}); "
-        f"card {t_g:.2f}s, cpu {t_c:.2f}s; launches {counts}")
+        f"card {t_g:.2f}s, cpu {t_c:.2f}s; launches {counts}; of them on the "
+        f"float32 kernels (attention tf32x3) {f32}")
 
 
 def bert_fit_loss(mlm_logits, nsp_logits, mlm_labels, nsp_labels):
@@ -8544,6 +8745,10 @@ def main():
         torch, K, card, {"gpt": gpt_step, "bert": bert_step})
     torch.cuda.synchronize()
     graph_counts = train_graph_phase(torch, K, card)
+    torch.cuda.synchronize()
+    release(torch, "fit-f32")
+    mark("fit-f32")
+    fit_f32_phase(torch, K, card)
     torch.cuda.synchronize()
     release(torch, "fit-api")
     fit_api_counts, eval_launches = fit_api_phase(torch, K, card)

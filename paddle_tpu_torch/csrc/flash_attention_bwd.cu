@@ -29,7 +29,7 @@
 // keys past the last query see no query, and their dk and dv are written
 // as zeros.
 //
-// dq and dk/dv each have two hand-written kernels; the C entry picks one
+// dq and dk/dv each have three hand-written kernels; the C entry picks one
 // from the dtype and the operands' alignment alone, and counts the choice:
 //
 // `flash_dq_mma_kernel` (bf16 or float16 whose base pointers and (b, s, h)
@@ -80,9 +80,18 @@
 // every SM.  dk and dv leave through the block's K and V tiles as 16-byte
 // stores.
 //
-// `flash_dq_kernel` and `flash_dkv_kernel` (float32, where TF32 would not
-// hold the parity limits, and 16-bit operands that are not 16-byte aligned)
-// run on the CUDA cores:
+// `flash_dq_tf32x3_kernel` and `flash_dkv_tf32x3_kernel` (float32 whose
+// base pointers and (b, s, h) strides are 16-byte multiples: the fused
+// qkv's slices of every float32 training path) are the same two designs
+// with every product on the TF32 tensor cores, each operand split into two
+// TF32 terms and three products summed (`mma_tf32x3`), which holds float32
+// parity where one TF32 product does not.  dq's key tiles are 32 keys (16 at
+// D = 128), dk/dv's query tiles 16 queries, and at D = 128 two warps share
+// a dk/dv band of 16 keys, each accumulating half of D.  Details at the
+// kernels.
+//
+// `flash_dq_kernel` and `flash_dkv_kernel` (float32 and 16-bit operands
+// that are not 16-byte aligned) run on the CUDA cores:
 // - dq: one block per (batch*head, 64-query tile).  The block walks the
 //   key tiles from 0 up to the diagonal (causal) or to S_k, staging 32 keys
 //   of K and V and the 64 x 32 bias tile in shared memory, and keeps its
@@ -96,8 +105,8 @@
 // shared-memory row hits four consecutive banks), and two shuffles finish
 // each dot product.
 //
-// Dropout is a template flag of all four kernels (p = 0 launches the
-// instantiations without it): both draw the forward's mask again from
+// Dropout is a template flag of all six kernels (p = 0 launches the
+// instantiations without it): each draws the forward's mask again from
 // dropout.cuh with its seed.  dv takes the dropped weights P Z / (1 - p);
 // dP = dO V^T is masked and rescaled the same way before dS = P (dP - delta),
 // delta = rowsum(dO O) of the dropped output.  dq draws as the forward does
@@ -879,12 +888,725 @@ int launch_mma(const Args& a, int B, int D, cudaStream_t st) {
 #undef PTT_FLASH_BWD_MMA_CASE
 }
 
-// launches of each variant since the library was loaded, [simt, mma]: of
-// dq (index 0) and of dk/dv (index 1)
-std::atomic<long long> variant_launches[2][2];
+// ---------------------------------------------------------------------------
+// the split-TF32 tensor-core kernels (float32)
+// ---------------------------------------------------------------------------
+// Both kernels are the 16-bit kernels' design with every product on
+// `mma.sync.m16n8k8` TF32 through `mma_tf32x3` (mma.cuh): each float32
+// operand x is split into big = tf32(x) and small = tf32(x - big), and
+// a . b = al.bh + ah.bl + ah.bh with float32 accumulators, as the float32
+// forward (flash_fwd_tf32x3_kernel) computes.  The contraction index is
+// permuted on both sides of a product (k-slot t is index 2t, k-slot t + 4 is
+// 2t + 1), so a lane's score accumulators (columns 2t and 2t + 1) are its A
+// operand of the second product as they stand: dS for dq += dS K, P^T and
+// dS^T for dv += P^T dO and dk += dS^T Q.  P and dS stay float32 (the
+// reference's `ds.astype(k.dtype)` is the identity) and are split like any
+// operand.
+//
+// Shared float32 tiles: `ldmatrix` does not transpose 32-bit elements, so
+// fragments are plain shared-memory reads, and one streamed tile is read two
+// ways.  Where d is contracted (S = Q K^T, dP = dO V^T and their transposes)
+// a lane reads a float2 of row g at columns 8kk + 2t, 2t + 1; where the
+// sequence is contracted (dS K; P^T dO, dS^T Q) it reads rows 8kk + 2t and
+// 8kk + 2t + 1 at column 8dp + g.  No row padding serves both (a stride of
+// 8 mod 32 floats makes the second 2-way, 4 mod 32 the first), so the rows
+// are unpadded (32 floats at D = 16) and the four 8-float column groups of
+// each 32 are XOR-swizzled by the row: column c of row r lies at
+// c ^ 8 * swz(r), swz(r) = (r & 3) ^ ((r >> 2) & 1), a permutation of 0..3
+// on rows 0-3, on 4-7, on the even rows and on the odd rows of each 8.  Both
+// reads then hit 32 distinct banks (a half-warp's float2 reads, a warp's
+// float reads; tests/test_torch_tf32x3_attention_bwd.py counts them, as no
+// profiler counts bank conflicts on the card's machine), and a 16-byte
+// `cp.async` chunk (columns 4c..4c + 3) stays whole.
+//
+// Every staged tile is split once, in place, after it lands: big where x
+// was and small in a second tile of the same layout (one pass of the whole
+// block and a barrier), so a fragment is read as its big and small words
+// with no split at the read: the operands a block keeps for its whole loop
+// (Q and dO in dq, K and V in dk/dv) once, each streamed tile (K and V in
+// dq, Q and dO in dk/dv) once a tile, where split at each read (as the
+// forward splits) every warp would split it again for each product.  Only
+// the accumulator tiles (dS; P^T and dS^T) are split in registers.
+//
+// The tensor cores truncate (round toward zero) when they add to an
+// accumulator.  S = Q K^T (and S^T) chains its D / 8 k-steps in one
+// accumulator, as the forward's Q K^T does, so p = exp(s - lse) sees the
+// scores the forward's LSE was formed from.  dP = dO V^T (and dP^T) starts
+// each k-step from a zero accumulator (`mma_tf32x3_zero`) and adds it on
+// the CUDA cores, rounded to nearest (`add_tf32x3`): dS = P (dP - delta)
+// subtracts two nearly equal numbers, so a drift of dP toward zero becomes
+// a systematic error of dS (chained on an H100, it lifted full-width
+// BERT-base's worst float32 gradient against the CPU from 2.6e-4 to
+// 8.2e-4 of its scale; the limit is 1e-3).  The sums over the loop (dq
+// over S_k keys; dk and dv over S_q queries: 128 k-steps of 8 at
+// S = 1024) would drift toward zero chained, as the forward's O did: each
+// streamed tile's part starts from a zero accumulator, chains that tile's
+// k-steps (4 in dq, 2 in dk/dv) and is added to the running sum on the
+// CUDA cores, rounded to nearest.
+template <int D>
+constexpr int kRowF = D < 32 ? 32 : D;  // floats a shared row
 
-bool aligned_16(const void* p, const Strides& s) {
-  return ptt::aligned_16(p, s.b, s.s, s.h);
+__device__ __forceinline__ int swz(int r) {
+  return ((r & 3) ^ ((r >> 2) & 1)) << 3;
+}
+
+// Element (r, c) of a swizzled tile.
+template <int D>
+__device__ __forceinline__ int at(int r, int c) {
+  return r * kRowF<D> + (c ^ swz(r));
+}
+
+// Copy kRows rows of D float32 (tile row i from src + (r0 + i) * row_stride)
+// into a swizzled tile, 16 bytes a copy, by a block of kThreads threads;
+// rows at or beyond n_rows are filled with zeros.
+template <int D, int kRows, int kThreads>
+__device__ __forceinline__ void stage_swz(float* tile, const float* src,
+                                          long long row_stride, int r0,
+                                          int n_rows) {
+  constexpr int kChunks = D / 4;  // 16-byte pieces of a row
+#pragma unroll 4
+  for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {
+    const int r = c / kChunks, col = (c % kChunks) * 4;
+    const bool ok = r0 + r < n_rows;
+    ptt::cp_async_16(tile + at<D>(r, col),
+                     ok ? src + (r0 + r) * row_stride + col : src, ok);
+  }
+}
+
+// Split a block's landed tiles in place: x becomes tf32(x), and `lo` (the
+// same layout, kElems floats) receives tf32(x - tf32(x)).
+template <int kElems, int kThreads>
+__device__ __forceinline__ void split_tiles(float* hi, float* lo) {
+  for (int e = threadIdx.x * 4; e < kElems; e += kThreads * 4) {
+    const float4 x = *reinterpret_cast<const float4*>(hi + e);
+    uint32_t b[4], s[4];
+    ptt::split_tf32(x.x, b[0], s[0]);
+    ptt::split_tf32(x.y, b[1], s[1]);
+    ptt::split_tf32(x.z, b[2], s[2]);
+    ptt::split_tf32(x.w, b[3], s[3]);
+    *reinterpret_cast<uint4*>(hi + e) = make_uint4(b[0], b[1], b[2], b[3]);
+    *reinterpret_cast<uint4*>(lo + e) = make_uint4(s[0], s[1], s[2], s[3]);
+  }
+}
+
+// The A fragment of k-step kk from a split tile: rows r and r + 8 (r the
+// lane's g of a 16-row band), d = 8kk + 2t in k-slot t, 8kk + 2t + 1 in
+// t + 4.
+template <int D>
+__device__ __forceinline__ void load_a_split(uint32_t (&ah)[4],
+                                             uint32_t (&al)[4],
+                                             const float* hi, const float* lo,
+                                             int r, int kk, int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int e = at<D>(r + 8 * i, kk * 8 + 2 * t);
+    const uint2 h = *reinterpret_cast<const uint2*>(hi + e);
+    const uint2 l = *reinterpret_cast<const uint2*>(lo + e);
+    ah[i] = h.x;
+    ah[i + 2] = h.y;
+    al[i] = l.x;
+    al[i + 2] = l.y;
+  }
+}
+
+// The B fragment of a split tile where d is contracted (k-step kk, n = row
+// r).
+template <int D>
+__device__ __forceinline__ void load_b_rows(uint32_t (&bh)[2],
+                                            uint32_t (&bl)[2],
+                                            const float* hi, const float* lo,
+                                            int r, int kk, int t) {
+  const int e = at<D>(r, kk * 8 + 2 * t);
+  const uint2 h = *reinterpret_cast<const uint2*>(hi + e);
+  const uint2 l = *reinterpret_cast<const uint2*>(lo + e);
+  bh[0] = h.x;
+  bh[1] = h.y;
+  bl[0] = l.x;
+  bl[1] = l.y;
+}
+
+// The B fragment of a split tile where its rows are contracted (rows
+// 8kk + 2t and 8kk + 2t + 1, column c).
+template <int D>
+__device__ __forceinline__ void load_b_cols(uint32_t (&bh)[2],
+                                            uint32_t (&bl)[2],
+                                            const float* hi, const float* lo,
+                                            int kk, int c, int t) {
+  const int e0 = at<D>(kk * 8 + 2 * t, c), e1 = at<D>(kk * 8 + 2 * t + 1, c);
+  bh[0] = __float_as_uint(hi[e0]);
+  bh[1] = __float_as_uint(hi[e1]);
+  bl[0] = __float_as_uint(lo[e0]);
+  bl[1] = __float_as_uint(lo[e1]);
+}
+
+// A score-shaped accumulator tile x[j] (rows g, g + 8; columns 8j + 2t,
+// + 1) split as the A operand of k-step j of the second product.
+template <int kNt>
+__device__ __forceinline__ void split_acc(uint32_t (&xh)[kNt][4],
+                                          uint32_t (&xl)[kNt][4],
+                                          const float (&x)[kNt][4]) {
+#pragma unroll
+  for (int j = 0; j < kNt; ++j) {
+    ptt::split_tf32(x[j][0], xh[j][0], xl[j][0]);
+    ptt::split_tf32(x[j][2], xh[j][1], xl[j][1]);
+    ptt::split_tf32(x[j][1], xh[j][2], xl[j][2]);
+    ptt::split_tf32(x[j][3], xh[j][3], xl[j][3]);
+  }
+}
+
+// acc[dp] += X B for the warp's 8-column tiles dp0 .. dp0 + kNd - 1, X the
+// split accumulator tiles (kNt k-steps of 8 rows of the split streamed tile
+// hi, lo): each column tile's part from a zero accumulator, chained over
+// the k-steps, then added rounded to nearest.
+template <int D, int kNt, int kNd>
+__device__ __forceinline__ void accumulate_tf32x3(
+    float (&acc)[kNd][4], const uint32_t (&xh)[kNt][4],
+    const uint32_t (&xl)[kNt][4], const float* hi, const float* lo, int dp0,
+    int g, int t) {
+#pragma unroll
+  for (int dp = 0; dp < kNd; ++dp) {
+    float part[4];
+#pragma unroll
+    for (int kk = 0; kk < kNt; ++kk) {
+      uint32_t bh[2], bl[2];
+      load_b_cols<D>(bh, bl, hi, lo, kk, (dp0 + dp) * 8 + g, t);
+      if (kk == 0)
+        ptt::mma_tf32x3_zero(part, xh[kk], xl[kk], bh, bl);
+      else
+        ptt::mma_tf32x3(part, xh[kk], xl[kk], bh, bl);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dp][e] += part[e];
+  }
+}
+
+// c += a . b with the three products from a zero accumulator, added to c
+// rounded to nearest on the CUDA cores (dP and dP^T, a k-step at a time).
+__device__ __forceinline__ void add_tf32x3(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  float step[4];
+  ptt::mma_tf32x3_zero(step, ah, al, bh, bl);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] += step[e];
+}
+
+// Keys per streamed tile of dq: 32, 16 at D = 128 (its dq accumulator
+// leaves less room for the split dS).
+template <int D>
+constexpr int kDqKeysF32 = D == 128 ? 16 : 32;
+
+// kWarps warps of 16 queries each, as flash_dq_mma_kernel.
+template <int D, int kWarps, bool kDropout>
+__global__ void __launch_bounds__(kWarps * 32, 1)
+    flash_dq_tf32x3_kernel(Args a) {
+  constexpr int kThreads = kWarps * 32;
+  constexpr int kTileM = kWarps * 16;  // queries a block owns
+  constexpr int kTileN = kDqKeysF32<D>;
+  constexpr int kRow = kRowF<D>;
+  constexpr int kKs = D / 8;       // k-steps of S, dP; column tiles of dq
+  constexpr int kNt = kTileN / 8;  // key tiles of S, dP; k-steps of dS K
+  constexpr int kT = kTileN * kRow;  // floats a streamed tile
+  extern __shared__ __align__(16) unsigned char ptt_smem[];
+  float* q_hi = reinterpret_cast<float*>(ptt_smem);  // [kTileM][kRow]
+  float* do_hi = q_hi + kTileM * kRow;                // [kTileM][kRow]
+  float* q_lo = do_hi + kTileM * kRow;                // [kTileM][kRow]
+  float* do_lo = q_lo + kTileM * kRow;                // [kTileM][kRow]
+  float* kv_s = do_lo + kTileM * kRow;  // [2 stages][K, V][kTileN][kRow]
+  float* kv_lo = kv_s + 4 * kT;         // [K, V][kTileN][kRow]
+
+  const int S_q = a.S_q, S_k = a.S_k;
+  const int bh = blockIdx.x;
+  const int b = bh / a.H, h = bh % a.H;
+  // causal: the last query tile walks the most keys, so it goes first
+  const int q_tile = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = q_tile * kTileM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16;  // the warp's first query
+  const bool has_bias = a.bias.p != nullptr;
+  const long long bias_base = b * a.bias.b + h * a.bias.h;
+  const float scale_log2 = a.scale * ptt::kLog2e;
+
+  const float* q_src = static_cast<const float*>(a.q) + offset(a.sq, b, 0, h);
+  const float* k_src = static_cast<const float*>(a.k) + offset(a.sk, b, 0, h);
+  const float* v_src = static_cast<const float*>(a.v) + offset(a.sv, b, 0, h);
+  const float* do_src =
+      static_cast<const float*>(a.dout) + offset(a.sdo, b, 0, h);
+  // causal: keys up to the tile's diagonal; otherwise every key
+  const int k_end = a.causal ? min(S_k, q0 + kTileM) : S_k;
+  const int n_tiles = (k_end + kTileN - 1) / kTileN;
+
+  stage_swz<D, kTileM, kThreads>(q_hi, q_src, a.sq.s, q0, S_q);
+  stage_swz<D, kTileM, kThreads>(do_hi, do_src, a.sdo.s, q0, S_q);
+  stage_swz<D, kTileN, kThreads>(kv_s, k_src, a.sk.s, 0, S_k);
+  stage_swz<D, kTileN, kThreads>(kv_s + kT, v_src, a.sv.s, 0, S_k);
+  ptt::cp_async_commit();
+
+  // LSE and delta of the lane's rows g and g + 8; without a bias LSE is
+  // taken in base-2 units, the scale folded into the exponent
+  float lse[2], delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + g + r * 8;
+    const long long row = static_cast<long long>(bh) * S_q + qi;
+    lse[r] = qi < S_q ? a.lse[row] : 0.f;
+    delta[r] = qi < S_q ? a.delta[row] : 0.f;
+    if (!has_bias) lse[r] *= ptt::kLog2e;
+  }
+
+  const int wrow = warp * 16 + g;  // the lane's first row of the Q tile
+  float dq[kKs][4];
+#pragma unroll
+  for (int j = 0; j < kKs; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int stage = i & 1, k0 = i * kTileN;
+    float* kt = kv_s + stage * 2 * kT;  // this tile's K, then V
+    if (i + 1 < n_tiles) {
+      float* next = kv_s + (stage ^ 1) * 2 * kT;
+      stage_swz<D, kTileN, kThreads>(next, k_src, a.sk.s, k0 + kTileN, S_k);
+      stage_swz<D, kTileN, kThreads>(next + kT, v_src, a.sv.s, k0 + kTileN,
+                                     S_k);
+    }
+    ptt::cp_async_commit();
+    ptt::cp_async_wait<1>();  // tile i has landed; tile i + 1 is in flight
+    __syncthreads();
+    if (i == 0)  // Q and dO have landed with tile 0: split them once
+      split_tiles<2 * kTileM * kRow, kThreads>(q_hi, q_lo);
+    split_tiles<2 * kT, kThreads>(kt, kv_lo);
+    __syncthreads();
+    // rows past S_q do no work; causal: a key tile wholly above the
+    // warp's rows changes nothing
+    if (row0 < S_q && (!a.causal || k0 <= row0 + 15)) {
+      const float* vt = kt + kT;
+      const float* kt_lo = kv_lo;
+      const float* vt_lo = kv_lo + kT;
+      float p[kNt][4], ds[kNt][4];  // rows: queries g, g + 8; columns: keys
+#pragma unroll
+      for (int j = 0; j < kNt; ++j) {
+        p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.f;
+        ds[j][0] = ds[j][1] = ds[j][2] = ds[j][3] = 0.f;
+      }
+      // S = Q K^T (chained) and dP = dO V^T (a k-step at a time): B[d][key]
+      // is key g's float2 at dims 8kk + 2t, + 1
+#pragma unroll
+      for (int kk = 0; kk < kKs; ++kk) {
+        uint32_t qh[4], ql[4], oh[4], ol[4];
+        load_a_split<D>(qh, ql, q_hi, q_lo, wrow, kk, t);
+        load_a_split<D>(oh, ol, do_hi, do_lo, wrow, kk, t);
+#pragma unroll
+        for (int j = 0; j < kNt; ++j) {
+          uint32_t bh_[2], bl[2];
+          load_b_rows<D>(bh_, bl, kt, kt_lo, j * 8 + g, kk, t);
+          ptt::mma_tf32x3(p[j], qh, ql, bh_, bl);
+          load_b_rows<D>(bh_, bl, vt, vt_lo, j * 8 + g, kk, t);
+          add_tf32x3(ds[j], oh, ol, bh_, bl);
+        }
+      }
+      if (has_bias) {
+        // natural units, the difference formed first: a row masked
+        // everywhere by -1e30 gives exactly exp(0)
+#pragma unroll
+        for (int j = 0; j < kNt; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = row0 + g + (e >> 1) * 8;
+            const int kj = k0 + j * 8 + 2 * t + (e & 1);
+            float x = p[j][e] * a.scale;
+            if (qi < S_q && kj < S_k)
+              x += a.bias.p[bias_base + qi * a.bias.q + kj * a.bias.k];
+            p[j][e] = ptt::fast_exp2((x - lse[e >> 1]) * ptt::kLog2e);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kNt; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            p[j][e] = ptt::fast_exp2(fmaf(p[j][e], scale_log2, -lse[e >> 1]));
+        }
+      }
+      // keys past S_k, or pairs above the diagonal: only on a straddling
+      // tile
+      if (k0 + kTileN > S_k || (a.causal && k0 + kTileN - 1 > row0)) {
+#pragma unroll
+        for (int j = 0; j < kNt; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = row0 + g + (e >> 1) * 8;
+            const int kj = k0 + j * 8 + 2 * t + (e & 1);
+            if (kj >= S_k || (a.causal && kj > qi)) p[j][e] = 0.f;
+          }
+        }
+      }
+      if constexpr (kDropout) {
+        // dP of the dropped weights, masked and rescaled likewise
+        uint32_t keep[2][2];
+        ptt::row_keep_bits<kTileN>(keep, a.drop, bh, row0, k0, lane);
+#pragma unroll
+        for (int j = 0; j < kNt; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            ds[j][e] = ptt::row_kept<kTileN>(keep, j, e)
+                           ? ds[j][e] * a.drop.scale
+                           : 0.f;
+        }
+      }
+      // dS = P (dP - delta) * scale, float32
+#pragma unroll
+      for (int j = 0; j < kNt; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[j][e] = p[j][e] * (ds[j][e] - delta[e >> 1]) * a.scale;
+      }
+      // dq += dS K: B[key][d] is K's rows 8kk + 2t, + 1 at column 8dp + g
+      uint32_t sh[kNt][4], sl[kNt][4];
+      split_acc<kNt>(sh, sl, ds);
+      accumulate_tf32x3<D, kNt, kKs>(dq, sh, sl, kt, kt_lo, 0, g, t);
+    }
+    __syncthreads();  // the stage is free for the copy after next
+  }
+
+  // dq from the registers, a float2 a lane a row
+  float* dq_dst =
+      static_cast<float*>(a.d0) + offset(a.sd0, b, 0, h) + 2 * t;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row0 + g + 8 * r;
+    if (qi < S_q) {
+#pragma unroll
+      for (int j = 0; j < kKs; ++j)
+        *reinterpret_cast<float2*>(dq_dst + qi * a.sd0.s + j * 8) =
+            make_float2(dq[j][2 * r], dq[j][2 * r + 1]);
+    }
+  }
+}
+
+template <int D, int kWarps, bool kDropout>
+int launch_dq_tf32x3_tile(const Args& a, int B, cudaStream_t st) {
+  constexpr int kTileM = kWarps * 16;
+  constexpr int kSmem = (4 * kTileM + 6 * kDqKeysF32<D>) * kRowF<D> * 4;
+  static bool configured = false;  // more than 48 KB needs asking for, once
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_dq_tf32x3_kernel<D, kWarps, kDropout>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid(B * a.H, (a.S_q + kTileM - 1) / kTileM);
+  flash_dq_tf32x3_kernel<D, kWarps, kDropout>
+      <<<grid, kWarps * 32, kSmem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The largest query tile that still gives every SM a block (and is not
+// mostly padding), as launch_dq_mma_dim picks; 16 queries when no tile
+// does.
+template <int D, bool kDropout>
+int launch_dq_tf32x3_dim(const Args& a, int B, cudaStream_t st) {
+  const long long bh = static_cast<long long>(B) * a.H;
+  const int sms = ptt::sm_count();
+  auto fills = [&](int tile) {
+    return a.S_q > tile / 2 && bh * ((a.S_q + tile - 1) / tile) >= sms;
+  };
+  if (fills(64)) return launch_dq_tf32x3_tile<D, 4, kDropout>(a, B, st);
+  if (fills(32)) return launch_dq_tf32x3_tile<D, 2, kDropout>(a, B, st);
+  return launch_dq_tf32x3_tile<D, 1, kDropout>(a, B, st);
+}
+
+// Queries per streamed tile of dk/dv: the split P^T and dS^T of a 16-query
+// tile (16 registers each) fit beside the dk and dv accumulators.
+constexpr int kDkvQueries = 16;
+
+// Warps that share 16 keys, each accumulating D / kDkvSplit columns of dk
+// and dv: two at D = 128, where one warp's dk and dv would take 128
+// registers a lane (both compute the tile's S^T and dP^T).
+template <int D>
+constexpr int kDkvSplit = D == 128 ? 2 : 1;
+
+// kWarps / kDkvSplit<D> groups of 16 keys; query tiles of kDkvQueries rows.
+template <int D, int kWarps, bool kDropout>
+__global__ void __launch_bounds__(kWarps * 32, 1)
+    flash_dkv_tf32x3_kernel(Args a) {
+  constexpr int kSplit = kDkvSplit<D>;
+  constexpr int kThreads = kWarps * 32;
+  constexpr int kTileN = kWarps / kSplit * 16;  // keys a block owns
+  constexpr int kTileM = kDkvQueries;
+  constexpr int kRow = kRowF<D>;
+  constexpr int kKs = D / 8;          // k-steps of S^T and dP^T
+  constexpr int kNd = kKs / kSplit;   // column tiles of dk, dv a warp owns
+  constexpr int kNt = kTileM / 8;     // query tiles of S^T; k-steps of dv, dk
+  constexpr int kT = kTileM * kRow;   // floats a streamed tile
+  extern __shared__ __align__(16) unsigned char ptt_smem[];
+  float* k_hi = reinterpret_cast<float*>(ptt_smem);  // [kTileN][kRow]
+  float* v_hi = k_hi + kTileN * kRow;                 // [kTileN][kRow]
+  float* k_lo = v_hi + kTileN * kRow;                 // [kTileN][kRow]
+  float* v_lo = k_lo + kTileN * kRow;                 // [kTileN][kRow]
+  float* qd_s = v_lo + kTileN * kRow;  // [2 stages][Q, dO][kTileM][kRow]
+  float* qd_lo = qd_s + 4 * kT;        // [Q, dO][kTileM][kRow]
+  float* lse_s = qd_lo + 2 * kT;       // [2][kTileM]
+  float* delta_s = lse_s + 2 * kTileM;  // [2][kTileM]
+
+  const int S_q = a.S_q, S_k = a.S_k;
+  const int bh = blockIdx.x;
+  const int b = bh / a.H, h = bh % a.H;
+  const int k0 = blockIdx.y * kTileN;  // causal: key tile 0 is the heaviest
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int band = (warp / kSplit) * 16;   // the warp's keys in the tile
+  const int dp0 = (warp % kSplit) * kNd;   // its first column tile
+  const int key_w = k0 + band;             // the warp's first key
+  const bool has_bias = a.bias.p != nullptr;
+  const long long bias_base = b * a.bias.b + h * a.bias.h;
+  const float scale_log2 = a.scale * ptt::kLog2e;
+
+  const float* q_src = static_cast<const float*>(a.q) + offset(a.sq, b, 0, h);
+  const float* k_src = static_cast<const float*>(a.k) + offset(a.sk, b, 0, h);
+  const float* v_src = static_cast<const float*>(a.v) + offset(a.sv, b, 0, h);
+  const float* do_src =
+      static_cast<const float*>(a.dout) + offset(a.sdo, b, 0, h);
+  const float* lse_src = a.lse + static_cast<long long>(bh) * S_q;
+  const float* delta_src = a.delta + static_cast<long long>(bh) * S_q;
+  // causal: only queries at or after this tile's first key see it; a tile
+  // at or past S_q (S_q < S_k) sees none, stages nothing and writes zeros
+  const int q_begin = a.causal ? k0 / kTileM * kTileM : 0;
+  const int n_tiles = max(0, (S_q - q_begin + kTileM - 1) / kTileM);
+
+  auto stage_queries = [&](int stage, int q0) {
+    stage_swz<D, kTileM, kThreads>(qd_s + stage * 2 * kT, q_src, a.sq.s, q0,
+                                   S_q);
+    stage_swz<D, kTileM, kThreads>(qd_s + stage * 2 * kT + kT, do_src,
+                                   a.sdo.s, q0, S_q);
+    for (int i = threadIdx.x; i < kTileM; i += kThreads) {
+      const bool ok = q0 + i < S_q;
+      const int qi = ok ? q0 + i : 0;
+      ptt::cp_async_4(lse_s + stage * kTileM + i, lse_src + qi, ok);
+      ptt::cp_async_4(delta_s + stage * kTileM + i, delta_src + qi, ok);
+    }
+  };
+  if (n_tiles > 0) {
+    stage_swz<D, kTileN, kThreads>(k_hi, k_src, a.sk.s, k0, S_k);
+    stage_swz<D, kTileN, kThreads>(v_hi, v_src, a.sv.s, k0, S_k);
+    stage_queries(0, q_begin);
+  }
+  ptt::cp_async_commit();
+
+  float dk[kNd][4], dv[kNd][4];
+#pragma unroll
+  for (int j = 0; j < kNd; ++j) {
+    dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
+    dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
+  }
+  // dropout: the keep bits of 32 queries (two tiles) against the warp's
+  // keys, drawn at every even tile; keep[n] bit i keeps the lane's key
+  // key_w + g + 8n against query q0 + i of the pair's first tile
+  uint32_t keep[2] = {0u, 0u};
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int stage = i & 1, q0 = q_begin + i * kTileM;
+    if (i + 1 < n_tiles) stage_queries(stage ^ 1, q0 + kTileM);
+    ptt::cp_async_commit();
+    ptt::cp_async_wait<1>();  // tile i has landed; tile i + 1 is in flight
+    __syncthreads();
+    float* qt = qd_s + stage * 2 * kT;  // this tile's Q, then dO
+    if (i == 0)  // K and V have landed with tile 0: split them once
+      split_tiles<2 * kTileN * kRow, kThreads>(k_hi, k_lo);
+    split_tiles<2 * kT, kThreads>(qt, qd_lo);
+    __syncthreads();
+    if constexpr (kDropout) {
+      if ((i & 1) == 0 && (!a.causal || q0 + 2 * kTileM - 1 >= key_w))
+        ptt::column_keep_bits<2>(keep, a.drop, bh, q0, key_w, g);
+    }
+    // causal: a query tile wholly before the warp's keys sees none of them
+    if (!a.causal || q0 + kTileM - 1 >= key_w) {
+      const float* dot = qt + kT;
+      const float* qt_lo = qd_lo;
+      const float* dot_lo = qd_lo + kT;
+      // each lane's query columns 2t, 2t + 1 of every 8-query tile
+      const float2* lse_t =
+          reinterpret_cast<const float2*>(lse_s + stage * kTileM) + t;
+      const float2* delta_t =
+          reinterpret_cast<const float2*>(delta_s + stage * kTileM) + t;
+      float p[kNt][4], ds[kNt][4];  // rows: keys g, g + 8; columns: queries
+#pragma unroll
+      for (int j = 0; j < kNt; ++j) {
+        p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.f;
+        ds[j][0] = ds[j][1] = ds[j][2] = ds[j][3] = 0.f;
+      }
+      // S^T = K Q^T (chained) and dP^T = V dO^T (a k-step at a time):
+      // B[d][query] is query g's float2 at dims 8kk + 2t, + 1
+#pragma unroll
+      for (int kk = 0; kk < kKs; ++kk) {
+        uint32_t kh[4], kl[4], vh[4], vl[4];
+        load_a_split<D>(kh, kl, k_hi, k_lo, band + g, kk, t);
+        load_a_split<D>(vh, vl, v_hi, v_lo, band + g, kk, t);
+#pragma unroll
+        for (int j = 0; j < kNt; ++j) {
+          uint32_t bh_[2], bl[2];
+          load_b_rows<D>(bh_, bl, qt, qt_lo, j * 8 + g, kk, t);
+          ptt::mma_tf32x3(p[j], kh, kl, bh_, bl);
+          load_b_rows<D>(bh_, bl, dot, dot_lo, j * 8 + g, kk, t);
+          add_tf32x3(ds[j], vh, vl, bh_, bl);
+        }
+      }
+      if (has_bias) {
+        // natural units, the difference formed first: a row masked
+        // everywhere by -1e30 gives exactly exp(0)
+#pragma unroll
+        for (int j = 0; j < kNt; ++j) {
+          const float2 lse = lse_t[j * 4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = q0 + j * 8 + 2 * t + (e & 1);
+            const int kj = key_w + g + (e >> 1) * 8;
+            float x = p[j][e] * a.scale;
+            if (qi < S_q && kj < S_k)
+              x += a.bias.p[bias_base + qi * a.bias.q + kj * a.bias.k];
+            p[j][e] = ptt::fast_exp2((x - (e & 1 ? lse.y : lse.x)) *
+                                     ptt::kLog2e);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kNt; ++j) {
+          const float2 lse = lse_t[j * 4];
+          const float lx = lse.x * ptt::kLog2e, ly = lse.y * ptt::kLog2e;
+          p[j][0] = ptt::fast_exp2(fmaf(p[j][0], scale_log2, -lx));
+          p[j][1] = ptt::fast_exp2(fmaf(p[j][1], scale_log2, -ly));
+          p[j][2] = ptt::fast_exp2(fmaf(p[j][2], scale_log2, -lx));
+          p[j][3] = ptt::fast_exp2(fmaf(p[j][3], scale_log2, -ly));
+        }
+      }
+      // queries past S_q, keys past S_k or pairs above the diagonal
+      if (q0 + kTileM > S_q || key_w + 16 > S_k ||
+          (a.causal && q0 < key_w + 15)) {
+#pragma unroll
+        for (int j = 0; j < kNt; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = q0 + j * 8 + 2 * t + (e & 1);
+            const int kj = key_w + g + (e >> 1) * 8;
+            if (qi >= S_q || kj >= S_k || (a.causal && kj > qi))
+              p[j][e] = 0.f;
+          }
+        }
+      }
+      // dS^T = P^T (dP^T - delta) * scale; with dropout dP^T Z / (1 - p),
+      // and dv's weights P^T Z / (1 - p)
+      float pd[kNt][4];
+#pragma unroll
+      for (int j = 0; j < kNt; ++j) {
+        const float2 delta = delta_t[j * 4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float dp = ds[j][e];
+          pd[j][e] = p[j][e];
+          if constexpr (kDropout) {
+            const int bit = (i & 1) * kTileM + j * 8 + 2 * t + (e & 1);
+            const bool z = (keep[e >> 1] >> bit) & 1u;
+            dp = z ? dp * a.drop.scale : 0.f;
+            pd[j][e] = z ? p[j][e] * a.drop.scale : 0.f;
+          }
+          ds[j][e] = p[j][e] * (dp - (e & 1 ? delta.y : delta.x)) * a.scale;
+        }
+      }
+      uint32_t xh[kNt][4], xl[kNt][4];
+      // dv += P^T dO, dk += dS^T Q: B[query][d] is the tile's rows 8kk + 2t,
+      // + 1 at column 8dp + g
+      split_acc<kNt>(xh, xl, pd);
+      accumulate_tf32x3<D, kNt, kNd>(dv, xh, xl, dot, dot_lo, dp0, g, t);
+      split_acc<kNt>(xh, xl, ds);
+      accumulate_tf32x3<D, kNt, kNd>(dk, xh, xl, qt, qt_lo, dp0, g, t);
+    }
+    __syncthreads();  // the stage is free for the copy after next
+  }
+
+  // dk, dv from the registers, a float2 a lane a row
+  float* dk_dst =
+      static_cast<float*>(a.d0) + offset(a.sd0, b, 0, h) + dp0 * 8 + 2 * t;
+  float* dv_dst =
+      static_cast<float*>(a.d1) + offset(a.sd1, b, 0, h) + dp0 * 8 + 2 * t;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kj = key_w + g + 8 * r;
+    if (kj < S_k) {
+#pragma unroll
+      for (int j = 0; j < kNd; ++j) {
+        *reinterpret_cast<float2*>(dk_dst + kj * a.sd0.s + j * 8) =
+            make_float2(dk[j][2 * r], dk[j][2 * r + 1]);
+        *reinterpret_cast<float2*>(dv_dst + kj * a.sd1.s + j * 8) =
+            make_float2(dv[j][2 * r], dv[j][2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int D, int kWarps, bool kDropout>
+int launch_dkv_tf32x3_tile(const Args& a, int B, cudaStream_t st) {
+  constexpr int kTileN = kWarps / kDkvSplit<D> * 16;
+  constexpr int kSmem =
+      (4 * kTileN + 6 * kDkvQueries) * kRowF<D> * 4 + 4 * kDkvQueries * 4;
+  static bool configured = false;  // more than 48 KB needs asking for, once
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_dkv_tf32x3_kernel<D, kWarps, kDropout>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const dim3 grid(B * a.H, (a.S_k + kTileN - 1) / kTileN);
+  flash_dkv_tf32x3_kernel<D, kWarps, kDropout>
+      <<<grid, kWarps * 32, kSmem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The largest key tile that still gives every SM a block (and is not
+// mostly padding), as launch_dkv_mma_dim picks; 16 keys when no tile does.
+template <int D, bool kDropout>
+int launch_dkv_tf32x3_dim(const Args& a, int B, cudaStream_t st) {
+  constexpr int kSplit = kDkvSplit<D>;
+  const long long bh = static_cast<long long>(B) * a.H;
+  const int sms = ptt::sm_count();
+  auto fills = [&](int tile) {
+    return a.S_k > tile / 2 && bh * ((a.S_k + tile - 1) / tile) >= sms;
+  };
+  if (fills(64))
+    return launch_dkv_tf32x3_tile<D, 4 * kSplit, kDropout>(a, B, st);
+  if (fills(32))
+    return launch_dkv_tf32x3_tile<D, 2 * kSplit, kDropout>(a, B, st);
+  return launch_dkv_tf32x3_tile<D, kSplit, kDropout>(a, B, st);
+}
+
+template <bool kDq, bool kDropout>
+int launch_tf32x3(const Args& a, int B, int D, cudaStream_t st) {
+#define PTT_FLASH_BWD_TF32X3_CASE(DIM)                         \
+  case DIM:                                                    \
+    if constexpr (kDq)                                         \
+      return launch_dq_tf32x3_dim<DIM, kDropout>(a, B, st);    \
+    else                                                       \
+      return launch_dkv_tf32x3_dim<DIM, kDropout>(a, B, st);
+  switch (D) {
+    PTT_FLASH_BWD_TF32X3_CASE(16)
+    PTT_FLASH_BWD_TF32X3_CASE(32)
+    PTT_FLASH_BWD_TF32X3_CASE(64)
+    PTT_FLASH_BWD_TF32X3_CASE(128)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef PTT_FLASH_BWD_TF32X3_CASE
+}
+
+// launches of each variant since the library was loaded, [simt, mma,
+// tf32x3]: of dq (index 0) and of dk/dv (index 1)
+enum Variant { kSimt = 0, kMma = 1, kTf32x3 = 2, kVariants = 3 };
+std::atomic<long long> variant_launches[2][kVariants];
+
+bool aligned_16(const void* p, const Strides& s, int elem_bytes) {
+  return ptt::aligned_16(p, s.b, s.s, s.h, elem_bytes);
 }
 
 template <typename T, bool kDq, bool kDropout>
@@ -916,9 +1638,10 @@ Strides strides_at(const long long* s, int i) {
 }
 
 template <bool kDq, bool kDropout>
-int dispatch_as(const Args& a, bool mma, int B, int D, int dtype,
+int dispatch_as(const Args& a, Variant variant, int B, int D, int dtype,
                 cudaStream_t st) {
-  if (mma)
+  if (variant == kTf32x3) return launch_tf32x3<kDq, kDropout>(a, B, D, st);
+  if (variant == kMma)
     return dtype == ptt::kF16
                ? launch_mma<__half, kDq, kDropout>(a, B, D, st)
                : launch_mma<__nv_bfloat16, kDq, kDropout>(a, B, D, st);
@@ -936,13 +1659,19 @@ int dispatch(Args a, int B, int D, int dtype, unsigned long long seed,
       !(dropout_p >= 0.f) || dropout_p > 1.f)
     return static_cast<int>(cudaErrorInvalidValue);
   a.drop = ptt::Dropout::make(seed, dropout_p, step);
-  const bool mma = dtype != ptt::kF32 && aligned_16(a.q, a.sq) &&
-                   aligned_16(a.k, a.sk) && aligned_16(a.v, a.sv) &&
-                   aligned_16(a.dout, a.sdo) && aligned_16(a.d0, a.sd0) &&
-                   (kDq || aligned_16(a.d1, a.sd1));
-  ++variant_launches[kDq ? 0 : 1][mma];
-  return dropout_p > 0.f ? dispatch_as<kDq, true>(a, mma, B, D, dtype, st)
-                         : dispatch_as<kDq, false>(a, mma, B, D, dtype, st);
+  const int esize = dtype == ptt::kF32 ? 4 : 2;
+  const bool aligned =
+      aligned_16(a.q, a.sq, esize) && aligned_16(a.k, a.sk, esize) &&
+      aligned_16(a.v, a.sv, esize) && aligned_16(a.dout, a.sdo, esize) &&
+      aligned_16(a.d0, a.sd0, esize) &&
+      (kDq || aligned_16(a.d1, a.sd1, esize));
+  const Variant variant = !aligned              ? kSimt
+                          : dtype == ptt::kF32 ? kTf32x3
+                                               : kMma;
+  ++variant_launches[kDq ? 0 : 1][variant];
+  return dropout_p > 0.f
+             ? dispatch_as<kDq, true>(a, variant, B, D, dtype, st)
+             : dispatch_as<kDq, false>(a, variant, B, D, dtype, st);
 }
 
 }  // namespace
@@ -993,15 +1722,18 @@ extern "C" int ptt_flash_attention_dkv(
   return dispatch<false>(a, B, D, dtype, seed, step, dropout_p, stream);
 }
 
-// How many dq launches took the CUDA-core kernel (variant 0) or the
-// tensor-core kernel (variant 1) since the library was loaded.
+// How many dq launches took the CUDA-core kernel (variant 0), the 16-bit
+// tensor-core kernel (variant 1) or the split-TF32 kernel (variant 2) since
+// the library was loaded.
 extern "C" long long ptt_flash_attention_dq_variant_launches(int variant) {
-  return variant == 0 || variant == 1 ? variant_launches[0][variant].load()
-                                      : -1;
+  return variant >= 0 && variant < kVariants
+             ? variant_launches[0][variant].load()
+             : -1;
 }
 
 // The same for dk/dv.
 extern "C" long long ptt_flash_attention_dkv_variant_launches(int variant) {
-  return variant == 0 || variant == 1 ? variant_launches[1][variant].load()
-                                      : -1;
+  return variant >= 0 && variant < kVariants
+             ? variant_launches[1][variant].load()
+             : -1;
 }

@@ -40,7 +40,7 @@ def launch_counts() -> dict:
 def variant_launches() -> dict:
     """{kernel: {variant: launches}} of every kernel whose C entry chooses
     between hand-written kernels (the attention kernels' ``simt`` /
-    ``mma``, and the forward's float32 ``tf32x3``, LayerNorm's ``block`` /
+    ``mma`` / ``tf32x3``, LayerNorm's ``block`` /
     ``warp``, paged decode's ``lane`` / ``split``, the bias-GeLU forward's
     and backward's ``scalar`` / ``vec``), since the libraries were
     loaded."""

@@ -22,19 +22,17 @@ operations (4*D flops per visible (query, key) pair forward, 6*D in dq,
   p = exp(s - lse) in float32.  delta = rowsum(dO * O) is computed here
   in PyTorch (:func:`flash_attention_delta`), as the reference computes
   it in XLA.
-- The forward, dq and dk/dv each have a tensor-core kernel and a
-  CUDA-core one: bf16 and float16 operands whose base pointers and
-  (b, s, h) strides are 16-byte multiples (the fused qkv's slices,
-  separate projections: every path of the models) run on the tensor
-  cores (``mma``: ``mma.sync`` with float32 accumulators, P and dS
-  rounded to the 16-bit type before the second product, as the reference
-  rounds them); 16-bit operands that are not so aligned run on the CUDA
-  cores (``simt``).  A float32 forward on such boundaries takes a third
-  kernel (``tf32x3``): both products on the TF32 tensor cores, each
-  operand split into two TF32 terms and three products summed, which
-  holds float32 parity; unaligned float32 takes ``simt``.  dq and dk/dv
-  in float32 run on the CUDA cores.  The C entry decides from dtype and
-  alignment alone; :func:`variant_launches` reports which kernel the
+- The forward, dq and dk/dv each have three kernels, and the C entry
+  picks one from the dtype and the alignment alone: operands whose base
+  pointers and (b, s, h) strides are 16-byte multiples (the fused qkv's
+  slices, separate projections: every path of the models) run on the
+  tensor cores, bf16 and float16 as ``mma`` (``mma.sync`` with float32
+  accumulators, P and dS rounded to the 16-bit type before the second
+  product, as the reference rounds them) and float32 as ``tf32x3``
+  (every product on the TF32 tensor cores, each operand split into two
+  TF32 terms and three products summed, which holds float32 parity);
+  operands of any dtype that are not so aligned run on the CUDA cores
+  (``simt``).  :func:`variant_launches` reports which kernel the
   launches took.
 - Scores follow the reference's ``_scores``: scale, add the bias, then
   the causal replace, top-left aligned as the reference's
@@ -649,15 +647,14 @@ def causal_attention_packed(qkv, dropout_p=0.0):
 
 
 # the entries whose C code chooses between a CUDA-core kernel (index 0), a
-# 16-bit tensor-core kernel (index 1) and, in the forward, the float32
-# split-TF32 tensor-core kernel (index 2): name -> (library, counting
-# symbol, variants)
-VARIANTS = ("simt", "mma")
-FWD_VARIANTS = VARIANTS + ("tf32x3",)
+# 16-bit tensor-core kernel (index 1) and the float32 split-TF32
+# tensor-core kernel (index 2): name -> (library, counting symbol,
+# variants)
+VARIANTS = ("simt", "mma", "tf32x3")
 VARIANT_COUNTERS = {
     "flash_attention": ("flash_attention",
                         "ptt_flash_attention_fwd_variant_launches",
-                        FWD_VARIANTS),
+                        VARIANTS),
     "flash_attention_dq": ("flash_attention_bwd",
                            "ptt_flash_attention_dq_variant_launches",
                            VARIANTS),
@@ -669,10 +666,10 @@ VARIANT_COUNTERS = {
 
 def variant_launches():
     """{"flash_attention": {"simt": n, "mma": n, "tf32x3": n},
-    "flash_attention_dq": {"simt": n, "mma": n}, "flash_attention_dkv":
-    {...}}: how many launches took each kernel since the libraries were
-    loaded, as the C entries counted them (builds the libraries if they
-    are not built yet)."""
+    "flash_attention_dq": {...}, "flash_attention_dkv": {...}}: how many
+    launches took each kernel since the libraries were loaded, as the C
+    entries counted them (builds the libraries if they are not built
+    yet)."""
     return build.variant_counts(VARIANT_COUNTERS)
 
 

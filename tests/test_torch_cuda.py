@@ -33,8 +33,9 @@ card:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Tolerance, relative to max(1, max|ref|): float32 2e-5 (summation order;
-the split-TF32 attention forward keeps about 21 bits of each operand, one
-TF32 product would not hold it: tests/test_torch_tf32x3_attention.py),
+the split-TF32 attention kernels keep about 21 bits of each operand, one
+TF32 product would not hold it: tests/test_torch_tf32x3_attention.py and
+tests/test_torch_tf32x3_attention_bwd.py),
 bfloat16 2**-6 (two ulps at the top binade: both sides accumulate in
 float32 and round once at the end; the tensor-core attention kernels also
 round p and ds to bf16 before the second product, as the reference does,
@@ -614,7 +615,7 @@ def test_flash_attention_masked_kernels(dev, dtype, causal, kind, S, D):
     plain versions, reading the slices of one fused qkv: sequence lengths
     on both sides of every tile edge (16, 64, 128), every head dim.  The
     bf16 cases take the tensor-core kernels, the float32 ones the
-    split-TF32 forward and the CUDA-core dq and dk/dv."""
+    split-TF32 kernels."""
     g = torch.Generator(device=dev).manual_seed(S + D)
     B, H = 2, 3
     qkv = torch.randn(B, S, 3, H, D, generator=g, device=dev).to(dtype)
@@ -642,15 +643,6 @@ def _variant_delta(before):
     after = flash_attention.variant_launches()
     return {k: {v: n - before[k][v] for v, n in after[k].items()}
             for k in after}
-
-
-def _taken(dtype, offset, variant):
-    """{entry: the kernel its launches must take}: ``variant`` (the
-    16-bit forms' kernel, or the CUDA-core one for float32 dq and dk/dv),
-    but an aligned float32 forward takes the split-TF32 kernel."""
-    aligned_f32 = dtype == torch.float32 and offset == 0
-    return {"flash_attention": "tf32x3" if aligned_f32 else variant,
-            "flash_attention_dq": variant, "flash_attention_dkv": variant}
 
 
 @pytest.mark.parametrize("aligned", [True, False])
@@ -687,8 +679,8 @@ def test_flash_attention_bf16_variant_follows_alignment(dev, aligned,
     other = "simt" if aligned else "mma"
     got = _variant_delta(before)
     assert got["flash_attention"] == {taken: 1, other: 0, "tf32x3": 0}
-    assert got["flash_attention_dq"] == {taken: 2, other: 0}
-    assert got["flash_attention_dkv"] == {taken: 2, other: 0}
+    assert got["flash_attention_dq"] == {taken: 2, other: 0, "tf32x3": 0}
+    assert got["flash_attention_dkv"] == {taken: 2, other: 0, "tf32x3": 0}
     ref, ref_lse = flash_attention.flash_attention_plain(q, k, v, **form)
     _check(out, ref, torch.bfloat16)
     _check(lse, ref_lse, torch.bfloat16)
@@ -752,6 +744,91 @@ def test_flash_attention_f32_variant_follows_alignment(dev, aligned, form,
     assert torch.equal(runs[0][1], runs[1][1])
 
 
+def _packed_views(g, dev, B, S_q, S_k, H, D, off):
+    """float32 q, k, v, dO and the three gradient views, ``off`` elements
+    into their buffers (1: off every 16-byte boundary): q, k, v the slices
+    of one fused [B, S, 3, H, D] projection and dq, dk, dv the slices of one
+    packed gradient of that shape when S_q == S_k, separate [B, S, H, D]
+    buffers otherwise."""
+    if S_q == S_k:
+        n = B * S_q * 3 * H * D
+        qkv = torch.randn(n + 8, generator=g, device=dev)[off:off + n].view(
+            B, S_q, 3, H, D)
+        grad = torch.full((n + 8,), float("nan"), device=dev)[
+            off:off + n].view(B, S_q, 3, H, D)
+        q, k, v = qkv.unbind(2)
+        out = grad.unbind(2)
+    else:
+        q, = _cross_views(g, dev, torch.float32, B, S_q, H, D, off, 1)
+        k, v = _cross_views(g, dev, torch.float32, B, S_k, H, D, off, 2)
+        out = tuple(torch.full((B * S * H * D + 8,), float("nan"),
+                               device=dev)[off:off + B * S * H * D].view(
+            B, S, H, D) for S in (S_q, S_k, S_k))
+    do, = _cross_views(g, dev, torch.float32, B, S_q, H, D, off, 1)
+    return q, k, v, do, out
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("form", F32_FORMS)
+@pytest.mark.parametrize("S_q,S_k", [(1, 1), (200, 200), (1024, 1024),
+                                     (77, 130), (1, 72), (130, 77)])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_flash_attention_bwd_f32_variant_follows_alignment(dev, aligned,
+                                                           form, S_q, S_k,
+                                                           D):
+    """float32 dq and dk/dv on 16-byte boundaries take the split-TF32
+    tensor-core kernels; the same values one element off them take the
+    CUDA-core ones.  Causal, non-causal, a bool [B, 1, 1, S_k] padding
+    mask, an additive [B, 1, S_q, S_k] one and dropout p = 0.1 with a
+    StepSeed at counter 3; S = 1, 200 and 1024, S_q != S_k both ways, every
+    head dim; dq, dk and dv written through strides into the slices of one
+    packed [B, S, 3, H, D] gradient (S_q == S_k), each within 2e-5 x
+    max(1, max|ref|) of the plain version and bitwise equal over two
+    runs."""
+    from paddle_tpu_torch.framework.random import StepSeed
+
+    g = torch.Generator(device=dev).manual_seed(S_q * 1000 + S_k + 7 * D)
+    B, H = 2, 3
+    off = 0 if aligned else 1
+    q, k, v, do, out = _packed_views(g, dev, B, S_q, S_k, H, D, off)
+    assert (q.data_ptr() % 16 == 0) == aligned
+    bias, p, seed = None, 0.0, 0
+    if form == "bool":
+        lens = torch.randint(1, S_k + 1, (B,), generator=g, device=dev)
+        m = torch.arange(S_k, device=dev)[None, :] < lens[:, None]
+        bias = flash_attention.fold_mask(m[:, None, None, :], B, H, S_q, S_k)
+    elif form == "additive":
+        bias = flash_attention.fold_mask(torch.randn(
+            B, 1, S_q, S_k, generator=g, device=dev), B, H, S_q, S_k)
+    elif form == "dropout":
+        p, seed = 0.1, StepSeed(0x5EED0FD809, torch.full(
+            (1,), 3, dtype=torch.int32, device=dev))
+    kw = dict(causal=form == "causal", bias=bias, dropout_p=p, seed=seed)
+    o, lse = flash_attention.flash_attention(q, k, v, **kw)
+    delta = flash_attention.flash_attention_delta(o, do)
+    before = flash_attention.variant_launches()
+    runs = []
+    for _ in range(2):
+        dq = flash_attention.flash_attention_dq(q, k, v, do, lse, delta,
+                                                out=out[0], **kw)
+        dk, dv = flash_attention.flash_attention_dkv(
+            q, k, v, do, lse, delta, out=out[1:], **kw)
+        runs.append([x.clone() for x in (dq, dk, dv)])
+    want = dict.fromkeys(("simt", "mma", "tf32x3"), 0)
+    want["tf32x3" if aligned else "simt"] = 2
+    got = _variant_delta(before)
+    assert got["flash_attention_dq"] == want
+    assert got["flash_attention_dkv"] == want
+    ref_q = flash_attention.flash_attention_dq_plain(q, k, v, do, lse, delta,
+                                                     **kw)
+    ref_k, ref_v = flash_attention.flash_attention_dkv_plain(
+        q, k, v, do, lse, delta, **kw)
+    for x, ref in zip(runs[0], (ref_q, ref_k, ref_v)):
+        _check(x, ref, torch.float32)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("S", [1, 200, 1024])
 @pytest.mark.parametrize("D", [16, 32, 64, 128])
@@ -771,8 +848,8 @@ def test_flash_attention_dq_mma_kernel(dev, causal, S, D):
     before = flash_attention.variant_launches()
     dq = flash_attention.flash_attention_dq(q, k, v, do, lse, delta,
                                             out=grad[:, :, 0], causal=causal)
-    assert _variant_delta(before)["flash_attention_dq"] == {"mma": 1,
-                                                            "simt": 0}
+    assert _variant_delta(before)["flash_attention_dq"] == {
+        "mma": 1, "simt": 0, "tf32x3": 0}
     _check(dq, flash_attention.flash_attention_dq_plain(
         q, k, v, do, lse, delta, causal), torch.bfloat16)
 
@@ -785,7 +862,7 @@ def test_flash_attention_rows_masked_everywhere(dev, dtype, fill, S):
     average of V (the dot is absorbed in float32), by -inf it gives 0 and
     lse 0, and a dq row of 0; neither puts a NaN into the output or the
     gradients.  bf16 runs the tensor-core kernels, float32 the split-TF32
-    forward and the CUDA-core dq and dk/dv."""
+    ones."""
     g = torch.Generator(device=dev).manual_seed(S)
     B, H, D = 2, 3, 32
     qkv = torch.randn(B, S, 3, H, D, generator=g, device=dev).to(dtype)
@@ -811,7 +888,7 @@ def test_flash_attention_rows_masked_everywhere(dev, dtype, fill, S):
                                             causal=False, bias=bias)
     dk, dv = flash_attention.flash_attention_dkv(q, k, v, do, lse, delta,
                                                  causal=False, bias=bias)
-    taken = "mma" if dtype == torch.bfloat16 else "simt"
+    taken = "mma" if dtype == torch.bfloat16 else "tf32x3"
     got = _variant_delta(before)
     assert got["flash_attention_dq"][taken] == 1
     assert got["flash_attention_dkv"][taken] == 1
@@ -1073,7 +1150,7 @@ def _views(g, dev, dtype, shape, offset, scale=1.0):
 
 # (dtype, offset, the kernel the C entries must take)
 DROPOUT_VARIANTS = [(torch.bfloat16, 0, "mma"), (torch.bfloat16, 1, "simt"),
-                    (torch.float32, 0, "simt")]
+                    (torch.float32, 0, "tf32x3"), (torch.float32, 1, "simt")]
 
 
 @pytest.mark.parametrize("dtype,offset,variant", DROPOUT_VARIANTS)
@@ -1094,8 +1171,7 @@ def test_dropout_forward_applies_the_mask(dev, dtype, offset, variant,
     before = flash_attention.variant_launches()
     out, _ = flash_attention.flash_attention(q, k, v, causal, dropout_p=0.3,
                                              seed=99 + D)
-    fwd = _taken(dtype, offset, variant)["flash_attention"]
-    assert _variant_delta(before)["flash_attention"][fwd] == 1
+    assert _variant_delta(before)["flash_attention"][variant] == 1
     keep = flash_attention.dropout_keep_plain(99 + D, B, H, S, 0.3, dev)
     if causal:
         keep &= torch.ones(S, S, dtype=torch.bool, device=dev).tril()
@@ -1139,8 +1215,8 @@ def test_dropout_kernels_match_plain(dev, dtype, offset, variant, kind, B,
         q, k, v, do, lse, delta, **form)
     _check(dk, ref_k, dtype)
     _check(dv, ref_v, dtype)
-    took, want = _variant_delta(before), _taken(dtype, offset, variant)
-    assert all(took[name][want[name]] == 1 for name in took), took
+    took = _variant_delta(before)
+    assert all(took[name][variant] == 1 for name in took), took
 
 
 @pytest.mark.parametrize("dtype,offset,variant", DROPOUT_VARIANTS)
@@ -1343,9 +1419,7 @@ def test_dropout_kernels_take_the_step_from_the_card(dev, dtype, offset,
     counter.fill_(3)
     before = flash_attention.variant_launches()
     at3 = _dropout_calls(q, k, v, do, seed)
-    want = _taken(dtype, offset, variant)
-    assert all(n[want[name]] == 1
-               for name, n in _variant_delta(before).items())
+    assert all(n[variant] == 1 for n in _variant_delta(before).values())
     assert not torch.equal(at3[0], at0[0])
     form = dict(causal=True, dropout_p=0.1, seed=seed)
     ref, ref_lse = flash_attention.flash_attention_plain(q, k, v, **form)
@@ -1900,7 +1974,7 @@ def test_fit_syncs_only_to_drain(dev, metric):
 # -- the cross form (S_q != S_k): the encoder-decoder's cross-attention and
 # a cached decode step
 CROSS_VARIANTS = [(torch.bfloat16, 0, "mma"), (torch.bfloat16, 1, "simt"),
-                  (torch.float32, 0, "simt")]
+                  (torch.float32, 0, "tf32x3"), (torch.float32, 1, "simt")]
 
 
 def _cross_views(g, dev, dtype, B, S, H, D, offset, n):
@@ -1956,8 +2030,8 @@ def test_flash_attention_cross_kernels(dev, dtype, offset, variant, causal,
     _check(dv, ref_v, dtype)
     if causal and S_q < S_k:
         assert torch.all(dk[:, S_q:] == 0) and torch.all(dv[:, S_q:] == 0)
-    took, want = _variant_delta(before), _taken(dtype, offset, variant)
-    assert all(took[name][want[name]] == 1 for name in took), took
+    took = _variant_delta(before)
+    assert all(took[name][variant] == 1 for name in took), took
 
 
 @pytest.mark.parametrize("S_q,S_k", [(64, 72), (1, 72), (100, 5),

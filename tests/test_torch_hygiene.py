@@ -255,9 +255,9 @@ def test_every_variant_counter_is_read_and_held(monkeypatch):
     library, and every kernel so counted is held by chip_smoke.py with the
     same variant names (``VARIANTS``: the slower kernel first, the one
     its 16-bit paths must take second; ``MMA_KERNELS`` take ``mma``; the
-    attention forward alone has a third, ``tf32x3``, which its float32
-    paths must take), each named in ``TRACE_KERNELS``, so a new variant
-    that no phase holds fails here.  Static: the libraries are not built;
+    three attention kernels alone have a third, ``tf32x3``, which their
+    float32 paths must take), each named in ``TRACE_KERNELS``, so a new
+    variant that no phase holds fails here.  Static: the libraries are not built;
     the reader is given zero counts."""
     from paddle_tpu_torch.ops.kernels import build
 
@@ -265,7 +265,8 @@ def test_every_variant_counter_is_read_and_held(monkeypatch):
 
     def fake_counts(counters):
         for name, (_, _, variants) in counters.items():
-            assert len(variants) == (3 if name == "flash_attention" else 2)
+            assert len(variants) == (3 if name.startswith("flash_attention")
+                                     else 2)
         read.update({sym: (name, lib, variants)
                      for name, (lib, sym, variants) in counters.items()})
         return {name: dict.fromkeys(variants, 0)
@@ -291,10 +292,10 @@ def test_every_variant_counter_is_read_and_held(monkeypatch):
         assert set(smoke.TRACE_KERNELS[name]) == set(variants), name
         if name in smoke.MMA_KERNELS:
             assert variants[1] == "mma"
-            assert smoke.variant_of(torch.bfloat16, name) == "mma"
-            assert smoke.variant_of(torch.float32, name) == (
-                "tf32x3" if name == "flash_attention" else "simt")
-    assert smoke.VARIANTS["flash_attention"][2] == "tf32x3"
+            assert smoke.variant_of(torch.bfloat16) == "mma"
+            assert smoke.variant_of(torch.float32) == "tf32x3"
+    for name in smoke.MMA_KERNELS:
+        assert smoke.VARIANTS[name][2] == "tf32x3"
 
 
 def test_chip_smoke_fails_a_path_that_took_a_slow_kernel():
