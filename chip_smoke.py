@@ -189,7 +189,10 @@ passed over):
                   loop (the elementwise rules bitwise, the norm rules
                   within NORM_RTOL / NORM_BF16_RTOL, their steps too,
                   and a planted 25 % larger step refused), timed over the BERT
-                  tree against the loop and its bound; Dpsgd's noise
+                  tree against the loop and its bound; first, the norm
+                  kernels' device ms by launch (from a trace of a
+                  replayed graph) beside a copy that moves the bound's
+                  bytes and the two launches' floor; Dpsgd's noise
                   statistics over 2**20 elements, its repeatability and
                   sigma = 0 as SGD.
 24. wrappers    — EMA and ModelAverage over BERT-base's bf16 tree in
@@ -310,6 +313,10 @@ passed over):
                   heartbeat gaps); both drains with 2 streams open.  Run
                   alone after the build with `python3 chip_smoke.py
                   --fleet`.
+
+`python3 chip_smoke.py --optimizers` runs the build and the phases that
+hold the optimizer kernels alone (3's optimizer part, lenet, resnet50,
+optimizers, bert-lamb-accum, resnet50-lars).
 
 The AccumulateGrad stream warning (a backward accumulating into a node of
 another stream: the training engine's warm-up meeting a dygraph graph
@@ -1166,9 +1173,7 @@ def tree_step_record(torch, K, opt, params, lr, library=None):
         lambda: library(params, grads, slots, lr), tag="[optimizer]")
     library_ms = None if lib is None else time_ms(torch, lib, iters=5,
                                                   reps=3)[0]
-    n_bytes = sum(3 * p.numel() * p.element_size()
-                  + sum(2 * t.numel() * t.element_size() for t in s)
-                  for p, s in zip(params, slots))
+    n_bytes = tree_bytes(params, slots)
     bound, by = bound_ms(n_bytes, OPT_OPS_AN_ELEMENT[kind] * n, PEAK_F32)
     return {"kind": kind, "elements": n, "tensors": len(params), "ms": ms,
             "eager_ms": eager_ms, "plain_ms": plain_ms,
@@ -5197,9 +5202,13 @@ def lenet_phase(torch, K, card):
     opt, opt_err, _ = optimizer_tree_check(
         torch, net_o, make=lambda ps: ptt.optimizer.Adam(
             learning_rate=1e-3, parameters=ps))
+    KO = K.optimizer
     opt_rec = tree_step_record(torch, K, opt, list(net_o.parameters()),
                                1e-3, library=fused_adam(torch))
-    opt_rec["max_abs_err"] = opt_err
+    ((_, chunk0, chunk),) = KO.chunk_groups(
+        [p.numel() for p in net_o.parameters()],
+        sm_count=KO.sm_count("cuda"))
+    opt_rec.update(max_abs_err=opt_err, chunk=chunk, blocks=chunk0[-1])
     del net_o, opt
     p50, p50_e = float(np.median(graph_ms)), float(np.median(eager_ms))
     pre, pre_e = float(np.median(pre_ms)), float(np.median(pre_e_ms))
@@ -5218,7 +5227,8 @@ def lenet_phase(torch, K, card):
         f"graph bitwise eager (losses {lg}, every parameter) | "
         f"multi_tensor_step Adam(1e-3): 3 steps bitwise the per-parameter "
         f"loop over LeNet's {opt_rec['tensors']} float32 tensors (max |d| "
-        f"{opt_err}); one update of {opt_rec['elements']} elements: device "
+        f"{opt_err}); one update of {opt_rec['elements']} elements in "
+        f"{opt_rec['blocks']} blocks of {opt_rec['chunk']}: device "
         f"ms kernel={opt_rec['ms']} plain loop={opt_rec['plain_ms']} "
         f"bound={opt_rec['bound_ms']} ({opt_rec['bound_by']}, "
         f"{opt_rec['bytes']} bytes) library (torch._fused_adam_)="
@@ -5545,7 +5555,8 @@ def optimizers_phase(torch, K, card):
     a replayed graph against the loop, its bound (bytes at 3.35 TB/s,
     counting the rule's slots) and, for Adagrad, torch._fused_adagrad_.
     Then Dpsgd's noise over 2**20 elements: mean and standard deviation
-    within 5 standard errors of N(0, 1), bitwise again from the same seed,
+    within 5 standard errors of N(0, 1), bitwise again from the same seed
+    and bitwise its plain version (torch's log, cos and sin on the card),
     and sigma = 0 with gradients under the clip bitwise SGD.  Returns
     {rule: record}."""
     import paddle_tpu_torch as ptt
@@ -5564,6 +5575,8 @@ def optimizers_phase(torch, K, card):
     # where no training would take them
     start = {m: [p.detach().clone() for p in m.parameters()]
              for m in (bert, lenet)}
+    breakdowns = norm_breakdowns(torch, K, bert, "BERT-base")
+    lenet_breakdowns = norm_breakdowns(torch, K, lenet, "LeNet")
     recs = {}
     for rule, make in NEW_RULES.items():
         kernel = KO.multi_tensor_norm_step if rule in NORM_RULES \
@@ -5589,6 +5602,8 @@ def optimizers_phase(torch, K, card):
         how = "bitwise"
         if rule in NORM_RULES:
             rec["steps_vs_loop"] = steps
+            rec["breakdown"] = breakdowns[rule]
+            rec["lenet_breakdown"] = lenet_breakdowns[rule]
             how = (f"within its tolerance (steps: kernel vs loop "
                    f"{steps['bert']['step_rel_err']:.3e} bf16, "
                    f"{steps['lenet']['step_rel_err']:.3e} float32 of the "
@@ -5630,7 +5645,7 @@ def optimizers_phase(torch, K, card):
     plain_err = (z - KO.dpsgd_noise_plain(0x5EED, 0, n, "cuda")).abs() \
         .max().item()
     if not torch.equal(runs[0], runs[1]) or abs(mean) > 5 * se \
-            or abs(std - 1) > 5 * se / math.sqrt(2) or plain_err > 1e-5:
+            or abs(std - 1) > 5 * se / math.sqrt(2) or plain_err != 0:
         fail(f"optimizers dpsgd: noise mean {mean}, std {std} over {n} "
              f"(5 standard errors: {5 * se:.3e}, {5 * se / math.sqrt(2):.3e})"
              f", repeat bitwise {torch.equal(runs[0], runs[1])}, max |kernel"
@@ -5651,9 +5666,141 @@ def optimizers_phase(torch, K, card):
                               "max_abs_vs_plain": plain_err}
     log(f"[optimizers] dpsgd noise over {n} elements: mean {mean:.3e}, std "
         f"{std:.6f} (within 5 standard errors of N(0, 1)), the same seed "
-        f"bitwise, max |kernel - plain version| {plain_err:.3e}; sigma = 0 "
-        f"with gradients under the clip bitwise SGD")
+        f"bitwise, bitwise the plain version (max |d| {plain_err:.3e}); "
+        f"sigma = 0 with gradients under the clip bitwise SGD")
     return recs
+
+
+def tree_bytes(params, slots):
+    """The bytes one update of the tree must move: each parameter read and
+    written, each gradient read, each slot read and written once."""
+    return sum(3 * p.numel() * p.element_size()
+               + sum(2 * t.numel() * t.element_size() for t in s)
+               for p, s in zip(params, slots))
+
+
+# the elements of p's dtype that the two norm launches move for each
+# element of the tree: Lamb reads p, g, m and v and writes m and v, then
+# reads p, m and v and writes p; LARS reads p and g, then p, g and its
+# velocity and writes p and the velocity; Dpsgd reads g, then p and g and
+# writes p
+NORM_SWEEPS = {"lamb": 10, "lars": 7, "dpsgd": 4}
+
+
+def kernel_b_breakdown(torch, K, opt, params, lr, calls=5):
+    """Kernel B over ``params`` in the rule of ``opt`` (its slots and the
+    parameters' gradients in place): the device ms of one call (from a
+    replayed graph); the device ms of a launch of each of its kernels,
+    from a trace of one replay of a graph of ``calls`` calls, under
+    ``per_launch`` where the trace holds its launches (a trace late in a
+    long run can hold none of them); a copy twin
+    (one ``copy_`` of float32 that reads and writes the bytes of the
+    tree's bound, timed from a replayed graph); and the two launches'
+    floor (the bytes they move, :data:`NORM_SWEEPS`, at 3.35 TB/s)."""
+    KO = K.optimizer
+    kind, hyper = opt._kernel_spec()
+    hyper = opt._kernel_hyper(hyper)
+    grads = [p.grad for p in params]
+    slots = [[opt._slots[id(p)][n] for n in opt._slot_names()]
+             for p in params]
+    scalars = KO.write_scalars(KO.make_scalars("cuda"), kind, lr, 2, hyper)
+
+    def one():
+        KO.multi_tensor_norm_step(kind, params, grads, slots, lr, 2, hyper,
+                                  scalars)
+
+    call_ms = time_ms(torch, one, iters=5, reps=3)[0]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            one()
+    _, _, kernels = trace_window(torch, graph.replay)
+    per = {}
+    for name in TRACE_KERNELS["multi_tensor_norm_step"].values():
+        hits = [(t, c) for t, key, c in kernels if name in key]
+        n = sum(c for _, c in hits)
+        if n:
+            per[name] = {"ms": sum(t for t, _ in hits) / n, "traced": n}
+    del graph
+    n_bytes = tree_bytes(params, slots)
+    src = torch.zeros(n_bytes // 8, dtype=torch.float32, device="cuda")
+    dst = torch.empty_like(src)
+    copy_ms = time_ms(torch, lambda: dst.copy_(src), iters=5, reps=3)[0]
+    del src, dst
+    design = NORM_SWEEPS[kind] * sum(p.numel() * p.element_size()
+                                     for p in params)
+    rec = {"kind": kind, "ms": call_ms, "copy_twin_ms": copy_ms,
+           "bytes": n_bytes, "design_bytes": design,
+           "floor_ms": design / HBM_BYTES_PER_S * 1e3}
+    if per:
+        rec["per_launch"] = per
+    return rec
+
+
+def breakdown_text(r):
+    per = ", ".join(f"{k} {v['ms']:.5f} ms (traced x{v['traced']})"
+                    for k, v in r.get("per_launch", {}).items()) \
+        or "no launch in the trace"
+    return (f"{r['kind']}: one call {r['ms']:.5f} ms; by launch {per}; a "
+            f"copy of the bound's {r['bytes']} bytes "
+            f"{r['copy_twin_ms']:.5f} ms; the two launches' floor "
+            f"{r['floor_ms']:.5f} ms ({r['design_bytes']} bytes)")
+
+
+def norm_breakdowns(torch, K, model, tree):
+    """``kernel_b_breakdown`` of each norm rule (NEW_RULES' optimizers)
+    over ``model``'s parameters, after one step from seeded gradients
+    (which makes the slots)."""
+    import paddle_tpu_torch as ptt
+
+    O, R = ptt.optimizer, ptt.regularizer
+    params = list(model.parameters())
+    out = {}
+    for rule in NORM_RULES:
+        g = torch.Generator(device="cuda").manual_seed(33)
+        for p in params:
+            p.grad = (1e-3 * torch.randn(*p.shape, generator=g,
+                                         device="cuda")).to(p.dtype)
+        opt = NEW_RULES[rule](O, R, params)
+        opt.step()
+        out[rule] = kernel_b_breakdown(torch, K, opt, params, opt.get_lr())
+        log(f"[optimizers] Kernel B over {tree}'s {len(params)} "
+            f"{str(params[0].dtype)[6:]} tensors, one call: "
+            f"{breakdown_text(out[rule])}")
+        del opt
+    for p in params:
+        p.grad = None
+    return out
+
+
+def optimizers_main():
+    """``python3 chip_smoke.py --optimizers``: the build and the phases
+    that hold the optimizer kernels, alone (the full run is the script
+    without arguments)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    import paddle_tpu_torch.ops.kernels as K
+    from paddle_tpu_torch.models import GPTConfig
+    from paddle_tpu_torch.ops.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    warnings.filterwarnings("error", message=ACCUMULATE_WARNING)
+    card = device_and_build(torch, build)
+    optimizer_phase(torch, K, GPTConfig(dropout=0.0, attn_dropout=0.0))
+    for name, phase in (("lenet", lenet_phase), ("resnet50", resnet50_phase),
+                        ("optimizers", optimizers_phase),
+                        ("bert-lamb-accum", bert_lamb_accum_phase),
+                        ("resnet50-lars", resnet50_lars_phase)):
+        release(torch, name)
+        mark(name)
+        phase(torch, K, card)
+        torch.cuda.synchronize()
+    log(f"[time] the run took {time.perf_counter() - START:.1f}s")
+    return 0
 
 
 def wrappers_phase(torch, K, card):
@@ -5858,7 +6005,14 @@ def bert_lamb_accum_phase(torch, K, card):
     if syncs != ["engine.py"] * 2:
         fail(f"bert-lamb-accum: 4 replayed steps with log_freq 4 made the "
              f"syncs {syncs}, not the two drains")
-    del model, api, engine
+    # the path's Kernel B at its own tree and rule, from seeded gradients
+    params = list(model.parameters())
+    g = torch.Generator(device="cuda").manual_seed(35)
+    for p in params:
+        p.grad = (1e-3 * torch.randn(*p.shape, generator=g,
+                                     device="cuda")).to(p.dtype)
+    kernel_b = kernel_b_breakdown(torch, K, api._optimizer, params, LAMB_LR)
+    del model, api, engine, params
     release(torch, "bert-lamb-accum eager")
     _, api_e, engine_e = lamb_accum_model(torch, "eager")
     eager_losses = fit(api_e, 0, ACC_STEPS)
@@ -5898,8 +6052,10 @@ def bert_lamb_accum_phase(torch, K, card):
         f"accum {ACCUM} at B={ACC_B} {peak / gib:.3f} GiB, accum 1 at B=32 "
         f"{peaks[32] / gib:.3f} GiB, accum 1 at B=128 "
         f"{peaks[128] / gib:.3f} GiB; wrapper launches (warm-up and "
-        f"capture) {counts}")
+        f"capture) {counts} | Kernel B at this tree, one call: "
+        f"{breakdown_text(kernel_b)}")
     return counts, {"p50_ms": p50, "samples_s": ACC_B / p50 * 1e3,
+                    "kernel_b": kernel_b,
                     "mfu": flops / (p50 / 1e3) / PEAK_BF16_TENSOR,
                     "busy_share": busy / wall_ms, "losses": losses,
                     "peak_gib": {"accum4_b128": peak / gib,
@@ -6006,6 +6162,7 @@ def resnet50_lars_phase(torch, K, card):
         fail(f"resnet50-lars optimizer: LarsMomentum took the "
              f"{opt_rec['kind']} rule")
     opt_rec.update(max_abs_err=opt_err, **opt_steps)
+    opt_rec["breakdown"] = kernel_b_breakdown(torch, K, opt, params, LARS_LR)
     del model, opt, params
     device_ms = busy / 2
     p50 = float(np.median(step_ms[1:]))
@@ -6031,7 +6188,8 @@ def resnet50_lars_phase(torch, K, card):
         f"one update of {opt_rec['elements']} elements: device ms kernel="
         f"{opt_rec['ms']} plain loop={opt_rec['plain_ms']} bound="
         f"{opt_rec['bound_ms']} ({opt_rec['bound_by']}, {opt_rec['bytes']} "
-        f"bytes) library={NO_LIBRARY}")
+        f"bytes) library={NO_LIBRARY}; one call by launch: "
+        f"{breakdown_text(opt_rec['breakdown'])}")
     return counts, {"p50_ms": p50, "device_ms": device_ms,
                     "samples_s": R50_B / device_ms * 1e3,
                     "losses": losses, "optimizer_ms": opt_ms[0] / 2,
@@ -6040,7 +6198,7 @@ def resnet50_lars_phase(torch, K, card):
                     "tree_check": {k: opt_rec[k] for k in (
                         "tensors", "elements", "max_abs_err", "step_rel_err",
                         "planted_rel_err", "ms", "plain_ms", "bound_ms",
-                        "bound_by", "library_ms")}}
+                        "bound_by", "library_ms", "breakdown")}}
 
 
 # ---------------------------------------------------------------------------
@@ -8939,7 +9097,8 @@ def main():
                     "elements": r["elements"],
                     **{k: r[k] for k in (
                         "max_abs_err", "ms", "plain_ms", "bound_ms",
-                        "bound_by", "library_ms")}}
+                        "bound_by", "library_ms", "chunk", "blocks")
+                        if k in r}}
         if name == "multi_tensor_step":
             # the elementwise rules this kernel gained last, each over
             # BERT-base's bf16 tree: bitwise the loop, timed
@@ -9068,9 +9227,10 @@ def main():
                                 "bound_by", "library_ms")},
         "rule": "lamb", "tensors": lamb["tensors"],
         "elements": lamb["elements"],
+        "floor_ms": lamb["breakdown"]["floor_ms"],
         "rules": {rule: {k: rule_recs[rule][k] for k in (
             "kind", "launches", "max_abs_err", "steps_vs_loop", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "breakdown")}
             for rule in NORM_RULES},
         "dpsgd_noise": rule_recs["dpsgd"]["noise"],
         "paths": {
@@ -9080,7 +9240,8 @@ def main():
                 "traced_launches_a_step": accum_rec["traced_a_step"].get(
                     "multi_tensor_norm_step", 0),
                 **{k: accum_rec[k] for k in ("p50_ms", "samples_s", "mfu",
-                                             "busy_share", "peak_gib")}},
+                                             "busy_share", "peak_gib",
+                                             "kernel_b")}},
             "resnet50-lars": {
                 "launches": lars_counts["multi_tensor_norm_step"],
                 "launches_a_replay": lars_rec["launches_a_replay"][
@@ -9107,4 +9268,6 @@ if __name__ == "__main__":
         sys.exit(front_end_main())
     if sys.argv[1:2] == ["--fleet"]:
         sys.exit(fleet_main())
+    if sys.argv[1:2] == ["--optimizers"]:
+        sys.exit(optimizers_main())
     sys.exit(main())

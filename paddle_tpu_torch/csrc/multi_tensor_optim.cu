@@ -34,13 +34,17 @@
 // optimizer.py): the learning rate and the bias corrections of the step
 // change every step, and a launch captured in a CUDA graph keeps its
 // parameters, so the captured training step reads this step's values where
-// a parameter would hold the capture's.  Each block takes one fixed-size
-// chunk of one tensor, found by a binary search of the chunk prefix
-// (uniform over the block, read from the constant bank), so the 38.6
-// M-element embedding and a 768-element bias are cut into like pieces of
-// work.  A tensor whose pointers all lie on 16-byte boundaries is walked
-// four elements a thread (8 or 16-byte loads and stores); any other tensor
-// element by element.
+// a parameter would hold the capture's.  Each block takes one chunk of one
+// tensor, found by a binary search of the chunk prefix (uniform over the
+// block, read from the constant bank), so the 38.6 M-element embedding and
+// a 768-element bias are cut into like pieces of work.  The host sizes the
+// elementwise kernel's chunk to the launch (ops/kernels/optimizer.py
+// tree_chunk): 65,536 elements where the tree gives every SM two blocks of
+// that, down to 1,024 (one round of the block's threads) for a small tree,
+// whose few large tensors would otherwise each be walked by one block in
+// dependent rounds.  A tensor whose pointers all lie on 16-byte
+// boundaries is walked four elements a thread (8 or 16-byte loads and
+// stores); any other tensor element by element.
 //
 // The norm rules need a sum over a whole tensor before any element can be
 // updated, and the blocks of one tensor run in no order.  So the first

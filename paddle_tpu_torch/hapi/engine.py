@@ -540,6 +540,15 @@ class TrainEngine(_GraphEngine):
         return (*(v for slots in opt._slots.values() for v in slots.values()),
                 *opt._scalars.values())
 
+    def _state_key(self):
+        """The addresses, and which parameters are trainable: a graph
+        updates the parameters that had a gradient when it was captured,
+        so a parameter frozen (or thawed) since then drops the graphs at
+        the next ``begin()``, as the reference splits its trainable tree
+        there."""
+        return (super()._state_key(),
+                tuple(t.requires_grad for t in self._held))
+
     def _prologue(self):
         """The host prologue, once per executed step: the optimizer's step
         count, lr and kernel scalars, and the dropout step counter, each

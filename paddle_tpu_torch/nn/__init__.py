@@ -8,4 +8,4 @@ from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
 from .decode import (BeamSearchDecoder, Decoder,  # noqa: F401
                      dynamic_decode)
 from .layer import *  # noqa: F401,F403
-from .layer_base import Layer, ParamAttr  # noqa: F401
+from .layer_base import Layer, Parameter, ParamAttr  # noqa: F401

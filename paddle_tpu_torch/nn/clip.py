@@ -79,10 +79,13 @@ class ClipGradByGlobalNorm(ClipGradBase):
 
 
 @torch.no_grad()
-def clip_grad_norm_(parameters, max_norm):
+def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
+                    error_if_nonfinite=False):
     """Scale every parameter's ``.grad`` in place so that their global L2
     norm is at most ``max_norm``; returns the norm before clipping (a
-    float32 device scalar)."""
+    float32 device scalar).  ``norm_type`` and ``error_if_nonfinite`` are
+    accepted and not read, as the reference's (paddle_tpu/nn/clip.py
+    ``clip_grad_norm_``): the norm is always L2."""
     params = [p for p in parameters if p.grad is not None]
     if not params:
         return torch.zeros([])

@@ -137,3 +137,16 @@ def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
     if prior_dist is not None:
         return (1 - epsilon) * label + epsilon * prior_dist
     return (1 - epsilon) * label + epsilon / label.shape[-1]
+
+
+# the activations the package's ``__init__`` defines, under this module's
+# path too (the reference's ``activation`` module re-exports them); read
+# at access: this module is imported before the package defines them
+_FROM_PACKAGE = ("relu", "gelu", "softmax", "log_softmax", "tanh")
+
+
+def __getattr__(name):
+    if name in _FROM_PACKAGE:
+        from .. import functional
+        return getattr(functional, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

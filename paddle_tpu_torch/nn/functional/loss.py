@@ -155,3 +155,13 @@ def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
     if reduction == "mean":
         return (raw / label_lengths.clamp_min(1).to(raw.dtype)).mean()
     return reduce_loss(raw, reduction)
+
+
+# ``cross_entropy``, which the package's ``__init__`` defines, under this
+# module's path too (the reference's ``loss`` module re-exports it); read
+# at access: this module is imported before the package defines it
+def __getattr__(name):
+    if name == "cross_entropy":
+        from .. import functional
+        return functional.cross_entropy
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -54,11 +54,32 @@ class LayerList(Layer):
         layers = list(self._modules.values())
         return layers[idx]
 
+    def __setitem__(self, idx, layer):
+        self.add_sublayer(str(idx), layer)
+
     def __len__(self):
         return len(self._modules)
 
     def __iter__(self):
         return iter(self._modules.values())
+
+    def append(self, layer):
+        self.add_sublayer(str(len(self)), layer)
+        return self
+
+    def insert(self, index, layer):
+        """Insert before ``index``; the sublayers are renamed "0", "1", ...
+        in their new order, as the reference renames them."""
+        layers = list(self._modules.values())
+        layers.insert(index, layer)
+        self._modules.clear()
+        for i, sub in enumerate(layers):
+            self.add_sublayer(str(i), sub)
+
+    def extend(self, layers):
+        for layer in layers:
+            self.append(layer)
+        return self
 
 
 class LayerDict(Layer):

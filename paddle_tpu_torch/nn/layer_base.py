@@ -90,12 +90,43 @@ class ParamAttr:
         raise TypeError(f"Cannot make ParamAttr from {attr!r}")
 
 
+def _value_tensor(value, dtype=None):
+    """``value`` (a tensor, numpy array or array-like) as a detached
+    tensor of ``dtype``; a float64 array or a Python float takes the
+    default dtype, as the reference's ``Tensor`` does."""
+    if isinstance(value, torch.Tensor):
+        t = value.detach()
+    else:
+        a = np.asarray(value)
+        t = torch.from_numpy(np.array(a))
+        if dtype is None and a.dtype == np.float64:
+            dtype = get_default_dtype()
+    dt = convert_dtype(dtype)
+    return t if dt is None or t.dtype == dt else t.to(dt)
+
+
 class Parameter(torch.nn.Parameter):
-    """``torch.nn.Parameter`` with the reference's parameter attributes:
-    a writable ``name`` (torch's own ``Tensor.name`` cannot be set),
-    ``optimize_attr``, ``regularizer`` and ``need_clip``, which
-    :meth:`Layer.create_parameter` sets.  A cast (``Layer.to``, ``astype``)
-    keeps the object and so its attributes; a deep copy copies them."""
+    """``torch.nn.Parameter`` with the reference's parameter surface
+    (paddle_tpu/nn/layer_base.py ``Parameter``): the constructor
+    ``Parameter(value, dtype=None, name=None, trainable=True)``,
+    ``trainable`` and ``stop_gradient`` as views of ``requires_grad`` (a
+    frozen parameter gets no gradient, so the optimizer and ``Model.fit``
+    leave it as it is), ``set_value``, a writable ``name`` (torch's own
+    ``Tensor.name`` cannot be set), and ``optimize_attr``, ``regularizer``
+    and ``need_clip``, which :meth:`Layer.create_parameter` sets.  A cast
+    (``Layer.to``, ``astype``) keeps the object and so its attributes; a
+    deep copy copies them."""
+
+    def __new__(cls, value=None, dtype=None, name=None, trainable=True):
+        if isinstance(dtype, bool):
+            # torch's own form, Parameter(data, requires_grad), which its
+            # deep copy and unpickling call
+            dtype, trainable = None, dtype
+        data = None if value is None else _value_tensor(value, dtype)
+        p = super().__new__(cls, data, requires_grad=bool(trainable))
+        if name is not None:
+            p.name = name
+        return p
 
     @property
     def name(self):
@@ -104,6 +135,33 @@ class Parameter(torch.nn.Parameter):
     @name.setter
     def name(self, value):
         self.__dict__["_param_name"] = value
+
+    @property
+    def trainable(self):
+        return self.requires_grad
+
+    @trainable.setter
+    def trainable(self, value):
+        self.requires_grad_(bool(value))
+
+    @property
+    def stop_gradient(self):
+        return not self.requires_grad
+
+    @stop_gradient.setter
+    def stop_gradient(self, value):
+        self.requires_grad_(not value)
+
+    @torch.no_grad()
+    def set_value(self, value):
+        """Write ``value`` into the parameter, cast to its dtype: in place
+        where the shape is the same (a captured graph keeps reading it),
+        else as new data of the value's shape."""
+        v = _value_tensor(value).to(self.dtype)
+        if v.shape == self.shape:
+            self.copy_(v)
+        else:
+            self.data = v.to(self.device)
 
     def __repr__(self):
         return "Parameter containing:\n" + repr(self.data)
@@ -171,7 +229,7 @@ class Layer(torch.nn.Module):
         init = attr.initializer or default_initializer or \
             (I.Constant(0.0) if is_bias else I.XavierUniform())
         value = init(shape, convert_dtype(dtype) or self._dtype)
-        p = Parameter(value, requires_grad=attr.trainable)
+        p = Parameter(value, trainable=attr.trainable)
         p.name = attr.name or _unique_name("param")
         p.optimize_attr = {"learning_rate": attr.learning_rate}
         p.regularizer = attr.regularizer

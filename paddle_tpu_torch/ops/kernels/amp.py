@@ -90,7 +90,8 @@ def check_finite_and_unscale_(grads, inv_scale, found_inf):
     stream = build.stream_of(grads[0])
     for dtype in DTYPES:
         group = [g for g in grads if g.dtype == dtype]
-        for idx, chunk0 in chunk_groups([g.numel() for g in group]):
+        for idx, chunk0, _ in chunk_groups([g.numel() for g in group],
+                                           CHUNK):
             n = len(idx)
             err = fn(build.dtype_code(group[0]), n,
                      (ctypes.c_void_p * n)(*(group[i].data_ptr()

@@ -18,14 +18,18 @@ Two kernels (csrc/multi_tensor_optim.cu), both bound by bytes:
   of a float or ``L2Decay`` (g + c p) or ``L1Decay`` (g + c sign(p))
   applied to the gradient first.  Its result is bitwise the eager loop's
   on the card: it copies each eager op's float32 (or bf16) rounding.
+  Blocks take chunks of elements (:func:`chunk_groups`), sized to the
+  launch (:func:`tree_chunk`), so one large embedding and many small
+  biases balance and a small tree still spreads over the SMs.
 - :func:`multi_tensor_norm_step` (``norm_partials_kernel`` then
   ``norm_update_kernel``): Lamb (trust ratio ||p|| / ||r||), LarsMomentum
   (local lr from ||p|| and ||g||) and Dpsgd (per-tensor clip by ||g||,
   Gaussian noise).  The first launch writes each chunk's float32 partial
   sums of squares (Lamb also updates its moments there); the second sums a
-  tensor's partials in a fixed order and updates.  No atomics, so a replay
-  is bitwise repeatable; the norms' summation order is not torch's, so it
-  holds the eager loop to :data:`NORM_RTOL` rather than bitwise.
+  tensor's partials in a fixed order and updates.  Its chunk is
+  :data:`CHUNK`.  No atomics, so a replay is bitwise repeatable; the
+  norms' summation order is not torch's, so it holds the eager loop to
+  :data:`NORM_RTOL` rather than bitwise.
 
 Both read their scalars (:func:`hyper_floats`) from a float32
 [:data:`N_SCALARS`] device tensor written from the host by
@@ -33,9 +37,7 @@ Both read their scalars (:func:`hyper_floats`) from a float32
 writes the step's before each replay of its captured step, whose launches
 hold the tensor's address, not the values.  The host builds a table of
 per-tensor pointers and counts and passes it as one launch parameter: no
-host sync.  Blocks take fixed-size chunks of elements
-(:func:`chunk_groups`), so one large embedding and many small biases
-balance.
+host sync.
 
 Slots are updated IN PLACE (the loop replaced them with new tensors): the
 reference's state arrays are immutable, so ``Optimizer.state_dict()``
@@ -65,7 +67,9 @@ SLOTS = {"sgd": 0, "momentum": 1, "nesterov": 1, "adam": 2, "adamw": 2,
          "rmsprop_centered": 3, "ftrl": 2, "lamb": 2, "lars": 1,
          "dpsgd": 0}
 DECAYS = ("none", "l2", "l1")     # the coupled decay: the source's decay
-CHUNK = 1 << 16          # elements a block
+CHUNK = 1 << 16          # the most elements a block of multi_tensor_kernel
+CHUNK_FLOOR = 4 * 256    # the least: one round of its 256 threads
+BLOCKS_PER_SM = 2        # the blocks a launch aims at on each SM
 MAX_TENSORS = 512        # tensors a launch: kMaxTensors of the source
 _ARGTYPES = (ctypes.c_int, ctypes.c_int, ctypes.c_int) \
     + (ctypes.c_void_p,) * 5 + (ctypes.c_void_p, ctypes.c_void_p,
@@ -328,22 +332,42 @@ def make_scalars(device):
     return torch.empty(N_SCALARS, dtype=torch.float32, device=device)
 
 
-def chunk_groups(numels, chunk=CHUNK, max_tensors=MAX_TENSORS):
+def tree_chunk(n, sm_count):
+    """Elements a block of ``multi_tensor_kernel`` for a launch of ``n``
+    elements on a card of ``sm_count`` SMs: enough blocks for
+    :data:`BLOCKS_PER_SM` on every SM where the tree has the elements, in
+    multiples of :data:`CHUNK_FLOOR` (one round of the block), at most
+    :data:`CHUNK`.  A large tree keeps the largest chunk; a small one is
+    cut finer, so that its largest tensor is not walked by a few blocks in
+    many dependent rounds."""
+    want = -(-n // (BLOCKS_PER_SM * sm_count))
+    return min(CHUNK, max(CHUNK_FLOOR,
+                          -(-want // CHUNK_FLOOR) * CHUNK_FLOOR))
+
+
+def chunk_groups(numels, chunk=None, max_tensors=MAX_TENSORS, sm_count=None):
     """Split tensors of ``numels`` elements into launches: a list of
-    (indices, chunk0), one per launch, of at most ``max_tensors`` tensors
-    each, empty tensors left out; ``chunk0[i]`` is the first chunk of the
-    i-th tensor of the launch and ``chunk0[-1]`` the launch's block count.
-    Block b of a launch updates elements [c * chunk, min((c + 1) * chunk,
-    n)) of the last tensor i with chunk0[i] <= b, c = b - chunk0[i]."""
+    (indices, chunk0, chunk), one per launch, of at most ``max_tensors``
+    tensors each, empty tensors left out; ``chunk`` the launch's elements a
+    chunk (the given one, else :func:`tree_chunk` of the launch's elements
+    on ``sm_count`` SMs); ``chunk0[i]`` is the first chunk of the i-th
+    tensor of the launch and ``chunk0[-1]`` the launch's chunks.  Chunk b
+    of a launch is elements [c * chunk, min((c + 1) * chunk, n)) of the
+    last tensor i with chunk0[i] <= b, c = b - chunk0[i]."""
     live = [i for i, n in enumerate(numels) if n > 0]
     groups = []
     for at in range(0, len(live), max_tensors):
         idx = live[at:at + max_tensors]
+        size = chunk or tree_chunk(sum(numels[i] for i in idx), sm_count)
         chunk0 = [0]
         for i in idx:
-            chunk0.append(chunk0[-1] + -(-numels[i] // chunk))
-        groups.append((idx, chunk0))
+            chunk0.append(chunk0[-1] + -(-numels[i] // size))
+        groups.append((idx, chunk0, size))
     return groups
+
+
+def sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def pow_mode(lr_power):
@@ -453,10 +477,12 @@ def multi_tensor_step(kind, params, grads, slots, lr, t, hyper,
     pmode = pow_mode(hyper["lr_power"]) if kind == "ftrl" else 0
     dtype = build.dtype_code(params[0])
     stream = build.stream_of(params[0])
-    for idx, chunk0 in chunk_groups([p.numel() for p in params]):
+    sms = sm_count(params[0].device)
+    for idx, chunk0, chunk in chunk_groups([p.numel() for p in params],
+                                           sm_count=sms):
         ptrs, counts = _tables(params, grads, slots, SLOTS[kind], idx)
         err = fn(code, dtype, len(idx), *ptrs, counts,
-                 (ctypes.c_int * (len(idx) + 1))(*chunk0), CHUNK, decay,
+                 (ctypes.c_int * (len(idx) + 1))(*chunk0), chunk, decay,
                  pmode, scalars.data_ptr(), stream)
         build.check(err, "multi_tensor_step")
         multi_tensor_step.launches += 1
@@ -488,7 +514,7 @@ def multi_tensor_norm_step(kind, params, grads, slots, lr, t, hyper,
     code = NORM_KINDS.index(kind)
     dtype = build.dtype_code(params[0])
     stream = build.stream_of(params[0])
-    for idx, chunk0 in chunk_groups([p.numel() for p in params]):
+    for idx, chunk0, _ in chunk_groups([p.numel() for p in params], CHUNK):
         ptrs, counts = _tables(params, grads, slots, SLOTS[kind], idx)
         partials = torch.empty((chunk0[-1], 2), dtype=torch.float32,
                                device=params[0].device)

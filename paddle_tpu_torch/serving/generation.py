@@ -308,7 +308,8 @@ class GenerationEngine:
 
     Capture bookkeeping: ``capture_count`` (captures made, 1 after
     ``start()`` on a CUDA device: the decode step, or with a draft the
-    speculative step), ``replays`` (steps replayed),
+    speculative step; also ``compile_count``, the reference's name, and
+    the metrics' gauge of that name), ``replays`` (steps replayed),
     ``graph_launches`` (kernel wrapper name -> launches in one replay, as
     the wrappers counted them while the step was captured: a replay runs
     the kernels again without passing through the wrappers) and
@@ -521,6 +522,14 @@ class GenerationEngine:
                                f"idle state: {changed}")
         self._graph = cap.graph
         self.capture_count += 1
+        self.metrics.set_compile_count(self.compile_count)
+
+    @property
+    def compile_count(self) -> int:
+        """The graphs captured at ``start()`` (1 on a CUDA device, 0 on
+        the CPU): the reference's count of the executables it compiles at
+        warmup, which the metrics' ``compile_count`` gauge reads."""
+        return self.capture_count
 
     @property
     def free_count(self) -> int:

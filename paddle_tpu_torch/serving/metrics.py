@@ -178,7 +178,7 @@ class GenerationMetrics:
     _page_occupancy, _tokens_total, _requests_total{result},
     _prefix_cache_hits_total / _misses_total, _prefix_cache_hit_ratio,
     _prefill_chunks_total, _spec_accepted_total / _spec_proposed_total,
-    _spec_accept_ratio."""
+    _spec_accept_ratio, _compile_count."""
 
     WINDOW_S = 60.0
     RESERVOIR = 4096
@@ -219,6 +219,13 @@ class GenerationMetrics:
                   "accepted / proposed speculative draft tokens since "
                   "start (greedy lanes only; 0 when not speculating)",
                   fn=self._spec_ratio_locked)
+        # the graphs captured at start() (the reference counts the
+        # executables it compiles at warmup)
+        self.compile_count = 0
+        reg.gauge("paddle_genserve_compile_count",
+                  "decode-step graphs captured at start() (must not grow "
+                  "under traffic)",
+                  fn=lambda: self.compile_count)
         self._requests = reg.counter(
             "paddle_genserve_requests_total",
             "generation request outcomes by result", label="result",
@@ -293,6 +300,10 @@ class GenerationMetrics:
         self._spec_accepted.inc(accepted)
         self._spec_proposed.inc(proposed)
 
+    def set_compile_count(self, n: int):
+        with self._lock:
+            self.compile_count = int(n)
+
     # -- derived values ----------------------------------------------------
     def _prefix_ratio_locked(self):
         hits = self._prefix_hits.value
@@ -335,6 +346,7 @@ class GenerationMetrics:
                 "spec_accept_ratio": self._spec_ratio_locked(),
                 "spec_proposed": self._spec_proposed.value,
                 "prefill_chunks": self._chunks.value,
+                "compile_count": self.compile_count,
                 **dict(sorted(self.counters.items())),
             }
 

@@ -2851,6 +2851,174 @@ def test_dpsgd_groups_draw_distinct_noise_as_the_loop(dev):
             assert not torch.allclose(noise[i], noise[j], atol=0.1), (i, j)
 
 
+LENET_SIZES = [54, 6, 2400, 16, 48000, 120, 10080, 84, 840, 10]
+
+
+def _tree_run(dev, make, dtype, plain, sizes, lr, steps=3):
+    """``steps`` updates by step() or step_plain() of ``make``'s optimizer
+    over flat parameters of ``sizes`` elements, from seeded values and
+    gradients (Dpsgd's seeds from one framework seed on both sides)."""
+    ptt.seed(6)
+    g = torch.Generator(device=dev).manual_seed(24)
+    params = [torch.nn.Parameter(torch.randn(n, generator=g, device=dev)
+                                 .to(dtype)) for n in sizes]
+    opt = make(params, lr, None)
+    for _ in range(steps):
+        for p in params:
+            p.grad = (0.1 * torch.randn(p.shape, generator=g, device=dev)) \
+                .to(dtype)
+        opt.step_plain() if plain else opt.step()
+    torch.cuda.synchronize()
+    return params, [[v.clone() for v in opt._slots.get(id(p), {}).values()]
+                    for p in params]
+
+
+@pytest.mark.parametrize("sizes", [[1], LENET_SIZES],
+                         ids=["one-element", "lenet"])
+@pytest.mark.parametrize("kind", ["adam", "momentum"])
+def test_tree_sized_chunks_are_bitwise_the_loop(dev, kind, sizes):
+    """The elementwise kernel with its chunk sized to the tree (1,024 at
+    LeNet's 61,610 elements: about 60 blocks): one launch a step, bitwise
+    the per-parameter loop after 3 steps."""
+    make = {"adam": lambda ps, lr, clip: O.Adam(lr, parameters=ps),
+            "momentum": lambda ps, lr, clip: O.Momentum(
+                lr, momentum=0.9, parameters=ps)}[kind]
+    before = multi_tensor.multi_tensor_step.launches
+    got, got_s = _tree_run(dev, make, torch.float32, False, sizes, 1e-3)
+    assert multi_tensor.multi_tensor_step.launches == before + 3
+    want, want_s = _tree_run(dev, make, torch.float32, True, sizes, 1e-3)
+    for a, b in zip(got + [x for s in got_s for x in s],
+                    want + [x for s in want_s for x in s]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rule", sorted(NORM_RULES))
+@pytest.mark.parametrize("tree", ["lenet", "chunks"])
+def test_norm_kernels_at_small_trees_are_the_loop_within_tolerance(
+        dev, rule, dtype, tree):
+    """The norm kernels at LeNet's tree (one chunk a tensor) and at a tree
+    whose tensors span several 65,536-element chunks: two launches a
+    step, every parameter and slot within NORM_RTOL / NORM_BF16_RTOL of
+    the loop after 3 steps, and a second run bitwise the first."""
+    sizes = {"lenet": LENET_SIZES,
+             "chunks": [140_000, 5_000, 3, 70_000, 65_536]}[tree]
+    tol = multi_tensor.NORM_RTOL if dtype == torch.float32 \
+        else multi_tensor.NORM_BF16_RTOL
+    make, lr = NORM_RULES[rule], NORM_LR[rule]
+    before = multi_tensor.multi_tensor_norm_step.launches
+    got, got_s = _tree_run(dev, make, dtype, False, sizes, lr)
+    assert multi_tensor.multi_tensor_norm_step.launches == before + 6
+    again, again_s = _tree_run(dev, make, dtype, False, sizes, lr)
+    want, want_s = _tree_run(dev, make, dtype, True, sizes, lr)
+    for a, b, c in zip(got + [x for s in got_s for x in s],
+                       again + [x for s in again_s for x in s],
+                       want + [x for s in want_s for x in s]):
+        assert torch.equal(a, b)
+        assert _rel_err(a, c) <= tol
+
+
+@pytest.mark.parametrize("rule", sorted(NORM_RULES))
+def test_norm_kernel_replays_are_bitwise_repeatable(dev, rule):
+    """The two norm launches captured in a CUDA graph and replayed twice
+    from the same state: bitwise the same parameters and slots, and equal
+    to the eager launches."""
+    g = torch.Generator(device=dev).manual_seed(25)
+    ps = [torch.nn.Parameter(torch.randn(n, generator=g, device=dev)
+                             .to(torch.bfloat16))
+          for n in (140_000, 9_000, 20_000, 3)]
+    for p in ps:
+        p.grad = (0.1 * torch.randn(p.shape, generator=g, device=dev)) \
+            .to(torch.bfloat16)
+    opt = NORM_RULES[rule](ps, NORM_LR[rule], None)
+    opt.step()              # the slots exist before the capture
+    spec = opt._kernel_spec()
+    kind, hyper = spec[0], opt._kernel_hyper(spec[1])
+    slots = [[opt._slots[id(p)][n] for n in opt._slot_names()] for p in ps]
+    scalars = multi_tensor.write_scalars(multi_tensor.make_scalars(dev),
+                                         kind, NORM_LR[rule], 2, hyper)
+    state = [t.detach().clone() for t in ps + [x for s in slots for x in s]]
+
+    def restore():
+        with torch.no_grad():
+            for t, v in zip(ps + [x for s in slots for x in s], state):
+                t.copy_(v)
+
+    def step():
+        multi_tensor.multi_tensor_norm_step(
+            kind, ps, [p.grad for p in ps], slots, NORM_LR[rule], 2, hyper,
+            scalars, seed=77)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    runs = []
+    for replay in (graph.replay, graph.replay, step):
+        restore()
+        replay()
+        torch.cuda.synchronize()
+        runs.append([t.detach().clone()
+                     for t in ps + [x for s in slots for x in s]])
+    for a, b, c in zip(*runs):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def _frozen_fit(dev, steps=3):
+    from paddle_tpu_torch.hapi.engine import TrainEngine
+
+    torch.manual_seed(0)
+    net = tnn.Sequential(tnn.Linear(16, 32), tnn.ReLU(), tnn.Linear(32, 4))
+    net.to(dev)
+    model = ptt.Model(net).prepare(
+        O.Adam(learning_rate=0.01, parameters=net.parameters()),
+        tnn.MSELoss())
+    engine = model._engine = TrainEngine(model)
+    g = torch.Generator().manual_seed(1)
+    data = ptt.io.TensorDataset([torch.randn(8 * steps, 16, generator=g),
+                                 torch.randn(8 * steps, 4, generator=g)])
+    return net, model, engine, data
+
+
+def test_a_frozen_weight_stays_through_the_captured_fit_step(dev):
+    """C10 on the card: a weight frozen before ``fit`` stays bitwise
+    through the captured step and its replays; a freeze between two
+    ``fit`` calls captures the step again, and the weight frozen then
+    stays."""
+    net, model, engine, data = _frozen_fit(dev)
+    net[0].weight.stop_gradient = True
+    w0 = net[0].weight.detach().clone()
+    b0 = net[0].bias.detach().clone()
+    model.fit(data, batch_size=8, shuffle=False, verbose=0)
+    torch.cuda.synchronize()
+    assert engine.captures == 1 and engine.replays == 2
+    assert torch.equal(net[0].weight, w0)
+    assert not torch.equal(net[0].bias, b0)
+    net[2].weight.trainable = False
+    w2 = net[2].weight.detach().clone()
+    model.fit(data, batch_size=8, shuffle=False, verbose=0)
+    torch.cuda.synchronize()
+    assert engine.captures == 2
+    assert torch.equal(net[2].weight, w2) and torch.equal(net[0].weight, w0)
+
+
+def test_generation_engine_compile_count_is_its_captures(dev):
+    """C13 on the card: ``compile_count`` is the one graph ``start()``
+    captured, in the engine and in its metrics' gauge."""
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    model = _serving_model(dev, torch.bfloat16)
+    with GenerationEngine(model, device=dev, **SERVE_ENGINE) as eng:
+        assert eng.compile_count == eng.capture_count == 1
+        assert eng.metrics.snapshot()["compile_count"] == 1
+        assert "paddle_genserve_compile_count 1" in \
+            eng.metrics.prometheus_text()
+
+
 def _accum_fit(dev, form, k, steps=3):
     from paddle_tpu_torch.hapi.engine import TrainEngine
 

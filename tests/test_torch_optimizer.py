@@ -218,32 +218,156 @@ def _block_ranges(numels, chunk0, chunk):
     return out
 
 
-@pytest.mark.parametrize("numels,chunk,max_tensors", [
-    ([1], 8, 512),
-    ([1, 8, 9, 17, 0, 3], 8, 512),        # 1 element, a chunk, more, empty
-    ([100, 1, 64, 65, 0, 0, 7], 16, 3),   # split into launches of 3
-    ([5] * 11, 4, 2),
-    ([38_633_472, 768, 2_359_296, 1], 1 << 16, 512),   # GPT-2-small sizes
+# the parameter trees the card runs (element counts, in parameter order)
+LENET = [54, 6, 2400, 16, 48000, 120, 10080, 84, 840, 10]
+
+
+def _gpt2_small(vocab=50304, d=768, ffn=3072, layers=12, pos=1024):
+    block = [d, d, d * 3 * d, 3 * d, d * d, d, d, d, d * ffn, ffn, ffn * d, d]
+    return [vocab * d, pos * d] + block * layers + [d, d]
+
+
+def _bert_base(vocab=30522, d=768, ffn=3072, layers=12, pos=512):
+    emb = [vocab * d, pos * d, 2 * d, d, d]
+    layer = [d * d, d] * 4 + [d, d, d * ffn, ffn, ffn * d, d, d, d]
+    heads = [d * d, d, d * d, d, d, d, vocab, d * 2, 2]
+    return emb + layer * layers + heads
+
+
+def _many(n=600, seed=0):
+    rs = np.random.RandomState(seed)
+    return [int(v) for v in rs.randint(0, 90_000, n)]
+
+
+@pytest.mark.parametrize("numels,chunk,max_tensors,sms", [
+    ([1], 8, 512, None),
+    ([1, 8, 9, 17, 0, 3], 8, 512, None),   # 1 element, a chunk, more, empty
+    ([100, 1, 64, 65, 0, 0, 7], 16, 3, None),   # split into launches of 3
+    ([5] * 11, 4, 2, None),
+    ([38_633_472, 768, 2_359_296, 1], 1 << 16, 512, None),   # GPT-2 sizes
+    # the chunk sized to each launch on a card of 132 SMs
+    ([1], None, 512, 132),
+    (LENET, None, 512, 132),
+    (_gpt2_small(), None, 512, 132),
+    (_bert_base(), None, 512, 132),
+    (_many(), None, 512, 132),             # 600 tensors: two launches
 ])
-def test_chunk_table_covers_every_element_once(numels, chunk, max_tensors):
-    groups = K.chunk_groups(numels, chunk, max_tensors)
+def test_chunk_table_covers_every_element_once(numels, chunk, max_tensors,
+                                               sms):
+    groups = K.chunk_groups(numels, chunk, max_tensors, sm_count=sms)
     seen = [np.zeros(n, dtype=np.int64) if n < 10_000_000 else None
             for n in numels]
     covered = [0] * len(numels)
-    for idx, chunk0 in groups:
+    for idx, chunk0, size in groups:
         assert 0 < len(idx) <= max_tensors and len(chunk0) == len(idx) + 1
         sizes = [numels[i] for i in idx]
-        for t, begin, end in _block_ranges(sizes, chunk0, chunk):
-            assert 0 <= begin < end <= sizes[t] and end - begin <= chunk
+        if chunk is None:
+            assert size == K.tree_chunk(sum(sizes), sms)
+            assert K.CHUNK_FLOOR <= size <= K.CHUNK
+            assert size % K.CHUNK_FLOOR == 0
+        else:
+            assert size == chunk
+        for t, begin, end in _block_ranges(sizes, chunk0, size):
+            assert 0 <= begin < end <= sizes[t] and end - begin <= size
             covered[idx[t]] += end - begin
             if seen[idx[t]] is not None:
                 seen[idx[t]][begin:end] += 1
     assert covered == numels
     for s in seen:
         assert s is None or (s == 1).all()
-    assert sorted(i for idx, _ in groups for i in idx) == \
+    assert sorted(i for idx, _, _ in groups for i in idx) == \
         [i for i, n in enumerate(numels) if n]
     assert len(groups) == -(-sum(1 for n in numels if n) // max_tensors)
+
+
+def test_the_chunk_gives_a_small_tree_two_blocks_an_sm():
+    """LeNet's 61,610 elements take the floor, 1,024 a block: about 60
+    blocks of one round each, where 65,536 made 10 blocks and walked fc1's
+    48,000 elements in one; GPT-2-small's, BERT-base's and ResNet-50's
+    trees keep 65,536."""
+    ((_, chunk0, size),) = K.chunk_groups(LENET, sm_count=132)
+    assert size == K.CHUNK_FLOOR == 1024 and 60 <= chunk0[-1] <= 70
+    ((_, chunk0, _),) = K.chunk_groups(LENET, K.CHUNK)
+    assert chunk0[-1] == 10
+    for tree in (_gpt2_small(), _bert_base(), [25_557_032]):
+        assert K.tree_chunk(sum(tree), 132) == K.CHUNK
+    assert K.tree_chunk(2 * 132 * 3000, 132) == 3072
+
+
+def _kernel_sumsq(x, chunk=4096, threads=256):
+    """The float32 sum of squares of ``x`` as the norm kernels take it:
+    in ``norm_partials_kernel`` each thread of a chunk's block adds its 4
+    elements of each round (4 * ``threads`` elements) in order, the warps'
+    lanes add as a xor tree and thread 0 adds the warps in order into the
+    chunk's partial; in ``norm_update_kernel`` one warp adds the tensor's
+    partials, lane l those l, l + 32, ..., then a xor tree.  ``chunk`` is
+    smaller than the kernel's 65,536 here, so that a small tensor spans
+    several chunks."""
+    x = np.asarray(x, np.float32).reshape(-1)
+    rounds = chunk // (4 * threads)
+    n_chunks = -(-x.size // chunk)
+    sq = np.zeros(n_chunks * chunk, np.float32)
+    sq[:x.size] = x * x
+    sq = sq.reshape(n_chunks, rounds, threads, 4)
+    xor = [np.arange(32) ^ o for o in (16, 8, 4, 2, 1)]
+    lanes = np.zeros(32, np.float32)
+    for c in range(n_chunks):
+        acc = np.zeros(threads, np.float32)
+        for k in range(rounds):
+            for e in range(4):
+                acc = acc + sq[c, k, :, e]
+        w = acc.reshape(-1, 32)
+        for idx in xor:
+            w = w + w[:, idx]
+        part = np.float32(0)
+        for v in w[:, 0]:
+            part = np.float32(part + v)
+        lanes[c % 32] = np.float32(lanes[c % 32] + part)
+    for idx in xor:
+        lanes = lanes + lanes[idx]
+    return lanes[0]
+
+
+NORM_HYPER = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-6,
+              "weight_decay": 0.01, "momentum": 0.9, "lars_coeff": 0.001,
+              "clip": 0.5, "sigma": 1.0, "batch_size": 4}
+NORM_LRS = {"lamb": 0.05, "lars": 10.0, "dpsgd": 1.0}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["lamb", "lars", "dpsgd"])
+def test_norm_update_model_is_the_loop_within_tolerance(
+        kind, dtype, monkeypatch):
+    """A plain model of the norm kernels' two-launch update: the loop's
+    arithmetic with each norm summed in the kernels' order
+    (``_kernel_sumsq``: chunk partials, then their sum) against the loop
+    with torch's norms, 2 steps: every parameter and slot within
+    NORM_RTOL (float32) or NORM_BF16_RTOL (bf16) of the tensor's largest
+    |value|."""
+    tol = K.NORM_RTOL if dtype == torch.float32 else K.NORM_BF16_RTOL
+    sizes = [20_000, 700, 9_000, 3, 4_100]
+
+    def run(model):
+        rs = np.random.RandomState(9)
+        ps = [torch.from_numpy(rs.randn(n).astype(np.float32)).to(dtype)
+              for n in sizes]
+        slots = [[torch.zeros_like(p) for _ in range(K.SLOTS[kind])]
+                 for p in ps]
+        if model:
+            monkeypatch.setattr(K, "_norm", lambda x: torch.tensor(np.sqrt(
+                _kernel_sumsq(x.detach().float().numpy()))))
+        for t in (1, 2):
+            gs = [torch.from_numpy(0.1 * rs.randn(n).astype(np.float32))
+                  .to(dtype) for n in sizes]
+            K.multi_tensor_step_plain(kind, ps, gs, slots, NORM_LRS[kind],
+                                      t, NORM_HYPER, seed=11)
+        monkeypatch.undo()
+        return ps + [s for ss in slots for s in ss]
+
+    got, want = run(True), run(False)
+    for a, b in zip(got, want):
+        scale = b.float().abs().max().clamp_min(1e-30)
+        assert ((a.float() - b.float()).abs().max() / scale).item() <= tol
 
 
 def test_kernel_scalars_are_the_eager_float32_values():
